@@ -1,0 +1,266 @@
+"""GPT causal LM (single-device branches of ``paddle_tpu/text/models.py``).
+
+``torch.nn.Module``s with the reference's names, so a reference
+``state_dict()`` loads through ``text.convert``: pre-norm blocks,
+LayerNorm eps 1e-5, fused QKV, tanh-approximated GELU and a head tied to
+the word embedding (``logits = h @ wemb.T``). Attention goes through
+``ops.attention.scaled_dot_product_attention`` and so through the flash
+kernel on the card; plain matmuls stay ``torch.matmul``, as the
+reference left them to XLA.
+
+``decode_forward_builder`` is the KV-cache decode math the serving
+programs share (reference ``_decode_forward_builder``), with the
+reference's ``lax.scan`` over layers as a Python loop and the cache
+updated in place.
+"""
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.device import resolve_device
+from ..ops import attention as attn_ops
+
+
+class TransformerLMConfig:
+    """The reference's knobs and defaults for the single-device GPT; the
+    defaults are GPT-124M (vocab 50304, hidden 768, 12 layers, 12 heads,
+    1024 positions). Tensor and sequence parallelism and recompute are
+    not ported and raise."""
+
+    def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
+                 num_heads=12, intermediate_size=None, max_seq_len=1024,
+                 dropout=0.1, use_mp=False, tie_embeddings=True,
+                 initializer_range=0.02, recompute=False, use_sp=False):
+        if use_mp or use_sp or recompute:
+            raise NotImplementedError(
+                "use_mp / use_sp / recompute: the distributed and "
+                "training branches are not ported")
+        if hidden_size % num_heads:
+            raise ValueError(f"hidden_size {hidden_size} is not a multiple "
+                             f"of num_heads {num_heads}")
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.intermediate_size = intermediate_size or hidden_size * 4
+        self.max_seq_len = max_seq_len
+        self.dropout = dropout
+        self.tie_embeddings = tie_embeddings
+        self.initializer_range = initializer_range
+
+
+class SelfAttention(nn.Module):
+    """Fused-QKV causal attention."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        h = cfg.hidden_size
+        self.num_heads = cfg.num_heads
+        self.head_dim = h // cfg.num_heads
+        self.dropout = cfg.dropout
+        self.qkv = nn.Linear(h, 3 * h, device=device)
+        self.out = nn.Linear(h, h, device=device)
+
+    def forward(self, x):
+        b, s, h = x.shape
+        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        o = attn_ops.scaled_dot_product_attention(q, k, v, is_causal=True)
+        o = self.out(o.transpose(1, 2).reshape(b, s, h))
+        if self.dropout:
+            o = F.dropout(o, p=self.dropout, training=self.training)
+        return o
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
+                             device=device)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
+                             device=device)
+        self.dropout = cfg.dropout
+
+    def forward(self, x):
+        x = self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        if self.dropout:
+            x = F.dropout(x, p=self.dropout, training=self.training)
+        return x
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
+        self.attn = SelfAttention(cfg, device=device)
+        self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
+        self.mlp = MLP(cfg, device=device)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+
+class _TransformerCore(nn.Module):
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.word_embeddings = nn.Embedding(cfg.vocab_size,
+                                            cfg.hidden_size, device=device)
+        self.position_embeddings = nn.Embedding(
+            cfg.max_seq_len, cfg.hidden_size, device=device)
+        self.blocks = nn.ModuleList(
+            [Block(cfg, device=device) for _ in range(cfg.num_layers)])
+        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
+
+    def forward(self, input_ids):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device)
+        x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
+        if self.cfg.dropout:
+            x = F.dropout(x, p=self.cfg.dropout, training=self.training)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.ln_f(x)
+
+
+class GPTModel(_TransformerCore):
+    """Decoder-only causal LM core (GPT style: pre-norm)."""
+
+
+class GPTForCausalLM(nn.Module):
+    """``GPTForCausalLM(cfg)`` builds on the card; ``device="cpu"`` asks
+    for the CPU. ``generator`` (a CPU ``torch.Generator``) makes the
+    random weights reproducible: every matrix and embedding is
+    N(0, initializer_range), biases 0, LayerNorm 1/0."""
+
+    def __init__(self, cfg, device=None, generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.gpt = GPTModel(cfg, device=dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                     bias=False, device=dev)
+        self.init_weights(generator)
+
+    @torch.no_grad()
+    def init_weights(self, generator=None):
+        std = self.cfg.initializer_range
+        for name, p in self.named_parameters():
+            if p.dim() == 2:
+                w = torch.randn(p.shape, generator=generator) * std
+                p.copy_(w)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.fill_(1.0)
+
+    @property
+    def device(self):
+        return self.gpt.word_embeddings.weight.device
+
+    def forward(self, input_ids, labels=None):
+        if labels is not None:
+            raise NotImplementedError(
+                "labels: the fused linear cross-entropy comes with the "
+                "training slice")
+        h = self.gpt(input_ids)
+        if self.cfg.tie_embeddings:
+            return torch.matmul(h, self.gpt.word_embeddings.weight.t())
+        return self.lm_head(h)
+
+    @torch.no_grad()
+    def export_decode_params(self):
+        """Weights as the decode programs consume them, snapshotted now:
+        per-layer tensors stacked on a leading layer axis (``stacked``)
+        with matrices as ``[in, out]`` (``x @ W``, the reference's
+        layout), per-layer views of them (``layers``), the embeddings,
+        the final LayerNorm and the (tied or separate) head."""
+        def W(t):
+            return t.detach().clone()
+
+        per_layer = []
+        for blk in self.gpt.blocks:
+            per_layer.append({
+                "ln1_w": W(blk.ln1.weight), "ln1_b": W(blk.ln1.bias),
+                "qkv_w": W(blk.attn.qkv.weight.t()),
+                "qkv_b": W(blk.attn.qkv.bias),
+                "out_w": W(blk.attn.out.weight.t()),
+                "out_b": W(blk.attn.out.bias),
+                "ln2_w": W(blk.ln2.weight), "ln2_b": W(blk.ln2.bias),
+                "fc1_w": W(blk.mlp.fc1.weight.t()),
+                "fc1_b": W(blk.mlp.fc1.bias),
+                "fc2_w": W(blk.mlp.fc2.weight.t()),
+                "fc2_b": W(blk.mlp.fc2.bias)})
+        stacked = {k: torch.stack([p[k] for p in per_layer])
+                   for k in per_layer[0]}
+        layers = [{k: v[i] for k, v in stacked.items()}
+                  for i in range(len(per_layer))]
+        wemb = W(self.gpt.word_embeddings.weight)
+        head = wemb.t() if self.cfg.tie_embeddings \
+            else W(self.lm_head.weight.t())
+        return {"stacked": stacked, "layers": layers, "wemb": wemb,
+                "pemb": W(self.gpt.position_embeddings.weight),
+                "lnf_w": W(self.gpt.ln_f.weight),
+                "lnf_b": W(self.gpt.ln_f.bias), "head": head}
+
+
+def decode_forward_builder(num_heads, head_dim, hidden_size):
+    """KV-cache decode math shared by the serving programs. Returns
+    ``(ln, hidden_t)``:
+
+      hidden_t(params, tok [bb, t], pos, kc, vc) -> h [bb, t, hidden]
+
+    the final-LayerNorm hidden states, so ``h @ params["head"]`` are the
+    reference forward_t's logits; a caller that needs one position's
+    logits multiplies only that row. kc/vc ``[L, bb, nh, total, hd]``
+    are written IN PLACE at ``pos..pos+t`` (the reference returned new
+    arrays); attention is causal over the cache, positions beyond the
+    live prefix masked to -1e30 so stale contents carry exactly zero
+    weight. ``pos`` is a Python int."""
+    nh, hd = num_heads, head_dim
+    rsd = math.sqrt(hd)
+
+    def ln(x, w, b):
+        return F.layer_norm(x, (x.shape[-1],), w, b, 1e-5)
+
+    def block(x, p, kc, vc, pos):
+        # x [bb, t, h]; kc/vc [bb, nh, total, hd]
+        bb, t = x.shape[0], x.shape[1]
+        total = kc.shape[2]
+        h_ = ln(x, p["ln1_w"], p["ln1_b"])
+        qkv = h_ @ p["qkv_w"] + p["qkv_b"]
+        qkv = qkv.reshape(bb, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        # dynamic_update_slice semantics: the start clamps so the
+        # update fits
+        w0 = min(max(pos, 0), total - t)
+        kc[:, :, w0:w0 + t] = k
+        vc[:, :, w0:w0 + t] = v
+        s = torch.einsum("bhtd,bhsd->bhts", q, kc) / rsd
+        kpos = torch.arange(total, device=x.device)[None, None, None, :]
+        qpos = pos + torch.arange(t, device=x.device)[None, None, :, None]
+        s = s.masked_fill(kpos > qpos, -1e30)
+        o = torch.einsum("bhts,bhsd->bhtd", torch.softmax(s, dim=-1), vc)
+        o = o.permute(0, 2, 1, 3).reshape(bb, t, hidden_size)
+        x = x + (o @ p["out_w"] + p["out_b"])
+        h2 = ln(x, p["ln2_w"], p["ln2_b"])
+        m = F.gelu(h2 @ p["fc1_w"] + p["fc1_b"], approximate="tanh")
+        return x + (m @ p["fc2_w"] + p["fc2_b"])
+
+    def hidden_t(pr, tok, pos, kc, vc):
+        t = tok.shape[1]
+        # out-of-range position rows clamp, as a JAX gather does
+        pidx = (pos + torch.arange(t, device=tok.device)).clamp(
+            max=pr["pemb"].shape[0] - 1)
+        x = pr["wemb"][tok] + pr["pemb"][pidx]
+        for i, p in enumerate(pr["layers"]):
+            x = block(x, p, kc[i], vc[i], pos)
+        return ln(x, pr["lnf_w"], pr["lnf_b"])
+
+    return ln, hidden_t

@@ -1,0 +1,218 @@
+"""paddle_tpu_torch attention ops against the JAX reference on the CPU:
+the plain version of the flash-attention forward kernel (K1) against the
+Pallas kernel in interpret mode and against the XLA composition, the
+decode compositions, and the plain version of the paged decode kernel
+(K4) against the Pallas kernel in interpret mode. Tolerance: atol and
+rtol 1e-5 in f32 (the same f32 math, summed in another order); 2e-2 for
+bf16 inputs (the outputs are rounded to bf16)."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from paddle_tpu.ops import attention as jattn
+from paddle_tpu.ops import paged_attention as jpa
+from paddle_tpu_torch.ops import attention as tattn
+from paddle_tpu_torch.ops import paged_attention as tpa
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture
+def interpret_flash():
+    jattn._FORCE_INTERPRET[0] = True
+    yield
+    jattn._FORCE_INTERPRET[0] = False
+
+
+@pytest.fixture
+def interpret_kernel():
+    jpa._FORCE_INTERPRET[0] = True
+    yield
+    jpa._FORCE_INTERPRET[0] = False
+
+
+def _qkv(seed, shape):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(*shape).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_interpret(interpret_flash, causal):
+    """O and LSE of the port's plain K1 equal the Pallas forward kernel
+    run in interpret mode, at [2, 4, 256, 32]."""
+    q, k, v = _qkv(0, (2, 4, 256, 32))
+    scale = 1.0 / np.sqrt(32)
+    jo, jlse = jattn._pallas_flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), scale, causal)
+    to, tlse = tattn.flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        scale, causal)
+    assert tuple(tlse.shape) == (2, 4, 1, 256)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 4, 256, 32), (1, 2, 37, 16)])
+def test_flash_plain_matches_reference_attention(causal, shape):
+    q, k, v = _qkv(1, shape)
+    scale = 1.0 / np.sqrt(shape[-1])
+    ref = jattn._reference_attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), None, scale, causal)
+    out, _ = tattn.flash_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        scale, causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    # the model's entry point takes the same path on CPU tensors
+    sdpa = tattn.scaled_dot_product_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        is_causal=causal)
+    np.testing.assert_allclose(sdpa.numpy(), np.asarray(ref), **TOL)
+
+
+def test_reference_attention_with_mask_matches():
+    q, k, v = _qkv(2, (1, 2, 12, 8))
+    mask = np.random.RandomState(3).randn(1, 1, 12, 12).astype(np.float32)
+    ref = jattn._reference_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+        1.0 / np.sqrt(8), True)
+    out = tattn.scaled_dot_product_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        attn_mask=torch.from_numpy(mask), is_causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def _paged_case(seed, S, nh, hd, BS, MB, lengths=None, trash_fill=0.0):
+    """The reference suite's pool fixture: block 0 is trash (filled with
+    ``trash_fill``), slot s owns blocks 1 + s*MB .. for its live prefix,
+    padding entries point at trash."""
+    rs = np.random.RandomState(seed)
+    NB = S * MB + 1
+    kc = rs.randn(NB, nh, BS, hd).astype(np.float32)
+    vc = rs.randn(NB, nh, BS, hd).astype(np.float32)
+    kc[0] = trash_fill
+    vc[0] = trash_fill
+    q = rs.randn(S, nh, hd).astype(np.float32)
+    if lengths is None:
+        lengths = rs.randint(1, MB * BS + 1, S)
+    lengths = np.asarray(lengths, np.int32)
+    tables = np.zeros((S, MB), np.int32)
+    for s in range(S):
+        used = (int(lengths[s]) + BS - 1) // BS
+        tables[s, :used] = 1 + s * MB + np.arange(used)
+    return q, kc, vc, tables, lengths
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("S,nh,hd,BS,MB", [
+    (4, 4, 8, 8, 4),
+    (3, 2, 16, 4, 5),
+    (2, 4, 8, 16, 2),
+    (5, 1, 32, 8, 3),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_plain_matches_pallas_interpret(interpret_kernel, S, nh, hd,
+                                              BS, MB, dtype):
+    """Ragged lengths with mid-block tails and trash-padded tables: the
+    port's plain K4 equals the Pallas kernel, and the argmax over hd is
+    identical."""
+    lengths = [1, BS, BS + 1, MB * BS, max(1, MB * BS - 3)][:S]
+    q, kc, vc, tables, lens = _paged_case(7, S, nh, hd, BS, MB,
+                                          lengths=lengths, trash_fill=1e4)
+    jdt = jnp.dtype(dtype)
+    ref = jpa.paged_decode_attention(
+        jnp.asarray(q, jdt), jnp.asarray(kc, jdt), jnp.asarray(vc, jdt),
+        jnp.asarray(tables), jnp.asarray(lens))
+    tdt = getattr(torch, dtype)
+    tq, tkc, tvc, tt, tl = _t(q, kc, vc, tables, lens)
+    out = tpa.paged_decode_attention(tq.to(tdt), tkc.to(tdt), tvc.to(tdt),
+                                     tt, tl)
+    assert out.dtype == tdt and tuple(out.shape) == (S, nh, hd)
+    out32 = out.float().numpy()
+    ref32 = np.asarray(ref, np.float32)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out32, ref32, atol=tol, rtol=tol)
+    if dtype == "float32":
+        np.testing.assert_array_equal(out32.argmax(-1), ref32.argmax(-1))
+
+
+def test_paged_plain_ignores_trash_and_recycled_rows(interpret_kernel):
+    """Trash block and every row past a slot's length filled with huge
+    garbage: the output equals the clean pool's and the Pallas kernel's
+    (a recycled slot is bit-identical to a fresh one)."""
+    S, nh, hd, BS, MB = 3, 2, 8, 4, 3
+    q, kc, vc, tables, lens = _paged_case(
+        11, S, nh, hd, BS, MB, lengths=[3, 5, BS * MB], trash_fill=1e4)
+    clean_k, clean_v = kc.copy(), vc.copy()
+    clean_k[0] = clean_v[0] = 0.0
+    for s in range(S):
+        for col in range(MB):
+            b = tables[s, col]
+            for off in range(BS):
+                if b and col * BS + off >= lens[s]:
+                    kc[b, :, off] = vc[b, :, off] = 1e4
+                    clean_k[b, :, off] = clean_v[b, :, off] = 0.0
+    poisoned = tpa.paged_decode_plain(*_t(q, kc, vc, tables, lens))
+    clean = tpa.paged_decode_plain(*_t(q, clean_k, clean_v, tables, lens))
+    np.testing.assert_array_equal(poisoned.numpy(), clean.numpy())
+    ref = jpa.paged_decode_attention(*map(jnp.asarray,
+                                          (q, kc, vc, tables, lens)))
+    np.testing.assert_allclose(poisoned.numpy(), np.asarray(ref), **TOL)
+
+
+def test_length_past_table_clamps_like_reference(interpret_kernel):
+    """A parked slot's length grows past MB*BS; both sides attend over
+    the whole row."""
+    S, nh, hd, BS, MB = 2, 2, 8, 4, 3
+    q, kc, vc, tables, _ = _paged_case(5, S, nh, hd, BS, MB,
+                                       lengths=[MB * BS, MB * BS])
+    lens = np.array([MB * BS + 5, MB * BS + 40], np.int32)
+    ref = jpa.paged_decode_attention(*map(jnp.asarray,
+                                          (q, kc, vc, tables, lens)))
+    out = tpa.paged_decode_attention(*_t(q, kc, vc, tables, lens))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_cached_compositions_match_reference():
+    """cached_slot_attention and cached_paged_attention equal the
+    reference's compositions, and the paged one equals the slot one over
+    the same rows laid out contiguously."""
+    S, nh, hd, BS, MB = 3, 2, 8, 4, 4
+    q, kc, vc, tables, lens = _paged_case(4, S, nh, hd, BS, MB,
+                                          lengths=[3, 9, 16],
+                                          trash_fill=10.0)
+    jref = jattn.cached_paged_attention(*map(jnp.asarray,
+                                             (q, kc, vc, tables, lens)))
+    tout = tattn.cached_paged_attention(*_t(q, kc, vc, tables, lens))
+    assert tout.dtype == torch.float32
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jref), **TOL)
+    kslot = kc[tables].transpose(0, 2, 1, 3, 4).reshape(S, nh, MB * BS, hd)
+    vslot = vc[tables].transpose(0, 2, 1, 3, 4).reshape(S, nh, MB * BS, hd)
+    jslot = jattn.cached_slot_attention(*map(jnp.asarray,
+                                             (q, kslot, vslot, lens)))
+    tslot = tattn.cached_slot_attention(*_t(q, kslot, vslot, lens))
+    np.testing.assert_allclose(tslot.numpy(), np.asarray(jslot), **TOL)
+    np.testing.assert_array_equal(tslot.numpy(), tout.numpy())
+
+
+def test_cpu_wrappers_take_the_plain_versions():
+    """On CPU tensors the kernel wrappers compute the plain versions and
+    count no launch."""
+    q, kc, vc, tables, lens = _paged_case(9, 2, 2, 8, 4, 3)
+    n4 = tpa.paged_decode_attention.launches
+    out = tpa.paged_decode_attention(*_t(q, kc, vc, tables, lens))
+    np.testing.assert_array_equal(
+        out.numpy(), tpa.paged_decode_plain(*_t(q, kc, vc, tables,
+                                                lens)).numpy())
+    fq, fk, fv = (torch.from_numpy(a) for a in _qkv(5, (1, 2, 20, 64)))
+    n1 = tattn.flash_attention_forward.launches
+    o, lse = tattn.flash_attention_forward(fq, fk, fv, 0.125, True)
+    ro, rlse = tattn.flash_attention_plain(fq, fk, fv, 0.125, True)
+    np.testing.assert_array_equal(o.numpy(), ro.numpy())
+    np.testing.assert_array_equal(lse.numpy(), rlse.numpy())
+    assert tpa.paged_decode_attention.launches == n4
+    assert tattn.flash_attention_forward.launches == n1
