@@ -20,7 +20,21 @@ Phases, one line each:
              256-token prefix; K4 launches must equal decode steps x 12;
   5. check   every request's stream against the teacher-forced argmax of
              the port's own forward (through K1): a token may differ only
-             where the reference's top-2 logit margin is below 1e-4.
+             where the reference's top-2 logit margin is below 1e-4;
+  6. K2/K3   flash-attention backward (dQ; dK and dV) against the plain
+             backward: the training shape [8,12,1024,64] causal f32 and
+             bf16, a ragged [1,12,333,64] causal and not, [1,4,200,128];
+             K2, K3, the plain backward and the backward of PyTorch's
+             scaled_dot_product_attention timed at the training shape;
+  7. train   GPT-124M with an untied head (random weights from a seeded
+             torch.Generator), batch 8 x seq 1024, labels = ids, AdamW(1e-4,
+             weight_decay 0.01, ClipGradByGlobalNorm(1.0)), 6 steps: every
+             loss finite, the last below the first, K1 = K2 = K3 launches =
+             6 x 12; median step ms of steps 2-6, tokens/s, peak memory;
+  8. cpu     a 2-layer GPT at full width (untied), batch 1 x seq 256, the
+             same weights on the card and on the CPU: 3 AdamW steps each,
+             per-step losses and step 1's gradient of every parameter
+             within the stated tolerances.
 Then the card's name and power limit, one JSON line of kernel numbers,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -47,6 +61,16 @@ F32_TOL = 1e-5    # f32 sums over <= 1024 rows, only their order differs
 F32_FLASH_TOL = 2e-5   # f32 flash: 64-key tiles rescaled, O(1) values
 BF16_TOL = 2e-2   # kernel output rounded to bf16 (half an ulp at |x|~4)
 TIE_MARGIN = 1e-4
+# K2/K3 grads against the plain backward, relative to the largest grad:
+# f32 sums over up to 1024 rows in another order; bf16 grads are rounded
+BWD_F32_TOL = 1e-4
+BWD_BF16_TOL = 2e-2
+# card against CPU, the same f32 model: sums in another order (cuBLAS vs
+# the CPU's BLAS); losses relative, grads relative to each parameter's
+# largest grad
+LOSS_RTOL = 1e-4
+GRAD_TOL = 1e-3
+TRAIN_STEPS = 6
 
 
 class SmokeFailure(RuntimeError):
@@ -317,6 +341,183 @@ def phase_check(torch, model, reqs, attn):
     return k1
 
 
+# ---------------------------------------------------------------- phase 6
+
+def bwd_case(torch, attn, shape, causal, dtype, g):
+    """q, k, v, dO in ``dtype`` on the card, with O and LSE from K1 and
+    delta = rowsum(dO * O) in f32."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                   for _ in range(4))
+    scale = 1.0 / shape[-1] ** 0.5
+    o, lse = attn.flash_attention_forward(q, k, v, scale, causal)
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    return q, k, v, do, lse, delta, scale
+
+
+def phase_k2k3(torch, attn, train_shape):
+    import torch.nn.functional as F
+    cases = [(train_shape, True, "float32"), (train_shape, True, "bfloat16"),
+             ((1, 12, 333, 64), True, "float32"),
+             ((1, 12, 333, 64), False, "float32"),
+             ((1, 12, 333, 64), True, "bfloat16"),
+             ((1, 4, 200, 128), True, "float32"),
+             ((1, 4, 200, 128), False, "bfloat16")]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    errs = {}
+    for shape, causal, dtype in cases:
+        q, k, v, do, lse, delta, scale = bwd_case(torch, attn, shape, causal,
+                                                  dtype, g)
+        dq = attn.flash_bwd_dq(q, k, v, lse, do, delta, scale, causal)
+        dk, dv = attn.flash_bwd_dkv(q, k, v, lse, do, delta, scale, causal)
+        ref = attn.flash_attention_backward_plain(
+            q.float(), k.float(), v.float(), lse, do.float(), delta, scale,
+            causal)
+        torch.cuda.synchronize()
+        tol = BWD_F32_TOL if dtype == "float32" else BWD_BF16_TOL
+        line = []
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            check(got.dtype == q.dtype and got.shape == want.shape,
+                  f"K2/K3 {name} {shape}: dtype/shape")
+            err = (got.float() - want).abs().max().item()
+            top = want.abs().max().item()
+            check(bool(torch.isfinite(got).all()) and err <= tol * top,
+                  f"K2/K3 {name} {shape} causal={causal} {dtype}: max abs "
+                  f"err {err} > {tol} x max |grad| {top}")
+            errs[(shape, causal, dtype, name)] = err
+            line.append(f"{name} err {err:.3e} (max |grad| {top:.3e})")
+        print(f"  K2/K3 {list(shape)} causal={causal} {dtype}: "
+              + ", ".join(line) + f"; tol {tol} x max |grad|")
+
+    # timing at the training shape, f32 causal
+    q, k, v, do, lse, delta, scale = bwd_case(torch, attn, train_shape, True,
+                                              "float32", g)
+    args = (q, k, v, lse, do, delta, scale, True)
+    dq_ms = time_ms(torch, lambda: attn.flash_bwd_dq(*args))
+    dkv_ms = time_ms(torch, lambda: attn.flash_bwd_dkv(*args))
+    plain_ms = time_ms(torch, lambda: attn.flash_attention_backward_plain(
+        *args))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True))
+    b, h, s, d = train_shape
+    n = b * h * s
+    pairs = b * h * s * (s + 1) // 2
+    reads = 4 * n * d * 4 + 2 * n * 4          # q, k, v, dO; lse, delta
+    k2_b = bound(reads + n * d * 4, 3 * 2 * d * pairs, "float32")
+    k3_b = bound(reads + 2 * n * d * 4, 4 * 2 * d * pairs, "float32")
+    all_b = bound(reads + 3 * n * d * 4, 5 * 2 * d * pairs, "float32")
+    print(f"  {list(train_shape)} causal f32: K2 {dq_ms:.4f} ms (bound "
+          f"{k2_b[0]:.4f} ms, {k2_b[1]}: S, dP, dQ), K3 {dkv_ms:.4f} ms "
+          f"(bound {k3_b[0]:.4f} ms, {k3_b[1]}: S, dP, dV, dK); K2 + K3 "
+          f"{dq_ms + dkv_ms:.4f} ms against the backward's bound "
+          f"{all_b[0]:.4f} ms ({all_b[1]}, 5 products over {pairs} pairs); "
+          f"plain backward {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms")
+    main = [(train_shape, True, "float32", nm) for nm in ("dq", "dk", "dv")]
+    rows = []
+    for name, kname, src_line, ms, (b_ms, b_by), err in (
+            ("flash_bwd_dq", "K2", ":200", dq_ms, k2_b, errs[main[0]]),
+            ("flash_bwd_dkv", "K3", ":236", dkv_ms, k3_b,
+             max(errs[main[1]], errs[main[2]]))):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
+                     "replaces": "paddle_tpu/ops/attention.py" + src_line,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms})
+    return rows
+
+
+# ------------------------------------------------------------ phases 7-8
+
+def phase_train(torch, attn, cfg, optimizer, nn):
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    L = cfg.num_layers
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        1234)).train()
+    opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
+                          weight_decay=0.01,
+                          grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, cfg.max_seq_len)).astype(np.int64)).cuda()
+    labels = ids.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.flash_attention_forward.launches = 0
+    attn.flash_bwd_dq.launches = 0
+    attn.flash_bwd_dkv.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    counts = (attn.flash_attention_forward.launches,
+              attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(counts == (TRAIN_STEPS * L,) * 3,
+          f"K1/K2/K3 launches {counts} != {TRAIN_STEPS} x {L} each")
+    step_ms = float(np.median(times[1:]))
+    tokens = ids.numel()
+    print(f"  losses {[round(x, 6) for x in losses]}; step ms "
+          f"{[round(t, 2) for t in times]}")
+    print(f"  median step (steps 2-{TRAIN_STEPS}) {step_ms:.2f} ms, "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; K1/K2/K3 launches {counts} = "
+          f"{TRAIN_STEPS} x {L} each")
+    del model, opt
+    return counts
+
+
+def phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig):
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    cfg = TransformerLMConfig(num_layers=2, tie_embeddings=False,
+                              dropout=0.0)
+    ids = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 256))
+    runs = []
+    for device in ("cpu", None):
+        model = GPTForCausalLM(cfg, device=device,
+                               generator=torch.Generator().manual_seed(7))
+        opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
+                              weight_decay=0.01,
+                              grad_clip=nn.ClipGradByGlobalNorm(1.0))
+        t = torch.from_numpy(ids.astype(np.int64)).to(model.device)
+        losses, grads = [], None
+        for step in range(3):
+            loss = model(t, labels=t)
+            loss.backward()
+            if step == 0:
+                grads = {n: p.grad.detach().float().cpu()
+                         for n, p in model.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        runs.append((losses, grads))
+    (cl, cg), (gl, gg) = runs
+    rel = [abs(a - b) / abs(b) for a, b in zip(gl, cl)]
+    check(max(rel) <= LOSS_RTOL, f"card losses {gl} vs CPU {cl}")
+    worst, worst_name = 0.0, ""
+    for name, want in cg.items():
+        err = (gg[name] - want).abs().max().item()
+        top = want.abs().max().item()
+        r = err / max(top, 1e-30)
+        check(r <= GRAD_TOL, f"step-1 grad {name}: max abs err {err} > "
+              f"{GRAD_TOL} x max |grad| {top}")
+        if r > worst:
+            worst, worst_name = r, name
+    print(f"  losses card {gl} vs CPU {cl}: max rel diff {max(rel):.3e} "
+          f"(tol {LOSS_RTOL}); step-1 grads of {len(cg)} parameters: "
+          f"worst max|diff|/max|grad| {worst:.3e} at {worst_name} (tol "
+          f"{GRAD_TOL})")
+
+
 def main():
     try:
         import torch
@@ -328,6 +529,7 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     try:
+        from paddle_tpu_torch import nn, optimizer
         from paddle_tpu_torch.ops import _build
         from paddle_tpu_torch.ops import attention as attn
         from paddle_tpu_torch.ops import paged_attention as pa
@@ -368,9 +570,23 @@ def main():
                                        attn)
     print("[5] greedy cross-check against the forward")
     k1 = phase_check(torch, model, reqs, attn)
+    del model
+    train_cfg = TransformerLMConfig(tie_embeddings=False, dropout=0.0,
+                                    use_flash_attention=True)
+    print("[6] K2/K3 flash-attention backward vs plain")
+    k2_row, k3_row = phase_k2k3(
+        torch, attn, (8, train_cfg.num_heads, train_cfg.max_seq_len,
+                      train_cfg.hidden_size // train_cfg.num_heads))
+    print("[7] train GPT-124M (untied head)")
+    k1_train, k2, k3 = phase_train(torch, attn, train_cfg, optimizer, nn)
+    print("[8] card against CPU: 2-layer GPT at full width")
+    phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig)
 
     k4_row["launches"] = k4
-    k1_row["launches"] = k1
+    # K1 runs on two main paths: the serving cross-check and training
+    k1_row["launches"] = k1 + k1_train
+    k2_row["launches"] = k2
+    k3_row["launches"] = k3
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -380,7 +596,8 @@ def main():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in (k4_row, k1_row)]}))
+                                  for row in (k4_row, k1_row, k2_row,
+                                              k3_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,8 +11,12 @@ on the CPU every kernel wrapper computes its plain PyTorch version.
 
 Ported so far: GPT-124M paged serving (``serving.ServingEngine`` over
 ``text.models.GPTForCausalLM``) with the paged decode-attention kernel
-and the flash-attention forward kernel.
+and the flash-attention forward kernel; training of the GPT with an
+untied head (``model(ids, labels=labels)``, ``loss.backward()``,
+``optimizer.AdamW``, ``nn.ClipGradByGlobalNorm``, ``optimizer.lr``)
+with the flash-attention backward kernels.
 """
+from . import nn, optimizer
 from .core.device import resolve_device
 
-__all__ = ["resolve_device"]
+__all__ = ["nn", "optimizer", "resolve_device"]

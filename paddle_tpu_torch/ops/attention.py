@@ -1,5 +1,6 @@
-"""Attention: the flash-attention forward kernel (K1) and the plain
-PyTorch compositions the decode paths and the tests use.
+"""Attention: the flash-attention forward kernel (K1), the two backward
+kernels (K2 dQ, K3 dK/dV) and the plain PyTorch compositions the decode
+paths and the tests use.
 
 Ports ``paddle_tpu/ops/attention.py``. Layout ``[batch, heads, seq,
 head_dim]`` as there. Two details are contract, because they give stale
@@ -7,10 +8,12 @@ or masked positions exactly zero weight: scores accumulate in f32, and
 masked scores are ``-1e30`` (never ``-inf``, so a fully masked row stays
 finite).
 
-``scaled_dot_product_attention`` is what the model calls. On a CUDA
-tensor it launches the hand-written kernel ``csrc/flash_fwd.cu`` for
-every shape the kernel takes and raises on any other; on a CPU tensor it
-computes the kernel's plain version ``flash_attention_plain``.
+``scaled_dot_product_attention`` is what the model calls. Without a mask
+it goes through ``_FlashAttention``, whose forward is K1 and whose
+backward is K2 and K3: on CUDA tensors the hand-written kernels
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` for every shape they
+take (and a raise on any other), on CPU tensors their plain versions
+``flash_attention_plain`` and ``flash_attention_backward_plain``.
 """
 import ctypes
 import math
@@ -105,24 +108,143 @@ def flash_attention_forward(q, k, v, scale, causal):
 flash_attention_forward.launches = 0
 
 
+def flash_attention_backward_plain(q, k, v, lse, do, delta, scale, causal):
+    """Plain version of K2 and K3: ``(dq, dk, dv)`` from the forward's
+    LSE ``[b, h, 1, s]`` and ``delta = rowsum(dO * O)`` (same shape),
+    every product in f32, the grads cast back to the input dtype
+    (reference ``_pallas_flash_bwd_32``, attention.py:281-325)::
+
+        P  = exp(S * scale [masked to -1e30] - LSE)
+        dS = P * (dO V^T - delta)
+        dQ = dS K scale,  dK = dS^T Q scale,  dV = P^T dO
+    """
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    if causal:
+        n = s.shape[-1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, _NEG)
+    p = torch.exp(s - lse.transpose(-1, -2))
+    dp = torch.einsum("bhsd,bhtd->bhst", dof, vf)
+    ds = p * (dp - delta.transpose(-1, -2))
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_backward_operands(q, k, v, lse, do, delta):
+    _check_flash_operands(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or not do.is_contiguous():
+        raise ValueError("flash backward kernel: dO must be a contiguous "
+                         "tensor of q's shape, dtype and device")
+    want = (*q.shape[:2], 1, q.shape[2])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != want or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash backward kernel: {name} must be a "
+                             f"contiguous float32 tensor of shape {want} "
+                             "on q's device")
+
+
+def flash_bwd_dq(q, k, v, lse, do, delta, scale, causal):
+    """K2 on CUDA tensors, the dQ of its plain version on CPU tensors.
+    Counts each kernel launch in ``flash_bwd_dq.launches``."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, lse, do, delta,
+                                              scale, causal)[0]
+    _check_backward_operands(q, k, v, lse, do, delta)
+    b, h, s, d = q.shape
+    dq = torch.empty_like(q)
+    if s == 0 or b * h == 0:
+        return dq
+    fn = _build.function(
+        "flash_bwd", "flash_attention_backward_dq",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, s, d,
+             float(scale), int(bool(causal)), _KERNEL_DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {err}")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, lse, do, delta, scale, causal):
+    """K3 on CUDA tensors, the ``(dk, dv)`` of its plain version on CPU
+    tensors. Counts each kernel launch in ``flash_bwd_dkv.launches``."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(q, k, v, lse, do, delta,
+                                              scale, causal)[1:]
+    _check_backward_operands(q, k, v, lse, do, delta)
+    b, h, s, d = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if s == 0 or b * h == 0:
+        return dk, dv
+    fn = _build.function(
+        "flash_bwd", "flash_attention_backward_dkv",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             b * h, s, d, float(scale), int(bool(causal)),
+             _KERNEL_DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {err}")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, o, lse, do, scale, causal):
+    """``(dq, dk, dv)`` of the flash forward (reference
+    ``_pallas_flash_bwd``): ``delta = rowsum(dO * O)`` in f32 outside
+    the kernels, as the reference computes it (attention.py:286), then
+    K2 and K3 (their plain versions on CPU tensors)."""
+    do = do.contiguous()
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    dq = flash_bwd_dq(q, k, v, lse, do, delta, scale, causal)
+    dk, dv = flash_bwd_dkv(q, k, v, lse, do, delta, scale, causal)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
-    """K1 under autograd. The backward kernels (K2, K3) come with the
-    training slice; until then a backward raises."""
+    """K1 under autograd, with K2 and K3 as its backward (the
+    reference's ``custom_vjp``, attention.py:330-356). CPU tensors take
+    the plain versions of all three."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
-        return flash_attention_forward(q, k, v, scale, causal)[0]
+        o, lse = flash_attention_forward(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError("flash backward: training slice")
+        q, k, v, o, lse = ctx.saved_tensors
+        # the model's transpose/reshape hands a strided grad
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, grad,
+                                              ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  is_causal=False, scale=None):
     """``[b, h, s, d]`` attention (reference ``ops/attention.py:366``).
-    CUDA tensors go through K1 (and raise on what it cannot take, a mask
-    included); CPU tensors take the plain versions."""
+    CUDA tensors go through K1 and, under autograd, K2/K3 (and raise on
+    what they cannot take, a mask included); CPU tensors take the plain
+    versions through the same autograd function."""
     sc = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
     if attn_mask is not None:
         if query.is_cuda:
@@ -130,11 +252,8 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                 "attn_mask: the flash kernel takes no additive mask")
         return reference_attention(query, key, value, attn_mask, float(sc),
                                    bool(is_causal))
-    if query.is_cuda:
-        return _FlashAttention.apply(query, key, value, float(sc),
-                                     bool(is_causal))
-    return flash_attention_plain(query, key, value, float(sc),
-                                 bool(is_causal))[0]
+    return _FlashAttention.apply(query, key, value, float(sc),
+                                 bool(is_causal))
 
 
 def cached_slot_attention(q, k_cache, v_cache, lengths):

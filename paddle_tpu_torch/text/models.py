@@ -3,10 +3,11 @@
 ``torch.nn.Module``s with the reference's names, so a reference
 ``state_dict()`` loads through ``text.convert``: pre-norm blocks,
 LayerNorm eps 1e-5, fused QKV, tanh-approximated GELU and a head tied to
-the word embedding (``logits = h @ wemb.T``). Attention goes through
+the word embedding (``logits = h @ wemb.T``) or, with
+``tie_embeddings=False``, a separate ``lm_head``. Attention goes through
 ``ops.attention.scaled_dot_product_attention`` and so through the flash
-kernel on the card; plain matmuls stay ``torch.matmul``, as the
-reference left them to XLA.
+kernels on the card, forward and backward; plain matmuls stay
+``torch.matmul``, as the reference left them to XLA.
 
 ``decode_forward_builder`` is the KV-cache decode math the serving
 programs share (reference ``_decode_forward_builder``), with the
@@ -21,25 +22,32 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..ops import attention as attn_ops
+from ..ops import nn_ops
 
 
 class TransformerLMConfig:
     """The reference's knobs and defaults for the single-device GPT; the
     defaults are GPT-124M (vocab 50304, hidden 768, 12 layers, 12 heads,
     1024 positions). Tensor and sequence parallelism and recompute are
-    not ported and raise."""
+    not ported and raise. ``use_flash_attention`` and ``sp_mode`` are
+    stored and, as in the reference, not consulted: attention always
+    takes the flash path."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=None, max_seq_len=1024,
                  dropout=0.1, use_mp=False, tie_embeddings=True,
-                 initializer_range=0.02, recompute=False, use_sp=False):
+                 use_flash_attention=True, initializer_range=0.02,
+                 recompute=False, use_sp=False, sp_mode="ring"):
         if use_mp or use_sp or recompute:
             raise NotImplementedError(
                 "use_mp / use_sp / recompute: the distributed and "
-                "training branches are not ported")
+                "recompute branches are not ported")
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of num_heads {num_heads}")
+        if sp_mode not in ("ring", "ulysses"):
+            raise ValueError(f"sp_mode must be 'ring' or 'ulysses', got "
+                             f"{sp_mode!r}")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -48,7 +56,9 @@ class TransformerLMConfig:
         self.max_seq_len = max_seq_len
         self.dropout = dropout
         self.tie_embeddings = tie_embeddings
+        self.use_flash_attention = use_flash_attention
         self.initializer_range = initializer_range
+        self.sp_mode = sp_mode
 
 
 class SelfAttention(nn.Module):
@@ -165,14 +175,23 @@ class GPTForCausalLM(nn.Module):
         return self.gpt.word_embeddings.weight.device
 
     def forward(self, input_ids, labels=None):
-        if labels is not None:
+        """Logits ``[b, s, vocab]``, or with ``labels`` ``[b, s]`` the mean
+        cross-entropy of each position's logits against its label
+        (``-100`` ignored; no shift, as in the reference)."""
+        if labels is not None and self.cfg.tie_embeddings:
             raise NotImplementedError(
-                "labels: the fused linear cross-entropy comes with the "
-                "training slice")
+                "labels with tie_embeddings=True: the reference computes "
+                "this loss through the fused linear cross-entropy "
+                "(ops/fused_ce.py, kernels K5-K7), which is not ported "
+                "yet; use tie_embeddings=False")
         h = self.gpt(input_ids)
         if self.cfg.tie_embeddings:
             return torch.matmul(h, self.gpt.word_embeddings.weight.t())
-        return self.lm_head(h)
+        logits = self.lm_head(h)
+        if labels is None:
+            return logits
+        return nn_ops.cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
+                                    labels.reshape(-1))
 
     @torch.no_grad()
     def export_decode_params(self):

@@ -7,6 +7,9 @@ without the suite's JAX conftest:
 
 Tolerances: 1e-5 (K4) and 2e-5 (K1) in f32, where only the summation
 order differs; 2e-2 for bf16 inputs, whose outputs are rounded to bf16.
+K2/K3 grads are held relative to the largest grad, or to 1 where that
+is smaller (dK and dV sum over up to 256 query rows): 1e-4 in f32, 2e-2
+in bf16.
 """
 import numpy as np
 import pytest
@@ -97,15 +100,71 @@ def test_flash_kernel_matches_plain(dev, s, d, causal, dtype, tol):
     torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
 
 
-def test_flash_kernel_rejects_and_has_no_backward(dev):
+def _bwd_inputs(dev, shape, dtype, causal, seed):
+    """q, k, v, dO in ``dtype`` on the card, with the forward's O and LSE
+    from K1 and delta = rowsum(dO * O)."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(*shape, generator=g).to(dev, dtype)
+                   for _ in range(4))
+    o, lse = attn.flash_attention_forward(q, k, v, shape[-1] ** -0.5,
+                                          causal)
+    delta = (do.float() * o.float()).sum(-1)[:, :, None, :]
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("s", [1, 64, 100, 256])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_backward_kernels_match_plain(dev, s, d, causal, dtype, tol):
+    """K2 (dq) and K3 (dk, dv) against the plain backward on f32 copies
+    of the same inputs; the tolerance is relative to the largest grad."""
+    q, k, v, do, lse, delta = _bwd_inputs(dev, (2, 3, s, d), dtype, causal,
+                                          s + d)
+    scale = d ** -0.5
+    n2, n3 = attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches
+    dq = attn.flash_bwd_dq(q, k, v, lse, do, delta, scale, causal)
+    dk, dv = attn.flash_bwd_dkv(q, k, v, lse, do, delta, scale, causal)
+    assert attn.flash_bwd_dq.launches == n2 + 1
+    assert attn.flash_bwd_dkv.launches == n3 + 1
+    ref = attn.flash_attention_backward_plain(
+        q.float(), k.float(), v.float(), lse, do.float(), delta, scale,
+        causal)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == dtype and got.shape == want.shape
+        err = (got.float() - want).abs().max().item()
+        # at s = 1 the true grads are 0 (O = V): an absolute floor of tol
+        assert err <= tol * max(want.abs().max().item(), 1.0)
+
+
+def test_flash_kernel_rejects_and_backward_launches_k2_k3(dev):
+    """The backward of ``scaled_dot_product_attention`` on the card
+    launches K2 and K3 once each and matches the plain backward; what the
+    kernels cannot take raises."""
     q = torch.randn(1, 2, 16, 96, device=dev)
     with pytest.raises(ValueError):
         attn.flash_attention_forward(q, q, q, 0.1, True)
-    q = torch.randn(1, 2, 16, 64, device=dev, requires_grad=True)
-    out = attn.scaled_dot_product_attention(q, q.detach(), q.detach(),
-                                            is_causal=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(2, 3, 77, 64, generator=g).to(dev)
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n2, n3 = attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches
+    out = attn.scaled_dot_product_attention(*leaves, is_causal=True)
+    out.backward(do)
+    assert attn.flash_bwd_dq.launches == n2 + 1
+    assert attn.flash_bwd_dkv.launches == n3 + 1
+    o, lse = attn.flash_attention_plain(q, k, v, 0.125, True)
+    delta = (do * o).sum(-1)[:, :, None, :]
+    ref = attn.flash_attention_backward_plain(q, k, v, lse, do, delta, 0.125,
+                                              True)
+    for leaf, want in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, want, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError):
+        attn.flash_bwd_dq(q, k, v, lse, do.transpose(2, 3), delta, 0.125,
+                          True)
+    with pytest.raises(ValueError):
+        attn.flash_bwd_dkv(q, k, v, lse.cpu(), do, delta, 0.125, True)
     with pytest.raises(NotImplementedError):
         attn.scaled_dot_product_attention(q, q, q, attn_mask=q[0, 0])
 

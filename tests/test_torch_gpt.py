@@ -169,7 +169,7 @@ def test_unported_paths_raise():
     cfg = tmodels.TransformerLMConfig(**TINY)
     m = tmodels.GPTForCausalLM(cfg, device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="fused linear cross"):
         m(ids, labels=ids)
     for knob in (dict(paged=False), dict(sampling=True),
                  dict(speculative=True), dict(prefill_chunk=8)):
@@ -177,6 +177,18 @@ def test_unported_paths_raise():
             ServingEngine(m, device="cpu", **knob)
     with pytest.raises(NotImplementedError):
         tmodels.TransformerLMConfig(use_mp=True)
+
+
+def test_config_takes_the_reference_keywords():
+    """The reference bench's config (``use_flash_attention=True``) is
+    written as it is; ``sp_mode`` is stored and checked, both unused."""
+    cfg = tmodels.TransformerLMConfig(**TINY, use_flash_attention=True,
+                                      sp_mode="ulysses",
+                                      tie_embeddings=False)
+    assert cfg.use_flash_attention and cfg.sp_mode == "ulysses"
+    assert tmodels.TransformerLMConfig().sp_mode == "ring"
+    with pytest.raises(ValueError):
+        tmodels.TransformerLMConfig(sp_mode="zigzag")
 
 
 def test_seeded_init_is_reproducible():

@@ -27,6 +27,10 @@ def classify(name):
         return "K4 paged decode attention"
     if "flash_fwd_kernel" in n:
         return "K1 flash forward"
+    if "flash_bwd_dq_kernel" in n:
+        return "K2 flash backward dQ"
+    if "flash_bwd_dkv_kernel" in n:
+        return "K3 flash backward dK/dV"
     if any(t in n for t in ("gemm", "gemv", "cutlass", "sm90_x", "cublas")):
         return "matmul (cuBLAS)"
     if "layer_norm" in n or "layernorm" in n:
