@@ -31,10 +31,26 @@ Phases, one line each:
              weight_decay 0.01, ClipGradByGlobalNorm(1.0)), 6 steps: every
              loss finite, the last below the first, K1 = K2 = K3 launches =
              6 x 12; median step ms of steps 2-6, tokens/s, peak memory;
-  8. cpu     a 2-layer GPT at full width (untied), batch 1 x seq 256, the
-             same weights on the card and on the CPU: 3 AdamW steps each,
-             per-step losses and step 1's gradient of every parameter
-             within the stated tolerances.
+  8. cpu     a 2-layer GPT at full width, untied and tied (the tied one
+             puts K5-K7 and K7's dW in the word-embedding grad), batch 1 x
+             seq 256, the same weights on the card and on the CPU: 3 AdamW
+             steps each, per-step losses and step 1's gradient of every
+             parameter within the stated tolerances;
+  9. K5-K7   the fused linear cross-entropy kernels (K5 loss and LSE, K6
+             dx, K7 dW) against their plain versions at the flagship shape
+             (T = 8 x 1024, H = 768, V = 50304, about 5 % of the rows
+             ignore_index) in f32 and bf16 and at ragged small shapes;
+             K5, K6, K7, the plain forward and backward and, as a
+             yardstick, the two-call composition F.cross_entropy(F.linear)
+             forward and backward timed in both dtypes, with the bounds;
+ 10. flagship the reference's flagship training step
+             (tools/baseline_bench.py bench_gpt): GPT-124M with the default
+             tied head, dropout 0, batch 8 x seq 1024, labels = ids,
+             AdamW(1e-4, weight_decay 0.01), under
+             amp.auto_cast(level="O1", dtype="bfloat16"), 6 steps: every
+             loss finite, the last below the first, K1 = K2 = K3 launches
+             = 6 x 12 and K5 = K6 = K7 = 6; median step ms, tokens/s, peak
+             memory.
 Then the card's name and power limit, one JSON line of kernel numbers,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -71,6 +87,14 @@ BWD_BF16_TOL = 2e-2
 LOSS_RTOL = 1e-4
 GRAD_TOL = 1e-3
 TRAIN_STEPS = 6
+# K5 against its plain version: the loss and LSE are f32 sums over H and
+# a logsumexp over V = 50304 on both sides, in another order; K6/K7
+# relative to the largest grad: f32 sums over V or T in another order,
+# bf16 grads rounded once (half an ulp is 2e-3 of the value)
+CE_LOSS_TOL = 1e-4
+CE_F32_TOL = 1e-4
+CE_BF16_TOL = 1e-2
+FLAGSHIP = dict(batch=8, seq=1024)
 
 
 class SmokeFailure(RuntimeError):
@@ -476,9 +500,9 @@ def phase_train(torch, attn, cfg, optimizer, nn):
     return counts
 
 
-def phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig):
+def phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig, tie):
     from paddle_tpu_torch.text.models import GPTForCausalLM
-    cfg = TransformerLMConfig(num_layers=2, tie_embeddings=False,
+    cfg = TransformerLMConfig(num_layers=2, tie_embeddings=tie,
                               dropout=0.0)
     ids = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 256))
     runs = []
@@ -512,10 +536,177 @@ def phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig):
               f"{GRAD_TOL} x max |grad| {top}")
         if r > worst:
             worst, worst_name = r, name
-    print(f"  losses card {gl} vs CPU {cl}: max rel diff {max(rel):.3e} "
+    print(f"  {'tied' if tie else 'untied'}: losses card {gl} vs CPU {cl}: "
+          f"max rel diff {max(rel):.3e} "
           f"(tol {LOSS_RTOL}); step-1 grads of {len(cg)} parameters: "
           f"worst max|diff|/max|grad| {worst:.3e} at {worst_name} (tol "
           f"{GRAD_TOL})")
+
+
+# ---------------------------------------------------------------- phase 9
+
+def ce_case(torch, t, h, v, dtype, g):
+    """x [t, h] ~ N(0, 1) (a LayerNorm output), W [v, h] ~ N(0, 0.02) (the
+    embedding's init), int64 labels with about 5 % ignore_index, and a
+    per-token cotangent of 1 / n_valid (the model's mean), on the card."""
+    dt = getattr(torch, dtype)
+    x = torch.randn(t, h, generator=g, device="cuda").to(dt)
+    w = (torch.randn(v, h, generator=g, device="cuda") * 0.02).to(dt)
+    labels = torch.randint(0, v, (t,), generator=g, device="cuda")
+    labels[torch.rand(t, generator=g, device="cuda") < 0.05] = -100
+    n_valid = int((labels != -100).sum())
+    gg = torch.full((t,), 1.0 / max(n_valid, 1), device="cuda")
+    return x, w, labels, gg
+
+
+def phase_k5k7(torch, tce, t, h, v):
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(9)
+    cases = [(t, h, v, "float32"), (t, h, v, "bfloat16"),
+             (333, 768, 50304, "float32"), (1000, 200, 1234, "bfloat16"),
+             (77, 800, 5000, "float32"), (1, 64, 7, "float32")]
+    errs = {}
+    for ct, ch, cv, dtype in cases:
+        x, w, labels, gg = ce_case(torch, ct, ch, cv, dtype, g)
+        loss, lse = tce.fused_ce_forward(x, w, labels)
+        dx = tce.fused_ce_bwd_dx(x, w, labels, lse, gg)
+        dw = tce.fused_ce_bwd_dw(x, w, labels, lse, gg)
+        rloss, rlse = tce.fused_linear_cross_entropy_plain(
+            x.float(), w.float(), labels)
+        rdx, rdw = tce.fused_linear_cross_entropy_backward_plain(
+            x.float(), w.float(), labels, lse, gg)
+        torch.cuda.synchronize()
+        el = max((loss - rloss).abs().max().item(),
+                 (lse - rlse).abs().max().item())
+        check(el <= CE_LOSS_TOL, f"K5 [{ct},{ch},{cv}] {dtype}: loss/LSE err "
+              f"{el} > {CE_LOSS_TOL}")
+        tol = CE_F32_TOL if dtype == "float32" else CE_BF16_TOL
+        line = [f"loss/LSE err {el:.3e}"]
+        for name, got, want in (("dx", dx, rdx), ("dW", dw, rdw)):
+            check(got.dtype == x.dtype and got.shape == want.shape,
+                  f"K6/K7 {name}: dtype/shape")
+            err = (got.float() - want).abs().max().item()
+            top = want.abs().max().item()
+            check(bool(torch.isfinite(got).all()) and err <= tol * top,
+                  f"K6/K7 {name} [{ct},{ch},{cv}] {dtype}: err {err} > "
+                  f"{tol} x max |grad| {top}")
+            line.append(f"{name} err {err:.3e} (max |grad| {top:.3e})")
+            errs[(ct, ch, cv, dtype, name)] = err
+        errs[(ct, ch, cv, dtype, "loss")] = el
+        print(f"  K5-K7 [T={ct}, H={ch}, V={cv}] {dtype}: " + ", ".join(line)
+              + f"; grad tol {tol} x max |grad|")
+
+    # times at the flagship shape, in both dtypes; the main path (phase
+    # 10, O1) hands the kernels bf16
+    flops = 2.0 * t * v * h
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        x, w, labels, gg = ce_case(torch, t, h, v, dtype, g)
+        loss, lse = tce.fused_ce_forward(x, w, labels)
+        k5 = time_ms(torch, lambda: tce.fused_ce_forward(x, w, labels),
+                     iters=10, warmup=1)
+        k6 = time_ms(torch, lambda: tce.fused_ce_bwd_dx(x, w, labels, lse,
+                                                        gg),
+                     iters=5, warmup=1)
+        k7 = time_ms(torch, lambda: tce.fused_ce_bwd_dw(x, w, labels, lse,
+                                                        gg),
+                     iters=5, warmup=1)
+        pf = time_ms(torch, lambda: tce.fused_linear_cross_entropy_plain(
+            x, w, labels), iters=5, warmup=1)
+        pb = time_ms(torch, lambda: tce.fused_linear_cross_entropy_backward_plain(
+            x, w, labels, lse, gg), iters=5, warmup=1)
+        leaves = [a.clone().requires_grad_() for a in (x, w)]
+
+        def comp():
+            return F.cross_entropy(F.linear(leaves[0], leaves[1]), labels,
+                                   ignore_index=-100, reduction="none")
+        cf = time_ms(torch, comp, iters=5, warmup=1)
+        closs = comp()
+        cb = time_ms(torch, lambda: torch.autograd.grad(
+            closs, leaves, gg.to(closs.dtype), retain_graph=True),
+            iters=5, warmup=1)
+        del closs, leaves
+        esz = x.element_size()
+        ins = (t * h + v * h) * esz + t * 8
+        b5 = bound(ins + 2 * t * 4, flops, dtype)
+        b6 = bound(ins + 2 * t * 4 + t * h * esz, 2 * flops, dtype)
+        b7 = bound(ins + 2 * t * 4 + v * h * esz, 2 * flops, dtype)
+        print(f"  [T={t}, H={h}, V={v}] {dtype}: K5 {k5:.3f} ms (bound "
+              f"{b5[0]:.4f} ms, {b5[1]}), K6 {k6:.3f} ms (bound {b6[0]:.4f}"
+              f" ms, {b6[1]}), K7 {k7:.3f} ms (bound {b7[0]:.4f} ms, "
+              f"{b7[1]}); plain forward {pf:.3f} ms, plain backward "
+              f"{pb:.3f} ms; composition yardstick F.cross_entropy(F.linear)"
+              f" forward {cf:.3f} ms, backward {cb:.3f} ms")
+        out[dtype] = (k5, k6, k7, pf, pb, b5, b6, b7)
+        del x, w, labels, gg, loss, lse
+    k5, k6, k7, pf, pb, b5, b6, b7 = out["bfloat16"]
+    rows = []
+    for name, kname, line, ms, plain_ms, (b_ms, b_by), err in (
+            ("fused_ce_forward", "K5", ":93", k5, pf, b5,
+             errs[(t, h, v, "bfloat16", "loss")]),
+            ("fused_ce_bwd_dx", "K6", ":183", k6, pb, b6,
+             errs[(t, h, v, "bfloat16", "dx")]),
+            ("fused_ce_bwd_dw", "K7", ":198", k7, pb, b7,
+             errs[(t, h, v, "bfloat16", "dW")])):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/csrc/fused_ce.cu",
+                     "replaces": "paddle_tpu/ops/fused_ce.py" + line,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return rows
+
+
+# --------------------------------------------------------------- phase 10
+
+def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
+    """The reference's bench_gpt step (tools/baseline_bench.py:163-197)."""
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    cfg = TransformerLMConfig(dropout=0.0, use_flash_attention=True,
+                              max_seq_len=FLAGSHIP["seq"])
+    L = cfg.num_layers
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        1234)).train()
+    opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
+                          weight_decay=0.01)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (FLAGSHIP["batch"], FLAGSHIP["seq"])).astype(
+            np.int64)).cuda()
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers:
+        fn.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    counts = tuple(fn.launches for fn in wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    check(loss.dtype == torch.float32, f"O1 loss dtype {loss.dtype}")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    want = (TRAIN_STEPS * L,) * 3 + (TRAIN_STEPS,) * 3
+    check(counts == want, f"K1/K2/K3/K5/K6/K7 launches {counts} != {want}")
+    step_ms = float(np.median(times[1:]))
+    tokens = ids.numel()
+    print(f"  losses {[round(x, 6) for x in losses]}; step ms "
+          f"{[round(t, 2) for t in times]}")
+    print(f"  median step (steps 2-{TRAIN_STEPS}) {step_ms:.2f} ms, "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; K1/K2/K3 launches {counts[:3]} = "
+          f"{TRAIN_STEPS} x {L} each, K5/K6/K7 {counts[3:]} = {TRAIN_STEPS}"
+          " each")
+    del model, opt
+    return counts
 
 
 def main():
@@ -529,9 +720,10 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     try:
-        from paddle_tpu_torch import nn, optimizer
+        from paddle_tpu_torch import amp, nn, optimizer
         from paddle_tpu_torch.ops import _build
         from paddle_tpu_torch.ops import attention as attn
+        from paddle_tpu_torch.ops import fused_ce as tce
         from paddle_tpu_torch.ops import paged_attention as pa
         from paddle_tpu_torch.text.models import (GPTForCausalLM,
                                                   TransformerLMConfig)
@@ -580,13 +772,25 @@ def main():
     print("[7] train GPT-124M (untied head)")
     k1_train, k2, k3 = phase_train(torch, attn, train_cfg, optimizer, nn)
     print("[8] card against CPU: 2-layer GPT at full width")
-    phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig)
+    for tie in (False, True):
+        phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig, tie)
+    print("[9] K5/K6/K7 fused linear cross-entropy vs plain")
+    k5_row, k6_row, k7_row = phase_k5k7(
+        torch, tce, FLAGSHIP["batch"] * FLAGSHIP["seq"], cfg.hidden_size,
+        cfg.vocab_size)
+    print("[10] the reference's flagship step: GPT-124M tied, AMP O1 bf16")
+    k1_f, k2_f, k3_f, k5, k6, k7 = phase_flagship(
+        torch, attn, tce, amp, optimizer, TransformerLMConfig)
 
     k4_row["launches"] = k4
-    # K1 runs on two main paths: the serving cross-check and training
-    k1_row["launches"] = k1 + k1_train
-    k2_row["launches"] = k2
-    k3_row["launches"] = k3
+    # K1 runs on three main paths: the serving cross-check, the untied f32
+    # training and the flagship step; K2/K3 on the last two
+    k1_row["launches"] = k1 + k1_train + k1_f
+    k2_row["launches"] = k2 + k2_f
+    k3_row["launches"] = k3 + k3_f
+    k5_row["launches"] = k5
+    k6_row["launches"] = k6
+    k7_row["launches"] = k7
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -597,7 +801,8 @@ def main():
             "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in (k4_row, k1_row, k2_row,
-                                              k3_row)]}))
+                                              k3_row, k5_row, k6_row,
+                                              k7_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,12 +11,15 @@ on the CPU every kernel wrapper computes its plain PyTorch version.
 
 Ported so far: GPT-124M paged serving (``serving.ServingEngine`` over
 ``text.models.GPTForCausalLM``) with the paged decode-attention kernel
-and the flash-attention forward kernel; training of the GPT with an
-untied head (``model(ids, labels=labels)``, ``loss.backward()``,
-``optimizer.AdamW``, ``nn.ClipGradByGlobalNorm``, ``optimizer.lr``)
-with the flash-attention backward kernels.
+and the flash-attention forward kernel; training of the GPT, tied head
+(the default) or untied (``model(ids, labels=labels)``,
+``loss.backward()``, ``optimizer.AdamW``, ``nn.ClipGradByGlobalNorm``,
+``optimizer.lr``), under ``amp.auto_cast`` O1/O2 with ``amp.GradScaler``
+or in f32, with the flash-attention backward kernels and the fused
+linear cross-entropy kernels; ``seed`` seeds the dropout generators.
 """
-from . import nn, optimizer
+from . import amp, nn, optimizer
 from .core.device import resolve_device
+from .core.rng import seed
 
-__all__ = ["nn", "optimizer", "resolve_device"]
+__all__ = ["amp", "nn", "optimizer", "resolve_device", "seed"]

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from ..amp.auto_cast import cast_inputs, op_body
 from . import _build
 
 _NEG = -1e30
@@ -225,7 +226,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
-        o, lse = flash_attention_forward(q, k, v, scale, causal)
+        with op_body():
+            o, lse = flash_attention_forward(q, k, v, scale, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.causal = scale, causal
         return o
@@ -234,8 +236,9 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, grad):
         q, k, v, o, lse = ctx.saved_tensors
         # the model's transpose/reshape hands a strided grad
-        dq, dk, dv = flash_attention_backward(q, k, v, o, lse, grad,
-                                              ctx.scale, ctx.causal)
+        with op_body():
+            dq, dk, dv = flash_attention_backward(q, k, v, o, lse, grad,
+                                                  ctx.scale, ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -244,14 +247,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """``[b, h, s, d]`` attention (reference ``ops/attention.py:366``).
     CUDA tensors go through K1 and, under autograd, K2/K3 (and raise on
     what they cannot take, a mask included); CPU tensors take the plain
-    versions through the same autograd function."""
+    versions through the same autograd function. Under ``amp.auto_cast``
+    q, k and v are cast as the reference casts its ``flash_attention`` op
+    (white list: bf16 under O1 and O2)."""
     sc = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
+    query, key, value = cast_inputs("flash_attention", query, key, value)
     if attn_mask is not None:
         if query.is_cuda:
             raise NotImplementedError(
                 "attn_mask: the flash kernel takes no additive mask")
-        return reference_attention(query, key, value, attn_mask, float(sc),
-                                   bool(is_causal))
+        with op_body():
+            return reference_attention(query, key, value, attn_mask,
+                                       float(sc), bool(is_causal))
     return _FlashAttention.apply(query, key, value, float(sc),
                                  bool(is_causal))
 

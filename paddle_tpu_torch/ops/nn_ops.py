@@ -1,10 +1,42 @@
-"""Losses of the port (reference ``paddle_tpu/ops/nn_ops.py``).
+"""Losses and dropout of the port (reference ``paddle_tpu/ops/nn_ops.py``).
 
 The logits product before a loss is a plain large matmul that the
 reference also leaves to XLA, so it stays ``torch.matmul`` /
 ``nn.Linear`` and no kernel is written for it.
 """
+import torch
 import torch.nn.functional as F
+
+from ..amp.auto_cast import cast_inputs, op_body
+from ..core import rng
+
+
+def dropout(x, p=0.5, training=True, mode="upscale_in_train",
+            generator=None):
+    """Reference ``dropout`` (nn_ops.py:719-728): in training keep each
+    element with probability ``1 - p`` (``upscale_in_train`` divides the
+    kept ones by it); out of training return ``x``, or with
+    ``downscale_in_infer`` ``x * (1 - p)``. The mask is drawn from
+    ``generator``, a ``torch.Generator`` on x's device, or the port's
+    default generator for that device (``paddle_tpu_torch.seed``), never
+    from torch's global generator."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"mode must be 'upscale_in_train' or "
+                         f"'downscale_in_infer', got {mode!r}")
+    if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
+        return x
+    if p == 1.0:
+        return x * 0.0
+    (x,) = cast_inputs("dropout", x)
+    with op_body():
+        gen = generator if generator is not None \
+            else rng.default_generator(x.device)
+        keep = 1.0 - p
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        kept = x / keep if mode == "upscale_in_train" else x
+        return torch.where(mask, kept, torch.zeros_like(x))
 
 
 def cross_entropy(input, label, ignore_index=-100,  # noqa: A002

@@ -14,9 +14,12 @@ state in place (the reference returned new arrays).
 
 The learning rate is a Python float rounded to f32, as the reference's
 f32 learning-rate tensor holds it; an ``LRScheduler`` writes into it.
+Inside an ``amp.auto_cast`` the update runs uncast, like the body of a
+port op.
 """
 import torch
 
+from ..amp.auto_cast import op_body
 from .lr import LRScheduler
 
 
@@ -81,11 +84,12 @@ class Optimizer:
         for _, g in params_grads:
             if g.is_sparse:
                 raise NotImplementedError("sparse grads are not ported")
-        if self._grad_clip is not None:
-            params_grads = self._grad_clip(params_grads)
-        names = {id(p): n for n, p in self._params}
-        for p, g in params_grads:
-            self._apply_one(names[id(p)], p, g)
+        with op_body():
+            if self._grad_clip is not None:
+                params_grads = self._grad_clip(params_grads)
+            names = {id(p): n for n, p in self._params}
+            for p, g in params_grads:
+                self._apply_one(names[id(p)], p, g)
 
     def _acc(self, kind, param, init=0.0, shape=None):
         """The f32 state ``kind`` of ``param`` on its device, made on

@@ -6,8 +6,11 @@ LayerNorm eps 1e-5, fused QKV, tanh-approximated GELU and a head tied to
 the word embedding (``logits = h @ wemb.T``) or, with
 ``tie_embeddings=False``, a separate ``lm_head``. Attention goes through
 ``ops.attention.scaled_dot_product_attention`` and so through the flash
-kernels on the card, forward and backward; plain matmuls stay
-``torch.matmul``, as the reference left them to XLA.
+kernels on the card, forward and backward; the tied head's loss through
+``ops.fused_ce.fused_linear_cross_entropy`` and so through the fused
+cross-entropy kernels; plain matmuls stay ``torch.matmul``, as the
+reference left them to XLA. Dropout draws from an explicit generator
+(``ops.nn_ops.dropout``).
 
 ``decode_forward_builder`` is the KV-cache decode math the serving
 programs share (reference ``_decode_forward_builder``), with the
@@ -22,7 +25,7 @@ from torch import nn
 
 from ..core.device import resolve_device
 from ..ops import attention as attn_ops
-from ..ops import nn_ops
+from ..ops import fused_ce, nn_ops
 
 
 class TransformerLMConfig:
@@ -64,12 +67,13 @@ class TransformerLMConfig:
 class SelfAttention(nn.Module):
     """Fused-QKV causal attention."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, dropout_generator=None):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_heads
         self.head_dim = h // cfg.num_heads
         self.dropout = cfg.dropout
+        self.dropout_generator = dropout_generator
         self.qkv = nn.Linear(h, 3 * h, device=device)
         self.out = nn.Linear(h, h, device=device)
 
@@ -80,35 +84,38 @@ class SelfAttention(nn.Module):
         o = attn_ops.scaled_dot_product_attention(q, k, v, is_causal=True)
         o = self.out(o.transpose(1, 2).reshape(b, s, h))
         if self.dropout:
-            o = F.dropout(o, p=self.dropout, training=self.training)
+            o = nn_ops.dropout(o, self.dropout, self.training,
+                               generator=self.dropout_generator)
         return o
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, dropout_generator=None):
         super().__init__()
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
                              device=device)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
                              device=device)
         self.dropout = cfg.dropout
+        self.dropout_generator = dropout_generator
 
     def forward(self, x):
         x = self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
         if self.dropout:
-            x = F.dropout(x, p=self.dropout, training=self.training)
+            x = nn_ops.dropout(x, self.dropout, self.training,
+                               generator=self.dropout_generator)
         return x
 
 
 class Block(nn.Module):
     """Pre-norm transformer block."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, dropout_generator=None):
         super().__init__()
         self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
-        self.attn = SelfAttention(cfg, device=device)
+        self.attn = SelfAttention(cfg, device, dropout_generator)
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
-        self.mlp = MLP(cfg, device=device)
+        self.mlp = MLP(cfg, device, dropout_generator)
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
@@ -116,15 +123,17 @@ class Block(nn.Module):
 
 
 class _TransformerCore(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, dropout_generator=None):
         super().__init__()
         self.cfg = cfg
+        self.dropout_generator = dropout_generator
         self.word_embeddings = nn.Embedding(cfg.vocab_size,
                                             cfg.hidden_size, device=device)
         self.position_embeddings = nn.Embedding(
             cfg.max_seq_len, cfg.hidden_size, device=device)
         self.blocks = nn.ModuleList(
-            [Block(cfg, device=device) for _ in range(cfg.num_layers)])
+            [Block(cfg, device, dropout_generator)
+             for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
 
     def forward(self, input_ids):
@@ -132,7 +141,8 @@ class _TransformerCore(nn.Module):
         pos = torch.arange(s, device=input_ids.device)
         x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
         if self.cfg.dropout:
-            x = F.dropout(x, p=self.cfg.dropout, training=self.training)
+            x = nn_ops.dropout(x, self.cfg.dropout, self.training,
+                               generator=self.dropout_generator)
         for blk in self.blocks:
             x = blk(x)
         return self.ln_f(x)
@@ -146,13 +156,18 @@ class GPTForCausalLM(nn.Module):
     """``GPTForCausalLM(cfg)`` builds on the card; ``device="cpu"`` asks
     for the CPU. ``generator`` (a CPU ``torch.Generator``) makes the
     random weights reproducible: every matrix and embedding is
-    N(0, initializer_range), biases 0, LayerNorm 1/0."""
+    N(0, initializer_range), biases 0, LayerNorm 1/0.
+    ``dropout_generator`` (a ``torch.Generator`` on the model's device)
+    draws the dropout masks; without it they come from the port's
+    default generator for the device, which ``paddle_tpu_torch.seed``
+    seeds."""
 
-    def __init__(self, cfg, device=None, generator=None):
+    def __init__(self, cfg, device=None, generator=None,
+                 dropout_generator=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.gpt = GPTModel(cfg, device=dev)
+        self.gpt = GPTModel(cfg, dev, dropout_generator)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                      bias=False, device=dev)
@@ -177,16 +192,20 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None):
         """Logits ``[b, s, vocab]``, or with ``labels`` ``[b, s]`` the mean
         cross-entropy of each position's logits against its label
-        (``-100`` ignored; no shift, as in the reference)."""
-        if labels is not None and self.cfg.tie_embeddings:
-            raise NotImplementedError(
-                "labels with tie_embeddings=True: the reference computes "
-                "this loss through the fused linear cross-entropy "
-                "(ops/fused_ce.py, kernels K5-K7), which is not ported "
-                "yet; use tie_embeddings=False")
+        (``-100`` ignored; no shift, as in the reference). The tied head
+        computes the loss with the fused linear cross-entropy, so its
+        logits never exist (reference ``_head_loss``, models.py:301-320)."""
         h = self.gpt(input_ids)
         if self.cfg.tie_embeddings:
-            return torch.matmul(h, self.gpt.word_embeddings.weight.t())
+            wemb = self.gpt.word_embeddings.weight
+            if labels is None:
+                return torch.matmul(h, wemb.t())
+            flat = labels.reshape(-1)
+            per_tok = fused_ce.fused_linear_cross_entropy(
+                h.reshape(-1, self.cfg.hidden_size), wemb, flat)
+            # mean over the tokens that are not ignored
+            valid = (flat != -100).float().sum()
+            return per_tok.sum() / valid.clamp(min=1.0)
         logits = self.lm_head(h)
         if labels is None:
             return logits

@@ -9,13 +9,15 @@ Tolerances: 1e-5 (K4) and 2e-5 (K1) in f32, where only the summation
 order differs; 2e-2 for bf16 inputs, whose outputs are rounded to bf16.
 K2/K3 grads are held relative to the largest grad, or to 1 where that
 is smaller (dK and dV sum over up to 256 query rows): 1e-4 in f32, 2e-2
-in bf16.
+in bf16. K5-K7: the loss and LSE are f32 on both sides (atol 1e-4), the
+grads relative to the largest grad (1e-4 in f32, 1e-2 in bf16).
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import attention as attn
+from paddle_tpu_torch.ops import fused_ce as tce
 from paddle_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -196,3 +198,108 @@ def test_engine_on_card_matches_cpu_engine(dev):
                 eng.metrics.decode_steps * cfg.num_layers
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+def _ce_inputs(dev, t, h, v, dtype, seed, label_dtype=torch.int64):
+    """x [t, h] and W [v, h] in ``dtype``, labels with every 7th row
+    ignored, and a per-token cotangent g, on the card."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(t, h, generator=g) * 0.5).to(dev, dtype)
+    w = (torch.randn(v, h, generator=g) * 0.5).to(dev, dtype)
+    labels = torch.randint(0, v, (t,), generator=g)
+    labels[::7] = -100
+    gg = ((torch.rand(t, generator=g) + 0.5) / t).to(dev)
+    return x, w, labels.to(dev, label_dtype), gg
+
+
+@pytest.mark.parametrize("t,h,v", [(1, 8, 5), (37, 48, 211), (130, 64, 1000),
+                                   (70, 800, 300)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
+def test_fused_ce_kernels_match_plain(dev, t, h, v, dtype, tol, label_dtype):
+    """K5 (loss, LSE), K6 (dx) and K7 (dW) against their plain versions on
+    f32 copies of the same inputs, ragged T, V and H (H = 800 puts dx/dW
+    columns on two blocks); the loss and LSE are f32 sums on both sides
+    (atol 1e-4), the grads held relative to the largest grad (1e-4 in
+    f32, 1e-2 in bf16, where the kernel rounds them to bf16)."""
+    x, w, labels, g = _ce_inputs(dev, t, h, v, dtype, t + h + v, label_dtype)
+    n5, n6, n7 = (tce.fused_ce_forward.launches, tce.fused_ce_bwd_dx.launches,
+                  tce.fused_ce_bwd_dw.launches)
+    loss, lse = tce.fused_ce_forward(x, w, labels)
+    rloss, rlse = tce.fused_linear_cross_entropy_plain(x.float(), w.float(),
+                                                       labels)
+    torch.testing.assert_close(loss, rloss, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
+    assert not loss[labels == -100].any()
+    dx = tce.fused_ce_bwd_dx(x, w, labels, lse, g)
+    dw = tce.fused_ce_bwd_dw(x, w, labels, lse, g)
+    assert (tce.fused_ce_forward.launches, tce.fused_ce_bwd_dx.launches,
+            tce.fused_ce_bwd_dw.launches) == (n5 + 1, n6 + 1, n7 + 1)
+    ref = tce.fused_linear_cross_entropy_backward_plain(
+        x.float(), w.float(), labels, lse, g)
+    for got, want in zip((dx, dw), ref):
+        assert got.dtype == dtype and got.shape == want.shape
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), err
+
+
+def test_fused_ce_rejects_and_autograd_launches_k5_k6_k7(dev):
+    """Under autograd the fused op launches K5 once and K6 and K7 once
+    each in its backward, with the plain composition's grads; what the
+    kernels cannot take raises."""
+    x, w, labels, g = _ce_inputs(dev, 45, 64, 300, torch.float32, 0)
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    n5, n6, n7 = (tce.fused_ce_forward.launches, tce.fused_ce_bwd_dx.launches,
+                  tce.fused_ce_bwd_dw.launches)
+    loss = tce.fused_linear_cross_entropy(*leaves, labels)
+    (loss * g).sum().backward()
+    assert (tce.fused_ce_forward.launches, tce.fused_ce_bwd_dx.launches,
+            tce.fused_ce_bwd_dw.launches) == (n5 + 1, n6 + 1, n7 + 1)
+    _, lse = tce.fused_linear_cross_entropy_plain(x, w, labels)
+    ref = tce.fused_linear_cross_entropy_backward_plain(x, w, labels, lse, g)
+    for leaf, want in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, want, atol=1e-5, rtol=1e-4)
+    with pytest.raises(TypeError):
+        tce.fused_ce_forward(x.half(), w.half(), labels)
+    with pytest.raises(TypeError):
+        tce.fused_ce_forward(x, w.bfloat16(), labels)
+    with pytest.raises(TypeError):
+        tce.fused_ce_forward(x, w, labels.float())
+    with pytest.raises(ValueError):
+        tce.fused_ce_forward(x, w, labels.cpu())
+    with pytest.raises(ValueError):
+        tce.fused_ce_forward(x.t().contiguous().t(), w, labels)
+    with pytest.raises(ValueError):
+        tce.fused_ce_bwd_dx(x, w, labels, lse, g[:-1])
+
+
+def test_tied_gpt_step_on_card_matches_cpu(dev):
+    """A tied 2-layer GPT: the loss and every grad of one step on the card
+    (K1-K3, K5-K7) match the same model on the CPU, in f32 and under
+    ``auto_cast`` O1 (grads held relative to each parameter's largest:
+    1e-3 in f32, 5e-2 under O1, where the two devices round to bf16 in
+    different kernels)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models import (GPTForCausalLM,
+                                              TransformerLMConfig)
+    cfg = TransformerLMConfig(vocab_size=300, hidden_size=128, num_layers=2,
+                              num_heads=2, max_seq_len=64, dropout=0.0)
+    ids = torch.randint(0, 300, (2, 64), generator=torch.Generator()
+                        .manual_seed(1))
+    for level, tol in ((None, 1e-3), ("O1", 5e-2)):
+        runs = []
+        for device in ("cpu", None):
+            m = GPTForCausalLM(cfg, device=device,
+                               generator=torch.Generator().manual_seed(0))
+            t = ids.to(m.device)
+            with amp.auto_cast(enable=level is not None, level=level or "O1"):
+                loss = m(t, labels=t)
+            loss.backward()
+            runs.append((loss.item(), {n: p.grad.float().cpu()
+                                       for n, p in m.named_parameters()}))
+        (cl, cg), (gl, gg) = runs
+        assert abs(gl - cl) <= 1e-4 * abs(cl) * (1 if level is None else 10)
+        for name, want in cg.items():
+            err = (gg[name] - want).abs().max().item()
+            assert err <= tol * want.abs().max().item(), (level, name, err)

@@ -1,8 +1,12 @@
 """Training in paddle_tpu_torch against the JAX reference on the CPU:
-the untied GPT's loss and every parameter's gradient, the Adam/AdamW
-update rule, the gradient clips, every learning-rate scheduler, and a
-5-step AdamW loop with a global-norm clip and a warmed-up cosine
-schedule. Inputs are numpy arrays from a seed, handed to both packages.
+the untied and the tied (default) GPT's loss and every parameter's
+gradient, the Adam/AdamW update rule, the gradient clips, every
+learning-rate scheduler, and 5-step AdamW loops (untied and tied) with
+a global-norm clip and a warmed-up cosine schedule. Inputs are numpy
+arrays from a seed, handed to both packages. The tied head goes through
+the fused linear cross-entropy on both sides (on the CPU the reference
+runs its composition ``_reference``, the port K5-K7's plain versions),
+and the word embedding's grad sums the lookup's and the head's.
 
 Tolerances, all f32 without TF32:
 - loss atol/rtol 1e-5 and grads atol 2e-6, rtol 1e-4: the same model
@@ -62,20 +66,16 @@ def _torch_loss_grads(tm, ids, labels):
     return float(loss.detach()), grads
 
 
-@pytest.mark.parametrize("kind", ["all_valid", "some_ignored",
-                                  "all_ignored"])
-def test_untied_loss_and_grads_match_reference(kind):
-    """Loss and the grad of every parameter (embeddings, LayerNorms, the
-    QKV/out/MLP linears through the flash backward, the separate head);
-    an all-ignored batch gives loss 0 and zero grads on both sides."""
-    jm = jax_gpt(tie_embeddings=False)
+def _check_loss_and_grads(kind, tie):
+    jm = jax_gpt(tie_embeddings=tie)
     tm = torch_twin(jm)
-    assert not tm.cfg.tie_embeddings and hasattr(tm, "lm_head")
+    assert tm.cfg.tie_embeddings == tie and hasattr(tm, "lm_head") != tie
     ids, labels = _ids_labels(kind)
     jl, jg = _jax_loss_grads(jm, ids, labels)
     tl, tg = _torch_loss_grads(tm, ids, labels)
     np.testing.assert_allclose(tl, jl, atol=1e-5, rtol=1e-5)
-    assert set(tg) == set(jg) and len(tg) == 4 + 12 * TINY["num_layers"] + 1
+    assert set(tg) == set(jg)
+    assert len(tg) == 4 + 12 * TINY["num_layers"] + (not tie)
     for name, g in jg.items():
         assert tg[name].shape == g.shape, name
         np.testing.assert_allclose(tg[name], g, atol=2e-6, rtol=1e-4,
@@ -83,6 +83,25 @@ def test_untied_loss_and_grads_match_reference(kind):
     if kind == "all_ignored":
         assert tl == 0.0
         assert all(not g.any() for g in tg.values())
+
+
+@pytest.mark.parametrize("kind", ["all_valid", "some_ignored",
+                                  "all_ignored"])
+def test_untied_loss_and_grads_match_reference(kind):
+    """Loss and the grad of every parameter (embeddings, LayerNorms, the
+    QKV/out/MLP linears through the flash backward, the separate head);
+    an all-ignored batch gives loss 0 and zero grads on both sides."""
+    _check_loss_and_grads(kind, tie=False)
+
+
+@pytest.mark.parametrize("kind", ["all_valid", "some_ignored",
+                                  "all_ignored"])
+def test_tied_loss_and_grads_match_reference(kind):
+    """The default GPT (head tied to the word embedding): the loss through
+    the fused cross-entropy and the grad of every parameter, the word
+    embedding's included (lookup plus K7's dW); all-ignored gives loss 0
+    and zero grads."""
+    _check_loss_and_grads(kind, tie=True)
 
 
 def test_cross_entropy_reductions():
@@ -248,14 +267,9 @@ def test_lr_scheduler_sequences_match_reference(name):
     assert ts.state_dict() == js.state_dict()
 
 
-def test_adamw_loop_with_clip_and_schedule_matches_reference():
-    """Five steps of the reference's training loop on the untied tiny
-    GPT (``loss = model(ids, labels)``, backward, ``step``, ``clear_grad``,
-    scheduler step) with AdamW, ``ClipGradByGlobalNorm(1.0)`` and
-    ``LinearWarmup(CosineAnnealingDecay)``: the loss trajectories agree
-    and the loss falls."""
+def _adamw_loop(tie):
     lr_max = 1e-2
-    jm = jax_gpt(tie_embeddings=False)
+    jm = jax_gpt(tie_embeddings=tie)
     tm = torch_twin(jm).train()
     jm.train()
     runs = []
@@ -299,10 +313,26 @@ def test_adamw_loop_with_clip_and_schedule_matches_reference():
                                    err_msg=name)
     # the schedule really trained: the same batch scores lower than at init
     ids, labels = _ids_labels("all_valid", seed=10)
-    fresh = torch_twin(jax_gpt(tie_embeddings=False))
+    fresh = torch_twin(jax_gpt(tie_embeddings=tie))
     with torch.no_grad():
         before = float(fresh(torch.from_numpy(ids),
                              labels=torch.from_numpy(labels)))
         after = float(tm(torch.from_numpy(ids),
                          labels=torch.from_numpy(labels)))
     assert after < before
+
+
+def test_adamw_loop_with_clip_and_schedule_matches_reference():
+    """Five steps of the reference's training loop on the untied tiny
+    GPT (``loss = model(ids, labels)``, backward, ``step``, ``clear_grad``,
+    scheduler step) with AdamW, ``ClipGradByGlobalNorm(1.0)`` and
+    ``LinearWarmup(CosineAnnealingDecay)``: the loss trajectories agree
+    and the loss falls."""
+    _adamw_loop(tie=False)
+
+
+def test_tied_adamw_loop_matches_reference():
+    """The same five-step loop on the default, tied GPT: the loss
+    trajectories and the parameters (the shared word embedding
+    included) agree, and the loss falls."""
+    _adamw_loop(tie=True)

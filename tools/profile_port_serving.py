@@ -31,7 +31,14 @@ def classify(name):
         return "K2 flash backward dQ"
     if "flash_bwd_dkv_kernel" in n:
         return "K3 flash backward dK/dV"
-    if any(t in n for t in ("gemm", "gemv", "cutlass", "sm90_x", "cublas")):
+    if "fused_ce_fwd" in n:
+        return "K5 fused CE forward"
+    if "fused_ce_bwd_kernel" in n:
+        # the template's last argument: true (K6, dx) or false (K7, dW)
+        return ("K6 fused CE dx" if "true>" in n or "lb1e" in n
+                else "K7 fused CE dW")
+    if any(t in n for t in ("gemm", "gemv", "cutlass", "sm90_x", "cublas",
+                            "nvjet")):
         return "matmul (cuBLAS)"
     if "layer_norm" in n or "layernorm" in n:
         return "layer norm"

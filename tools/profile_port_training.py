@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where the time goes when paddle_tpu_torch trains GPT-124M on one card.
 
-The training step of chip_smoke.py phase 7 (untied head, batch 8 x seq
-1024, f32 without TF32, AdamW(1e-4, weight_decay 0.01) with
-ClipGradByGlobalNorm(1.0), random weights from a seeded generator): two
+By default the reference's flagship step, chip_smoke.py phase 10 (the
+default tied head through the fused cross-entropy K5-K7, batch 8 x seq
+1024, dropout 0, AdamW(1e-4, weight_decay 0.01), the forward under
+amp.auto_cast(level="O1", dtype="bfloat16")); with --untied-f32 the step
+of phase 7 (untied head, f32 without TF32, AdamW with
+ClipGradByGlobalNorm(1.0)). Random weights from a seeded generator. Two
 warm-up steps, three plain steps for the wall time and the host time of
 each part of the step (forward, backward, optimizer), two steps under
 torch.profiler for the device time by kernel class and the device's idle
@@ -12,9 +15,10 @@ first to the last kernel), and two more with a device sync closing each
 part, so that every kernel falls inside its part's host range: device
 busy time, host range and kernel classes per part. Prints one line per figure
 and writes the numbers and the top kernels to
-chiprun_out/profile_port_training.json (a git-ignored directory).
+chiprun_out/profile_port_training.json (profile_port_training_untied_f32.json
+with --untied-f32; a git-ignored directory).
 
-    python3 tools/profile_port_training.py
+    python3 tools/profile_port_training.py [--untied-f32]
 """
 import json
 import os
@@ -33,10 +37,11 @@ from profile_port_serving import classify, union_us  # noqa: E402
 PARTS = ("train/forward", "train/backward", "train/optimizer")
 
 
-def step(torch, model, opt, ids, host, sync=False):
+def step(torch, model, opt, ids, host, sync=False, amp=None):
     """One step of the reference's loop, each part in a profiler range
-    (closed by a device sync when ``sync``); the host time of each part
-    accumulates in ``host``."""
+    (closed by a device sync when ``sync``), the forward under
+    ``amp.auto_cast`` O1 bf16 when ``amp`` is given; the host time of
+    each part accumulates in ``host``."""
     def part(label, fn):
         t0 = time.perf_counter()
         with torch.profiler.record_function(label):
@@ -46,7 +51,13 @@ def step(torch, model, opt, ids, host, sync=False):
         host[label] = host.get(label, 0.0) + time.perf_counter() - t0
         return out
 
-    loss = part(PARTS[0], lambda: model(ids, labels=ids))
+    def forward():
+        if amp is None:
+            return model(ids, labels=ids)
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return model(ids, labels=ids)
+
+    loss = part(PARTS[0], forward)
     part(PARTS[1], loss.backward)
 
     def update():
@@ -61,6 +72,7 @@ def main():
     if not torch.cuda.is_available():
         print("profile_port_training: no CUDA device", file=sys.stderr)
         return 2
+    from paddle_tpu_torch import amp as amp_mod
     from paddle_tpu_torch import nn, optimizer
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.text.models import (GPTForCausalLM,
@@ -68,22 +80,26 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
-    cfg = TransformerLMConfig(tie_embeddings=False, dropout=0.0)
+    untied = "--untied-f32" in sys.argv[1:]
+    cfg = TransformerLMConfig(tie_embeddings=not untied, dropout=0.0)
     model = GPTForCausalLM(
         cfg, generator=torch.Generator().manual_seed(1234)).train()
-    opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
-                          weight_decay=0.01,
-                          grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    opt = optimizer.AdamW(
+        1e-4, parameters=model.named_parameters(), weight_decay=0.01,
+        grad_clip=nn.ClipGradByGlobalNorm(1.0) if untied else None)
+    amp = None if untied else amp_mod
+    print("config: " + ("untied head, f32, global-norm clip" if untied
+                        else "tied head (K5-K7), AMP O1 bf16, no clip"))
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (8, cfg.max_seq_len)).astype(np.int64)).cuda()
     for _ in range(2):
-        step(torch, model, opt, ids, {})
+        step(torch, model, opt, ids, {}, amp=amp)
     torch.cuda.synchronize()
 
     walls, host = [], {}
     for _ in range(3):
         t0 = time.perf_counter()
-        step(torch, model, opt, ids, host)
+        step(torch, model, opt, ids, host, amp=amp)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     print(f"plain steps: wall {', '.join(f'{w * 1e3:.2f}' for w in walls)}"
@@ -99,7 +115,7 @@ def main():
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n_prof):
-                step(torch, model, opt, ids, {}, sync)
+                step(torch, model, opt, ids, {}, sync, amp)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = prof.events()
@@ -167,8 +183,10 @@ def main():
     print(card)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_port_training.json"), "w") as f:
+    name = "profile_port_training" + ("_untied_f32" if untied else "")
+    with open(os.path.join(out_dir, name + ".json"), "w") as f:
         json.dump({"device": torch.cuda.get_device_name(0), "card": card,
+                   "config": "untied_f32" if untied else "tied_o1_bf16",
                    "plain_step_wall_s": walls, "profiled_steps": n_prof,
                    "profiled_wall_s": wall, "device_window_us": window,
                    "device_busy_us": busy, "by_class_us": by_class,
