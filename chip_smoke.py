@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
-             all started together) and print the build seconds;
+             all started together) and print the build seconds, with
+             ptxas's registers and spills; beside them the parent
+             commit's fused_ce.cu (from --parent TREE or git history,
+             where either is at hand) for phases 9 and 10;
   2. K4      paged decode attention against its plain PyTorch version at
              the engine's shapes: ragged lengths, mid-block tails,
              trash-padded tables over garbage, a length past MB*BS,
@@ -25,7 +28,9 @@ Phases, one line each:
              backward: the training shape [8,12,1024,64] causal f32 and
              bf16, a ragged [1,12,333,64] causal and not, [1,4,200,128];
              K2, K3, the plain backward and the backward of PyTorch's
-             scaled_dot_product_attention timed at the training shape;
+             scaled_dot_product_attention timed at the training shape,
+             in f32 and, with K1 and SDPA's forward, in bf16 (the
+             flagship's dtype);
   7. train   GPT-124M with an untied head (random weights from a seeded
              torch.Generator), batch 8 x seq 1024, labels = ids, AdamW(1e-4,
              weight_decay 0.01, ClipGradByGlobalNorm(1.0)), 6 steps: every
@@ -40,9 +45,13 @@ Phases, one line each:
              dx, K7 dW) against their plain versions at the flagship shape
              (T = 8 x 1024, H = 768, V = 50304, about 5 % of the rows
              ignore_index) in f32 and bf16 and at ragged small shapes;
-             K5, K6, K7, the plain forward and backward and, as a
-             yardstick, the two-call composition F.cross_entropy(F.linear)
-             forward and backward timed in both dtypes, with the bounds;
+             bf16 K6/K7 against both plain variants (d kept f32, and d
+             rounded to bf16 as the kernels round it) and run twice for
+             the same bits; f32 K6/K7 give the parent's bits; K5, K6, K7
+             (30 calls in bf16), the parent's K6/K7, the plain forward
+             and backward and, as a yardstick, the two-call composition
+             F.cross_entropy(F.linear) forward and backward timed in both
+             dtypes, with TFLOP/s and the fraction of the bound;
  10. flagship the reference's flagship training step
              (tools/baseline_bench.py bench_gpt): GPT-124M with the default
              tied head, dropout 0, batch 8 x seq 1024, labels = ids,
@@ -50,7 +59,10 @@ Phases, one line each:
              amp.auto_cast(level="O1", dtype="bfloat16"), 6 steps: every
              loss finite, the last below the first, K1 = K2 = K3 launches
              = 6 x 12 and K5 = K6 = K7 = 6; median step ms, tokens/s, peak
-             memory.
+             memory. Then, where the parent's K6/K7 were built, the same
+             6 steps with them: step 1's loss within 1e-6 relative (the
+             forward is the same code), steps 2-6 within 5e-3, peak
+             memory no more than the parent run's + 64 MiB.
 Then the card's name and power limit, one JSON line of kernel numbers,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -59,6 +71,9 @@ Any failure raises: the exit code is non-zero and no "ok" line prints.
 Without a CUDA device, or without the package beside this file, it
 exits non-zero at once.
 """
+import argparse
+import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -94,6 +109,15 @@ TRAIN_STEPS = 6
 CE_LOSS_TOL = 1e-4
 CE_F32_TOL = 1e-4
 CE_BF16_TOL = 1e-2
+# bf16 K6/K7 against the plain backward with d rounded to bf16 as the
+# kernels (and the Pallas kernels) round it: half a bf16 ulp of the
+# largest grad for the kernel's final rounding (at most 2^-8 = 3.9e-3 of
+# it), plus f32 sums in another order
+CE_BF16D_TOL = 5e-3
+# the commit whose K6/K7 (CUDA cores, bf16 widened to f32) phases 9 and
+# 10 hold the tensor-core kernels against, where its source is at hand
+PARENT = "16bb9ab"
+BWD_SYMBOLS = ("fused_ce_backward_dx", "fused_ce_backward_dw")
 FLAGSHIP = dict(batch=8, seq=1024)
 
 
@@ -202,6 +226,7 @@ def phase_k4(torch, pa):
     print(f"  K4 float32 time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})")
     return {"name": "paged_decode_attention", "route": "cuda",
+            "dtype": "float32",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/ops/paged_attention.py:92",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -266,6 +291,7 @@ def phase_k1(torch, attn, main_shape):
           f"{r[1]:.4f} ms, sdpa {r[2]:.4f} ms, bound {r[3]:.4f} ms "
           f"({r[4]})")
     return {"name": "flash_attention_forward", "route": "cuda",
+            "dtype": "float32",
             "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "paddle_tpu/ops/attention.py:67",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -444,12 +470,71 @@ def phase_k2k3(torch, attn, train_shape):
             ("flash_bwd_dq", "K2", ":200", dq_ms, k2_b, errs[main[0]]),
             ("flash_bwd_dkv", "K3", ":236", dkv_ms, k3_b,
              max(errs[main[1]], errs[main[2]]))):
-        rows.append({"name": name, "route": "cuda",
+        rows.append({"name": name, "route": "cuda", "dtype": "float32",
                      "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
                      "replaces": "paddle_tpu/ops/attention.py" + src_line,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms})
+    return rows + flash_bf16_rows(torch, attn, train_shape, errs, g)
+
+
+def flash_bf16_rows(torch, attn, train_shape, errs, g):
+    """K1, K2 and K3 in bf16 at the training shape, causal, as the
+    flagship step (phase 10) runs them: time against the plain versions,
+    the bf16 bound and PyTorch's SDPA forward / backward in bf16."""
+    import torch.nn.functional as F
+    q, k, v, do, lse, delta, scale = bwd_case(torch, attn, train_shape, True,
+                                              "bfloat16", g)
+    o, _ = attn.flash_attention_forward(q, k, v, scale, True)
+    ro, rlse = attn.flash_attention_plain(q.float(), k.float(), v.float(),
+                                          scale, True)
+    k1_err = max((o.float() - ro).abs().max().item(),
+                 (lse - rlse).abs().max().item())
+    check(k1_err <= BF16_TOL, f"K1 {train_shape} bf16: err {k1_err}")
+    del o, ro, rlse
+    args = (q, k, v, lse, do, delta, scale, True)
+    k1_ms = time_ms(torch, lambda: attn.flash_attention_forward(
+        q, k, v, scale, True))
+    k1_plain = time_ms(torch, lambda: attn.flash_attention_plain(
+        q, k, v, scale, True))
+    k1_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    dq_ms = time_ms(torch, lambda: attn.flash_bwd_dq(*args))
+    dkv_ms = time_ms(torch, lambda: attn.flash_bwd_dkv(*args))
+    plain_ms = time_ms(torch, lambda: attn.flash_attention_backward_plain(
+        *args))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True))
+    b, h, s, d = train_shape
+    n = b * h * s
+    pairs = b * h * s * (s + 1) // 2
+    k1_b = bound(4 * n * d * 2 + n * 4, 2 * 2 * d * pairs, "bfloat16")
+    reads = 4 * n * d * 2 + 2 * n * 4
+    k2_b = bound(reads + n * d * 2, 3 * 2 * d * pairs, "bfloat16")
+    k3_b = bound(reads + 2 * n * d * 2, 4 * 2 * d * pairs, "bfloat16")
+    print(f"  {list(train_shape)} causal bf16 (the flagship's): K1 "
+          f"{k1_ms:.4f} ms (bound {k1_b[0]:.4f} ms, {k1_b[1]}; sdpa "
+          f"{k1_lib:.4f} ms; err {k1_err:.3e}), K2 {dq_ms:.4f} ms (bound "
+          f"{k2_b[0]:.4f} ms), K3 {dkv_ms:.4f} ms (bound {k3_b[0]:.4f} ms); "
+          f"K2 + K3 {dq_ms + dkv_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
+          f"plain backward {plain_ms:.4f} ms")
+    main = [(train_shape, True, "bfloat16", nm) for nm in ("dq", "dk", "dv")]
+    rows = []
+    for name, src, line, ms, pl, lib, (b_ms, b_by), err in (
+            ("flash_attention_forward", "flash_fwd.cu", ":67", k1_ms,
+             k1_plain, k1_lib, k1_b, k1_err),
+            ("flash_bwd_dq", "flash_bwd.cu", ":200", dq_ms, plain_ms, lib_ms,
+             k2_b, errs[main[0]]),
+            ("flash_bwd_dkv", "flash_bwd.cu", ":236", dkv_ms, plain_ms,
+             lib_ms, k3_b, max(errs[main[1]], errs[main[2]]))):
+        rows.append({"name": name, "route": "cuda", "dtype": "bfloat16",
+                     "source": "paddle_tpu_torch/csrc/" + src,
+                     "replaces": "paddle_tpu/ops/attention.py" + line,
+                     "max_abs_err": err, "ms": ms, "plain_ms": pl,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
     return rows
 
 
@@ -559,12 +644,81 @@ def ce_case(torch, t, h, v, dtype, g):
     return x, w, labels, gg
 
 
-def phase_k5k7(torch, tce, t, h, v):
+def parent_source(parent_tree):
+    """The parent commit's ``csrc/fused_ce.cu`` (the CUDA-core K6/K7 that
+    the bf16 kernels replace): from ``--parent TREE``, a checkout of it,
+    else from git history; None where neither is at hand."""
+    rel = "paddle_tpu_torch/csrc/fused_ce.cu"
+    if parent_tree:
+        with open(os.path.join(parent_tree, rel)) as f:
+            return f.read()
+    if os.path.isdir(os.path.join(HERE, ".git")):
+        r = subprocess.run(["git", "show", f"{PARENT}:{rel}"], cwd=HERE,
+                           capture_output=True, text=True, timeout=60)
+        if r.returncode == 0:
+            return r.stdout
+    return None
+
+
+def start_parent_build(_build, text):
+    """Start ``nvcc`` on the parent's source into ``_build/parent/``;
+    (process, library path), or None without a source."""
+    if text is None:
+        return None
+    d = _build.BUILD_DIR / "parent"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "fused_ce.cu").write_text(text)
+    so = d / "fused_ce.so"
+    proc = subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                             str(d / "fused_ce.cu")], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def load_parent(started):
+    """{symbol: ctypes function} of the parent's K6 and K7, or None."""
+    if started is None:
+        return None
+    proc, so = started
+    out, _ = proc.communicate()
+    check(proc.returncode == 0, f"the parent's fused_ce.cu did not build:\n"
+          f"{out}")
+    lib = ctypes.CDLL(str(so))
+    fns = {}
+    for sym in BWD_SYMBOLS:
+        fn = getattr(lib, sym)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[sym] = fn
+    return fns
+
+
+@contextlib.contextmanager
+def parent_kernels(_build, parent):
+    """The wrappers fused_ce_bwd_dx / _dw launch the parent's K6/K7
+    inside this block: the functions they look up in ``_build`` are
+    swapped, and put back after."""
+    saved = {sym: _build._fns.get(("fused_ce", sym)) for sym in parent}
+    _build._fns.update({("fused_ce", sym): fn for sym, fn in parent.items()})
+    try:
+        yield
+    finally:
+        for sym, fn in saved.items():
+            if fn is None:
+                del _build._fns[("fused_ce", sym)]
+            else:
+                _build._fns[("fused_ce", sym)] = fn
+
+
+def phase_k5k7(torch, tce, _build, t, h, v, parent):
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(9)
     cases = [(t, h, v, "float32"), (t, h, v, "bfloat16"),
-             (333, 768, 50304, "float32"), (1000, 200, 1234, "bfloat16"),
-             (77, 800, 5000, "float32"), (1, 64, 7, "float32")]
+             (333, 768, 50304, "float32"), (333, 768, 50304, "bfloat16"),
+             (1000, 200, 1234, "bfloat16"), (77, 800, 5000, "float32"),
+             (77, 800, 5000, "bfloat16"), (1, 64, 7, "float32"),
+             (1, 64, 7, "bfloat16"), (65, 13, 300, "bfloat16")]
     errs = {}
     for ct, ch, cv, dtype in cases:
         x, w, labels, gg = ce_case(torch, ct, ch, cv, dtype, g)
@@ -573,28 +727,52 @@ def phase_k5k7(torch, tce, t, h, v):
         dw = tce.fused_ce_bwd_dw(x, w, labels, lse, gg)
         rloss, rlse = tce.fused_linear_cross_entropy_plain(
             x.float(), w.float(), labels)
-        rdx, rdw = tce.fused_linear_cross_entropy_backward_plain(
-            x.float(), w.float(), labels, lse, gg)
         torch.cuda.synchronize()
         el = max((loss - rloss).abs().max().item(),
                  (lse - rlse).abs().max().item())
         check(el <= CE_LOSS_TOL, f"K5 [{ct},{ch},{cv}] {dtype}: loss/LSE err "
               f"{el} > {CE_LOSS_TOL}")
-        tol = CE_F32_TOL if dtype == "float32" else CE_BF16_TOL
-        line = [f"loss/LSE err {el:.3e}"]
-        for name, got, want in (("dx", dx, rdx), ("dW", dw, rdw)):
-            check(got.dtype == x.dtype and got.shape == want.shape,
-                  f"K6/K7 {name}: dtype/shape")
-            err = (got.float() - want).abs().max().item()
-            top = want.abs().max().item()
-            check(bool(torch.isfinite(got).all()) and err <= tol * top,
-                  f"K6/K7 {name} [{ct},{ch},{cv}] {dtype}: err {err} > "
-                  f"{tol} x max |grad| {top}")
-            line.append(f"{name} err {err:.3e} (max |grad| {top:.3e})")
-            errs[(ct, ch, cv, dtype, name)] = err
         errs[(ct, ch, cv, dtype, "loss")] = el
-        print(f"  K5-K7 [T={ct}, H={ch}, V={cv}] {dtype}: " + ", ".join(line)
-              + f"; grad tol {tol} x max |grad|")
+        line = [f"loss/LSE err {el:.3e}"]
+        # bf16: against d kept f32 and against d rounded as the kernel does
+        variants = ([(None, CE_F32_TOL)] if dtype == "float32" else
+                    [(None, CE_BF16_TOL), (torch.bfloat16, CE_BF16D_TOL)])
+        for d_dtype, tol in variants:
+            ref = tce.fused_linear_cross_entropy_backward_plain(
+                x.float(), w.float(), labels, lse, gg, d_dtype=d_dtype)
+            for name, got, want in zip(("dx", "dW"), (dx, dw), ref):
+                check(got.dtype == x.dtype and got.shape == want.shape,
+                      f"K6/K7 {name}: dtype/shape")
+                err = (got.float() - want).abs().max().item()
+                top = want.abs().max().item()
+                check(bool(torch.isfinite(got).all()) and err <= tol * top,
+                      f"K6/K7 {name} [{ct},{ch},{cv}] {dtype} (d "
+                      f"{d_dtype or 'f32'}): err {err} > {tol} x max |grad| "
+                      f"{top}")
+                line.append(f"{name} err {err:.3e} vs d "
+                            f"{'bf16' if d_dtype else 'f32'} (tol {tol}, max "
+                            f"|grad| {top:.3e})")
+                errs[(ct, ch, cv, dtype, name)] = err
+            del ref
+        if parent and (ct, ch, cv) == (t, h, v):
+            with parent_kernels(_build, parent):
+                pdx = tce.fused_ce_bwd_dx(x, w, labels, lse, gg)
+                pdw = tce.fused_ce_bwd_dw(x, w, labels, lse, gg)
+            same = torch.equal(dx, pdx) and torch.equal(dw, pdw)
+            # f32 runs the parent's code unchanged: the same bits
+            check(same or dtype != "float32",
+                  "f32 K6/K7 differ from the parent's")
+            line.append("the parent's K6/K7 give " + (
+                "the same bits" if same else "max abs diff " + ", ".join(
+                    f"{(a.float() - b.float()).abs().max().item():.3e}"
+                    for a, b in ((dx, pdx), (dw, pdw)))))
+        if dtype == "bfloat16":
+            again = (tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
+                     tce.fused_ce_bwd_dw(x, w, labels, lse, gg))
+            check(torch.equal(again[0], dx) and torch.equal(again[1], dw),
+                  f"K6/K7 [{ct},{ch},{cv}] bf16: two runs differ")
+            line.append("a second run gives the same bits")
+        print(f"  K5-K7 [T={ct}, H={ch}, V={cv}] {dtype}: " + "; ".join(line))
 
     # times at the flagship shape, in both dtypes; the main path (phase
     # 10, O1) hands the kernels bf16
@@ -603,14 +781,22 @@ def phase_k5k7(torch, tce, t, h, v):
     for dtype in ("float32", "bfloat16"):
         x, w, labels, gg = ce_case(torch, t, h, v, dtype, g)
         loss, lse = tce.fused_ce_forward(x, w, labels)
+        n6 = 30 if dtype == "bfloat16" else 5
         k5 = time_ms(torch, lambda: tce.fused_ce_forward(x, w, labels),
                      iters=10, warmup=1)
         k6 = time_ms(torch, lambda: tce.fused_ce_bwd_dx(x, w, labels, lse,
                                                         gg),
-                     iters=5, warmup=1)
+                     iters=n6, warmup=3)
         k7 = time_ms(torch, lambda: tce.fused_ce_bwd_dw(x, w, labels, lse,
                                                         gg),
-                     iters=5, warmup=1)
+                     iters=n6, warmup=3)
+        p6 = p7 = None
+        if parent and dtype == "bfloat16":
+            with parent_kernels(_build, parent):
+                p6 = time_ms(torch, lambda: tce.fused_ce_bwd_dx(
+                    x, w, labels, lse, gg), iters=5, warmup=1)
+                p7 = time_ms(torch, lambda: tce.fused_ce_bwd_dw(
+                    x, w, labels, lse, gg), iters=5, warmup=1)
         pf = time_ms(torch, lambda: tce.fused_linear_cross_entropy_plain(
             x, w, labels), iters=5, warmup=1)
         pb = time_ms(torch, lambda: tce.fused_linear_cross_entropy_backward_plain(
@@ -631,39 +817,49 @@ def phase_k5k7(torch, tce, t, h, v):
         b5 = bound(ins + 2 * t * 4, flops, dtype)
         b6 = bound(ins + 2 * t * 4 + t * h * esz, 2 * flops, dtype)
         b7 = bound(ins + 2 * t * 4 + v * h * esz, 2 * flops, dtype)
-        print(f"  [T={t}, H={h}, V={v}] {dtype}: K5 {k5:.3f} ms (bound "
-              f"{b5[0]:.4f} ms, {b5[1]}), K6 {k6:.3f} ms (bound {b6[0]:.4f}"
-              f" ms, {b6[1]}), K7 {k7:.3f} ms (bound {b7[0]:.4f} ms, "
-              f"{b7[1]}); plain forward {pf:.3f} ms, plain backward "
-              f"{pb:.3f} ms; composition yardstick F.cross_entropy(F.linear)"
-              f" forward {cf:.3f} ms, backward {cb:.3f} ms")
-        out[dtype] = (k5, k6, k7, pf, pb, b5, b6, b7)
+        rate = [f"{name} {ms:.3f} ms, {f / ms / 1e9:.1f} TFLOP/s, "
+                f"{b[0] / ms:.4f} of its bound {b[0]:.4f} ms ({b[1]})"
+                for name, ms, f, b in (("K5", k5, flops, b5),
+                                       ("K6", k6, 2 * flops, b6),
+                                       ("K7", k7, 2 * flops, b7))]
+        print(f"  [T={t}, H={h}, V={v}] {dtype}: " + "; ".join(rate))
+        if p6 is not None:
+            print(f"  [T={t}, H={h}, V={v}] {dtype}, the parent's "
+                  f"({PARENT}) K6 {p6:.3f} ms and K7 {p7:.3f} ms in this "
+                  f"call: {p6 / k6:.2f}x and {p7 / k7:.2f}x the new ones")
+        print(f"  [T={t}, H={h}, V={v}] {dtype}: plain forward {pf:.3f} ms, "
+              f"plain backward {pb:.3f} ms; composition yardstick "
+              f"F.cross_entropy(F.linear) forward {cf:.3f} ms, backward (dx "
+              f"and dW) {cb:.3f} ms")
+        out[dtype] = (k5, k6, k7, pf, pb, cf, cb, b5, b6, b7)
         del x, w, labels, gg, loss, lse
-    k5, k6, k7, pf, pb, b5, b6, b7 = out["bfloat16"]
+    k5, k6, k7, pf, pb, cf, cb, b5, b6, b7 = out["bfloat16"]
     rows = []
-    for name, kname, line, ms, plain_ms, (b_ms, b_by), err in (
-            ("fused_ce_forward", "K5", ":93", k5, pf, b5,
+    for name, line, ms, plain_ms, lib_ms, (b_ms, b_by), err in (
+            ("fused_ce_forward", ":93", k5, pf, cf, b5,
              errs[(t, h, v, "bfloat16", "loss")]),
-            ("fused_ce_bwd_dx", "K6", ":183", k6, pb, b6,
+            ("fused_ce_bwd_dx", ":183", k6, pb, cb, b6,
              errs[(t, h, v, "bfloat16", "dx")]),
-            ("fused_ce_bwd_dw", "K7", ":198", k7, pb, b7,
+            ("fused_ce_bwd_dw", ":198", k7, pb, cb, b7,
              errs[(t, h, v, "bfloat16", "dW")])):
-        rows.append({"name": name, "route": "cuda",
+        # library_ms: the two-call composition F.cross_entropy(F.linear)
+        rows.append({"name": name, "route": "cuda", "dtype": "bfloat16",
                      "source": "paddle_tpu_torch/csrc/fused_ce.cu",
                      "replaces": "paddle_tpu/ops/fused_ce.py" + line,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
     return rows
 
 
 # --------------------------------------------------------------- phase 10
 
-def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
-    """The reference's bench_gpt step (tools/baseline_bench.py:163-197)."""
+def flagship_run(torch, amp, optimizer, TransformerLMConfig):
+    """The reference's bench_gpt step (tools/baseline_bench.py:163-197),
+    TRAIN_STEPS times from the same seeded weights: (losses, step ms,
+    peak bytes, tokens a step, layers)."""
     from paddle_tpu_torch.text.models import GPTForCausalLM
     cfg = TransformerLMConfig(dropout=0.0, use_flash_attention=True,
                               max_seq_len=FLAGSHIP["seq"])
-    L = cfg.num_layers
     model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
         1234)).train()
     opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
@@ -671,13 +867,8 @@ def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (FLAGSHIP["batch"], FLAGSHIP["seq"])).astype(
             np.int64)).cuda()
-    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
-                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
-                tce.fused_ce_bwd_dw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers:
-        fn.launches = 0
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -689,15 +880,27 @@ def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())
-    counts = tuple(fn.launches for fn in wrappers)
-    peak = torch.cuda.max_memory_allocated()
     check(loss.dtype == torch.float32, f"O1 loss dtype {loss.dtype}")
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, loss
+    return losses, times, peak, ids.numel(), cfg.num_layers
+
+
+def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig,
+                   _build, parent):
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
+    for fn in wrappers:
+        fn.launches = 0
+    losses, times, peak, tokens, L = flagship_run(torch, amp, optimizer,
+                                                  TransformerLMConfig)
+    counts = tuple(fn.launches for fn in wrappers)
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     want = (TRAIN_STEPS * L,) * 3 + (TRAIN_STEPS,) * 3
     check(counts == want, f"K1/K2/K3/K5/K6/K7 launches {counts} != {want}")
     step_ms = float(np.median(times[1:]))
-    tokens = ids.numel()
     print(f"  losses {[round(x, 6) for x in losses]}; step ms "
           f"{[round(t, 2) for t in times]}")
     print(f"  median step (steps 2-{TRAIN_STEPS}) {step_ms:.2f} ms, "
@@ -705,11 +908,35 @@ def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
           f"{peak / 2**30:.3f} GiB; K1/K2/K3 launches {counts[:3]} = "
           f"{TRAIN_STEPS} x {L} each, K5/K6/K7 {counts[3:]} = {TRAIN_STEPS}"
           " each")
-    del model, opt
+    if parent:
+        # the same steps with the parent's K6/K7: the forward is the same
+        # code, so step 1's loss agrees; later steps follow the grads
+        with parent_kernels(_build, parent):
+            p_losses, p_times, p_peak, _, _ = flagship_run(
+                torch, amp, optimizer, TransformerLMConfig)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, p_losses)]
+        p_ms = float(np.median(p_times[1:]))
+        print(f"  with the parent's ({PARENT}) K6/K7: losses "
+              f"{[round(x, 6) for x in p_losses]}, median step {p_ms:.2f} "
+              f"ms, {tokens / p_ms * 1e3:.1f} tokens/s, peak memory "
+              f"{p_peak / 2**30:.3f} GiB; relative loss differences "
+              f"{[float(f'{r:.3e}') for r in rel]}")
+        check(rel[0] <= 1e-6, f"step 1 loss {losses[0]} vs the parent's "
+              f"{p_losses[0]}")
+        check(max(rel[1:]) <= 5e-3, f"losses {losses} vs the parent's "
+              f"{p_losses}")
+        check(peak <= p_peak + (64 << 20), f"peak memory {peak} vs the "
+              f"parent's {p_peak}")
     return counts
 
 
 def main():
+    ap = argparse.ArgumentParser(description="Drive the port on one card.")
+    ap.add_argument("--parent", metavar="TREE",
+                    help=f"a checkout of {PARENT}, whose fused_ce.cu phases "
+                    "9 and 10 compare with (default: git history, where the "
+                    "checkout has it)")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -739,12 +966,17 @@ def main():
           f"cuDNN")
 
     print("[1] build")
+    parent_build = start_parent_build(_build, parent_source(args.parent))
     secs = _build.build_all()
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     print(f"  built {_build.sources()} in {secs:.2f} s")
+    parent = load_parent(parent_build)
+    print(f"  the parent's ({PARENT}) K6/K7: " + (
+        "built, for phases 9 and 10" if parent else
+        "no source at hand (no git history, no --parent): not compared"))
 
     cfg = TransformerLMConfig(dropout=0.0)
     prompts, max_new = workload(cfg.vocab_size)
@@ -766,7 +998,7 @@ def main():
     train_cfg = TransformerLMConfig(tie_embeddings=False, dropout=0.0,
                                     use_flash_attention=True)
     print("[6] K2/K3 flash-attention backward vs plain")
-    k2_row, k3_row = phase_k2k3(
+    k2_row, k3_row, k1b_row, k2b_row, k3b_row = phase_k2k3(
         torch, attn, (8, train_cfg.num_heads, train_cfg.max_seq_len,
                       train_cfg.hidden_size // train_cfg.num_heads))
     print("[7] train GPT-124M (untied head)")
@@ -776,18 +1008,21 @@ def main():
         phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig, tie)
     print("[9] K5/K6/K7 fused linear cross-entropy vs plain")
     k5_row, k6_row, k7_row = phase_k5k7(
-        torch, tce, FLAGSHIP["batch"] * FLAGSHIP["seq"], cfg.hidden_size,
-        cfg.vocab_size)
+        torch, tce, _build, FLAGSHIP["batch"] * FLAGSHIP["seq"],
+        cfg.hidden_size, cfg.vocab_size, parent)
     print("[10] the reference's flagship step: GPT-124M tied, AMP O1 bf16")
     k1_f, k2_f, k3_f, k5, k6, k7 = phase_flagship(
-        torch, attn, tce, amp, optimizer, TransformerLMConfig)
+        torch, attn, tce, amp, optimizer, TransformerLMConfig, _build, parent)
 
     k4_row["launches"] = k4
-    # K1 runs on three main paths: the serving cross-check, the untied f32
-    # training and the flagship step; K2/K3 on the last two
-    k1_row["launches"] = k1 + k1_train + k1_f
-    k2_row["launches"] = k2 + k2_f
-    k3_row["launches"] = k3 + k3_f
+    # K1 runs on three main paths: the serving cross-check and the untied
+    # training in f32, the flagship step in bf16; K2/K3 on the last two
+    k1_row["launches"] = k1 + k1_train
+    k2_row["launches"] = k2
+    k3_row["launches"] = k3
+    k1b_row["launches"] = k1_f
+    k2b_row["launches"] = k2_f
+    k3b_row["launches"] = k3_f
     k5_row["launches"] = k5
     k6_row["launches"] = k6
     k7_row["launches"] = k7
@@ -796,12 +1031,13 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print(card[0] if card else "nvidia-smi: no output")
-    keys = ("name", "route", "source", "replaces", "launches",
+    keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in (k4_row, k1_row, k2_row,
-                                              k3_row, k5_row, k6_row,
+                                              k3_row, k1b_row, k2b_row,
+                                              k3b_row, k5_row, k6_row,
                                               k7_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,38 +25,67 @@
 // 0.054 ms at 3.35 TB/s. K6 and K7 each recompute S and do one more product
 // of the same size: 1.27e12 flops, 18.9 ms in f32, 1.28 ms in bf16.
 //
-// What the design does about it (a simple first kernel: f32 FMAs on the
-// CUDA cores for both dtypes; mma.sync / wgmma for bf16, TMA and a fused
-// backward are later work):
+// K5 (both dtypes) and the f32 K6/K7: f32 FMAs on the CUDA cores (a simple
+// first kernel; TF32 is off by contract, so f32 stays full f32):
 //   * every logits tile S [64 x 64] is a small GEMM over H, staged in shared
 //     memory 32 columns at a time; each of the 256 threads owns a 4 x 4
-//     register tile (rows ty*4.., columns tx + 16j), the layout of the
-//     flash kernels, so each shared-memory load feeds 2 FMAs;
+//     register tile (rows ty*4.., columns tx + 16j), so each shared-memory
+//     load feeds 2 FMAs;
 //   * K5: a block owns 64 token rows and loops over its share of the vocab
 //     tiles, keeping an online max / sum-exp per row and thread; the 16
 //     threads of a row combine once, with shuffles, at the end. The vocab
 //     is split over a second grid dimension so that T = 8192 (128 row
 //     tiles) still fills the card with several blocks per SM; a small
 //     combine kernel merges the splits in a fixed order;
-//   * K6 keeps the block's [64 x H] dx resident in shared memory (192 KB at
-//     H = 768, one block per SM) rather than splitting H over blocks, which
-//     would recompute every S tile once per split: the recompute costs as
-//     much as the product itself. Each vocab tile makes the d tile in
-//     shared memory and adds d W_tile into the accumulator 64 columns at a
-//     time. Above H = 768 columns go to a second grid dimension;
-//   * K7 is the same kernel with the roles swapped: a block owns 64 vocab
-//     rows of dW and loops over the token tiles (786 blocks at V = 50304);
-//   * d stays f32 (the TPU kernels rounded it to W's dtype before the
-//     product; the port keeps it f32 as _xla_bwd does), bf16 inputs are
-//     widened on load and the outputs are rounded once, at the end;
+//   * f32 K6 keeps the block's [64 x H] dx in shared memory (one block per
+//     SM) and adds d W_tile into it 64 columns at a time; f32 K7 is the
+//     same kernel with x and W swapped.
+//
+// bf16 K6/K7 (fused_ce_bwd_mma_kernel): the Pallas kernels' arithmetic on
+// the tensor cores. S = x W_v^T is bf16 x bf16 -> f32; d is made in f32,
+// exp included, and rounded to bf16 (fused_ce.py:195, :211); the
+// d-product is bf16 x bf16 -> f32; the output is rounded once, at the end.
+// Both products are mma.sync.m16n8k16 with operands from ldmatrix.
+// What bounds it besides the tensor cores: each block of 32 rows streams
+// all of B (W for K6, x for K7) through shared memory, 64 flops per byte
+// staged, and every operand reaches the tensor cores through ldmatrix at
+// 128 bytes a cycle per SM; mma.sync itself issues below wgmma's rate.
+//   * one kernel, two roles: a block owns 32 rows of A (x rows for K6,
+//     W rows for K7, so K7 makes d^T directly as the A operand) and the
+//     768 columns of out[rows] of one chunk of H (blockIdx.y; a second
+//     chunk above H = 768). It walks every 32-row tile of B;
+//   * the accumulator lives in registers: 8 warps x 96 columns, each warp
+//     2 m16 x 12 n8 mma tiles = 96 f32 a thread (192 registers, one block
+//     of 256 threads per SM, about 218 KB of shared memory);
+//   * B tiles are staged once, in bf16, as [32 x 776] (rows padded by 16
+//     bytes, so the 8 rows an ldmatrix reads fall in 8 distinct bank
+//     groups): the same copy feeds S (K = H, ldmatrix) and the d-product
+//     (K = 32, ldmatrix.trans). cp.async double-buffers them: the next
+//     tile loads while this one computes. A stays resident when H is one
+//     chunk;
+//   * every chunk is staged 768 columns wide, zeros past H, so both
+//     products run fixed, fully unrolled loops;
+//   * S [32 x 32] is split over the 8 warps as 4 quarters of K x 2 column
+//     halves (4 independent mma chains a warp); the 4 f32 partials meet in
+//     shared memory, where every thread makes 4 elements of d (lse, g and
+//     label per row for K6, per column for K7, staged with the tile) and
+//     writes them as bf16: the A operand of the d-product. Three barriers
+//     a tile: staged, S partials written, d written;
+//   * above H = 768 the chunks of H are walked for S with the block's own
+//     chunk last, so the B copy that the d-product reads is the last one
+//     staged;
 //   * ragged T, V and H: rows and columns outside the matrices load as
-//     zeros and give d = 0 exactly, so any size works; ignore_index rows
-//     give loss 0 and add exactly nothing to dx or dW.
+//     zeros (cp.async with a source size of 0; element by element where H
+//     is not a multiple of 8) and give d = 0 exactly; ignore_index rows
+//     give loss 0 and add exactly nothing to dx or dW. No atomics: two
+//     runs give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -73,9 +102,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // rows [r0, r0 + 64) x columns [k0, k0 + 32) of a row-major [n, H] matrix
 // into shared memory with row stride kL; outside the matrix zero
@@ -352,6 +378,299 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- bf16 K6 / K7 on the tensor cores -------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMR = 32;              // rows of A (and of out) a block owns
+constexpr int kNR = 32;              // rows of a B tile: the K of d-product
+constexpr int kMThreads = 256;       // 8 warps
+constexpr int kHC = 768;             // columns of an H chunk; out columns
+constexpr int kWC = kHC / 8;         //   of a block, 96 of them a warp
+constexpr int kLD = kHC + 8;         // bf16 row stride of staged A and B
+constexpr int kKS = 4;               // warps splitting the K of S
+constexpr int kSLD = kNR + 8;        // f32 row stride of the S partials
+constexpr int kDLD = kNR + 8;        // bf16 row stride of the d tile
+constexpr int kMmaSmem = 2 * kMR * kLD * 2 + 2 * kNR * kLD * 2 +
+                         kKS * kMR * kSLD * 4 + kMR * kDLD * 2 +
+                         2 * kNR * (4 + 4 + 8);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; `bytes` = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src,
+                                               int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(N), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and each thread gets (row lane/4, columns 2(lane%4), +1) of
+// each (.trans: of each one's transpose)
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 in, f32 sum
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16 K6 (TOK_A: A = x, B = W, out = dx) and K7 (A = W, B = x, out = dW).
+// One block per (32 rows of A, 768-column chunk `own` of H). For every
+// 32-row tile of B:  S = A_rows B_tile^T over all of H,
+//   d = bf16((exp(S - lse) - onehot) g valid),  acc += d B_tile[:, own].
+// `vec`: H % 8 == 0 and A, B 16-byte aligned, so rows stage by cp.async.
+template <typename L, bool TOK_A>
+__global__ void __launch_bounds__(kMThreads, 1)
+    fused_ce_bwd_mma_kernel(const bf16* __restrict__ A,
+                            const bf16* __restrict__ B,
+                            const L* __restrict__ labels,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ g,
+                            bf16* __restrict__ out, int na, int nb, int H,
+                            long long ignore_index, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sA = reinterpret_cast<bf16*>(smem_raw);            // [2][kMR][kLD]
+  bf16* sB = sA + 2 * kMR * kLD;                           // [2][kNR][kLD]
+  float* sS = reinterpret_cast<float*>(sB + 2 * kNR * kLD);  // [kKS][kMR][kSLD]
+  bf16* sD = reinterpret_cast<bf16*>(sS + kKS * kMR * kSLD);  // [kMR][kDLD]
+  float* sLse = reinterpret_cast<float*>(sD + kMR * kDLD);    // [2][kNR]
+  float* sG = sLse + 2 * kNR;                                 // [2][kNR]
+  L* sLab = reinterpret_cast<L*>(sG + 2 * kNR);               // [2][kNR]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int a0 = blockIdx.x * kMR;
+  const int own = blockIdx.y;
+  const int nch = (H + kHC - 1) / kHC;
+  const int steps = (nb + kNR - 1) / kNR * nch;
+  const int n_tok = TOK_A ? na : nb;
+
+  // 32 rows from r0 of a row-major [n, H] matrix, the 768 columns of
+  // chunk c, into dst (row stride kLD); outside the matrix zero
+  auto stage_rows = [&](bf16* dst, const bf16* src, int r0, int n, int c) {
+    const int k0 = c * kHC;
+    const int hc = min(kHC, H - k0);
+    if (vec) {  // a warp a row at a time, a lane 16 bytes
+      for (int r = warp; r < kMR; r += kMThreads / 32) {
+        const bool row_ok = r0 + r < n;
+        const bf16* row = src + (size_t)(row_ok ? r0 + r : 0) * H + k0;
+        for (int k = lane * 8; k < kHC; k += 256) {
+          const bool ok = row_ok && k < hc;
+          cp_async16(dst + r * kLD + k, ok ? row + k : src, ok ? 16 : 0);
+        }
+      }
+    } else {
+      for (int idx = tid; idx < kMR * kHC; idx += kMThreads) {
+        const int r = idx / kHC, k = idx - r * kHC;
+        dst[r * kLD + k] = (r0 + r < n && k < hc)
+                               ? src[(size_t)(r0 + r) * H + k0 + k]
+                               : __float2bfloat16(0.f);
+      }
+    }
+  };
+  // lse, g and label of the 32 tokens from t0 into statistics slot `slot`
+  auto stage_stats = [&](int slot, int t0) {
+    if (tid < kNR) {
+      const bool ok = t0 + tid < n_tok;
+      const int t = ok ? t0 + tid : 0;
+      cp_async_small<4>(sLse + slot * kNR + tid, lse + t, ok ? 4 : 0);
+      cp_async_small<4>(sG + slot * kNR + tid, g + t, ok ? 4 : 0);
+      cp_async_small<(int)sizeof(L)>(sLab + slot * kNR + tid, labels + t,
+                                     ok ? (int)sizeof(L) : 0);
+    }
+  };
+  // step s = (B tile s / nch, the (s % nch)-th chunk of H in the order
+  // own + 1, own + 2, ..., own): stage it into buffer s & 1. A is staged
+  // once when H is one chunk, with every step otherwise.
+  auto stage = [&](int s) {
+    const int bt = s / nch, i = s - bt * nch;
+    const int c = (own + 1 + i) % nch;
+    if (nch > 1 || s == 0)
+      stage_rows(sA + (nch > 1 ? (s & 1) : 0) * kMR * kLD, A, a0, na, c);
+    stage_rows(sB + (s & 1) * kNR * kLD, B, bt * kNR, nb, c);
+    if (!TOK_A && i == 0) stage_stats(bt & 1, bt * kNR);
+    if (TOK_A && s == 0) stage_stats(0, a0);
+    cp_async_commit();
+  };
+
+  // ldmatrix row addresses of this lane: for an A operand (rows m,
+  // contiguous k) and, the same offsets, for the d-product's B operand
+  // through .trans (rows k, contiguous n); S's B operand is rows n,
+  // contiguous k with the matrices in the other order
+  const int lr = lane & 7, lm = lane >> 3;
+  const int a_row = lr + (lm & 1) * 8, a_col = (lm >> 1) * 8;
+  const int b_row = lr + (lm >> 1) * 8, b_col = (lm & 1) * 8;
+  const int gq = lane >> 2, tq = lane & 3;  // accumulator row, column pair
+  const int kq = warp >> 1, nh = warp & 1;  // S: K quarter, column half
+
+  float acc[2][12][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 12; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+  float sacc[2][2][4];
+
+  stage(0);
+  for (int s = 0; s < steps; ++s) {
+    const int bt = s / nch, i = s - bt * nch;
+    cp_async_wait<0>();
+    __syncthreads();  // step s is staged; every warp is past step s - 1
+    if (s + 1 < steps) stage(s + 1);  // into step s - 1's buffers
+    const bf16* cA = sA + (nch > 1 ? (s & 1) : 0) * kMR * kLD;
+    const bf16* cB = sB + (s & 1) * kNR * kLD;
+
+    if (i == 0) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sacc[m][n][e] = 0.f;
+    }
+#pragma unroll
+    for (int k = kq * 16; k < kHC; k += kKS * 16) {
+      uint32_t af[2][4], bfr[4];
+      ldsm_x4(af[0], cA + a_row * kLD + k + a_col);
+      ldsm_x4(af[1], cA + (16 + a_row) * kLD + k + a_col);
+      ldsm_x4(bfr, cB + (nh * 16 + b_row) * kLD + k + b_col);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        mma_bf16(sacc[m][0], af[m], bfr[0], bfr[1]);
+        mma_bf16(sacc[m][1], af[m], bfr[2], bfr[3]);
+      }
+    }
+    if (i < nch - 1) continue;
+
+    // the tile's S: this warp's partial [32 x 16] into shared memory
+    float* part = sS + kq * kMR * kSLD;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float* p = part + (m * 16 + gq) * kSLD + nh * 16 + n * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(p) =
+            make_float2(sacc[m][n][0], sacc[m][n][1]);
+        *reinterpret_cast<float2*>(p + 8 * kSLD) =
+            make_float2(sacc[m][n][2], sacc[m][n][3]);
+      }
+    __syncthreads();
+
+    // d: thread owns row r, columns c4 .. c4 + 3; partials summed in order
+    {
+      const int r = tid >> 3, c4 = (tid & 7) * 4;
+      float4 sv = *reinterpret_cast<const float4*>(sS + r * kSLD + c4);
+#pragma unroll
+      for (int q = 1; q < kKS; ++q) {
+        const float4 o = *reinterpret_cast<const float4*>(
+            sS + (q * kMR + r) * kSLD + c4);
+        sv.x += o.x;
+        sv.y += o.y;
+        sv.z += o.z;
+        sv.w += o.w;
+      }
+      const float sj[4] = {sv.x, sv.y, sv.z, sv.w};
+      float dv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ra = a0 + r, rb = bt * kNR + c4 + j;
+        // the token's statistics: of row r (K6) or of column c4 + j (K7)
+        const int at = TOK_A ? r : (bt & 1) * kNR + c4 + j;
+        float d = 0.f;
+        if (ra < na && rb < nb) {
+          const long long lab = (long long)sLab[at];
+          const long long v = TOK_A ? rb : ra;
+          if (lab != ignore_index)
+            d = (expf(sj[j] - sLse[at]) - (v == lab ? 1.f : 0.f)) * sG[at];
+        }
+        dv[j] = d;
+      }
+      // rounded to bf16 (to nearest even), as the Pallas kernels round d
+      __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(sD + r * kDLD + c4);
+      q[0] = __floats2bfloat162_rn(dv[0], dv[1]);
+      q[1] = __floats2bfloat162_rn(dv[2], dv[3]);
+    }
+    __syncthreads();
+
+    // acc[32 x this warp's 96 columns] += d [32 x 32] B_tile[32 x cols]
+    const int col0 = warp * kWC;
+#pragma unroll
+    for (int k = 0; k < kNR; k += 16) {
+      uint32_t af[2][4];
+      ldsm_x4(af[0], sD + a_row * kDLD + k + a_col);
+      ldsm_x4(af[1], sD + (16 + a_row) * kDLD + k + a_col);
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        uint32_t bfr[4];
+        ldsm_x4_t(bfr, cB + (k + a_row) * kLD + col0 + j * 16 + a_col);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma_bf16(acc[m][2 * j], af[m], bfr[0], bfr[1]);
+          mma_bf16(acc[m][2 * j + 1], af[m], bfr[2], bfr[3]);
+        }
+      }
+    }
+  }
+
+  // out, rounded once
+  const int h0 = own * kHC + warp * kWC + 2 * tq;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int a = a0 + m * 16 + gq + half * 8;
+      if (a >= na) continue;
+#pragma unroll
+      for (int n = 0; n < 12; ++n) {
+        const int h = h0 + n * 8;
+        if (h < H)
+          out[(size_t)a * H + h] = __float2bfloat16(acc[m][n][2 * half]);
+        if (h + 1 < H)
+          out[(size_t)a * H + h + 1] =
+              __float2bfloat16(acc[m][n][2 * half + 1]);
+      }
+    }
+}
+
 template <typename T, typename L>
 int launch_fwd(const void* x, const void* w, const void* labels, float* part,
                float* loss, float* lse, int Tn, int V, int H, int nsplit,
@@ -388,17 +707,48 @@ int launch_bwd(const void* a, const void* b, const void* labels,
   return 0;
 }
 
+template <typename L, bool TOK_A>
+int launch_bwd_mma(const void* a, const void* b, const void* labels,
+                   const float* lse, const float* g, void* out, int na,
+                   int nb, int H, long long ignore_index, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_bwd_mma_kernel<L, TOK_A>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = H % 8 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  dim3 grid((na + kMR - 1) / kMR, (H + kHC - 1) / kHC);
+  fused_ce_bwd_mma_kernel<L, TOK_A><<<grid, kMThreads, kMmaSmem, st>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<const L*>(labels), lse, g, static_cast<bf16*>(out), na, nb,
+      H, ignore_index, vec);
+  return 0;
+}
+
+// bf16 to the tensor-core kernel, f32 to the CUDA-core one
+template <typename T, typename L, bool TOK_A>
+int launch_bwd_for(const void* a, const void* b, const void* labels,
+                   const float* lse, const float* g, void* out, int na,
+                   int nb, int H, long long ignore_index, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return launch_bwd_mma<L, TOK_A>(a, b, labels, lse, g, out, na, nb, H,
+                                    ignore_index, st);
+  else
+    return launch_bwd<T, L, TOK_A>(a, b, labels, lse, g, out, na, nb, H,
+                                   ignore_index, st);
+}
+
 template <typename T, bool TOK_A>
 int bwd_by_label(const void* a, const void* b, const void* labels,
                  const float* lse, const float* g, void* out, int na, int nb,
                  int H, long long ignore_index, int label_dtype,
                  cudaStream_t st) {
   if (label_dtype == 0)
-    return launch_bwd<T, int32_t, TOK_A>(a, b, labels, lse, g, out, na, nb, H,
-                                         ignore_index, st);
+    return launch_bwd_for<T, int32_t, TOK_A>(a, b, labels, lse, g, out, na,
+                                             nb, H, ignore_index, st);
   if (label_dtype == 1)
-    return launch_bwd<T, int64_t, TOK_A>(a, b, labels, lse, g, out, na, nb, H,
-                                         ignore_index, st);
+    return launch_bwd_for<T, int64_t, TOK_A>(a, b, labels, lse, g, out, na,
+                                             nb, H, ignore_index, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -47,21 +47,27 @@ def fused_linear_cross_entropy_plain(x, w_vh, labels, ignore_index=-100):
 
 
 def fused_linear_cross_entropy_backward_plain(x, w_vh, labels, lse, g,
-                                              ignore_index=-100):
+                                              ignore_index=-100,
+                                              d_dtype=None):
     """Plain version of K6 and K7: ``(dx, dW)`` in x's and W's dtypes
     from the forward's LSE and the per-token cotangent ``g`` (the
-    reference ``_dtile`` :172 with the two products of K6/K7, d kept f32
-    through both as ``_xla_bwd`` does, :301-308)::
+    reference ``_dtile`` :172 with the two products of K6/K7)::
 
         d  = (exp(x W^T - lse) - onehot(labels)) * g * valid
         dx = d W,   dW = d^T x
-    """
+
+    Every product and sum is f32. ``d_dtype=None`` keeps d f32 through
+    both products, as ``_xla_bwd`` does (:301-308); ``torch.bfloat16``
+    rounds d to bf16 first, as the Pallas kernels do (:195, :211) and
+    the bf16 K6/K7 kernels with them."""
     xf, wf = x.float(), w_vh.float()
     p = torch.exp(xf @ wf.t() - lse[:, None])
     col = torch.arange(w_vh.shape[0], device=x.device)
     onehot = (col[None, :] == labels.long()[:, None]).float()
     valid = (labels != ignore_index).float()
     d = (p - onehot) * (g.float() * valid)[:, None]
+    if d_dtype is not None:
+        d = d.to(d_dtype).float()
     return (d @ wf).to(x.dtype), (d.t() @ xf).to(w_vh.dtype)
 
 

@@ -244,6 +244,65 @@ def test_fused_ce_kernels_match_plain(dev, t, h, v, dtype, tol, label_dtype):
         assert err <= tol * want.abs().max().item(), err
 
 
+# bf16 K6/K7 (the tensor-core kernel) against the plain backward: with d
+# kept f32, 1e-2 of the largest grad (d rounded to bf16 in the kernel,
+# summed over V or T, and the final rounding); with d rounded to bf16 as
+# the kernel rounds it, 4e-3 (half a bf16 ulp at the largest grad for the
+# final rounding, plus f32 sums in another order, which may round a d
+# the other way)
+CE_BF16D_TOL = 4e-3
+
+
+def _bf16_backward_errors(x, w, labels, lse, g):
+    dx = tce.fused_ce_bwd_dx(x, w, labels, lse, g)
+    dw = tce.fused_ce_bwd_dw(x, w, labels, lse, g)
+    errs = []
+    for d_dtype, tol in ((None, 1e-2), (torch.bfloat16, CE_BF16D_TOL)):
+        ref = tce.fused_linear_cross_entropy_backward_plain(
+            x.float(), w.float(), labels, lse, g, d_dtype=d_dtype)
+        for got, want in zip((dx, dw), ref):
+            assert got.dtype == torch.bfloat16 and got.shape == want.shape
+            err = (got.float() - want).abs().max().item()
+            top = want.abs().max().item()
+            assert bool(torch.isfinite(got).all()) and err <= tol * top, (
+                d_dtype, err, top)
+            errs.append(err / top if top else 0.0)
+    return dx, dw, errs
+
+
+@pytest.mark.parametrize("t,h,v", [
+    (256, 8, 1234), (256, 48, 1234), (256, 200, 1234), (256, 768, 1234),
+    (256, 800, 1234), (256, 1024, 1234), (1, 768, 1234), (31, 768, 1234),
+    (33, 768, 1234), (63, 768, 1234), (65, 768, 1234), (1000, 768, 1234),
+    (256, 768, 7), (256, 768, 50304), (45, 13, 300)])
+@pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
+def test_bf16_ce_backward_kernels_at_tile_edges(dev, t, h, v, label_dtype):
+    """The bf16 K6/K7 at the edges of their 32-row tiles and 768-column
+    chunks of H (H = 8 .. 1024, 13 staged element by element; T = 1 ..
+    1000; V = 7 .. 50304) against both plain variants, one launch each."""
+    x, w, labels, g = _ce_inputs(dev, t, h, v, torch.bfloat16, t + h + v,
+                                 label_dtype)
+    _, lse = tce.fused_ce_forward(x, w, labels)
+    n6, n7 = tce.fused_ce_bwd_dx.launches, tce.fused_ce_bwd_dw.launches
+    _bf16_backward_errors(x, w, labels, lse, g)
+    assert (tce.fused_ce_bwd_dx.launches,
+            tce.fused_ce_bwd_dw.launches) == (n6 + 1, n7 + 1)
+
+
+def test_bf16_ce_backward_all_ignored_and_deterministic(dev):
+    """An all-ignored batch gives exactly zero grads; two runs of the bf16
+    K6/K7 at a mid-size shape give the same bits."""
+    x, w, labels, g = _ce_inputs(dev, 70, 768, 3000, torch.bfloat16, 5)
+    ignored = torch.full_like(labels, -100)
+    _, lse = tce.fused_ce_forward(x, w, ignored)
+    assert not tce.fused_ce_bwd_dx(x, w, ignored, lse, g).any()
+    assert not tce.fused_ce_bwd_dw(x, w, ignored, lse, g).any()
+    _, lse = tce.fused_ce_forward(x, w, labels)
+    first = _bf16_backward_errors(x, w, labels, lse, g)
+    again = _bf16_backward_errors(x, w, labels, lse, g)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
 def test_fused_ce_rejects_and_autograd_launches_k5_k6_k7(dev):
     """Under autograd the fused op launches K5 once and K6 and K7 once
     each in its backward, with the plain composition's grads; what the

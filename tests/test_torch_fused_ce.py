@@ -17,7 +17,12 @@ Tolerances:
   (fused_ce.py:195, :211) where the port keeps d f32, and both round
   the grads to bf16 at the end: grads within 1e-2 of each one's largest
   |grad| (two bf16 roundings, 2 x 2^-9 each, plus sums of rounded
-  terms); the loss and LSE are f32 on both sides (atol/rtol 1e-5).
+  terms); the loss and LSE are f32 on both sides (atol/rtol 1e-5);
+- bf16 with d rounded to bf16 on both sides (the plain backward's
+  ``d_dtype=torch.bfloat16``, the Pallas kernels' own arithmetic): grads
+  within 4e-3 of the largest |grad|, one bf16 ulp (2^-8) at the largest
+  grad. What remains is the order of the f32 sums and the final bf16
+  rounding of each side, which may land one ulp apart.
 """
 import numpy as np
 import pytest
@@ -113,6 +118,39 @@ def test_plain_matches_pallas_interpret(interpret_kernels, dtype, t, h, v):
         else:
             err = np.abs(got - want).max()
             assert err <= 1e-2 * np.abs(want).max(), err
+
+
+BF16_D_TOL = 4e-3
+
+
+@pytest.mark.parametrize("t,h,v", [(256, 128, 2048), (128, 256, 1024),
+                                   (256, 64, 2048)])
+def test_plain_bf16_d_matches_pallas_interpret(interpret_kernels, t, h, v):
+    """The plain backward with ``d_dtype=torch.bfloat16`` rounds d as
+    ``_pallas_bwd`` does before both products, so in bf16 it meets the
+    Pallas kernels (interpret mode) within one bf16 ulp of the largest
+    grad, closer than the f32-d default does."""
+    x, w, labels, g = _inputs(3 + h, t, h, v)
+    jx, jw = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x, w))
+    jl = jnp.asarray(labels)
+    _, jlse = jce._pallas_fwd(jx, jw, jl, IGNORE)
+    jdx, jdw = jce._pallas_bwd(jx, jw, jl, jlse, jnp.asarray(g), IGNORE)
+    tx, tw = (torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+              for a in (jx, jw))
+    tl, tg = _t(labels, g)
+    _, lse = tce.fused_ce_forward(tx, tw, tl, IGNORE)
+    errs = {}
+    for d_dtype in (None, torch.bfloat16):
+        grads = tce.fused_linear_cross_entropy_backward_plain(
+            tx, tw, tl, lse, tg, IGNORE, d_dtype=d_dtype)
+        for name, got, want in zip(("dx", "dW"), grads, (jdx, jdw)):
+            assert got.dtype == torch.bfloat16
+            want = np.asarray(want.astype(jnp.float32))
+            err = np.abs(got.float().numpy() - want).max()
+            errs[(d_dtype, name)] = err / np.abs(want).max()
+    for name in ("dx", "dW"):
+        assert errs[(torch.bfloat16, name)] <= BF16_D_TOL, errs
+        assert errs[(torch.bfloat16, name)] <= errs[(None, name)], errs
 
 
 def _plain_autograd_loss(x, w, labels):

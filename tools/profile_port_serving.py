@@ -33,8 +33,9 @@ def classify(name):
         return "K3 flash backward dK/dV"
     if "fused_ce_fwd" in n:
         return "K5 fused CE forward"
-    if "fused_ce_bwd_kernel" in n:
-        # the template's last argument: true (K6, dx) or false (K7, dW)
+    if "fused_ce_bwd_kernel" in n or "fused_ce_bwd_mma_kernel" in n:
+        # f32 (CUDA cores) or bf16 (tensor cores); the template's last
+        # argument: true (K6, dx) or false (K7, dW)
         return ("K6 fused CE dx" if "true>" in n or "lb1e" in n
                 else "K7 fused CE dW")
     if any(t in n for t in ("gemm", "gemv", "cutlass", "sm90_x", "cublas",
