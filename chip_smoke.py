@@ -7,16 +7,19 @@ Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
              all started together) and print the build seconds, with
              ptxas's registers and spills; beside them the parent
-             commit's fused_ce.cu (from --parent TREE or git history,
-             where either is at hand) for phases 9 and 10;
+             commit's flash_fwd.cu and fused_ce.cu (from --parent TREE or
+             git history, where either is at hand) for phases 3, 6, 9
+             and 10;
   2. K4      paged decode attention against its plain PyTorch version at
              the engine's shapes: ragged lengths, mid-block tails,
              trash-padded tables over garbage, a length past MB*BS,
              f32 and bf16, plus head_dim 32/128 and a length-0 slot;
   3. K1      flash-attention forward against its plain version for O and
              LSE: [2,12,1024,64], a ragged [1,12,333,64], the serving
-             cross-check's longest shape and a head_dim-128 case,
-             causal and not, f32 and bf16;
+             cross-check's longest shape and head_dim-128 cases, causal
+             and not, f32 and bf16; bf16 against both plain variants (P
+             kept f32, and P rounded to bf16 as the kernel rounds it);
+             f32 gives the parent's bits;
   4. serve   GPT-124M (random weights from a seeded torch.Generator) in
              ServingEngine(num_slots=8, block_size=16, async_depth=1):
              16 greedy requests in two staggered waves, four sharing a
@@ -29,8 +32,9 @@ Phases, one line each:
              bf16, a ragged [1,12,333,64] causal and not, [1,4,200,128];
              K2, K3, the plain backward and the backward of PyTorch's
              scaled_dot_product_attention timed at the training shape,
-             in f32 and, with K1 and SDPA's forward, in bf16 (the
-             flagship's dtype);
+             in f32 and, with K1, the parent's K1 and SDPA's forward, in
+             bf16 (the flagship's dtype), with TFLOP/s and the fraction
+             of the bound;
   7. train   GPT-124M with an untied head (random weights from a seeded
              torch.Generator), batch 8 x seq 1024, labels = ids, AdamW(1e-4,
              weight_decay 0.01, ClipGradByGlobalNorm(1.0)), 6 steps: every
@@ -46,9 +50,9 @@ Phases, one line each:
              (T = 8 x 1024, H = 768, V = 50304, about 5 % of the rows
              ignore_index) in f32 and bf16 and at ragged small shapes;
              bf16 K6/K7 against both plain variants (d kept f32, and d
-             rounded to bf16 as the kernels round it) and run twice for
-             the same bits; f32 K6/K7 give the parent's bits; K5, K6, K7
-             (30 calls in bf16), the parent's K6/K7, the plain forward
+             rounded to bf16 as the kernels round it); bf16 K5-K7 run
+             twice for the same bits; f32 K5 gives the parent's bits; K5,
+             K6, K7 (30 calls in bf16), the parent's K5, the plain forward
              and backward and, as a yardstick, the two-call composition
              F.cross_entropy(F.linear) forward and backward timed in both
              dtypes, with TFLOP/s and the fraction of the bound;
@@ -59,10 +63,11 @@ Phases, one line each:
              amp.auto_cast(level="O1", dtype="bfloat16"), 6 steps: every
              loss finite, the last below the first, K1 = K2 = K3 launches
              = 6 x 12 and K5 = K6 = K7 = 6; median step ms, tokens/s, peak
-             memory. Then, where the parent's K6/K7 were built, the same
-             6 steps with them: step 1's loss within 1e-6 relative (the
-             forward is the same code), steps 2-6 within 5e-3, peak
-             memory no more than the parent run's + 64 MiB.
+             memory. Then, where the parent's K1 and K5 were built, the
+             same 6 steps with them: step 1's loss within 1e-3 relative
+             (the forward now rounds P to bf16 and sums K5 in another
+             order), steps 2-6 within 5e-3, peak memory no more than the
+             parent run's + 64 MiB.
 Then the card's name and power limit, one JSON line of kernel numbers,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -114,10 +119,23 @@ CE_BF16_TOL = 1e-2
 # largest grad for the kernel's final rounding (at most 2^-8 = 3.9e-3 of
 # it), plus f32 sums in another order
 CE_BF16D_TOL = 5e-3
-# the commit whose K6/K7 (CUDA cores, bf16 widened to f32) phases 9 and
-# 10 hold the tensor-core kernels against, where its source is at hand
-PARENT = "16bb9ab"
-BWD_SYMBOLS = ("fused_ce_backward_dx", "fused_ce_backward_dw")
+# bf16 K1 against the plain version that rounds P to bf16 over 64-key
+# blocks as the kernel does: both round O once (2^-8 of |O|), and an exp or
+# a sum in another order can round a P element or O the other way; LSE
+# is f32 on both sides (sums over up to 1024 keys, exp2 for exp)
+BF16P_TOL = 1e-2
+FLASH_LSE_TOL = 5e-5
+# the commit whose K1 and K5 (CUDA cores, bf16 widened to f32) phases 3,
+# 6, 9 and 10 hold the tensor-core kernels against, where its source is
+# at hand: {(source, symbol): ctypes argtypes}
+PARENT = "cc89250"
+PARENT_SYMBOLS = {
+    ("flash_fwd", "flash_attention_forward"):
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    ("fused_ce", "fused_ce_forward"):
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 FLAGSHIP = dict(batch=8, seq=1024)
 
 
@@ -235,15 +253,18 @@ def phase_k4(torch, pa):
 
 # ---------------------------------------------------------------- phase 3
 
-def phase_k1(torch, attn, main_shape):
+def phase_k1(torch, attn, main_shape, _build, parent):
     import torch.nn.functional as F
     cases = [((2, 12, 1024, 64), c, dt) for c in (True, False)
              for dt in ("float32", "bfloat16")]
     cases += [((1, 12, 333, 64), c, dt) for c in (True, False)
               for dt in ("float32", "bfloat16")]
-    cases += [(main_shape, True, "float32"), ((1, 4, 200, 128), True,
-                                              "float32"),
-              ((1, 4, 200, 128), False, "bfloat16")]
+    cases += [(main_shape, True, "float32"), (main_shape, True, "bfloat16"),
+              ((1, 4, 200, 128), True, "float32"),
+              ((1, 4, 200, 128), False, "bfloat16"),
+              ((1, 4, 200, 128), True, "bfloat16"),
+              ((2, 3, 65, 128), True, "bfloat16"),
+              ((1, 3, 1, 64), False, "bfloat16")]
     g = torch.Generator(device="cuda").manual_seed(4)
     main = None
     for shape, causal, dtype in cases:
@@ -252,17 +273,37 @@ def phase_k1(torch, attn, main_shape):
                    for _ in range(3))
         scale = 1.0 / shape[-1] ** 0.5
         o, lse = attn.flash_attention_forward(q, k, v, scale, causal)
-        ro, rlse = attn.flash_attention_plain(q.float(), k.float(),
-                                              v.float(), scale, causal)
-        torch.cuda.synchronize()
-        eo = (o.float() - ro).abs().max().item()
-        el = (lse - rlse).abs().max().item()
-        tol = F32_FLASH_TOL if dtype == "float32" else BF16_TOL
-        check(eo <= tol and el <= tol,
-              f"K1 {shape} causal={causal} {dtype}: O err {eo}, LSE err "
-              f"{el} > {tol}")
-        print(f"  K1 {list(shape)} causal={causal} {dtype}: O err "
-              f"{eo:.3e}, LSE err {el:.3e} (tol {tol})")
+        # bf16: against P kept f32 and against P rounded as the kernel
+        # rounds it
+        variants = ([(None, F32_FLASH_TOL, F32_FLASH_TOL)]
+                    if dtype == "float32" else
+                    [(None, BF16_TOL, FLASH_LSE_TOL),
+                     (torch.bfloat16, BF16P_TOL, FLASH_LSE_TOL)])
+        line = []
+        for p_dtype, tol, ltol in variants:
+            ro, rlse = attn.flash_attention_plain(q, k, v, scale, causal,
+                                                  p_dtype=p_dtype)
+            torch.cuda.synchronize()
+            eo = (o.float() - ro.float()).abs().max().item()
+            el = (lse - rlse).abs().max().item()
+            check(eo <= tol and el <= ltol,
+                  f"K1 {shape} causal={causal} {dtype} (P "
+                  f"{p_dtype or 'f32'}): O err {eo} > {tol} or LSE err {el} "
+                  f"> {ltol}")
+            line.append(f"vs P {'bf16' if p_dtype else 'f32'}: O err "
+                        f"{eo:.3e} (tol {tol}), LSE err {el:.3e} (tol "
+                        f"{ltol})")
+            del ro, rlse
+        if parent and dtype == "float32":
+            with parent_kernels(_build, parent):
+                po, plse = attn.flash_attention_forward(q, k, v, scale,
+                                                        causal)
+            # f32 runs the parent's code unchanged: the same bits
+            check(torch.equal(o, po) and torch.equal(lse, plse),
+                  f"K1 {shape} f32 differs from the parent's")
+            line.append("the parent's bits")
+        print(f"  K1 {list(shape)} causal={causal} {dtype}: "
+              + "; ".join(line))
         if shape == main_shape and dtype == "float32" and causal:
             main = (q, k, v, scale, max(eo, el))
     q, k, v, scale, err = main
@@ -405,7 +446,7 @@ def bwd_case(torch, attn, shape, causal, dtype, g):
     return q, k, v, do, lse, delta, scale
 
 
-def phase_k2k3(torch, attn, train_shape):
+def phase_k2k3(torch, attn, train_shape, _build, parent):
     import torch.nn.functional as F
     cases = [(train_shape, True, "float32"), (train_shape, True, "bfloat16"),
              ((1, 12, 333, 64), True, "float32"),
@@ -476,26 +517,40 @@ def phase_k2k3(torch, attn, train_shape):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms})
-    return rows + flash_bf16_rows(torch, attn, train_shape, errs, g)
+    return rows + flash_bf16_rows(torch, attn, train_shape, errs, g, _build,
+                                  parent)
 
 
-def flash_bf16_rows(torch, attn, train_shape, errs, g):
+def flash_bf16_rows(torch, attn, train_shape, errs, g, _build, parent):
     """K1, K2 and K3 in bf16 at the training shape, causal, as the
     flagship step (phase 10) runs them: time against the plain versions,
-    the bf16 bound and PyTorch's SDPA forward / backward in bf16."""
+    the bf16 bound, PyTorch's SDPA forward / backward in bf16 and, for K1,
+    the parent's kernel."""
     import torch.nn.functional as F
     q, k, v, do, lse, delta, scale = bwd_case(torch, attn, train_shape, True,
                                               "bfloat16", g)
     o, _ = attn.flash_attention_forward(q, k, v, scale, True)
-    ro, rlse = attn.flash_attention_plain(q.float(), k.float(), v.float(),
-                                          scale, True)
-    k1_err = max((o.float() - ro).abs().max().item(),
-                 (lse - rlse).abs().max().item())
-    check(k1_err <= BF16_TOL, f"K1 {train_shape} bf16: err {k1_err}")
-    del o, ro, rlse
+    k1_err = 0.0
+    for p_dtype, tol in ((None, BF16_TOL), (torch.bfloat16, BF16P_TOL)):
+        ro, rlse = attn.flash_attention_plain(q, k, v, scale, True,
+                                              p_dtype=p_dtype)
+        eo = (o.float() - ro.float()).abs().max().item()
+        el = (lse - rlse).abs().max().item()
+        check(eo <= tol and el <= FLASH_LSE_TOL,
+              f"K1 {train_shape} bf16 (P {p_dtype or 'f32'}): O err {eo}, "
+              f"LSE err {el}")
+        if p_dtype is not None:
+            k1_err = max(eo, el)
+        del ro, rlse
+    del o
     args = (q, k, v, lse, do, delta, scale, True)
     k1_ms = time_ms(torch, lambda: attn.flash_attention_forward(
         q, k, v, scale, True))
+    k1_parent = None
+    if parent:
+        with parent_kernels(_build, parent):
+            k1_parent = time_ms(torch, lambda: attn.flash_attention_forward(
+                q, k, v, scale, True))
     k1_plain = time_ms(torch, lambda: attn.flash_attention_plain(
         q, k, v, scale, True))
     k1_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -511,13 +566,21 @@ def flash_bf16_rows(torch, attn, train_shape, errs, g):
     b, h, s, d = train_shape
     n = b * h * s
     pairs = b * h * s * (s + 1) // 2
-    k1_b = bound(4 * n * d * 2 + n * 4, 2 * 2 * d * pairs, "bfloat16")
+    k1_flops = 2 * 2 * d * pairs
+    k1_b = bound(4 * n * d * 2 + n * 4, k1_flops, "bfloat16")
     reads = 4 * n * d * 2 + 2 * n * 4
     k2_b = bound(reads + n * d * 2, 3 * 2 * d * pairs, "bfloat16")
     k3_b = bound(reads + 2 * n * d * 2, 4 * 2 * d * pairs, "bfloat16")
     print(f"  {list(train_shape)} causal bf16 (the flagship's): K1 "
-          f"{k1_ms:.4f} ms (bound {k1_b[0]:.4f} ms, {k1_b[1]}; sdpa "
-          f"{k1_lib:.4f} ms; err {k1_err:.3e}), K2 {dq_ms:.4f} ms (bound "
+          f"{k1_ms:.4f} ms, {k1_flops / k1_ms / 1e9:.1f} TFLOP/s, "
+          f"{k1_b[0] / k1_ms:.4f} of its bound {k1_b[0]:.4f} ms ({k1_b[1]}); "
+          f"sdpa {k1_lib:.4f} ms ({k1_ms / k1_lib:.2f}x); err vs P bf16 "
+          f"{k1_err:.3e}; plain {k1_plain:.4f} ms")
+    if k1_parent is not None:
+        print(f"  {list(train_shape)} causal bf16, the parent's ({PARENT}) "
+              f"K1 {k1_parent:.4f} ms in this call: {k1_parent / k1_ms:.2f}x "
+              f"the new one")
+    print(f"  {list(train_shape)} causal bf16: K2 {dq_ms:.4f} ms (bound "
           f"{k2_b[0]:.4f} ms), K3 {dkv_ms:.4f} ms (bound {k3_b[0]:.4f} ms); "
           f"K2 + K3 {dq_ms + dkv_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
           f"plain backward {plain_ms:.4f} ms")
@@ -644,71 +707,87 @@ def ce_case(torch, t, h, v, dtype, g):
     return x, w, labels, gg
 
 
-def parent_source(parent_tree):
-    """The parent commit's ``csrc/fused_ce.cu`` (the CUDA-core K6/K7 that
-    the bf16 kernels replace): from ``--parent TREE``, a checkout of it,
-    else from git history; None where neither is at hand."""
-    rel = "paddle_tpu_torch/csrc/fused_ce.cu"
-    if parent_tree:
-        with open(os.path.join(parent_tree, rel)) as f:
-            return f.read()
-    if os.path.isdir(os.path.join(HERE, ".git")):
+def parent_sources(parent_tree):
+    """{source name: text} of the parent commit's ``csrc/flash_fwd.cu`` and
+    ``csrc/fused_ce.cu`` (the CUDA-core K1 and K5 that the bf16 kernels
+    replace): from ``--parent TREE``, a checkout of it, else from git
+    history; None where neither is at hand."""
+    names = sorted({name for name, _ in PARENT_SYMBOLS})
+    out = {}
+    for name in names:
+        rel = f"paddle_tpu_torch/csrc/{name}.cu"
+        if parent_tree:
+            with open(os.path.join(parent_tree, rel)) as f:
+                out[name] = f.read()
+            continue
+        if not os.path.isdir(os.path.join(HERE, ".git")):
+            return None
         r = subprocess.run(["git", "show", f"{PARENT}:{rel}"], cwd=HERE,
                            capture_output=True, text=True, timeout=60)
-        if r.returncode == 0:
-            return r.stdout
-    return None
+        if r.returncode != 0:
+            return None
+        out[name] = r.stdout
+    return out
 
 
-def start_parent_build(_build, text):
-    """Start ``nvcc`` on the parent's source into ``_build/parent/``;
-    (process, library path), or None without a source."""
-    if text is None:
+def start_parent_build(_build, texts):
+    """Start one ``nvcc`` per parent source into ``_build/parent/``;
+    {name: (process, library path)}, or None without sources."""
+    if texts is None:
         return None
     d = _build.BUILD_DIR / "parent"
     d.mkdir(parents=True, exist_ok=True)
-    (d / "fused_ce.cu").write_text(text)
-    so = d / "fused_ce.so"
-    proc = subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
-                             str(d / "fused_ce.cu")], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, so
+    started = {}
+    for name, text in texts.items():
+        (d / f"{name}.cu").write_text(text)
+        so = d / f"{name}.so"
+        started[name] = (subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+             str(d / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    return started
 
 
 def load_parent(started):
-    """{symbol: ctypes function} of the parent's K6 and K7, or None."""
+    """{(source, symbol): ctypes function} of the parent's K1 and K5, or
+    None."""
     if started is None:
         return None
-    proc, so = started
-    out, _ = proc.communicate()
-    check(proc.returncode == 0, f"the parent's fused_ce.cu did not build:\n"
-          f"{out}")
-    lib = ctypes.CDLL(str(so))
+    libs = {}
+    for name, (proc, so) in started.items():
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"the parent's {name}.cu did not build:"
+              f"\n{out}")
+        libs[name] = ctypes.CDLL(str(so))
     fns = {}
-    for sym in BWD_SYMBOLS:
-        fn = getattr(lib, sym)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[sym] = fn
+    for (name, sym), argtypes in PARENT_SYMBOLS.items():
+        fn = getattr(libs[name], sym)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[(name, sym)] = fn
     return fns
 
 
 @contextlib.contextmanager
 def parent_kernels(_build, parent):
-    """The wrappers fused_ce_bwd_dx / _dw launch the parent's K6/K7
-    inside this block: the functions they look up in ``_build`` are
-    swapped, and put back after."""
-    saved = {sym: _build._fns.get(("fused_ce", sym)) for sym in parent}
-    _build._fns.update({("fused_ce", sym): fn for sym, fn in parent.items()})
+    """The wrappers flash_attention_forward and fused_ce_forward launch the
+    parent's K1 and K5 inside this block: the functions they look up in
+    ``_build`` are swapped, and so is K5's vocab split in bf16 (the
+    parent's kernel walks 64-row vocab tiles), and put back after."""
+    import torch
+    from paddle_tpu_torch.ops import fused_ce as tce
+    saved = {key: _build._fns.get(key) for key in parent}
+    split = dict(tce._FWD_SPLIT)
+    _build._fns.update(parent)
+    tce._FWD_SPLIT[torch.bfloat16] = tce._FWD_SPLIT[torch.float32]
     try:
         yield
     finally:
-        for sym, fn in saved.items():
+        tce._FWD_SPLIT.update(split)
+        for key, fn in saved.items():
             if fn is None:
-                del _build._fns[("fused_ce", sym)]
+                del _build._fns[key]
             else:
-                _build._fns[("fused_ce", sym)] = fn
+                _build._fns[key] = fn
 
 
 def phase_k5k7(torch, tce, _build, t, h, v, parent):
@@ -754,23 +833,24 @@ def phase_k5k7(torch, tce, _build, t, h, v, parent):
                             f"|grad| {top:.3e})")
                 errs[(ct, ch, cv, dtype, name)] = err
             del ref
-        if parent and (ct, ch, cv) == (t, h, v):
+        if parent and (ct, ch, cv) in ((t, h, v), (77, 800, 5000)):
             with parent_kernels(_build, parent):
-                pdx = tce.fused_ce_bwd_dx(x, w, labels, lse, gg)
-                pdw = tce.fused_ce_bwd_dw(x, w, labels, lse, gg)
-            same = torch.equal(dx, pdx) and torch.equal(dw, pdw)
+                ploss, plse = tce.fused_ce_forward(x, w, labels)
+            same = torch.equal(loss, ploss) and torch.equal(lse, plse)
             # f32 runs the parent's code unchanged: the same bits
             check(same or dtype != "float32",
-                  "f32 K6/K7 differ from the parent's")
-            line.append("the parent's K6/K7 give " + (
+                  f"f32 K5 [{ct},{ch},{cv}] differs from the parent's")
+            line.append("the parent's K5 gives " + (
                 "the same bits" if same else "max abs diff " + ", ".join(
-                    f"{(a.float() - b.float()).abs().max().item():.3e}"
-                    for a, b in ((dx, pdx), (dw, pdw)))))
+                    f"{(a - b).abs().max().item():.3e}"
+                    for a, b in ((loss, ploss), (lse, plse)))))
         if dtype == "bfloat16":
-            again = (tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
+            again = (*tce.fused_ce_forward(x, w, labels),
+                     tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
                      tce.fused_ce_bwd_dw(x, w, labels, lse, gg))
-            check(torch.equal(again[0], dx) and torch.equal(again[1], dw),
-                  f"K6/K7 [{ct},{ch},{cv}] bf16: two runs differ")
+            check(all(torch.equal(a, b)
+                      for a, b in zip(again, (loss, lse, dx, dw))),
+                  f"K5-K7 [{ct},{ch},{cv}] bf16: two runs differ")
             line.append("a second run gives the same bits")
         print(f"  K5-K7 [T={ct}, H={ch}, V={cv}] {dtype}: " + "; ".join(line))
 
@@ -782,21 +862,20 @@ def phase_k5k7(torch, tce, _build, t, h, v, parent):
         x, w, labels, gg = ce_case(torch, t, h, v, dtype, g)
         loss, lse = tce.fused_ce_forward(x, w, labels)
         n6 = 30 if dtype == "bfloat16" else 5
+        n5 = 30 if dtype == "bfloat16" else 10
         k5 = time_ms(torch, lambda: tce.fused_ce_forward(x, w, labels),
-                     iters=10, warmup=1)
+                     iters=n5, warmup=3 if dtype == "bfloat16" else 1)
         k6 = time_ms(torch, lambda: tce.fused_ce_bwd_dx(x, w, labels, lse,
                                                         gg),
                      iters=n6, warmup=3)
         k7 = time_ms(torch, lambda: tce.fused_ce_bwd_dw(x, w, labels, lse,
                                                         gg),
                      iters=n6, warmup=3)
-        p6 = p7 = None
+        p5 = None
         if parent and dtype == "bfloat16":
             with parent_kernels(_build, parent):
-                p6 = time_ms(torch, lambda: tce.fused_ce_bwd_dx(
-                    x, w, labels, lse, gg), iters=5, warmup=1)
-                p7 = time_ms(torch, lambda: tce.fused_ce_bwd_dw(
-                    x, w, labels, lse, gg), iters=5, warmup=1)
+                p5 = time_ms(torch, lambda: tce.fused_ce_forward(
+                    x, w, labels), iters=5, warmup=1)
         pf = time_ms(torch, lambda: tce.fused_linear_cross_entropy_plain(
             x, w, labels), iters=5, warmup=1)
         pb = time_ms(torch, lambda: tce.fused_linear_cross_entropy_backward_plain(
@@ -823,10 +902,10 @@ def phase_k5k7(torch, tce, _build, t, h, v, parent):
                                        ("K6", k6, 2 * flops, b6),
                                        ("K7", k7, 2 * flops, b7))]
         print(f"  [T={t}, H={h}, V={v}] {dtype}: " + "; ".join(rate))
-        if p6 is not None:
+        if p5 is not None:
             print(f"  [T={t}, H={h}, V={v}] {dtype}, the parent's "
-                  f"({PARENT}) K6 {p6:.3f} ms and K7 {p7:.3f} ms in this "
-                  f"call: {p6 / k6:.2f}x and {p7 / k7:.2f}x the new ones")
+                  f"({PARENT}) K5 {p5:.3f} ms in this call: {p5 / k5:.2f}x "
+                  f"the new one")
         print(f"  [T={t}, H={h}, V={v}] {dtype}: plain forward {pf:.3f} ms, "
               f"plain backward {pb:.3f} ms; composition yardstick "
               f"F.cross_entropy(F.linear) forward {cf:.3f} ms, backward (dx "
@@ -909,19 +988,20 @@ def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig,
           f"{TRAIN_STEPS} x {L} each, K5/K6/K7 {counts[3:]} = {TRAIN_STEPS}"
           " each")
     if parent:
-        # the same steps with the parent's K6/K7: the forward is the same
-        # code, so step 1's loss agrees; later steps follow the grads
+        # the same steps with the parent's K1 and K5: the forward now
+        # rounds P to bf16 and sums K5 in another order, so step 1's loss
+        # moves a little; later steps follow the grads
         with parent_kernels(_build, parent):
             p_losses, p_times, p_peak, _, _ = flagship_run(
                 torch, amp, optimizer, TransformerLMConfig)
         rel = [abs(a - b) / abs(b) for a, b in zip(losses, p_losses)]
         p_ms = float(np.median(p_times[1:]))
-        print(f"  with the parent's ({PARENT}) K6/K7: losses "
+        print(f"  with the parent's ({PARENT}) K1 and K5: losses "
               f"{[round(x, 6) for x in p_losses]}, median step {p_ms:.2f} "
               f"ms, {tokens / p_ms * 1e3:.1f} tokens/s, peak memory "
               f"{p_peak / 2**30:.3f} GiB; relative loss differences "
               f"{[float(f'{r:.3e}') for r in rel]}")
-        check(rel[0] <= 1e-6, f"step 1 loss {losses[0]} vs the parent's "
+        check(rel[0] <= 1e-3, f"step 1 loss {losses[0]} vs the parent's "
               f"{p_losses[0]}")
         check(max(rel[1:]) <= 5e-3, f"losses {losses} vs the parent's "
               f"{p_losses}")
@@ -933,9 +1013,9 @@ def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig,
 def main():
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--parent", metavar="TREE",
-                    help=f"a checkout of {PARENT}, whose fused_ce.cu phases "
-                    "9 and 10 compare with (default: git history, where the "
-                    "checkout has it)")
+                    help=f"a checkout of {PARENT}, whose flash_fwd.cu and "
+                    "fused_ce.cu phases 3, 6, 9 and 10 compare with "
+                    "(default: git history, where the checkout has it)")
     args = ap.parse_args()
     try:
         import torch
@@ -966,7 +1046,7 @@ def main():
           f"cuDNN")
 
     print("[1] build")
-    parent_build = start_parent_build(_build, parent_source(args.parent))
+    parent_build = start_parent_build(_build, parent_sources(args.parent))
     secs = _build.build_all()
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
@@ -974,8 +1054,8 @@ def main():
                 print(f"  {name}: {line.strip()}")
     print(f"  built {_build.sources()} in {secs:.2f} s")
     parent = load_parent(parent_build)
-    print(f"  the parent's ({PARENT}) K6/K7: " + (
-        "built, for phases 9 and 10" if parent else
+    print(f"  the parent's ({PARENT}) K1 and K5: " + (
+        "built, for phases 3, 6, 9 and 10" if parent else
         "no source at hand (no git history, no --parent): not compared"))
 
     cfg = TransformerLMConfig(dropout=0.0)
@@ -986,7 +1066,8 @@ def main():
     k4_row = phase_k4(torch, pa)
     print("[3] K1 flash-attention forward vs plain")
     k1_row = phase_k1(torch, attn, (1, cfg.num_heads, longest,
-                                    cfg.hidden_size // cfg.num_heads))
+                                    cfg.hidden_size // cfg.num_heads),
+                      _build, parent)
     print("[4] serve GPT-124M")
     gen = torch.Generator().manual_seed(1234)
     model = GPTForCausalLM(cfg, generator=gen).eval()
@@ -1000,7 +1081,8 @@ def main():
     print("[6] K2/K3 flash-attention backward vs plain")
     k2_row, k3_row, k1b_row, k2b_row, k3b_row = phase_k2k3(
         torch, attn, (8, train_cfg.num_heads, train_cfg.max_seq_len,
-                      train_cfg.hidden_size // train_cfg.num_heads))
+                      train_cfg.hidden_size // train_cfg.num_heads), _build,
+        parent)
     print("[7] train GPT-124M (untied head)")
     k1_train, k2, k3 = phase_train(torch, attn, train_cfg, optimizer, nn)
     print("[8] card against CPU: 2-layer GPT at full width")

@@ -25,8 +25,42 @@
 // 0.054 ms at 3.35 TB/s. K6 and K7 each recompute S and do one more product
 // of the same size: 1.27e12 flops, 18.9 ms in f32, 1.28 ms in bf16.
 //
-// K5 (both dtypes) and the f32 K6/K7: f32 FMAs on the CUDA cores (a simple
-// first kernel; TF32 is off by contract, so f32 stays full f32):
+// bf16 K5 (fused_ce_fwd_mma_kernel): the Pallas kernel's arithmetic on the
+// tensor cores. S = x W^T is bf16 x bf16 -> f32 (mma.sync.m16n8k16 from
+// ldmatrix), exact products summed in f32, so the f32 plain version is the
+// reference for it; the max, sum of exp and label logit are f32. What bounds
+// it besides the tensor cores: every operand is staged through shared
+// memory and ldmatrix, and a 128 x 128 tile over 64 columns of H does 64
+// flops per byte staged, so L2 must feed the SMs about 10 GB at the
+// flagship shape; W (77 MB in bf16) is larger than the 50 MB L2.
+//   * a block of 8 warps owns 128 token rows and walks its split's 128-row
+//     vocab tiles; each warp owns a 32 x 64 piece of every S tile, 2 m16 x
+//     8 n8 mma tiles = 64 f32 accumulators a thread;
+//   * x and W stream in 64-column bf16 slices (rows padded by 16 bytes, so
+//     ldmatrix is free of bank conflicts) through a 3-stage cp.async ring
+//     that runs on across tile boundaries: two slices are in flight while
+//     one computes, one barrier a slice, 108 KB of shared memory. Two
+//     blocks share an SM (126 registers a thread, no spills): while one
+//     waits at its barrier or folds its statistics, the other's mma.sync
+//     keep the tensor cores busy (faster than one block an SM: PERF.md,
+//     tools/ab_fused_ce.py);
+//   * the softmax statistics stay in registers: after each tile every
+//     thread folds its fragment into running (m, s, ll) for its 4 rows, m
+//     in log2 units so each exp is one exp2f. The 4 lanes of a quad, then
+//     the 2 warps that share rows (through shared memory), merge once, at
+//     the end of the block, in a fixed order;
+//   * the vocab is split over the grid's second dimension, about 16
+//     blocks per SM in all (33 splits of 12 tiles at T = 8192: 8 waves of
+//     264 blocks), and the grid runs token tiles fastest, so the blocks on
+//     the card at one time read the same few W slices and all of x from
+//     L2; the combine kernel merges the splits in split order;
+//   * ragged T, V and H: rows and columns outside the matrices stage as
+//     zeros (cp.async with a source size of 0; element by element where H
+//     is not a multiple of 8), and columns past V are left out of the
+//     statistics.
+//
+// f32 K5 and the f32 K6/K7: f32 FMAs on the CUDA cores (a simple first
+// kernel; TF32 is off by contract, so f32 stays full f32):
 //   * every logits tile S [64 x 64] is a small GEMM over H, staged in shared
 //     memory 32 columns at a time; each of the 256 threads owns a 4 x 4
 //     register tile (rows ty*4.., columns tx + 16j), so each shared-memory
@@ -149,11 +183,13 @@ __device__ __forceinline__ void tile_abt(const T* __restrict__ A, int a0,
   }
 }
 
-// K5: one block per (64-row token tile, vocab split). Writes the split's
-// per-row max m, sum of exp(S - m) and label logit into part[3][nsplit][T].
-template <typename T, typename L>
+// f32 K5: one block per (64-row token tile, vocab split). Writes the
+// split's per-row max m, sum of exp(S - m) and label logit into
+// part[3][nsplit][T].
+template <typename L>
 __global__ void __launch_bounds__(kThreads)
-    fused_ce_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    fused_ce_fwd_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
                         const L* __restrict__ labels, float* __restrict__ part,
                         int Tn, int V, int H, int tiles_per_split,
                         int nsplit) {
@@ -180,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int vt = split * tiles_per_split; vt < vt_end; ++vt) {
     const int v0 = vt * kB;
     float acc[4][4];
-    tile_abt<T>(x, t0, Tn, w, v0, V, H, sA, sB, acc, tx, ty);
+    tile_abt<float>(x, t0, Tn, w, v0, V, H, sA, sB, acc, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float tmax = kNeg;
@@ -452,6 +488,216 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---- bf16 K5 on the tensor cores ------------------------------------------
+
+constexpr int kFM = 128;             // token rows of a block
+constexpr int kFN = 128;             // vocab rows of a tile
+constexpr int kFK = 64;              // columns of H a stage holds
+constexpr int kFThreads = 256;       // 8 warps: 4 row bands x 2 column halves
+constexpr int kFStages = 3;          // the cp.async ring
+constexpr int kFLD = kFK + 8;        // bf16 row stride of a staged slice
+constexpr int kFStage = (kFM + kFN) * kFLD;  // bf16 elements a stage
+constexpr int kFwdMmaSmem = kFStages * kFStage * 2;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// bf16 K5: one block per (128-row token tile, vocab split). The split's
+// 128-row vocab tiles are walked in order; every tile's S = x W^T [128 x
+// 128] is accumulated over H in 64-column slices of x and W that stream
+// through a kFStages-deep cp.async ring (one barrier a slice), then folded
+// into each thread's running max, sum of exp and label logit of its 4
+// rows. The lanes of a quad, then the two warps that share rows, merge in
+// a fixed order at the end; part[3][nsplit][T] gets the split's (m, s, ll)
+// as fused_ce_fwd_kernel writes them. `vec`: H % 8 == 0 and x, w 16-byte
+// aligned, so slices stage by cp.async.
+template <typename L>
+__global__ void __launch_bounds__(kFThreads, 2)
+    fused_ce_fwd_mma_kernel(const bf16* __restrict__ x,
+                            const bf16* __restrict__ w,
+                            const L* __restrict__ labels,
+                            float* __restrict__ part, int Tn, int V, int H,
+                            int tiles_per_split, int nsplit, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [kFStages][x | W]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 1, wn = warp & 1;  // 32-row band, 64-column half
+  const int t0 = blockIdx.x * kFM;
+  const int split = blockIdx.y;
+  const int n_vt = (V + kFN - 1) / kFN;
+  const int vt0 = split * tiles_per_split;
+  const int vt_end = min(n_vt, vt0 + tiles_per_split);
+  const int nk = max(1, (H + kFK - 1) / kFK);
+  const int steps = (vt_end - vt0) * nk;
+
+  // step s: columns (s % nk) * 64 .. of the block's x rows and of vocab
+  // tile vt0 + s / nk, into ring slot s % kFStages; outside the matrices
+  // zero
+  auto stage = [&](int s) {
+    const int vt = vt0 + s / nk;
+    const int k0 = (s % nk) * kFK;
+    bf16* bx = ring + (s % kFStages) * kFStage;
+    bf16* bw = bx + kFM * kFLD;
+    const int v0 = vt * kFN;
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < kFM * kFK / 8 / kFThreads; ++i) {
+        const int idx = tid + i * kFThreads;
+        const int r = idx >> 3, c = (idx & 7) * 8;
+        const bool kin = k0 + c < H;
+        const bool xo = kin && t0 + r < Tn, wo = kin && v0 + r < V;
+        cp_async16(bx + r * kFLD + c,
+                   xo ? x + (size_t)(t0 + r) * H + k0 + c : x, xo ? 16 : 0);
+        cp_async16(bw + r * kFLD + c,
+                   wo ? w + (size_t)(v0 + r) * H + k0 + c : w, wo ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < kFM * kFK; idx += kFThreads) {
+        const int r = idx / kFK, c = idx % kFK;
+        const bool kin = k0 + c < H;
+        bx[r * kFLD + c] = kin && t0 + r < Tn
+                               ? x[(size_t)(t0 + r) * H + k0 + c]
+                               : __float2bfloat16(0.f);
+        bw[r * kFLD + c] = kin && v0 + r < V
+                               ? w[(size_t)(v0 + r) * H + k0 + c]
+                               : __float2bfloat16(0.f);
+      }
+    }
+  };
+
+  const int lr = lane & 7, lm = lane >> 3;
+  const int a_row = lr + (lm & 1) * 8, a_col = (lm >> 1) * 8;
+  const int b_row = lr + (lm >> 1) * 8, b_col = (lm & 1) * 8;
+  const int gq = lane >> 2, tq = lane & 3;
+
+  // the thread's 4 rows: band row wm * 32 + mi * 16 + gq + 8 h, i = 2 mi + h;
+  // a label outside [0, V) (ignore_index included) matches no column
+  int lab[4];
+  float m[4], s[4], ll[4];  // m in log2 units
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + wm * 32 + (i >> 1) * 16 + gq + (i & 1) * 8;
+    const long long raw = t < Tn ? (long long)labels[t] : -1;
+    lab[i] = raw >= 0 && raw < V ? (int)raw : -1;
+    m[i] = kNeg;
+    s[i] = 0.f;
+    ll[i] = 0.f;
+  }
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kFStages - 1; ++st) {
+    if (st < steps) stage(st);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();  // slice `step` is staged; every warp is past step - 1
+    if (step + kFStages - 1 < steps) stage(step + kFStages - 1);
+    cp_async_commit();
+    const bf16* bx = ring + (step % kFStages) * kFStage;
+    const bf16* bw = bx + kFM * kFLD;
+#pragma unroll
+    for (int kk = 0; kk < kFK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4(af[mi], bx + (wm * 32 + mi * 16 + a_row) * kFLD + kk + a_col);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        uint32_t bfr[4];
+        ldsm_x4(bfr, bw + (wn * 64 + nb * 16 + b_row) * kFLD + kk + b_col);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16(acc[mi][2 * nb], af[mi], bfr[0], bfr[1]);
+          mma_bf16(acc[mi][2 * nb + 1], af[mi], bfr[2], bfr[3]);
+        }
+      }
+    }
+    if (step % nk != nk - 1) continue;
+
+    // the tile is whole: fold it into (m, s, ll), columns past V left out
+    const int c0 = (vt0 + step / nk) * kFN + wn * 64 + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int mi = i >> 1, h = i & 1;
+      float tmax = kNeg;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + n * 8 + e;
+          const float val = acc[mi][n][2 * h + e];
+          if (col < V) tmax = fmaxf(tmax, val);
+          if (col == lab[i]) ll[i] += val;
+        }
+      const float tmax2 = tmax * kLog2e;
+      if (tmax2 > m[i]) {
+        s[i] *= exp2f(m[i] - tmax2);
+        m[i] = tmax2;
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c0 + n * 8 + e < V)
+            s[i] += exp2f(fmaf(acc[mi][n][2 * h + e], kLog2e, -m[i]));
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+  }
+
+  // merge: the quad's lanes (butterfly), then the two column halves
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float os = __shfl_xor_sync(0xffffffffu, s[i], off);
+      const float ol = __shfl_xor_sync(0xffffffffu, ll[i], off);
+      const float nm = fmaxf(m[i], om);
+      s[i] = s[i] * exp2f(m[i] - nm) + os * exp2f(om - nm);
+      m[i] = nm;
+      ll[i] += ol;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: reuse it for the halves' statistics
+  float* sm = reinterpret_cast<float*>(smem_raw);  // [3][2][kFM]
+  if (tq == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wm * 32 + (i >> 1) * 16 + gq + (i & 1) * 8;
+      sm[(0 * 2 + wn) * kFM + r] = m[i];
+      sm[(1 * 2 + wn) * kFM + r] = s[i];
+      sm[(2 * 2 + wn) * kFM + r] = ll[i];
+    }
+  }
+  __syncthreads();
+  if (tid < kFM && t0 + tid < Tn) {
+    const int r = tid, t = t0 + tid;
+    const float m0 = sm[0 * kFM + r], m1 = sm[1 * kFM + r];
+    const float nm = fmaxf(m0, m1);
+    const float sv = sm[2 * kFM + r] * exp2f(m0 - nm) +
+                     sm[3 * kFM + r] * exp2f(m1 - nm);
+    part[((size_t)0 * nsplit + split) * Tn + t] = nm * kLn2;
+    part[((size_t)1 * nsplit + split) * Tn + t] = sv;
+    part[((size_t)2 * nsplit + split) * Tn + t] =
+        sm[4 * kFM + r] + sm[5 * kFM + r];
+  }
+}
+
 // bf16 K6 (TOK_A: A = x, B = W, out = dx) and K7 (A = W, B = x, out = dW).
 // One block per (32 rows of A, 768-column chunk `own` of H). For every
 // 32-row tile of B:  S = A_rows B_tile^T over all of H,
@@ -671,16 +917,39 @@ __global__ void __launch_bounds__(kMThreads, 1)
     }
 }
 
-template <typename T, typename L>
+template <typename L>
 int launch_fwd(const void* x, const void* w, const void* labels, float* part,
                float* loss, float* lse, int Tn, int V, int H, int nsplit,
                int tiles_per_split, long long ignore_index, cudaStream_t st) {
   const L* lab = static_cast<const L*>(labels);
   dim3 grid((Tn + kB - 1) / kB, nsplit);
-  fused_ce_fwd_kernel<T, L><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), lab, part, Tn, V, H,
-      tiles_per_split, nsplit);
+  fused_ce_fwd_kernel<L><<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), lab, part,
+      Tn, V, H, tiles_per_split, nsplit);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fused_ce_fwd_combine<L><<<(Tn + 255) / 256, 256, 0, st>>>(
+      part, lab, loss, lse, Tn, nsplit, ignore_index);
+  return 0;
+}
+
+template <typename L>
+int launch_fwd_mma(const void* x, const void* w, const void* labels,
+                   float* part, float* loss, float* lse, int Tn, int V, int H,
+                   int nsplit, int tiles_per_split, long long ignore_index,
+                   cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_fwd_mma_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFwdMmaSmem);
+  if (err != cudaSuccess) return (int)err;
+  const L* lab = static_cast<const L*>(labels);
+  const int vec = H % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  dim3 grid((Tn + kFM - 1) / kFM, nsplit);
+  fused_ce_fwd_mma_kernel<L><<<grid, kFThreads, kFwdMmaSmem, st>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), lab, part, Tn,
+      V, H, tiles_per_split, nsplit, vec);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_ce_fwd_combine<L><<<(Tn + 255) / 256, 256, 0, st>>>(
       part, lab, loss, lse, Tn, nsplit, ignore_index);
@@ -780,7 +1049,8 @@ int bwd(const void* a, const void* b, const void* labels, const void* lse,
 // nothing: `part` is the caller's f32 scratch of 3 * nsplit * T floats.
 
 // K5: loss and lse of every token, the vocab tiles split over `nsplit`
-// groups of `tiles_per_split` 64-column tiles
+// groups of `tiles_per_split` tiles of 64 (float32) or 128 (bfloat16)
+// vocab rows
 extern "C" int fused_ce_forward(const void* x, const void* w,
                                 const void* labels, void* part, void* loss,
                                 void* lse, int T, int V, int H, int nsplit,
@@ -792,19 +1062,17 @@ extern "C" int fused_ce_forward(const void* x, const void* w,
   float* ls = static_cast<float*>(lse);
   int bad = (int)cudaErrorInvalidValue;
   if (dtype == 0 && label_dtype == 0)
-    bad = launch_fwd<float, int32_t>(x, w, labels, p, lo, ls, T, V, H, nsplit,
-                                     tiles_per_split, ignore_index, st);
+    bad = launch_fwd<int32_t>(x, w, labels, p, lo, ls, T, V, H, nsplit,
+                              tiles_per_split, ignore_index, st);
   else if (dtype == 0 && label_dtype == 1)
-    bad = launch_fwd<float, int64_t>(x, w, labels, p, lo, ls, T, V, H, nsplit,
-                                     tiles_per_split, ignore_index, st);
+    bad = launch_fwd<int64_t>(x, w, labels, p, lo, ls, T, V, H, nsplit,
+                              tiles_per_split, ignore_index, st);
   else if (dtype == 1 && label_dtype == 0)
-    bad = launch_fwd<__nv_bfloat16, int32_t>(x, w, labels, p, lo, ls, T, V, H,
-                                             nsplit, tiles_per_split,
-                                             ignore_index, st);
+    bad = launch_fwd_mma<int32_t>(x, w, labels, p, lo, ls, T, V, H, nsplit,
+                                  tiles_per_split, ignore_index, st);
   else if (dtype == 1 && label_dtype == 1)
-    bad = launch_fwd<__nv_bfloat16, int64_t>(x, w, labels, p, lo, ls, T, V, H,
-                                             nsplit, tiles_per_split,
-                                             ignore_index, st);
+    bad = launch_fwd_mma<int64_t>(x, w, labels, p, lo, ls, T, V, H, nsplit,
+                                  tiles_per_split, ignore_index, st);
   if (bad) return bad;
   return (int)cudaGetLastError();
 }

@@ -24,6 +24,7 @@ from ..amp.auto_cast import cast_inputs, op_body
 from . import _build
 
 _NEG = -1e30
+_P_BLOCK = 64     # keys of a K/V tile in the bf16 K1 kernel
 
 
 def reference_attention(q, k, v, mask, scale, causal):
@@ -41,17 +42,41 @@ def reference_attention(q, k, v, mask, scale, causal):
     return torch.einsum("bhst,bhtd->bhsd", w, v)
 
 
-def flash_attention_plain(q, k, v, scale, causal):
+def flash_attention_plain(q, k, v, scale, causal, p_dtype=None):
     """Plain version of K1: ``(O, LSE)`` with O in q's dtype and LSE
-    ``[b, h, 1, s]`` f32, every score and sum in f32."""
+    ``[b, h, 1, s]`` f32, every score and sum in f32.
+
+    ``p_dtype=None`` keeps the weights P in f32. ``torch.bfloat16`` rounds
+    P = exp(S - m) to bf16 before the product with V, as the Pallas kernel
+    does (attention.py:105) and the bf16 kernel with it: m is the running
+    row max of an online softmax over the kernel's 64-key tiles (the
+    Pallas kernel's blocks are 128-512 keys, so its m, and with it the
+    rounding of P, can differ), and the row sum l adds the unrounded P,
+    as both kernels add it."""
     s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
     if causal:
         n = s.shape[-1]
         keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~keep, _NEG)
-    lse = torch.logsumexp(s, dim=-1)
-    o = torch.einsum("bhst,bhtd->bhsd", torch.softmax(s, dim=-1), v.float())
-    return o.to(q.dtype), lse[:, :, None, :]
+    if p_dtype is None:
+        lse = torch.logsumexp(s, dim=-1)
+        o = torch.einsum("bhst,bhtd->bhsd", torch.softmax(s, dim=-1),
+                         v.float())
+        return o.to(q.dtype), lse[:, :, None, :]
+    vf = v.float()
+    m = torch.full(s.shape[:-1], _NEG, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(vf)
+    for j in range(0, s.shape[-1], _P_BLOCK):
+        blk = slice(j, j + _P_BLOCK)
+        m_new = torch.maximum(m, s[..., blk].amax(-1))
+        p = torch.exp(s[..., blk] - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhst,bhtd->bhsd", p.to(p_dtype).float(), vf[:, :, blk])
+        m = m_new
+    return (acc / l[..., None]).to(q.dtype), (m + torch.log(l))[:, :, None, :]
 
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}

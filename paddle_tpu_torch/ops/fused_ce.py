@@ -30,8 +30,11 @@ from . import _build
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LABEL_DTYPES = {torch.int32: 0, torch.int64: 1}
-_TILE = 64            # rows of a vocab tile in K5
-_BLOCKS_PER_SM = 4    # K5 splits the vocab until this many blocks per SM
+# K5's (vocab rows of a tile, blocks per SM the vocab split aims at), by
+# dtype: the f32 CUDA-core kernel runs 64 x 64 tiles, several blocks an
+# SM at once; the bf16 tensor-core kernel 128 x 128 tiles, two blocks an
+# SM at a time, so its split aims at about 8 waves of blocks
+_FWD_SPLIT = {torch.float32: (64, 4), torch.bfloat16: (128, 16)}
 
 
 def fused_linear_cross_entropy_plain(x, w_vh, labels, ignore_index=-100):
@@ -101,14 +104,14 @@ def _check_operands(x, w_vh, labels, *stats):
                              f"[{x.shape[0]}]")
 
 
-def _vocab_split(t, v, device):
+def _vocab_split(t, v, dtype, device):
     """(nsplit, tiles_per_split) for K5: split the vocab tiles until the
-    grid has about ``_BLOCKS_PER_SM`` blocks per SM, with no empty
-    split."""
-    n_vt = -(-v // _TILE)
-    row_tiles = -(-t // _TILE)
+    grid has about the dtype's blocks per SM, with no empty split."""
+    tile, per_sm = _FWD_SPLIT[dtype]
+    n_vt = -(-v // tile)
+    row_tiles = -(-t // tile)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(n_vt, -(-_BLOCKS_PER_SM * sms // row_tiles)))
+    want = max(1, min(n_vt, -(-per_sm * sms // row_tiles)))
     per = -(-n_vt // want)
     return -(-n_vt // per), per
 
@@ -126,7 +129,7 @@ def fused_ce_forward(x, w_vh, labels, ignore_index=-100):
     lse = torch.empty(t, dtype=torch.float32, device=x.device)
     if t == 0:
         return loss, lse
-    nsplit, per = _vocab_split(t, v, x.device)
+    nsplit, per = _vocab_split(t, v, x.dtype, x.device)
     part = torch.empty((3, nsplit, t), dtype=torch.float32, device=x.device)
     fn = _build.function(
         "fused_ce", "fused_ce_forward",

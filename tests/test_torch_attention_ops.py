@@ -54,6 +54,48 @@ def test_flash_plain_matches_pallas_interpret(interpret_flash, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [256, 512])
+def test_flash_plain_bf16_p_matches_pallas_interpret(interpret_flash, causal,
+                                                     s):
+    """bf16 inputs: the plain K1 with P rounded to bf16 (``p_dtype``, over
+    the bf16 kernel's 64-key tiles) against the Pallas forward in
+    interpret mode (256- or 512-key blocks). Tolerance 1e-2, absolute and
+    relative: both round O to bf16 once (2^-8 of |O|), and a P element
+    rounded against another block's max, an exp or a sum in another order
+    can round P, or O, the other way (2^-8 of that element). P kept in f32
+    is held at the bf16 tolerance, 2e-2. LSE is f32 on both sides: 1e-5."""
+    rs = np.random.RandomState(3)
+    q, k, v = (rs.randn(1, 2, s, 64).astype(np.float32) for _ in range(3))
+    scale = 1.0 / np.sqrt(64)
+    jo, jlse = jattn._pallas_flash_fwd(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), scale, causal)
+    jo = np.asarray(jo, np.float32)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    for p_dtype, tol in ((torch.bfloat16, 1e-2), (None, 2e-2)):
+        to, tlse = tattn.flash_attention_plain(tq, tk, tv, scale, causal,
+                                               p_dtype=p_dtype)
+        assert to.dtype == torch.bfloat16
+        np.testing.assert_allclose(to.float().numpy(), jo, atol=tol,
+                                   rtol=tol)
+        np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 64, 200])
+def test_flash_plain_online_loop_keeps_f32_result(causal, s):
+    """The online loop of the rounded-P variant, run with P kept in f32
+    (``p_dtype=torch.float32``), equals the one-pass f32 plain version
+    at [1, 2, s, 64], ragged s included: only the rounding of P differs
+    between the variants. 1e-5."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(4, (1, 2, s, 64)))
+    ref_o, ref_lse = tattn.flash_attention_plain(q, k, v, 0.125, causal)
+    o, lse = tattn.flash_attention_plain(q, k, v, 0.125, causal,
+                                         p_dtype=torch.float32)
+    np.testing.assert_allclose(o.numpy(), ref_o.numpy(), **TOL)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(2, 4, 256, 32), (1, 2, 37, 16)])
 def test_flash_plain_matches_reference_attention(causal, shape):
     q, k, v = _qkv(1, shape)

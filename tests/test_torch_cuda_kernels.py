@@ -6,7 +6,8 @@ without the suite's JAX conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: 1e-5 (K4) and 2e-5 (K1) in f32, where only the summation
-order differs; 2e-2 for bf16 inputs, whose outputs are rounded to bf16.
+order differs; 2e-2 for bf16 inputs, whose outputs are rounded to bf16
+(1e-2 for the bf16 K1 against the plain version that rounds P as it does).
 K2/K3 grads are held relative to the largest grad, or to 1 where that
 is smaller (dK and dV sum over up to 256 query rows): 1e-4 in f32, 2e-2
 in bf16. K5-K7: the loss and LSE are f32 on both sides (atol 1e-4), the
@@ -100,6 +101,57 @@ def test_flash_kernel_matches_plain(dev, s, d, causal, dtype, tol):
     assert o.dtype == dtype and tuple(lse.shape) == (2, 3, 1, s)
     torch.testing.assert_close(o.float(), ro, atol=tol, rtol=tol)
     torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
+
+
+# bf16 K1 (the tensor-core kernel) against the plain version with P rounded
+# to bf16 over 64-key blocks, as the kernel rounds it: 1e-2, absolute and
+# relative (both round O to bf16 once, and an exp or a sum in another order
+# can round a P element or O the other way: 2^-8 of it); against P kept in
+# f32, 2e-2; LSE is f32 on both sides (sums over up to 2048 keys and
+# products over up to 128 columns in another order, exp2 for exp): 5e-5
+FLASH_BF16P_TOL = 1e-2
+FLASH_LSE_TOL = 5e-5
+
+
+@pytest.mark.parametrize("s,b,h", [(1, 1, 1), (63, 2, 3), (65, 1, 5),
+                                   (200, 3, 4), (333, 1, 12), (1024, 8, 12),
+                                   (2048, 1, 4)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_flash_kernel_against_both_plain_variants(dev, s, b, h, d,
+                                                       causal):
+    """The bf16 K1 at ragged S (1 .. 2048), D = 64 and 128, B*H = 1 .. 96,
+    one launch, against both plain variants."""
+    g = torch.Generator().manual_seed(s * d + b)
+    q, k, v = (torch.randn(b, h, s, d, generator=g).to(dev, torch.bfloat16)
+               for _ in range(3))
+    before = attn.flash_attention_forward.launches
+    o, lse = attn.flash_attention_forward(q, k, v, d ** -0.5, causal)
+    assert attn.flash_attention_forward.launches == before + 1
+    assert o.dtype == torch.bfloat16 and tuple(lse.shape) == (b, h, 1, s)
+    for p_dtype, tol in ((None, 2e-2), (torch.bfloat16, FLASH_BF16P_TOL)):
+        ro, rlse = attn.flash_attention_plain(q, k, v, d ** -0.5, causal,
+                                              p_dtype=p_dtype)
+        torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(lse, rlse, atol=FLASH_LSE_TOL,
+                                   rtol=FLASH_LSE_TOL)
+
+
+def test_bf16_forward_kernels_give_the_same_bits_twice(dev):
+    """Two runs of the bf16 K1 (the flagship's [8, 12, 1024, 64] causal) and
+    of the bf16 K5 (128-row tiles over several vocab splits) give the same
+    bits."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(8, 12, 1024, 64, generator=g).to(dev,
+                                                            torch.bfloat16)
+               for _ in range(3))
+    first = attn.flash_attention_forward(q, k, v, 0.125, True)
+    again = attn.flash_attention_forward(q, k, v, 0.125, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    x, w, labels, _ = _ce_inputs(dev, 1000, 768, 20000, torch.bfloat16, 1)
+    first = tce.fused_ce_forward(x, w, labels)
+    again = tce.fused_ce_forward(x, w, labels)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def _bwd_inputs(dev, shape, dtype, causal, seed):
@@ -242,6 +294,44 @@ def test_fused_ce_kernels_match_plain(dev, t, h, v, dtype, tol, label_dtype):
         assert got.dtype == dtype and got.shape == want.shape
         err = (got.float() - want).abs().max().item()
         assert err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("t,h,v", [
+    (256, 8, 1234), (256, 48, 1234), (256, 200, 1234), (256, 800, 1234),
+    (256, 1024, 1234), (45, 13, 300), (1, 768, 1234), (127, 768, 1234),
+    (129, 768, 1234), (1000, 768, 1234), (256, 768, 7), (300, 768, 50304)])
+@pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
+def test_bf16_ce_forward_kernel_at_tile_edges(dev, t, h, v, label_dtype):
+    """The bf16 K5 at the edges of its 128 x 128 tiles and 64-column slices
+    of H (H = 8 .. 1024, 13 staged element by element; T = 1 .. 1000; V =
+    7 .. 50304), one launch, against the plain forward on f32 copies: the
+    loss and LSE are f32 on both sides (atol 1e-4)."""
+    x, w, labels, _ = _ce_inputs(dev, t, h, v, torch.bfloat16, t + h + v,
+                                 label_dtype)
+    before = tce.fused_ce_forward.launches
+    loss, lse = tce.fused_ce_forward(x, w, labels)
+    assert tce.fused_ce_forward.launches == before + 1
+    rloss, rlse = tce.fused_linear_cross_entropy_plain(x.float(), w.float(),
+                                                       labels)
+    torch.testing.assert_close(loss, rloss, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
+    assert not loss[labels == -100].any()
+
+
+def test_bf16_ce_forward_all_ignored_and_out_of_range_labels(dev):
+    """bf16 K5: an all-ignored batch loses 0 everywhere with the plain LSE;
+    a label outside [0, V) that is not ignore_index gets a label logit of
+    0, so its loss is its LSE."""
+    x, w, labels, _ = _ce_inputs(dev, 70, 768, 3000, torch.bfloat16, 5)
+    _, rlse = tce.fused_linear_cross_entropy_plain(x.float(), w.float(),
+                                                   labels)
+    loss, lse = tce.fused_ce_forward(x, w, torch.full_like(labels, -100))
+    assert not loss.any()
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
+    odd = labels.clone()
+    odd[:3] = torch.tensor([3000, 4000, -3], device=dev)
+    loss, lse = tce.fused_ce_forward(x, w, odd)
+    torch.testing.assert_close(loss[:3], lse[:3], atol=0, rtol=0)
 
 
 # bf16 K6/K7 (the tensor-core kernel) against the plain backward: with d

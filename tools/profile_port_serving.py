@@ -25,13 +25,16 @@ def classify(name):
     n = name.lower()
     if "paged_decode_kernel" in n:
         return "K4 paged decode attention"
-    if "flash_fwd_kernel" in n:
+    if "flash_fwd_kernel" in n or "flash_fwd_mma_kernel" in n:
+        # f32 (CUDA cores) or bf16 (tensor cores)
         return "K1 flash forward"
     if "flash_bwd_dq_kernel" in n:
         return "K2 flash backward dQ"
     if "flash_bwd_dkv_kernel" in n:
         return "K3 flash backward dK/dV"
-    if "fused_ce_fwd" in n:
+    if ("fused_ce_fwd_kernel" in n or "fused_ce_fwd_mma_kernel" in n
+            or "fused_ce_fwd_combine" in n):
+        # f32 (CUDA cores) or bf16 (tensor cores), and the split merge
         return "K5 fused CE forward"
     if "fused_ce_bwd_kernel" in n or "fused_ce_bwd_mma_kernel" in n:
         # f32 (CUDA cores) or bf16 (tensor cores); the template's last
