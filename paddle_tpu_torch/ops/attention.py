@@ -134,16 +134,25 @@ def flash_attention_forward(q, k, v, scale, causal):
 flash_attention_forward.launches = 0
 
 
-def flash_attention_backward_plain(q, k, v, lse, do, delta, scale, causal):
+def flash_attention_backward_plain(q, k, v, lse, do, delta, scale, causal,
+                                   p_dtype=None):
     """Plain version of K2 and K3: ``(dq, dk, dv)`` from the forward's
-    LSE ``[b, h, 1, s]`` and ``delta = rowsum(dO * O)`` (same shape),
-    every product in f32, the grads cast back to the input dtype
-    (reference ``_pallas_flash_bwd_32``, attention.py:281-325)::
+    LSE ``[b, h, 1, s]`` and ``delta = rowsum(dO * O)`` (same shape; the
+    caller computes it, as the reference does outside its kernels,
+    attention.py:286-288), every product summed in f32, the grads cast
+    back to the input dtype (reference ``_pallas_flash_bwd_32``,
+    attention.py:281-325)::
 
         P  = exp(S * scale [masked to -1e30] - LSE)
         dS = P * (dO V^T - delta)
         dQ = dS K scale,  dK = dS^T Q scale,  dV = P^T dO
-    """
+
+    ``p_dtype=None`` (or ``torch.float32``, the same bits) keeps P and dS
+    in f32. ``torch.bfloat16`` rounds P to bf16 before ``P^T dO`` and dS,
+    made from the unrounded P, before ``dS K`` and ``dS^T Q``, as the
+    Pallas kernels do (attention.py:227, :264, :267) and the bf16 kernels
+    with them. P uses the forward's global LSE, so this rounding does not
+    depend on the kernels' tiles."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
     if causal:
@@ -153,6 +162,8 @@ def flash_attention_backward_plain(q, k, v, lse, do, delta, scale, causal):
     p = torch.exp(s - lse.transpose(-1, -2))
     dp = torch.einsum("bhsd,bhtd->bhst", dof, vf)
     ds = p * (dp - delta.transpose(-1, -2))
+    if p_dtype is not None:
+        p, ds = p.to(p_dtype).float(), ds.to(p_dtype).float()
     dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
     dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
     dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
@@ -175,7 +186,9 @@ def _check_backward_operands(q, k, v, lse, do, delta):
 
 
 def flash_bwd_dq(q, k, v, lse, do, delta, scale, causal):
-    """K2 on CUDA tensors, the dQ of its plain version on CPU tensors.
+    """K2 on CUDA tensors, the dQ of its plain version on CPU tensors
+    (P and dS in f32, as in the reference's CPU path, the XLA
+    composition; the bf16 kernel rounds them as the Pallas kernels do).
     Counts each kernel launch in ``flash_bwd_dq.launches``."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, lse, do, delta,
@@ -204,7 +217,8 @@ flash_bwd_dq.launches = 0
 
 def flash_bwd_dkv(q, k, v, lse, do, delta, scale, causal):
     """K3 on CUDA tensors, the ``(dk, dv)`` of its plain version on CPU
-    tensors. Counts each kernel launch in ``flash_bwd_dkv.launches``."""
+    tensors (P and dS in f32, as for ``flash_bwd_dq``). Counts each
+    kernel launch in ``flash_bwd_dkv.launches``."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, lse, do, delta,
                                               scale, causal)[1:]

@@ -10,7 +10,8 @@ order differs; 2e-2 for bf16 inputs, whose outputs are rounded to bf16
 (1e-2 for the bf16 K1 against the plain version that rounds P as it does).
 K2/K3 grads are held relative to the largest grad, or to 1 where that
 is smaller (dK and dV sum over up to 256 query rows): 1e-4 in f32, 2e-2
-in bf16. K5-K7: the loss and LSE are f32 on both sides (atol 1e-4), the
+in bf16 (5e-3 for the bf16 K2/K3 against the plain version that rounds P
+and dS as they do). K5-K7: the loss and LSE are f32 on both sides (atol 1e-4), the
 grads relative to the largest grad (1e-4 in f32, 1e-2 in bf16).
 """
 import numpy as np
@@ -190,6 +191,78 @@ def test_flash_backward_kernels_match_plain(dev, s, d, causal, dtype, tol):
         err = (got.float() - want).abs().max().item()
         # at s = 1 the true grads are 0 (O = V): an absolute floor of tol
         assert err <= tol * max(want.abs().max().item(), 1.0)
+
+
+# bf16 K2/K3 (the tensor-core kernels) against the plain backward that
+# rounds P and dS to bf16 as they do: 5e-3 of the largest grad (half a
+# bf16 ulp for the kernels' final rounding, plus a P or dS element that an
+# exp or a sum in another order rounds the other way); against P and dS
+# kept f32, 2e-2. At s = 1 the true dQ and dK are 0 (O = V, so dP =
+# delta): an absolute floor of the tolerance
+FLASH_BWD_BF16P_TOL = 5e-3
+
+
+@pytest.mark.parametrize("s,b,h", [(1, 1, 2), (63, 2, 3), (64, 1, 5),
+                                   (65, 1, 5), (333, 1, 12), (1024, 2, 12)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_flash_backward_kernels_against_both_plain_variants(
+        dev, s, b, h, d, causal):
+    """The bf16 K2 and K3 at the tile edges (S = 1 .. 1024), D = 64 and
+    128, B*H = 2 .. 24, one launch each, against both plain variants."""
+    q, k, v, do, lse, delta = _bwd_inputs(dev, (b, h, s, d), torch.bfloat16,
+                                          causal, s * d + b)
+    scale = d ** -0.5
+    n2, n3 = attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches
+    dq = attn.flash_bwd_dq(q, k, v, lse, do, delta, scale, causal)
+    dk, dv = attn.flash_bwd_dkv(q, k, v, lse, do, delta, scale, causal)
+    assert attn.flash_bwd_dq.launches == n2 + 1
+    assert attn.flash_bwd_dkv.launches == n3 + 1
+    for p_dtype, tol in ((None, 2e-2), (torch.bfloat16, FLASH_BWD_BF16P_TOL)):
+        ref = attn.flash_attention_backward_plain(
+            q.float(), k.float(), v.float(), lse, do.float(), delta, scale,
+            causal, p_dtype=p_dtype)
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            assert got.dtype == torch.bfloat16 and got.shape == want.shape
+            assert torch.isfinite(got).all()
+            err = (got.float() - want).abs().max().item()
+            assert err <= tol * max(want.abs().max().item(), 1.0), (
+                name, p_dtype, err)
+
+
+def test_bf16_backward_kernels_give_the_same_bits_twice(dev):
+    """Two runs of the bf16 K2 and K3 at the flagship's [8, 12, 1024, 64]
+    causal give the same bits: neither uses atomics."""
+    q, k, v, do, lse, delta = _bwd_inputs(dev, (8, 12, 1024, 64),
+                                          torch.bfloat16, True, 0)
+    runs = [(attn.flash_bwd_dq(q, k, v, lse, do, delta, 0.125, True),
+             *attn.flash_bwd_dkv(q, k, v, lse, do, delta, 0.125, True))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_bf16_flash_backward_rejects_what_it_cannot_take(dev):
+    """bf16 operands the kernels do not take raise before any launch: a
+    head_dim other than 64/128, a dO of another dtype or layout, fp16, a
+    LSE in bf16."""
+    q, k, v, do, lse, delta = _bwd_inputs(dev, (1, 2, 40, 64),
+                                          torch.bfloat16, True, 1)
+    n2, n3 = attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches
+    q96 = torch.zeros(1, 2, 40, 96, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        attn.flash_bwd_dq(q96, q96, q96, lse, q96, delta, 0.1, True)
+    with pytest.raises(ValueError):
+        attn.flash_bwd_dkv(q, k, v, lse, do.float(), delta, 0.125, True)
+    with pytest.raises(ValueError):
+        attn.flash_bwd_dq(q, k, v, lse, do.transpose(2, 3).contiguous()
+                          .transpose(2, 3), delta, 0.125, True)
+    with pytest.raises(TypeError):
+        attn.flash_bwd_dkv(q.half(), k.half(), v.half(), lse, do.half(),
+                           delta, 0.125, True)
+    with pytest.raises(ValueError):
+        attn.flash_bwd_dq(q, k, v, lse.bfloat16(), do, delta, 0.125, True)
+    assert attn.flash_bwd_dq.launches == n2
+    assert attn.flash_bwd_dkv.launches == n3
 
 
 def test_flash_kernel_rejects_and_backward_launches_k2_k3(dev):
