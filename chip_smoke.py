@@ -6,9 +6,10 @@ Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
              all started together) and print the build seconds, with
-             ptxas's registers and spills; beside them the parent
-             commit's flash_bwd.cu (from --parent TREE or git history,
-             where either is at hand) for phases 6 and 10;
+             ptxas's registers and spills and the f32 K2/K3's blocks an
+             SM; beside them the parent commit's flash_bwd.cu (from
+             --parent TREE or git history, where either is at hand) for
+             phases 6 and 7;
   2. K4      paged decode attention against its plain PyTorch version at
              the engine's shapes: ragged lengths, mid-block tails,
              trash-padded tables over garbage, a length past MB*BS,
@@ -30,18 +31,26 @@ Phases, one line each:
              bf16, a ragged [1,12,333,64] causal and not, D = 128 at
              [1,4,200,128] and [2,3,65,128]; bf16 against both plain
              variants (P and dS kept f32, and rounded to bf16 as the
-             kernels round them) and run twice for the same bits; f32
-             gives the parent's bits; K2, K3, the plain backward and the
-             backward of PyTorch's scaled_dot_product_attention timed at
-             the training shape in f32, and in bf16 (the flagship's
-             dtype) with K1, SDPA's forward, the parent's K2/K3 and
-             SDPA's backward three times between them (median and
-             spread), with TFLOP/s and the fraction of the bound;
+             kernels round them); every case run twice for the same
+             bits; f32 within the same tolerance of the parent's K2/K3;
+             K2, K3, the plain backward and the backward of PyTorch's
+             scaled_dot_product_attention timed at the training shape in
+             f32, K2/K3 against the parent's in turns (this tree, parent,
+             parent, this tree) with SDPA's backward between them
+             (median and spread), and in bf16 (the flagship's dtype)
+             with K1, SDPA's forward and SDPA's backward three times
+             between them, with TFLOP/s and the fraction of the bound;
   7. train   GPT-124M with an untied head (random weights from a seeded
              torch.Generator), batch 8 x seq 1024, labels = ids, AdamW(1e-4,
              weight_decay 0.01, ClipGradByGlobalNorm(1.0)), 6 steps: every
              loss finite, the last below the first, K1 = K2 = K3 launches =
-             6 x 12; median step ms of steps 2-6, tokens/s, peak memory;
+             6 x 12; median step ms of steps 2-6, tokens/s, peak memory.
+             Then, where the parent's K2 and K3 were built, the same 6
+             steps with them, in turns (this tree, parent, parent, this
+             tree): step 1's loss the same bits (the forward is the
+             same), steps 2-6 within 1e-4 relative (the f32 grads sum in
+             another order), peak memory no more than the parent's + 64
+             MiB, and each side's median step over its two runs;
   8. cpu     a 2-layer GPT at full width, untied and tied (the tied one
              puts K5-K7 and K7's dW in the word-embedding grad), batch 1 x
              seq 256, the same weights on the card and on the CPU: 3 AdamW
@@ -65,13 +74,7 @@ Phases, one line each:
              amp.auto_cast(level="O1", dtype="bfloat16"), 6 steps: every
              loss finite, the last below the first, K1 = K2 = K3 launches
              = 6 x 12 and K5 = K6 = K7 = 6; median step ms, tokens/s, peak
-             memory. Then, where the parent's K2 and K3 were built, the
-             same 6 steps with them, and both again in the other order
-             (this tree, parent, parent, this tree): step 1's loss within
-             1e-6 relative (the forward is the same), steps 2-6 within
-             5e-3 (the bf16 backward now rounds P and dS as the reference
-             does), peak memory no more than the parent's + 64 MiB, and
-             each side's median step over its two runs.
+             memory.
 Then the card's name and power limit, one JSON line of kernel numbers,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -135,10 +138,10 @@ CE_BF16D_TOL = 5e-3
 # is f32 on both sides (sums over up to 1024 keys, exp2 for exp)
 BF16P_TOL = 1e-2
 FLASH_LSE_TOL = 5e-5
-# the commit whose K2 and K3 (CUDA cores, bf16 widened to f32) phases 6
-# and 10 hold the tensor-core kernels against, where its source is at
-# hand: {(source, symbol): ctypes argtypes}
-PARENT = "1d1affc"
+# the commit whose f32 K2 and K3 (the first CUDA-core kernels) phases 6
+# and 7 hold the redesigned ones against, where its source is at hand:
+# {(source, symbol): ctypes argtypes}
+PARENT = "8d7e459"
 PARENT_SYMBOLS = {
     ("flash_bwd", "flash_attention_backward_dq"):
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
@@ -518,47 +521,80 @@ def phase_k2k3(torch, attn, train_shape, _build, parent):
                 line.append(f"{name} err {err:.3e} vs P "
                             f"{'bf16' if p_dtype else 'f32'} (tol {tol} x "
                             f"max |grad| {top:.3e})")
-        if dtype == "bfloat16":
-            again = (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
-            check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  f"K2/K3 {shape} causal={causal} bf16: two runs differ")
-            line.append("a second run gives the same bits")
+        again = (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K2/K3 {shape} causal={causal} {dtype}: two runs differ")
+        line.append("a second run gives the same bits")
         if parent and dtype == "float32":
+            # the parent's f32 kernels sum in another order: within the
+            # tolerance against the plain backward, relative to its grad
             with parent_kernels(_build, parent):
                 theirs = (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
-            # f32 runs the parent's code unchanged: the same bits
-            check(all(torch.equal(a, b) for a, b in zip(got, theirs)),
-                  f"f32 K2/K3 {shape} causal={causal} differ from the "
-                  f"parent's")
-            line.append("the parent's bits")
+            worst = 0.0
+            for name, a, b in zip(("dq", "dk", "dv"), got, theirs):
+                err = (a - b).abs().max().item()
+                top = b.abs().max().item()
+                check(err <= BWD_F32_TOL * top,
+                      f"f32 K2/K3 {name} {shape} causal={causal}: max abs "
+                      f"err {err} against the parent's > {BWD_F32_TOL} x "
+                      f"max |grad| {top}")
+                worst = max(worst, err / top)
+            line.append(f"within {worst:.3e} of the parent's (tol "
+                        f"{BWD_F32_TOL} x max |grad|)")
         print(f"  K2/K3 {list(shape)} causal={causal} {dtype}: "
               + "; ".join(line))
 
-    # timing at the training shape, f32 causal
+    # timing at the training shape, f32 causal: K2, K3 and, where built,
+    # the parent's in turns (this tree, parent, parent, this tree), with
+    # SDPA's backward between them
     q, k, v, do, lse, delta, scale = bwd_case(torch, attn, train_shape, True,
                                               "float32", g)
     args = (q, k, v, lse, do, delta, scale, True)
-    dq_ms = time_ms(torch, lambda: attn.flash_bwd_dq(*args))
-    dkv_ms = time_ms(torch, lambda: attn.flash_bwd_dkv(*args))
-    plain_ms = time_ms(torch, lambda: attn.flash_attention_backward_plain(
-        *args))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
-        out, leaves, do, retain_graph=True))
+    times = {"this tree": [], "the parent": []}
+    libs = []
+    for side in (("this tree", "the parent", "the parent", "this tree")
+                 if parent else ("this tree",)):
+        with (parent_kernels(_build, parent) if side == "the parent"
+              else contextlib.nullcontext()):
+            times[side].append((
+                time_ms(torch, lambda: attn.flash_bwd_dq(*args)),
+                time_ms(torch, lambda: attn.flash_bwd_dkv(*args))))
+        libs.append(time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True)))
+    dq_ms, dkv_ms = (float(np.median(x)) for x in zip(*times["this tree"]))
+    lib_ms = float(np.median(libs))
+    plain_ms = time_ms(torch, lambda: attn.flash_attention_backward_plain(
+        *args))
     b, h, s, d = train_shape
     n = b * h * s
     pairs = b * h * s * (s + 1) // 2
     reads = 4 * n * d * 4 + 2 * n * 4          # q, k, v, dO; lse, delta
-    k2_b = bound(reads + n * d * 4, 3 * 2 * d * pairs, "float32")
-    k3_b = bound(reads + 2 * n * d * 4, 4 * 2 * d * pairs, "float32")
+    k2_flops, k3_flops = 3 * 2 * d * pairs, 4 * 2 * d * pairs
+    k2_b = bound(reads + n * d * 4, k2_flops, "float32")
+    k3_b = bound(reads + 2 * n * d * 4, k3_flops, "float32")
     all_b = bound(reads + 3 * n * d * 4, 5 * 2 * d * pairs, "float32")
-    print(f"  {list(train_shape)} causal f32: K2 {dq_ms:.4f} ms (bound "
-          f"{k2_b[0]:.4f} ms, {k2_b[1]}: S, dP, dQ), K3 {dkv_ms:.4f} ms "
-          f"(bound {k3_b[0]:.4f} ms, {k3_b[1]}: S, dP, dV, dK); K2 + K3 "
-          f"{dq_ms + dkv_ms:.4f} ms against the backward's bound "
-          f"{all_b[0]:.4f} ms ({all_b[1]}, 5 products over {pairs} pairs); "
-          f"plain backward {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms")
+    rate = [f"{name} {ms:.4f} ms, {f / ms / 1e9:.1f} TFLOP/s, "
+            f"{bd[0] / ms:.4f} of its bound {bd[0]:.4f} ms ({bd[1]})"
+            for name, ms, f, bd in (("K2", dq_ms, k2_flops, k2_b),
+                                    ("K3", dkv_ms, k3_flops, k3_b))]
+    print(f"  {list(train_shape)} causal f32: " + "; ".join(rate)
+          + f"; K2 + K3 {dq_ms + dkv_ms:.4f} ms against the backward's "
+          f"bound {all_b[0]:.4f} ms ({all_b[1]}, 5 products over {pairs} "
+          f"pairs); sdpa backward median {lib_ms:.4f} ms of "
+          f"{[round(x, 4) for x in libs]} ({(dq_ms + dkv_ms) / lib_ms:.2f}x);"
+          f" plain backward {plain_ms:.4f} ms")
+    if parent:
+        for side, ts in times.items():
+            print(f"  {list(train_shape)} causal f32, {side}'s K2/K3 in "
+                  f"turns: K2 {[round(t, 4) for t, _ in ts]} ms, K3 "
+                  f"{[round(t, 4) for _, t in ts]} ms")
+        p_dq, p_dkv = (float(np.median(x)) for x in zip(*times["the parent"]))
+        print(f"  the parent's ({PARENT}) K2 {p_dq:.4f} ms and K3 "
+              f"{p_dkv:.4f} ms (medians): {p_dq / dq_ms:.2f}x and "
+              f"{p_dkv / dkv_ms:.2f}x the new ones; K2 + K3 "
+              f"{p_dq + p_dkv:.4f} against {dq_ms + dkv_ms:.4f} ms")
     main = [(train_shape, True, "float32", nm) for nm in ("dq", "dk", "dv")]
     rows = []
     for name, src_line, ms, (b_ms, b_by), err in (
@@ -571,17 +607,15 @@ def phase_k2k3(torch, attn, train_shape, _build, parent):
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": lib_ms})
-    return rows + flash_bf16_rows(torch, attn, train_shape, errs, g, _build,
-                                  parent)
+    return rows + flash_bf16_rows(torch, attn, train_shape, errs, g)
 
 
-def flash_bf16_rows(torch, attn, train_shape, errs, g, _build, parent):
+def flash_bf16_rows(torch, attn, train_shape, errs, g):
     """K1, K2 and K3 in bf16 at the training shape, causal, as the
     flagship step (phase 10) runs them: time against the plain versions,
-    the bf16 bound, PyTorch's SDPA forward / backward in bf16 and, for K2
-    and K3, the parent's kernels. SDPA's backward moved between 0.19 and
-    0.70 ms from one call to the next, so it is timed three times (four
-    with the parent) between the kernels: its median is the row's
+    the bf16 bound and PyTorch's SDPA forward / backward in bf16. SDPA's
+    backward moved between 0.19 and 0.70 ms from one call to the next, so
+    it is timed three times between the kernels: its median is the row's
     library time, and the spread is printed."""
     import torch.nn.functional as F
     q, k, v, do, lse, delta, scale = bwd_case(torch, attn, train_shape, True,
@@ -619,12 +653,6 @@ def flash_bf16_rows(torch, attn, train_shape, errs, g, _build, parent):
     libs.append(sdpa_bwd())
     dkv_ms = time_ms(torch, lambda: attn.flash_bwd_dkv(*args))
     libs.append(sdpa_bwd())
-    p_dq = p_dkv = None
-    if parent:
-        with parent_kernels(_build, parent):
-            p_dq = time_ms(torch, lambda: attn.flash_bwd_dq(*args))
-            p_dkv = time_ms(torch, lambda: attn.flash_bwd_dkv(*args))
-        libs.append(sdpa_bwd())
     lib_ms = float(np.median(libs))
     plain_ms = time_ms(torch, lambda: attn.flash_attention_backward_plain(
         *args))
@@ -651,10 +679,6 @@ def flash_bf16_rows(torch, attn, train_shape, errs, g, _build, parent):
           f"{lib_ms:.4f} ms of {[round(x, 4) for x in libs]} "
           f"({(dq_ms + dkv_ms) / lib_ms:.2f}x), plain backward "
           f"{plain_ms:.4f} ms")
-    if p_dq is not None:
-        print(f"  {list(train_shape)} causal bf16, the parent's ({PARENT}) "
-              f"K2 {p_dq:.4f} ms and K3 {p_dkv:.4f} ms in this call: "
-              f"{p_dq / dq_ms:.2f}x and {p_dkv / dkv_ms:.2f}x the new ones")
     main = [(train_shape, True, "bfloat16", nm) for nm in ("dq", "dk", "dv")]
     rows = []
     for name, src, line, ms, pl, lib, (b_ms, b_by), err in (
@@ -674,9 +698,10 @@ def flash_bf16_rows(torch, attn, train_shape, errs, g, _build, parent):
 
 # ------------------------------------------------------------ phases 7-8
 
-def phase_train(torch, attn, cfg, optimizer, nn):
+def train_run(torch, cfg, optimizer, nn):
+    """TRAIN_STEPS untied f32 steps from the same seeded weights: (losses,
+    step ms, peak bytes, tokens a step)."""
     from paddle_tpu_torch.text.models import GPTForCausalLM
-    L = cfg.num_layers
     model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
         1234)).train()
     opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
@@ -687,9 +712,6 @@ def phase_train(torch, attn, cfg, optimizer, nn):
     labels = ids.clone()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attn.flash_attention_forward.launches = 0
-    attn.flash_bwd_dq.launches = 0
-    attn.flash_bwd_dkv.launches = 0
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -700,22 +722,67 @@ def phase_train(torch, attn, cfg, optimizer, nn):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt, loss
+    return losses, times, peak, ids.numel()
+
+
+def phase_train(torch, attn, cfg, optimizer, nn, _build, parent):
+    L = cfg.num_layers
+    attn.flash_attention_forward.launches = 0
+    attn.flash_bwd_dq.launches = 0
+    attn.flash_bwd_dkv.launches = 0
+    losses, times, peak, tokens = train_run(torch, cfg, optimizer, nn)
     counts = (attn.flash_attention_forward.launches,
               attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches)
-    peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(counts == (TRAIN_STEPS * L,) * 3,
           f"K1/K2/K3 launches {counts} != {TRAIN_STEPS} x {L} each")
     step_ms = float(np.median(times[1:]))
-    tokens = ids.numel()
     print(f"  losses {[round(x, 6) for x in losses]}; step ms "
           f"{[round(t, 2) for t in times]}")
     print(f"  median step (steps 2-{TRAIN_STEPS}) {step_ms:.2f} ms, "
           f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
           f"{peak / 2**30:.3f} GiB; K1/K2/K3 launches {counts} = "
           f"{TRAIN_STEPS} x {L} each")
-    del model, opt
+    if parent:
+        # the same steps with the parent's f32 K2 and K3, in turns (this
+        # tree, the parent, the parent, this tree): the host's speed
+        # drifts within a call. The forward is the same, so step 1's loss
+        # is too; later steps follow grads summed in another order
+        runs = {"this tree": [(losses, times, peak)], "the parent": []}
+        for side in ("the parent", "the parent", "this tree"):
+            with (parent_kernels(_build, parent) if side == "the parent"
+                  else contextlib.nullcontext()):
+                runs[side].append(train_run(torch, cfg, optimizer, nn)[:3])
+        (p_losses, _, _), _ = runs["the parent"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, p_losses)]
+        med = {}
+        for side, rs in runs.items():
+            med[side] = float(np.median([t for _, ts, _ in rs
+                                         for t in ts[1:]]))
+            print(f"  {side}'s K2/K3: step ms "
+                  + ", ".join(f"{[round(t, 2) for t in ts]}"
+                              for _, ts, _ in rs)
+                  + f"; median of steps 2-{TRAIN_STEPS} of both runs "
+                  f"{med[side]:.2f} ms, {tokens / med[side] * 1e3:.1f} "
+                  f"tokens/s; peak memory "
+                  + ", ".join(f"{pk / 2**30:.3f}" for _, _, pk in rs)
+                  + " GiB; the two runs' losses "
+                  + ("the same" if rs[0][0] == rs[1][0] else "differ"))
+        print(f"  the parent's ({PARENT}) losses "
+              f"{[round(x, 6) for x in p_losses]}; "
+              f"relative differences {[float(f'{r:.3e}') for r in rel]}; "
+              f"this tree's median step "
+              f"{med['the parent'] - med['this tree']:.2f} ms shorter")
+        check(p_losses[0] == losses[0], f"step 1 loss {losses[0]} vs the "
+              f"parent's {p_losses[0]}: the forward is the same")
+        check(max(rel[1:]) <= LOSS_RTOL, f"losses {losses} vs the parent's "
+              f"{p_losses}")
+        peaks = {side: max(pk for _, _, pk in rs) for side, rs in runs.items()}
+        check(peaks["this tree"] <= peaks["the parent"] + (64 << 20),
+              f"peak memory {peaks}")
     return counts
 
 
@@ -780,7 +847,7 @@ def ce_case(torch, t, h, v, dtype, g):
 
 def parent_sources(parent_tree):
     """{source name: text} of the parent commit's ``csrc/flash_bwd.cu``
-    (the CUDA-core K2 and K3 that the bf16 kernels replace): from
+    (its f32 K2 and K3, the first CUDA-core kernels): from
     ``--parent TREE``, a checkout of it, else from git history; None where
     neither is at hand."""
     names = sorted({name for name, _ in PARENT_SYMBOLS})
@@ -977,13 +1044,16 @@ def phase_k5k7(torch, tce, t, h, v):
 
 # --------------------------------------------------------------- phase 10
 
-def flagship_run(torch, amp, optimizer, TransformerLMConfig):
+def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
     """The reference's bench_gpt step (tools/baseline_bench.py:163-197),
-    TRAIN_STEPS times from the same seeded weights: (losses, step ms,
-    peak bytes, tokens a step, layers)."""
+    TRAIN_STEPS times from seeded weights."""
     from paddle_tpu_torch.text.models import GPTForCausalLM
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
     cfg = TransformerLMConfig(dropout=0.0, use_flash_attention=True,
                               max_seq_len=FLAGSHIP["seq"])
+    L = cfg.num_layers
     model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
         1234)).train()
     opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
@@ -993,6 +1063,8 @@ def flagship_run(torch, amp, optimizer, TransformerLMConfig):
             np.int64)).cuda()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers:
+        fn.launches = 0
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1004,27 +1076,16 @@ def flagship_run(torch, amp, optimizer, TransformerLMConfig):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())
-    check(loss.dtype == torch.float32, f"O1 loss dtype {loss.dtype}")
-    peak = torch.cuda.max_memory_allocated()
-    del model, opt, loss
-    return losses, times, peak, ids.numel(), cfg.num_layers
-
-
-def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig,
-                   _build, parent):
-    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
-                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
-                tce.fused_ce_bwd_dw)
-    for fn in wrappers:
-        fn.launches = 0
-    losses, times, peak, tokens, L = flagship_run(torch, amp, optimizer,
-                                                  TransformerLMConfig)
     counts = tuple(fn.launches for fn in wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    check(loss.dtype == torch.float32, f"O1 loss dtype {loss.dtype}")
+    del model, opt, loss
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     want = (TRAIN_STEPS * L,) * 3 + (TRAIN_STEPS,) * 3
     check(counts == want, f"K1/K2/K3/K5/K6/K7 launches {counts} != {want}")
     step_ms = float(np.median(times[1:]))
+    tokens = ids.numel()
     print(f"  losses {[round(x, 6) for x in losses]}; step ms "
           f"{[round(t, 2) for t in times]}")
     print(f"  median step (steps 2-{TRAIN_STEPS}) {step_ms:.2f} ms, "
@@ -1032,46 +1093,6 @@ def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig,
           f"{peak / 2**30:.3f} GiB; K1/K2/K3 launches {counts[:3]} = "
           f"{TRAIN_STEPS} x {L} each, K5/K6/K7 {counts[3:]} = {TRAIN_STEPS}"
           " each")
-    if parent:
-        # the same steps with the parent's K2 and K3, in turns (this tree,
-        # the parent, the parent, this tree): the host's speed drifts
-        # within a call, and a step is host-bound where the host is slow.
-        # The forward is the same, so step 1's loss is too; later steps
-        # follow the grads, which the bf16 backward now makes with P and dS
-        # rounded to bf16
-        runs = {"this tree": [(losses, times, peak)], "the parent": []}
-        for side in ("the parent", "the parent", "this tree"):
-            with (parent_kernels(_build, parent) if side == "the parent"
-                  else contextlib.nullcontext()):
-                runs[side].append(flagship_run(torch, amp, optimizer,
-                                               TransformerLMConfig)[:3])
-        (p_losses, _, _), _ = runs["the parent"]
-        rel = [abs(a - b) / abs(b) for a, b in zip(losses, p_losses)]
-        med = {}
-        for side, rs in runs.items():
-            med[side] = float(np.median([t for _, ts, _ in rs
-                                         for t in ts[1:]]))
-            print(f"  {side}'s K2/K3: step ms "
-                  + ", ".join(f"{[round(t, 2) for t in ts]}"
-                              for _, ts, _ in rs)
-                  + f"; median of steps 2-{TRAIN_STEPS} of both runs "
-                  f"{med[side]:.2f} ms, {tokens / med[side] * 1e3:.1f} "
-                  f"tokens/s; peak memory "
-                  + ", ".join(f"{pk / 2**30:.3f}" for _, _, pk in rs)
-                  + " GiB; the two runs' losses "
-                  + ("the same" if rs[0][0] == rs[1][0] else "differ"))
-        print(f"  the parent's ({PARENT}) losses "
-              f"{[round(x, 6) for x in p_losses]}; "
-              f"relative differences {[float(f'{r:.3e}') for r in rel]}; "
-              f"this tree's median step "
-              f"{med['the parent'] - med['this tree']:.2f} ms shorter")
-        check(rel[0] <= 1e-6, f"step 1 loss {losses[0]} vs the parent's "
-              f"{p_losses[0]}")
-        check(max(rel[1:]) <= 5e-3, f"losses {losses} vs the parent's "
-              f"{p_losses}")
-        peaks = {side: max(pk for _, _, pk in rs) for side, rs in runs.items()}
-        check(peaks["this tree"] <= peaks["the parent"] + (64 << 20),
-              f"peak memory {peaks}")
     return counts
 
 
@@ -1079,7 +1100,7 @@ def main():
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--parent", metavar="TREE",
                     help=f"a checkout of {PARENT}, whose flash_bwd.cu "
-                    "phases 6 and 10 compare with (default: git history, "
+                    "phases 6 and 7 compare with (default: git history, "
                     "where the checkout has it)")
     args = ap.parse_args()
     try:
@@ -1117,9 +1138,14 @@ def main():
         for line in ptxas_lines(_build.build_log(name)):
             print(f"  {name}: {line}")
     print(f"  built {_build.sources()} in {secs:.2f} s")
+    blocks = _build.function("flash_bwd",
+                             "flash_attention_backward_f32_blocks_per_sm",
+                             [ctypes.c_int, ctypes.c_int])
+    print("  f32 K2/K3 blocks an SM: " + ", ".join(
+        f"D = {d}: {blocks(d, 0)} / {blocks(d, 1)}" for d in (64, 128)))
     parent = load_parent(parent_build)
     print(f"  the parent's ({PARENT}) K2 and K3: " + (
-        "built, for phases 6 and 10" if parent else
+        "built, for phases 6 and 7" if parent else
         "no source at hand (no git history, no --parent): not compared"))
 
     cfg = TransformerLMConfig(dropout=0.0)
@@ -1147,7 +1173,8 @@ def main():
                       train_cfg.hidden_size // train_cfg.num_heads), _build,
         parent)
     print("[7] train GPT-124M (untied head)")
-    k1_train, k2, k3 = phase_train(torch, attn, train_cfg, optimizer, nn)
+    k1_train, k2, k3 = phase_train(torch, attn, train_cfg, optimizer, nn,
+                                   _build, parent)
     print("[8] card against CPU: 2-layer GPT at full width")
     for tie in (False, True):
         phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig, tie)
@@ -1157,7 +1184,7 @@ def main():
         cfg.vocab_size)
     print("[10] the reference's flagship step: GPT-124M tied, AMP O1 bf16")
     k1_f, k2_f, k3_f, k5, k6, k7 = phase_flagship(
-        torch, attn, tce, amp, optimizer, TransformerLMConfig, _build, parent)
+        torch, attn, tce, amp, optimizer, TransformerLMConfig)
 
     k4_row["launches"] = k4
     # K1 runs on three main paths: the serving cross-check and the untied

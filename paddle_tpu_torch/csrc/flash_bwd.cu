@@ -61,15 +61,42 @@
 //     each element's own row and column; the grid runs the longest tiles
 //     first. q, k, v or dO not 16-byte aligned stage element by element.
 //
-// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel, a simple first kernel on
-// the CUDA cores):
-//   * each of the 256 threads computes a 4 x 4 register tile of S and of dP
-//     (rows ty*4.., columns tx + 16j), the layout of the forward kernel, so
-//     every shared-memory load feeds 2 FMAs; rows of Q, K, V and dO are
-//     padded by one float so a row group's 16 threads read 16 banks;
-//   * the accumulated gradient is a 4 x D/16 register tile per thread
-//     (4 rows, columns tx + 16c); P and dS go through shared memory to
-//     change hands between the two layouts.
+// f32 (flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel) on the CUDA cores,
+// the Pallas kernels' arithmetic with P and dS unrounded:
+//   * a block of 4 warps holds 64 rows (K2: query rows with their Q, dO,
+//     LSE and delta; K3: key rows with their K and V), 16 a warp, and
+//     streams the other side in tiles of 32 rows at D = 64, 16 at D = 128
+//     (K2: K and V; K3: Q, dO and their LSE and delta) by 16-byte cp.async,
+//     double-buffered: the next tile loads while this one computes, one
+//     barrier a tile. Q, K, V or dO (or an output) not 16-byte aligned
+//     stage (and store) element by element through the same kernel;
+//   * a lane (row group rg = lane / 8, column group cg = lane % 8) owns
+//     the warp's rows rg + 4i, i < 4, in every product: S and dP for the
+//     streamed rows cg + 8j, the gradient for the columns 4 cg + 32 m.
+//     P (K3) and dS change layout through a tile private to the warp, so a
+//     __syncwarp, not a block barrier, separates writing and reading them;
+//   * every shared-memory read is a float4 (LDS.128): S and dP read the
+//     held and streamed rows along D, the gradient products read P or dS
+//     along the contraction and the staged rows across the output columns.
+//     Rows padded to D + 4 (staged) and columns + 8 (P, dS tiles) put each
+//     load's words in distinct banks. FMAs per word a lane reads, over 4
+//     steps of the contraction:
+//       S, dP (K2, K3)   D = 64: 64 per 32 words (2); D = 128: 32 per 24 (1.3)
+//       dQ, dV, dK       D = 64: 128 per 48 (2.7); D = 128: 256 per 80 (3.2)
+//     All fall short of the 4 a lane needs for its loads to keep pace with
+//     its FMAs, so the loads, not the FMA units, set the products' rate.
+//     Why: a warp owns 16 rows, so a lane's tile is 4 x 4 of S at D = 64,
+//     4 x 2 at D = 128 (4 x D/8 of a gradient). Larger lane tiles need
+//     more held rows a warp and more registers: a layout with 8 rows a
+//     lane at D = 64 (2 or 3 warps a block) ran slower, and 6 warps a
+//     block of 16 rows each gained nothing, so warps are not short;
+//   * P = exp2(S * scale * log2(e) - LSE * log2(e)), one FMA and one exp2f;
+//     causal: only the tiles that cross the diagonal (and a ragged last
+//     tile) are masked, by each element's own row and column; both grids
+//     run the longest tiles first;
+//   * shared memory a block (from dq_f32_smem_bytes / dkv_f32_smem_bytes):
+//     K2 79,872 B at D = 64 and 107,520 B at D = 128, K3 90,624 and 113,920
+//     B, so two blocks (8 warps) an SM at either width.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,269 +106,6 @@
 namespace {
 
 constexpr int kB = 64;         // rows of a query or key tile
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kPP = kB + 1;    // padded row of a P or dS tile
-
-// rows [row0, row0 + 64) of a [S, D] matrix into shared memory with row
-// stride D + 1; rows past S are zero
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int S) {
-  for (int idx = threadIdx.x; idx < kB * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int g = row0 + r;
-    dst[r * (D + 1) + c] = g < S ? src[(size_t)g * D + c] : 0.f;
-  }
-}
-
-// acc[i][j] = sum_c A[ty*4 + i][c] * B[tx + 16j][c] over tiles with row
-// stride D + 1: the thread's 4 x 4 piece of A B^T
-template <int D>
-__device__ __forceinline__ void tile_abt(const float* A, const float* B,
-                                         float acc[4][4], int tx, int ty) {
-  constexpr int L = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < D; ++c) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * L + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * L + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// P and dS of the thread's 4 x 4 piece of the (q0, k0) tile pair, from its
-// pieces of S = Q K^T and dP = dO V^T; masked and ragged elements give 0
-__device__ __forceinline__ void probs_and_dscores(
-    float s[4][4], float dp[4][4], const float lse[4], const float dl[4],
-    int q0, int k0, int S, float scale, int causal, int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kpos = k0 + tx + 16 * j;
-      const bool live = qpos < S && kpos < S && !(causal && kpos > qpos);
-      const float p = live ? expf(s[i][j] * scale - lse[i]) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - dl[i]);
-    }
-  }
-}
-
-// the f32 LSE and delta of the thread's 4 query rows (0 past S)
-__device__ __forceinline__ void row_stats(const float* __restrict__ lse,
-                                          const float* __restrict__ delta,
-                                          size_t base, int q0, int S, int ty,
-                                          float l[4], float d[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    l[i] = qpos < S ? lse[base + qpos] : 0.f;
-    d[i] = qpos < S ? delta[base + qpos] : 0.f;
-  }
-}
-
-template <int D>
-constexpr int dq_smem_floats() {
-  return 4 * kB * (D + 1) + kB * kPP;
-}
-
-template <int D>
-constexpr int dkv_smem_floats() {
-  return 4 * kB * (D + 1) + 2 * kB * kPP;
-}
-
-// K2 in f32: one block per (query tile, b*h)
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        float* __restrict__ dq, int S, float scale,
-                        int causal) {
-  constexpr int L = D + 1;
-  constexpr int C = D / 16;  // gradient columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + kB * L;
-  float* sK = sdO + kB * L;
-  float* sV = sK + kB * L;
-  float* sdS = sV + kB * L;
-
-  const int qt = blockIdx.x;
-  const size_t bh = blockIdx.y;
-  const int q0 = qt * kB;
-  const size_t off = bh * S * D;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  load_tile<D>(sQ, q + off, q0, S);
-  load_tile<D>(sdO, dout + off, q0, S);
-  float l[4], dl[4];
-  row_stats(lse, delta, bh * S, q0, S, ty, l, dl);
-
-  float acc[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-
-  const int n_tiles = (S + kB - 1) / kB;
-  const int last = causal ? min(n_tiles - 1, qt) : n_tiles - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kB;
-    __syncthreads();  // previous tile's readers are done with sK/sV/sdS
-    load_tile<D>(sK, k + off, k0, S);
-    load_tile<D>(sV, v + off, k0, S);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_abt<D>(sQ, sK, s, tx, ty);
-    tile_abt<D>(sdO, sV, dp, tx, ty);
-    probs_and_dscores(s, dp, l, dl, q0, k0, S, scale, causal, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sdS[(ty * 4 + i) * kPP + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-
-    // dQ[rows] += dS[rows, :] K
-#pragma unroll 4
-    for (int j = 0; j < kB; ++j) {
-      float ds[4], kv[C];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = sdS[(ty * 4 + i) * kPP + j];
-#pragma unroll
-      for (int c = 0; c < C; ++c) kv[c] = sK[j * L + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][c] = fmaf(ds[i], kv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos >= S) continue;
-    float* row = dq + off + (size_t)qpos * D;
-#pragma unroll
-    for (int c = 0; c < C; ++c) row[tx + 16 * c] = acc[i][c] * scale;
-  }
-}
-
-// K3 in f32: one block per (key tile, b*h)
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int S, float scale, int causal) {
-  constexpr int L = D + 1;
-  constexpr int C = D / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kB * L;
-  float* sQ = sV + kB * L;
-  float* sdO = sQ + kB * L;
-  float* sP = sdO + kB * L;
-  float* sdS = sP + kB * kPP;
-
-  const int kt = blockIdx.x;
-  const size_t bh = blockIdx.y;
-  const int k0 = kt * kB;
-  const size_t off = bh * S * D;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  load_tile<D>(sK, k + off, k0, S);
-  load_tile<D>(sV, v + off, k0, S);
-
-  // rows are this tile's keys ty*4 + i, columns tx + 16c
-  float acc_k[4][C], acc_v[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
-
-  const int n_tiles = (S + kB - 1) / kB;
-  for (int qt = causal ? kt : 0; qt < n_tiles; ++qt) {
-    const int q0 = qt * kB;
-    __syncthreads();  // previous tile's readers are done with sQ/sdO/sP/sdS
-    load_tile<D>(sQ, q + off, q0, S);
-    load_tile<D>(sdO, dout + off, q0, S);
-    float l[4], dl[4];
-    row_stats(lse, delta, bh * S, q0, S, ty, l, dl);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_abt<D>(sQ, sK, s, tx, ty);
-    tile_abt<D>(sdO, sV, dp, tx, ty);
-    probs_and_dscores(s, dp, l, dl, q0, k0, S, scale, causal, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sP[(ty * 4 + i) * kPP + tx + 16 * j] = s[i][j];
-        sdS[(ty * 4 + i) * kPP + tx + 16 * j] = dp[i][j];
-      }
-    __syncthreads();
-
-    // dV[keys] += P[:, keys]^T dO,  dK[keys] += dS[:, keys]^T Q
-#pragma unroll 2
-    for (int r = 0; r < kB; ++r) {
-      float p[4], ds[4], dov[C], qv[C];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = sP[r * kPP + ty * 4 + i];
-        ds[i] = sdS[r * kPP + ty * 4 + i];
-      }
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        dov[c] = sdO[r * L + tx + 16 * c];
-        qv[c] = sQ[r * L + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          acc_v[i][c] = fmaf(p[i], dov[c], acc_v[i][c]);
-          acc_k[i][c] = fmaf(ds[i], qv[c], acc_k[i][c]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kpos = k0 + ty * 4 + i;
-    if (kpos >= S) continue;
-    float* krow = dk + off + (size_t)kpos * D;
-    float* vrow = dv + off + (size_t)kpos * D;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      krow[tx + 16 * c] = acc_k[i][c] * scale;
-      vrow[tx + 16 * c] = acc_v[i][c];
-    }
-  }
-}
 
 // ---- bf16 on the tensor cores ----------------------------------------------
 
@@ -757,40 +521,380 @@ __global__ void __launch_bounds__(kMThreads)
   store_rows<D>(dv + off, acc_v, row0, tq, S, 1.f);
 }
 
+// ---- f32 on the CUDA cores -------------------------------------------------
+
+constexpr int kFThreads = 128;  // 4 warps, 16 held rows each
+
+// rows of a streamed tile: 32 at D = 64, 16 at D = 128, so that two blocks
+// fit an SM at either width
 template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, void* dq, int BH, int S,
-              float scale, int causal, cudaStream_t stream) {
-  const int bytes = dq_smem_floats<D>() * (int)sizeof(float);
-  // above 48 KB a block must opt in to dynamic shared memory
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kB - 1) / kB, BH);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), S, scale, causal);
-  return 0;
+__host__ __device__ constexpr int f_cols() {
+  return D == 64 ? 32 : 16;
+}
+
+// row strides in floats: a staged tile (D + 4: consecutive rows start in
+// consecutive 16-byte bank groups) and a warp's P or dS tile (columns + 8:
+// a lane group's scalar stores hit 32 banks, its float4 loads distinct
+// groups)
+template <int D>
+__host__ __device__ constexpr int f_ld() {
+  return D + 4;
 }
 
 template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dk, void* dv,
-               int BH, int S, float scale, int causal, cudaStream_t stream) {
-  const int bytes = dkv_smem_floats<D>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kB - 1) / kB, BH);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dk), static_cast<float*>(dv), S, scale,
-      causal);
-  return 0;
+__host__ __device__ constexpr int f_ldp() {
+  return f_cols<D>() + 8;
+}
+
+// K2: Q and dO held, K and V double-buffered, a dS tile a warp
+template <int D>
+constexpr int dq_f32_smem_bytes() {
+  return (2 * kB * f_ld<D>() + 4 * f_cols<D>() * f_ld<D>() +
+          4 * 16 * f_ldp<D>()) *
+         4;
+}
+
+// K3: K and V held, Q and dO double-buffered with their LSE and delta, a P
+// and a dS tile a warp
+template <int D>
+constexpr int dkv_f32_smem_bytes() {
+  return (2 * kB * f_ld<D>() + 4 * f_cols<D>() * f_ld<D>() +
+          4 * f_cols<D>() + 2 * 4 * 16 * f_ldp<D>()) *
+         4;
+}
+
+// `rows` rows from r0 of a [S, D] f32 matrix into dst (row stride D + 4);
+// rows past S are zero. `vec`: the source is 16-byte aligned (cp.async by
+// 16 bytes, waited for by the caller); else element by element
+template <int D>
+__device__ __forceinline__ void stage_f32(float* dst,
+                                          const float* __restrict__ src,
+                                          int r0, int rows, int S, int vec) {
+  constexpr int LD = f_ld<D>();
+  if (vec) {
+    for (int idx = threadIdx.x; idx < rows * (D / 4); idx += kFThreads) {
+      const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+      const bool ok = r0 + r < S;
+      cp_async16(dst + r * LD + c, ok ? src + (size_t)(r0 + r) * D + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * D; idx += kFThreads) {
+      const int r = idx / D, c = idx % D;
+      dst[r * LD + c] = r0 + r < S ? src[(size_t)(r0 + r) * D + c] : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// acc[i][j] = sum over D of A[4i][c] B[8j][c]: A this thread's 4 held rows
+// (stride 4 rows), B its NJ streamed rows (stride 8 rows), both read as
+// float4 along the contraction
+template <int D, int NJ>
+__device__ __forceinline__ void f_abt(float acc[4][NJ], const float* A,
+                                      const float* B) {
+  constexpr int LD = f_ld<D>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    float4 a[4], b[NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + i * 4 * LD + c);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + j * 8 * LD + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
+}
+
+// out[i][4m + e] += sum over NT of A[4i][t] B[t][32m + e]: A this thread's 4
+// rows of its warp's P or dS tile, B a staged tile from this thread's first
+// column; A as float4 along the contraction, B as float4 across the output
+template <int D, int NT>
+__device__ __forceinline__ void f_ab(float out[4][D / 8], const float* A,
+                                     const float* B) {
+  constexpr int LD = f_ld<D>(), LDP = NT + 8, M = D / 32;
+#pragma unroll
+  for (int t = 0; t < NT; t += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + i * 4 * LDP + t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float4 b[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        b[m] = *reinterpret_cast<const float4*>(B + (t + e) * LD + 32 * m);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float av = f4_at(a[i], e);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          out[i][4 * m] = fmaf(av, b[m].x, out[i][4 * m]);
+          out[i][4 * m + 1] = fmaf(av, b[m].y, out[i][4 * m + 1]);
+          out[i][4 * m + 2] = fmaf(av, b[m].z, out[i][4 * m + 2]);
+          out[i][4 * m + 3] = fmaf(av, b[m].w, out[i][4 * m + 3]);
+        }
+      }
+    }
+  }
+}
+
+// this thread's 4 rows (hr + 4i, below S) of a gradient, times `mul`, from
+// column 4 cg in float4 steps of 32 (`vec`) or one float at a time
+template <int D>
+__device__ __forceinline__ void store_f32(float* dst,
+                                          const float acc[4][D / 8],
+                                          int row0, int cg, int S, float mul,
+                                          int vec) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + 4 * i;
+    if (row >= S) continue;
+    float* out = dst + (size_t)row * D + 4 * cg;
+#pragma unroll
+    for (int m = 0; m < D / 32; ++m) {
+      const float4 g =
+          make_float4(acc[i][4 * m] * mul, acc[i][4 * m + 1] * mul,
+                      acc[i][4 * m + 2] * mul, acc[i][4 * m + 3] * mul);
+      if (vec) {
+        *reinterpret_cast<float4*>(out + 32 * m) = g;
+      } else {
+        out[32 * m] = g.x;
+        out[32 * m + 1] = g.y;
+        out[32 * m + 2] = g.z;
+        out[32 * m + 3] = g.w;
+      }
+    }
+  }
+}
+
+// K2 in f32: one block per (b*h = blockIdx.x, 64-row query tile
+// nq - 1 - blockIdx.y). scale_log2 = scale * log2(e).
+template <int D>
+__global__ void __launch_bounds__(kFThreads)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, int S, float scale,
+                            float scale_log2, int causal, int vec) {
+  constexpr int LD = f_ld<D>(), NC = f_cols<D>(), NJ = NC / 8;
+  constexpr int LDP = f_ldp<D>();
+  extern __shared__ __align__(16) float fsm[];
+  float* sQ = fsm;                // [kB][LD]
+  float* sdO = sQ + kB * LD;      // [kB][LD]
+  float* sK = sdO + kB * LD;      // [2][NC][LD]
+  float* sV = sK + 2 * NC * LD;   // [2][NC][LD]
+  float* sdS = sV + 2 * NC * LD;  // [4 warps][16][LDP]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 3, cg = lane & 7;
+  const size_t bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // the longest tiles first
+  const int q0 = qt * kB;
+  const size_t off = bh * S * D;
+  const int hr = warp * 16 + rg;  // this thread's query rows: hr + 4i
+  float* myS = sdS + warp * 16 * LDP;
+
+  const int n_tiles = (S + NC - 1) / NC;
+  const int last =
+      causal ? min(n_tiles - 1, (q0 + kB - 1) / NC) : n_tiles - 1;
+
+  stage_f32<D>(sQ, q + off, q0, kB, S, vec);
+  stage_f32<D>(sdO, dout + off, q0, kB, S, vec);
+  stage_f32<D>(sK, k + off, 0, NC, S, vec);
+  stage_f32<D>(sV, v + off, 0, NC, S, vec);
+  cp_async_commit();
+
+  // LSE in log2 units and delta of this thread's rows (0 past S)
+  float l2[4], dl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + hr + 4 * i;
+    l2[i] = row < S ? lse[bh * S + row] * kLog2e : 0.f;
+    dl[i] = row < S ? delta[bh * S + row] : 0.f;
+  }
+
+  float acc[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is staged; every warp is past tile kt - 1
+    if (kt < last) {  // into the buffers tile kt - 1 used
+      const int nb = (kt + 1) & 1;
+      stage_f32<D>(sK + nb * NC * LD, k + off, (kt + 1) * NC, NC, S, vec);
+      stage_f32<D>(sV + nb * NC * LD, v + off, (kt + 1) * NC, NC, S, vec);
+      cp_async_commit();
+    }
+    const float* cK = sK + (kt & 1) * NC * LD;
+    const float* cV = sV + (kt & 1) * NC * LD;
+
+    float s[4][NJ], dp[4][NJ];
+    f_abt<D, NJ>(s, sQ + hr * LD, cK + cg * LD);
+    f_abt<D, NJ>(dp, sdO + hr * LD, cV + cg * LD);
+
+    // dS = P (dP - delta) into the warp's tile; masked (the causal
+    // diagonal and a ragged last tile) P is 0
+    const int k0 = kt * NC;
+    const bool masked = k0 + NC > S || (causal && k0 + NC - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float p = exp2f(fmaf(s[i][j], scale_log2, -l2[i]));
+        if (masked) {
+          const int col = k0 + cg + 8 * j, row = q0 + hr + 4 * i;
+          if (col >= S || (causal && col > row)) p = 0.f;
+        }
+        myS[(rg + 4 * i) * LDP + cg + 8 * j] = p * (dp[i][j] - dl[i]);
+      }
+    __syncwarp();
+    f_ab<D, NC>(acc, myS + rg * LDP, cK + 4 * cg);
+  }
+
+  store_f32<D>(dq + off, acc, q0 + hr, cg, S, scale, vec);
+}
+
+// K3 in f32: one block per (b*h = blockIdx.x, 64-row key tile blockIdx.y;
+// causal, the first key tiles see the most query tiles). Rows of every
+// product are this block's keys, columns the streamed queries.
+template <int D>
+__global__ void __launch_bounds__(kFThreads)
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv,
+                             int S, float scale, float scale_log2, int causal,
+                             int vec) {
+  constexpr int LD = f_ld<D>(), NC = f_cols<D>(), NJ = NC / 8;
+  constexpr int LDP = f_ldp<D>();
+  extern __shared__ __align__(16) float fsm[];
+  float* sK = fsm;                  // [kB][LD]
+  float* sV = sK + kB * LD;         // [kB][LD]
+  float* sQ = sV + kB * LD;         // [2][NC][LD]
+  float* sdO = sQ + 2 * NC * LD;    // [2][NC][LD]
+  float* sL = sdO + 2 * NC * LD;    // [2][NC]
+  float* sD = sL + 2 * NC;          // [2][NC]
+  float* sP = sD + 2 * NC;          // [4 warps][16][LDP]
+  float* sdS = sP + 4 * 16 * LDP;   // [4 warps][16][LDP]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int rg = lane >> 3, cg = lane & 7;
+  const size_t bh = blockIdx.x;
+  const int kt = blockIdx.y;
+  const int k0 = kt * kB;
+  const size_t off = bh * S * D;
+  const int hr = warp * 16 + rg;  // this thread's key rows: hr + 4i
+  float* myP = sP + warp * 16 * LDP;
+  float* mydS = sdS + warp * 16 * LDP;
+
+  const int n_tiles = (S + NC - 1) / NC;
+  const int first = causal ? k0 / NC : 0;
+
+  // Q, dO and the NC LSE and delta values of query tile qt into buffer b
+  auto stage_q = [&](int b, int qt) {
+    const int q0 = qt * NC;
+    stage_f32<D>(sQ + b * NC * LD, q + off, q0, NC, S, vec);
+    stage_f32<D>(sdO + b * NC * LD, dout + off, q0, NC, S, vec);
+    if (tid < 2 * NC) {
+      const float* src = tid < NC ? lse : delta;
+      const int r = tid % NC;
+      const bool ok = q0 + r < S;
+      cp_async4((tid < NC ? sL : sD) + b * NC + r,
+                ok ? src + bh * S + q0 + r : src, ok ? 4 : 0);
+    }
+  };
+
+  stage_f32<D>(sK, k + off, k0, kB, S, vec);
+  stage_f32<D>(sV, v + off, k0, kB, S, vec);
+  stage_q(0, first);
+  cp_async_commit();
+
+  float acc_k[4][D / 8], acc_v[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  for (int qt = first; qt < n_tiles; ++qt) {
+    const int it = qt - first;
+    cp_async_wait_all();
+    __syncthreads();  // tile qt is staged; every warp is past tile qt - 1
+    if (qt + 1 < n_tiles) {  // into the buffers tile qt - 1 used
+      stage_q((it + 1) & 1, qt + 1);
+      cp_async_commit();
+    }
+    const int b = it & 1;
+    const float* cQ = sQ + b * NC * LD;
+    const float* cdO = sdO + b * NC * LD;
+    const float* cL = sL + b * NC;
+    const float* cD = sD + b * NC;
+
+    // P^T = exp(S^T scale - LSE[col]) into the warp's tile; masked (the
+    // causal diagonal and a ragged last query tile) P^T is 0
+    float s[4][NJ];
+    f_abt<D, NJ>(s, sK + hr * LD, cQ + cg * LD);
+    const int q0 = qt * NC;
+    const bool masked = q0 + NC > S || (causal && q0 < k0 + kB - 1);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float l2 = cL[cg + 8 * j] * kLog2e;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = exp2f(fmaf(s[i][j], scale_log2, -l2));
+        if (masked) {
+          const int col = q0 + cg + 8 * j, row = k0 + hr + 4 * i;
+          if (col >= S || (causal && col < row)) p = 0.f;
+        }
+        s[i][j] = p;
+        myP[(rg + 4 * i) * LDP + cg + 8 * j] = p;
+      }
+    }
+
+    // dS^T = P^T (dP^T - delta[col]) into the warp's other tile
+    float dp[4][NJ];
+    f_abt<D, NJ>(dp, sV + hr * LD, cdO + cg * LD);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float d = cD[cg + 8 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mydS[(rg + 4 * i) * LDP + cg + 8 * j] = s[i][j] * (dp[i][j] - d);
+    }
+    __syncwarp();
+    f_ab<D, NC>(acc_v, myP + rg * LDP, cdO + 4 * cg);
+    f_ab<D, NC>(acc_k, mydS + rg * LDP, cQ + 4 * cg);
+  }
+
+  store_f32<D>(dk + off, acc_k, k0 + hr, cg, S, scale, vec);
+  store_f32<D>(dv + off, acc_v, k0 + hr, cg, S, 1.f, vec);
 }
 
 bool aligned16(const void* a, const void* b, const void* c, const void* d) {
@@ -798,6 +902,76 @@ bool aligned16(const void* a, const void* b, const void* c, const void* d) {
           reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) %
              16 ==
          0;
+}
+
+template <int D>
+int launch_dq_f32(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dq, int BH, int S, float scale, int causal,
+                  cudaStream_t stream) {
+  const int bytes = dq_f32_smem_bytes<D>();
+  // above 48 KB a block must opt in to dynamic shared memory; two blocks
+  // an SM need the largest shared-memory carveout
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (S + kB - 1) / kB);
+  flash_bwd_dq_f32_kernel<D><<<grid, kFThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), S, scale, scale * kLog2e, causal,
+      aligned16(q, k, v, dout) && aligned16(dq, dq, dq, dq));
+  return 0;
+}
+
+template <int D>
+int launch_dkv_f32(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dk, void* dv, int BH, int S, float scale, int causal,
+                   cudaStream_t stream) {
+  const int bytes = dkv_f32_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_f32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<D>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(BH, (S + kB - 1) / kB);
+  flash_bwd_dkv_f32_kernel<D><<<grid, kFThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), S, scale,
+      scale * kLog2e, causal,
+      aligned16(q, k, v, dout) && aligned16(dk, dv, dk, dv));
+  return 0;
+}
+
+// blocks an SM of one f32 kernel (K2 or K3) at its shared memory, or -1
+template <int D>
+int f32_blocks_per_sm(bool dkv) {
+  int n = -1;
+  cudaError_t err =
+      dkv ? cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 dkv_f32_smem_bytes<D>())
+          : cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 dq_f32_smem_bytes<D>());
+  if (err != cudaSuccess) return -1;
+  err = dkv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &n, flash_bwd_dkv_f32_kernel<D>, kFThreads,
+                  dkv_f32_smem_bytes<D>())
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &n, flash_bwd_dq_f32_kernel<D>, kFThreads,
+                  dq_f32_smem_bytes<D>());
+  return err == cudaSuccess ? n : -1;
 }
 
 template <int D>
@@ -854,9 +1028,11 @@ extern "C" int flash_attention_backward_dq(const void* q, const void* k,
   const float* d = static_cast<const float*>(delta);
   int bad = (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
-    bad = launch_dq<64>(q, k, v, dout, l, d, dq, BH, S, scale, causal, st);
+    bad = launch_dq_f32<64>(q, k, v, dout, l, d, dq, BH, S, scale, causal,
+                            st);
   else if (dtype == 0 && D == 128)
-    bad = launch_dq<128>(q, k, v, dout, l, d, dq, BH, S, scale, causal, st);
+    bad = launch_dq_f32<128>(q, k, v, dout, l, d, dq, BH, S, scale, causal,
+                             st);
   else if (dtype == 1 && D == 64)
     bad = launch_dq_mma<64>(q, k, v, dout, l, d, dq, BH, S, scale, causal,
                             st);
@@ -876,11 +1052,11 @@ extern "C" int flash_attention_backward_dkv(
   const float* d = static_cast<const float*>(delta);
   int bad = (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
-    bad = launch_dkv<64>(q, k, v, dout, l, d, dk, dv, BH, S, scale, causal,
-                         st);
+    bad = launch_dkv_f32<64>(q, k, v, dout, l, d, dk, dv, BH, S, scale,
+                             causal, st);
   else if (dtype == 0 && D == 128)
-    bad = launch_dkv<128>(q, k, v, dout, l, d, dk, dv, BH, S, scale, causal,
-                          st);
+    bad = launch_dkv_f32<128>(q, k, v, dout, l, d, dk, dv, BH, S, scale,
+                              causal, st);
   else if (dtype == 1 && D == 64)
     bad = launch_dkv_mma<64>(q, k, v, dout, l, d, dk, dv, BH, S, scale,
                              causal, st);
@@ -889,4 +1065,12 @@ extern "C" int flash_attention_backward_dkv(
                               causal, st);
   if (bad) return bad;
   return (int)cudaGetLastError();
+}
+
+// Blocks an SM of the f32 K2 (dkv = 0) or K3 (dkv = 1) at head_dim D, from
+// their registers and shared memory; -1 on a bad D or a CUDA error.
+extern "C" int flash_attention_backward_f32_blocks_per_sm(int D, int dkv) {
+  if (D == 64) return f32_blocks_per_sm<64>(dkv != 0);
+  if (D == 128) return f32_blocks_per_sm<128>(dkv != 0);
+  return -1;
 }

@@ -9,7 +9,7 @@ Tolerances: 1e-5 (K4) and 2e-5 (K1) in f32, where only the summation
 order differs; 2e-2 for bf16 inputs, whose outputs are rounded to bf16
 (1e-2 for the bf16 K1 against the plain version that rounds P as it does).
 K2/K3 grads are held relative to the largest grad, or to 1 where that
-is smaller (dK and dV sum over up to 256 query rows): 1e-4 in f32, 2e-2
+is smaller (dK and dV sum over up to 1000 query rows): 1e-4 in f32, 2e-2
 in bf16 (5e-3 for the bf16 K2/K3 against the plain version that rounds P
 and dS as they do). K5-K7: the loss and LSE are f32 on both sides (atol 1e-4), the
 grads relative to the largest grad (1e-4 in f32, 1e-2 in bf16).
@@ -167,14 +167,16 @@ def _bwd_inputs(dev, shape, dtype, causal, seed):
     return q, k, v, do, lse, delta
 
 
-@pytest.mark.parametrize("s", [1, 64, 100, 256])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 100, 127, 129, 256, 1000])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_flash_backward_kernels_match_plain(dev, s, d, causal, dtype, tol):
     """K2 (dq) and K3 (dk, dv) against the plain backward on f32 copies
-    of the same inputs; the tolerance is relative to the largest grad."""
+    of the same inputs, at the edges of the kernels' tiles (64 held rows
+    a block; the f32 kernels stream 32 rows a tile at D = 64, 16 at D =
+    128); the tolerance is relative to the largest grad."""
     q, k, v, do, lse, delta = _bwd_inputs(dev, (2, 3, s, d), dtype, causal,
                                           s + d)
     scale = d ** -0.5
@@ -191,6 +193,46 @@ def test_flash_backward_kernels_match_plain(dev, s, d, causal, dtype, tol):
         err = (got.float() - want).abs().max().item()
         # at s = 1 the true grads are 0 (O = V): an absolute floor of tol
         assert err <= tol * max(want.abs().max().item(), 1.0)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_flash_backward_misaligned_operand(dev, which, d):
+    """An operand that starts one float past a 16-byte boundary (a view
+    with a storage offset) takes the kernels' element-by-element staging
+    and gives the same grads as the aligned operand, within 1e-4."""
+    ops = dict(zip(("q", "k", "v", "do", "lse", "delta"), _bwd_inputs(
+        dev, (1, 3, 77, d), torch.float32, True, d)))
+    scale = d ** -0.5
+    want = (attn.flash_bwd_dq(ops["q"], ops["k"], ops["v"], ops["lse"],
+                              ops["do"], ops["delta"], scale, True),
+            *attn.flash_bwd_dkv(ops["q"], ops["k"], ops["v"], ops["lse"],
+                                ops["do"], ops["delta"], scale, True))
+    t = ops[which]
+    buf = torch.empty(t.numel() + 1, device=dev)
+    shifted = buf[1:].view_as(t)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    ops[which] = shifted
+    args = (ops["q"], ops["k"], ops["v"], ops["lse"], ops["do"],
+            ops["delta"], scale, True)
+    got = (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
+    ref = attn.flash_attention_backward_plain(*args)
+    for g, w, r in zip(got, want, ref):
+        top = max(r.abs().max().item(), 1.0)
+        assert (g - r).abs().max().item() <= 1e-4 * top
+        assert (g - w).abs().max().item() <= 1e-4 * top
+
+
+def test_f32_backward_kernels_give_the_same_bits_twice(dev):
+    """Two runs of the f32 K2 and K3 at [2, 12, 1024, 64] causal give the
+    same bits: neither uses atomics."""
+    q, k, v, do, lse, delta = _bwd_inputs(dev, (2, 12, 1024, 64),
+                                          torch.float32, True, 3)
+    runs = [(attn.flash_bwd_dq(q, k, v, lse, do, delta, 0.125, True),
+             *attn.flash_bwd_dkv(q, k, v, lse, do, delta, 0.125, True))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 # bf16 K2/K3 (the tensor-core kernels) against the plain backward that

@@ -21,6 +21,12 @@ from profile_port_serving import classify  # noqa: E402
      "K2 flash backward dQ"),
     ("void (anonymous namespace)::flash_bwd_dkv_kernel<float, 128>()",
      "K3 flash backward dK/dV"),
+    ("void (anonymous namespace)::flash_bwd_dq_f32_kernel<64>(float const*)",
+     "K2 flash backward dQ"),
+    ("void (anonymous namespace)::flash_bwd_dkv_f32_kernel<128>(float "
+     "const*)", "K3 flash backward dK/dV"),
+    ("_ZN45_GLOBAL__N__8bcb2f8f_12_flash_bwd_cu_a50b7cef23flash_bwd_dq_f32_"
+     "kernelILi64EEEvPKfS2_S2_S2_S2_S2_Pfiffii", "K2 flash backward dQ"),
     ("void (anonymous namespace)::paged_decode_kernel<float, 64>()",
      "K4 paged decode attention"),
     ("void (anonymous namespace)::fused_ce_fwd_kernel<long>(float const*)",

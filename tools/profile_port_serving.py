@@ -28,9 +28,11 @@ def classify(name):
     if "flash_fwd_kernel" in n or "flash_fwd_mma_kernel" in n:
         # f32 (CUDA cores) or bf16 (tensor cores)
         return "K1 flash forward"
-    if "flash_bwd_dq_kernel" in n or "flash_bwd_dq_mma_kernel" in n:
+    if "flash_bwd_dq_" in n:
+        # f32 (CUDA cores: flash_bwd_dq_f32_kernel, the parent commit's
+        # flash_bwd_dq_kernel) or bf16 (tensor cores)
         return "K2 flash backward dQ"
-    if "flash_bwd_dkv_kernel" in n or "flash_bwd_dkv_mma_kernel" in n:
+    if "flash_bwd_dkv_" in n:
         return "K3 flash backward dK/dV"
     if ("fused_ce_fwd_kernel" in n or "fused_ce_fwd_mma_kernel" in n
             or "fused_ce_fwd_combine" in n):
