@@ -39,22 +39,45 @@
 //     0) and are masked like the future; rows past S are never written.
 //     q, k or v not 16-byte aligned stage element by element instead.
 //
-// f32 (flash_fwd_kernel, a simple first kernel; wgmma, TMA and warp
-// specialisation come later):
-//   * one thread block of 256 threads per (64-row query tile, b*h); K/V
-//     stream through shared memory 64 rows at a time, so nothing of size
-//     S x S ever exists, and the softmax state (m, l, acc) stays in
-//     registers in f32;
-//   * each thread computes a 4 x 4 register tile of scores and a 4 x D/16
-//     tile of the output, so every shared-memory load feeds 2 (scores) or
-//     4+ (P*V) FMAs; Q and K rows are padded by one float so the 16
-//     threads of a row group read 16 different banks;
-//   * row max and row sum are 16-lane shuffles (a row's 16 threads sit in
-//     one half-warp);
-//   * causal: key tiles entirely in a query tile's future are not visited,
-//     as the TPU kernel skipped them; masked scores get -1e30 as there;
-//   * ragged S: rows past S load as zeros and are masked like the future,
-//     so any S works, not only multiples of the tile.
+// f32 (flash_fwd_f32_kernel) on the CUDA cores, the layout of the f32 K2
+// (flash_bwd.cu, flash_bwd_dq_f32_kernel) with the online softmax:
+//   * a block of 4 warps holds 64 query rows of Q in shared memory, 16 a
+//     warp, and streams K and V in tiles of 64 keys at D = 64, 32 at
+//     D = 128, by 16-byte cp.async into a second buffer: the next tile
+//     loads while this one computes, one barrier a tile. q, k, v or o not
+//     16-byte aligned stage (and store) element by element in the same
+//     kernel;
+//   * a lane (row group rg = lane / 8, column group cg = lane % 8) owns the
+//     warp's rows rg + 4i, i < 4: S for the keys cg + 8j, O for the columns
+//     4 cg + 32 m. The running (m, l) of a row sit in its 8 lanes (three
+//     shuffles for a row max or sum). P goes through a tile private to the
+//     warp, so a __syncwarp, not a block barrier, separates writing and
+//     reading it;
+//   * the scale is folded with log2(e), so every exp is one exp2f of the
+//     running max's difference; LSE goes back to natural log at the end;
+//   * every shared-memory read is a float4 (LDS.128). FMAs per word a lane
+//     reads, over 4 steps of the contraction:
+//       S = Q K^T  D = 64: KS = 1 128 per 48 (2.7), KS = 2 64 per 32 (2),
+//                  KS = 4 32 per 24 (1.3); D = 128: KS = 1 64 per 32 (2),
+//                  KS = 2 32 per 24 (1.3)
+//       O += P V   D = 64: 128 per 48 (2.7); D = 128: 256 per 80 (3.2)
+//     A lane needs 4 for its loads to keep pace with its FMAs, so the
+//     loads, not the FMA units, set the products' rate (as in K2/K3);
+//   * short grids: while the 64-row blocks make fewer than 2.5 waves of
+//     the SMs, a block takes 64 / KS rows and KS = 2 or 4 warps share each
+//     16 rows, each taking one slice of NT / KS keys of every tile with its
+//     own (m, l, acc); the slices merge in warp order at the end, so the
+//     bits do not depend on scheduling. At [1,12,661,64] the 64-row grid is
+//     132 blocks, one an SM, and its longest block walks all 661 keys
+//     alone; 16-row blocks give 504 blocks whose longest walk is a quarter
+//     of that work a warp (f32_key_split picks KS from the shape);
+//   * causal: key tiles wholly in the future are skipped, only a tile that
+//     crosses the diagonal (or S) is masked, by each element's own row and
+//     column, with -1e30 as in the Pallas kernel; the grid runs the longest
+//     query tiles first;
+//   * shared memory a block (f32_smem_bytes): 105,472 / 88,576 / 80,128 B
+//     at D = 64 and KS = 1 / 2 / 4, 111,616 / 90,624 B at D = 128 and
+//     KS = 1 / 2: two blocks an SM at either width.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,148 +88,6 @@ namespace {
 
 constexpr int kBM = 64;        // query rows per block
 constexpr int kBN = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kPP = kBN + 1;   // padded P row
-
-template <int D>
-constexpr int smem_floats() {
-  return kBM * (D + 1) + kBN * (D + 1) + kBN * D + kBM * kPP;
-}
-
-// rows [row0, row0 + 64) of a [S, D] matrix into shared memory with row
-// stride `ld`; rows past S are zero
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const float* __restrict__ src,
-                                          int row0, int S) {
-  for (int idx = threadIdx.x; idx < kBN * D; idx += kThreads) {
-    const int r = idx / D, c = idx % D;
-    const int g = row0 + r;
-    dst[r * ld + c] = g < S ? src[(size_t)g * D + c] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int S, float scale,
-                     int causal) {
-  constexpr int LQ = D + 1;  // padded Q/K row
-  constexpr int C = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kBM * LQ;
-  float* sV = sK + kBN * LQ;
-  float* sP = sV + kBN * D;
-
-  const int qt = blockIdx.x;
-  const size_t bh = blockIdx.y;
-  const int q0 = qt * kBM;
-  const float* qb = q + bh * S * D;
-  const float* kb = k + bh * S * D;
-  const float* vb = v + bh * S * D;
-
-  const int tx = threadIdx.x & 15;  // key / output-column group
-  const int ty = threadIdx.x >> 4;  // query-row group: rows ty*4 .. ty*4+3
-
-  load_tile<D>(sQ, LQ, qb, q0, S);
-
-  float m[4], l[4], acc[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -1e30f;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_tiles = (S + kBN - 1) / kBN;
-  const int last = causal ? min(n_tiles - 1, qt) : n_tiles - 1;
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kBN;
-    __syncthreads();  // previous tile's readers are done with sK/sV/sP
-    load_tile<D>(sK, LQ, kb, k0, S);
-    load_tile<D>(sV, D, vb, k0, S);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * LQ + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * LQ + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float rmax = -1e30f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (kpos >= S || (causal && kpos > qpos)) x = -1e30f;
-        s[i][j] = x;
-        rmax = fmaxf(rmax, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rsum += p;
-        sP[(ty * 4 + i) * kPP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBN; ++j) {
-      float pv[4], vv[C];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty * 4 + i) * kPP + j];
-#pragma unroll
-      for (int c = 0; c < C; ++c) vv[c] = sV[j * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + ty * 4 + i;
-    if (qpos >= S) continue;
-    const float inv = 1.f / l[i];
-    float* orow = o + (bh * S + qpos) * D;
-#pragma unroll
-    for (int c = 0; c < C; ++c) orow[tx + 16 * c] = acc[i][c] * inv;
-    if (tx == 0) lse[bh * S + qpos] = m[i] + logf(l[i]);
-  }
-}
 
 // ---- bf16 on the tensor cores ----------------------------------------------
 
@@ -463,20 +344,383 @@ __global__ void __launch_bounds__(kMThreads)
   }
 }
 
+// ---- f32 on the CUDA cores -------------------------------------------------
+
+constexpr int kFThreads = 128;  // 4 warps of 16 query rows each
+
+// keys of a staged K/V tile: 64 at D = 64, 32 at D = 128, so that two
+// blocks fit an SM at either width
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int BH, int S, float scale, int causal, cudaStream_t stream) {
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
-  // above 48 KB a block must opt in to dynamic shared memory
+__host__ __device__ constexpr int f_nt() {
+  return D == 64 ? 64 : 32;
+}
+
+// row stride of a staged tile in floats (D + 4: consecutive rows start in
+// consecutive 16-byte bank groups)
+template <int D>
+__host__ __device__ constexpr int f_ld() {
+  return D + 4;
+}
+
+// row stride of a warp's P tile: its NT / KS keys + 8 (a lane group's
+// scalar stores hit 32 banks, its float4 loads distinct groups)
+template <int D, int KS>
+__host__ __device__ constexpr int f_ldp() {
+  return f_nt<D>() / KS + 8;
+}
+
+// Q (64 / KS rows), K and V double-buffered, a P tile a warp
+template <int D, int KS>
+constexpr int f32_smem_bytes() {
+  return ((64 / KS) * f_ld<D>() + 4 * f_nt<D>() * f_ld<D>() +
+          4 * 16 * f_ldp<D, KS>()) *
+         4;
+}
+
+// `rows` rows from r0 of a [S, D] f32 matrix into dst (row stride D + 4);
+// rows past S are zero. `vec`: the source is 16-byte aligned (cp.async by
+// 16 bytes, waited for by the caller); else element by element
+template <int D>
+__device__ __forceinline__ void stage_f32(float* dst,
+                                          const float* __restrict__ src,
+                                          int r0, int rows, int S, int vec) {
+  constexpr int LD = f_ld<D>();
+  if (vec) {
+    for (int idx = threadIdx.x; idx < rows * (D / 4); idx += kFThreads) {
+      const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+      const bool ok = r0 + r < S;
+      cp_async16(dst + r * LD + c, ok ? src + (size_t)(r0 + r) * D + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * D; idx += kFThreads) {
+      const int r = idx / D, c = idx % D;
+      dst[r * LD + c] = r0 + r < S ? src[(size_t)(r0 + r) * D + c] : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// acc[i][j] = sum over D of A[4i][c] B[8j][c]: A this thread's 4 query rows
+// (stride 4 rows), B its NJ keys (stride 8 rows), both read as float4
+// along the contraction
+template <int D, int NJ>
+__device__ __forceinline__ void f_abt(float acc[4][NJ], const float* A,
+                                      const float* B) {
+  constexpr int LD = f_ld<D>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+#pragma unroll (D == 64 ? 4 : 2)
+  for (int c = 0; c < D; c += 4) {
+    float4 a[4], b[NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + i * 4 * LD + c);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + j * 8 * LD + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
+}
+
+// out[i][4m + e] += sum over NT keys of P[4i][t] V[t][32m + e]: P this
+// thread's 4 rows of its warp's tile (row stride NT + 8), V a staged tile
+// from this thread's first column; P as float4 along the keys, V as float4
+// across the output
+template <int D, int NT>
+__device__ __forceinline__ void f_pv(float out[4][D / 8], const float* P,
+                                     const float* V) {
+  constexpr int LD = f_ld<D>(), LDP = NT + 8, M = D / 32;
+#pragma unroll
+  for (int t = 0; t < NT; t += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(P + i * 4 * LDP + t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float4 b[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        b[m] = *reinterpret_cast<const float4*>(V + (t + e) * LD + 32 * m);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float av = f4_at(a[i], e);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          out[i][4 * m] = fmaf(av, b[m].x, out[i][4 * m]);
+          out[i][4 * m + 1] = fmaf(av, b[m].y, out[i][4 * m + 1]);
+          out[i][4 * m + 2] = fmaf(av, b[m].z, out[i][4 * m + 2]);
+          out[i][4 * m + 3] = fmaf(av, b[m].w, out[i][4 * m + 3]);
+        }
+      }
+    }
+  }
+}
+
+// One block per (b*h = blockIdx.x, query tile nq - 1 - blockIdx.y) of
+// 64 / KS rows; KS warps share each 16 rows and split every key tile into
+// KS slices of NT / KS keys, each slice with its own (m, l, acc), merged in
+// warp order at the end. scale_log2 = scale * log2(e): m and S are kept in
+// log2 units. `vec`: q, k, v and o are 16-byte aligned.
+template <int D, int KS>
+__global__ void __launch_bounds__(kFThreads)
+    flash_fwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int S, float scale_log2,
+                         int causal, int vec) {
+  constexpr int LD = f_ld<D>(), NT = f_nt<D>(), BM = 64 / KS;
+  constexpr int CW = NT / KS, NJ = CW / 8, LDP = f_ldp<D, KS>();
+  extern __shared__ __align__(16) float fsm[];
+  float* sQ = fsm;               // [BM][LD]
+  float* sK = sQ + BM * LD;      // [2][NT][LD]
+  float* sV = sK + 2 * NT * LD;  // [2][NT][LD]
+  float* sP = sV + 2 * NT * LD;  // [4 warps][16][LDP]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int rg = lane >> 3, cg = lane & 7;
+  const int kw = warp % KS;  // this warp's key slice of each tile
+  const size_t bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // the longest tiles first
+  const int q0 = qt * BM;
+  const size_t off = bh * S * D;
+  const int hr = (warp / KS) * 16 + rg;  // this thread's query rows: hr + 4i
+  float* myP = sP + warp * 16 * LDP;
+
+  const int n_tiles = (S + NT - 1) / NT;
+  const int last =
+      causal ? min(n_tiles - 1, (q0 + BM - 1) / NT) : n_tiles - 1;
+
+  stage_f32<D>(sQ, q + off, q0, BM, S, vec);
+  stage_f32<D>(sK, k + off, 0, NT, S, vec);
+  stage_f32<D>(sV, v + off, 0, NT, S, vec);
+  cp_async_commit();
+
+  float m[4], l[4], acc[4][D / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -1e30f;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = 0; kt <= last; ++kt) {
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is staged; every warp is past tile kt - 1
+    if (kt < last) {  // into the buffers tile kt - 1 used
+      const int nb = (kt + 1) & 1;
+      stage_f32<D>(sK + nb * NT * LD, k + off, (kt + 1) * NT, NT, S, vec);
+      stage_f32<D>(sV + nb * NT * LD, v + off, (kt + 1) * NT, NT, S, vec);
+      cp_async_commit();
+    }
+    const float* cK = sK + ((kt & 1) * NT + kw * CW) * LD;
+    const float* cV = sV + ((kt & 1) * NT + kw * CW) * LD;
+
+    float s[4][NJ];
+    f_abt<D, NJ>(s, sQ + hr * LD, cK + cg * LD);
+
+    // scale, mask (only a tile that crosses the diagonal or S), online
+    // softmax over the 8 lanes of a row, P into the warp's tile
+    const int k0 = kt * NT + kw * CW;
+    const bool masked = kt * NT + NT > S || (causal && kt * NT + NT - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -1e30f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (masked) {
+          const int col = k0 + cg + 8 * j, row = q0 + hr + 4 * i;
+          if (col >= S || (causal && col > row)) x = -1e30f;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int sh = 1; sh < 8; sh <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        sum += p;
+        myP[(rg + 4 * i) * LDP + cg + 8 * j] = p;
+      }
+#pragma unroll
+      for (int sh = 1; sh < 8; sh <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, sh);
+      l[i] = alpha * l[i] + sum;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) acc[i][c] *= alpha;
+    }
+    __syncwarp();
+    f_pv<D, CW>(acc, myP + rg * LDP, cV + 4 * cg);
+  }
+
+  // every warp's (m, l, acc) into the K/V buffers (no copy is in flight
+  // after the last tile), then the block merges each row's KS slices in
+  // warp order: O = sum acc 2^(m - M) / L, L = sum l 2^(m - M), LSE in
+  // natural log. A slice that saw only masked keys has m = -1e30 and
+  // weight 0; with KS = 1 the weight is 1 and O = acc / l
+  __syncthreads();
+  float* sO = sK;            // [4 warps x 16 rows][LD]
+  float* sM = sO + 64 * LD;  // [64]
+  float* sL = sM + 64;       // [64]
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp * 16 + rg + 4 * i;
+    if (cg == 0) {
+      sM[r] = m[i];
+      sL[r] = l[i];
+    }
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c)
+      *reinterpret_cast<float4*>(sO + r * LD + 4 * cg + 32 * c) =
+          make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
+                      acc[i][4 * c + 3]);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < BM * (D / 4); idx += kFThreads) {
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+    const int row = q0 + r;
+    if (row >= S) continue;
+    const int g0 = (r / 16) * KS * 16 + r % 16;  // the row in warp slice 0
+    float mx = -1e30f;
+#pragma unroll
+    for (int w = 0; w < KS; ++w) mx = fmaxf(mx, sM[g0 + 16 * w]);
+    float sum = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < KS; ++w) {
+      const int g = g0 + 16 * w;
+      const float f = exp2f(sM[g] - mx);
+      const float4 x = *reinterpret_cast<const float4*>(sO + g * LD + c);
+      sum = fmaf(sL[g], f, sum);
+      a.x = fmaf(x.x, f, a.x);
+      a.y = fmaf(x.y, f, a.y);
+      a.z = fmaf(x.z, f, a.z);
+      a.w = fmaf(x.w, f, a.w);
+    }
+    const float inv = 1.f / sum;
+    float* out = o + off + (size_t)row * D + c;
+    if (vec) {
+      *reinterpret_cast<float4*>(out) =
+          make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+    } else {
+      out[0] = a.x * inv;
+      out[1] = a.y * inv;
+      out[2] = a.z * inv;
+      out[3] = a.w * inv;
+    }
+    if (c == 0) lse[bh * S + row] = mx * kLn2 + logf(sum);
+  }
+}
+
+bool aligned16(const void* a, const void* b, const void* c, const void* d) {
+  return (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+          reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d)) %
+             16 ==
+         0;
+}
+
+// above 48 KB a block must opt in to dynamic shared memory; two blocks an
+// SM need the largest shared-memory carveout
+template <int D, int KS>
+cudaError_t f32_attributes() {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_f32_kernel<D, KS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, f32_smem_bytes<D, KS>());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D, KS>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <int D, int KS>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int BH, int S, float scale, int causal,
+               cudaStream_t stream) {
+  const cudaError_t err = f32_attributes<D, KS>();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kBM - 1) / kBM, BH);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, S, scale,
-      causal);
+  dim3 grid(BH, (S + 64 / KS - 1) / (64 / KS));
+  flash_fwd_f32_kernel<D, KS>
+      <<<grid, kFThreads, f32_smem_bytes<D, KS>(), stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), static_cast<float*>(o), lse, S,
+          scale * kLog2e, causal, aligned16(q, k, v, o));
   return 0;
+}
+
+// blocks an SM of flash_fwd_f32_kernel<D, KS> at its shared memory, or -1
+template <int D, int KS>
+int f32_blocks_per_sm() {
+  int n = -1;
+  if (f32_attributes<D, KS>() != cudaSuccess) return -1;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &n, flash_fwd_f32_kernel<D, KS>, kFThreads,
+             f32_smem_bytes<D, KS>()) == cudaSuccess
+             ? n
+             : -1;
+}
+
+// KS, the warps that share each 16 query rows, from the waves W the
+// 64-row blocks make over the card's SMs: KS = 1 (64-row blocks) from
+// W = 2.5 up, 2 (32-row blocks) above W = 1, else 4 (16-row blocks; 2 at
+// D = 128). Fewer rows a block cut the longest block's serial walk over
+// the keys, and more warps share the SMs; on long grids they only read K
+// and V more often (tools/sweep_flash_f32_split.py, H100 80GB HBM3 at
+// 700 W: at [1,12,661,64], W = 1.00, KS = 4 took 0.0439 ms against
+// 0.0768 with KS = 1; at [2,12,1024,64], W = 2.91, KS = 1 took 0.1279
+// against 0.1398 with KS = 2)
+int f32_key_split(int BH, int S, int D) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 132;
+  }
+  const long blocks64 = (long)BH * ((S + 63) / 64);
+  if (2 * blocks64 >= 5L * sms) return 1;
+  if (D == 128 || blocks64 > sms) return 2;
+  return 4;
+}
+
+int launch_f32_split(const void* q, const void* k, const void* v, void* o,
+                     float* lse, int BH, int S, int D, float scale,
+                     int causal, int ks, cudaStream_t stream) {
+  if (D == 64 && ks == 1)
+    return launch_f32<64, 1>(q, k, v, o, lse, BH, S, scale, causal, stream);
+  if (D == 64 && ks == 2)
+    return launch_f32<64, 2>(q, k, v, o, lse, BH, S, scale, causal, stream);
+  if (D == 64 && ks == 4)
+    return launch_f32<64, 4>(q, k, v, o, lse, BH, S, scale, causal, stream);
+  if (D == 128 && ks == 1)
+    return launch_f32<128, 1>(q, k, v, o, lse, BH, S, scale, causal, stream);
+  if (D == 128 && ks == 2)
+    return launch_f32<128, 2>(q, k, v, o, lse, BH, S, scale, causal, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -511,14 +755,43 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lp = static_cast<float*>(lse);
   int bad = (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 64)
-    bad = launch<64>(q, k, v, o, lp, BH, S, scale, causal, st);
-  else if (dtype == 0 && D == 128)
-    bad = launch<128>(q, k, v, o, lp, BH, S, scale, causal, st);
+  if (dtype == 0 && (D == 64 || D == 128))
+    bad = launch_f32_split(q, k, v, o, lp, BH, S, D, scale, causal,
+                           f32_key_split(BH, S, D), st);
   else if (dtype == 1 && D == 64)
     bad = launch_mma<64>(q, k, v, o, lp, BH, S, scale, causal, st);
   else if (dtype == 1 && D == 128)
     bad = launch_mma<128>(q, k, v, o, lp, BH, S, scale, causal, st);
   if (bad) return bad;
   return (int)cudaGetLastError();
+}
+
+// The f32 kernel with KS warps on each 16 query rows (D = 64: 1, 2 or 4;
+// D = 128: 1 or 2) whatever the shape, for timing the choices; otherwise
+// as flash_attention_forward with dtype 0.
+extern "C" int flash_attention_forward_f32_split(
+    const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+    int S, int D, float scale, int causal, int ks, void* stream) {
+  const int bad =
+      launch_f32_split(q, k, v, o, static_cast<float*>(lse), BH, S, D, scale,
+                       causal, ks, static_cast<cudaStream_t>(stream));
+  if (bad) return bad;
+  return (int)cudaGetLastError();
+}
+
+// The KS flash_attention_forward takes for f32 at this shape.
+extern "C" int flash_attention_forward_f32_key_split(int BH, int S, int D) {
+  return f32_key_split(BH, S, D);
+}
+
+// Blocks an SM of the f32 kernel at head_dim D with KS warps on each 16
+// query rows, from its registers and shared memory; -1 on a bad D or KS or
+// a CUDA error.
+extern "C" int flash_attention_forward_f32_blocks_per_sm(int D, int ks) {
+  if (D == 64 && ks == 1) return f32_blocks_per_sm<64, 1>();
+  if (D == 64 && ks == 2) return f32_blocks_per_sm<64, 2>();
+  if (D == 64 && ks == 4) return f32_blocks_per_sm<64, 4>();
+  if (D == 128 && ks == 1) return f32_blocks_per_sm<128, 1>();
+  if (D == 128 && ks == 2) return f32_blocks_per_sm<128, 2>();
+  return -1;
 }

@@ -12,6 +12,12 @@ On a CUDA tensor ``paged_decode_attention`` always launches
 and raises on operands the kernel does not take. On a CPU tensor it
 computes ``paged_decode_plain``, which is
 ``ops.attention.cached_paged_attention`` in the query's dtype.
+
+The kernel splits each slot's rows into chunks of whole pages
+(``decode_chunks``), one block a (chunk, head, slot), and merges the
+chunks' partials in a second launch; the workspace for them comes from
+PyTorch's caching allocator. The chunking depends only on the static
+shapes, so ``lengths`` never goes to the host.
 """
 import ctypes
 
@@ -21,6 +27,19 @@ from . import _build
 from .attention import cached_paged_attention
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# bytes of K a chunk of the kernel reads for one head (and as many of V):
+# one round of loads of its 128 threads, 16 bytes x 8 rows a lane
+CHUNK_BYTES = 16 << 10
+
+
+def decode_chunks(block_size, max_blocks, head_dim, itemsize):
+    """``(pages, chunks)``: whole pages a chunk of K4 reads, at least one
+    and at most ``max_blocks``, so that a chunk holds about
+    ``CHUNK_BYTES`` of K a head; and the chunks a slot has, which fix the
+    kernel's grid and the workspace whatever the lengths are."""
+    rows = max(1, CHUNK_BYTES // (head_dim * itemsize))
+    pages = max(1, min(max_blocks, rows // block_size))
+    return pages, -(-max_blocks // pages)
 
 
 def paged_decode_plain(q, k_cache, v_cache, block_tables, lengths):
@@ -68,8 +87,8 @@ def _check_operands(q, k_cache, v_cache, block_tables, lengths):
 
 def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths):
     """Same signature and semantics as ``cached_paged_attention``; the
-    output has q's dtype. Counts each kernel launch in
-    ``paged_decode_attention.launches``."""
+    output has q's dtype. Counts each call's launch (the chunks and the
+    merge of their partials) in ``paged_decode_attention.launches``."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_cache, v_cache, block_tables,
                                   lengths)
@@ -80,12 +99,16 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths):
     out = torch.empty_like(q)
     if S == 0 or nh == 0:
         return out
+    bs, mb = k_cache.shape[2], block_tables.shape[1]
+    pages, chunks = decode_chunks(bs, mb, hd, q.element_size())
+    ws = torch.empty(S * nh * chunks * (hd + 2), dtype=torch.float32,
+                     device=q.device)
     fn = _build.function(
         "paged_decode", "paged_decode_attention",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             S, nh, hd, k_cache.shape[2], block_tables.shape[1],
+             ws.data_ptr(), S, nh, hd, bs, mb, pages,
              _KERNEL_DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -258,3 +258,77 @@ def test_cpu_wrappers_take_the_plain_versions():
     np.testing.assert_array_equal(lse.numpy(), rlse.numpy())
     assert tpa.paged_decode_attention.launches == n4
     assert tattn.flash_attention_forward.launches == n1
+
+
+@pytest.mark.parametrize("BS,MB,hd,itemsize,want", [
+    (16, 64, 64, 4, (4, 16)),    # the engine's f32 pool: 64-row chunks
+    (16, 64, 64, 2, (8, 8)),     # bf16: 128-row chunks, the same bytes
+    (16, 1, 64, 4, (1, 1)),      # MB = 1: one chunk of the one page
+    (256, 8, 64, 4, (1, 8)),     # pages larger than a chunk: one a chunk
+    (16, 6, 32, 4, (6, 1)),      # fewer pages than a chunk holds
+    (8, 5, 128, 4, (4, 2)),      # the last chunk has one page of four
+    (16, 0, 64, 4, (1, 0)),      # no table columns: no chunk
+])
+def test_decode_chunks_plan(BS, MB, hd, itemsize, want):
+    """K4's chunking, fixed by the static shapes: whole pages a chunk (at
+    least one, at most MB) and enough chunks to cover MB pages."""
+    pages, chunks = tpa.decode_chunks(BS, MB, hd, itemsize)
+    assert (pages, chunks) == want
+    assert pages * chunks >= MB and (chunks - 1) * pages < max(MB, 1)
+
+
+def _split_decode(q, kc, vc, tables, lens):
+    """K4's arithmetic on the CPU: each slot's rows clamped to MB*BS, cut
+    into the chunks of ``decode_chunks``, one (m, l, acc) a live chunk in
+    log2 units, merged in chunk order; acc / max(l, 1e-37)."""
+    S, nh, hd = q.shape
+    BS, MB = kc.shape[2], tables.shape[1]
+    pages, chunks = tpa.decode_chunks(BS, MB, hd, q.element_size())
+    cr = pages * BS
+    k = kc[tables.long()].permute(0, 2, 1, 3, 4).reshape(S, nh, -1, hd)
+    v = vc[tables.long()].permute(0, 2, 1, 3, 4).reshape(S, nh, -1, hd)
+    sc = torch.einsum("shd,shkd->shk", q, k) * (np.log2(np.e) / hd ** 0.5)
+    out = torch.zeros(S, nh, hd)
+    for s in range(S):
+        n = min(max(int(lens[s]), 0), MB * BS)
+        parts = []
+        for c in range(chunks):
+            if c * cr >= n:
+                break
+            rows = slice(c * cr, min(c * cr + cr, n))
+            m = sc[s, :, rows].amax(-1)
+            p = torch.exp2(sc[s, :, rows] - m[:, None])
+            parts.append((m, p.sum(-1), torch.einsum("hk,hkd->hd", p,
+                                                     v[s, :, rows])))
+        mx = torch.full((nh,), -1e30)
+        for m, _, _ in parts:
+            mx = torch.maximum(mx, m)
+        lsum, acc = torch.zeros(nh), torch.zeros(nh, hd)
+        for m, l, a in parts:
+            f = torch.exp2(m - mx)
+            lsum, acc = lsum + l * f, acc + a * f[:, None]
+        out[s] = acc / lsum.clamp_min(1e-37)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("S,BS,MB,lengths", [
+    (1, 16, 1, [9]),                              # S = 1, MB = 1
+    (4, 16, 8, [0, 64, 65, 200]),                 # a length 0; past MB*BS
+    (5, 8, 20, [63, 64, 1, 160, -2]),             # chunk edges; a 1-row slot
+    (3, 256, 2, [300, 512, 700]),                 # one page a chunk
+])
+def test_split_decode_merge_matches_plain(S, BS, MB, lengths):
+    """The split K4 computes: chunks of ``decode_chunks`` merged in chunk
+    order give the plain version's output on every slot with a length >
+    0 (within 1e-5), and zeros on a slot with a length <= 0."""
+    nh, hd = 3, 32
+    q, kc, vc, tables, lens = _paged_case(
+        11, S, nh, hd, BS, MB, lengths=np.minimum(lengths, MB * BS),
+        trash_fill=1e4)
+    lens = np.asarray(lengths, np.int32)
+    tq, tkc, tvc, ttab, tlen = _t(q, kc, vc, tables, lens)
+    got = _split_decode(tq, tkc, tvc, ttab, tlen)
+    ref = tpa.paged_decode_plain(tq, tkc, tvc, ttab, tlen)
+    live = lens > 0
+    np.testing.assert_allclose(got.numpy()[live], ref.numpy()[live], **TOL)
+    assert not got.numpy()[~live].any()

@@ -6,7 +6,8 @@ without the suite's JAX conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: 1e-5 (K4) and 2e-5 (K1) in f32, where only the summation
-order differs; 2e-2 for bf16 inputs, whose outputs are rounded to bf16
+order differs (K4 merges its chunks, K1 its key slices, in a fixed order,
+so two runs give the same bits); 2e-2 for bf16 inputs, whose outputs are rounded to bf16
 (1e-2 for the bf16 K1 against the plain version that rounds P as it does).
 K2/K3 grads are held relative to the largest grad, or to 1 where that
 is smaller (dK and dV sum over up to 1000 query rows): 1e-4 in f32, 2e-2
@@ -85,6 +86,69 @@ def test_paged_kernel_rejects_what_it_cannot_take(dev):
                                   vc[..., :48].contiguous(), tables, lens)
 
 
+def _chunk_rows(q, kc, tables):
+    pages, _ = pa.decode_chunks(kc.shape[2], tables.shape[1], q.shape[-1],
+                                q.element_size())
+    return pages * kc.shape[2]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_split_paged_kernel_at_chunk_edges(dev, hd, dtype, tol):
+    """The split K4 at lengths that end one row before, on and one row
+    past a chunk boundary, a 1-row slot among long ones, every other slot
+    at MB*BS and one past it, against the plain version; a second run
+    gives the same bits."""
+    BS, MB = 16, 24
+    probe = _paged(dev, 1, 1, hd, BS, MB, [1], dtype)
+    cr = _chunk_rows(probe[0], probe[1], probe[3])
+    cap = BS * MB
+    lengths = [cr - 1, cr, cr + 1, 2 * cr, 1, cap, cap + 7, 2 * cr + 1,
+               cap - 1, 0]
+    args = _paged(dev, len(lengths), 3, hd, BS, MB, lengths, dtype, seed=hd)
+    out = pa.paged_decode_attention(*args)
+    ref = pa.paged_decode_plain(*(a.float() if a.is_floating_point() else a
+                                  for a in args))
+    live = [i for i, n in enumerate(lengths) if n > 0]
+    torch.testing.assert_close(out[live].float(), ref[live], atol=tol,
+                               rtol=tol)
+    assert not out[lengths.index(0)].float().abs().any()
+    assert torch.equal(out, pa.paged_decode_attention(*args))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_split_paged_kernel_all_full_and_one_page(dev, dtype, tol):
+    """Every slot at MB*BS (the most chunks the grid has), and MB = 1 (one
+    chunk of one page), against the plain version, twice for the same
+    bits."""
+    for S, BS, MB in ((6, 16, 64), (5, 8, 1)):
+        args = _paged(dev, S, 4, 64, BS, MB, [BS * MB] * (S - 1) + [1],
+                      dtype, seed=MB)
+        out = pa.paged_decode_attention(*args)
+        ref = pa.paged_decode_plain(*(a.float() if a.is_floating_point()
+                                      else a for a in args))
+        torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+        assert torch.equal(out, pa.paged_decode_attention(*args))
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_split_paged_kernel_misaligned_operand(dev, which):
+    """An operand one element past a 16-byte boundary takes the kernel's
+    element-by-element loads and gives the aligned operand's bits."""
+    args = _paged(dev, 4, 3, 64, 16, 8, [1, 50, 128, 77], torch.float32)
+    want = pa.paged_decode_attention(*args)
+    i = ("q", "k", "v").index(which)
+    t = args[i]
+    buf = torch.empty(t.numel() + 1, device=dev)
+    shifted = buf[1:].view_as(t)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    args[i] = shifted
+    assert torch.equal(pa.paged_decode_attention(*args), want)
+
+
 @pytest.mark.parametrize("s", [1, 64, 100, 256])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
@@ -102,6 +166,77 @@ def test_flash_kernel_matches_plain(dev, s, d, causal, dtype, tol):
     assert o.dtype == dtype and tuple(lse.shape) == (2, 3, 1, s)
     torch.testing.assert_close(o.float(), ro, atol=tol, rtol=tol)
     torch.testing.assert_close(lse, rlse, atol=tol, rtol=tol)
+
+
+def _f32_split(q, k, v, scale, causal, ks):
+    """The f32 K1 with ``ks`` warps on each 16 query rows, whatever the
+    shape (``flash_attention_forward`` picks it from the shape)."""
+    import ctypes
+
+    from paddle_tpu_torch.ops import _build
+    fn = _build.function(
+        "flash_fwd", "flash_attention_forward_f32_split",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    b, h, s, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, 1, s, device=q.device)
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              lse.data_ptr(), b * h, s, d, scale, int(causal), ks,
+              torch.cuda.current_stream().cuda_stream) == 0
+    return o, lse
+
+
+@pytest.mark.parametrize("s,b,h", [(1, 1, 1), (17, 2, 3), (63, 1, 5),
+                                   (65, 2, 2), (661, 1, 12), (1024, 8, 12),
+                                   (2048, 1, 4)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_flash_kernel_every_key_split(dev, s, b, h, d, causal):
+    """The f32 K1 at ragged S (1 .. 2048), D = 64 and 128, B*H = 1 .. 96:
+    the wrapper's launch and each key split (1, 2, 4 warps on 16 rows; 1,
+    2 at D = 128) within 2e-5 of the plain version, O and LSE; the
+    wrapper gives the same bits twice."""
+    g = torch.Generator().manual_seed(s * d + b)
+    q, k, v = (torch.randn(b, h, s, d, generator=g).to(dev)
+               for _ in range(3))
+    scale = d ** -0.5
+    ro, rlse = attn.flash_attention_plain(q, k, v, scale, causal)
+    o, lse = attn.flash_attention_forward(q, k, v, scale, causal)
+    again = attn.flash_attention_forward(q, k, v, scale, causal)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    for ks in (None, 1, 2, 4) if d == 64 else (None, 1, 2):
+        if ks is not None:
+            o, lse = _f32_split(q, k, v, scale, causal, ks)
+        torch.testing.assert_close(o, ro, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(lse, rlse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_flash_kernel_misaligned_operand(dev, which, d):
+    """An operand one float past a 16-byte boundary takes the f32 K1's
+    element-by-element staging: within 2e-5 of the plain version and of
+    the aligned operand's output, at a short grid and a long one."""
+    for shape in ((1, 3, 77, d), (4, 12, 300, d)):
+        g = torch.Generator().manual_seed(d)
+        ops = dict(zip("qkv", (torch.randn(shape, generator=g).to(dev)
+                               for _ in range(3))))
+        want = attn.flash_attention_forward(ops["q"], ops["k"], ops["v"],
+                                            d ** -0.5, True)
+        t = ops[which]
+        buf = torch.empty(t.numel() + 1, device=dev)
+        shifted = buf[1:].view_as(t)
+        shifted.copy_(t)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+        ops[which] = shifted
+        got = attn.flash_attention_forward(ops["q"], ops["k"], ops["v"],
+                                           d ** -0.5, True)
+        ref = attn.flash_attention_plain(ops["q"], ops["k"], ops["v"],
+                                         d ** -0.5, True)
+        for a, w, r in zip(got, want, ref):
+            torch.testing.assert_close(a, r, atol=2e-5, rtol=2e-5)
+            torch.testing.assert_close(a, w, atol=2e-5, rtol=2e-5)
 
 
 # bf16 K1 (the tensor-core kernel) against the plain version with P rounded

@@ -27,7 +27,19 @@ from profile_port_serving import classify  # noqa: E402
      "const*)", "K3 flash backward dK/dV"),
     ("_ZN45_GLOBAL__N__8bcb2f8f_12_flash_bwd_cu_a50b7cef23flash_bwd_dq_f32_"
      "kernelILi64EEEvPKfS2_S2_S2_S2_S2_Pfiffii", "K2 flash backward dQ"),
+    ("void (anonymous namespace)::flash_fwd_f32_kernel<64, 4>(float "
+     "const*)", "K1 flash forward"),
+    ("_ZN42_GLOBAL__N__5e3a7c1b_12_flash_fwd_cu_0c8a2d4f20flash_fwd_f32_"
+     "kernelILi64ELi1EEEvPKfS2_S2_PfS3_ifii", "K1 flash forward"),
     ("void (anonymous namespace)::paged_decode_kernel<float, 64>()",
+     "K4 paged decode attention"),
+    ("void (anonymous namespace)::paged_decode_kernel<__nv_bfloat16, 128>("
+     "__nv_bfloat16 const*)", "K4 paged decode attention"),
+    ("void (anonymous namespace)::paged_decode_combine<float, 64>(float "
+     "const*, int const*, float*, int, int, int, int, int, int)",
+     "K4 paged decode attention"),
+    ("_ZN45_GLOBAL__N__2f1c9e0a_15_paged_decode_cu_7d3b1e5a20paged_decode_"
+     "combineI13__nv_bfloat16Li64EEEvPKfPKiPT_iiiiii",
      "K4 paged decode attention"),
     ("void (anonymous namespace)::fused_ce_fwd_kernel<long>(float const*)",
      "K5 fused CE forward"),

@@ -23,10 +23,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def classify(name):
     n = name.lower()
-    if "paged_decode_kernel" in n:
+    if "paged_decode_kernel" in n or "paged_decode_combine" in n:
+        # the split chunks and the merge of their partials
         return "K4 paged decode attention"
-    if "flash_fwd_kernel" in n or "flash_fwd_mma_kernel" in n:
-        # f32 (CUDA cores) or bf16 (tensor cores)
+    if "flash_fwd_" in n:
+        # f32 (CUDA cores: flash_fwd_f32_kernel, the parent commit's
+        # flash_fwd_kernel) or bf16 (tensor cores: flash_fwd_mma_kernel)
         return "K1 flash forward"
     if "flash_bwd_dq_" in n:
         # f32 (CUDA cores: flash_bwd_dq_f32_kernel, the parent commit's
