@@ -7,20 +7,16 @@ Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
              all started together) and print the build seconds, with
              ptxas's registers and spills and the blocks an SM of the f32
-             K1 (at each key split) and K2/K3; beside them the parent
-             commit's flash_fwd.cu and paged_decode.cu (from --parent
-             TREE or git history, where either is at hand) for phases 2,
-             3 and 7;
+             K1 (at each key split), K2/K3 and K6/K7; beside them the
+             parent commit's fused_ce.cu (from --parent TREE or git
+             history, where either is at hand) for phases 9 and 11;
   2. K4      paged decode attention against its plain PyTorch version at
              the engine's shapes: ragged lengths, mid-block tails,
              trash-padded tables over garbage, a length past MB*BS,
              f32 and bf16, plus head_dim 32/128 and a length-0 slot;
              lengths one row before, on and past a chunk boundary, a
              1-row slot among long ones, every slot at MB*BS; every case
-             twice for the same bits and, in f32, within the same
-             tolerance of the parent's K4; K4 timed against the parent's
-             in turns (this tree, parent, parent, this tree) with the
-             bound;
+             twice for the same bits; K4 timed with the bound;
   3. K1      flash-attention forward against its plain version for O and
              LSE: [2,12,1024,64], a ragged [1,12,333,64], the serving
              cross-check's longest shape and head_dim-128 cases, causal
@@ -28,11 +24,9 @@ Phases, one line each:
              kept f32, and P rounded to bf16 as the kernel rounds it);
              f32 also at S = 1, 17, 63, 65, 1024 and 2048, D = 128, B*H
              1 .. 96 and an operand not 16-byte aligned, each twice for
-             the same bits and within the same tolerance of the parent's
-             K1; the f32 K1 timed against the parent's in turns with
-             SDPA's f32 forward between them, at [1,12,661,64] and
-             [8,12,1024,64] causal, with TFLOP/s and the share of the
-             bound;
+             the same bits; the f32 K1 timed twice in turns with SDPA's f32
+             forward, at [1,12,661,64] and [8,12,1024,64] causal, with
+             TFLOP/s and the share of the bound;
   4. serve   GPT-124M (random weights from a seeded torch.Generator) in
              ServingEngine(num_slots=8, block_size=16, async_depth=1):
              16 greedy requests in two staggered waves, four sharing a
@@ -56,12 +50,7 @@ Phases, one line each:
              torch.Generator), batch 8 x seq 1024, labels = ids, AdamW(1e-4,
              weight_decay 0.01, ClipGradByGlobalNorm(1.0)), 6 steps: every
              loss finite, the last below the first, K1 = K2 = K3 launches =
-             6 x 12; median step ms of steps 2-6, tokens/s, peak memory.
-             Then, where the parent's K1 was built, the same 6 steps with
-             it, in turns (this tree, parent, parent, this tree): every
-             step's loss within 1e-4 relative (the f32 forward sums in
-             another order), peak memory no more than the parent's + 64
-             MiB, and each side's median step over its two runs;
+             6 x 12; median step ms of steps 2-6, tokens/s, peak memory;
   8. cpu     a 2-layer GPT at full width, untied and tied (the tied one
              puts K5-K7 and K7's dW in the word-embedding grad), batch 1 x
              seq 256, the same weights on the card and on the CPU: 3 AdamW
@@ -70,14 +59,17 @@ Phases, one line each:
   9. K5-K7   the fused linear cross-entropy kernels (K5 loss and LSE, K6
              dx, K7 dW) against their plain versions at the flagship shape
              (T = 8 x 1024, H = 768, V = 50304, about 5 % of the rows
-             ignore_index) in f32 and bf16 and at ragged small shapes;
-             bf16 K6/K7 against both plain variants (d kept f32, and d
-             rounded to bf16 as the kernels round it); bf16 K5-K7 run
-             twice for the same bits; K5, K6, K7 (30 calls in bf16), the
-             plain forward and backward and, as a yardstick, the two-call
-             composition
+             ignore_index) in f32 and bf16 and at ragged shapes (T = 1 ..
+             1000, H = 13 .. 1536, V = 7 .. 50304); bf16 K6/K7 against
+             both plain variants (d kept f32, and d rounded to bf16 as the
+             kernels round it); every case twice for the same bits, f32
+             K6/K7 within the same tolerance of the parent's; K5, K6, K7
+             (30 calls in bf16), the plain forward and backward and, as a
+             yardstick, the two-call composition
              F.cross_entropy(F.linear) forward and backward timed in both
-             dtypes, with TFLOP/s and the fraction of the bound;
+             dtypes, with TFLOP/s and the fraction of the bound; the f32
+             K6 and K7 timed in turns with the parent's (this tree,
+             parent, parent, this tree), each faster than the parent's;
  10. flagship the reference's flagship training step
              (tools/baseline_bench.py bench_gpt): GPT-124M with the default
              tied head, dropout 0, batch 8 x seq 1024, labels = ids,
@@ -85,7 +77,15 @@ Phases, one line each:
              amp.auto_cast(level="O1", dtype="bfloat16"), 6 steps: every
              loss finite, the last below the first, K1 = K2 = K3 launches
              = 6 x 12 and K5 = K6 = K7 = 6; median step ms, tokens/s, peak
-             memory.
+             memory;
+ 11. f32     the same step in f32 (no auto_cast, TF32 off): the tied
+             head through the f32 K5, K6 and K7 once a step; the same
+             gates and numbers. Then, where the parent's K6/K7 were
+             built, the same 6 steps with them, in turns (this tree,
+             parent, parent, this tree): every step's loss within 1e-4
+             relative (the sums run in another order), peak memory no
+             more than the parent's + 64 MiB, and each side's median step
+             over its two runs.
 Then the card's name and power limit, one JSON line of kernel numbers,
 and as the last line {"ok": true, "device": {...}}.
 
@@ -149,20 +149,16 @@ CE_BF16D_TOL = 5e-3
 # is f32 on both sides (sums over up to 1024 keys, exp2 for exp)
 BF16P_TOL = 1e-2
 FLASH_LSE_TOL = 5e-5
-# the commit whose f32 K1 and K4 (PR 1's first kernels) phases 2, 3 and 7
+# the commit whose f32 K6 and K7 (PR 3's first kernels) phases 9 and 11
 # hold the redesigned ones against, where its source is at hand:
-# {(source, symbol): ctypes argtypes of its C entry point}. Its K1 has
-# this tree's signature, so the wrapper launches it (parent_kernels); its
-# K4 takes no workspace and is called directly (parent_paged)
-PARENT = "d07fc2d"
-PARENT_SYMBOLS = {
-    ("flash_fwd", "flash_attention_forward"):
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    ("paged_decode", "paged_decode_attention"):
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
-PARENT_K1 = ("flash_fwd", "flash_attention_forward")
-PARENT_K4 = ("paged_decode", "paged_decode_attention")
+# {(source, symbol): ctypes argtypes of its C entry point}. Its K6/K7 have
+# this tree's signatures, so the wrappers launch them (parent_kernels)
+PARENT = "ee3e045"
+_CE_BWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p])
+PARENT_SYMBOLS = {("fused_ce", "fused_ce_backward_dx"): _CE_BWD_ARGS,
+                  ("fused_ce", "fused_ce_backward_dw"): _CE_BWD_ARGS}
 FLAGSHIP = dict(batch=8, seq=1024)
 
 
@@ -261,24 +257,11 @@ def paged_case(torch, S, nh, hd, BS, MB, lengths, dtype, seed):
             torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
-def parent_paged(torch, fn, q, kc, vc, tables, lengths):
-    """The parent's K4 (one block per head and slot, no workspace) through
-    its own C signature; no launch is counted."""
-    out = torch.empty_like(q)
-    S, nh, hd = q.shape
-    err = fn(q.data_ptr(), kc.data_ptr(), vc.data_ptr(), tables.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), S, nh, hd, kc.shape[2],
-             tables.shape[1], 0 if q.dtype == torch.float32 else 1,
-             torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"the parent's K4: CUDA error {err}")
-    return out
-
-
-def k4_case(torch, pa, parent_k4, label, args, tol):
+def k4_case(torch, pa, label, args, tol):
     """K4 against the plain version in f32 on the same (rounded) inputs,
     on the slots with a length > 0 (one <= 0 must give finite zeros);
-    twice for the same bits; in f32 against the parent's K4. Returns the
-    error against the plain version."""
+    twice for the same bits. Returns the error against the plain
+    version."""
     got = pa.paged_decode_attention(*args)
     ref = pa.paged_decode_plain(*(a.float() if a.is_floating_point() else a
                                   for a in args))
@@ -293,54 +276,42 @@ def k4_case(torch, pa, parent_k4, label, args, tol):
           "not zeros")
     check(torch.equal(got, pa.paged_decode_attention(*args)),
           f"K4 {label}: two runs differ")
-    line = (f"  K4 {label}: max_abs_err={err:.3e} (tol {tol}); a second run "
-            "gives the same bits")
-    if parent_k4 is not None and args[0].dtype == torch.float32:
-        theirs = parent_paged(torch, parent_k4, *args)
-        e2 = (got - theirs).abs().max().item()
-        check(e2 <= tol, f"K4 {label}: {e2} from the parent's > {tol}")
-        line += f"; within {e2:.3e} of the parent's"
-    print(line)
+    print(f"  K4 {label}: max_abs_err={err:.3e} (tol {tol}); a second run "
+          "gives the same bits")
     return err
 
 
-def phase_k4(torch, pa, parent_k4):
+def phase_k4(torch, pa):
     S, nh, hd, BS, MB = 8, 12, 64, 16, 64
     lengths = [1, 16, 17, 300, 555, 1024, 1100, 733]   # 1100 > MB*BS
     out = {}
     for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
         args = paged_case(torch, S, nh, hd, BS, MB, lengths, dtype, 1)
         pages, chunks = pa.decode_chunks(BS, MB, hd, args[0].element_size())
-        out[dtype] = (k4_case(torch, pa, parent_k4, f"{dtype} S={S} nh={nh} "
+        out[dtype] = (k4_case(torch, pa, f"{dtype} S={S} nh={nh} "
                               f"hd={hd} BS={BS} MB={MB} lengths={lengths} "
                               f"({chunks} chunks of {pages} pages)", args,
                               tol), args)
         cr = pages * BS
         cap = BS * MB
         edges = [cr - 1, cr, cr + 1, 1, cap, 2 * cr, 3 * cr - 1, cap + 5]
-        k4_case(torch, pa, parent_k4, f"{dtype} chunk edges {edges} "
+        k4_case(torch, pa, f"{dtype} chunk edges {edges} "
                 f"(chunk {cr} rows)",
                 paged_case(torch, S, nh, hd, BS, MB, edges, dtype, 4), tol)
-        k4_case(torch, pa, parent_k4, f"{dtype} every slot at MB*BS = {cap}",
+        k4_case(torch, pa, f"{dtype} every slot at MB*BS = {cap}",
                 paged_case(torch, S, nh, hd, BS, MB, [cap] * S, dtype, 5),
                 tol)
         for hd2 in (32, 128):
-            k4_case(torch, pa, parent_k4, f"{dtype} hd={hd2}",
+            k4_case(torch, pa, f"{dtype} hd={hd2}",
                     paged_case(torch, 3, 4, hd2, 8, 5, [1, 13, 40], dtype, 2),
                     tol)
-    k4_case(torch, pa, parent_k4, "float32 length<=0 slots [0, 5, -3]",
+    k4_case(torch, pa, "float32 length<=0 slots [0, 5, -3]",
             paged_case(torch, 3, 4, 64, 16, 4, [0, 5, -3], "float32", 3),
             F32_TOL)
 
     err, args = out["float32"]
     q, kc, vc, tables, lens = args
-    times = {"this tree": [], "the parent": []}
-    for side in (("this tree", "the parent", "the parent", "this tree")
-                 if parent_k4 is not None else ("this tree",)):
-        times[side].append(time_ms(torch, (
-            lambda: pa.paged_decode_attention(*args)) if side == "this tree"
-            else (lambda: parent_paged(torch, parent_k4, *args))))
-    ms = float(np.median(times["this tree"]))
+    ms = time_ms(torch, lambda: pa.paged_decode_attention(*args))
     plain_ms = time_ms(torch, lambda: pa.paged_decode_plain(*args))
     rows = sum(min(n, MB * BS) for n in lengths)
     row_bytes = nh * hd * 4
@@ -349,12 +320,6 @@ def phase_k4(torch, pa, parent_k4):
     b_ms, b_by = bound(nbytes, 4 * rows * nh * hd, "float32")
     print(f"  K4 float32 time {ms:.4f} ms ({b_ms / ms:.3f} of the bound), "
           f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    if parent_k4 is not None:
-        p_ms = float(np.median(times["the parent"]))
-        print(f"  K4 float32 in turns: this tree "
-              f"{[round(t, 4) for t in times['this tree']]} ms, the parent's "
-              f"({PARENT}) {[round(t, 4) for t in times['the parent']]} ms: "
-              f"{p_ms / ms:.2f}x faster ({p_ms:.4f} against {ms:.4f} ms)")
     return {"name": "paged_decode_attention", "route": "cuda",
             "dtype": "float32",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
@@ -365,7 +330,7 @@ def phase_k4(torch, pa, parent_k4):
 
 # ---------------------------------------------------------------- phase 3
 
-def phase_k1(torch, attn, main_shape, train_shape, _build, parent_k1):
+def phase_k1(torch, attn, main_shape, train_shape, _build):
     import torch.nn.functional as F
     cases = [((2, 12, 1024, 64), c, dt) for c in (True, False)
              for dt in ("float32", "bfloat16")]
@@ -423,15 +388,6 @@ def phase_k1(torch, attn, main_shape, train_shape, _build, parent_k1):
             check(torch.equal(o, again[0]) and torch.equal(lse, again[1]),
                   f"K1 {shape} causal={causal} f32: two runs differ")
             line.append("a second run gives the same bits")
-            if parent_k1:
-                with parent_kernels(_build, parent_k1):
-                    po, plse = attn.flash_attention_forward(q, k, v, scale,
-                                                            causal)
-                e2 = max((o - po).abs().max().item(),
-                         (lse - plse).abs().max().item())
-                check(e2 <= F32_FLASH_TOL, f"K1 {shape} causal={causal} f32:"
-                      f" {e2} from the parent's > {F32_FLASH_TOL}")
-                line.append(f"within {e2:.3e} of the parent's")
         print(f"  K1 {list(shape)} causal={causal} {dtype}: "
               + "; ".join(line))
         if dtype == "float32" and causal and shape == main_shape:
@@ -467,18 +423,13 @@ def phase_k1(torch, attn, main_shape, train_shape, _build, parent_k1):
     rows = []
     for q, k, v, scale, err in (main, big):
         b, h, s, d = q.shape
-        times = {"this tree": [], "the parent": []}
-        libs = []
-        for side in (("this tree", "the parent", "the parent", "this tree")
-                     if parent_k1 else ("this tree",)):
-            with (parent_kernels(_build, parent_k1) if side == "the parent"
-                  else contextlib.nullcontext()):
-                times[side].append(time_ms(
-                    torch, lambda: attn.flash_attention_forward(
-                        q, k, v, scale, True)))
+        times, libs = [], []
+        for _ in range(2):  # in turns with SDPA, whose reading drifts
+            times.append(time_ms(torch, lambda: attn.flash_attention_forward(
+                q, k, v, scale, True)))
             libs.append(time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True)))
-        ms = float(np.median(times["this tree"]))
+        ms = float(np.median(times))
         lib_ms = float(np.median(libs))
         plain_ms = time_ms(torch, lambda: attn.flash_attention_plain(
             q, k, v, scale, True), iters=10)
@@ -492,13 +443,6 @@ def phase_k1(torch, attn, main_shape, train_shape, _build, parent_k1):
               f"{b_ms / ms:.4f} of its bound {b_ms:.4f} ms ({b_by}); sdpa f32 "
               f"median {lib_ms:.4f} ms of {[round(x, 4) for x in libs]} "
               f"({ms / lib_ms:.2f}x); plain {plain_ms:.4f} ms")
-        if parent_k1:
-            p_ms = float(np.median(times["the parent"]))
-            print(f"  K1 {list(q.shape)} causal f32 in turns: this tree "
-                  f"{[round(t, 4) for t in times['this tree']]} ms, the "
-                  f"parent's ({PARENT}) "
-                  f"{[round(t, 4) for t in times['the parent']]} ms: "
-                  f"{p_ms / ms:.2f}x faster ({p_ms:.4f} against {ms:.4f} ms)")
         rows.append({"name": "flash_attention_forward", "route": "cuda",
                      "dtype": "float32",
                      "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
@@ -806,15 +750,17 @@ def flash_bf16_rows(torch, attn, train_shape, errs, g):
 
 # ------------------------------------------------------------ phases 7-8
 
-def train_run(torch, cfg, optimizer, nn):
-    """TRAIN_STEPS untied f32 steps from the same seeded weights: (losses,
-    step ms, peak bytes, tokens a step)."""
+def train_run(torch, cfg, optimizer, nn, clip):
+    """TRAIN_STEPS f32 steps of ``GPTForCausalLM(cfg)`` from the same seeded
+    weights, AdamW(1e-4, weight_decay 0.01), with ClipGradByGlobalNorm(1.0)
+    when ``clip``: (losses, step ms, peak bytes, tokens a step)."""
     from paddle_tpu_torch.text.models import GPTForCausalLM
     model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
         1234)).train()
     opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
                           weight_decay=0.01,
-                          grad_clip=nn.ClipGradByGlobalNorm(1.0))
+                          grad_clip=nn.ClipGradByGlobalNorm(1.0) if clip
+                          else None)
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (8, cfg.max_seq_len)).astype(np.int64)).cuda()
     labels = ids.clone()
@@ -835,60 +781,84 @@ def train_run(torch, cfg, optimizer, nn):
     return losses, times, peak, ids.numel()
 
 
-def phase_train(torch, attn, cfg, optimizer, nn, _build, parent_k1):
-    L = cfg.num_layers
-    attn.flash_attention_forward.launches = 0
-    attn.flash_bwd_dq.launches = 0
-    attn.flash_bwd_dkv.launches = 0
-    losses, times, peak, tokens = train_run(torch, cfg, optimizer, nn)
-    counts = (attn.flash_attention_forward.launches,
-              attn.flash_bwd_dq.launches, attn.flash_bwd_dkv.launches)
+def train_checked(torch, wrappers, want, cfg, optimizer, nn, clip):
+    """One train_run with every wrapper's count set to 0 just before it
+    and read just after: the loss finite and falling, the launches
+    ``want``. Prints and returns (losses, step ms, peak bytes, tokens)."""
+    for fn in wrappers:
+        fn.launches = 0
+    losses, times, peak, tokens = train_run(torch, cfg, optimizer, nn, clip)
+    counts = tuple(fn.launches for fn in wrappers)
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    check(counts == (TRAIN_STEPS * L,) * 3,
-          f"K1/K2/K3 launches {counts} != {TRAIN_STEPS} x {L} each")
+    check(counts == want, f"launches {counts} != {want}")
     step_ms = float(np.median(times[1:]))
     print(f"  losses {[round(x, 6) for x in losses]}; step ms "
           f"{[round(t, 2) for t in times]}")
     print(f"  median step (steps 2-{TRAIN_STEPS}) {step_ms:.2f} ms, "
           f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
-          f"{peak / 2**30:.3f} GiB; K1/K2/K3 launches {counts} = "
-          f"{TRAIN_STEPS} x {L} each")
-    if parent_k1:
-        # the same steps with the parent's f32 K1, in turns (this tree, the
-        # parent, the parent, this tree): the host's speed drifts within a
-        # call. The forward sums in another order, so every step's loss
-        # is held within LOSS_RTOL of the parent's
-        runs = {"this tree": [(losses, times, peak)], "the parent": []}
-        for side in ("the parent", "the parent", "this tree"):
-            with (parent_kernels(_build, parent_k1) if side == "the parent"
-                  else contextlib.nullcontext()):
-                runs[side].append(train_run(torch, cfg, optimizer, nn)[:3])
-        (p_losses, _, _), _ = runs["the parent"]
-        rel = [abs(a - b) / abs(b) for a, b in zip(losses, p_losses)]
-        med = {}
-        for side, rs in runs.items():
-            med[side] = float(np.median([t for _, ts, _ in rs
-                                         for t in ts[1:]]))
-            print(f"  {side}'s K1: step ms "
-                  + ", ".join(f"{[round(t, 2) for t in ts]}"
-                              for _, ts, _ in rs)
-                  + f"; median of steps 2-{TRAIN_STEPS} of both runs "
-                  f"{med[side]:.2f} ms, {tokens / med[side] * 1e3:.1f} "
-                  f"tokens/s; peak memory "
-                  + ", ".join(f"{pk / 2**30:.3f}" for _, _, pk in rs)
-                  + " GiB; the two runs' losses "
-                  + ("the same" if rs[0][0] == rs[1][0] else "differ"))
-        print(f"  the parent's ({PARENT}) losses "
-              f"{[round(x, 6) for x in p_losses]}; "
-              f"relative differences {[float(f'{r:.3e}') for r in rel]}; "
-              f"this tree's median step "
-              f"{med['the parent'] - med['this tree']:.2f} ms shorter")
-        check(max(rel) <= LOSS_RTOL, f"losses {losses} vs the parent's "
-              f"{p_losses}")
-        peaks = {side: max(pk for _, _, pk in rs) for side, rs in runs.items()}
-        check(peaks["this tree"] <= peaks["the parent"] + (64 << 20),
-              f"peak memory {peaks}")
+          f"{peak / 2**30:.3f} GiB; launches "
+          + ", ".join(f"{fn.__name__} {n}" for fn, n in zip(wrappers,
+                                                            counts)))
+    return losses, times, peak, tokens
+
+
+def phase_train(torch, attn, cfg, optimizer, nn):
+    L = cfg.num_layers
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv)
+    train_checked(torch, wrappers, (TRAIN_STEPS * L,) * 3, cfg, optimizer,
+                  nn, True)
+    return tuple(fn.launches for fn in wrappers)
+
+
+def phase_tied_f32(torch, attn, tce, cfg, optimizer, nn, _build, parent):
+    """The flagship's step in f32 (phase 10 without auto_cast): the tied
+    head through the f32 K5-K7 once a step. Where the parent's K6/K7 were
+    built, the same steps with them, in turns (this tree, the parent, the
+    parent, this tree): the host's speed drifts within a call. Their sums
+    run in another order, so every step's loss is held within LOSS_RTOL
+    of the parent's, and the peak memory to the parent's + 64 MiB."""
+    L = cfg.num_layers
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
+    first = train_checked(torch, wrappers,
+                          (TRAIN_STEPS * L,) * 3 + (TRAIN_STEPS,) * 3, cfg,
+                          optimizer, nn, False)
+    counts = tuple(fn.launches for fn in wrappers)
+    losses, tokens = first[0], first[3]
+    if not parent:
+        return counts
+    runs = {"this tree": [first[:3]], "the parent": []}
+    for side in ("the parent", "the parent", "this tree"):
+        with (parent_kernels(_build, parent) if side == "the parent"
+              else contextlib.nullcontext()):
+            runs[side].append(train_run(torch, cfg, optimizer, nn,
+                                        False)[:3])
+    (p_losses, _, _), _ = runs["the parent"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, p_losses)]
+    med = {}
+    for side, rs in runs.items():
+        med[side] = float(np.median([t for _, ts, _ in rs for t in ts[1:]]))
+        print(f"  {side}'s K6/K7: step ms "
+              + ", ".join(f"{[round(t, 2) for t in ts]}" for _, ts, _ in rs)
+              + f"; median of steps 2-{TRAIN_STEPS} of both runs "
+              f"{med[side]:.2f} ms, {tokens / med[side] * 1e3:.1f} "
+              f"tokens/s; peak memory "
+              + ", ".join(f"{pk / 2**30:.3f}" for _, _, pk in rs)
+              + " GiB; the two runs' losses "
+              + ("the same" if rs[0][0] == rs[1][0] else "differ"))
+    print(f"  the parent's ({PARENT}) losses "
+          f"{[round(x, 6) for x in p_losses]}; "
+          f"relative differences {[float(f'{r:.3e}') for r in rel]}; "
+          f"this tree's median step "
+          f"{med['the parent'] - med['this tree']:.2f} ms shorter")
+    check(max(rel) <= LOSS_RTOL, f"losses {losses} vs the parent's "
+          f"{p_losses}")
+    peaks = {side: max(pk for _, _, pk in rs) for side, rs in runs.items()}
+    check(peaks["this tree"] <= peaks["the parent"] + (64 << 20),
+          f"peak memory {peaks}")
     return counts
 
 
@@ -952,10 +922,9 @@ def ce_case(torch, t, h, v, dtype, g):
 
 
 def parent_sources(parent_tree):
-    """{source name: text} of the parent commit's ``csrc/flash_fwd.cu``
-    and ``csrc/paged_decode.cu`` (its f32 K1 and K4, PR 1's kernels): from
-    ``--parent TREE``, a checkout of it, else from git history; None where
-    neither is at hand."""
+    """{source name: text} of the parent commit's ``csrc/fused_ce.cu`` (its
+    f32 K6 and K7 are PR 3's kernels): from ``--parent TREE``, a checkout
+    of it, else from git history; None where neither is at hand."""
     names = sorted({name for name, _ in PARENT_SYMBOLS})
     out = {}
     for name in names:
@@ -993,7 +962,7 @@ def start_parent_build(_build, texts):
 
 
 def load_parent(started):
-    """{(source, symbol): ctypes function} of the parent's K1 and K4, or
+    """{(source, symbol): ctypes function} of the parent's K6 and K7, or
     None."""
     if started is None:
         return None
@@ -1029,14 +998,16 @@ def parent_kernels(_build, parent):
                 _build._fns[key] = fn
 
 
-def phase_k5k7(torch, tce, t, h, v):
+def phase_k5k7(torch, tce, t, h, v, _build, parent):
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(9)
     cases = [(t, h, v, "float32"), (t, h, v, "bfloat16"),
              (333, 768, 50304, "float32"), (333, 768, 50304, "bfloat16"),
-             (1000, 200, 1234, "bfloat16"), (77, 800, 5000, "float32"),
-             (77, 800, 5000, "bfloat16"), (1, 64, 7, "float32"),
-             (1, 64, 7, "bfloat16"), (65, 13, 300, "bfloat16")]
+             (1000, 200, 1234, "float32"), (1000, 200, 1234, "bfloat16"),
+             (77, 800, 5000, "float32"), (77, 800, 5000, "bfloat16"),
+             (33, 1536, 1234, "float32"), (1, 64, 7, "float32"),
+             (1, 64, 7, "bfloat16"), (65, 13, 300, "float32"),
+             (65, 13, 300, "bfloat16")]
     errs = {}
     for ct, ch, cv, dtype in cases:
         x, w, labels, gg = ce_case(torch, ct, ch, cv, dtype, g)
@@ -1072,20 +1043,33 @@ def phase_k5k7(torch, tce, t, h, v):
                             f"|grad| {top:.3e})")
                 errs[(ct, ch, cv, dtype, name)] = err
             del ref
-        if dtype == "bfloat16":
-            again = (*tce.fused_ce_forward(x, w, labels),
-                     tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
-                     tce.fused_ce_bwd_dw(x, w, labels, lse, gg))
-            check(all(torch.equal(a, b)
-                      for a, b in zip(again, (loss, lse, dx, dw))),
-                  f"K5-K7 [{ct},{ch},{cv}] bf16: two runs differ")
-            line.append("a second run gives the same bits")
+        again = (*tce.fused_ce_forward(x, w, labels),
+                 tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
+                 tce.fused_ce_bwd_dw(x, w, labels, lse, gg))
+        check(all(torch.equal(a, b)
+                  for a, b in zip(again, (loss, lse, dx, dw))),
+              f"K5-K7 [{ct},{ch},{cv}] {dtype}: two runs differ")
+        line.append("a second run gives the same bits")
+        if parent and dtype == "float32":
+            # the parent's K6/K7 sum in another order: within CE_F32_TOL
+            with parent_kernels(_build, parent):
+                theirs = (tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
+                          tce.fused_ce_bwd_dw(x, w, labels, lse, gg))
+            e2 = [(a - b).abs().max().item() / max(b.abs().max().item(),
+                                                   1e-30)
+                  for a, b in zip((dx, dw), theirs)]
+            check(max(e2) <= CE_F32_TOL, f"K6/K7 [{ct},{ch},{cv}] f32: "
+                  f"{e2} of the largest grad from the parent's")
+            line.append(f"dx, dW within {e2[0]:.3e}, {e2[1]:.3e} of the "
+                        "parent's largest grad")
         print(f"  K5-K7 [T={ct}, H={ch}, V={cv}] {dtype}: " + "; ".join(line))
 
-    # times at the flagship shape, in both dtypes; the main path (phase
-    # 10, O1) hands the kernels bf16
+    # times at the flagship shape, in both dtypes: the f32 K5-K7 run on
+    # phase 11's path, the bf16 ones on phase 10's. The f32 K6 and K7 are
+    # timed in turns with the parent's (this tree, the parent, the parent,
+    # this tree) where it was built
     flops = 2.0 * t * v * h
-    out = {}
+    rows = []
     for dtype in ("float32", "bfloat16"):
         x, w, labels, gg = ce_case(torch, t, h, v, dtype, g)
         loss, lse = tce.fused_ce_forward(x, w, labels)
@@ -1093,12 +1077,20 @@ def phase_k5k7(torch, tce, t, h, v):
         n5 = 30 if dtype == "bfloat16" else 10
         k5 = time_ms(torch, lambda: tce.fused_ce_forward(x, w, labels),
                      iters=n5, warmup=3 if dtype == "bfloat16" else 1)
-        k6 = time_ms(torch, lambda: tce.fused_ce_bwd_dx(x, w, labels, lse,
-                                                        gg),
-                     iters=n6, warmup=3)
-        k7 = time_ms(torch, lambda: tce.fused_ce_bwd_dw(x, w, labels, lse,
-                                                        gg),
-                     iters=n6, warmup=3)
+        turns = {"this tree": {"K6": [], "K7": []},
+                 "the parent": {"K6": [], "K7": []}}
+        for side in (("this tree", "the parent", "the parent", "this tree")
+                     if parent and dtype == "float32" else ("this tree",)):
+            with (parent_kernels(_build, parent) if side == "the parent"
+                  else contextlib.nullcontext()):
+                turns[side]["K6"].append(time_ms(
+                    torch, lambda: tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
+                    iters=n6, warmup=3))
+                turns[side]["K7"].append(time_ms(
+                    torch, lambda: tce.fused_ce_bwd_dw(x, w, labels, lse, gg),
+                    iters=n6, warmup=3))
+        k6 = float(np.median(turns["this tree"]["K6"]))
+        k7 = float(np.median(turns["this tree"]["K7"]))
         pf = time_ms(torch, lambda: tce.fused_linear_cross_entropy_plain(
             x, w, labels), iters=5, warmup=1)
         pb = time_ms(torch, lambda: tce.fused_linear_cross_entropy_backward_plain(
@@ -1129,23 +1121,31 @@ def phase_k5k7(torch, tce, t, h, v):
               f"plain backward {pb:.3f} ms; composition yardstick "
               f"F.cross_entropy(F.linear) forward {cf:.3f} ms, backward (dx "
               f"and dW) {cb:.3f} ms")
-        out[dtype] = (k5, k6, k7, pf, pb, cf, cb, b5, b6, b7)
-        del x, w, labels, gg, loss, lse
-    k5, k6, k7, pf, pb, cf, cb, b5, b6, b7 = out["bfloat16"]
-    rows = []
-    for name, line, ms, plain_ms, lib_ms, (b_ms, b_by), err in (
-            ("fused_ce_forward", ":93", k5, pf, cf, b5,
-             errs[(t, h, v, "bfloat16", "loss")]),
-            ("fused_ce_bwd_dx", ":183", k6, pb, cb, b6,
-             errs[(t, h, v, "bfloat16", "dx")]),
-            ("fused_ce_bwd_dw", ":198", k7, pb, cb, b7,
-             errs[(t, h, v, "bfloat16", "dW")])):
+        for kname, b in (("K6", b6), ("K7", b7)):
+            theirs = turns["the parent"][kname]
+            if not theirs:
+                continue
+            mine = turns["this tree"][kname]
+            p_ms, ms = float(np.median(theirs)), float(np.median(mine))
+            print(f"  {kname} {dtype} in turns: this tree "
+                  f"{[round(m, 3) for m in mine]} ms, the parent's "
+                  f"({PARENT}) {[round(m, 3) for m in theirs]} ms "
+                  f"({2 * flops / p_ms / 1e9:.1f} TFLOP/s, {b[0] / p_ms:.4f} "
+                  f"of the bound): {p_ms / ms:.2f}x faster")
+            check(max(mine) < min(theirs), f"{kname} {dtype}: this tree's "
+                  f"{mine} ms not below the parent's {theirs}")
         # library_ms: the two-call composition F.cross_entropy(F.linear)
-        rows.append({"name": name, "route": "cuda", "dtype": "bfloat16",
-                     "source": "paddle_tpu_torch/csrc/fused_ce.cu",
-                     "replaces": "paddle_tpu/ops/fused_ce.py" + line,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+        for name, line, ms, plain_ms, lib_ms, (b_ms, b_by), key in (
+                ("fused_ce_forward", ":93", k5, pf, cf, b5, "loss"),
+                ("fused_ce_bwd_dx", ":183", k6, pb, cb, b6, "dx"),
+                ("fused_ce_bwd_dw", ":198", k7, pb, cb, b7, "dW")):
+            rows.append({"name": name, "route": "cuda", "dtype": dtype,
+                         "source": "paddle_tpu_torch/csrc/fused_ce.cu",
+                         "replaces": "paddle_tpu/ops/fused_ce.py" + line,
+                         "max_abs_err": errs[(t, h, v, dtype, key)],
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": lib_ms})
+        del x, w, labels, gg, loss, lse
     return rows
 
 
@@ -1206,9 +1206,9 @@ def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
 def main():
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--parent", metavar="TREE",
-                    help=f"a checkout of {PARENT}, whose flash_fwd.cu and "
-                    "paged_decode.cu phases 2, 3 and 7 compare with "
-                    "(default: git history, where the checkout has it)")
+                    help=f"a checkout of {PARENT}, whose fused_ce.cu (its "
+                    "f32 K6 and K7) phases 9 and 11 compare with (default: "
+                    "git history, where the checkout has it)")
     args = ap.parse_args()
     try:
         import torch
@@ -1257,12 +1257,14 @@ def main():
           " " + ", ".join(f"D = {d}, KS = {ks}: {k1_blocks(d, ks)}"
                           for d, ks in ((64, 1), (64, 2), (64, 4), (128, 1),
                                         (128, 2))))
+    ce_blocks = _build.function("fused_ce",
+                                "fused_ce_backward_f32_blocks_per_sm",
+                                [ctypes.c_int])
+    print(f"  f32 K6/K7 blocks an SM: {ce_blocks(1)} / {ce_blocks(0)}")
     parent = load_parent(parent_build)
-    print(f"  the parent's ({PARENT}) K1 and K4: " + (
-        "built, for phases 2, 3 and 7" if parent else
+    print(f"  the parent's ({PARENT}) f32 K6 and K7: " + (
+        "built, for phases 9 and 11" if parent else
         "no source at hand (no git history, no --parent): not compared"))
-    parent_k1 = {PARENT_K1: parent[PARENT_K1]} if parent else None
-    parent_k4 = parent[PARENT_K4] if parent else None
 
     cfg = TransformerLMConfig(dropout=0.0)
     prompts, max_new = workload(cfg.vocab_size)
@@ -1273,12 +1275,11 @@ def main():
     train_shape = (8, train_cfg.num_heads, train_cfg.max_seq_len,
                    train_cfg.hidden_size // train_cfg.num_heads)
     print("[2] K4 paged decode attention vs plain")
-    k4_row = phase_k4(torch, pa, parent_k4)
+    k4_row = phase_k4(torch, pa)
     print("[3] K1 flash-attention forward vs plain")
     k1_row, k1t_row = phase_k1(
         torch, attn, (1, cfg.num_heads, longest,
-                      cfg.hidden_size // cfg.num_heads), train_shape, _build,
-        parent_k1)
+                      cfg.hidden_size // cfg.num_heads), train_shape, _build)
     print("[4] serve GPT-124M")
     gen = torch.Generator().manual_seed(1234)
     model = GPTForCausalLM(cfg, generator=gen).eval()
@@ -1291,18 +1292,22 @@ def main():
     k2_row, k3_row, k1b_row, k2b_row, k3b_row = phase_k2k3(torch, attn,
                                                            train_shape)
     print("[7] train GPT-124M (untied head)")
-    k1_train, k2, k3 = phase_train(torch, attn, train_cfg, optimizer, nn,
-                                   _build, parent_k1)
+    k1_train, k2, k3 = phase_train(torch, attn, train_cfg, optimizer, nn)
     print("[8] card against CPU: 2-layer GPT at full width")
     for tie in (False, True):
         phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig, tie)
     print("[9] K5/K6/K7 fused linear cross-entropy vs plain")
-    k5_row, k6_row, k7_row = phase_k5k7(
-        torch, tce, FLAGSHIP["batch"] * FLAGSHIP["seq"], cfg.hidden_size,
-        cfg.vocab_size)
+    (k5f_row, k6f_row, k7f_row, k5_row, k6_row,
+     k7_row) = phase_k5k7(torch, tce, FLAGSHIP["batch"] * FLAGSHIP["seq"],
+                          cfg.hidden_size, cfg.vocab_size, _build, parent)
     print("[10] the reference's flagship step: GPT-124M tied, AMP O1 bf16")
     k1_f, k2_f, k3_f, k5, k6, k7 = phase_flagship(
         torch, attn, tce, amp, optimizer, TransformerLMConfig)
+    print("[11] the flagship step in f32: GPT-124M tied, f32 K5-K7")
+    tied_cfg = TransformerLMConfig(dropout=0.0, use_flash_attention=True,
+                                   max_seq_len=FLAGSHIP["seq"])
+    counts = phase_tied_f32(torch, attn, tce, tied_cfg, optimizer, nn,
+                            _build, parent)
 
     k4_row["launches"] = k4
     # K1 runs on three main paths: the serving cross-check (f32, the row at
@@ -1318,6 +1323,8 @@ def main():
     k5_row["launches"] = k5
     k6_row["launches"] = k6
     k7_row["launches"] = k7
+    # the f32 K5-K7 on phase 11's path
+    k5f_row["launches"], k6f_row["launches"], k7f_row["launches"] = counts[3:]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1330,7 +1337,8 @@ def main():
                                   for row in (k4_row, k1_row, k1t_row,
                                               k2_row, k3_row, k1b_row,
                                               k2b_row, k3b_row, k5_row,
-                                              k6_row, k7_row)]}))
+                                              k6_row, k7_row, k5f_row,
+                                              k6f_row, k7f_row)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -59,21 +59,70 @@
 //     is not a multiple of 8), and columns past V are left out of the
 //     statistics.
 //
-// f32 K5 and the f32 K6/K7: f32 FMAs on the CUDA cores (a simple first
-// kernel; TF32 is off by contract, so f32 stays full f32):
+// f32 K5: f32 FMAs on the CUDA cores (a simple first kernel; TF32 is off
+// by contract, so f32 stays full f32):
 //   * every logits tile S [64 x 64] is a small GEMM over H, staged in shared
 //     memory 32 columns at a time; each of the 256 threads owns a 4 x 4
 //     register tile (rows ty*4.., columns tx + 16j), so each shared-memory
 //     load feeds 2 FMAs;
-//   * K5: a block owns 64 token rows and loops over its share of the vocab
+//   * a block owns 64 token rows and loops over its share of the vocab
 //     tiles, keeping an online max / sum-exp per row and thread; the 16
 //     threads of a row combine once, with shuffles, at the end. The vocab
 //     is split over a second grid dimension so that T = 8192 (128 row
 //     tiles) still fills the card with several blocks per SM; a small
-//     combine kernel merges the splits in a fixed order;
-//   * f32 K6 keeps the block's [64 x H] dx in shared memory (one block per
-//     SM) and adds d W_tile into it 64 columns at a time; f32 K7 is the
-//     same kernel with x and W swapped.
+//     combine kernel merges the splits in a fixed order.
+//
+// f32 K6/K7 (fused_ce_bwd_f32_kernel): the arithmetic of _dtile and the two
+// products in full f32 on the CUDA cores. What bounds it besides the FMA
+// units: on the CUDA cores a lane's shared-memory loads set the pace (a
+// lane needs 4 FMAs a word it reads to keep the FMA pipe fed), so the
+// layout is chosen for FMAs per word:
+//   * one kernel, two roles, as the bf16 one: a block of 8 warps owns 32
+//     rows of A (x rows for K6, W rows for K7) and the 768 columns of
+//     out[rows] of one chunk of H (blockIdx.y; a second chunk above H =
+//     768), and walks every 16-row tile of B (W for K6, x for K7) in the
+//     same order as every other block, so the blocks on the card read the
+//     same B tiles from L2;
+//   * the accumulator lives in registers: warp w owns out columns 96w ..
+//     96w + 95 of all 32 rows, a lane (row group rg = lane / 8, column
+//     group cg = lane % 8) the 8 x 12 tile of rows rg + 4i and columns
+//     4cg + 32m + e: 96 f32 a thread, written to global memory once, at
+//     the end. One block an SM (221,184 B of shared memory, 256 threads);
+//   * A is staged once, [32 x 772] f32 (rows padded by 16 bytes), and kept
+//     for the whole walk when H is one chunk; each B tile is staged once,
+//     [16 x 772], by 16-byte cp.async into the second of two buffers while
+//     the current one computes, and the same copy feeds S (along H) and
+//     the d-product (across the output columns). Three barriers a tile:
+//     staged, S partials written, d written;
+//   * S [32 x 16] is split over H across the warps: warp w sums columns
+//     96w .. 96w + 95 of the chunk, each half warp (kh = lane / 16) 48 of
+//     them, a lane the 8 x 4 tile of A rows lane % 4 + 4i and B rows
+//     (lane / 4) % 4 + 4j. The two halves meet by one shuffle a pair of
+//     rows (half 0 keeps the even i, half 1 the odd), the 8 warps'
+//     partials in shared memory, added in warp order, where every thread
+//     makes 2 elements of d (K6: the statistics of its row, in registers;
+//     K7: of its columns, staged with the tile) into a [32 x 16] tile;
+//   * every shared-memory read is a float4. FMAs per word a lane reads,
+//     over 4 steps of the contraction:
+//       S           8 x 4 tile: 128 per 48 words (2.7)
+//       d-product   8 x 12 tile: 384 per 80 words (4.8)
+//     The S layout is 2-3 % faster than 4 x 4 tiles over all 96 columns
+//     (2 FMAs a word; PERF.md, tools/ab_fused_ce.py --f32): the loads are
+//     not what holds the kernel at half its bound. The S -> d ->
+//     d-product phases of each tile are serial, three barriers apart,
+//     with one block an SM;
+//     Padded rows put each load's distinct words in distinct banks: A and
+//     B rows of 772 floats start 4 banks apart, and the S partials and
+//     the d tile have rows of 20 floats;
+//   * above H = 768 the chunks of H are walked for S with the block's own
+//     chunk last (the d-product reads the last B copy staged), and A is
+//     staged again at each step, with nothing in flight;
+//   * ragged T, V and H: rows and columns outside the matrices stage as
+//     zeros (cp.async with a source size of 0) and give d = 0 exactly;
+//     ignore_index rows add exactly nothing. Where H % 4 != 0 or x, W or
+//     the output is not 16-byte aligned, staging and the final store go
+//     element by element in the same kernel. No atomics: two runs give
+//     the same bits.
 //
 // bf16 K6/K7 (fused_ce_bwd_mma_kernel): the Pallas kernels' arithmetic on
 // the tensor cores. S = x W_v^T is bf16 x bf16 -> f32; d is made in f32,
@@ -127,15 +176,12 @@ constexpr int kB = 64;         // rows of a token or vocab tile
 constexpr int kC = 32;         // columns of H staged per chunk
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kL = kC + 1;     // padded row of a staged chunk
-constexpr int kPD = kB + 1;    // padded row of the d tile
-constexpr int kHB = 768;       // most columns of dx / dW one block owns
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
 
 // rows [r0, r0 + 64) x columns [k0, k0 + 32) of a row-major [n, H] matrix
 // into shared memory with row stride kL; outside the matrix zero
@@ -152,7 +198,7 @@ __device__ __forceinline__ void load_chunk(float* dst,
 
 // acc[i][j] = sum_k A[a0 + ty*4 + i][k] * B[b0 + tx + 16j][k] over all of
 // H: the thread's 4 x 4 piece of the tile A_rows B_rows^T. Starts with a
-// barrier, so the caller may have used sA/sB (or what aliases them) before.
+// barrier, so the caller may have used sA/sB before.
 template <typename T>
 __device__ __forceinline__ void tile_abt(const T* __restrict__ A, int a0,
                                          int na, const T* __restrict__ B,
@@ -284,134 +330,6 @@ __global__ void fused_ce_fwd_combine(const float* __restrict__ part,
   const float l = M + logf(S);
   lse[t] = l;
   loss[t] = (long long)labels[t] != ignore_index ? l - LL : 0.f;
-}
-
-constexpr int bwd_smem_floats(int hb) {
-  return 2 * kB * kL + kB * kPD + kB * hb;
-}
-
-// K6 (TOK_A: the block's rows are tokens; A = x, B = W, out = dx) and K7
-// (the block's rows are vocab entries; A = W, B = x, out = dW). One block
-// per (64 rows of A, hb columns of H); it walks every 64-row tile of B:
-//   S = A_rows B_tile^T,  d = (exp(S - lse) - onehot) g valid,
-//   out[rows, cols] += d B_tile[:, cols]
-template <typename T, typename L, bool TOK_A>
-__global__ void __launch_bounds__(kThreads)
-    fused_ce_bwd_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                        const L* __restrict__ labels,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ g, T* __restrict__ out,
-                        int na, int nb, int H, int hb,
-                        long long ignore_index) {
-  extern __shared__ float smem[];
-  float* sA = smem;           // staged chunks of A and B for S
-  float* sB = sA + kB * kL;
-  float* sW = smem;           // 64 rows of B x 64 columns (aliases sA, sB)
-  float* sD = sB + kB * kL;   // the d tile [a][b]
-  float* acc = sD + kB * kPD; // out[rows, h_lo .. h_lo + hb), f32
-
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int a0 = blockIdx.x * kB;
-  const int h_lo = blockIdx.y * hb;
-  const int h_hi = min(H, h_lo + hb);
-  for (int idx = threadIdx.x; idx < kB * hb; idx += kThreads) acc[idx] = 0.f;
-
-  // per-token statistics: of the block's rows (K6) or of each B tile (K7);
-  // gv = g * valid, 0 outside the matrix
-  float st_lse[4], st_gv[4];
-  long long st_lab[4];
-  auto token_stats = [&](int t0, int stride, int lane) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int t = t0 + lane + stride * k;
-      const int n_tok = TOK_A ? na : nb;
-      if (t < n_tok) {
-        const long long lb = (long long)labels[t];
-        st_lab[k] = lb;
-        st_lse[k] = lse[t];
-        st_gv[k] = lb != ignore_index ? g[t] : 0.f;
-      } else {
-        st_lab[k] = -1;
-        st_lse[k] = 0.f;
-        st_gv[k] = 0.f;
-      }
-    }
-  };
-  if (TOK_A) token_stats(a0, 1, ty * 4);
-  __syncthreads();  // acc is zero before anyone adds to it
-
-  const int n_bt = (nb + kB - 1) / kB;
-  for (int bt = 0; bt < n_bt; ++bt) {
-    const int b0 = bt * kB;
-    if (!TOK_A) token_stats(b0, 16, tx);
-    float s[4][4];
-    tile_abt<T>(A, a0, na, B, b0, nb, H, sA, sB, s, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int a = a0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int b = b0 + tx + 16 * j;
-        const int k = TOK_A ? i : j;  // which statistic is this token's
-        const long long v = TOK_A ? b : a;
-        float d = 0.f;
-        if (a < na && b < nb)
-          d = (expf(s[i][j] - st_lse[k]) - (v == st_lab[k] ? 1.f : 0.f)) *
-              st_gv[k];
-        sD[(ty * 4 + i) * kPD + tx + 16 * j] = d;
-      }
-    }
-    // out[rows, h0 .. h0 + 64) += d B_tile[:, h0 .. h0 + 64)
-    for (int h0 = h_lo; h0 < h_hi; h0 += kB) {
-      __syncthreads();  // sD is written; sA/sB (sW) readers are done
-      for (int idx = threadIdx.x; idx < kB * kB; idx += kThreads) {
-        const int r = idx / kB, c = idx % kB;
-        const int gb = b0 + r, h = h0 + c;
-        sW[r * kB + c] =
-            (gb < nb && h < h_hi) ? to_f32(B[(size_t)gb * H + h]) : 0.f;
-      }
-      __syncthreads();
-      float o[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-#pragma unroll 8
-      for (int r = 0; r < kB; ++r) {
-        float dv[4], wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dv[i] = sD[(ty * 4 + i) * kPD + r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = sW[r * kB + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) o[i][j] = fmaf(dv[i], wv[j], o[i][j]);
-      }
-      // each thread adds to, and at the end writes, only its own elements
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[(ty * 4 + i) * hb + (h0 - h_lo) + tx + 16 * j] += o[i][j];
-    }
-  }
-
-  for (int h0 = h_lo; h0 < h_hi; h0 += kB) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int a = a0 + ty * 4 + i;
-      if (a >= na) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int h = h0 + tx + 16 * j;
-        if (h < h_hi)
-          store(out + (size_t)a * H + h,
-                acc[(ty * 4 + i) * hb + (h0 - h_lo) + tx + 16 * j]);
-      }
-    }
-  }
 }
 
 // ---- bf16 K6 / K7 on the tensor cores -------------------------------------
@@ -917,6 +835,269 @@ __global__ void __launch_bounds__(kMThreads, 1)
     }
 }
 
+// ---- f32 K6 / K7 on the CUDA cores ----------------------------------------
+
+constexpr int kGR = 32;              // rows of A (and of out) a block owns
+constexpr int kGN = 16;              // rows of a B tile: the K of d-product
+constexpr int kGThreads = 256;       // 8 warps
+constexpr int kGH = 768;             // columns of an H chunk; out columns
+constexpr int kGW = kGH / 8;         //   of a block, 96 of them a warp
+constexpr int kGLD = kGH + 4;        // f32 row stride of staged A and B
+constexpr int kGPLD = kGN + 4;       // row stride of the S partials and d
+constexpr int kGSmem = (kGR * kGLD + 2 * kGN * kGLD + 8 * kGR * kGPLD +
+                        kGR * kGPLD + 4 * kGN) * 4 + 2 * kGN * 8;
+
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// f32 K6 (TOK_A: A = x, B = W, out = dx) and K7 (A = W, B = x, out = dW).
+// One block per (32 rows of A, 768-column chunk `own` of H). For every
+// 16-row tile of B:  S = A_rows B_tile^T over all of H,
+//   d = (exp(S - lse) - onehot) g valid,  acc += d B_tile[:, own].
+// `vec`: H % 4 == 0 and A, B, out 16-byte aligned, so rows stage by
+// cp.async and out is stored by float4.
+template <typename L, bool TOK_A>
+__global__ void __launch_bounds__(kGThreads, 1)
+    fused_ce_bwd_f32_kernel(const float* __restrict__ A,
+                            const float* __restrict__ B,
+                            const L* __restrict__ labels,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ g,
+                            float* __restrict__ out, int na, int nb, int H,
+                            long long ignore_index, int vec) {
+  extern __shared__ __align__(16) float gsm[];
+  float* sA = gsm;                     // [kGR][kGLD]
+  float* sB = sA + kGR * kGLD;         // [2][kGN][kGLD]
+  float* sP = sB + 2 * kGN * kGLD;     // [8 warps][kGR][kGPLD]
+  float* sD = sP + 8 * kGR * kGPLD;    // [kGR][kGPLD]
+  float* sLse = sD + kGR * kGPLD;      // [2][kGN]
+  float* sG = sLse + 2 * kGN;          // [2][kGN]
+  L* sLab = reinterpret_cast<L*>(sG + 2 * kGN);  // [2][kGN]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int a0 = blockIdx.x * kGR;
+  const int own = blockIdx.y;
+  const int nch = (H + kGH - 1) / kGH;
+  const int steps = (nb + kGN - 1) / kGN * nch;
+  const int kw = warp * kGW;  // the warp's slice of a chunk: S and out
+
+  // `rows` rows from r0 of a row-major [n, H] matrix, the 768 columns of
+  // chunk c, into dst (row stride kGLD); outside the matrix zero
+  auto stage_rows = [&](float* dst, const float* src, int r0, int rows,
+                        int n, int c) {
+    const int k0 = c * kGH;
+    const int hc = min(kGH, H - k0);
+    if (vec) {
+      for (int idx = tid; idx < rows * (kGH / 4); idx += kGThreads) {
+        const int r = idx / (kGH / 4), k = (idx - r * (kGH / 4)) * 4;
+        const bool ok = r0 + r < n && k < hc;
+        cp_async16(dst + r * kGLD + k,
+                   ok ? src + (size_t)(r0 + r) * H + k0 + k : src,
+                   ok ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < rows * kGH; idx += kGThreads) {
+        const int r = idx / kGH, k = idx - r * kGH;
+        dst[r * kGLD + k] = (r0 + r < n && k < hc)
+                                ? src[(size_t)(r0 + r) * H + k0 + k]
+                                : 0.f;
+      }
+    }
+  };
+  // step s = (B tile s / nch, the (s % nch)-th chunk of H in the order
+  // own + 1, own + 2, ..., own): its B rows into buffer s & 1 and, at a
+  // tile's first step of K7, the tile's 16 tokens' lse, g and label into
+  // statistics slot (s / nch) & 1
+  auto stage = [&](int s) {
+    const int bt = s / nch, i = s - bt * nch;
+    stage_rows(sB + (s & 1) * kGN * kGLD, B, bt * kGN, kGN, nb,
+               (own + 1 + i) % nch);
+    if (!TOK_A && i == 0 && tid < kGN) {
+      const int t0 = bt * kGN, slot = bt & 1;
+      const bool ok = t0 + tid < nb;
+      const int t = ok ? t0 + tid : 0;
+      cp_async_small<4>(sLse + slot * kGN + tid, lse + t, ok ? 4 : 0);
+      cp_async_small<4>(sG + slot * kGN + tid, g + t, ok ? 4 : 0);
+      cp_async_small<(int)sizeof(L)>(sLab + slot * kGN + tid, labels + t,
+                                     ok ? (int)sizeof(L) : 0);
+    }
+    cp_async_commit();
+  };
+
+  // d: thread tid makes row dr, columns dc, dc + 1 of every d tile. K6
+  // keeps its row's statistics in registers (a row past T gets d = 0)
+  const int dr = tid >> 3, dc = (tid & 7) * 2;
+  long long my_lab = 0;
+  float my_lse = 0.f, my_g = 0.f;
+  if (TOK_A && a0 + dr < na) {
+    my_lab = (long long)labels[a0 + dr];
+    my_lse = lse[a0 + dr];
+    my_g = g[a0 + dr];
+  }
+
+  // S: half kh of the warp's 96 columns; A rows sa + 4i, B rows sb + 4j
+  const int kh = lane >> 4, sa = lane & 3, sb = (lane >> 2) & 3;
+  const int rg = lane >> 3, cg = lane & 7;  // out: rows rg + 4i, cols 4cg..
+
+  float acc[8][12];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 12; ++c) acc[i][c] = 0.f;
+  float sacc[8][4];
+
+  if (nch == 1) stage_rows(sA, A, a0, kGR, na, 0);  // once, for the walk
+  stage(0);
+  for (int s = 0; s < steps; ++s) {
+    const int bt = s / nch, i = s - bt * nch;
+    const int c = (own + 1 + i) % nch;
+    const int hc = min(kGH, H - c * kGH);
+    cp_async_wait<0>();
+    __syncthreads();  // step s is staged; every warp is past step s - 1
+    if (nch > 1) {    // A's chunk c, with nothing else in flight
+      stage_rows(sA, A, a0, kGR, na, c);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (s + 1 < steps) stage(s + 1);  // into step s - 1's buffer
+    const float* cB = sB + (s & 1) * kGN * kGLD;
+
+    if (i == 0) {
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) sacc[a][b] = 0.f;
+    }
+    if (kw + 48 * kh < hc) {  // columns past H are zeros: skip them
+      const float* pa = sA + sa * kGLD + kw + 48 * kh;
+      const float* pb = cB + sb * kGLD + kw + 48 * kh;
+#pragma unroll 4
+      for (int k = 0; k < kGW / 2; k += 4) {
+        float4 av[8], bv[4];
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+          av[a] = *reinterpret_cast<const float4*>(pa + 4 * a * kGLD + k);
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          bv[b] = *reinterpret_cast<const float4*>(pb + 4 * b * kGLD + k);
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            sacc[a][b] = fmaf(av[a].x, bv[b].x, sacc[a][b]);
+            sacc[a][b] = fmaf(av[a].y, bv[b].y, sacc[a][b]);
+            sacc[a][b] = fmaf(av[a].z, bv[b].z, sacc[a][b]);
+            sacc[a][b] = fmaf(av[a].w, bv[b].w, sacc[a][b]);
+          }
+      }
+    }
+    if (i < nch - 1) continue;
+
+    // the two halves meet: half 0 keeps rows sa + 8i', half 1 rows
+    // sa + 4 + 8i'; then this warp's partial [32 x 16] into shared memory
+    float* part = sP + warp * kGR * kGPLD;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float keep = kh ? sacc[2 * a + 1][b] : sacc[2 * a][b];
+        const float give = kh ? sacc[2 * a][b] : sacc[2 * a + 1][b];
+        part[(sa + 4 * kh + 8 * a) * kGPLD + sb + 4 * b] =
+            keep + __shfl_xor_sync(0xffffffffu, give, 16);
+      }
+    __syncthreads();
+
+    // d: the partials summed in warp order
+    {
+      float2 sv = *reinterpret_cast<const float2*>(sP + dr * kGPLD + dc);
+#pragma unroll
+      for (int w = 1; w < 8; ++w) {
+        const float2 o = *reinterpret_cast<const float2*>(
+            sP + (w * kGR + dr) * kGPLD + dc);
+        sv.x += o.x;
+        sv.y += o.y;
+      }
+      const float sj[2] = {sv.x, sv.y};
+      float dv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ra = a0 + dr, rb = bt * kGN + dc + e;
+        // the token's statistics: of row dr (K6) or of column dc + e (K7)
+        const int at = (bt & 1) * kGN + dc + e;
+        const long long lab = TOK_A ? my_lab : (long long)sLab[at];
+        const float l = TOK_A ? my_lse : sLse[at];
+        const float gv = TOK_A ? my_g : sG[at];
+        const long long v = TOK_A ? rb : ra;
+        float d = 0.f;
+        if (ra < na && rb < nb && lab != ignore_index)
+          d = (expf(sj[e] - l) - (v == lab ? 1.f : 0.f)) * gv;
+        dv[e] = d;
+      }
+      *reinterpret_cast<float2*>(sD + dr * kGPLD + dc) =
+          make_float2(dv[0], dv[1]);
+    }
+    __syncthreads();
+
+    // acc[8 rows x 12 columns] += d [32 x 16] B_tile[16 x this warp's 96]
+    if (kw < hc) {
+      const float* pd = sD + rg * kGPLD;
+      const float* pw = cB + kw + 4 * cg;
+#pragma unroll
+      for (int k = 0; k < kGN; k += 4) {
+        float4 dv[8];
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+          dv[a] = *reinterpret_cast<const float4*>(pd + 4 * a * kGPLD + k);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float4 wv[3];
+#pragma unroll
+          for (int m = 0; m < 3; ++m)
+            wv[m] = *reinterpret_cast<const float4*>(pw + (k + e) * kGLD +
+                                                     32 * m);
+#pragma unroll
+          for (int a = 0; a < 8; ++a) {
+            const float x = f4_at(dv[a], e);
+#pragma unroll
+            for (int m = 0; m < 3; ++m) {
+              acc[a][4 * m] = fmaf(x, wv[m].x, acc[a][4 * m]);
+              acc[a][4 * m + 1] = fmaf(x, wv[m].y, acc[a][4 * m + 1]);
+              acc[a][4 * m + 2] = fmaf(x, wv[m].z, acc[a][4 * m + 2]);
+              acc[a][4 * m + 3] = fmaf(x, wv[m].w, acc[a][4 * m + 3]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // out, once: rows rg + 4i, columns own * 768 + 96 warp + 4 cg + 32 m + e
+  const int h0 = own * kGH + kw + 4 * cg;
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int row = a0 + rg + 4 * a;
+    if (row >= na) continue;
+    float* o = out + (size_t)row * H;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int h = h0 + 32 * m;
+      if (vec) {
+        if (h < H)
+          *reinterpret_cast<float4*>(o + h) =
+              make_float4(acc[a][4 * m], acc[a][4 * m + 1],
+                          acc[a][4 * m + 2], acc[a][4 * m + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (h + e < H) o[h + e] = acc[a][4 * m + e];
+      }
+    }
+  }
+}
+
 template <typename L>
 int launch_fwd(const void* x, const void* w, const void* labels, float* part,
                float* loss, float* lse, int Tn, int V, int H, int nsplit,
@@ -956,23 +1137,34 @@ int launch_fwd_mma(const void* x, const void* w, const void* labels,
   return 0;
 }
 
-template <typename T, typename L, bool TOK_A>
-int launch_bwd(const void* a, const void* b, const void* labels,
-               const float* lse, const float* g, void* out, int na, int nb,
-               int H, long long ignore_index, cudaStream_t st) {
-  const int h64 = (H + kB - 1) / kB * kB;
-  const int hb = h64 < kHB ? h64 : kHB;
-  const int bytes = bwd_smem_floats(hb) * (int)sizeof(float);
-  // above 48 KB a block must opt in to dynamic shared memory
+// above 48 KB a block must opt in to dynamic shared memory; the largest
+// carveout leaves room for one block an SM
+template <typename L, bool TOK_A>
+cudaError_t prepare_bwd_f32() {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_bwd_kernel<T, L, TOK_A>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      fused_ce_bwd_f32_kernel<L, TOK_A>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(fused_ce_bwd_f32_kernel<L, TOK_A>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename L, bool TOK_A>
+int launch_bwd_f32(const void* a, const void* b, const void* labels,
+                   const float* lse, const float* g, void* out, int na,
+                   int nb, int H, long long ignore_index, cudaStream_t st) {
+  cudaError_t err = prepare_bwd_f32<L, TOK_A>();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((na + kB - 1) / kB, (H + hb - 1) / hb);
-  fused_ce_bwd_kernel<T, L, TOK_A><<<grid, kThreads, bytes, st>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const L*>(labels), lse, g, static_cast<T*>(out), na, nb, H,
-      hb, ignore_index);
+  const int vec = H % 4 == 0 &&
+                  (reinterpret_cast<uintptr_t>(a) |
+                   reinterpret_cast<uintptr_t>(b) |
+                   reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  dim3 grid((na + kGR - 1) / kGR, (H + kGH - 1) / kGH);
+  fused_ce_bwd_f32_kernel<L, TOK_A><<<grid, kGThreads, kGSmem, st>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const L*>(labels), lse, g, static_cast<float*>(out), na,
+      nb, H, ignore_index, vec);
   return 0;
 }
 
@@ -1003,8 +1195,8 @@ int launch_bwd_for(const void* a, const void* b, const void* labels,
     return launch_bwd_mma<L, TOK_A>(a, b, labels, lse, g, out, na, nb, H,
                                     ignore_index, st);
   else
-    return launch_bwd<T, L, TOK_A>(a, b, labels, lse, g, out, na, nb, H,
-                                   ignore_index, st);
+    return launch_bwd_f32<L, TOK_A>(a, b, labels, lse, g, out, na, nb, H,
+                                    ignore_index, st);
 }
 
 template <typename T, bool TOK_A>
@@ -1095,4 +1287,20 @@ extern "C" int fused_ce_backward_dw(const void* x, const void* w,
                                     int label_dtype, void* stream) {
   return bwd<false>(w, x, labels, lse, g, dw, V, T, H, ignore_index, dtype,
                     label_dtype, stream);
+}
+
+// Blocks an SM of the f32 K6 (dx = 1) or K7 (dx = 0), from their registers
+// and shared memory; -1 on a CUDA error.
+extern "C" int fused_ce_backward_f32_blocks_per_sm(int dx) {
+  int n = -1;
+  cudaError_t err = dx ? prepare_bwd_f32<int64_t, true>()
+                       : prepare_bwd_f32<int64_t, false>();
+  if (err != cudaSuccess) return -1;
+  err = dx ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &n, fused_ce_bwd_f32_kernel<int64_t, true>, kGThreads,
+                 kGSmem)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &n, fused_ce_bwd_f32_kernel<int64_t, false>, kGThreads,
+                 kGSmem);
+  return err == cudaSuccess ? n : -1;
 }

@@ -643,6 +643,96 @@ def test_bf16_ce_backward_all_ignored_and_deterministic(dev):
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
+# the f32 K6/K7 (CUDA cores): 32-row blocks of A, 16-row tiles of B,
+# 768-column chunks of H; held to the plain backward (d kept f32) within
+# 1e-4 of the largest grad: f32 sums over V or T in another order. At V =
+# 1 every true grad is 0 (the softmax of one logit is 1, less the one-hot
+# 1), while the kernel's S, summed in another order than the LSE's, leaves
+# exp(S - lse) an ulp or so from 1: there the grads are held to 1e-4 of
+# the largest term of their sums instead, max |g| times the largest
+# element of the other operand
+CE_EDGES = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65]
+
+
+def _f32_backward(x, w, labels, g, tol=1e-4):
+    """One launch each of the f32 K6 and K7 (counted), against the plain
+    backward on the same inputs; returns (dx, dW)."""
+    _, lse = tce.fused_linear_cross_entropy_plain(x, w, labels)
+    n6, n7 = tce.fused_ce_bwd_dx.launches, tce.fused_ce_bwd_dw.launches
+    dx = tce.fused_ce_bwd_dx(x, w, labels, lse, g)
+    dw = tce.fused_ce_bwd_dw(x, w, labels, lse, g)
+    assert (tce.fused_ce_bwd_dx.launches,
+            tce.fused_ce_bwd_dw.launches) == (n6 + 1, n7 + 1)
+    ref = tce.fused_linear_cross_entropy_backward_plain(x, w, labels, lse, g)
+    for got, want, other in zip((dx, dw), ref, (w, x)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item() or (
+            g.abs().max() * other.abs().max()).item()
+        assert bool(torch.isfinite(got).all()) and err <= tol * top, (
+            err, top)
+    return dx, dw
+
+
+@pytest.mark.parametrize("t", CE_EDGES)
+@pytest.mark.parametrize("v", CE_EDGES)
+def test_f32_ce_backward_kernels_at_row_tile_edges(dev, t, v):
+    """The f32 K6/K7 with T and V one row before, on and past their 16- and
+    32-row tiles (1 .. 65), H = 768."""
+    _f32_backward(*_ce_inputs(dev, t, 768, v, torch.float32, 100 * t + v))
+
+
+@pytest.mark.parametrize("h", [8, 13, 768, 800, 1536])
+@pytest.mark.parametrize("t,v", [(1, 1), (33, 17), (65, 63), (200, 1234)])
+@pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
+def test_f32_ce_backward_kernels_across_h(dev, h, t, v, label_dtype):
+    """The f32 K6/K7 at H below, on and past one 768-column chunk (13
+    stages element by element; 800 and 1536 walk two chunks), int32 and
+    int64 labels."""
+    x, w, labels, g = _ce_inputs(dev, t, h, v, torch.float32, t + h + v,
+                                 label_dtype)
+    _f32_backward(x, w, labels, g)
+
+
+@pytest.mark.parametrize("which", ["x", "w"])
+@pytest.mark.parametrize("h", [768, 800])
+def test_f32_ce_backward_misaligned_operand(dev, which, h):
+    """x or W one float past a 16-byte boundary: the f32 K6/K7 stage it
+    element by element and give the aligned operands' results within the
+    same tolerance."""
+    x, w, labels, g = _ce_inputs(dev, 70, h, 300, torch.float32, 3)
+    src = x if which == "x" else w
+    buf = torch.empty(src.numel() + 1, device=dev)
+    shifted = buf[1:].view_as(src)
+    shifted.copy_(src)
+    assert shifted.data_ptr() % 16
+    args = (shifted, w) if which == "x" else (x, shifted)
+    got = _f32_backward(*args, labels, g)
+    want = _f32_backward(x, w, labels, g)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("h", [768, 800])
+def test_f32_ce_backward_all_ignored_gives_exact_zeros(dev, h):
+    """Every row ignore_index: the f32 K6/K7 write exact zeros."""
+    x, w, labels, g = _ce_inputs(dev, 70, h, 3000, torch.float32, 5)
+    ignored = torch.full_like(labels, -100)
+    _, lse = tce.fused_ce_forward(x, w, ignored)
+    assert not tce.fused_ce_bwd_dx(x, w, ignored, lse, g).any()
+    assert not tce.fused_ce_bwd_dw(x, w, ignored, lse, g).any()
+
+
+def test_f32_ce_backward_gives_the_same_bits_twice(dev):
+    """Two runs of the f32 K6/K7 at [T = 2048, H = 768, V = 50304] give the
+    same bits, and both are within 1e-4 of the largest grad of the plain
+    backward."""
+    x, w, labels, g = _ce_inputs(dev, 2048, 768, 50304, torch.float32, 11)
+    first = _f32_backward(x, w, labels, g)
+    again = _f32_backward(x, w, labels, g)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
 def test_fused_ce_rejects_and_autograd_launches_k5_k6_k7(dev):
     """Under autograd the fused op launches K5 once and K6 and K7 once
     each in its backward, with the plain composition's grads; what the

@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""Time the bf16 fused cross-entropy kernels (K5 forward, K6 dx, K7 dW) of
-several fused_ce.cu sources in one call on one card.
+"""Time the fused cross-entropy kernels (K5 forward, K6 dx, K7 dW) of
+several fused_ce.cu sources in one call on one card, in bf16 or f32.
 
-    python3 tools/ab_fused_ce.py [SOURCE.cu ...]
+    python3 tools/ab_fused_ce.py [--f32] [SOURCE.cu ...]
 
 Builds the tree's own paddle_tpu_torch/csrc/fused_ce.cu and every SOURCE
 (each one nvcc, all started together; each must keep the C interface of
 fused_ce_forward / fused_ce_backward_dx / fused_ce_backward_dw, and its
-K5 must take the wrapper's bf16 vocab split), prints ptxas's registers
-and spills for each bf16 tensor-core kernel, then for each source: K5's
-loss and LSE against the plain forward, and K6 and K7 against the plain
-backward with d rounded to bf16 (relative to the largest grad), at ragged
-shapes and at the flagship's T = 8192, H = 768, V = 50304, and the mean
-time of each kernel there over 30 calls (CUDA events, the L2 flushed
-before each) with TFLOP/s. Sources are run in turn inside each shape, so
-their times compare; times of two calls do not.
+K5 must take the wrapper's vocab split), prints ptxas's registers and
+spills for each kernel of the dtype, then for each source: K5's loss and
+LSE against the plain forward, and K6 and K7 against the plain backward
+(bf16: with d rounded to bf16; f32: d kept f32), relative to the largest
+grad, at ragged shapes and at the flagship's T = 8192, H = 768, V =
+50304, and the mean time of each kernel there over 30 calls (5 in f32;
+CUDA events, the L2 flushed before each) with TFLOP/s. Sources are run in
+turn inside each shape, so their times compare; times of two calls do
+not.
 """
 import ctypes
 import os
@@ -33,10 +34,11 @@ ARGTYPES = {
     "fused_ce_backward_dx": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 ARGTYPES["fused_ce_backward_dw"] = ARGTYPES["fused_ce_backward_dx"]
-KERNELS = ("fused_ce_fwd_mma_kernel", "fused_ce_bwd_mma_kernel")
+KERNELS = {"bfloat16": ("fused_ce_fwd_mma_kernel", "fused_ce_bwd_mma_kernel"),
+           "float32": ("fused_ce_fwd_kernel", "fused_ce_bwd_f32_kernel")}
 
 
-def build(_build, sources, out_dir):
+def build(_build, sources, out_dir, kernels):
     """{name: {symbol: ctypes function}}, one nvcc per source at once."""
     procs = {name: subprocess.Popen(
         [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
@@ -50,7 +52,7 @@ def build(_build, sources, out_dir):
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
         lines = log.splitlines()
         for j, line in enumerate(lines):
-            kernel = [k for k in KERNELS if k in line and "Compiling" in line]
+            kernel = [k for k in kernels if k in line and "Compiling" in line]
             if kernel:
                 info = [x.strip() for x in lines[j + 1:j + 5]
                         if "registers" in x or "spill" in x]
@@ -72,19 +74,22 @@ def main():
     import chip_smoke as cs
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import fused_ce as tce
+    f32 = "--f32" in sys.argv[1:]
+    dtype = "float32" if f32 else "bfloat16"
     sources = {"tree": str(_build.CSRC / "fused_ce.cu")}
-    sources.update({os.path.basename(p): p for p in sys.argv[1:]})
+    sources.update({os.path.basename(p): p for p in sys.argv[1:]
+                    if p != "--f32"})
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
-        fns = build(_build, sources, d)
+        fns = build(_build, sources, d, KERNELS[dtype])
         g = torch.Generator(device="cuda").manual_seed(9)
         for t, h, v in SHAPES:
-            x, w, labels, gg = cs.ce_case(torch, t, h, v, "bfloat16", g)
+            x, w, labels, gg = cs.ce_case(torch, t, h, v, dtype, g)
             rloss, lse = tce.fused_linear_cross_entropy_plain(
                 x.float(), w.float(), labels)
             ref = tce.fused_linear_cross_entropy_backward_plain(
                 x.float(), w.float(), labels, lse, gg,
-                d_dtype=torch.bfloat16)
+                d_dtype=None if f32 else torch.bfloat16)
             nsplit, per = tce._vocab_split(t, v, x.dtype, x.device)
             part = torch.empty((3, nsplit, t), device="cuda")
             loss, klse = torch.empty_like(lse), torch.empty_like(lse)
@@ -95,15 +100,15 @@ def main():
                     "K5": lambda: lib["fused_ce_forward"](
                         x.data_ptr(), w.data_ptr(), labels.data_ptr(),
                         part.data_ptr(), loss.data_ptr(), klse.data_ptr(), t,
-                        v, h, nsplit, per, -100, 1, 1, stream),
+                        v, h, nsplit, per, -100, int(not f32), 1, stream),
                     "K6": lambda: lib["fused_ce_backward_dx"](
                         x.data_ptr(), w.data_ptr(), labels.data_ptr(),
                         lse.data_ptr(), gg.data_ptr(), dx.data_ptr(), t, v,
-                        h, -100, 1, 1, stream),
+                        h, -100, int(not f32), 1, stream),
                     "K7": lambda: lib["fused_ce_backward_dw"](
                         x.data_ptr(), w.data_ptr(), labels.data_ptr(),
                         lse.data_ptr(), gg.data_ptr(), dw.data_ptr(), t, v,
-                        h, -100, 1, 1, stream)}
+                        h, -100, int(not f32), 1, stream)}
                 for kname, call in calls.items():
                     if call():
                         raise RuntimeError(f"{name} {kname}: launch failed")
@@ -119,7 +124,7 @@ def main():
                         f"{errs[2]:.3e} of the largest grad"]
                 if t == SHAPES[-1][0]:
                     for kname, call in calls.items():
-                        ms = cs.time_ms(torch, call)
+                        ms = cs.time_ms(torch, call, iters=5 if f32 else 30)
                         flops = (2.0 if kname == "K5" else 4.0) * t * v * h
                         line.append(f"{kname} {ms:.3f} ms "
                                     f"({flops / ms / 1e9:.1f} TFLOP/s)")

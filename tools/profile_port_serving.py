@@ -40,8 +40,9 @@ def classify(name):
             or "fused_ce_fwd_combine" in n):
         # f32 (CUDA cores) or bf16 (tensor cores), and the split merge
         return "K5 fused CE forward"
-    if "fused_ce_bwd_kernel" in n or "fused_ce_bwd_mma_kernel" in n:
-        # f32 (CUDA cores) or bf16 (tensor cores); the template's last
+    if "fused_ce_bwd_" in n:
+        # f32 (CUDA cores: fused_ce_bwd_f32_kernel, the parent commit's
+        # fused_ce_bwd_kernel) or bf16 (tensor cores); the template's last
         # argument: true (K6, dx) or false (K7, dW)
         return ("K6 fused CE dx" if "true>" in n or "lb1e" in n
                 else "K7 fused CE dW")

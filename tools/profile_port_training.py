@@ -6,7 +6,9 @@ default tied head through the fused cross-entropy K5-K7, batch 8 x seq
 1024, dropout 0, AdamW(1e-4, weight_decay 0.01), the forward under
 amp.auto_cast(level="O1", dtype="bfloat16")); with --untied-f32 the step
 of phase 7 (untied head, f32 without TF32, AdamW with
-ClipGradByGlobalNorm(1.0)). Random weights from a seeded generator. Two
+ClipGradByGlobalNorm(1.0)); with --tied-f32 the step of phase 11 (the
+flagship's step without auto_cast: f32 without TF32, the tied head through
+the f32 K5-K7). Random weights from a seeded generator. Two
 warm-up steps, three plain steps for the wall time and the host time of
 each part of the step (forward, backward, optimizer), two steps under
 torch.profiler for the device time by kernel class and the device's idle
@@ -16,9 +18,10 @@ part, so that every kernel falls inside its part's host range: device
 busy time, host range and kernel classes per part. Prints one line per figure
 and writes the numbers and the top kernels to
 chiprun_out/profile_port_training.json (profile_port_training_untied_f32.json
-with --untied-f32; a git-ignored directory).
+with --untied-f32, profile_port_training_tied_f32.json with --tied-f32; a
+git-ignored directory).
 
-    python3 tools/profile_port_training.py [--untied-f32]
+    python3 tools/profile_port_training.py [--untied-f32 | --tied-f32]
 """
 import json
 import os
@@ -81,15 +84,20 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
     untied = "--untied-f32" in sys.argv[1:]
+    tied_f32 = "--tied-f32" in sys.argv[1:]
     cfg = TransformerLMConfig(tie_embeddings=not untied, dropout=0.0)
     model = GPTForCausalLM(
         cfg, generator=torch.Generator().manual_seed(1234)).train()
     opt = optimizer.AdamW(
         1e-4, parameters=model.named_parameters(), weight_decay=0.01,
         grad_clip=nn.ClipGradByGlobalNorm(1.0) if untied else None)
-    amp = None if untied else amp_mod
-    print("config: " + ("untied head, f32, global-norm clip" if untied
-                        else "tied head (K5-K7), AMP O1 bf16, no clip"))
+    amp = None if untied or tied_f32 else amp_mod
+    config = ("untied_f32" if untied else "tied_f32" if tied_f32
+              else "tied_o1_bf16")
+    print("config: " + {
+        "untied_f32": "untied head, f32, global-norm clip",
+        "tied_f32": "tied head (f32 K5-K7), f32, no clip",
+        "tied_o1_bf16": "tied head (K5-K7), AMP O1 bf16, no clip"}[config])
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (8, cfg.max_seq_len)).astype(np.int64)).cuda()
     for _ in range(2):
@@ -183,10 +191,11 @@ def main():
     print(card)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    name = "profile_port_training" + ("_untied_f32" if untied else "")
+    name = "profile_port_training" + ("" if config == "tied_o1_bf16"
+                                      else "_" + config)
     with open(os.path.join(out_dir, name + ".json"), "w") as f:
         json.dump({"device": torch.cuda.get_device_name(0), "card": card,
-                   "config": "untied_f32" if untied else "tied_o1_bf16",
+                   "config": config,
                    "plain_step_wall_s": walls, "profiled_steps": n_prof,
                    "profiled_wall_s": wall, "device_window_us": window,
                    "device_busy_us": busy, "by_class_us": by_class,
