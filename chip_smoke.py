@@ -7,7 +7,7 @@ Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
              all started together) and print the build seconds, with
              ptxas's registers and spills and the blocks an SM of the f32
-             K1 (at each key split), K2/K3 and K6/K7; beside them the
+             K1 (at each key split), K2/K3, K5 and K6/K7; beside them the
              parent commit's fused_ce.cu (from --parent TREE or git
              history, where either is at hand) for phases 9 and 11;
   2. K4      paged decode attention against its plain PyTorch version at
@@ -62,14 +62,15 @@ Phases, one line each:
              ignore_index) in f32 and bf16 and at ragged shapes (T = 1 ..
              1000, H = 13 .. 1536, V = 7 .. 50304); bf16 K6/K7 against
              both plain variants (d kept f32, and d rounded to bf16 as the
-             kernels round it); every case twice for the same bits, f32
-             K6/K7 within the same tolerance of the parent's; K5, K6, K7
-             (30 calls in bf16), the plain forward and backward and, as a
-             yardstick, the two-call composition
+             kernels round it); every case twice for the same bits, the
+             f32 K5's loss and LSE within the same tolerance of the
+             parent's; K5, K6, K7 (30 calls in bf16), the plain forward
+             and backward and, as a yardstick, the two-call composition
              F.cross_entropy(F.linear) forward and backward timed in both
              dtypes, with TFLOP/s and the fraction of the bound; the f32
-             K6 and K7 timed in turns with the parent's (this tree,
-             parent, parent, this tree), each faster than the parent's;
+             K5 timed in turns with the parent's (this tree, parent,
+             parent, this tree), every turn faster than every one of the
+             parent's;
  10. flagship the reference's flagship training step
              (tools/baseline_bench.py bench_gpt): GPT-124M with the default
              tied head, dropout 0, batch 8 x seq 1024, labels = ids,
@@ -80,8 +81,8 @@ Phases, one line each:
              memory;
  11. f32     the same step in f32 (no auto_cast, TF32 off): the tied
              head through the f32 K5, K6 and K7 once a step; the same
-             gates and numbers. Then, where the parent's K6/K7 were
-             built, the same 6 steps with them, in turns (this tree,
+             gates and numbers. Then, where the parent's K5 was
+             built, the same 6 steps with it, in turns (this tree,
              parent, parent, this tree): every step's loss within 1e-4
              relative (the sums run in another order), peak memory no
              more than the parent's + 64 MiB, and each side's median step
@@ -149,16 +150,16 @@ CE_BF16D_TOL = 5e-3
 # is f32 on both sides (sums over up to 1024 keys, exp2 for exp)
 BF16P_TOL = 1e-2
 FLASH_LSE_TOL = 5e-5
-# the commit whose f32 K6 and K7 (PR 3's first kernels) phases 9 and 11
-# hold the redesigned ones against, where its source is at hand:
-# {(source, symbol): ctypes argtypes of its C entry point}. Its K6/K7 have
-# this tree's signatures, so the wrappers launch them (parent_kernels)
-PARENT = "ee3e045"
-_CE_BWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p])
-PARENT_SYMBOLS = {("fused_ce", "fused_ce_backward_dx"): _CE_BWD_ARGS,
-                  ("fused_ce", "fused_ce_backward_dw"): _CE_BWD_ARGS}
+# the commit whose f32 K5 (the port's first one) phases 9 and 11 hold the
+# redesigned one against, where its source is at hand: {(source, symbol):
+# ctypes argtypes of its C entry point}. Its K5 has this tree's signature,
+# so the wrapper launches it (parent_kernels), with the parent's own vocab
+# split of its 64-row tiles (its _FWD_SPLIT[torch.float32])
+PARENT = "911c96e"
+PARENT_SYMBOLS = {("fused_ce", "fused_ce_forward"): (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
+PARENT_F32_SPLIT = (64, 4)
 FLAGSHIP = dict(batch=8, seq=1024)
 
 
@@ -814,9 +815,9 @@ def phase_train(torch, attn, cfg, optimizer, nn):
 
 def phase_tied_f32(torch, attn, tce, cfg, optimizer, nn, _build, parent):
     """The flagship's step in f32 (phase 10 without auto_cast): the tied
-    head through the f32 K5-K7 once a step. Where the parent's K6/K7 were
-    built, the same steps with them, in turns (this tree, the parent, the
-    parent, this tree): the host's speed drifts within a call. Their sums
+    head through the f32 K5-K7 once a step. Where the parent's K5 was
+    built, the same steps with it, in turns (this tree, the parent, the
+    parent, this tree): the host's speed drifts within a call. Its sums
     run in another order, so every step's loss is held within LOSS_RTOL
     of the parent's, and the peak memory to the parent's + 64 MiB."""
     L = cfg.num_layers
@@ -832,8 +833,8 @@ def phase_tied_f32(torch, attn, tce, cfg, optimizer, nn, _build, parent):
         return counts
     runs = {"this tree": [first[:3]], "the parent": []}
     for side in ("the parent", "the parent", "this tree"):
-        with (parent_kernels(_build, parent) if side == "the parent"
-              else contextlib.nullcontext()):
+        with (parent_kernels(torch, _build, tce, parent)
+              if side == "the parent" else contextlib.nullcontext()):
             runs[side].append(train_run(torch, cfg, optimizer, nn,
                                         False)[:3])
     (p_losses, _, _), _ = runs["the parent"]
@@ -841,7 +842,7 @@ def phase_tied_f32(torch, attn, tce, cfg, optimizer, nn, _build, parent):
     med = {}
     for side, rs in runs.items():
         med[side] = float(np.median([t for _, ts, _ in rs for t in ts[1:]]))
-        print(f"  {side}'s K6/K7: step ms "
+        print(f"  {side}'s K5: step ms "
               + ", ".join(f"{[round(t, 2) for t in ts]}" for _, ts, _ in rs)
               + f"; median of steps 2-{TRAIN_STEPS} of both runs "
               f"{med[side]:.2f} ms, {tokens / med[side] * 1e3:.1f} "
@@ -923,8 +924,8 @@ def ce_case(torch, t, h, v, dtype, g):
 
 def parent_sources(parent_tree):
     """{source name: text} of the parent commit's ``csrc/fused_ce.cu`` (its
-    f32 K6 and K7 are PR 3's kernels): from ``--parent TREE``, a checkout
-    of it, else from git history; None where neither is at hand."""
+    f32 K5 is the port's first one): from ``--parent TREE``, a checkout of
+    it, else from git history; None where neither is at hand."""
     names = sorted({name for name, _ in PARENT_SYMBOLS})
     out = {}
     for name in names:
@@ -962,8 +963,7 @@ def start_parent_build(_build, texts):
 
 
 def load_parent(started):
-    """{(source, symbol): ctypes function} of the parent's K6 and K7, or
-    None."""
+    """{(source, symbol): ctypes function} of the parent's K5, or None."""
     if started is None:
         return None
     libs = {}
@@ -981,16 +981,20 @@ def load_parent(started):
 
 
 @contextlib.contextmanager
-def parent_kernels(_build, parent):
+def parent_kernels(torch, _build, tce, parent):
     """Inside this block the wrappers launch the parent's kernels of
     ``parent`` ({(source, symbol): ctypes function}, of this tree's C
     signatures): the functions they look up in ``_build`` are swapped,
-    and put back after."""
+    and so is the f32 K5's vocab split, which the parent's kernel counts
+    in its own tiles; both are put back after."""
     saved = {key: _build._fns.get(key) for key in parent}
+    split = tce._FWD_SPLIT[torch.float32]
     _build._fns.update(parent)
+    tce._FWD_SPLIT[torch.float32] = PARENT_F32_SPLIT
     try:
         yield
     finally:
+        tce._FWD_SPLIT[torch.float32] = split
         for key, fn in saved.items():
             if fn is None:
                 del _build._fns[key]
@@ -1051,23 +1055,20 @@ def phase_k5k7(torch, tce, t, h, v, _build, parent):
               f"K5-K7 [{ct},{ch},{cv}] {dtype}: two runs differ")
         line.append("a second run gives the same bits")
         if parent and dtype == "float32":
-            # the parent's K6/K7 sum in another order: within CE_F32_TOL
-            with parent_kernels(_build, parent):
-                theirs = (tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
-                          tce.fused_ce_bwd_dw(x, w, labels, lse, gg))
-            e2 = [(a - b).abs().max().item() / max(b.abs().max().item(),
-                                                   1e-30)
-                  for a, b in zip((dx, dw), theirs)]
-            check(max(e2) <= CE_F32_TOL, f"K6/K7 [{ct},{ch},{cv}] f32: "
-                  f"{e2} of the largest grad from the parent's")
-            line.append(f"dx, dW within {e2[0]:.3e}, {e2[1]:.3e} of the "
-                        "parent's largest grad")
+            # the parent's K5 sums in another order: within CE_LOSS_TOL
+            with parent_kernels(torch, _build, tce, parent):
+                theirs = tce.fused_ce_forward(x, w, labels)
+            e2 = max((a - b).abs().max().item()
+                     for a, b in zip((loss, lse), theirs))
+            check(e2 <= CE_LOSS_TOL, f"K5 [{ct},{ch},{cv}] f32: loss/LSE "
+                  f"{e2} from the parent's")
+            line.append(f"loss/LSE within {e2:.3e} of the parent's")
         print(f"  K5-K7 [T={ct}, H={ch}, V={cv}] {dtype}: " + "; ".join(line))
 
     # times at the flagship shape, in both dtypes: the f32 K5-K7 run on
-    # phase 11's path, the bf16 ones on phase 10's. The f32 K6 and K7 are
-    # timed in turns with the parent's (this tree, the parent, the parent,
-    # this tree) where it was built
+    # phase 11's path, the bf16 ones on phase 10's. The f32 K5 is timed in
+    # turns with the parent's (this tree, the parent, the parent, this
+    # tree) where it was built
     flops = 2.0 * t * v * h
     rows = []
     for dtype in ("float32", "bfloat16"):
@@ -1075,22 +1076,21 @@ def phase_k5k7(torch, tce, t, h, v, _build, parent):
         loss, lse = tce.fused_ce_forward(x, w, labels)
         n6 = 30 if dtype == "bfloat16" else 5
         n5 = 30 if dtype == "bfloat16" else 10
-        k5 = time_ms(torch, lambda: tce.fused_ce_forward(x, w, labels),
-                     iters=n5, warmup=3 if dtype == "bfloat16" else 1)
-        turns = {"this tree": {"K6": [], "K7": []},
-                 "the parent": {"K6": [], "K7": []}}
+        turns = {"this tree": [], "the parent": []}
         for side in (("this tree", "the parent", "the parent", "this tree")
                      if parent and dtype == "float32" else ("this tree",)):
-            with (parent_kernels(_build, parent) if side == "the parent"
-                  else contextlib.nullcontext()):
-                turns[side]["K6"].append(time_ms(
-                    torch, lambda: tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
-                    iters=n6, warmup=3))
-                turns[side]["K7"].append(time_ms(
-                    torch, lambda: tce.fused_ce_bwd_dw(x, w, labels, lse, gg),
-                    iters=n6, warmup=3))
-        k6 = float(np.median(turns["this tree"]["K6"]))
-        k7 = float(np.median(turns["this tree"]["K7"]))
+            with (parent_kernels(torch, _build, tce, parent)
+                  if side == "the parent" else contextlib.nullcontext()):
+                turns[side].append(time_ms(
+                    torch, lambda: tce.fused_ce_forward(x, w, labels),
+                    iters=n5, warmup=3 if dtype == "bfloat16" else 1))
+        k5 = float(np.median(turns["this tree"]))
+        k6 = time_ms(torch, lambda: tce.fused_ce_bwd_dx(x, w, labels, lse,
+                                                        gg),
+                     iters=n6, warmup=3)
+        k7 = time_ms(torch, lambda: tce.fused_ce_bwd_dw(x, w, labels, lse,
+                                                        gg),
+                     iters=n6, warmup=3)
         pf = time_ms(torch, lambda: tce.fused_linear_cross_entropy_plain(
             x, w, labels), iters=5, warmup=1)
         pb = time_ms(torch, lambda: tce.fused_linear_cross_entropy_backward_plain(
@@ -1121,18 +1121,17 @@ def phase_k5k7(torch, tce, t, h, v, _build, parent):
               f"plain backward {pb:.3f} ms; composition yardstick "
               f"F.cross_entropy(F.linear) forward {cf:.3f} ms, backward (dx "
               f"and dW) {cb:.3f} ms")
-        for kname, b in (("K6", b6), ("K7", b7)):
-            theirs = turns["the parent"][kname]
-            if not theirs:
-                continue
-            mine = turns["this tree"][kname]
-            p_ms, ms = float(np.median(theirs)), float(np.median(mine))
-            print(f"  {kname} {dtype} in turns: this tree "
-                  f"{[round(m, 3) for m in mine]} ms, the parent's "
-                  f"({PARENT}) {[round(m, 3) for m in theirs]} ms "
-                  f"({2 * flops / p_ms / 1e9:.1f} TFLOP/s, {b[0] / p_ms:.4f} "
-                  f"of the bound): {p_ms / ms:.2f}x faster")
-            check(max(mine) < min(theirs), f"{kname} {dtype}: this tree's "
+        mine, theirs = turns["this tree"], turns["the parent"]
+        if theirs:
+            p_ms = float(np.median(theirs))
+            print(f"  K5 {dtype} in turns: this tree "
+                  f"{[round(m, 3) for m in mine]} ms ({b5[0] / k5:.4f} of "
+                  f"its bound {b5[0]:.4f} ms), the parent's ({PARENT}) "
+                  f"{[round(m, 3) for m in theirs]} ms "
+                  f"({flops / p_ms / 1e9:.1f} TFLOP/s, {b5[0] / p_ms:.4f} "
+                  f"of the bound): {p_ms / k5:.2f}x faster; the composition's "
+                  f"forward {cf:.3f} ms")
+            check(max(mine) < min(theirs), f"K5 {dtype}: this tree's "
                   f"{mine} ms not below the parent's {theirs}")
         # library_ms: the two-call composition F.cross_entropy(F.linear)
         for name, line, ms, plain_ms, lib_ms, (b_ms, b_by), key in (
@@ -1207,8 +1206,8 @@ def main():
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--parent", metavar="TREE",
                     help=f"a checkout of {PARENT}, whose fused_ce.cu (its "
-                    "f32 K6 and K7) phases 9 and 11 compare with (default: "
-                    "git history, where the checkout has it)")
+                    "f32 K5) phases 9 and 11 compare with (default: git "
+                    "history, where the checkout has it)")
     args = ap.parse_args()
     try:
         import torch
@@ -1260,9 +1259,12 @@ def main():
     ce_blocks = _build.function("fused_ce",
                                 "fused_ce_backward_f32_blocks_per_sm",
                                 [ctypes.c_int])
-    print(f"  f32 K6/K7 blocks an SM: {ce_blocks(1)} / {ce_blocks(0)}")
+    k5_blocks = _build.function("fused_ce",
+                                "fused_ce_forward_f32_blocks_per_sm", [])
+    print(f"  f32 K5 blocks an SM: {k5_blocks()}; f32 K6/K7: "
+          f"{ce_blocks(1)} / {ce_blocks(0)}")
     parent = load_parent(parent_build)
-    print(f"  the parent's ({PARENT}) f32 K6 and K7: " + (
+    print(f"  the parent's ({PARENT}) f32 K5: " + (
         "built, for phases 9 and 11" if parent else
         "no source at hand (no git history, no --parent): not compared"))
 

@@ -59,18 +59,44 @@
 //     is not a multiple of 8), and columns past V are left out of the
 //     statistics.
 //
-// f32 K5: f32 FMAs on the CUDA cores (a simple first kernel; TF32 is off
-// by contract, so f32 stays full f32):
-//   * every logits tile S [64 x 64] is a small GEMM over H, staged in shared
-//     memory 32 columns at a time; each of the 256 threads owns a 4 x 4
-//     register tile (rows ty*4.., columns tx + 16j), so each shared-memory
-//     load feeds 2 FMAs;
-//   * a block owns 64 token rows and loops over its share of the vocab
-//     tiles, keeping an online max / sum-exp per row and thread; the 16
-//     threads of a row combine once, with shuffles, at the end. The vocab
-//     is split over a second grid dimension so that T = 8192 (128 row
-//     tiles) still fills the card with several blocks per SM; a small
-//     combine kernel merges the splits in a fixed order.
+// f32 K5 (fused_ce_fwd_f32_kernel): S = x W^T in full f32 on the CUDA
+// cores (TF32 is off by contract) with the bf16 K5's walk and fused
+// epilogue. What bounds it: the FMA units (9.45 ms at the flagship shape),
+// if every lane keeps its FMA pipe fed; on the CUDA cores that takes about
+// 4 FMAs a word read from shared memory, and L2 must feed the SMs the
+// staged slices (32 flops per byte at a 128 x 128 tile, about 20 GB):
+//   * a block of 256 threads owns 128 token rows and walks its split's
+//     128-row vocab tiles; lane (ty, tx) holds the 8 x 8 tile of rows
+//     ty + 16 i and columns tx + 16 j of every S tile in 64 f32
+//     accumulators;
+//   * x and W stream in 64-column f32 slices through a 3-stage cp.async
+//     ring (16-byte copies, rows padded by 4 floats so the float4 reads of
+//     8 rows fall in 8 distinct bank groups) that runs on across tile
+//     boundaries: two slices in flight while one computes, one barrier a
+//     slice (4,096 FMAs a lane), 205 KB of shared memory. One block an SM,
+//     250 registers a thread, no spills: two blocks an SM cap a thread at
+//     128 registers, where ptxas spills and the kernel ran 12 % slower;
+//     32-column slices, with 3 or 4 stages, ran 4-5 % slower (PERF.md,
+//     tools/ab_fused_ce.py --f32);
+//   * every shared-memory read is a float4 along H: 8 of x and 8 of W feed
+//     the 256 FMAs of 4 steps of H, 4 FMAs a word;
+//   * the softmax statistics stay in registers: at a tile's end the 16
+//     lanes of each row (one half warp) meet by butterfly shuffles on the
+//     tile's max and sum of exp (m in log2 units, each exp one exp2f), and
+//     lane tx folds them into the running (m, s) of row ty + 16 (tx % 8);
+//     the one lane that sees a row's label column writes its logit to
+//     shared memory. Shuffles give every lane the same bits, so no order
+//     depends on timing;
+//   * the vocab is split over the grid's second dimension and the grid
+//     runs token tiles fastest, as in the bf16 K5, so the blocks on the
+//     card at one time read the same W slices from L2 (W, 154.5 MB in f32,
+//     does not fit the 50 MB L2; x, 25.2 MB, does); the combine kernel
+//     merges the splits in split order;
+//   * ragged T, V and H: rows and columns outside the matrices stage as
+//     zeros (cp.async with a source size of 0) and columns past V are left
+//     out of the statistics. Where H % 4 != 0 or x or W is not 16-byte
+//     aligned, slices stage element by element in the same kernel. No
+//     atomics: two runs give the same bits.
 //
 // f32 K6/K7 (fused_ce_bwd_f32_kernel): the arithmetic of _dtile and the two
 // products in full f32 on the CUDA cores. What bounds it besides the FMA
@@ -172,143 +198,7 @@
 
 namespace {
 
-constexpr int kB = 64;         // rows of a token or vocab tile
-constexpr int kC = 32;         // columns of H staged per chunk
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kL = kC + 1;     // padded row of a staged chunk
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// rows [r0, r0 + 64) x columns [k0, k0 + 32) of a row-major [n, H] matrix
-// into shared memory with row stride kL; outside the matrix zero
-template <typename T>
-__device__ __forceinline__ void load_chunk(float* dst,
-                                           const T* __restrict__ src, int r0,
-                                           int n, int k0, int H) {
-  for (int idx = threadIdx.x; idx < kB * kC; idx += kThreads) {
-    const int r = idx / kC, c = idx % kC;
-    const int g = r0 + r, k = k0 + c;
-    dst[r * kL + c] = (g < n && k < H) ? to_f32(src[(size_t)g * H + k]) : 0.f;
-  }
-}
-
-// acc[i][j] = sum_k A[a0 + ty*4 + i][k] * B[b0 + tx + 16j][k] over all of
-// H: the thread's 4 x 4 piece of the tile A_rows B_rows^T. Starts with a
-// barrier, so the caller may have used sA/sB before.
-template <typename T>
-__device__ __forceinline__ void tile_abt(const T* __restrict__ A, int a0,
-                                         int na, const T* __restrict__ B,
-                                         int b0, int nb, int H, float* sA,
-                                         float* sB, float acc[4][4], int tx,
-                                         int ty) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < H; k0 += kC) {
-    __syncthreads();  // the previous chunk's readers are done
-    load_chunk<T>(sA, A, a0, na, k0, H);
-    load_chunk<T>(sB, B, b0, nb, k0, H);
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < kC; ++c) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sA[(ty * 4 + i) * kL + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sB[(tx + 16 * j) * kL + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-}
-
-// f32 K5: one block per (64-row token tile, vocab split). Writes the
-// split's per-row max m, sum of exp(S - m) and label logit into
-// part[3][nsplit][T].
-template <typename L>
-__global__ void __launch_bounds__(kThreads)
-    fused_ce_fwd_kernel(const float* __restrict__ x,
-                        const float* __restrict__ w,
-                        const L* __restrict__ labels, float* __restrict__ part,
-                        int Tn, int V, int H, int tiles_per_split,
-                        int nsplit) {
-  __shared__ float sA[kB * kL];
-  __shared__ float sB[kB * kL];
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int t0 = blockIdx.x * kB;
-  const int split = blockIdx.y;
-  const int n_vt = (V + kB - 1) / kB;
-  const int vt_end = min(n_vt, (split + 1) * tiles_per_split);
-
-  long long lab[4];
-  float m[4], s[4], ll[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty * 4 + i;
-    lab[i] = t < Tn ? (long long)labels[t] : -1;
-    m[i] = kNeg;
-    s[i] = 0.f;
-    ll[i] = 0.f;
-  }
-
-  for (int vt = split * tiles_per_split; vt < vt_end; ++vt) {
-    const int v0 = vt * kB;
-    float acc[4][4];
-    tile_abt<float>(x, t0, Tn, w, v0, V, H, sA, sB, acc, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int v = v0 + tx + 16 * j;
-        if (v < V) {
-          tmax = fmaxf(tmax, acc[i][j]);
-          if (v == lab[i]) ll[i] += acc[i][j];  // out-of-tile labels miss
-        }
-      }
-      if (tmax > m[i]) {
-        s[i] *= expf(m[i] - tmax);
-        m[i] = tmax;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (v0 + tx + 16 * j < V) s[i] += expf(acc[i][j] - m[i]);
-    }
-  }
-
-  // the 16 threads of a row are the lanes of one half warp
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float os = __shfl_xor_sync(0xffffffffu, s[i], off);
-      const float ol = __shfl_xor_sync(0xffffffffu, ll[i], off);
-      const float nm = fmaxf(m[i], om);
-      s[i] = s[i] * expf(m[i] - nm) + os * expf(om - nm);
-      m[i] = nm;
-      ll[i] += ol;
-    }
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + ty * 4 + i;
-      if (t >= Tn) continue;
-      part[((size_t)0 * nsplit + split) * Tn + t] = m[i];
-      part[((size_t)1 * nsplit + split) * Tn + t] = s[i];
-      part[((size_t)2 * nsplit + split) * Tn + t] = ll[i];
-    }
-  }
-}
 
 // K5's last step: merge the vocab splits of each row in split order
 template <typename L>
@@ -426,7 +316,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 // into each thread's running max, sum of exp and label logit of its 4
 // rows. The lanes of a quad, then the two warps that share rows, merge in
 // a fixed order at the end; part[3][nsplit][T] gets the split's (m, s, ll)
-// as fused_ce_fwd_kernel writes them. `vec`: H % 8 == 0 and x, w 16-byte
+// as fused_ce_fwd_f32_kernel writes them. `vec`: H % 8 == 0 and x, w 16-byte
 // aligned, so slices stage by cp.async.
 template <typename L>
 __global__ void __launch_bounds__(kFThreads, 2)
@@ -613,6 +503,179 @@ __global__ void __launch_bounds__(kFThreads, 2)
     part[((size_t)1 * nsplit + split) * Tn + t] = sv;
     part[((size_t)2 * nsplit + split) * Tn + t] =
         sm[4 * kFM + r] + sm[5 * kFM + r];
+  }
+}
+
+// ---- f32 K5 on the CUDA cores ---------------------------------------------
+
+constexpr int kPM = 128;             // token rows of a block
+constexpr int kPN = 128;             // vocab rows of a tile
+constexpr int kPThreads = 256;       // 16 x 16 lanes, an 8 x 8 piece each
+constexpr int kPK = 64;              // columns of H a stage holds
+constexpr int kPStages = 3;          // the cp.async ring
+constexpr int kPLD = kPK + 4;        // f32 row stride of a staged slice
+constexpr int kPStage = (kPM + kPN) * kPLD;  // floats a stage
+constexpr int kFwdF32Smem = (kPStages * kPStage + 2 * kPM) * 4;
+static_assert(kPM == 16 * 8 && kPN == 16 * 8, "16 lanes of 8 rows a side");
+
+// f32 K5: one block per (128-row token tile, vocab split), the bf16 K5's
+// walk on the CUDA cores. The split's 128-row vocab tiles are walked in
+// order; every tile's S = x W^T [128 x 128] is summed over H in 64-column
+// slices of x and W that stream through a kPStages-deep cp.async ring
+// (one barrier a slice). Lane (ty, tx) = (tid / 16, tid % 16) owns the
+// 8 x 8 piece of rows ty + 16 i and columns tx + 16 j. At a tile's end the
+// 16 lanes of a row (a half warp) meet by shuffles on the tile's max and
+// sum of exp, and lane tx folds them into the running (m, s) of row
+// ty + 16 (tx % 8); the one lane that holds a row's label column writes
+// its logit to shared memory. part[3][nsplit][T] gets the split's (m, s,
+// ll) as the bf16 K5 writes them. `vec`: H % 4 == 0 and x, w 16-byte
+// aligned, so slices stage by cp.async.
+template <typename L>
+__global__ void __launch_bounds__(kPThreads, 1)
+    fused_ce_fwd_f32_kernel(const float* __restrict__ x,
+                            const float* __restrict__ w,
+                            const L* __restrict__ labels,
+                            float* __restrict__ part, int Tn, int V, int H,
+                            int tiles_per_split, int nsplit, int vec) {
+  extern __shared__ __align__(16) float psm[];
+  float* ring = psm;                               // [kPStages][x | W]
+  float* sLL = psm + kPStages * kPStage;           // [kPM] label logits
+  int* sLab = reinterpret_cast<int*>(sLL + kPM);   // [kPM] labels in [0, V)
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int t0 = blockIdx.x * kPM;
+  const int split = blockIdx.y;
+  const int n_vt = (V + kPN - 1) / kPN;
+  const int vt0 = split * tiles_per_split;
+  const int vt_end = min(n_vt, vt0 + tiles_per_split);
+  const int nk = max(1, (H + kPK - 1) / kPK);
+  const int steps = max(0, vt_end - vt0) * nk;
+
+  // step s: columns (s % nk) * kPK .. of the block's x rows and of vocab
+  // tile vt0 + s / nk, into ring slot s % kPStages; outside the matrices
+  // zero
+  auto stage = [&](int s) {
+    const int k0 = (s % nk) * kPK;
+    const int v0 = (vt0 + s / nk) * kPN;
+    float* bx = ring + (s % kPStages) * kPStage;
+    float* bw = bx + kPM * kPLD;
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < kPM * kPK / 4 / kPThreads; ++i) {
+        const int idx = tid + i * kPThreads;
+        const int r = idx / (kPK / 4), c = (idx % (kPK / 4)) * 4;
+        const bool kin = k0 + c < H;
+        const bool xo = kin && t0 + r < Tn, wo = kin && v0 + r < V;
+        cp_async16(bx + r * kPLD + c,
+                   xo ? x + (size_t)(t0 + r) * H + k0 + c : x, xo ? 16 : 0);
+        cp_async16(bw + r * kPLD + c,
+                   wo ? w + (size_t)(v0 + r) * H + k0 + c : w, wo ? 16 : 0);
+      }
+    } else {
+      for (int idx = tid; idx < kPM * kPK; idx += kPThreads) {
+        const int r = idx / kPK, c = idx % kPK;
+        const bool kin = k0 + c < H;
+        bx[r * kPLD + c] =
+            kin && t0 + r < Tn ? x[(size_t)(t0 + r) * H + k0 + c] : 0.f;
+        bw[r * kPLD + c] =
+            kin && v0 + r < V ? w[(size_t)(v0 + r) * H + k0 + c] : 0.f;
+      }
+    }
+  };
+
+  // a label outside [0, V) (ignore_index included) matches no column
+  if (tid < kPM) {
+    const long long raw = t0 + tid < Tn ? (long long)labels[t0 + tid] : -1;
+    sLab[tid] = raw >= 0 && raw < V ? (int)raw : -1;
+    sLL[tid] = 0.f;
+  }
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float m_run = kNeg, s_run = 0.f;  // row ty + 16 (tx % 8); m in log2 units
+
+#pragma unroll
+  for (int st = 0; st < kPStages - 1; ++st) {
+    if (st < steps) stage(st);
+    cp_async_commit();
+  }
+  const float* px0 = ring + ty * kPLD;
+  const float* pw0 = ring + (kPM + tx) * kPLD;
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kPStages - 2>();
+    __syncthreads();  // slice `step` is staged; every warp is past step - 1
+    if (step + kPStages - 1 < steps) stage(step + kPStages - 1);
+    cp_async_commit();
+    const float* px = px0 + (step % kPStages) * kPStage;
+    const float* pw = pw0 + (step % kPStages) * kPStage;
+    // float4 reads along H: 8 of x and 8 of W feed 256 FMAs (4 a word)
+#pragma unroll
+    for (int kk = 0; kk < kPK; kk += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(px + 16 * i * kPLD + kk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(pw + 16 * j * kPLD + kk);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+        }
+      }
+    }
+    if (step % nk != nk - 1) continue;
+
+    // the tile is whole: each row's max and sum of exp over its 128
+    // columns (past V left out), the 16 lanes meeting by shuffles
+    const int c0 = (vt0 + step / nk) * kPN + tx;
+    float tm = kNeg, tp = 0.f;  // the tile's of row ty + 16 (tx % 8)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int lab = sLab[ty + 16 * i];
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (c0 + 16 * j < V) mx = fmaxf(mx, acc[i][j]);
+        if (c0 + 16 * j == lab) sLL[ty + 16 * i] = acc[i][j];
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float mx2 = mx * kLog2e;
+      float p = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (c0 + 16 * j < V) p += exp2f(fmaf(acc[i][j], kLog2e, -mx2));
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        p += __shfl_xor_sync(0xffffffffu, p, o);
+      if (i == (tx & 7)) {
+        tm = mx2;
+        tp = p;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+    const float nm = fmaxf(m_run, tm);
+    s_run = s_run * exp2f(m_run - nm) + tp * exp2f(tm - nm);
+    m_run = nm;
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // every label logit is written
+  if (tx < 8 && t0 + ty + 16 * tx < Tn) {
+    const int r = ty + 16 * tx, t = t0 + r;
+    part[((size_t)0 * nsplit + split) * Tn + t] = m_run * kLn2;
+    part[((size_t)1 * nsplit + split) * Tn + t] = s_run;
+    part[((size_t)2 * nsplit + split) * Tn + t] = sLL[r];
   }
 }
 
@@ -1098,16 +1161,33 @@ __global__ void __launch_bounds__(kGThreads, 1)
   }
 }
 
+// above 48 KB a block must opt in to dynamic shared memory; the largest
+// carveout leaves room for one block an SM
+template <typename L>
+cudaError_t prepare_fwd_f32() {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_ce_fwd_f32_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFwdF32Smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(fused_ce_fwd_f32_kernel<L>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 template <typename L>
 int launch_fwd(const void* x, const void* w, const void* labels, float* part,
                float* loss, float* lse, int Tn, int V, int H, int nsplit,
                int tiles_per_split, long long ignore_index, cudaStream_t st) {
+  cudaError_t err = prepare_fwd_f32<L>();
+  if (err != cudaSuccess) return (int)err;
   const L* lab = static_cast<const L*>(labels);
-  dim3 grid((Tn + kB - 1) / kB, nsplit);
-  fused_ce_fwd_kernel<L><<<grid, kThreads, 0, st>>>(
+  const int vec = H % 4 == 0 && (reinterpret_cast<uintptr_t>(x) |
+                                  reinterpret_cast<uintptr_t>(w)) % 16 == 0;
+  dim3 grid((Tn + kPM - 1) / kPM, nsplit);
+  fused_ce_fwd_f32_kernel<L><<<grid, kPThreads, kFwdF32Smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), lab, part,
-      Tn, V, H, tiles_per_split, nsplit);
-  cudaError_t err = cudaGetLastError();
+      Tn, V, H, tiles_per_split, nsplit, vec);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fused_ce_fwd_combine<L><<<(Tn + 255) / 256, 256, 0, st>>>(
       part, lab, loss, lse, Tn, nsplit, ignore_index);
@@ -1241,8 +1321,7 @@ int bwd(const void* a, const void* b, const void* labels, const void* lse,
 // nothing: `part` is the caller's f32 scratch of 3 * nsplit * T floats.
 
 // K5: loss and lse of every token, the vocab tiles split over `nsplit`
-// groups of `tiles_per_split` tiles of 64 (float32) or 128 (bfloat16)
-// vocab rows
+// groups of `tiles_per_split` tiles of 128 vocab rows (both dtypes)
 extern "C" int fused_ce_forward(const void* x, const void* w,
                                 const void* labels, void* part, void* loss,
                                 void* lse, int T, int V, int H, int nsplit,
@@ -1302,5 +1381,15 @@ extern "C" int fused_ce_backward_f32_blocks_per_sm(int dx) {
            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                  &n, fused_ce_bwd_f32_kernel<int64_t, false>, kGThreads,
                  kGSmem);
+  return err == cudaSuccess ? n : -1;
+}
+
+// Blocks an SM of the f32 K5, from its registers and shared memory; -1 on
+// a CUDA error.
+extern "C" int fused_ce_forward_f32_blocks_per_sm() {
+  int n = -1;
+  if (prepare_fwd_f32<int64_t>() != cudaSuccess) return -1;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, fused_ce_fwd_f32_kernel<int64_t>, kPThreads, kFwdF32Smem);
   return err == cudaSuccess ? n : -1;
 }

@@ -30,11 +30,12 @@ from . import _build
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LABEL_DTYPES = {torch.int32: 0, torch.int64: 1}
-# K5's (vocab rows of a tile, blocks per SM the vocab split aims at), by
-# dtype: the f32 CUDA-core kernel runs 64 x 64 tiles, several blocks an
-# SM at once; the bf16 tensor-core kernel 128 x 128 tiles, two blocks an
-# SM at a time, so its split aims at about 8 waves of blocks
-_FWD_SPLIT = {torch.float32: (64, 4), torch.bfloat16: (128, 16)}
+# K5's (rows of a token or vocab tile, blocks per SM the vocab split aims
+# at), by dtype: both kernels run 128 x 128 tiles, the f32 one (CUDA
+# cores) one block an SM at a time, the bf16 one (tensor cores) two, so at
+# T = 8192 the split (33 splits of 12 tiles) runs 16 waves of blocks in
+# f32 and 8 in bf16
+_FWD_SPLIT = {torch.float32: (128, 16), torch.bfloat16: (128, 16)}
 
 
 def fused_linear_cross_entropy_plain(x, w_vh, labels, ignore_index=-100):
@@ -104,16 +105,21 @@ def _check_operands(x, w_vh, labels, *stats):
                              f"[{x.shape[0]}]")
 
 
-def _vocab_split(t, v, dtype, device):
-    """(nsplit, tiles_per_split) for K5: split the vocab tiles until the
-    grid has about the dtype's blocks per SM, with no empty split."""
-    tile, per_sm = _FWD_SPLIT[dtype]
+def vocab_split(t, v, tile, per_sm, sms):
+    """(nsplit, tiles_per_split) for K5 at T = ``t``, V = ``v`` on a card
+    of ``sms`` SMs: split the ``tile``-row vocab tiles until the grid of
+    ``tile``-row token tiles by splits has about ``per_sm`` blocks per SM,
+    with no empty split."""
     n_vt = -(-v // tile)
     row_tiles = -(-t // tile)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = max(1, min(n_vt, -(-per_sm * sms // row_tiles)))
     per = -(-n_vt // want)
     return -(-n_vt // per), per
+
+
+def _vocab_split(t, v, dtype, device):
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return vocab_split(t, v, *_FWD_SPLIT[dtype], sms)
 
 
 def fused_ce_forward(x, w_vh, labels, ignore_index=-100):

@@ -733,6 +733,88 @@ def test_f32_ce_backward_gives_the_same_bits_twice(dev):
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
+# the f32 K5 (CUDA cores): 128-row token tiles by 128-row vocab tiles, H
+# in 64-column slices; the loss and LSE are f32 on both sides, sums over H
+# and a logsumexp over V in another order (atol 1e-4)
+K5_EDGES = [1, 127, 128, 129, 1000]
+
+
+def _f32_forward(x, w, labels):
+    """One launch of the f32 K5 (counted), against the plain forward on the
+    same inputs; ignore_index rows lose exactly 0. Returns (loss, lse)."""
+    before = tce.fused_ce_forward.launches
+    loss, lse = tce.fused_ce_forward(x, w, labels)
+    assert tce.fused_ce_forward.launches == before + 1
+    rloss, rlse = tce.fused_linear_cross_entropy_plain(x, w, labels)
+    assert loss.dtype == lse.dtype == torch.float32
+    torch.testing.assert_close(loss, rloss, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
+    assert not loss[labels == -100].any()
+    return loss, lse
+
+
+@pytest.mark.parametrize("t", K5_EDGES)
+@pytest.mark.parametrize("v", K5_EDGES)
+def test_f32_ce_forward_kernel_at_tile_edges(dev, t, v):
+    """The f32 K5 with T and V one row before, on and past its 128-row
+    tiles (1 .. 1000), H = 768."""
+    _f32_forward(*_ce_inputs(dev, t, 768, v, torch.float32, 10 * t + v)[:3])
+
+
+@pytest.mark.parametrize("h", [13, 768, 1536])
+@pytest.mark.parametrize("t,v", [(129, 7), (300, 50304), (1, 1000)])
+@pytest.mark.parametrize("label_dtype", [torch.int64, torch.int32])
+def test_f32_ce_forward_kernel_across_h(dev, h, t, v, label_dtype):
+    """The f32 K5 at H = 13 (staged element by element), 768 and 1536 (12
+    and 24 slices), V = 7 .. 50304, int32 and int64 labels."""
+    x, w, labels, _ = _ce_inputs(dev, t, h, v, torch.float32, t + h + v,
+                                 label_dtype)
+    _f32_forward(x, w, labels)
+
+
+@pytest.mark.parametrize("which", ["x", "w"])
+@pytest.mark.parametrize("h", [768, 800])
+def test_f32_ce_forward_misaligned_operand(dev, which, h):
+    """x or W one float past a 16-byte boundary: the f32 K5 stages it
+    element by element, the same values in the same order, so it gives
+    the aligned operands' bits."""
+    x, w, labels, _ = _ce_inputs(dev, 300, h, 1000, torch.float32, 4)
+    src = x if which == "x" else w
+    big = torch.empty(src.numel() + 1, device=dev)
+    shifted = big[1:].view_as(src)
+    shifted.copy_(src)
+    assert shifted.data_ptr() % 16
+    args = (shifted, w) if which == "x" else (x, shifted)
+    got = _f32_forward(*args, labels)
+    want = _f32_forward(x, w, labels)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_f32_ce_forward_all_ignored_and_out_of_range_labels(dev):
+    """f32 K5: an all-ignored batch loses exactly 0 everywhere with the
+    plain LSE; a label outside [0, V) that is not ignore_index gets a
+    label logit of 0, so its loss is its LSE."""
+    x, w, labels, _ = _ce_inputs(dev, 200, 768, 3000, torch.float32, 5)
+    _, rlse = tce.fused_linear_cross_entropy_plain(x, w, labels)
+    loss, lse = tce.fused_ce_forward(x, w, torch.full_like(labels, -100))
+    assert not loss.any()
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
+    odd = labels.clone()
+    odd[:3] = torch.tensor([3000, 4000, -3], device=dev)
+    loss, lse = tce.fused_ce_forward(x, w, odd)
+    torch.testing.assert_close(loss[:3], lse[:3], atol=0, rtol=0)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=1e-5)
+
+
+def test_f32_ce_forward_gives_the_same_bits_twice(dev):
+    """Two runs of the f32 K5 at [T = 2048, H = 768, V = 50304] give the
+    same bits, both within 1e-4 of the plain forward."""
+    x, w, labels, _ = _ce_inputs(dev, 2048, 768, 50304, torch.float32, 12)
+    first = _f32_forward(x, w, labels)
+    again = _f32_forward(x, w, labels)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
 def test_fused_ce_rejects_and_autograd_launches_k5_k6_k7(dev):
     """Under autograd the fused op launches K5 once and K6 and K7 once
     each in its backward, with the plain composition's grads; what the

@@ -206,3 +206,29 @@ def test_amp_casts_the_inputs_of_k5(monkeypatch, level, black, want):
     assert seen == [(want, want)] and loss.dtype == torch.float32
     loss.sum().backward()
     assert all(p.grad.dtype == torch.float32 for p in leaves)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sweep", ["tokens", "vocab"])
+def test_vocab_split_walks_every_vocab_tile_once(dtype, sweep):
+    """K5's vocab split as the wrapper computes it for a card of 132 SMs
+    (an H100 SXM), at every T = 1 .. 8192 (V at tile edges and the GPT
+    vocabularies) and every V = 7 .. 50304 (T at tile edges and the
+    flagship's 8192): the splits of ``per`` tiles, the last cut at the
+    vocab's end as the kernels cut it, walk every vocab tile exactly once,
+    none is empty, and the grid's second dimension fits CUDA's limit."""
+    tile, per_sm = tce._FWD_SPLIT[dtype]
+    if sweep == "tokens":
+        pairs = [(t, v) for v in (7, tile - 1, tile, tile + 1, 1000, 50257,
+                                  50304) for t in range(1, 8193)]
+    else:
+        pairs = [(t, v) for t in (1, tile - 1, tile, tile + 1, 1000, 8192)
+                 for v in range(7, 50305)]
+    for t, v in pairs:
+        nsplit, per = tce.vocab_split(t, v, tile, per_sm, 132)
+        n_vt = -(-v // tile)
+        assert nsplit >= 1 and per >= 1 and nsplit <= 65535, (t, v)
+        # split s walks tiles [s per, min(n_vt, (s + 1) per)): together
+        # they cover [0, n_vt) once, and the last one starts inside it
+        assert (nsplit - 1) * per < n_vt <= nsplit * per, (t, v, nsplit,
+                                                           per)

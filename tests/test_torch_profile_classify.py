@@ -43,6 +43,8 @@ from profile_port_serving import classify  # noqa: E402
      "K4 paged decode attention"),
     ("void (anonymous namespace)::fused_ce_fwd_kernel<long>(float const*)",
      "K5 fused CE forward"),
+    ("void (anonymous namespace)::fused_ce_fwd_f32_kernel<int>(float "
+     "const*)", "K5 fused CE forward"),
     ("void (anonymous namespace)::fused_ce_fwd_mma_kernel<long>("
      "__nv_bfloat16 const*)", "K5 fused CE forward"),
     ("void (anonymous namespace)::fused_ce_fwd_combine<int>(float const*)",

@@ -2,20 +2,24 @@
 """Time the fused cross-entropy kernels (K5 forward, K6 dx, K7 dW) of
 several fused_ce.cu sources in one call on one card, in bf16 or f32.
 
-    python3 tools/ab_fused_ce.py [--f32] [SOURCE.cu ...]
+    python3 tools/ab_fused_ce.py [--f32] [SOURCE.cu[@TILE:PER_SM] ...]
 
 Builds the tree's own paddle_tpu_torch/csrc/fused_ce.cu and every SOURCE
 (each one nvcc, all started together; each must keep the C interface of
-fused_ce_forward / fused_ce_backward_dx / fused_ce_backward_dw, and its
-K5 must take the wrapper's vocab split), prints ptxas's registers and
+fused_ce_forward / fused_ce_backward_dx / fused_ce_backward_dw). Each K5
+runs with its own vocab split: the tree's with the wrapper's rule
+(``_FWD_SPLIT``), a SOURCE with ``@TILE:PER_SM`` where its K5 walks
+other tiles or aims at other blocks an SM (the first f32 K5, 64-row tiles:
+``@64:4``), else with the wrapper's. It prints ptxas's registers and
 spills for each kernel of the dtype, then for each source: K5's loss and
 LSE against the plain forward, and K6 and K7 against the plain backward
 (bf16: with d rounded to bf16; f32: d kept f32), relative to the largest
 grad, at ragged shapes and at the flagship's T = 8192, H = 768, V =
 50304, and the mean time of each kernel there over 30 calls (5 in f32;
-CUDA events, the L2 flushed before each) with TFLOP/s. Sources are run in
-turn inside each shape, so their times compare; times of two calls do
-not.
+CUDA events, the L2 flushed before each) with TFLOP/s and the median SM
+clock and power draw that nvidia-smi read every 100 ms meanwhile (the FMA
+peak scales with the clock). Sources are run in turn inside each shape,
+so their times compare; times of two calls do not.
 """
 import ctypes
 import os
@@ -35,7 +39,28 @@ ARGTYPES = {
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 ARGTYPES["fused_ce_backward_dw"] = ARGTYPES["fused_ce_backward_dx"]
 KERNELS = {"bfloat16": ("fused_ce_fwd_mma_kernel", "fused_ce_bwd_mma_kernel"),
-           "float32": ("fused_ce_fwd_kernel", "fused_ce_bwd_f32_kernel")}
+           "float32": ("fused_ce_fwd_f32_kernel", "fused_ce_fwd_kernel",
+                       "fused_ce_bwd_f32_kernel")}
+
+
+def sampled(fn):
+    """fn()'s result and the median (SM clock MHz, power draw W) of
+    nvidia-smi's readings every 100 ms while it ran (None without
+    readings)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        out = fn()
+    finally:
+        proc.terminate()
+        lines, _ = proc.communicate(timeout=60)
+    rows = [tuple(float(f) for f in ln.split(","))
+            for ln in lines.splitlines() if ln.count(",") == 1]
+    if not rows:
+        return out, None
+    return out, tuple(float(sorted(c)[len(c) // 2]) for c in zip(*rows))
 
 
 def build(_build, sources, out_dir, kernels):
@@ -77,12 +102,19 @@ def main():
     f32 = "--f32" in sys.argv[1:]
     dtype = "float32" if f32 else "bfloat16"
     sources = {"tree": str(_build.CSRC / "fused_ce.cu")}
-    sources.update({os.path.basename(p): p for p in sys.argv[1:]
-                    if p != "--f32"})
+    splits = {"tree": None}    # None: the wrapper's _FWD_SPLIT
+    for arg in sys.argv[1:]:
+        if arg == "--f32":
+            continue
+        path, _, split = arg.partition("@")
+        name = os.path.basename(path)
+        sources[name] = path
+        splits[name] = tuple(map(int, split.split(":"))) if split else None
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
         fns = build(_build, sources, d, KERNELS[dtype])
         g = torch.Generator(device="cuda").manual_seed(9)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         for t, h, v in SHAPES:
             x, w, labels, gg = cs.ce_case(torch, t, h, v, dtype, g)
             rloss, lse = tce.fused_linear_cross_entropy_plain(
@@ -90,12 +122,13 @@ def main():
             ref = tce.fused_linear_cross_entropy_backward_plain(
                 x.float(), w.float(), labels, lse, gg,
                 d_dtype=None if f32 else torch.bfloat16)
-            nsplit, per = tce._vocab_split(t, v, x.dtype, x.device)
-            part = torch.empty((3, nsplit, t), device="cuda")
             loss, klse = torch.empty_like(lse), torch.empty_like(lse)
             dx, dw = torch.empty_like(x), torch.empty_like(w)
             stream = torch.cuda.current_stream().cuda_stream
             for name, lib in fns.items():
+                nsplit, per = tce.vocab_split(
+                    t, v, *(splits[name] or tce._FWD_SPLIT[x.dtype]), sms)
+                part = torch.empty((3, nsplit, t), device="cuda")
                 calls = {
                     "K5": lambda: lib["fused_ce_forward"](
                         x.data_ptr(), w.data_ptr(), labels.data_ptr(),
@@ -124,10 +157,13 @@ def main():
                         f"{errs[2]:.3e} of the largest grad"]
                 if t == SHAPES[-1][0]:
                     for kname, call in calls.items():
-                        ms = cs.time_ms(torch, call, iters=5 if f32 else 30)
+                        ms, clk = sampled(lambda: cs.time_ms(
+                            torch, call, iters=5 if f32 else 30))
                         flops = (2.0 if kname == "K5" else 4.0) * t * v * h
                         line.append(f"{kname} {ms:.3f} ms "
-                                    f"({flops / ms / 1e9:.1f} TFLOP/s)")
+                                    f"({flops / ms / 1e9:.1f} TFLOP/s"
+                                    + (f"; SM {clk[0]:.0f} MHz, {clk[1]:.1f}"
+                                       " W" if clk else "") + ")")
                 print(", ".join(line), flush=True)
             del x, w, labels, gg, rloss, lse, ref, part, dx, dw
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

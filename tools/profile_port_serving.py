@@ -36,9 +36,10 @@ def classify(name):
         return "K2 flash backward dQ"
     if "flash_bwd_dkv_" in n:
         return "K3 flash backward dK/dV"
-    if ("fused_ce_fwd_kernel" in n or "fused_ce_fwd_mma_kernel" in n
-            or "fused_ce_fwd_combine" in n):
-        # f32 (CUDA cores) or bf16 (tensor cores), and the split merge
+    if "fused_ce_fwd_" in n:
+        # f32 (CUDA cores: fused_ce_fwd_f32_kernel, the parent commit's
+        # fused_ce_fwd_kernel) or bf16 (tensor cores: fused_ce_fwd_mma_
+        # kernel), and the split merge (fused_ce_fwd_combine)
         return "K5 fused CE forward"
     if "fused_ce_bwd_" in n:
         # f32 (CUDA cores: fused_ce_bwd_f32_kernel, the parent commit's
