@@ -86,9 +86,37 @@ Phases, one line each:
              parent, parent, this tree): every step's loss within 1e-4
              relative (the sums run in another order), peak memory no
              more than the parent's + 64 MiB, and each side's median step
-             over its two runs.
-Then the card's name and power limit, one JSON line of kernel numbers,
-and as the last line {"ok": true, "device": {...}}.
+             over its two runs;
+ 12. optim   phase 8's tied 2-layer GPT at full width, batch 1 x seq 256,
+             the same weights on the card and on the CPU: 3 steps of each of
+             SGD, Momentum, Adamax, Adagrad, RMSProp, Lamb, LarsMomentum,
+             Adadelta and Ftrl, of Adam with an L1Decay and a
+             ClipGradByValue, and of AdamW over two param groups: every
+             step's loss within LOSS_RTOL of the CPU's, and every
+             parameter's move within the stated tolerance of the CPU's.
+             Then on the card AdamW with a schedule: 2 steps,
+             state_dict(), a fresh model and optimizer loaded, 2 more steps
+             give the bits of 4 straight steps. K1-K3 = 82, K5-K7 = 41;
+ 13. recompute phase 11's step with TransformerLMConfig(recompute=True), 6
+             steps: losses within 1e-5 relative of phase 11's, K1 = 2 x 6 x
+             12 (each block's forward again in the backward), K2 = K3 = 72,
+             K5-K7 = 6, peak memory below phase 11's, step ms beside it;
+             then 2 steps of phase 10's O1 bf16 step with recompute: losses
+             within 1e-3 relative of phase 10's first two (the
+             recomputation casts as its forward did);
+ 14. generate GPT-124M (phase 4's weights) model.generate(): greedy, 4
+             prompts of 128 tokens, 96 new: every token the teacher-forced
+             argmax of the port's forward (through K1) and the
+             ServingEngine's stream for the prompt (through K4), either
+             differing only at a top-2 margin below 1e-4; top-k 40 at
+             temperature 0.8, seed 1 twice: the same tokens, each within
+             the teacher-forced top 40 (less 1e-4); beam search (4 beams,
+             batch 2, 32 new) on phase 8's 2-layer model, card against
+             CPU, the same tokens; generated tokens/s of greedy and beams.
+Then the card's name and power limit, one JSON line of kernel numbers
+(launches summed over the main paths: phases 4-5 and 14 for K4 and the
+serving K1 row, 7, 11, 12 and 13 for the f32 training rows, 10 and 13
+for the bf16 ones), and as the last line {"ok": true, "device": {...}}.
 
 TF32 is off for matmuls and cuDNN, so every f32 product is full f32.
 Any failure raises: the exit code is non-zero and no "ok" line prints.
@@ -161,6 +189,21 @@ PARENT_SYMBOLS = {("fused_ce", "fused_ce_forward"): (
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
 PARENT_F32_SPLIT = (64, 4)
 FLAGSHIP = dict(batch=8, seq=1024)
+OPTIM_STEPS = 3
+# phase 12, card against CPU after 3 steps: per parameter, the L2 norm of
+# the difference between the card's and the CPU's move within this share
+# of the CPU's move. The updates linear in the grad (SGD, Momentum, RMSProp
+# with epsilon inside its root, LarsMomentum, Adadelta) carry the grads'
+# rounding differences (phase 8) as they are; the ones that divide a grad
+# by its own size (Adam, Adamax, Adagrad, Lamb, Ftrl) turn an element whose
+# grad is near 0 into a step of full size on either side, which a few
+# elements of a tensor add to its norm. Every element within twice the
+# largest move; the key third of each QKV bias (its true grad is 0, all
+# noise) is held to that alone
+OPT_LINEAR_TOL = 1e-3
+OPT_SIGN_TOL = 5e-2
+RECOMPUTE_F32_RTOL = 1e-5
+RECOMPUTE_BF16_RTOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -830,7 +873,7 @@ def phase_tied_f32(torch, attn, tce, cfg, optimizer, nn, _build, parent):
     counts = tuple(fn.launches for fn in wrappers)
     losses, tokens = first[0], first[3]
     if not parent:
-        return counts
+        return counts, first
     runs = {"this tree": [first[:3]], "the parent": []}
     for side in ("the parent", "the parent", "this tree"):
         with (parent_kernels(torch, _build, tce, parent)
@@ -860,7 +903,7 @@ def phase_tied_f32(torch, attn, tce, cfg, optimizer, nn, _build, parent):
     peaks = {side: max(pk for _, _, pk in rs) for side, rs in runs.items()}
     check(peaks["this tree"] <= peaks["the parent"] + (64 << 20),
           f"peak memory {peaks}")
-    return counts
+    return counts, first
 
 
 def phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig, tie):
@@ -1150,15 +1193,19 @@ def phase_k5k7(torch, tce, t, h, v, _build, parent):
 
 # --------------------------------------------------------------- phase 10
 
-def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
+def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig,
+                   recompute=False, steps=TRAIN_STEPS):
     """The reference's bench_gpt step (tools/baseline_bench.py:163-197),
-    TRAIN_STEPS times from seeded weights."""
+    ``steps`` times from seeded weights, with per-block recompute when
+    ``recompute`` (each block's K1 again in the backward). Returns the
+    launches, the losses, the step ms and the peak bytes."""
     from paddle_tpu_torch.text.models import GPTForCausalLM
     wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
                 attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
                 tce.fused_ce_bwd_dw)
     cfg = TransformerLMConfig(dropout=0.0, use_flash_attention=True,
-                              max_seq_len=FLAGSHIP["seq"])
+                              max_seq_len=FLAGSHIP["seq"],
+                              recompute=recompute)
     L = cfg.num_layers
     model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
         1234)).train()
@@ -1172,7 +1219,7 @@ def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
     for fn in wrappers:
         fn.launches = 0
     losses, times = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         with amp.auto_cast(level="O1", dtype="bfloat16"):
             loss = model(ids, labels=ids)
@@ -1188,18 +1235,320 @@ def phase_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
     del model, opt, loss
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    want = (TRAIN_STEPS * L,) * 3 + (TRAIN_STEPS,) * 3
+    want = ((steps * L * (2 if recompute else 1),) + (steps * L,) * 2
+            + (steps,) * 3)
     check(counts == want, f"K1/K2/K3/K5/K6/K7 launches {counts} != {want}")
     step_ms = float(np.median(times[1:]))
     tokens = ids.numel()
     print(f"  losses {[round(x, 6) for x in losses]}; step ms "
           f"{[round(t, 2) for t in times]}")
-    print(f"  median step (steps 2-{TRAIN_STEPS}) {step_ms:.2f} ms, "
+    print(f"  median step (steps 2-{steps}) {step_ms:.2f} ms, "
           f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
-          f"{peak / 2**30:.3f} GiB; K1/K2/K3 launches {counts[:3]} = "
-          f"{TRAIN_STEPS} x {L} each, K5/K6/K7 {counts[3:]} = {TRAIN_STEPS}"
-          " each")
+          f"{peak / 2**30:.3f} GiB; K1/K2/K3 launches {counts[:3]}, K5/K6/K7 "
+          f"{counts[3:]} ({steps} steps x {L} layers"
+          + (", K1 twice a block" if recompute else "") + ")")
+    return counts, losses, times, peak
+
+
+# --------------------------------------------------------------- phase 12
+
+def optim_cases(optimizer, nn, regularizer):
+    """(label, linear in the grad?, make(named parameters)) of phase 12,
+    each at a learning rate that moves the 2-layer model in 3 steps."""
+    O = optimizer
+    return [
+        ("SGD", True, lambda ps: O.SGD(0.1, parameters=ps)),
+        ("Momentum(use_nesterov)", True, lambda ps: O.Momentum(
+            0.05, parameters=ps, use_nesterov=True, weight_decay=0.01)),
+        ("Adamax", False, lambda ps: O.Adamax(1e-3, parameters=ps)),
+        ("Adagrad", False, lambda ps: O.Adagrad(1e-2, parameters=ps)),
+        ("RMSProp(centered, momentum)", True, lambda ps: O.RMSProp(
+            1e-4, parameters=ps, centered=True, momentum=0.9)),
+        ("Lamb", False, lambda ps: O.Lamb(
+            1e-3, parameters=ps,
+            exclude_from_weight_decay_fn=lambda p: p.dim() == 1)),
+        ("LarsMomentum", True, lambda ps: O.LarsMomentum(
+            0.1, parameters=ps, exclude_from_weight_decay=["bias"])),
+        ("Adadelta", True, lambda ps: O.Adadelta(1.0, parameters=ps)),
+        ("Ftrl", False, lambda ps: O.Ftrl(1e-3, parameters=ps)),
+        ("Adam(L1Decay, ClipGradByValue)", False, lambda ps: O.Adam(
+            1e-4, parameters=ps, weight_decay=regularizer.L1Decay(1e-4),
+            grad_clip=nn.ClipGradByValue(1e-3))),
+        ("AdamW(param groups)", False, lambda ps: O.AdamW(
+            1e-4, weight_decay=0.01,
+            parameters=[{"params": ps[:8]}, {"params": ps[8:]}])),
+    ]
+
+
+def optim_run(model, init, make, ids, steps=OPTIM_STEPS):
+    """``steps`` steps from the weights ``init``: (losses, the parameters
+    on the CPU)."""
+    model.load_state_dict(init)
+    opt = make(list(model.named_parameters()))
+    losses = []
+    for _ in range(steps):
+        loss = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    return losses, {n: p.detach().cpu().clone()
+                    for n, p in model.named_parameters()}
+
+
+def moves_apart(torch, card, cpu, init, hidden):
+    """Every element of the card's parameters within twice the largest
+    move of the CPU's; returns the worst ratio of ||card - cpu|| to
+    ||cpu - init|| over the parameters (the key third of each QKV bias
+    left out of the norm), its parameter and the largest move."""
+    scale = max((cpu[n] - init[n]).abs().max().item() for n in cpu)
+    worst, where = 0.0, ""
+    for n in cpu:
+        a, b, a0 = card[n], cpu[n], init[n]
+        el = (a - b).abs().max().item()
+        check(el <= 2 * scale, f"{n}: an element {el} apart, past twice the "
+              f"largest move {scale}")
+        if n.endswith("attn.qkv.bias"):
+            keep = torch.ones(a.numel(), dtype=torch.bool)
+            keep[hidden:2 * hidden] = False
+            a, b, a0 = a[keep], b[keep], a0[keep]
+        move = (b - a0).norm().item()
+        diff = (a - b).norm().item()
+        r = diff / move if move else (float("inf") if diff else 0.0)
+        if r >= worst:
+            worst, where = r, n
+    return worst, where, scale
+
+
+def phase_optim(torch, wrappers, optimizer, nn, regularizer,
+                TransformerLMConfig):
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    cfg = TransformerLMConfig(num_layers=2, dropout=0.0)
+    L = cfg.num_layers
+    ids_np = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 256))
+    models = {dev: GPTForCausalLM(cfg, device=dev, generator=torch.Generator()
+                                  .manual_seed(7)).train()
+              for dev in ("cpu", None)}
+    init = {k: v.clone() for k, v in models["cpu"].state_dict().items()}
+    ids = {dev: torch.from_numpy(ids_np.astype(np.int64)).to(m.device)
+           for dev, m in models.items()}
+    for fn in wrappers:
+        fn.launches = 0
+    cases = optim_cases(optimizer, nn, regularizer)
+    for label, linear, make in cases:
+        (cl, cp), (gl, gp) = (optim_run(models[d], init, make, ids[d])
+                              for d in ("cpu", None))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+        check(all(np.isfinite(gl)) and rel <= LOSS_RTOL,
+              f"{label}: card losses {gl} vs CPU {cl}")
+        tol = OPT_LINEAR_TOL if linear else OPT_SIGN_TOL
+        worst, where, scale = moves_apart(torch, gp, cp, init,
+                                          cfg.hidden_size)
+        check(worst <= tol, f"{label}: the card's move of {where} is "
+              f"{worst:.3e} of the CPU's apart (tol {tol})")
+        print(f"  {label}: losses card {[round(x, 6) for x in gl]}, max rel "
+              f"diff {rel:.3e} (tol {LOSS_RTOL}); parameters moved up to "
+              f"{scale:.3e}, card vs CPU at most {worst:.3e} of a tensor's "
+              f"move ({where}; tol {tol})")
+
+    # on the card: 4 straight steps against 2, a save, a fresh model and
+    # optimizer loaded, 2 more
+    card_ids = ids[None]
+
+    def adamw(params):
+        sched = optimizer.lr.CosineAnnealingDecay(1e-4, 4)
+        return optimizer.AdamW(sched, parameters=params, weight_decay=0.01,
+                               grad_clip=nn.ClipGradByGlobalNorm(1.0)), sched
+
+    def steps(model, opt, sched, n):
+        out = []
+        for _ in range(n):
+            loss = model(card_ids, labels=card_ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            sched.step()
+            out.append(loss.item())
+        return out
+
+    card = models[None]
+    card.load_state_dict(init)
+    opt, sched = adamw(list(card.named_parameters()))
+    straight = steps(card, opt, sched, 4)
+    want = {n: p.detach().clone() for n, p in card.named_parameters()}
+    card.load_state_dict(init)
+    opt, sched = adamw(list(card.named_parameters()))
+    first = steps(card, opt, sched, 2)
+    saved_opt = opt.state_dict()
+    saved = {k: v.clone() for k, v in card.state_dict().items()}
+    fresh = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        99)).train()
+    fresh.load_state_dict(saved)
+    opt2, sched2 = adamw(list(fresh.named_parameters()))
+    opt2.set_state_dict(saved_opt)
+    resumed = first + steps(fresh, opt2, sched2, 2)
+    differ = [n for n, p in fresh.named_parameters()
+              if not torch.equal(p, want[n])]
+    check(resumed == straight and not differ,
+          f"resumed AdamW: losses {resumed} vs {straight}; parameters that "
+          f"differ: {differ}")
+    counts = tuple(fn.launches for fn in wrappers)
+    n = OPTIM_STEPS * len(cases) + 4 + 2 + 2
+    want_counts = (n * L,) * 3 + (n,) * 3
+    check(counts == want_counts, f"phase 12 launches {counts} != "
+          f"{want_counts}")
+    print(f"  AdamW on the card: 2 steps, state_dict ({len(saved_opt) - 1} "
+          f"tensors), a fresh model and optimizer loaded, 2 more steps: "
+          f"the losses {resumed} and every parameter the bits of 4 straight "
+          f"steps; launches K1/K2/K3 {counts[:3]}, K5/K6/K7 {counts[3:]} ({n}"
+          f" steps x {L} layers)")
+    del models, card, fresh, opt, opt2
     return counts
+
+
+# --------------------------------------------------------------- phase 13
+
+def phase_recompute(torch, wrappers, cfg, optimizer, nn, f32_run, amp, attn,
+                    tce, TransformerLMConfig, flagship_losses):
+    """Phase 11's step with recompute against phase 11's run ``f32_run``
+    (losses, step ms, peak bytes, tokens), then 2 steps of phase 10's
+    with recompute against ``flagship_losses``."""
+    L = cfg.num_layers
+    want = (2 * TRAIN_STEPS * L,) + (TRAIN_STEPS * L,) * 2 + (TRAIN_STEPS,) * 3
+    losses, times, peak, tokens = train_checked(
+        torch, wrappers, want, cfg, optimizer, nn, False)
+    counts = tuple(fn.launches for fn in wrappers)
+    ref_losses, ref_times, ref_peak, _ = f32_run
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    check(max(rel) <= RECOMPUTE_F32_RTOL, f"recompute losses {losses} vs "
+          f"phase 11's {ref_losses}")
+    check(peak < ref_peak, f"recompute peak {peak} not below phase 11's "
+          f"{ref_peak}")
+    ms, ref_ms = (float(np.median(t[1:])) for t in (times, ref_times))
+    print(f"  against phase 11 (no recompute): losses within "
+          f"{max(rel):.3e} relative (tol {RECOMPUTE_F32_RTOL}); peak "
+          f"{peak / 2**30:.3f} GiB against {ref_peak / 2**30:.3f}; median "
+          f"step {ms:.2f} ms against {ref_ms:.2f} ({ms / ref_ms:.3f}x)")
+    bf_counts, bf_losses, _, _ = phase_flagship(
+        torch, attn, tce, amp, optimizer, TransformerLMConfig,
+        recompute=True, steps=2)
+    rel = [abs(a - b) / abs(b) for a, b in zip(bf_losses, flagship_losses)]
+    check(max(rel) <= RECOMPUTE_BF16_RTOL, f"O1 recompute losses {bf_losses}"
+          f" vs phase 10's {flagship_losses[:2]}")
+    print(f"  O1 bf16 with recompute: losses {bf_losses} within {max(rel):.3e}"
+          f" relative of phase 10's first two (tol {RECOMPUTE_BF16_RTOL})")
+    return counts, bf_counts
+
+
+# --------------------------------------------------------------- phase 14
+
+def first_divergence(a, b):
+    """The first index where the token lists differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None
+
+
+def phase_generate(torch, pa, attn, TransformerLMConfig):
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    cfg = TransformerLMConfig(dropout=0.0)
+    L = cfg.num_layers
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        1234)).eval()
+    s0, n_new, b = 128, 96, 4
+    prompts = np.random.RandomState(14).randint(0, cfg.vocab_size, (b, s0))
+    ids = torch.from_numpy(prompts.astype(np.int64)).cuda()
+    model.generate(ids[:, :16], max_new_tokens=4, temperature=0.0)  # warm-up
+    torch.cuda.synchronize()
+    pa.paged_decode_attention.launches = 0
+    attn.flash_attention_forward.launches = 0
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=n_new, temperature=0.0)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    check(out.dtype == torch.int64 and out.shape == (b, s0 + n_new)
+          and out.device == model.device and torch.equal(out[:, :s0], ids),
+          f"generate: {out.dtype} {tuple(out.shape)} on {out.device}")
+    gen = out[:, s0:].cpu().numpy()
+    with torch.inference_mode():
+        lg = model(out[:, :-1])[:, s0 - 1:].float()
+    check(bool(torch.isfinite(lg).all()), "non-finite teacher-forced logits")
+    top2 = lg.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    pred = lg.argmax(-1).cpu().numpy()
+    bad = np.argwhere(pred != gen)
+    for r, i in bad:
+        check(margin[r, i] < TIE_MARGIN, f"generate row {r} token {i}: "
+              f"{gen[r, i]} vs forward {pred[r, i]} at margin "
+              f"{margin[r, i]:.3e}")
+
+    eng = ServingEngine(model, num_slots=8, block_size=16, async_depth=1)
+    reqs = [eng.add_request(p, max_new_tokens=n_new) for p in prompts]
+    eng.run()
+    steps = eng.metrics.decode_steps
+    k4 = pa.paged_decode_attention.launches
+    check(k4 == steps * L, f"K4 launches {k4} != decode steps {steps} x {L}")
+    same = 0
+    for r, req in enumerate(reqs):
+        i = first_divergence(req.generated, gen[r].tolist())
+        check(len(req.generated) == n_new, f"request {req.rid} incomplete")
+        if i is None:
+            same += 1
+            continue
+        check(margin[r, i] < TIE_MARGIN, f"engine row {r} token {i}: "
+              f"{req.generated[i]} vs generate {gen[r, i]} at margin "
+              f"{margin[r, i]:.3e}")
+
+    kw = dict(max_new_tokens=n_new, temperature=0.8, top_k=40, seed=1)
+    t0 = time.perf_counter()
+    drawn = model.generate(ids, **kw)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    check(torch.equal(drawn, model.generate(ids, **kw)),
+          "top-k sampling: seed 1 twice gives other tokens")
+    with torch.inference_mode():
+        lg = model(drawn[:, :-1])[:, s0 - 1:].float()
+    kth = lg.topk(40, dim=-1).values[..., -1]
+    got = lg.gather(-1, drawn[:, s0:, None])[..., 0]
+    check(bool((got >= kth - TIE_MARGIN).all()),
+          "top-k sampling: a token outside the teacher-forced top 40")
+    k1 = attn.flash_attention_forward.launches
+    check(k1 == 2 * L, f"K1 launches {k1} != 2 forwards x {L}")
+
+    cfg2 = TransformerLMConfig(num_layers=2, dropout=0.0)
+    p2 = np.random.RandomState(15).randint(0, cfg2.vocab_size, (2, 64))
+    beams = []
+    for device in ("cpu", None):
+        m2 = GPTForCausalLM(cfg2, device=device, generator=torch.Generator()
+                            .manual_seed(7)).eval()
+        t = torch.from_numpy(p2.astype(np.int64)).to(m2.device)
+        if device is None:
+            m2.generate(t, max_new_tokens=2, num_beams=4)        # warm-up
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beams.append(m2.generate(t, max_new_tokens=32, num_beams=4).cpu())
+        if device is None:
+            torch.cuda.synchronize()
+        beam_s = time.perf_counter() - t0
+    check(torch.equal(beams[0], beams[1]), f"beam search: card "
+          f"{beams[1][:, 64:].tolist()} vs CPU {beams[0][:, 64:].tolist()}")
+    print(f"  greedy: {b} x {n_new} tokens in {greedy_s:.3f} s, "
+          f"{b * n_new / greedy_s:.1f} generated tokens/s; "
+          f"{len(bad)} tokens differ from the teacher-forced argmax at "
+          f"near-ties (< {TIE_MARGIN}); smallest top-2 margin "
+          f"{margin.min():.3e}; {same}/{b} engine streams identical to "
+          f"generate()'s ({b - same} diverging at a near-tie); K4 launches "
+          f"{k4} = {steps} x {L}")
+    print(f"  top-k 40 at T 0.8: seed 1 twice the same tokens, each within "
+          f"the teacher-forced top 40; {b * n_new / sample_s:.1f} generated "
+          f"tokens/s; K1 launches {k1} (the two teacher-forced forwards)")
+    print(f"  beam search (4 beams, batch 2, 32 new) on the 2-layer model: "
+          f"card = CPU token for token; {2 * 32 / beam_s:.1f} generated "
+          f"tokens/s on the card")
+    del model
+    return k1, k4
 
 
 def main():
@@ -1219,7 +1568,7 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     try:
-        from paddle_tpu_torch import amp, nn, optimizer
+        from paddle_tpu_torch import amp, nn, optimizer, regularizer
         from paddle_tpu_torch.ops import _build
         from paddle_tpu_torch.ops import attention as attn
         from paddle_tpu_torch.ops import fused_ce as tce
@@ -1303,30 +1652,43 @@ def main():
      k7_row) = phase_k5k7(torch, tce, FLAGSHIP["batch"] * FLAGSHIP["seq"],
                           cfg.hidden_size, cfg.vocab_size, _build, parent)
     print("[10] the reference's flagship step: GPT-124M tied, AMP O1 bf16")
-    k1_f, k2_f, k3_f, k5, k6, k7 = phase_flagship(
+    flagship, flagship_losses, _, _ = phase_flagship(
         torch, attn, tce, amp, optimizer, TransformerLMConfig)
     print("[11] the flagship step in f32: GPT-124M tied, f32 K5-K7")
     tied_cfg = TransformerLMConfig(dropout=0.0, use_flash_attention=True,
                                    max_seq_len=FLAGSHIP["seq"])
-    counts = phase_tied_f32(torch, attn, tce, tied_cfg, optimizer, nn,
-                            _build, parent)
+    counts, f32_run = phase_tied_f32(torch, attn, tce, tied_cfg, optimizer,
+                                     nn, _build, parent)
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
+    print("[12] the optimizers: 2-layer GPT at full width, card against CPU")
+    optim = phase_optim(torch, wrappers, optimizer, nn, regularizer,
+                        TransformerLMConfig)
+    print("[13] recompute: phase 11's step, then 2 of phase 10's")
+    rc_cfg = TransformerLMConfig(dropout=0.0, use_flash_attention=True,
+                                 max_seq_len=FLAGSHIP["seq"], recompute=True)
+    rc_f32, rc_bf16 = phase_recompute(
+        torch, wrappers, rc_cfg, optimizer, nn, f32_run, amp, attn, tce,
+        TransformerLMConfig, flagship_losses)
+    print("[14] generate(): GPT-124M greedy and top-k, beams on 2 layers")
+    k1_gen, k4_gen = phase_generate(torch, pa, attn, TransformerLMConfig)
 
-    k4_row["launches"] = k4
-    # K1 runs on three main paths: the serving cross-check (f32, the row at
-    # its longest shape) and the untied training (f32, the row at its
-    # shape), the flagship step in bf16; K2/K3 on the last two
-    k1_row["launches"] = k1
-    k1t_row["launches"] = k1_train
-    k2_row["launches"] = k2
-    k3_row["launches"] = k3
-    k1b_row["launches"] = k1_f
-    k2b_row["launches"] = k2_f
-    k3b_row["launches"] = k3_f
-    k5_row["launches"] = k5
-    k6_row["launches"] = k6
-    k7_row["launches"] = k7
-    # the f32 K5-K7 on phase 11's path
-    k5f_row["launches"], k6f_row["launches"], k7f_row["launches"] = counts[3:]
+    # launches summed over the main paths that run each row's kernel: K4
+    # and the serving K1 row on phases 4-5 and 14; the f32 training rows
+    # (K1 at the training shape, K2, K3, K5-K7) on phases 7, 11, 12 and
+    # 13; the bf16 rows on phases 10 and 13
+    k4_row["launches"] = k4 + k4_gen
+    k1_row["launches"] = k1 + k1_gen
+    f32 = [a + b + c for a, b, c in zip(counts, optim, rc_f32)]
+    k1t_row["launches"] = k1_train + f32[0]
+    k2_row["launches"] = k2 + f32[1]
+    k3_row["launches"] = k3 + f32[2]
+    k5f_row["launches"], k6f_row["launches"], k7f_row["launches"] = f32[3:]
+    bf16 = [a + b for a, b in zip(flagship, rc_bf16)]
+    for row, n in zip((k1b_row, k2b_row, k3b_row, k5_row, k6_row, k7_row),
+                      bf16):
+        row["launches"] = n
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -106,6 +106,26 @@ def amp_enabled():
     return _state.amp is not None
 
 
+def amp_state():
+    """The current ``auto_cast`` state (None outside one), for
+    ``resume`` to re-enter later, on another thread too."""
+    return _state.amp
+
+
+@contextmanager
+def resume(state):
+    """Re-enter an ``auto_cast`` state taken by ``amp_state`` (a block
+    recomputed in the backward casts as its forward did); None casts
+    nothing."""
+    prev = _state.amp
+    _state.amp = state
+    try:
+        with _AmpMode():
+            yield
+    finally:
+        _state.amp = prev
+
+
 def _cast_dtype_for(op_name):
     """The dtype to cast op ``op_name``'s float inputs to, or None (the
     reference rule, ``auto_cast.py:50-62``)."""

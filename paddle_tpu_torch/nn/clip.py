@@ -1,4 +1,4 @@
-"""Gradient clipping (reference ``paddle_tpu/nn/clip.py:61-129``).
+"""Gradient clipping (reference ``paddle_tpu/nn/clip.py:46-129``).
 
 A clip takes ``[(param, grad), ...]`` and returns a new list with new
 grads; ``param.grad`` is left as it is. A parameter with
@@ -9,6 +9,19 @@ import torch
 
 def _clippable(p, g):
     return g is not None and getattr(p, "need_clip", True)
+
+
+class ClipGradByValue:
+    """Each grad element clamped to ``[min, max]``; ``min`` defaults to
+    ``-max``."""
+
+    def __init__(self, max, min=None):  # noqa: A002
+        self.max = float(max)
+        self.min = float(min) if min is not None else -float(max)
+
+    def __call__(self, params_grads):
+        return [(p, g.clamp(self.min, self.max)) if _clippable(p, g)
+                else (p, g) for p, g in params_grads]
 
 
 class ClipGradByNorm:

@@ -1,8 +1,10 @@
 """Optimizers and learning-rate schedules of the port (reference
-``paddle_tpu/optimizer``): ``Adam``, ``AdamW`` and every scheduler of
-``lr``. The other optimizers of the reference are not ported yet."""
+``paddle_tpu/optimizer``): every optimizer of the reference and every
+scheduler of ``lr``."""
 from . import lr
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Ftrl,
+                         Lamb, LarsMomentum, Momentum, RMSProp)
 
-__all__ = ["lr", "Optimizer", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "RMSProp", "Lamb", "LarsMomentum", "Adadelta", "Ftrl"]

@@ -1,21 +1,29 @@
-"""Optimizer base (reference ``paddle_tpu/optimizer/optimizer.py:22-125``).
+"""Optimizer base (reference ``paddle_tpu/optimizer/optimizer.py``).
 
 The training loop is the reference's, in user code::
 
     loss = model(ids, labels=labels)
     loss.backward()
-    opt.step()
+    opt.step()          # or opt.minimize(loss) for the two lines above
     opt.clear_grad()
 
 ``step()`` runs under ``torch.no_grad()`` in the reference's order: the
 grad clip first (it returns new grads and leaves ``p.grad`` as it is),
-then one update per parameter, which writes the parameter and its f32
-state in place (the reference returned new arrays).
+then an ``L1Decay`` regularizer's ``coeff * sign(param)`` added to the
+clipped grads, then one update per parameter, which writes the
+parameter and its f32 state in place (the reference returned new
+arrays).
 
 The learning rate is a Python float rounded to f32, as the reference's
 f32 learning-rate tensor holds it; an ``LRScheduler`` writes into it.
 Inside an ``amp.auto_cast`` the update runs uncast, like the body of a
 port op.
+
+``state_dict()`` keys each state tensor ``f"{name}_{kind}"`` (``name``
+as given with the parameters, ``kind`` the reference's: ``moment1``,
+``beta1_pow``, ``velocity``, ...) beside an ``"LR_Scheduler"`` entry;
+``text.convert.optimizer_state_from_paddle_tpu`` carries a reference
+optimizer's state across.
 """
 import torch
 
@@ -27,35 +35,52 @@ def _f32(x):
     return float(torch.tensor(float(x), dtype=torch.float32))
 
 
+def _named(parameters):
+    """``[(name, tensor)]`` of ``parameters``: tensors, ``(name, tensor)``
+    pairs or param-group dicts (``{"params": [...]}``), flattened as the
+    reference flattens them; a tensor without a name is ``param_<i>`` by
+    its place in the flat list."""
+    flat = []
+    for entry in parameters:
+        if isinstance(entry, dict):
+            flat.extend(entry["params"])
+        else:
+            flat.append(entry)
+    return [entry if isinstance(entry, tuple) else (f"param_{i}", entry)
+            for i, entry in enumerate(flat)]
+
+
 class Optimizer:
-    """``parameters``: tensors (``model.parameters()``) or ``(name,
-    tensor)`` pairs (``model.named_parameters()``); a tensor without a
-    name is called ``param_<i>`` by its place in the list. Only
-    parameters with ``requires_grad`` and a grad are updated.
-    ``weight_decay``: a float is L2 decay coupled into the grad;
-    regularizer objects are not ported."""
+    """``parameters``: tensors (``model.parameters()``), ``(name,
+    tensor)`` pairs (``model.named_parameters()``) or param-group dicts
+    of either; as in the reference, a group's own options are not read.
+    Only parameters with ``requires_grad`` and a grad are updated.
+    ``weight_decay``: a float or ``regularizer.L2Decay`` is L2 decay
+    coupled into the update; ``regularizer.L1Decay`` adds
+    ``coeff * sign(param)`` to the clipped grad."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
         if parameters is None:
             raise ValueError("parameters must be given (pass "
                              "model.parameters() or model.named_parameters())")
-        self._params = []
-        for i, entry in enumerate(parameters):
-            if isinstance(entry, tuple):
-                self._params.append(entry)
-            else:
-                self._params.append((f"param_{i}", entry))
+        self._params = _named(parameters)
         self._grad_clip = grad_clip
         self._accumulators = {}
+        self._l1_coeff = 0.0
         if isinstance(weight_decay, (int, float)):
             self._weight_decay = float(weight_decay)  # grad += wd * param
         elif weight_decay is None:
             self._weight_decay = 0.0
         else:
-            raise NotImplementedError(
-                "regularizer objects as weight_decay are not ported; pass "
-                "a float (L2 decay)")
+            coeff = getattr(weight_decay, "_coeff",
+                            getattr(weight_decay, "coeff", None))
+            if coeff is None:
+                raise TypeError(f"weight_decay must be a float, L1Decay or "
+                                f"L2Decay, got {weight_decay!r}")
+            self._weight_decay = float(coeff)
+            if getattr(weight_decay, "_mode", "l2") == "l1":
+                self._l1_coeff, self._weight_decay = self._weight_decay, 0.0
         self._lr = 0.0
         if isinstance(learning_rate, LRScheduler):
             self._lr_scheduler = learning_rate
@@ -77,6 +102,8 @@ class Optimizer:
         for p in self._parameter_list():
             p.grad = None
 
+    clear_gradients = clear_grad
+
     @torch.no_grad()
     def step(self):
         params_grads = [(p, p.grad) for p in self._parameter_list()
@@ -87,9 +114,24 @@ class Optimizer:
         with op_body():
             if self._grad_clip is not None:
                 params_grads = self._grad_clip(params_grads)
+            if self._l1_coeff:
+                c = self._l1_coeff
+                params_grads = [(p, g + c * torch.sign(p.to(g.dtype)))
+                                for p, g in params_grads]
             names = {id(p): n for n, p in self._params}
             for p, g in params_grads:
                 self._apply_one(names[id(p)], p, g)
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()`` then ``step()``; returns ``(None, None)``
+        as the reference's dygraph branch does."""
+        if not isinstance(loss, torch.Tensor):
+            raise NotImplementedError(
+                "minimize of a static-program variable is not ported")
+        loss.backward()
+        self.step()
+        return None, None
 
     def _acc(self, kind, param, init=0.0, shape=None):
         """The f32 state ``kind`` of ``param`` on its device, made on
@@ -101,6 +143,56 @@ class Optimizer:
                                     init, dtype=torch.float32,
                                     device=param.device)
         return store[key]
+
+    def state_dict(self):
+        """The live state tensors by ``f"{name}_{kind}"``, and under
+        ``"LR_Scheduler"`` the learning rate, the scheduler's own state
+        and the parameters' names in order."""
+        names = {id(p): n for n, p in self._params}
+        sd = {f"{names.get(pid, str(pid))}_{kind}": t
+              for kind, store in self._accumulators.items()
+              for pid, t in store.items()}
+        meta = {"last_lr": self.get_lr()}
+        if self._lr_scheduler is not None:
+            meta.update(self._lr_scheduler.state_dict())
+        meta["param_order"] = [n for n, _ in self._params]
+        sd["LR_Scheduler"] = meta
+        return sd
+
+    def set_state_dict(self, state_dict):
+        """Load a ``state_dict()``: each key goes to the parameter whose
+        name prefixes it, longest name first (so a name that prefixes
+        another's cannot take its state); where no key matches a current
+        name, by the saved ``param_order``. Values are copied into
+        existing state, or made f32 on the parameter's device."""
+        meta = state_dict.get("LR_Scheduler")
+        keys = [k for k in state_dict if k != "LR_Scheduler"]
+        hits = sum(1 for k in keys
+                   if any(k.startswith(n + "_") for n, _ in self._params))
+        order = meta.get("param_order") if isinstance(meta, dict) else None
+        if hits == 0 and order is not None \
+                and len(order) == len(self._params):
+            pairs = [(saved, p) for saved, (_, p) in zip(order, self._params)]
+        else:
+            pairs = list(self._params)
+        pairs.sort(key=lambda kv: -len(kv[0]))
+        for key in keys:
+            for name, p in pairs:
+                if key.startswith(name + "_"):
+                    store = self._accumulators.setdefault(
+                        key[len(name) + 1:], {})
+                    val = torch.as_tensor(state_dict[key])
+                    if id(p) in store:
+                        store[id(p)].copy_(val)
+                    else:
+                        store[id(p)] = val.detach().to(
+                            device=p.device, dtype=torch.float32).clone()
+                    break
+        if isinstance(meta, dict):
+            if self._lr_scheduler is not None and "last_epoch" in meta:
+                self._lr_scheduler.last_epoch = meta["last_epoch"]
+            if "last_lr" in meta:
+                self.set_lr(meta["last_lr"])
 
     def _apply_one(self, name, param, grad):
         raise NotImplementedError

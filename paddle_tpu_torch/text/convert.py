@@ -1,9 +1,12 @@
-"""Weights carried across from the JAX reference.
+"""Weights and optimizer state carried across from the JAX reference.
 
 A ``paddle_tpu`` ``state_dict()`` (as numpy arrays) uses the same names
 as the port's modules. Paddle's ``Linear.weight`` is ``[in, out]`` and
 torch's is ``[out, in]``, so linear weights are transposed; embeddings
-and LayerNorm parameters are copied as they are.
+and LayerNorm parameters are copied as they are. An optimizer's state
+is keyed ``f"{param name}_{kind}"``, with the reference's
+``Parameter.name`` there and the port's ``named_parameters()`` name
+here; the moments of a linear weight are transposed like the weight.
 """
 import numpy as np
 import torch
@@ -37,3 +40,58 @@ def state_dict_to_paddle_tpu(state_dict):
             t = t.t()
         out[name] = np.ascontiguousarray(t.numpy())
     return out
+
+
+def _rename_state(state, names, to_array, port_is_dst):
+    """``state`` with each key's parameter name mapped through
+    ``names`` (longest name first), linear weights' moments transposed
+    by ``to_array(value, transpose)``, and the ``"LR_Scheduler"`` entry
+    copied with its ``param_order`` mapped. The port's name (the
+    destination's when ``port_is_dst``) tells a linear weight."""
+    by_len = sorted(names, key=len, reverse=True)
+    out = {}
+    for key, val in state.items():
+        if key == "LR_Scheduler":
+            meta = dict(val)
+            if "param_order" in meta:
+                meta["param_order"] = [names.get(n, n)
+                                       for n in meta["param_order"]]
+            out[key] = meta
+            continue
+        src = next((n for n in by_len if key.startswith(n + "_")), None)
+        if src is None:
+            raise KeyError(f"optimizer state {key!r}: no parameter name "
+                           "in names prefixes it")
+        dst = names[src]
+        lin = _is_linear_weight(dst if port_is_dst else src,
+                                len(val.shape))
+        out[f"{dst}_{key[len(src) + 1:]}"] = to_array(val, lin)
+    return out
+
+
+def _to_torch(val, transpose):
+    t = torch.from_numpy(np.array(val))
+    return t.t().contiguous() if transpose else t
+
+
+def _to_numpy(val, transpose):
+    t = val.detach().cpu()
+    return np.ascontiguousarray((t.t() if transpose else t).numpy())
+
+
+def optimizer_state_from_paddle_tpu(np_state, names):
+    """A reference optimizer's ``state_dict()`` (numpy arrays, and the
+    ``"LR_Scheduler"`` dict) -> the port's, for ``set_state_dict``.
+    ``names`` maps each reference ``Parameter.name`` to the port's name
+    of the same parameter: ``{p.name: n for n, p in
+    ref_model.named_parameters()}`` when the port's optimizer was given
+    ``model.named_parameters()``."""
+    return _rename_state(np_state, names, _to_torch, True)
+
+
+def optimizer_state_to_paddle_tpu(state, names):
+    """The inverse: a port optimizer's ``state_dict()`` -> numpy arrays
+    under the reference's names. ``names`` is the same map, reference
+    name -> port name."""
+    return _rename_state(state, {v: k for k, v in names.items()},
+                         _to_numpy, False)

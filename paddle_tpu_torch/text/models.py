@@ -12,17 +12,24 @@ cross-entropy kernels; plain matmuls stay ``torch.matmul``, as the
 reference left them to XLA. Dropout draws from an explicit generator
 (``ops.nn_ops.dropout``).
 
-``decode_forward_builder`` is the KV-cache decode math the serving
-programs share (reference ``_decode_forward_builder``), with the
-reference's ``lax.scan`` over layers as a Python loop and the cache
-updated in place.
+With ``recompute=True`` each block keeps only its input in the forward
+and is run again in the backward (``_BlockRecompute``), with the dropout
+generator's state and the ``auto_cast`` state of its forward.
+
+``decode_forward_builder`` is the KV-cache decode math that
+``GPTForCausalLM.generate`` and the serving programs share (reference
+``_decode_forward_builder``), with the reference's ``lax.scan`` over
+layers as a Python loop and the cache updated in place.
 """
 import math
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..amp.auto_cast import amp_state, resume
+from ..core import rng
 from ..core.device import resolve_device
 from ..ops import attention as attn_ops
 from ..ops import fused_ce, nn_ops
@@ -31,20 +38,19 @@ from ..ops import fused_ce, nn_ops
 class TransformerLMConfig:
     """The reference's knobs and defaults for the single-device GPT; the
     defaults are GPT-124M (vocab 50304, hidden 768, 12 layers, 12 heads,
-    1024 positions). Tensor and sequence parallelism and recompute are
-    not ported and raise. ``use_flash_attention`` and ``sp_mode`` are
-    stored and, as in the reference, not consulted: attention always
-    takes the flash path."""
+    1024 positions). ``recompute`` recomputes each block in the
+    backward. Tensor and sequence parallelism are not ported and raise.
+    ``use_flash_attention`` and ``sp_mode`` are stored and, as in the
+    reference, not consulted: attention always takes the flash path."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=None, max_seq_len=1024,
                  dropout=0.1, use_mp=False, tie_embeddings=True,
                  use_flash_attention=True, initializer_range=0.02,
                  recompute=False, use_sp=False, sp_mode="ring"):
-        if use_mp or use_sp or recompute:
+        if use_mp or use_sp:
             raise NotImplementedError(
-                "use_mp / use_sp / recompute: the distributed and "
-                "recompute branches are not ported")
+                "use_mp / use_sp: the distributed branches are not ported")
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of num_heads {num_heads}")
@@ -61,6 +67,7 @@ class TransformerLMConfig:
         self.tie_embeddings = tie_embeddings
         self.use_flash_attention = use_flash_attention
         self.initializer_range = initializer_range
+        self.recompute = recompute
         self.sp_mode = sp_mode
 
 
@@ -122,6 +129,57 @@ class Block(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
+@contextmanager
+def _rng_replay(generator, state):
+    """Run with ``generator`` at ``state``, then put back the state it
+    had (nothing to do without a generator)."""
+    if generator is None:
+        yield
+        return
+    left = generator.get_state()
+    generator.set_state(state)
+    try:
+        yield
+    finally:
+        generator.set_state(left)
+
+
+class _BlockRecompute(torch.autograd.Function):
+    """A block whose activations are not kept: the forward saves only
+    its input, the backward runs the block again and differentiates it
+    (reference ``distributed/utils_recompute.py:17-73``). Its dropout
+    draws from an explicit generator (``ops.nn_ops.dropout``), which
+    ``torch.utils.checkpoint``'s RNG preservation does not see, so the
+    state of ``generator`` before the forward is replayed for the
+    recomputation and the state the forward left is put back after it.
+    ``amp.auto_cast`` is a ``TorchFunctionMode`` that the backward would
+    run outside of, so the forward's cast state is re-entered too.
+    ``params`` are the block's parameters, passed so that autograd gives
+    them their grads."""
+
+    @staticmethod
+    def forward(ctx, block, generator, x, *params):
+        ctx.block, ctx.generator = block, generator
+        ctx.rng_state = None if generator is None else generator.get_state()
+        ctx.amp = amp_state()
+        ctx.save_for_backward(x)
+        return block(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        x = x.detach().requires_grad_(needs[0])
+        with torch.enable_grad(), \
+                _rng_replay(ctx.generator, ctx.rng_state), resume(ctx.amp):
+            y = ctx.block(x)
+        inputs = [x, *ctx.block.parameters()]
+        got = iter(torch.autograd.grad(
+            y, [t for t, n in zip(inputs, needs) if n], grad,
+            allow_unused=True))
+        return (None, None, *(next(got) if n else None for n in needs))
+
+
 class _TransformerCore(nn.Module):
     def __init__(self, cfg, device=None, dropout_generator=None):
         super().__init__()
@@ -143,8 +201,18 @@ class _TransformerCore(nn.Module):
         if self.cfg.dropout:
             x = nn_ops.dropout(x, self.cfg.dropout, self.training,
                                generator=self.dropout_generator)
-        for blk in self.blocks:
-            x = blk(x)
+        if self.cfg.recompute and self.training and x.requires_grad:
+            # the generator the blocks' dropout draws from
+            gen = None
+            if self.cfg.dropout:
+                gen = self.dropout_generator
+                if gen is None:
+                    gen = rng.default_generator(x.device)
+            for blk in self.blocks:
+                x = _BlockRecompute.apply(blk, gen, x, *blk.parameters())
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         return self.ln_f(x)
 
 
@@ -213,6 +281,111 @@ class GPTForCausalLM(nn.Module):
                                     labels.reshape(-1))
 
     @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=0, seed=0, num_beams=1):
+        """Autoregressive decoding (reference ``generate``,
+        models.py:619-786) over an f32 KV cache ``[L, b, heads, prompt +
+        max_new_tokens, head_dim]``, with the decode math of the serving
+        engine (``decode_forward_builder``): a prefill of the prompt,
+        then one token a step. Greedy when ``temperature <= 0`` or
+        ``top_k == 1``; otherwise a draw from ``softmax(logits /
+        temperature)`` over the logits at or above the ``top_k``-th
+        largest (ties kept; 0 = the full vocab), from a
+        ``torch.Generator`` on the model's device seeded with ``seed``:
+        the same seed gives the same tokens, not the reference's.
+        ``num_beams > 1`` is deterministic beam search over the summed
+        log-probabilities; the best beam is returned. Returns the prompt
+        and the new tokens, int64 ``[b, prompt + max_new_tokens]`` on the
+        model's device."""
+        cfg = self.cfg
+        dev = self.device
+        ids = torch.as_tensor(input_ids, device=dev).long()
+        b, s0 = ids.shape
+        n_new = int(max_new_tokens)
+        total = s0 + n_new
+        if total > cfg.max_seq_len:
+            raise ValueError(f"prompt {s0} + max_new_tokens "
+                             f"{max_new_tokens} exceeds max_seq_len "
+                             f"{cfg.max_seq_len}")
+        if n_new <= 0:
+            return ids.clone()
+        K = int(num_beams)
+        if K < 1:
+            raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+        if K > 1:
+            if K > cfg.vocab_size:
+                raise ValueError(f"num_beams {K} > vocab size "
+                                 f"{cfg.vocab_size}")
+            if temperature not in (1.0, 0.0) or top_k or seed:
+                raise ValueError(
+                    "num_beams > 1 is deterministic beam search; "
+                    "temperature/top_k/seed do not apply (use "
+                    "num_beams=1 for sampling)")
+        nh = cfg.num_heads
+        hd = cfg.hidden_size // nh
+        params = self.export_decode_params()
+        head = params["head"]
+        _, hidden_t = decode_forward_builder(nh, hd, cfg.hidden_size)
+        kc = torch.zeros(cfg.num_layers, b, nh, total, hd, device=dev)
+        vc = torch.zeros_like(kc)
+        logits = hidden_t(params, ids, 0, kc, vc)[:, -1] @ head
+        if K > 1:
+            return torch.cat([ids, self._beam_search(
+                params, hidden_t, logits, kc, vc, s0, n_new, K)], 1)
+
+        greedy = temperature <= 0 or top_k == 1
+        kk = min(int(top_k), cfg.vocab_size)
+        temp = float(torch.tensor(max(temperature, 1e-6),
+                                  dtype=torch.float32))
+        gen = None if greedy else torch.Generator(device=dev).manual_seed(
+            int(seed))
+
+        def pick(lg):
+            if greedy:
+                return lg.argmax(-1)
+            lg = lg / temp
+            if kk > 0:
+                kth = lg.topk(kk, dim=-1).values[:, -1:]
+                lg = lg.masked_fill(lg < kth, -1e30)
+            # Gumbel-max: argmax(lg + G) is a draw from softmax(lg)
+            u = torch.rand(lg.shape, generator=gen, device=dev)
+            return (lg - torch.log(-torch.log(u))).argmax(-1)
+
+        out = [pick(logits)]
+        for i in range(1, n_new):
+            h = hidden_t(params, out[-1][:, None], s0 + i - 1, kc, vc)
+            out.append(pick(h[:, -1] @ head))
+        return torch.cat([ids, torch.stack(out, 1)], 1)
+
+    def _beam_search(self, params, hidden_t, logits, kc, vc, s0, n_new, K):
+        """The reference's ``beam_decode``: K beams a row join the batch,
+        each step keeps the K best of the K x vocab extensions by summed
+        log-probability (ties to the lower flat index) and gathers the
+        caches and sequences by beam. ``[b, n_new]``, the best beam."""
+        b, V = logits.shape
+        L, _, nh, total, hd = kc.shape
+        rows = torch.arange(b, device=logits.device)[:, None]
+        scores, tok = _top(torch.log_softmax(logits, -1), K)
+        kc = kc.repeat_interleave(K, dim=1)
+        vc = vc.repeat_interleave(K, dim=1)
+        seqs = torch.zeros(b, K, n_new, dtype=torch.long,
+                           device=logits.device)
+        seqs[:, :, 0] = tok
+        for i in range(1, n_new):
+            h = hidden_t(params, tok.reshape(b * K, 1), s0 + i - 1, kc, vc)
+            lp = torch.log_softmax(h[:, -1] @ params["head"], -1)
+            cand = scores[:, :, None] + lp.reshape(b, K, V)
+            scores, flat = _top(cand.reshape(b, K * V), K)
+            beam, tok = flat // V, flat % V
+            kc = kc.view(L, b, K, nh, total, hd)[:, rows, beam].reshape(
+                L, b * K, nh, total, hd)
+            vc = vc.view(L, b, K, nh, total, hd)[:, rows, beam].reshape(
+                L, b * K, nh, total, hd)
+            seqs = seqs[rows, beam]
+            seqs[:, :, i] = tok
+        return seqs[:, 0]
+
+    @torch.no_grad()
     def export_decode_params(self):
         """Weights as the decode programs consume them, snapshotted now:
         per-layer tensors stacked on a leading layer axis (``stacked``)
@@ -246,6 +419,14 @@ class GPTForCausalLM(nn.Module):
                 "pemb": W(self.gpt.position_embeddings.weight),
                 "lnf_w": W(self.gpt.ln_f.weight),
                 "lnf_b": W(self.gpt.ln_f.bias), "head": head}
+
+
+def _top(x, k):
+    """The ``k`` largest of each row of ``x`` and their indices, ties
+    to the lower index, as ``lax.top_k`` breaks them (``torch.topk``
+    promises no order among equal values)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
 
 
 def decode_forward_builder(num_heads, head_dim, hidden_size):

@@ -31,7 +31,7 @@ def torch_twin(jax_model):
         vocab_size=c.vocab_size, hidden_size=c.hidden_size,
         num_layers=c.num_layers, num_heads=c.num_heads,
         max_seq_len=c.max_seq_len, dropout=c.dropout,
-        tie_embeddings=c.tie_embeddings)
+        tie_embeddings=c.tie_embeddings, recompute=c.recompute)
     tm = tmodels.GPTForCausalLM(cfg, device="cpu")
     tm.load_state_dict(state_dict_from_paddle_tpu(
         numpy_state_dict(jax_model)))

@@ -141,6 +141,9 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    for module in ("regularizer.py", "optimizer/optimizers.py",
+                   "nn/clip.py", "text/models.py", "text/convert.py"):
+        assert REPO / "paddle_tpu_torch" / module in files, module
     bad = []
     for f in files:
         for name in _imports(f):
@@ -174,6 +177,8 @@ def test_unported_paths_raise():
             ServingEngine(m, device="cpu", **knob)
     with pytest.raises(NotImplementedError):
         tmodels.TransformerLMConfig(use_mp=True)
+    with pytest.raises(NotImplementedError):
+        tmodels.TransformerLMConfig(use_sp=True)
 
 
 def test_config_takes_the_reference_keywords():

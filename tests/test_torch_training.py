@@ -180,12 +180,14 @@ def test_adam_updates_match_reference(which, kw):
 
 
 def test_optimizer_rejects_what_is_not_ported():
+    """Sparse grads raise; so do a weight_decay that is neither a float
+    nor a regularizer and a missing parameter list. ``lr_ratio`` and
+    ``multi_precision`` are taken (and, as in the reference, not read:
+    tests/test_torch_optimizers.py)."""
     p = torch.nn.Parameter(torch.ones(3))
-    with pytest.raises(NotImplementedError):
-        topt.AdamW(1e-3, parameters=[p], lr_ratio=lambda n: 1.0)
-    with pytest.raises(NotImplementedError):
-        topt.Adam(1e-3, parameters=[p], multi_precision=True)
-    with pytest.raises(NotImplementedError):
+    topt.AdamW(1e-3, parameters=[p], lr_ratio=lambda n: 1.0)
+    topt.Adam(1e-3, parameters=[p], multi_precision=True)
+    with pytest.raises(TypeError):
         topt.Adam(1e-3, parameters=[p], weight_decay=object())
     with pytest.raises(ValueError):
         topt.Adam(1e-3)
