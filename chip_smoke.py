@@ -112,11 +112,36 @@ Phases, one line each:
              temperature 0.8, seed 1 twice: the same tokens, each within
              the teacher-forced top 40 (less 1e-4); beam search (4 beams,
              batch 2, 32 new) on phase 8's 2-layer model, card against
-             CPU, the same tokens; generated tokens/s of greedy and beams.
+             CPU, the same tokens; generated tokens/s of greedy and beams;
+ 15. rest    the rest of the serving engine on phase 4's GPT-124M, seed
+             and 16 requests in phase 4's two waves, num_slots 8, every
+             stream held to phase 5's rule (token for token, or parting at
+             a top-2 margin below 1e-4 in the port's forward; for a
+             sampled token the margin of the logits the head draws from)
+             and each run's tokens/s printed beside phase 4's: 15a the slot
+             pool (paged=False, max_len 1024) at async_depth 1 and 0
+             against phase 4's streams; 15b prefill_chunk 128 under a
+             256-token budget on both pools against the same pool
+             unchunked, with the chunk dispatches; 15c speculative
+             decoding (spec_k 4) on both pools against phase 4, with the
+             drafted and accepted tokens and the acceptance rate; 15d
+             sampling=True with 8 greedy and 8 sampled requests
+             (temperature 0.8, top-k 40, top-p 0.95, seeds 0-7) on both
+             pools: greedy rows against phase 4, a second run the same
+             bits, the sampled rows across pools and chunking, and phase
+             8's 2-layer model card against CPU; 15e a role="prefill"
+             engine (hold_kv, max_new_tokens 1) exporting each prompt
+             through json.dumps/loads into a role="decode" engine against
+             phase 4, the wire bytes a prompt token and the handoff ms,
+             and one flipped byte refused with KVWireError, the pool
+             unchanged. On every paged run K4 = 12 x its plain decode
+             steps (verify steps attend in plain torch), set to 0 before
+             and read after; every pool conserved and empty at the end.
 Then the card's name and power limit, one JSON line of kernel numbers
-(launches summed over the main paths: phases 4-5 and 14 for K4 and the
-serving K1 row, 7, 11, 12 and 13 for the f32 training rows, 10 and 13
-for the bf16 ones), and as the last line {"ok": true, "device": {...}}.
+(launches summed over the main paths: phases 4, 14 and 15's paged runs
+for K4, 5 and 14 for the serving K1 row, 7, 11, 12 and 13 for the f32
+training rows, 10 and 13 for the bf16 ones), and as the last line {"ok":
+true, "device": {...}}.
 
 TF32 is off for matmuls and cuDNN, so every f32 product is full f32.
 Any failure raises: the exit code is non-zero and no "ok" line prints.
@@ -124,6 +149,7 @@ Without a CUDA device, or without the package beside this file, it
 exits non-zero at once.
 """
 import argparse
+import base64
 import contextlib
 import ctypes
 import json
@@ -1551,6 +1577,292 @@ def phase_generate(torch, pa, attn, TransformerLMConfig):
     return k1, k4
 
 
+# --------------------------------------------------------------- phase 15
+
+# 15d's sampled requests: every other one of the 16, seeds 0-7
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95)
+
+
+def request_kwargs(n, sampled):
+    """Per-request add_request keywords: greedy, or with ``sampled`` the
+    odd requests sampled at SAMPLED with seeds 0, 1, ..."""
+    if not sampled:
+        return [{} for _ in range(n)]
+    return [dict(SAMPLED, seed=i // 2) if i % 2 else {} for i in range(n)]
+
+
+def drive(eng, prompts, max_new, kws):
+    """Phase 4's arrivals: eight requests, 24 steps, the other eight;
+    returns the requests and the wall seconds (ending in a sync)."""
+    import torch
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, max_new_tokens=n, **kw)
+            for p, n, kw in zip(prompts[:8], max_new[:8], kws[:8])]
+    for _ in range(24):
+        eng.step()
+    reqs += [eng.add_request(p, max_new_tokens=n, **kw)
+             for p, n, kw in zip(prompts[8:], max_new[8:], kws[8:])]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r, n in zip(reqs, max_new):
+        check(r.done and len(r.generated) == n,
+              f"request {r.rid} incomplete: {len(r.generated)}/{n}")
+    return reqs, wall
+
+
+def same_stream(torch, model, prompt, got, want, kw):
+    """Phase 5's rule: token for token, except that the streams may part
+    at a token whose top-2 margin in the port's forward (over the prompt
+    and the tokens both streams share) is below TIE_MARGIN; for a sampled
+    request the margin is taken on the logits the sampling head draws
+    from (scaled, masked, Gumbel noise added). Returns None when equal,
+    else the margin where they part."""
+    from paddle_tpu_torch.serving.sched.sampling import (gumbel_noise,
+                                                         masked_logits)
+    i = first_divergence(got, want)
+    if i is None:
+        check(len(got) == len(want), f"stream lengths {len(got)} vs "
+              f"{len(want)}")
+        return None
+    ids = torch.from_numpy(np.concatenate(
+        [prompt, np.asarray(want[:i], np.int64)])).to(model.device)[None]
+    with torch.inference_mode():
+        lg = model(ids)[0, -1:].float()
+        if kw:
+            dev = lg.device
+            lg = masked_logits(
+                lg, torch.tensor([kw["temperature"]], device=dev),
+                torch.tensor([kw["top_k"]], device=dev),
+                torch.tensor([kw["top_p"]], device=dev)) + gumbel_noise(
+                torch.tensor([kw["seed"]], device=dev),
+                torch.tensor([len(prompt) - 1 + i], device=dev),
+                lg.shape[-1])
+    top2 = lg[0].topk(2).values
+    margin = float(top2[0] - top2[1])
+    check(margin < TIE_MARGIN, f"streams part at token {i}: {got[i]} vs "
+          f"{want[i]} at margin {margin:.3e}")
+    return margin
+
+
+def compare(torch, model, prompts, reqs, want, kws, label):
+    """Every stream of ``reqs`` against ``want`` (token lists) under the
+    margin rule; prints and returns the number that parted at a tie."""
+    ties = [m for p, r, w, kw in zip(prompts, reqs, want, kws)
+            if (m := same_stream(torch, model, p, r.generated, w, kw))
+            is not None]
+    print(f"    {label}: {len(reqs) - len(ties)}/{len(reqs)} streams equal"
+          + (f", {len(ties)} parting at a near-tie (margins "
+             f"{', '.join(f'{m:.2e}' for m in ties)})" if ties else ""))
+    return len(ties)
+
+
+def serve_case(torch, model, prompts, max_new, pa, label, kws=None,
+               **knobs):
+    """One main-path run of phase 15 with the K4 count set to 0 just
+    before and read just after: on the paged pool K4 = 12 x the plain
+    decode steps (verify steps attend without it), on the slot pool 0."""
+    from paddle_tpu_torch.serving import ServingEngine
+    L = model.cfg.num_layers
+    kws = kws or [{} for _ in prompts]
+    eng = ServingEngine(model, num_slots=8, block_size=16, **knobs)
+    pa.paged_decode_attention.launches = 0
+    reqs, wall = drive(eng, prompts, max_new, kws)
+    k4 = pa.paged_decode_attention.launches
+    M = eng.metrics
+    plain = M.decode_steps - M.spec_verify_steps
+    if eng.paged:
+        eng.pool.check_conservation()
+        check(eng.pool.live_blocks == 0, f"{label}: blocks leaked")
+        check(k4 == plain * L and k4 > 0, f"{label}: K4 launches {k4} != "
+              f"{plain} plain decode steps x {L}")
+    else:
+        check(k4 == 0, f"{label}: K4 launched {k4} times on the slot pool")
+    return reqs, eng, k4, M.tokens_per_sec(), wall
+
+
+def phase_rest(torch, pa, TransformerLMConfig, prompts, max_new, ref, tps4):
+    """Phase 15, the rest of the serving engine on phase 4's GPT-124M
+    (same seed, weights and 16 requests; ``ref`` phase 4's paged greedy
+    streams, ``tps4`` its tokens/s): 15a the slot pool at both pipeline
+    depths; 15b chunked prefill on both pools; 15c speculative decoding
+    on both pools; 15d per-slot sampling on both pools, twice, chunked,
+    and card against CPU on phase 8's 2-layer model; 15e a prefill-role
+    engine exporting each prompt's KV through JSON into a decode-role
+    engine. Returns the K4 launches of its paged runs."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.kv_wire import KVWireError
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    cfg = TransformerLMConfig(dropout=0.0)
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        1234)).eval()
+    n = len(prompts)
+    greedy = [{} for _ in range(n)]
+    k4_total = 0
+
+    def line(label, eng, tps, wall, k4, extra=""):
+        print(f"  {label}: {eng.metrics.tokens_generated} tokens in "
+              f"{wall:.3f} s, tokens/s {tps:.1f} (phase 4: {tps4:.1f}); "
+              f"decode steps {eng.metrics.decode_steps}, K4 launches {k4}"
+              + extra)
+
+    print("  [15a] slot pool (paged=False, max_len=1024)")
+    slot_ref = None
+    for depth in (1, 0):
+        reqs, eng, k4, tps, wall = serve_case(
+            torch, model, prompts, max_new, pa, "15a", paged=False,
+            max_len=1024, async_depth=depth)
+        line(f"async_depth={depth}", eng, tps, wall, k4,
+             f"; prefill groups {eng.metrics.prefill_group_hist}")
+        compare(torch, model, prompts, reqs, ref, greedy, "vs phase 4")
+        if depth == 1:
+            slot_ref = [r.generated for r in reqs]
+    print("  [15b] chunked prefill (prefill_chunk=128, "
+          "prefill_token_budget=256)")
+    for paged, want in ((False, slot_ref), (True, ref)):
+        reqs, eng, k4, tps, wall = serve_case(
+            torch, model, prompts, max_new, pa, "15b", paged=paged,
+            max_len=1024, prefill_chunk=128, prefill_token_budget=256)
+        k4_total += k4
+        sch = eng.metrics.snapshot()["scheduler"]
+        line("paged" if paged else "slot pool", eng, tps, wall, k4,
+             f"; chunk dispatches {sch['prefill_chunks']} for "
+             f"{sch['chunked_requests']} chunked requests")
+        # on the paged pool a cached prefix shortens the tail to chunk
+        long = sum(len(p) > 128 for p in prompts)
+        check(0 < sch["chunked_requests"] <= long and (
+            paged or sch["chunked_requests"] == long),
+            f"15b: chunked requests {sch['chunked_requests']} of {long}")
+        compare(torch, model, prompts, reqs, want, greedy,
+                "vs the same pool unchunked")
+    print("  [15c] speculative decoding (spec_k=4)")
+    for paged in (False, True):
+        reqs, eng, k4, tps, wall = serve_case(
+            torch, model, prompts, max_new, pa, "15c", paged=paged,
+            max_len=1024, speculative=True, spec_k=4)
+        k4_total += k4
+        sp = eng.metrics.snapshot()["spec"]
+        line("paged" if paged else "slot pool", eng, tps, wall, k4,
+             f" (12 x {sp['fallback_steps']} plain steps; "
+             f"{sp['verify_steps']} verify steps); drafted "
+             f"{sp['drafted_tokens']}, accepted {sp['accepted_tokens']}, "
+             f"acceptance rate {sp['acceptance_rate']}, tokens a slot-leg "
+             f"{sp['effective_tokens_per_dispatch']}")
+        check(sp["verify_steps"] > 0, "15c: no verify step ran")
+        compare(torch, model, prompts, reqs, ref, greedy, "vs plain greedy")
+    print(f"  [15d] sampling: 8 greedy, 8 sampled at {SAMPLED}, seeds 0-7")
+    kws = request_kwargs(n, True)
+    sampled = [i for i in range(n) if kws[i]]
+    first = {}
+    for paged, chunk in ((False, None), (True, None), (True, 128)):
+        runs = []
+        for _ in range(1 if chunk else 2):
+            reqs, eng, k4, tps, wall = serve_case(
+                torch, model, prompts, max_new, pa, "15d", kws, paged=paged,
+                max_len=1024, sampling=True, prefill_chunk=chunk)
+            k4_total += k4
+            runs.append(reqs)
+            line(("paged" if paged else "slot pool")
+                 + (f", chunk {chunk}" if chunk else f", run {len(runs)}"),
+                 eng, tps, wall, k4)
+        compare(torch, model, [prompts[i] for i in range(n) if i % 2 == 0],
+                [runs[0][i] for i in range(n) if i % 2 == 0],
+                [ref[i] for i in range(n) if i % 2 == 0], greedy,
+                "greedy rows vs phase 4")
+        if len(runs) == 2:
+            check(all(runs[0][i].generated == runs[1][i].generated
+                      for i in sampled), "15d: a second run with the same "
+                  "seeds drew other tokens")
+            print("    sampled rows: the second run drew the same tokens, "
+                  "bit for bit")
+        if first:
+            compare(torch, model, [prompts[i] for i in sampled],
+                    [runs[0][i] for i in sampled],
+                    [first["slot"][i].generated for i in sampled],
+                    [kws[i] for i in sampled],
+                    "sampled rows vs the slot pool's")
+        else:
+            first["slot"] = runs[0]
+    cfg2 = TransformerLMConfig(num_layers=2, dropout=0.0)
+    outs = {}
+    for device in ("cpu", None):
+        m2 = GPTForCausalLM(cfg2, device=device, generator=torch.Generator()
+                            .manual_seed(7)).eval()
+        eng = ServingEngine(m2, num_slots=8, block_size=16, device=device,
+                            sampling=True)
+        reqs = [eng.add_request(p, max_new_tokens=k, **kw)
+                for p, k, kw in zip(prompts, max_new, kws)]
+        eng.run()
+        outs[device] = (m2, reqs)
+    compare(torch, outs[None][0], prompts, outs[None][1],
+            [r.generated for r in outs["cpu"][1]], kws,
+            "2-layer model, card vs CPU, all 16 rows")
+    del outs
+    print("  [15e] disaggregation: role=prefill -> JSON -> role=decode")
+    pe = ServingEngine(model, num_slots=8, block_size=16, max_len=1024,
+                       role="prefill")
+    de = ServingEngine(model, num_slots=8, block_size=16, max_len=1024,
+                       role="decode")
+    de.warmup_kv_handoff()
+    pa.paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    held = [pe.add_request(p, max_new_tokens=1, hold_kv=True)
+            for p in prompts]
+    dreqs, handoff_s, corrupt = {}, [], None
+    while len(dreqs) < n:
+        pe.step()
+        for i, r in enumerate(held):
+            if not r.done or i in dreqs:
+                continue
+            t1 = time.perf_counter()
+            payload = json.loads(json.dumps(pe.export_kv(r.rid)))
+            while de.pool.free_count == 0:
+                de.step()
+            dreqs[i] = de.import_kv(payload, max_new[i])
+            handoff_s.append(time.perf_counter() - t1)
+            corrupt = corrupt or payload
+        de.step()
+    de.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4 = pa.paged_decode_attention.launches
+    k4_total += k4
+    check(k4 == de.metrics.decode_steps * cfg.num_layers and k4 > 0,
+          f"15e: K4 launches {k4} != {de.metrics.decode_steps} x 12")
+    reqs = [dreqs[i] for i in range(n)]
+    for r, k in zip(reqs, max_new):
+        check(r.done and len(r.generated) == k, f"15e: request {r.rid} "
+              f"incomplete")
+    for e in (pe, de):
+        e.pool.check_conservation()
+        check(e.pool.live_blocks == 0, "15e: blocks leaked")
+    wire = pe.metrics.snapshot()["kv_wire"]
+    ptoks = sum(len(p) for p in prompts)
+    tps = de.metrics.tokens_per_sec()
+    line("decode engine", de, tps, wall, k4,
+         f"; {wire['exports']} handoffs, {wire['export_bytes']} wire bytes "
+         f"= {wire['export_bytes'] / ptoks:.1f} a prompt token; handoff "
+         f"(export, JSON both ways, import) {np.mean(handoff_s) * 1e3:.2f} "
+         f"ms mean, {max(handoff_s) * 1e3:.2f} max")
+    compare(torch, model, prompts, reqs, ref, greedy, "vs phase 4")
+    # one flipped byte: refused, the pool as it was
+    frame = corrupt["frames"][0]
+    raw = bytearray(base64.b64decode(frame["k"]))
+    raw[len(raw) // 2] ^= 0x01
+    frame["k"] = base64.b64encode(bytes(raw)).decode()
+    before = (de.pool.free_count, de.pool.free_blocks, de.pool.stats())
+    try:
+        de.import_kv(corrupt, 4)
+        check(False, "15e: a corrupted payload was imported")
+    except KVWireError as e:
+        print(f"    a payload with one flipped byte: KVWireError ({e})")
+    check((de.pool.free_count, de.pool.free_blocks, de.pool.stats())
+          == before, "15e: the refused import changed the pool")
+    de.pool.check_conservation()
+    del model, pe, de
+    return k4_total
+
+
 def main():
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--parent", metavar="TREE",
@@ -1558,6 +1870,7 @@ def main():
                     "f32 K5) phases 9 and 11 compare with (default: git "
                     "history, where the checkout has it)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1673,12 +1986,18 @@ def main():
         TransformerLMConfig, flagship_losses)
     print("[14] generate(): GPT-124M greedy and top-k, beams on 2 layers")
     k1_gen, k4_gen = phase_generate(torch, pa, attn, TransformerLMConfig)
+    print("[15] serve the rest: slot pool, chunked prefill, speculative "
+          "decoding, sampling, disaggregation")
+    k4_rest = phase_rest(torch, pa, TransformerLMConfig, prompts, max_new,
+                         [r.generated for r in reqs],
+                         snap["tokens_per_sec"])
 
     # launches summed over the main paths that run each row's kernel: K4
-    # and the serving K1 row on phases 4-5 and 14; the f32 training rows
+    # on phases 4, 14 and 15's paged runs, the serving K1 row on phases 5
+    # and 14; the f32 training rows
     # (K1 at the training shape, K2, K3, K5-K7) on phases 7, 11, 12 and
     # 13; the bf16 rows on phases 10 and 13
-    k4_row["launches"] = k4 + k4_gen
+    k4_row["launches"] = k4 + k4_gen + k4_rest
     k1_row["launches"] = k1 + k1_gen
     f32 = [a + b + c for a, b, c in zip(counts, optim, rc_f32)]
     k1t_row["launches"] = k1_train + f32[0]
@@ -1689,6 +2008,7 @@ def main():
     for row, n in zip((k1b_row, k2b_row, k3b_row, k5_row, k6_row, k7_row),
                       bf16):
         row["launches"] = n
+    print(f"phases 1-15 in {time.perf_counter() - t_start:.1f} s")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -331,3 +331,36 @@ def cached_paged_attention(q, k_cache, v_cache, block_tables, lengths):
     k = k.permute(0, 2, 1, 3, 4).reshape(S, nh, -1, hd)
     v = v.permute(0, 2, 1, 3, 4).reshape(S, nh, -1, hd)
     return cached_slot_attention(q, k, v, lengths)
+
+
+def cached_slot_block_attention(q, k_cache, v_cache, qpos):
+    """Multi-query decode attention over each slot's contiguous cache
+    (reference ``ops/attention.py:439``), the t-token form of
+    ``cached_slot_attention`` the speculative verify programs run. q
+    ``[S, nh, t, hd]``; caches ``[S, nh, C, hd]`` holding the t rows this
+    dispatch wrote; qpos ``[S, t]`` each query's cache position. Query i
+    sees keys at ``kpos <= qpos[s, i]`` only: the live prefix and
+    candidates 0..i; the rest get -1e30 before the f32 softmax."""
+    hd = q.shape[-1]
+    cache_len = k_cache.shape[2]
+    s = torch.einsum("shtd,shkd->shtk", q.float(), k_cache.float()) \
+        / math.sqrt(hd)
+    kpos = torch.arange(cache_len, device=q.device)[None, None, None, :]
+    s = torch.where(kpos <= qpos[:, None, :, None], s,
+                    torch.full((), _NEG, device=q.device))
+    return torch.einsum("shtk,shkd->shtd", torch.softmax(s, dim=-1),
+                        v_cache.float())
+
+
+def cached_paged_block_attention(q, k_cache, v_cache, block_tables, qpos):
+    """``cached_slot_block_attention`` over a paged cache (reference
+    ``ops/attention.py:472``): each slot's blocks gathered into a
+    position-ordered ``[S, nh, MB*BS, hd]`` view, then the per-query
+    causal mask. Caches ``[num_blocks, nh, BS, hd]``, block_tables
+    ``[S, MB]``."""
+    S, nh, _, hd = q.shape
+    k = k_cache[block_tables.long()]             # [S, MB, nh, BS, hd]
+    v = v_cache[block_tables.long()]
+    k = k.permute(0, 2, 1, 3, 4).reshape(S, nh, -1, hd)
+    v = v.permute(0, 2, 1, 3, 4).reshape(S, nh, -1, hd)
+    return cached_slot_block_attention(q, k, v, qpos)

@@ -1,10 +1,13 @@
 """Serving counters (a slim port of ``paddle_tpu/serving/metrics.py``).
 
-Keeps what the engine writes: tokens, decode steps, prefills,
-admissions, prefix-cache hits and misses, and the last TTFT samples.
-``snapshot()["prefix_cache"]`` has the reference's keys. The Prometheus
-registry and the health, perf, tenant and trace observatories are not
-ported.
+Keeps what the engine writes: tokens, decode steps, prefills and their
+group sizes, admissions, prefix-cache hits and misses, the last TTFT
+samples, the scheduler's decisions (chunk dispatches, shed and deferred
+requests), speculative decoding's economy and the KV handoffs' wire
+bytes. ``snapshot()["prefix_cache"]``, ``["scheduler"]`` and
+``["spec"]`` have the reference's keys (the reference reports ``spec``
+under ``perf``). The Prometheus registry and the health, perf, tenant
+and trace observatories are not ported.
 """
 import collections
 import statistics
@@ -26,6 +29,29 @@ class ServingMetrics:
         self.prefix_misses = 0
         self.prefix_cached_tokens = 0
         self.prefill_tokens = 0
+        self.prefill_requests = 0
+        self.prefill_group_hist = {}   # group size -> dispatches
+        # scheduler decisions
+        self._sched_info = {"policy": "fifo", "prefill_chunk": None,
+                            "prefill_token_budget": None}
+        self.shed = {}                 # reason -> requests
+        self.deprioritized = 0
+        self.prefill_chunks = 0
+        self.chunked_requests = 0
+        # speculative decoding
+        self._spec_info = {"enabled": False, "k": None}
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_rejected = 0
+        self.spec_tokens_emitted = 0
+        self.spec_verify_steps = 0
+        self.spec_slot_steps = 0
+        self.spec_fallback_steps = 0
+        # KV handoffs: count and raw tile bytes each way
+        self.kv_exports = 0
+        self.kv_export_bytes = 0
+        self.kv_imports = 0
+        self.kv_import_bytes = 0
         self.ttft_s = collections.deque(maxlen=self.SAMPLES_KEEP)
         self._prefix_window = collections.deque()   # (t, cached_tokens)
         self._prefix_pool_stats = None
@@ -59,6 +85,63 @@ class ServingMetrics:
         now = time.perf_counter()
         self._prefix_window.append((now, int(cached_tokens)))
         self._trim_window(now)
+
+    def record_prefill_group(self, size, tokens):
+        """One prefill dispatch of ``size`` requests computing ``tokens``
+        prompt tokens (a paged tail's count with its prefix reuse)."""
+        self.prefill_group_hist[size] = \
+            self.prefill_group_hist.get(size, 0) + 1
+        self.prefill_tokens += int(tokens)
+
+    def set_scheduler_info(self, policy_name, prefill_chunk,
+                           prefill_token_budget):
+        self._sched_info = {"policy": str(policy_name),
+                            "prefill_chunk": prefill_chunk,
+                            "prefill_token_budget": prefill_token_budget}
+
+    def record_shed(self, reason):
+        self.shed[reason] = self.shed.get(reason, 0) + 1
+
+    def record_prefill_chunk(self, computed_tokens):
+        """One chunk dispatch; its tokens (overlap recompute included)
+        are prefill compute."""
+        self.prefill_chunks += 1
+        self.prefill_tokens += int(computed_tokens)
+
+    def scheduler_report(self):
+        """The ``snapshot()["scheduler"]`` section."""
+        return dict(self._sched_info, shed=dict(self.shed),
+                    shed_total=sum(self.shed.values()),
+                    deprioritized=self.deprioritized,
+                    prefill_chunks=self.prefill_chunks,
+                    chunked_requests=self.chunked_requests)
+
+    def set_spec(self, enabled, k):
+        self._spec_info = {"enabled": bool(enabled),
+                           "k": int(k) if enabled else None}
+
+    def spec_report(self):
+        """The ``snapshot()["spec"]`` section (the reference's
+        ``perf["spec"]``)."""
+        drafted, slot_steps = self.spec_drafted, self.spec_slot_steps
+        return {
+            "enabled": self._spec_info["enabled"],
+            "k": self._spec_info["k"],
+            "drafted_tokens": drafted,
+            "accepted_tokens": self.spec_accepted,
+            "rejected_tokens": self.spec_rejected,
+            "emitted_tokens": self.spec_tokens_emitted,
+            "verify_steps": self.spec_verify_steps,
+            "slot_steps": slot_steps,
+            "fallback_steps": self.spec_fallback_steps,
+            "acceptance_rate": round(self.spec_accepted / drafted, 4)
+            if drafted else None,
+            # tokens one slot yields from one verify leg (a plain decode
+            # leg yields 1.0)
+            "effective_tokens_per_dispatch":
+                round(self.spec_tokens_emitted / slot_steps, 4)
+                if slot_steps else None,
+        }
 
     def _trim_window(self, now):
         w = self._prefix_window
@@ -117,5 +200,14 @@ class ServingMetrics:
             "ttft_avg_ms": statistics.fmean(ttft) * 1000.0 if ttft else None,
             "ttft_p50_ms": statistics.median(ttft) * 1000.0
             if ttft else None,
+            "prefill_requests": self.prefill_requests,
+            "prefill_group_hist": dict(sorted(
+                self.prefill_group_hist.items())),
             "prefix_cache": self.prefix_cache_report(),
+            "scheduler": self.scheduler_report(),
+            "spec": self.spec_report(),
+            "kv_wire": {"exports": self.kv_exports,
+                        "export_bytes": self.kv_export_bytes,
+                        "imports": self.kv_imports,
+                        "import_bytes": self.kv_import_bytes},
         }

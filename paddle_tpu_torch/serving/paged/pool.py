@@ -40,14 +40,17 @@ def upload(array, device):
 
 
 class PagedAllocation:
-    """What ``acquire`` hands the engine: the slot and how many prompt
-    tokens its pinned prefix blocks already hold."""
+    """What ``acquire`` hands the engine: the slot, how many prompt
+    tokens its pinned prefix blocks already hold, and the pinned and the
+    fresh blocks of its row."""
 
-    __slots__ = ("slot", "prefix_tokens")
+    __slots__ = ("slot", "prefix_tokens", "prefix_blocks", "new_blocks")
 
-    def __init__(self, slot, prefix_tokens):
+    def __init__(self, slot, prefix_tokens, prefix_blocks, new_blocks):
         self.slot = slot
         self.prefix_tokens = int(prefix_tokens)
+        self.prefix_blocks = list(prefix_blocks)
+        self.new_blocks = list(new_blocks)
 
 
 class PagedKVPool:
@@ -104,6 +107,10 @@ class PagedKVPool:
         return self.blocks_per_slot * self.block_size
 
     # ------------------------------------------------------ block alloc
+    @property
+    def free_blocks(self):
+        return len(self._free_blocks)
+
     @property
     def live_blocks(self):
         return self._live
@@ -207,7 +214,8 @@ class PagedKVPool:
         self.block_tables[slot, :len(row)] = row
         self._dirty = True
         self.index.note_hits(prefix_blocks)
-        return PagedAllocation(slot, prefix_tokens)
+        return PagedAllocation(slot, prefix_tokens, prefix_blocks,
+                               new_blocks)
 
     def commit_prefix(self, slot, prompt):
         """Index the slot's FULL prompt blocks so later admissions can
@@ -228,6 +236,33 @@ class PagedKVPool:
         heapq.heappush(self._free_slots, slot)
         self.block_tables[slot, :] = TRASH_BLOCK
         self._dirty = True
+
+    # ------------------------------------------------- export / import
+    def row_blocks(self, slot, n):
+        """The first ``n`` blocks of a live slot's row, in row order:
+        the blocks a handoff of its first ``n * block_size`` positions
+        ships (shared prefix blocks included, read in place)."""
+        if slot not in self._owner:
+            raise ValueError(f"slot {slot} is not live")
+        row = self._slot_blocks[slot]
+        if not 0 < n <= len(row):
+            raise ValueError(f"slot {slot} holds {len(row)} blocks, "
+                             f"{n} asked for")
+        return row[:n]
+
+    def read_blocks(self, blocks):
+        """K and V tiles ``[layers, n, heads, block_size, head_dim]`` of
+        ``blocks``, copied to the host."""
+        idx = upload(np.asarray(blocks, np.int64), self.device)
+        return (self.kc.index_select(1, idx).cpu(),
+                self.vc.index_select(1, idx).cpu())
+
+    def write_blocks(self, blocks, k, v):
+        """Bind received tiles into ``blocks`` (fresh blocks an import
+        acquired): ``kc[:, blocks] = k``."""
+        idx = upload(np.asarray(blocks, np.int64), self.device)
+        self.kc[:, idx] = k.to(self.device, self.kc.dtype)
+        self.vc[:, idx] = v.to(self.device, self.vc.dtype)
 
     # ---------------------------------------------------- device tensors
     def device_tables(self):

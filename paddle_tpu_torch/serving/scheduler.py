@@ -1,10 +1,12 @@
-"""Step scheduler: request queue, paged admission, stop conditions.
+"""Step scheduler: request queue, admission, stop conditions.
 
-Ports the FIFO paths of ``paddle_tpu/serving/scheduler.py``: continuous
-batching admits at every engine step, the moment a slot and its blocks
-are free, and per-slot stop conditions (EOS / max-new-tokens) retire
-requests one by one. SLO policies, deadlines and chunked prefill are not
-ported.
+Ports ``paddle_tpu/serving/scheduler.py``: continuous batching admits at
+every engine step, the moment a slot (and, on the paged pool, its
+blocks) is free; per-slot stop conditions (EOS / max-new-tokens) retire
+requests one by one. Admission on the slot pool returns same-bucket
+prefill groups; prompts longer than the chunk width come back apart, to
+be prefilled chunk by chunk. A scheduling policy (``serving.sched``)
+triages the queue before admission. Deadlines are not ported.
 """
 import collections
 import itertools
@@ -22,9 +24,17 @@ _rid = itertools.count()
 class Request:
     """One generation request. ``on_token(request, token)`` streams
     tokens as they are read back; ``output_ids`` is prompt + generated
-    once ``done``. Greedy only."""
+    once ``done``.
 
-    def __init__(self, prompt, max_new_tokens, eos_id=None, on_token=None):
+    ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` select per-slot
+    sampling (engines built with ``sampling=True``); ``sampled`` is
+    ``generate()``'s condition (temperature > 0 and top_k != 1), and the
+    seed defaults to the request id. ``hold_kv`` keeps the slot and its
+    blocks past retirement for ``export_kv``."""
+
+    def __init__(self, prompt, max_new_tokens, eos_id=None, on_token=None,
+                 temperature=0.0, top_k=0, top_p=1.0, seed=None,
+                 hold_kv=False):
         self.rid = next(_rid)
         self.prompt = np.asarray(prompt).reshape(-1).astype(np.int64)
         if self.prompt.size == 0:
@@ -34,6 +44,23 @@ class Request:
             raise ValueError("max_new_tokens must be >= 1")
         self.eos_id = eos_id
         self.on_token = on_token
+        self.temperature = float(temperature)
+        if self.temperature < 0.0:
+            raise ValueError(
+                f"temperature must be >= 0, got {temperature}")
+        self.top_k = int(top_k)
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        self.top_p = float(top_p)
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        self.seed = self.rid if seed is None else int(seed)
+        self.sampled = self.temperature > 0.0 and self.top_k != 1
+        self.hold_kv = bool(hold_kv)
+        # policy facts: deferred once ("defer" mode), or shed before
+        # admission (done with no tokens)
+        self.deprioritized = False
+        self.shed_reason = None
         self.state = QUEUED
         self.slot = None
         self.generated = []
@@ -72,9 +99,11 @@ class Request:
 
 class StepScheduler:
     """FIFO queue + slot table + per-slot stop conditions. ``completed``
-    keeps the last ``completed_keep`` retired requests."""
+    keeps the last ``completed_keep`` retired requests; ``policy`` (a
+    ``serving.sched`` policy, None = strict FIFO) triages the queue."""
 
-    def __init__(self, buckets, cache_len, completed_keep=4096):
+    def __init__(self, buckets, cache_len, completed_keep=4096,
+                 policy=None):
         self.buckets = sorted(int(b) for b in buckets)
         self.cache_len = int(cache_len)
         if not self.buckets:
@@ -85,6 +114,7 @@ class StepScheduler:
         self.queue = collections.deque()
         self.active = {}       # slot -> Request
         self.completed = collections.deque(maxlen=completed_keep)
+        self.policy = policy
 
     def bucket_for(self, prompt_len):
         """Smallest bucket that holds the prompt."""
@@ -105,6 +135,73 @@ class StepScheduler:
         self.queue.append(request)
         return request
 
+    def triage(self):
+        """Apply the policy to the queue before admission: shed requests
+        leave it and retire at once with no tokens (``shed_reason``
+        "slo_lost"), deprioritized ones move to its back in their order,
+        flagged so the defer happens once. Returns ``(shed,
+        deprioritized)`` as ``[(request, headroom_ms), ...]``."""
+        if self.policy is None or not self.queue:
+            return [], []
+        decision = self.policy.triage(list(self.queue), time.perf_counter())
+        if decision.empty:
+            return [], []
+        drop = {id(r) for r, _ in decision.shed}
+        defer = {id(r) for r, _ in decision.deprioritized}
+        keep = [r for r in self.queue
+                if id(r) not in drop and id(r) not in defer]
+        self.queue = collections.deque(
+            keep + [r for r, _ in decision.deprioritized])
+        for req, _ in decision.deprioritized:
+            req.deprioritized = True
+        for req, _ in decision.shed:
+            req.state = DONE
+            req.shed_reason = "slo_lost"
+            req.stop_reason = "shed"
+            req.t_done = time.perf_counter()
+            self.completed.append(req)
+        return decision.shed, decision.deprioritized
+
+    def admit(self, pool, group_sizes=(1,)):
+        """Claim free slot-pool slots for queued requests (FIFO) and
+        return the admissions as same-bucket prefill groups: lists of
+        ``(request, slot)`` whose lengths come from ``group_sizes``
+        (largest fitting first). Buckets appear in first-arrival order,
+        members in arrival order."""
+        return self.admit_chunked(pool, group_sizes, None)[0]
+
+    def admit_chunked(self, pool, group_sizes=(1,), chunk_len=None):
+        """``admit``, with prompts longer than ``chunk_len`` returned
+        apart as ``(request, slot)`` chunked admissions. Returns
+        ``(groups, chunked)`` in FIFO order."""
+        sizes = sorted(int(g) for g in group_sizes)
+        if not sizes or sizes[0] != 1:
+            raise ValueError(f"group_sizes must include 1, got "
+                             f"{group_sizes}")
+        by_bucket = {}
+        chunked = []
+        while self.queue and pool.free_count:
+            req = self.queue.popleft()
+            slot = pool.acquire(req.rid)
+            req.slot = slot
+            req.state = RUNNING
+            req.t_admitted = time.perf_counter()
+            self.active[slot] = req
+            n_fill = len(req.prefill_ids)
+            if chunk_len is not None and n_fill > chunk_len:
+                chunked.append((req, slot))
+                continue
+            by_bucket.setdefault(self.bucket_for(n_fill),
+                                 []).append((req, slot))
+        groups = []
+        for members in by_bucket.values():
+            i = 0
+            while i < len(members):
+                take = max(g for g in sizes if g <= len(members) - i)
+                groups.append(members[i:i + take])
+                i += take
+        return groups, chunked
+
     def plan_prefix(self, prompt_len, cached_tokens, block_size,
                     slot_capacity):
         """``(start, bucket)``: how much of a cached prefix a paged
@@ -120,20 +217,31 @@ class StepScheduler:
             start -= block_size
         return start, self.bucket_for(prompt_len - start)
 
-    def admit_paged(self, pool):
+    def admit_paged(self, pool, chunk_len=None):
         """Prefix-aware FIFO admission, one request at a time:
-        ``(request, alloc, bucket)`` or None when the head of the queue
-        does not fit (no free slot, or its fresh blocks exceed free +
-        evictable). One at a time lets the engine prefill and commit
+        ``(request, alloc, bucket, chunked)`` or None when the head of the
+        queue does not fit (no free slot, or its fresh blocks exceed free
+        + evictable). One at a time lets the engine prefill and commit
         each prompt before the next lookup, so same-prefix arrivals in
-        one step share the first one's blocks."""
+        one step share the first one's blocks. With ``chunk_len`` set, an
+        uncached tail longer than one chunk comes back ``chunked`` with
+        ``bucket = chunk_len``; it keeps the whole block-aligned cached
+        prefix, since end-aligned chunks never write past the prompt."""
         if not self.queue:
             return None
         req = self.queue[0]
         ids = req.prefill_ids
+        n = len(ids)
         cached = pool.match_prefix(ids)
-        start, bucket = self.plan_prefix(len(ids), cached, pool.block_size,
-                                         pool.slot_capacity)
+        bs = pool.block_size
+        raw = min(int(cached), n - 1)
+        raw -= raw % bs
+        if chunk_len is not None and n - raw > chunk_len:
+            start, bucket, chunked = raw, int(chunk_len), True
+        else:
+            start, bucket = self.plan_prefix(n, cached, bs,
+                                             pool.slot_capacity)
+            chunked = False
         alloc = pool.acquire(req.rid, ids, req.cache_tokens, start)
         if alloc is None:
             return None
@@ -142,7 +250,7 @@ class StepScheduler:
         req.state = RUNNING
         req.t_admitted = time.perf_counter()
         self.active[alloc.slot] = req
-        return req, alloc, bucket
+        return req, alloc, bucket, chunked
 
     def rollback_admission(self, requests, pool):
         """Undo admissions whose prefill failed: release each slot (and
@@ -198,11 +306,14 @@ class StepScheduler:
         request.slot = None
 
     def finish(self, request, pool, reason=None):
-        """Retire a request, freeing its slot unless prereleased."""
+        """Retire a request, freeing its slot unless prereleased. A
+        ``hold_kv`` request keeps its slot and blocks for ``export_kv``;
+        only its active-table entry goes."""
         if request.slot is not None:
-            pool.release(request.slot)
             del self.active[request.slot]
-            request.slot = None
+            if not request.hold_kv:
+                pool.release(request.slot)
+                request.slot = None
         request.state = DONE
         request.stop_reason = reason
         request.t_done = time.perf_counter()

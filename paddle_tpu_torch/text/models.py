@@ -420,6 +420,112 @@ class GPTForCausalLM(nn.Module):
                 "lnf_w": W(self.gpt.ln_f.weight),
                 "lnf_b": W(self.gpt.ln_f.bias), "head": head}
 
+    def build_serving_fns(self, num_slots, cache_len, sampling=False):
+        """The slot-pool programs of the serving engine (reference
+        models.py:466-608), over caches ``kc/vc [L, num_slots, nh,
+        cache_len, hd]`` written IN PLACE; ``toks``/``pos`` ``[S]`` stay
+        on the device and come back as new tensors:
+
+          prefill(params, tokens [G, bucket], lengths [G], slots [G],
+                  toks, pos, kc, vc[, seeds, temps, topks, topps])
+                  -> (first [G], toks', pos')
+              One same-bucket admission group in one call: the G claimed
+              slots' caches are gathered, ``hidden_t`` runs over the
+              group from position 0 and the slices scatter back. Prompts
+              are right-padded to the bucket (causal masking hides pad
+              rows from real ones, the decode's length mask afterwards).
+              ``toks[slots] = first``, ``pos[slots] = lengths``;
+
+          decode_step(params, toks, pos, kc, vc[, seeds, temps, topks,
+                      topps]) -> (next [S], pos + 1)
+              Every slot writes its row at its own position, clamped to
+              ``cache_len - 1`` (where the reference's
+              dynamic_update_slice clamps), the position embedding's
+              index to the table's last row, and attends through
+              ``ops.attention.cached_slot_attention`` with ``lengths =
+              pos + 1``.
+
+        ``sampling=True`` appends the per-slot sampling parameters
+        (``serving.sched.sampling``; key index ``lengths - 1`` for a
+        prefill, ``pos`` for a decode). Both programs use the decode
+        math of ``decode_forward_builder``."""
+        from ..serving.sched.sampling import build_sampling_head
+
+        cfg = self.cfg
+        nh = cfg.num_heads
+        C = int(cache_len)
+        layers_t, hidden_t = decode_forward_builder(
+            nh, cfg.hidden_size // nh, cfg.hidden_size)
+        head = build_sampling_head(cfg.vocab_size) if sampling else None
+
+        def prefill(params, tokens, lengths, slots, toks, pos, kc, vc,
+                    *samp):
+            sl = slots.long()
+            kcs = kc.index_select(1, sl)             # [L, G, nh, C, hd]
+            vcs = vc.index_select(1, sl)
+            h = hidden_t(params, tokens, 0, kcs, vcs)
+            kc[:, sl] = kcs
+            vc[:, sl] = vcs
+            G = tokens.shape[0]
+            last = h[torch.arange(G, device=h.device),
+                     (lengths - 1).long()] @ params["head"]   # [G, vocab]
+            if head is None:
+                first = last.argmax(-1).to(torch.int32)
+            else:
+                first = head(last, samp[0], lengths - 1, *samp[1:])
+            toks = toks.clone()
+            pos = pos.clone()
+            toks[sl] = first
+            # the next decode writes each member at its prompt length
+            pos[sl] = lengths.to(pos.dtype)
+            return first, toks, pos
+
+        def decode_step(params, toks, pos, kc, vc, *samp):
+            S = toks.shape[0]
+            # parked and idle slots' positions keep incrementing past the
+            # table: clamp so their (ignored) row reads in bounds
+            x = params["wemb"][toks.long()] + params["pemb"][
+                pos.clamp(max=params["pemb"].shape[0] - 1).long()]
+            sidx = torch.arange(S, device=toks.device)
+            wpos = pos.clamp(max=C - 1).long()
+            lengths = pos + 1
+
+            def attend(i, q, k, v):
+                kc[i][sidx, :, wpos] = k[:, :, 0]
+                vc[i][sidx, :, wpos] = v[:, :, 0]
+                return attn_ops.cached_slot_attention(
+                    q[:, :, 0], kc[i], vc[i], lengths)[:, :, None]
+
+            logits = layers_t(params, x[:, None], attend)[:, 0] \
+                @ params["head"]
+            if head is None:
+                nxt = logits.argmax(-1).to(torch.int32)
+            else:
+                nxt = head(logits, samp[0], pos, *samp[1:])
+            return nxt, pos + 1
+
+        return prefill, decode_step
+
+    def build_chunk_prefill_fn(self, cache_len, sampling=False):
+        """The chunked-prefill program over the slot pool
+        (``serving.sched.programs.build_chunk_fns``)."""
+        from ..serving.sched.programs import build_chunk_fns
+        return build_chunk_fns(self.cfg, cache_len, sampling=sampling)
+
+    def build_spec_verify_fn(self, num_slots, cache_len, spec_k):
+        """The speculative k-token verify program over the slot pool
+        (``serving.spec.programs``)."""
+        from ..serving.spec.programs import build_spec_verify_fn
+        return build_spec_verify_fn(self.cfg, num_slots, cache_len, spec_k)
+
+    def build_paged_spec_verify_fn(self, num_slots, block_size, num_blocks,
+                                   blocks_per_slot, spec_k):
+        """The speculative verify program over the paged pool."""
+        from ..serving.spec.programs import build_paged_spec_verify_fn
+        return build_paged_spec_verify_fn(self.cfg, num_slots, block_size,
+                                          num_blocks, blocks_per_slot,
+                                          spec_k)
+
 
 def _top(x, k):
     """The ``k`` largest of each row of ``x`` and their indices, ties
@@ -430,56 +536,67 @@ def _top(x, k):
 
 
 def decode_forward_builder(num_heads, head_dim, hidden_size):
-    """KV-cache decode math shared by the serving programs. Returns
-    ``(ln, hidden_t)``:
+    """KV-cache decode math shared by ``generate`` and every serving
+    program. Returns ``(layers_t, hidden_t)``:
+
+      layers_t(params, x [S, t, hidden], attend) -> h [S, t, hidden]
+
+    the blocks over embedded inputs ``x``, each block's attention left to
+    ``attend(i, q, k, v)``: q/k/v ``[S, nh, t, hd]`` of layer i in, the
+    attention output ``[S, nh, t, hd]`` out (``attend`` also writes layer
+    i's cache, where and how its pool wants it). The result is the final
+    LayerNorm's output, so ``h @ params["head"]`` are the logits.
 
       hidden_t(params, tok [bb, t], pos, kc, vc) -> h [bb, t, hidden]
 
-    the final-LayerNorm hidden states, so ``h @ params["head"]`` are the
-    reference forward_t's logits; a caller that needs one position's
-    logits multiplies only that row. kc/vc ``[L, bb, nh, total, hd]``
-    are written IN PLACE at ``pos..pos+t`` (the reference returned new
-    arrays); attention is causal over the cache, positions beyond the
-    live prefix masked to -1e30 so stale contents carry exactly zero
-    weight. ``pos`` is a Python int."""
+    ``layers_t`` over a contiguous cache kc/vc ``[L, bb, nh, total,
+    hd]`` (the reference forward_t): rows ``pos..pos+t`` written IN PLACE
+    (the reference returned new arrays), attention causal over the cache,
+    positions beyond the live prefix masked to -1e30 so stale contents
+    carry exactly zero weight. ``pos`` is a Python int."""
     nh, hd = num_heads, head_dim
     rsd = math.sqrt(hd)
 
     def ln(x, w, b):
         return F.layer_norm(x, (x.shape[-1],), w, b, 1e-5)
 
-    def block(x, p, kc, vc, pos):
-        # x [bb, t, h]; kc/vc [bb, nh, total, hd]
-        bb, t = x.shape[0], x.shape[1]
-        total = kc.shape[2]
-        h_ = ln(x, p["ln1_w"], p["ln1_b"])
-        qkv = h_ @ p["qkv_w"] + p["qkv_b"]
-        qkv = qkv.reshape(bb, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]
-        # dynamic_update_slice semantics: the start clamps so the
-        # update fits
-        w0 = min(max(pos, 0), total - t)
-        kc[:, :, w0:w0 + t] = k
-        vc[:, :, w0:w0 + t] = v
-        s = torch.einsum("bhtd,bhsd->bhts", q, kc) / rsd
-        kpos = torch.arange(total, device=x.device)[None, None, None, :]
-        qpos = pos + torch.arange(t, device=x.device)[None, None, :, None]
-        s = s.masked_fill(kpos > qpos, -1e30)
-        o = torch.einsum("bhts,bhsd->bhtd", torch.softmax(s, dim=-1), vc)
-        o = o.permute(0, 2, 1, 3).reshape(bb, t, hidden_size)
-        x = x + (o @ p["out_w"] + p["out_b"])
-        h2 = ln(x, p["ln2_w"], p["ln2_b"])
-        m = F.gelu(h2 @ p["fc1_w"] + p["fc1_b"], approximate="tanh")
-        return x + (m @ p["fc2_w"] + p["fc2_b"])
+    def layers_t(pr, x, attend):
+        S, t = x.shape[0], x.shape[1]
+        for i, p in enumerate(pr["layers"]):
+            h_ = ln(x, p["ln1_w"], p["ln1_b"])
+            qkv = h_ @ p["qkv_w"] + p["qkv_b"]
+            qkv = qkv.reshape(S, t, 3, nh, hd).permute(2, 0, 3, 1, 4)
+            o = attend(i, qkv[0], qkv[1], qkv[2])
+            o = o.permute(0, 2, 1, 3).reshape(S, t, hidden_size)
+            x = x + (o @ p["out_w"] + p["out_b"])
+            h2 = ln(x, p["ln2_w"], p["ln2_b"])
+            m = F.gelu(h2 @ p["fc1_w"] + p["fc1_b"], approximate="tanh")
+            x = x + (m @ p["fc2_w"] + p["fc2_b"])
+        return ln(x, pr["lnf_w"], pr["lnf_b"])
 
     def hidden_t(pr, tok, pos, kc, vc):
         t = tok.shape[1]
+        total = kc.shape[3]
+        dev = tok.device
         # out-of-range position rows clamp, as a JAX gather does
-        pidx = (pos + torch.arange(t, device=tok.device)).clamp(
+        pidx = (pos + torch.arange(t, device=dev)).clamp(
             max=pr["pemb"].shape[0] - 1)
         x = pr["wemb"][tok] + pr["pemb"][pidx]
-        for i, p in enumerate(pr["layers"]):
-            x = block(x, p, kc[i], vc[i], pos)
-        return ln(x, pr["lnf_w"], pr["lnf_b"])
+        # dynamic_update_slice semantics: the start clamps so the update
+        # fits
+        w0 = min(max(pos, 0), total - t)
+        kpos = torch.arange(total, device=dev)[None, None, None, :]
+        qpos = pos + torch.arange(t, device=dev)[None, None, :, None]
+        masked = kpos > qpos
 
-    return ln, hidden_t
+        def attend(i, q, k, v):
+            kc[i][:, :, w0:w0 + t] = k
+            vc[i][:, :, w0:w0 + t] = v
+            s = torch.einsum("bhtd,bhsd->bhts", q, kc[i]) / rsd
+            s = s.masked_fill(masked, -1e30)
+            return torch.einsum("bhts,bhsd->bhtd", torch.softmax(s, dim=-1),
+                                vc[i])
+
+        return layers_t(pr, x, attend)
+
+    return layers_t, hidden_t

@@ -142,13 +142,18 @@ def test_port_imports_neither_jax_nor_reference():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     for module in ("regularizer.py", "optimizer/optimizers.py",
-                   "nn/clip.py", "text/models.py", "text/convert.py"):
+                   "nn/clip.py", "text/models.py", "text/convert.py",
+                   "serving/kv_pool.py", "serving/kv_wire.py",
+                   "serving/sched/sampling.py", "serving/sched/chunker.py",
+                   "serving/sched/policy.py", "serving/sched/programs.py",
+                   "serving/spec/drafter.py", "serving/spec/decoder.py",
+                   "serving/spec/programs.py"):
         assert REPO / "paddle_tpu_torch" / module in files, module
     bad = []
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
-            if top in ("jax", "jaxlib", "paddle_tpu"):
+            if top in ("jax", "jaxlib", "paddle_tpu", "ml_dtypes"):
                 bad.append((str(f.relative_to(REPO)), name))
     assert not bad, bad
 
@@ -169,11 +174,21 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise():
+    """Tensor and sequence parallelism still raise. The serving knobs
+    the port once refused now serve; the reference's invalid
+    combinations of them raise its ValueErrors."""
     cfg = tmodels.TransformerLMConfig(**TINY)
     m = tmodels.GPTForCausalLM(cfg, device="cpu")
     for knob in (dict(paged=False), dict(sampling=True),
-                 dict(speculative=True), dict(prefill_chunk=8)):
-        with pytest.raises(NotImplementedError):
+                 dict(speculative=True), dict(prefill_chunk=8),
+                 dict(role="prefill"), dict(role="decode")):
+        eng = ServingEngine(m, device="cpu", **knob)
+        r = eng.add_request(np.arange(1, 12), max_new_tokens=3)
+        eng.run()
+        assert r.done and len(r.generated) == 3, knob
+    for knob in (dict(speculative=True, sampling=True),
+                 dict(role="prefill", paged=False), dict(role="x")):
+        with pytest.raises(ValueError):
             ServingEngine(m, device="cpu", **knob)
     with pytest.raises(NotImplementedError):
         tmodels.TransformerLMConfig(use_mp=True)

@@ -9,9 +9,13 @@ run (one minus the union of kernel intervals over the span from the
 first to the last kernel). Prints one line per figure and writes the
 numbers and the top kernels to chiprun_out/profile_port_serving.json
 (a git-ignored directory; the run's chrome trace is too large to keep).
+``--slot`` serves through the slot-contiguous pool instead
+(``ServingConfig(paged=False, max_len=1024)``, chip_smoke.py phase 15a)
+and writes profile_port_serving_slot.json.
 
-    python3 tools/profile_port_serving.py
+    python3 tools/profile_port_serving.py [--slot]
 """
+import argparse
 import json
 import os
 import subprocess
@@ -88,10 +92,11 @@ def labelled(torch, fn, label, host):
     return call
 
 
-def serve(torch, model, prompts, max_new, ServingEngine):
+def serve(torch, model, prompts, max_new, ServingEngine, knobs):
     """The smoke's serving phase; returns (engine, wall s, host time per
     program label)."""
-    eng = ServingEngine(model, num_slots=8, block_size=16, async_depth=1)
+    eng = ServingEngine(model, num_slots=8, block_size=16, async_depth=1,
+                        **knobs)
     host = {}
     eng._prefill_fn = labelled(torch, eng._prefill_fn, LABELS[0], host)
     eng._decode_fn = labelled(torch, eng._decode_fn, LABELS[1], host)
@@ -109,6 +114,11 @@ def serve(torch, model, prompts, max_new, ServingEngine):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--slot", action="store_true",
+                    help="serve through the slot-contiguous pool")
+    args = ap.parse_args()
+    knobs = dict(paged=False, max_len=1024) if args.slot else {}
     import torch
     if not torch.cuda.is_available():
         print("profile_port_serving: no CUDA device", file=sys.stderr)
@@ -126,12 +136,13 @@ def main():
     model = GPTForCausalLM(
         cfg, generator=torch.Generator().manual_seed(1234)).eval()
     prompts, max_new = workload(cfg.vocab_size)
-    serve(torch, model, prompts[:2], max_new[:2], ServingEngine)  # warm-up
+    serve(torch, model, prompts[:2], max_new[:2], ServingEngine,
+          knobs)                                                 # warm-up
 
     walls = []
     for _ in range(3):
         eng, wall, host = serve(torch, model, prompts, max_new,
-                                ServingEngine)
+                                ServingEngine, knobs)
         walls.append(wall)
     snap = eng.metrics.snapshot()
     steps = snap["decode_steps"]
@@ -147,7 +158,7 @@ def main():
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng, wall, _ = serve(torch, model, prompts, max_new,
-                             ServingEngine)
+                             ServingEngine, knobs)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name not in LABELS]
@@ -187,7 +198,10 @@ def main():
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_port_serving.json"), "w") as f:
+    name = "profile_port_serving_slot.json" if args.slot \
+        else "profile_port_serving.json"
+    print(f"pool: {'slot-contiguous' if args.slot else 'paged'}")
+    with open(os.path.join(out_dir, name), "w") as f:
         json.dump({"device": torch.cuda.get_device_name(0),
                    "plain_wall_s": walls, "profiled_wall_s": wall,
                    "decode_steps": steps, "snapshot": snap,
