@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
 Run from the repository root:  python3 chip_smoke.py [--parent TREE]
+(``--fleet`` runs phases 1, 4 and 16 alone and prints no kernels line)
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -137,11 +138,33 @@ Phases, one line each:
              unchanged. On every paged run K4 = 12 x its plain decode
              steps (verify steps attend in plain torch), set to 0 before
              and read after; every pool conserved and empty at the end.
+ 16. fleet   the hardened engine and the router on phase 4's GPT-124M,
+             weights and 16 requests, every replica a ServingEngine(
+             paged=True, num_slots=8, block_size=16) on the card with its
+             own replica_id, every stream held to phase 5's rule against
+             phase 4's: 16a Router over two InProcessTransport replicas
+             (EngineGateway stepping threads), its state() keys, tokens/s
+             beside phase 4's and each replica's share, then the same
+             requests to the two gateways and to one straight from the
+             main thread (no router threads); 16b the same
+             router with replica r0 killed once two of its requests are
+             streaming: every request completes by journal replay, >= 1
+             failover, the kill -> done wall; 16c one engine under
+             FaultPlan(seed=13) at DEFAULT_RATES with max_dispatch_retries
+             8, twice: a non-empty fault log, the same both runs, no abort;
+             16d supervisor=True with a wedged decode: queue_stall fires,
+             exactly one restart, health degraded during the replay and
+             healthy after, the peak memory over the start below a
+             second pool (the old one is freed first); 16e one
+             replica behind EngineGateway.serve() on 127.0.0.1 and a
+             router over HTTPTransport: 4 requests, GET /metrics and
+             /debug/health answer 200. Every run's pool conserved and
+             empty; K4 = 12 x its engines' decode steps.
 Then the card's name and power limit, one JSON line of kernel numbers
-(launches summed over the main paths: phases 4, 14 and 15's paged runs
-for K4, 5 and 14 for the serving K1 row, 7, 11, 12 and 13 for the f32
-training rows, 10 and 13 for the bf16 ones), and as the last line {"ok":
-true, "device": {...}}.
+(launches summed over the main paths: phases 4, 14, 15's paged runs and
+16 for K4, 5, 14 and 16 for the serving K1 row, 7, 11, 12 and 13 for the
+f32 training rows, 10 and 13 for the bf16 ones), and as the last line
+{"ok": true, "device": {...}}.
 
 TF32 is off for matmuls and cuDNN, so every f32 product is full f32.
 Any failure raises: the exit code is non-zero and no "ok" line prints.
@@ -158,6 +181,7 @@ import re
 import subprocess
 import sys
 import time
+import urllib.request
 
 import numpy as np
 
@@ -1863,12 +1887,328 @@ def phase_rest(torch, pa, TransformerLMConfig, prompts, max_new, ref, tps4):
     return k4_total
 
 
+# --------------------------------------------------------------- phase 16
+
+def fleet_engine(model, rid, **knobs):
+    """One replica of phase 16: phase 4's engine on the card, with its
+    own replica id."""
+    from paddle_tpu_torch.serving import ServingEngine
+    return ServingEngine(model, paged=True, num_slots=8, block_size=16,
+                         replica_id=rid, **knobs)
+
+
+def settle(gw, label):
+    """Wait for a live gateway's engine to go idle, then audit its pool
+    under the gateway's lock: conserved, every slot free, no block
+    referenced. Returns its decode steps."""
+    deadline = time.monotonic() + 60.0
+    while time.monotonic() < deadline:
+        with gw._lock:
+            if not gw.engine.pending:
+                break
+        time.sleep(0.005)
+    with gw._lock:
+        eng = gw.engine
+        check(not eng.pending, f"{label}: {gw.replica_id} still busy")
+        eng.pool.check_conservation()
+        check(eng.pool.free_count == eng.config.num_slots
+              and eng.pool.live_blocks == 0,
+              f"{label}: {gw.replica_id}'s pool not empty")
+        return eng.metrics.decode_steps
+
+
+def phase_fleet(torch, pa, attn, TransformerLMConfig, prompts, max_new,
+                ref, tps4, wall4):
+    """Phase 16, the hardened engine and the router on phase 4's
+    GPT-124M (same seed, weights and 16 requests; ``ref`` phase 4's
+    streams, ``tps4``/``wall4`` its tokens/s and wall): 16a the router
+    over two in-process replicas; 16b a replica killed mid-stream; 16c
+    one engine under the default chaos plan, twice; 16d a forced wedge
+    and the supervisor's restart; 16e one replica over HTTP on
+    127.0.0.1. Every stream is held to phase 5's rule against phase 4's;
+    K4 = 12 x the decode steps of each run's engines, the counts set to
+    0 just before and read just after. Returns (K4, K1) launches."""
+    from paddle_tpu_torch.serving.resilience import FaultPlan
+    from paddle_tpu_torch.serving.router import (
+        ROUTER_STATE_KEYS, EngineGateway, HTTPTransport, InProcessTransport,
+        Router, RouterConfig)
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    cfg = TransformerLMConfig(dropout=0.0)
+    L = cfg.num_layers
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        1234)).eval()
+    n = len(prompts)
+    greedy = [{} for _ in range(n)]
+    k4_total = k1_total = 0
+    router_cfg = dict(max_retries=4, backoff_base_s=0.001,
+                      backoff_max_s=0.01, refresh_s=0.05, affinity=False)
+
+    class Done:
+        """A finished routed request in the Request's shape compare()
+        reads."""
+        def __init__(self, tokens):
+            self.generated = tokens
+
+    def route(router, idx):
+        t0 = time.perf_counter()
+        tickets = [router.submit(prompts[i], max_new[i]) for i in idx]
+        results = [t.result(timeout=300.0) for t in tickets]
+        wall = time.perf_counter() - t0
+        for i, r in zip(idx, results):
+            check(r["ok"] and len(r["tokens"]) == max_new[i],
+                  f"routed request {i}: {r['reason']}, "
+                  f"{len(r['tokens'])}/{max_new[i]} tokens")
+        return results, wall
+
+    print("  [16a] Router over two in-process replicas")
+    gws = [EngineGateway(fleet_engine(model, f"r{i}")) for i in range(2)]
+    try:
+        router = Router([InProcessTransport(g) for g in gws],
+                        config=RouterConfig(**router_cfg))
+        pa.paged_decode_attention.launches = 0
+        attn.flash_attention_forward.launches = 0
+        results, wall = route(router, range(n))
+        steps0 = sum(settle(g, "16a") for g in gws)
+        state = router.state()
+        check(tuple(sorted(state)) == tuple(sorted(ROUTER_STATE_KEYS)),
+              f"16a: router state keys {sorted(state)}")
+        share = {g.replica_id: sum(r["replica_id"] == g.replica_id
+                                   for r in results) for g in gws}
+        tokens = sum(len(r["tokens"]) for r in results)
+        print(f"    {tokens} tokens in {wall:.3f} s: tokens/s "
+              f"{tokens / wall:.1f} (phase 4: {tps4:.1f} busy, "
+              f"{sum(max_new) / wall4:.1f} over its {wall4:.3f} s wall); "
+              f"requests a replica {share}; decode steps {steps0}")
+        compare(torch, model, prompts, [Done(r["tokens"]) for r in results],
+                ref, greedy, "vs phase 4")
+        router.close()
+        # the same requests without the router's worker threads: from
+        # this thread to the two gateways in turn, then to one alone
+        for label, targets in (("two gateways, no router", gws),
+                               ("one gateway, no router", gws[:1])):
+            t0 = time.perf_counter()
+            direct = [targets[i % len(targets)].submit(
+                prompts[i], max_new_tokens=max_new[i]) for i in range(n)]
+            for i, r in enumerate(direct):
+                check(targets[i % len(targets)].wait(r, timeout=300.0),
+                      f"16a: {label}: request {i} timed out")
+            dwall = time.perf_counter() - t0
+            print(f"    {label}: {tokens} tokens in {dwall:.3f} s, "
+                  f"tokens/s {tokens / dwall:.1f}")
+            compare(torch, model, prompts, direct, ref, greedy,
+                    "vs phase 4")
+        steps = sum(settle(g, "16a") for g in gws)
+        k4 = pa.paged_decode_attention.launches
+        k1_total += attn.flash_attention_forward.launches
+        check(k4 == steps * L and k4 > 0,
+              f"16a: K4 launches {k4} != {steps} decode steps x {L}")
+        k4_total += k4
+        fired = {g.replica_id: g.engine.health.summary()["detectors"]
+                 for g in gws if g.engine.health.anomalies_total}
+        print(f"    16a's decode steps {steps}, K4 launches {k4}; health "
+              f"anomalies {fired or 'none'}")
+    finally:
+        for g in gws:
+            g.close()
+
+    gws = [EngineGateway(fleet_engine(model, f"r{i}")) for i in range(2)]
+    try:
+        print("  [16b] replica r0 killed mid-stream (fresh replicas)")
+        router = Router([InProcessTransport(g) for g in gws],
+                        config=RouterConfig(**router_cfg))
+        victim, survivor = gws
+        pa.paged_decode_attention.launches = 0
+        attn.flash_attention_forward.launches = 0
+        steps0 = [g.engine.metrics.decode_steps for g in gws]
+        t0 = time.perf_counter()
+        tickets = [router.submit(prompts[i], max_new[i]) for i in range(n)]
+        deadline = time.monotonic() + 120.0
+        streaming = 0
+        while streaming < 2 and time.monotonic() < deadline:
+            with victim._lock:
+                streaming = sum(1 for r in victim.engine.scheduler.active
+                                .values() if r.generated)
+            time.sleep(0.001)
+        check(streaming >= 2, "16b: r0 never streamed two requests")
+        t_kill = time.perf_counter()
+        victim.kill()
+        kill_ms = (time.perf_counter() - t_kill) * 1e3
+        results = [t.result(timeout=300.0) for t in tickets]
+        done_s = time.perf_counter() - t_kill
+        wall = time.perf_counter() - t0
+        for i, r in enumerate(results):
+            check(r["ok"] and len(r["tokens"]) == max_new[i],
+                  f"16b: request {i} {r['reason']}")
+        failovers = router._stats["failovers"]
+        check(failovers >= 1, "16b: no failover")
+        steps = victim.engine.metrics.decode_steps - steps0[0] \
+            + settle(survivor, "16b") - steps0[1]
+        k4 = pa.paged_decode_attention.launches
+        k1_total += attn.flash_attention_forward.launches
+        check(k4 == steps * L, f"16b: K4 launches {k4} != {steps} x {L}")
+        k4_total += k4
+        moved = [r for r in results if r["failovers"]]
+        print(f"    killed r0 with {streaming} of its requests streaming; "
+              f"kill() {kill_ms:.1f} ms; failovers {failovers} "
+              f"({len(moved)} requests moved to r1); kill -> every request "
+              f"done {done_s:.3f} s; whole run {wall:.3f} s; K4 launches "
+              f"{k4}")
+        compare(torch, model, prompts, [Done(r["tokens"]) for r in results],
+                ref, greedy, "vs phase 4 (journal replay)")
+        router.close()
+    finally:
+        for g in gws:
+            g.close()
+
+    print("  [16c] chaos: FaultPlan(seed=13) at DEFAULT_RATES, "
+          "max_dispatch_retries=8")
+    logs = []
+    kws = [dict(on_token=lambda r, t: None) for _ in range(n)]
+    for run in range(2):
+        eng = fleet_engine(model, "c0", chaos=FaultPlan(seed=13),
+                           max_dispatch_retries=8)
+        pa.paged_decode_attention.launches = 0
+        attn.flash_attention_forward.launches = 0
+        reqs, wall = drive(eng, prompts, max_new, kws)
+        k4 = pa.paged_decode_attention.launches
+        k1_total += attn.flash_attention_forward.launches
+        check(k4 == eng.metrics.decode_steps * L,
+              f"16c: K4 launches {k4} != {eng.metrics.decode_steps} x {L}")
+        k4_total += k4
+        eng.pool.check_conservation()
+        check(eng.pool.live_blocks == 0 and eng.pool.free_count == 8,
+              "16c: pool not empty")
+        res = eng.metrics.snapshot()["resilience"]
+        log = eng.chaos.fault_log()
+        logs.append(log)
+        print(f"    run {run + 1}: {eng.metrics.tokens_generated} tokens in "
+              f"{wall:.3f} s, tokens/s {eng.metrics.tokens_per_sec():.1f} "
+              f"(phase 4: {tps4:.1f}); {len(log)} faults "
+              f"{res['faults_injected']}, retries "
+              f"{res['dispatch_retries']}, callback errors "
+              f"{res['callback_errors']}, aborted {res['requests_aborted']};"
+              f" K4 launches {k4}")
+        check(res["requests_aborted"] == 0, "16c: a request was aborted")
+        compare(torch, model, prompts, reqs, ref, greedy, "vs phase 4")
+        eng.close()
+    check(logs[0], "16c: the plan fired no fault")
+    check(logs[0] == logs[1], "16c: the second run's fault log differs")
+    print(f"    the second run's fault log equals the first's "
+          f"({len(logs[0])} entries)")
+
+    print("  [16d] supervisor: a wedged decode, queue_stall after 4 steps")
+    eng = fleet_engine(model, "s0", supervisor=True,
+                       supervisor_cooldown_s=0.0, max_dispatch_retries=1000,
+                       health_detectors={"queue_stall": {"stall_steps": 4}})
+    pa.paged_decode_attention.launches = 0
+    attn.flash_attention_forward.launches = 0
+    reqs = [eng.add_request(p, max_new_tokens=k)
+            for p, k in zip(prompts, max_new)]
+    for _ in range(12):
+        eng.step()
+    check(eng.health.report()["healthy"], "16d: unhealthy before the wedge")
+    pool_bytes = eng.pool.kc.nbytes + eng.pool.vc.nbytes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def wedged(*a, **k):
+        raise RuntimeError("decode wedged")
+
+    eng._decode_fn = wedged
+    t0 = time.perf_counter()
+    wedge_steps = 0
+    while eng.supervisor.restarts == 0:
+        eng.step()
+        wedge_steps += 1
+        check(wedge_steps < 50, "16d: the supervisor never restarted")
+    restart_ms = (time.perf_counter() - t0) * 1e3
+    during = eng.health.report()
+    check(during["degraded"] and not during["healthy"],
+          f"16d: after the restart health says {during['healthy']}, "
+          f"degraded {during['degraded']}")
+    eng.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    after = eng.health.report()
+    check(eng.supervisor.restarts == 1,
+          f"16d: {eng.supervisor.restarts} restarts")
+    check(after["healthy"] and not after["degraded"],
+          "16d: not healthy after the replay")
+    k4 = pa.paged_decode_attention.launches
+    k1_total += attn.flash_attention_forward.launches
+    check(k4 == eng.metrics.decode_steps * L,
+          f"16d: K4 launches {k4} != {eng.metrics.decode_steps} x {L}")
+    k4_total += k4
+    eng.pool.check_conservation()
+    check(eng.pool.live_blocks == 0, "16d: blocks leaked")
+    # the restart frees the old pool before it builds the new one: the
+    # peak over the start stays below a second pool
+    check(peak < pool_bytes,
+          f"16d: peak {peak} over the start holds a second pool "
+          f"({pool_bytes} bytes)")
+    for r, k in zip(reqs, max_new):
+        check(r.done and len(r.generated) == k, f"16d: request {r.rid} "
+              f"incomplete")
+    print(f"    wedged for {wedge_steps} steps ({restart_ms:.1f} ms) to the "
+          f"restart; health during the replay: healthy {during['healthy']}"
+          f", degraded {during['degraded']}; after: healthy "
+          f"{after['healthy']}; restarts 1; peak memory over the start "
+          f"{peak / 2**20:.1f} MiB (a pool is {pool_bytes / 2**20:.1f} "
+          f"MiB); K4 launches {k4}")
+    compare(torch, model, prompts, reqs, ref, greedy, "vs phase 4 "
+            "(replayed)")
+    eng.close()
+    del eng
+
+    print("  [16e] HTTP: EngineGateway.serve() on 127.0.0.1, a router "
+          "over HTTPTransport")
+    gw = EngineGateway(fleet_engine(model, "h0"))
+    handle = gw.serve(port=0, addr="127.0.0.1")
+    router = None
+    try:
+        router = Router([HTTPTransport(f"127.0.0.1:{handle.port}",
+                                       replica_id="h0", timeout_s=300.0)],
+                        config=RouterConfig(**router_cfg))
+        pa.paged_decode_attention.launches = 0
+        attn.flash_attention_forward.launches = 0
+        idx = range(4)
+        results, wall = route(router, idx)
+        steps = settle(gw, "16e")
+        k4 = pa.paged_decode_attention.launches
+        k1_total += attn.flash_attention_forward.launches
+        check(k4 == steps * L, f"16e: K4 launches {k4} != {steps} x {L}")
+        k4_total += k4
+        codes = {}
+        for path in ("/metrics", "/debug/health"):
+            with urllib.request.urlopen(handle.url + path,
+                                        timeout=30.0) as resp:
+                codes[path] = resp.status
+        check(all(c == 200 for c in codes.values()), f"16e: {codes}")
+        print(f"    4 requests over the wire in {wall:.3f} s; GET {codes};"
+              f" K4 launches {k4}")
+        compare(torch, model, [prompts[i] for i in idx],
+                [Done(r["tokens"]) for r in results],
+                [ref[i] for i in idx], greedy, "vs phase 4")
+    finally:
+        if router is not None:
+            router.close()
+        gw.close()
+    check(handle.closed, "16e: the server is still up")
+    del model
+    return k4_total, k1_total
+
+
 def main():
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--parent", metavar="TREE",
                     help=f"a checkout of {PARENT}, whose fused_ce.cu (its "
                     "f32 K5) phases 9 and 11 compare with (default: git "
                     "history, where the checkout has it)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="phases 1, 4 and 16 only (the build, phase 4's "
+                    "streams, the hardened engine and the router); prints "
+                    "no kernels line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     try:
@@ -1938,17 +2278,28 @@ def main():
                                     use_flash_attention=True)
     train_shape = (8, train_cfg.num_heads, train_cfg.max_seq_len,
                    train_cfg.hidden_size // train_cfg.num_heads)
-    print("[2] K4 paged decode attention vs plain")
-    k4_row = phase_k4(torch, pa)
-    print("[3] K1 flash-attention forward vs plain")
-    k1_row, k1t_row = phase_k1(
-        torch, attn, (1, cfg.num_heads, longest,
-                      cfg.hidden_size // cfg.num_heads), train_shape, _build)
+    if not args.fleet:
+        print("[2] K4 paged decode attention vs plain")
+        k4_row = phase_k4(torch, pa)
+        print("[3] K1 flash-attention forward vs plain")
+        k1_row, k1t_row = phase_k1(
+            torch, attn, (1, cfg.num_heads, longest,
+                          cfg.hidden_size // cfg.num_heads), train_shape,
+            _build)
     print("[4] serve GPT-124M")
     gen = torch.Generator().manual_seed(1234)
     model = GPTForCausalLM(cfg, generator=gen).eval()
     reqs, k4, snap, wall = phase_serve(torch, model, prompts, max_new, pa,
                                        attn)
+    if args.fleet:
+        del model
+        print("[16] the hardened engine and the router")
+        k4_fleet, k1_fleet = phase_fleet(
+            torch, pa, attn, TransformerLMConfig, prompts, max_new,
+            [r.generated for r in reqs], snap["tokens_per_sec"], wall)
+        print(f"phases 1, 4 and 16 in {time.perf_counter() - t_start:.1f} "
+              f"s; phase 16's K4 launches {k4_fleet}, K1 {k1_fleet}")
+        return 0
     print("[5] greedy cross-check against the forward")
     k1 = phase_check(torch, model, reqs, attn)
     del model
@@ -1991,14 +2342,21 @@ def main():
     k4_rest = phase_rest(torch, pa, TransformerLMConfig, prompts, max_new,
                          [r.generated for r in reqs],
                          snap["tokens_per_sec"])
+    print("[16] the hardened engine and the router: two replicas, a kill, "
+          "chaos, the supervisor, HTTP")
+    k4_fleet, k1_fleet = phase_fleet(
+        torch, pa, attn, TransformerLMConfig, prompts, max_new,
+        [r.generated for r in reqs], snap["tokens_per_sec"], wall)
 
     # launches summed over the main paths that run each row's kernel: K4
-    # on phases 4, 14 and 15's paged runs, the serving K1 row on phases 5
-    # and 14; the f32 training rows
+    # on phases 4, 14, 15's paged runs and 16, the serving K1 row on
+    # phases 5, 14 and 16 (the engine's prefill attends without K1, so
+    # 16 adds only what its stream checks run through the forward); the
+    # f32 training rows
     # (K1 at the training shape, K2, K3, K5-K7) on phases 7, 11, 12 and
     # 13; the bf16 rows on phases 10 and 13
-    k4_row["launches"] = k4 + k4_gen + k4_rest
-    k1_row["launches"] = k1 + k1_gen
+    k4_row["launches"] = k4 + k4_gen + k4_rest + k4_fleet
+    k1_row["launches"] = k1 + k1_gen + k1_fleet
     f32 = [a + b + c for a, b, c in zip(counts, optim, rc_f32)]
     k1t_row["launches"] = k1_train + f32[0]
     k2_row["launches"] = k2 + f32[1]
@@ -2008,7 +2366,7 @@ def main():
     for row, n in zip((k1b_row, k2b_row, k3b_row, k5_row, k6_row, k7_row),
                       bf16):
         row["launches"] = n
-    print(f"phases 1-15 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-16 in {time.perf_counter() - t_start:.1f} s")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -20,6 +20,7 @@ PyTorch's caching allocator. The chunking depends only on the static
 shapes, so ``lengths`` never goes to the host.
 """
 import ctypes
+import threading
 
 import torch
 
@@ -114,8 +115,10 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths):
     if err:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {err}")
-    paged_decode_attention.launches += 1
+    with _count_lock:   # engines on several threads launch it at once
+        paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+_count_lock = threading.Lock()

@@ -40,23 +40,60 @@ stream at its first decode step. Roles need the paged pool.
 
 The engine runs eagerly; PyTorch queues each kernel as the host reaches
 it, so there is nothing to compile or warm.
+
+Hardening (``serving.resilience``): ``add_request(deadline_ms=)``
+retires a request past its deadline, queued or decoding; a failed
+dispatch rolls back leak-free (slot, blocks and radix refs released,
+request re-queued) and, with ``max_dispatch_retries`` > 0, is retried
+on a later step (``retry_backoff_s`` spaces the retries) until the
+request's budget runs out and it retires with reason "error"; a slot
+that keeps failing is quarantined (``quarantine_after``), never the
+last one; ``drain()`` finishes submitted work, ``close()`` aborts it
+explicitly; a raising ``on_token`` callback is counted, never fatal.
+``chaos=`` arms the seeded fault injector at the reference's seams,
+each of which fires BEFORE its device call, so a rollback leaves the
+device state as it was. With ``health=True`` (the default) every step
+appends a row to the health ledger and runs the anomaly detectors; the
+supervisor (on with health) answers a wedge verdict with an in-process
+restart: fresh pools and programs, in-flight requests re-queued for an
+exact greedy replay.
 """
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..observability.fleet import ReplicaIdentity
+from ..observability.health import HealthMonitor, IncidentRecorder
+from ..observability.registry import start_metrics_server
+from ..observability.trace import TraceContext
+from ..observability.tracing import default_recorder
+from ..observability.watchdog import CompileWatchdog
 from . import kv_wire
 from .kv_pool import SlotKVPool
 from .metrics import ServingMetrics
 from .paged.pool import PagedKVPool, upload
 from .paged.programs import build_paged_fns
+from .resilience import EngineSupervisor, resolve_chaos
 from .sched import (ChunkPlan, SlotSampler, request_sampling_params,
                     resolve_policy)
 from .sched.sampling import upload_params
-from .scheduler import RUNNING, Request, StepScheduler
+from .scheduler import QUEUED, RUNNING, Request, StepScheduler
 from .spec import SpecDecoder
+
+
+def _weak_method(method, default):
+    """A bound engine method as a weakly-referencing callable
+    (``default()`` once the engine is gone): callbacks handed to the
+    health monitor and the metrics must not keep a dead engine alive."""
+    ref = weakref.WeakMethod(method)
+
+    def call():
+        m = ref()
+        return default() if m is None else m()
+    return call
 
 
 def default_buckets(cache_len, bucket_min=32):
@@ -105,10 +142,22 @@ class ServingConfig:
     role "monolithic", "prefill" or "decode" (the last two need the
     paged pool).
 
-    The reference's environment gates and its fleet and operations knobs
-    (health, chaos, retries, supervisor, perf, cache observatory, replica
-    id, trace spans, tenants, watchdog, donation, deadlines) are not
-    taken."""
+    Operations, as in the reference: ``health`` (default on) runs the
+    per-step ledger and anomaly detectors (``health_audit_every`` steps
+    between paged-pool conservation audits, ``health_ledger_keep`` rows,
+    ``health_detectors`` per-detector overrides, ``incident_dir`` /
+    ``incident_keep`` / ``health_debounce_s`` incident bundles);
+    ``chaos`` a FaultPlan / seed / dict arming fault injection;
+    ``max_dispatch_retries`` (0: a failed dispatch rolls back and
+    raises) with ``retry_backoff_s`` the base of the exponential
+    admission backoff; ``quarantine_after`` same-slot failures exclude a
+    slot; ``supervisor`` (None: on with health) with
+    ``supervisor_max_restarts`` / ``supervisor_cooldown_s``;
+    ``replica_id`` (default host:pid); ``watchdog_mode`` "flag" or
+    "raise".
+
+    Not taken: the reference's environment gates and its perf, cache,
+    tenant, SLO-window and trace-span knobs, and buffer donation."""
 
     def __init__(self, num_slots=8, max_len=None, buckets=None,
                  bucket_min=32, eos_id=None, prefill_group_sizes=None,
@@ -116,7 +165,14 @@ class ServingConfig:
                  paged=True, prefill_chunk=None, prefill_token_budget=None,
                  policy=None, slo_ttft_ms=None, sampling=False,
                  speculative=False, spec_k=4, spec_min_accept=0.35,
-                 role="monolithic"):
+                 role="monolithic", health=True, health_audit_every=64,
+                 health_ledger_keep=512, health_detectors=None,
+                 incident_dir=None, incident_keep=16,
+                 health_debounce_s=60.0, chaos=None,
+                 max_dispatch_retries=0, retry_backoff_s=0.0,
+                 quarantine_after=3, supervisor=None,
+                 supervisor_max_restarts=8, supervisor_cooldown_s=1.0,
+                 replica_id=None, watchdog_mode="flag"):
         self.num_slots = int(num_slots)
         self.max_len = max_len
         self.buckets = buckets
@@ -173,6 +229,31 @@ class ServingConfig:
             raise ValueError(f"role must be 'prefill', 'decode' or "
                              f"'monolithic', got {role!r}")
         self.role = role
+        self.health = bool(health)
+        self.health_audit_every = int(health_audit_every)
+        if self.health_audit_every < 1:
+            raise ValueError(f"health_audit_every must be >= 1, got "
+                             f"{health_audit_every}")
+        self.health_ledger_keep = int(health_ledger_keep)
+        self.health_detectors = health_detectors
+        self.incident_dir = incident_dir
+        self.incident_keep = int(incident_keep)
+        self.health_debounce_s = float(health_debounce_s)
+        self.chaos = chaos
+        self.max_dispatch_retries = int(max_dispatch_retries)
+        if self.max_dispatch_retries < 0:
+            raise ValueError(f"max_dispatch_retries must be >= 0, got "
+                             f"{max_dispatch_retries}")
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.quarantine_after = int(quarantine_after)
+        if self.quarantine_after < 1:
+            raise ValueError(
+                f"quarantine_after must be >= 1, got {quarantine_after}")
+        self.supervisor = supervisor
+        self.supervisor_max_restarts = int(supervisor_max_restarts)
+        self.supervisor_cooldown_s = float(supervisor_cooldown_s)
+        self.replica_id = replica_id
+        self.watchdog_mode = watchdog_mode
 
 
 class ServingEngine:
@@ -215,6 +296,7 @@ class ServingEngine:
                 f"prefill group size {self.group_sizes[-1]} exceeds "
                 f"num_slots {config.num_slots}")
         self.cache_len = cache_len
+        self._model = model
         self.params = model.export_decode_params()
         self.paged = config.paged
         self.sampling = config.sampling
@@ -230,41 +312,23 @@ class ServingEngine:
                 f"role={self.role!r} requires the paged pool "
                 f"(paged=True): the refcounted block is the KV wire unit")
         S = config.num_slots
-        nh = cfg.num_heads
-        hd = cfg.hidden_size // nh
-        if self.paged:
-            self.pool = PagedKVPool(
-                S, cfg.num_layers, nh, cache_len, hd,
-                block_size=config.block_size, num_blocks=config.num_blocks,
-                device=self.device)
-            self._prefill_fn, self._decode_fn = build_paged_fns(
-                cfg, S, self.pool.block_size, self.pool.num_blocks,
-                self.pool.blocks_per_slot, sampling=self.sampling)
-            self._chunk_fn = self._prefill_fn   # chunks are tails
-        else:
-            self.pool = SlotKVPool(S, cfg.num_layers, nh, cache_len, hd,
-                                   device=self.device)
-            self._prefill_fn, self._decode_fn = model.build_serving_fns(
-                S, cache_len, sampling=self.sampling)
-            self._chunk_fn = model.build_chunk_prefill_fn(
-                cache_len, sampling=self.sampling) \
-                if self.chunk_len is not None else None
         self.speculative = config.speculative
         self.spec_k = config.spec_k
-        self._spec = self._verify_fn = None
+        self._spec = None
         if self.speculative:
             if self.spec_k + 1 > cache_len:
                 raise ValueError(
                     f"spec_k + 1 ({self.spec_k + 1}) exceeds the per-slot "
                     f"cache capacity {cache_len}")
-            if self.paged:
-                self._verify_fn = model.build_paged_spec_verify_fn(
-                    S, self.pool.block_size, self.pool.num_blocks,
-                    self.pool.blocks_per_slot, self.spec_k)
-            else:
-                self._verify_fn = model.build_spec_verify_fn(
-                    S, cache_len, self.spec_k)
             self._spec = SpecDecoder(S, self.spec_k, config.spec_min_accept)
+        # the reference's program keys (its AOT table's): the chaos
+        # harness's compile_storm seam is drawn where a keyed program
+        # is used again, as the reference draws where it reuses one
+        self._verify_key = (("paged_spec_verify",) if self.paged
+                            else ("spec_verify",))
+        self._used_programs = set()
+        self.pool = self._new_pool()
+        self._build_programs()
         self._sampler = SlotSampler(S, self.device) if self.sampling \
             else None
         self._chunk_q = []        # ChunkPlans awaiting chunk dispatch
@@ -272,12 +336,12 @@ class ServingEngine:
         self._policy = resolve_policy(config.policy, config.slo_ttft_ms)
         self.scheduler = StepScheduler(buckets, cache_len,
                                        policy=self._policy)
-        self.metrics = ServingMetrics()
+        self.metrics = M = ServingMetrics()
         if self.paged:
-            self.metrics.set_prefix_pool(self.pool.stats)
-        self.metrics.set_spec(self.speculative, self.spec_k)
-        self.metrics.set_scheduler_info(self._policy.name, self.chunk_len,
-                                        self.prefill_token_budget)
+            M.set_prefix_pool(self.pool.stats)
+        M.set_spec(self.speculative, self.spec_k)
+        M.set_scheduler_info(self._policy.name, self.chunk_len,
+                             self.prefill_token_budget)
         # rolling device state: last token and next write position per
         # slot; programs chain them, so step N+1 never waits on step N's
         # values reaching the host
@@ -285,21 +349,143 @@ class ServingEngine:
         self._pos = torch.zeros(S, dtype=torch.int32, device=self.device)
         self._pending = []        # dispatched, not yet read back
         self._held_exports = {}   # rid -> retired hold_kv request
+        self._metric_servers = []
+        self.identity = ReplicaIdentity(config.replica_id)
+        self.replica_id = self.identity.replica_id
+        M.set_identity(self.identity, torch_version=torch.__version__)
+        self.watchdog = CompileWatchdog(mode=config.watchdog_mode)
+        # resilience: chaos harness + retry/quarantine/drain state
+        self.chaos = resolve_chaos(config.chaos)
+        if self.chaos is not None:
+            self.chaos.bind(on_fire=M.record_fault,
+                            recorder=default_recorder())
+        self.max_dispatch_retries = config.max_dispatch_retries
+        self.retry_backoff_s = config.retry_backoff_s
+        self._retry_at = 0.0          # admission backoff gate
+        self._decode_fail_streak = 0
+        self._slot_failures = {}      # slot -> consecutive failures
+        self._draining = False
         self._closed = False
+        self._deadlines_armed = False
+        self._restart_epoch = 0       # bumped by supervisor restarts
+        M.set_resilience(_weak_method(
+            self._resilience_state,
+            lambda: {"quarantined_slots": [], "draining": False,
+                     "supervisor": {"enabled": False},
+                     "chaos": {"enabled": False}}))
+        # health observatory: per-step ledger + anomaly detectors +
+        # (with an incident_dir) bundle capture
+        self._step_id = 0
+        self._hprev = None            # previous step's cumulative counts
+        self.health = None
+        if config.health:
+            incidents = None
+            if config.incident_dir:
+                incidents = IncidentRecorder(
+                    config.incident_dir, keep_last=config.incident_keep,
+                    debounce_s=config.health_debounce_s)
+            rec = default_recorder()
+
+            def _spans_tail(rec=rec):
+                return [{"name": sp.name, "t0": round(sp.t0, 6),
+                         "dur": round(sp.dur, 6), "tid": sp.tid}
+                        for sp in rec.spans()[-120:]]
+
+            context = {"metrics": M.snapshot,
+                       "watchdog": self.watchdog.report,
+                       "spans_tail": _spans_tail,
+                       "replica": M.identity_report}
+            if self.chaos is not None:
+                # a chaos-found incident replays from its bundle alone
+                context["chaos"] = self.chaos.report
+            self.health = HealthMonitor(
+                M.registry, ledger_keep=config.health_ledger_keep,
+                detector_config=config.health_detectors,
+                incidents=incidents, context=context)
+            self.health.attach_resilience(_weak_method(
+                self._health_resilience,
+                lambda: {"degraded": False, "draining": False,
+                         "restarts": 0}))
+            self.health.attach_identity(M.identity_report)
+            M.set_health(self.health.summary)
+        # the supervisor is on with the health observatory (its wedge
+        # verdicts are the restart triggers); True works without it
+        # (the dispatch-failure escalation needs no detector)
+        sup_on = config.supervisor if config.supervisor is not None \
+            else self.health is not None
+        self.supervisor = EngineSupervisor(
+            self, max_restarts=config.supervisor_max_restarts,
+            cooldown_s=config.supervisor_cooldown_s) if sup_on else None
+
+    def _new_pool(self):
+        cfg, config = self._model.cfg, self.config
+        nh = cfg.num_heads
+        args = (config.num_slots, cfg.num_layers, nh, self.cache_len,
+                cfg.hidden_size // nh)
+        if self.paged:
+            return PagedKVPool(*args, block_size=config.block_size,
+                               num_blocks=config.num_blocks,
+                               device=self.device)
+        return SlotKVPool(*args, device=self.device)
+
+    def _build_programs(self):
+        """The serving programs over the current pool's geometry (the
+        supervisor's restart builds them anew, dropping whatever a
+        wedged one held)."""
+        model, pool, S = self._model, self.pool, self.config.num_slots
+        if self.paged:
+            geometry = (pool.block_size, pool.num_blocks,
+                        pool.blocks_per_slot)
+            self._prefill_fn, self._decode_fn = build_paged_fns(
+                model.cfg, S, *geometry, sampling=self.sampling)
+            self._chunk_fn = self._prefill_fn   # chunks are tails
+        else:
+            self._prefill_fn, self._decode_fn = model.build_serving_fns(
+                S, self.cache_len, sampling=self.sampling)
+            self._chunk_fn = model.build_chunk_prefill_fn(
+                self.cache_len, sampling=self.sampling) \
+                if self.chunk_len is not None else None
+        self._verify_fn = None
+        if self.speculative:
+            self._verify_fn = model.build_paged_spec_verify_fn(
+                S, *geometry, self.spec_k) if self.paged \
+                else model.build_spec_verify_fn(S, self.cache_len,
+                                                self.spec_k)
+
+    def _use_program(self, key):
+        """The reference's compile_storm seam: it draws where a compiled
+        program is reused (a fire evicts it and the call rebuilds it).
+        The port builds nothing per shape, so a fire evicts nothing and
+        no compile is recorded; the draw keeps the fault schedule
+        aligned with the reference's."""
+        if key in self._used_programs:
+            if self.chaos is not None:
+                self.chaos.fires("compile_storm", key=str(key))
+        else:
+            self._used_programs.add(key)
 
     # ---------------------------------------------------------- requests
 
     def add_request(self, prompt, max_new_tokens, eos_id=None,
                     on_token=None, temperature=0.0, top_k=0, top_p=1.0,
-                    seed=None, hold_kv=False):
+                    seed=None, deadline_ms=None, hold_kv=False,
+                    trace=None):
         """Queue a prompt; returns the Request at once. Tokens stream
         through ``on_token(request, token)`` as they are read back.
         ``temperature``/``top_k``/``top_p``/``seed`` sample this request
         (the engine must have ``sampling=True``); the defaults are
-        greedy. ``hold_kv=True`` (paged pool) keeps the slot and its
-        blocks after the request retires, for ``export_kv``."""
-        if self._closed:
-            raise RuntimeError("engine is closed: no new requests")
+        greedy. ``deadline_ms`` bounds the request from its arrival:
+        past it the request retires, queued or decoding, with stop
+        reason "deadline". ``hold_kv=True`` (paged pool) keeps the slot
+        and its blocks after the request retires, for ``export_kv``.
+        ``trace`` is the propagated trace context (a TraceContext, a
+        traceparent string or its dict form); whatever arrives is
+        coerced, a missing or malformed one to a locally minted root.
+        Raises RuntimeError once the engine drains or is closed."""
+        if self._draining or self._closed:
+            raise RuntimeError(
+                "engine is draining/closed: no new requests (drain() "
+                "finishes already-submitted work, close() aborts it)")
         if hold_kv and not self.paged:
             raise ValueError("hold_kv requires the paged pool (paged=True):"
                              " the KV wire unit is the paged block")
@@ -307,12 +493,15 @@ class ServingEngine:
                       eos_id=self.config.eos_id if eos_id is None
                       else eos_id, on_token=on_token,
                       temperature=temperature, top_k=top_k, top_p=top_p,
-                      seed=seed, hold_kv=hold_kv)
+                      seed=seed, deadline_ms=deadline_ms, hold_kv=hold_kv)
+        req.trace = TraceContext.coerce(trace)
         if req.sampled and not self.sampling:
             raise ValueError(
                 "sampled request on a greedy engine: build the engine "
                 "with ServingConfig(sampling=True) to serve temperature/"
                 "top-k/top-p traffic")
+        if req.deadline_ms is not None:
+            self._deadlines_armed = True
         return self.scheduler.submit(req)
 
     @property
@@ -336,12 +525,30 @@ class ServingEngine:
         ev.record()
         return hosts, ev
 
-    @staticmethod
-    def _read_back(handle):
+    def _read_back(self, handle):
+        """Wait for one dispatch's host copy and return it as numpy. A
+        failed read (the ``transfer`` seam) retries at once up to the
+        retry budget: the values stay in their host buffers, so nothing
+        is lost; past the budget the failure propagates."""
         hosts, ev = handle
-        if ev is not None:
-            ev.synchronize()
-        return [h.numpy() for h in hosts]
+        M = self.metrics
+        attempt = 0
+        while True:
+            try:
+                if self.chaos is not None:
+                    self.chaos.maybe_raise("transfer")
+                t0 = time.perf_counter()
+                if ev is not None:
+                    ev.synchronize()
+                M.sync_s += time.perf_counter() - t0
+                return [h.numpy() for h in hosts]
+            except Exception as e:  # noqa: BLE001 - gated below
+                M.record_dispatch_failure("transfer")
+                if attempt >= self.max_dispatch_retries \
+                        or not self._retryable(e):
+                    raise
+                attempt += 1
+                M.record_retry()
 
     # --------------------------------------------------------- host side
 
@@ -359,11 +566,21 @@ class ServingEngine:
                 self._policy.observe_service(
                     (req.t_first_token - req.t_admitted) * 1000.0)
         if req.on_token is not None:
-            req.on_token(req, token)
+            # a user callback never takes the step loop down: a raise
+            # is caught and counted, and every slot keeps streaming
+            try:
+                if self.chaos is not None:
+                    self.chaos.maybe_raise("callback",
+                                           step=self._step_id + 1)
+                req.on_token(req, token)
+            except Exception:  # noqa: BLE001 - isolation boundary
+                self.metrics.record_callback_error()
         reason = self.scheduler.stop_reason(req, token)
         if reason is not None:
             self.scheduler.finish(req, self.pool, reason)
             self.metrics.record_completion(req)
+            if self.supervisor is not None:
+                self.supervisor.note_completion(req.rid)
             if req.hold_kv and req.slot is not None:
                 # prefill-tier retirement: slot and blocks stay live
                 # for export_kv(rid)
@@ -444,9 +661,13 @@ class ServingEngine:
     def _slot_prefills(self, sync):
         """Admission + grouped bucketed prefill over the slot pool. A
         failed dispatch rolls this group and every later one back to the
-        queue (slots released) and raises. Prompts longer than the chunk
-        width claim their slot here and prefill in ``_dispatch_chunks``."""
+        queue (slots released), then is absorbed for a retry or raises.
+        Prompts longer than the chunk width claim their slot here and
+        prefill in ``_dispatch_chunks``."""
         sch, pool, M = self.scheduler, self.pool, self.metrics
+        if self.chaos is not None and self.chaos.fires(
+                "block_exhaustion", step=self._step_id + 1):
+            return          # a simulated dry pool: admission waits
         groups, chunked = sch.admit_chunked(pool, self.group_sizes,
                                             self.chunk_len)
         self._register_chunked(chunked)
@@ -467,15 +688,23 @@ class ServingEngine:
             samp = () if not self.sampling else upload_params(
                 SlotSampler.gather([r for r, _ in group]), self.device)
             try:
+                if self.chaos is not None:
+                    self.chaos.maybe_raise("prefill_dispatch",
+                                           step=self._step_id + 1)
+                self._use_program(("prefill", bucket, G))
+                t0 = time.perf_counter()
                 first, self._toks, self._pos = self._prefill_fn(
                     self.params, upload(tokens, self.device),
                     upload(lengths, self.device), upload(slots, self.device),
                     self._toks, self._pos, pool.kc, pool.vc, *samp)
-            except BaseException:
+                M.dispatch_s += time.perf_counter() - t0
+            except BaseException as e:
                 for req, _slot in group:
                     req.inflight -= 1
                 sch.rollback_admission(
                     [r for g in groups[gi:] for r, _ in g], pool)
+                if self._absorb_dispatch_failure(e, "prefill", group):
+                    return      # rolled back; the retry runs later
                 raise
             M.requests_admitted += G
             M.prefills += 1
@@ -486,11 +715,14 @@ class ServingEngine:
     def _paged_prefills(self, sync):
         """Prefix-aware admission + tail-only prefill. The prompt's full
         blocks are committed to the radix index only after the prefill
-        ran, so a failed prefill rolls back (slot and blocks released,
-        request re-queued) without poisoning the cache. A tail longer
-        than the chunk width is left to ``_dispatch_chunks``."""
+        ran, so a failed prefill rolls back (slot, blocks and radix refs
+        released, request re-queued) without poisoning the cache. A tail
+        longer than the chunk width is left to ``_dispatch_chunks``."""
         sch, pool, M = self.scheduler, self.pool, self.metrics
         while True:
+            if self.chaos is not None and self.chaos.fires(
+                    "block_exhaustion", step=self._step_id + 1):
+                break       # a simulated dry pool: admission waits
             admission = sch.admit_paged(pool, self.chunk_len)
             if admission is None:
                 break
@@ -508,13 +740,22 @@ class ServingEngine:
             tokens[0, :tail] = ids[start:]
             req.inflight += 1
             try:
+                if self.chaos is not None:
+                    self.chaos.maybe_raise("prefill_dispatch",
+                                           step=self._step_id + 1)
+                self._use_program(("paged_prefill", bucket))
+                t0 = time.perf_counter()
                 first, self._toks, self._pos = self._prefill_fn(
                     self.params, upload(tokens, self.device), tail, start,
                     alloc.slot, 1, pool.table_row(alloc.slot), self._toks,
                     self._pos, pool.kc, pool.vc, *self._samp_scalars(req))
-            except BaseException:
+                M.dispatch_s += time.perf_counter() - t0
+            except BaseException as e:
                 req.inflight -= 1
                 sch.rollback_admission([req], pool)
+                if self._absorb_dispatch_failure(
+                        e, "prefill", [(req, alloc.slot)]):
+                    return      # rolled back; the retry runs later
                 raise
             pool.commit_prefix(alloc.slot, ids)
             M.requests_admitted += 1
@@ -541,8 +782,8 @@ class ServingEngine:
         plans until the step's token budget runs out. Interior chunks
         park the slot; the FINAL chunk sets the first token, returns the
         slot to the decode set and lands the admission accounting, so a
-        failure anywhere rolls the request back to the queue uncounted
-        (and raises)."""
+        failure anywhere rolls the request back to the queue uncounted,
+        all its chunks voided (then absorbed for a retry, or raised)."""
         sch, pool, M = self.scheduler, self.pool, self.metrics
         budget = self.prefill_token_budget
         C = self.chunk_len
@@ -561,15 +802,26 @@ class ServingEngine:
             if final:
                 req.inflight += 1
             try:
+                if self.chaos is not None:
+                    self.chaos.maybe_raise("chunk_dispatch",
+                                           step=self._step_id + 1,
+                                           chunk=plan.next)
+                self._use_program(("paged_prefill", C) if self.paged
+                                  else ("chunk_prefill", C))
+                t0 = time.perf_counter()
                 first, self._toks, self._pos = self._chunk_fn(
                     *args, self._toks, self._pos, pool.kc, pool.vc,
                     *self._samp_scalars(req))
-            except BaseException:
+                M.dispatch_s += time.perf_counter() - t0
+            except BaseException as e:
                 if final:
                     req.inflight -= 1
                 self._chunk_q.remove(plan)
                 self._prefilling.discard(plan.slot)
                 sch.rollback_admission([req], pool)
+                if self._absorb_dispatch_failure(
+                        e, "chunk", [(req, plan.slot)]):
+                    return      # rolled back; the retry re-plans later
                 raise
             M.record_prefill_chunk(clen)
             budget -= clen
@@ -595,10 +847,17 @@ class ServingEngine:
             drafts, dlen, drafted = self._spec.propose(snapshot)
             # nobody drafted: the plain decode program outright
             drafted = drafted or None
-        tables = (pool.device_tables(),) if self.paged else ()
         for req in snapshot.values():
             req.inflight += 1
         try:
+            if self.chaos is not None:
+                self.chaos.maybe_raise("decode_dispatch",
+                                       step=self._step_id + 1)
+            self._use_program(("decode",))
+            if self._spec is not None:
+                self._use_program(self._verify_key)
+            tables = (pool.device_tables(),) if self.paged else ()
+            t0 = time.perf_counter()
             if drafted is not None:
                 out, acc, nxt, self._pos = self._verify_fn(
                     self.params, self._toks, self._pos,
@@ -610,11 +869,18 @@ class ServingEngine:
                 nxt, self._pos = self._decode_fn(
                     self.params, self._toks, self._pos, *tables, pool.kc,
                     pool.vc, *samp)
-        except BaseException:
+            M.dispatch_s += time.perf_counter() - t0
+        except BaseException as e:
+            # the seam fires before the call, so the device state is as
+            # it was: undo the in-flight marks, then retry on a later
+            # step, escalate to the supervisor, or raise
             for req in snapshot.values():
                 req.inflight -= 1
-            raise
+            if not self._absorb_decode_failure(e):
+                raise
+            return
         self._toks = nxt
+        self._decode_fail_streak = 0
         M.decode_steps += 1
         if drafted is not None:
             M.spec_verify_steps += 1
@@ -627,31 +893,51 @@ class ServingEngine:
 
     @torch.inference_mode()
     def step(self):
-        """One engine iteration; returns True while work remains."""
-        sch, pool, M = self.scheduler, self.pool, self.metrics
+        """One engine iteration; returns True while work remains. With
+        the health observatory on, the step's row goes to the ledger and
+        the detectors after the timed step."""
+        t0 = time.perf_counter()
+        more = self._step_inner()
+        if self.health is not None:
+            self._health_tick(time.perf_counter() - t0)
+        # a supervisor restart re-queued work the stale verdict predates
+        return more or self.pending
+
+    def _step_inner(self):
+        sch, M = self.scheduler, self.metrics
         t0 = time.perf_counter()
         sync = self.config.async_depth == 0
         prev, self._pending = self._pending, []
         worked = bool(prev)
+        epoch = self._restart_epoch
         if self._spec is not None and prev:
             # drafts extend the last HARVESTED token: read the previous
             # step's results before proposing
             self._harvest(prev)
             prev = []
 
+        if self.chaos is not None and self.chaos.fires(
+                "step_latency", step=self._step_id + 1):
+            time.sleep(self.chaos.latency_s())
+        if self._deadlines_armed:
+            self._expire_deadlines()
+
         # hold_kv requests never prerelease: their blocks must survive
         # retirement for export_kv
         for req in [r for r in sch.active.values()
                     if sch.saturated(r) and not r.hold_kv]:
-            sch.prerelease(req, pool)
+            sch.prerelease(req, self.pool)
 
         self._triage()
-        if self.paged:
-            self._paged_prefills(sync)
-        else:
-            self._slot_prefills(sync)
-        if self._chunk_q:
-            self._dispatch_chunks(sync)
+        # the backoff gate: after an absorbed dispatch failure admission
+        # pauses until the retry moment (running slots keep decoding)
+        if time.perf_counter() >= self._retry_at:
+            if self.paged:
+                self._paged_prefills(sync)
+            else:
+                self._slot_prefills(sync)
+            if self._chunk_q:
+                self._dispatch_chunks(sync)
 
         # slots parked mid-chunked-prefill decode physically (the pooled
         # call advances every slot) but their tokens are never harvested
@@ -662,7 +948,11 @@ class ServingEngine:
             self._decode(snapshot, sync)
             worked = True
 
-        self._harvest(prev)
+        # after a supervisor restart this step, ``prev`` belongs to the
+        # old schedule: its requests were re-queued, and the greedy
+        # replay regenerates every unread token exactly
+        if epoch == self._restart_epoch:
+            self._harvest(prev)
         if worked:
             M.note_work(t0, time.perf_counter())
         return self.pending
@@ -689,6 +979,7 @@ class ServingEngine:
             raise KeyError(f"no held KV export for rid {rid}: submit with "
                            f"hold_kv=True and let the request retire first")
         pool = self.pool
+        self._use_program(("kv_export",))
         try:
             n = kv_wire.blocks_for_prompt(len(req.prompt), pool.block_size)
             k, v = pool.read_blocks(pool.row_blocks(req.slot, n))
@@ -702,7 +993,7 @@ class ServingEngine:
         return payload
 
     def import_kv(self, payload, max_new_tokens, eos_id=None,
-                  on_token=None):
+                  on_token=None, deadline_ms=None):
         """Bind a KV handoff into this engine's pool and resume the
         stream at its first decode step: the prompt's K/V comes off the
         wire, no prefill runs. ``max_new_tokens`` counts every new token,
@@ -710,12 +1001,15 @@ class ServingEngine:
         verified in full (digests, then shape and dtype against this
         pool) before the pool changes: a bad one raises ``KVWireError``
         and leaves the pool as it was. The prompt's full blocks are then
-        shared through the radix index. Returns the live Request."""
+        shared through the radix index. ``deadline_ms`` bounds the
+        decode from now. Returns the live Request."""
         if not self.paged:
             raise RuntimeError("import_kv requires the paged pool "
                                "(paged=True)")
-        if self._closed:
-            raise RuntimeError("engine is closed: no new requests")
+        if self._draining or self._closed:
+            raise RuntimeError(
+                "engine is draining/closed: no new requests (drain() "
+                "finishes already-submitted work, close() aborts it)")
         handoff = kv_wire.deserialize_handoff(payload)
         pool, sch, M = self.pool, self.scheduler, self.metrics
         layers, _, heads, bs, hd = pool.kc.shape
@@ -734,13 +1028,18 @@ class ServingEngine:
                 f"{pool.kc.dtype}")
         req = Request(handoff.prompt, max_new_tokens,
                       eos_id=self.config.eos_id if eos_id is None
-                      else eos_id, on_token=on_token)
+                      else eos_id, on_token=on_token,
+                      deadline_ms=deadline_ms)
+        req.trace = TraceContext.coerce(None)
+        if req.deadline_ms is not None:
+            self._deadlines_armed = True
         ids = req.prompt
         alloc = pool.acquire(req.rid, ids, req.cache_tokens, 0)
         if alloc is None:
             raise RuntimeError("kv import refused: pool at capacity")
         slot = alloc.slot
         try:
+            self._use_program(("kv_import",))
             pool.write_blocks(pool.row_blocks(slot, handoff.n_blocks),
                               handoff.k, handoff.v)
             # new tensors: a pending harvest may still read the old ones
@@ -770,31 +1069,74 @@ class ServingEngine:
             # nothing left to decode: retire at once
             sch.finish(req, pool, reason)
             M.record_completion(req)
+            if self.supervisor is not None:
+                self.supervisor.note_completion(req.rid)
         return req
 
     def warmup_kv_handoff(self):
         """The reference compiles its export and import programs here.
         The port compiles nothing (export and import are eager tensor
-        copies), so this only checks the pool and returns."""
+        copies), so this only checks the pool and marks both programs
+        used, as the reference's table then holds them."""
         if not self.paged:
             raise RuntimeError("warmup_kv_handoff requires the paged pool "
                                "(paged=True)")
+        self._use_program(("kv_export",))
+        self._use_program(("kv_import",))
+
+    def start_draining(self):
+        """Flip the drain flag without stepping: new requests raise at
+        once and ``/debug/health`` reports ``draining: true``, while
+        whoever owns the step loop (a router gateway's stepping thread)
+        steps the submitted work to completion."""
+        self._draining = True
+
+    def drain(self):
+        """Graceful drain: refuse new requests, finish every submitted
+        one (queued and in flight), then close. Returns the completed
+        requests in submission order."""
+        self.start_draining()
+        while self.step():
+            pass
+        done = sorted(self.scheduler.completed, key=lambda r: r.rid)
+        self.close()
+        return done
 
     def close(self):
-        """Retire whatever is still owed tokens as ``aborted`` (slots
-        and blocks released) and release parked exports. Idempotent;
-        also the context-manager exit."""
-        if self._closed:
-            return
+        """Shut down: whatever is still owed tokens (queued, running,
+        mid-chunk, or in flight) retires with stop reason "aborted",
+        counted, slots and blocks released (dispatched results are
+        discarded unread), parked exports give their blocks back, then
+        the metrics servers stop. Idempotent; also the context-manager
+        exit."""
+        if not self._closed and (self.scheduler.pending or self._pending
+                                 or self._chunk_q or self._held_exports):
+            self._abort_inflight()
+        self._closed = True
+        servers, self._metric_servers = self._metric_servers, []
+        for handle in servers:
+            handle.close()
+
+    def _owed(self):
+        """Requests the engine still owes tokens: active, mid-chunk, and
+        those whose dispatched results are unread (prereleased finals
+        included), by rid."""
         sch = self.scheduler
-        owed = {r.rid: r for r in sch.queue}
-        owed.update((r.rid, r) for r in sch.active.values())
+        owed = {r.rid: r for r in sch.active.values()}
         for plan in self._chunk_q:
             owed.setdefault(plan.req.rid, plan.req)
         for _, _, members, *_ in self._pending:
             rs = members.values() if isinstance(members, dict) \
                 else [r for r, _ in members]
-            owed.update((r.rid, r) for r in rs if r.state == RUNNING)
+            for r in rs:
+                if r.state == RUNNING:
+                    owed.setdefault(r.rid, r)
+        return owed
+
+    def _abort_inflight(self):
+        sch = self.scheduler
+        owed = self._owed()
+        owed.update((r.rid, r) for r in sch.queue)
         self._pending = []
         self._chunk_q = []
         self._prefilling.clear()
@@ -806,7 +1148,9 @@ class ServingEngine:
         for r in sorted(owed.values(), key=lambda r: r.rid):
             r.inflight = 0
             sch.abort(r, self.pool)
-        self._closed = True
+            self.metrics.record_abort()
+            if self.supervisor is not None:
+                self.supervisor.note_completion(r.rid)
 
     def __enter__(self):
         return self
@@ -814,3 +1158,302 @@ class ServingEngine:
     def __exit__(self, *exc):
         self.close()
         return False
+
+    # ------------------------------------------------------ resilience
+
+    def _retryable(self, exc):
+        """A failed dispatch or read may be absorbed when the engine is
+        hardened (``max_dispatch_retries`` > 0) and the failure is an
+        ordinary Exception (KeyboardInterrupt and the like propagate)."""
+        return self.max_dispatch_retries > 0 and isinstance(exc, Exception)
+
+    def _absorb_dispatch_failure(self, exc, kind, pairs):
+        """Account a rolled-back prefill or chunk dispatch failure and
+        decide its fate: True = absorbed (the requests are back in the
+        queue and retry on a later step, minus any whose budget ran out,
+        which retire with reason "error"), False = the caller raises.
+        The slots the failed dispatch wrote through count failures, and
+        a slot that keeps failing is quarantined."""
+        M = self.metrics
+        M.record_dispatch_failure(kind)
+        for req, slot in pairs:
+            req.dispatch_failures += 1
+            self._slot_failures[slot] = self._slot_failures.get(slot, 0) + 1
+        if not self._retryable(exc):
+            return False
+        for req, slot in pairs:
+            self._maybe_quarantine(slot)
+            if req.dispatch_failures > self.max_dispatch_retries:
+                self._abort_request(req, "error")
+            else:
+                M.record_retry()
+        if self.retry_backoff_s > 0:
+            worst = max(r.dispatch_failures for r, _ in pairs)
+            self._retry_at = time.perf_counter() \
+                + self.retry_backoff_s * (2 ** (worst - 1))
+        return True
+
+    def _absorb_decode_failure(self, exc):
+        """The pooled decode failed. It advances every slot, so no one
+        request is to blame: the step is retried up to the budget, then
+        escalated to the supervisor. False = the caller raises."""
+        M = self.metrics
+        M.record_dispatch_failure("decode")
+        self._decode_fail_streak += 1
+        if not self._retryable(exc):
+            return False
+        if self._decode_fail_streak <= self.max_dispatch_retries:
+            M.record_retry()
+            if self.retry_backoff_s > 0:
+                self._retry_at = time.perf_counter() \
+                    + self.retry_backoff_s \
+                    * (2 ** (self._decode_fail_streak - 1))
+            return True
+        return self.supervisor is not None and self.supervisor.trigger(
+            "dispatch_failure",
+            {"detector": "dispatch_failure",
+             "streak": self._decode_fail_streak,
+             "error": f"{type(exc).__name__}: {exc}"[:200]})
+
+    def _maybe_quarantine(self, slot):
+        """Quarantine ``slot`` once its failures reach
+        ``quarantine_after``, unless it is the last admissible slot (a
+        fully quarantined pool would deadlock the queue)."""
+        if self._slot_failures.get(slot, 0) < self.config.quarantine_after:
+            return
+        pool = self.pool
+        if slot in pool.quarantined \
+                or pool.num_slots - len(pool.quarantined) <= 1:
+            return
+        pool.quarantine(slot)
+        self.metrics.record_quarantine()
+        self._slot_failures.pop(slot, None)
+
+    def _abort_request(self, req, reason):
+        """Retire a request (already rolled back into the queue) with no
+        further tokens."""
+        self.scheduler.abort(req, self.pool)
+        req.stop_reason = reason
+        self.metrics.record_abort()
+        if self.supervisor is not None:
+            self.supervisor.note_completion(req.rid)
+
+    def _expire_deadlines(self):
+        """Retire requests past their ``deadline_ms`` (queued or
+        decoding) with stop reason "deadline"."""
+        expired_q, expired_a = self.scheduler.expire_deadlines(
+            self.pool, prefilling=self._prefilling)
+        for req in expired_q + expired_a:
+            if req.hold_kv and req.slot is not None:
+                # nobody will export a handoff dead on its deadline
+                self.pool.release(req.slot)
+                req.slot = None
+            self.metrics.record_timeout()
+            if self.supervisor is not None:
+                self.supervisor.note_completion(req.rid)
+
+    def _supervisor_restart(self, reason):
+        """In-process recovery (called only by the supervisor): drop the
+        suspect state — unread device results, the pool (on the paged
+        pool with its radix index), the serving programs, per-slot
+        failure counts — and re-queue every request still owed tokens
+        for a re-prefill of its prompt plus the tokens it already
+        emitted (greedy decoding makes the replay exact). Returns the
+        re-queued requests."""
+        sch = self.scheduler
+        replayed = sorted(self._owed().values(), key=lambda r: r.rid)
+        self._pending = []
+        self._chunk_q = []
+        self._prefilling.clear()
+        sch.active.clear()
+        # parked exports die with the pool: the router re-drives them
+        for r in self._held_exports.values():
+            r.slot = None
+        self._held_exports.clear()
+        # free the old cache tensors before the new pool allocates them:
+        # the allocator hands the same memory to the new pool (kernels
+        # already queued on this stream finish first), so a restart
+        # never holds two pools
+        old, self.pool = self.pool, None
+        self.metrics.set_prefix_pool(None)
+        old.kc = old.vc = None
+        self.pool = self._new_pool()
+        if self.paged:
+            self.metrics.set_prefix_pool(self.pool.stats)
+        S = self.config.num_slots
+        self._toks = torch.zeros(S, dtype=torch.int32, device=self.device)
+        self._pos = torch.zeros(S, dtype=torch.int32, device=self.device)
+        self._build_programs()
+        self._used_programs.clear()
+        self.watchdog.reopen_warmup()
+        if self._spec is not None:
+            self._spec.reset()
+        self._slot_failures.clear()
+        self._decode_fail_streak = 0
+        self._retry_at = 0.0
+        self._restart_epoch += 1
+        for req in reversed(replayed):
+            req.slot = None
+            req.state = QUEUED
+            req.t_admitted = None
+            req.inflight = 0
+            req.dispatch_failures = 0
+            sch.queue.appendleft(req)
+        self.metrics.record_restart()
+        return replayed
+
+    def _resilience_state(self):
+        """The live half of ``snapshot()["resilience"]``."""
+        sup = self.supervisor
+        return {
+            "quarantined_slots": list(self.pool.quarantined),
+            "draining": self._draining,
+            "supervisor": sup.report() if sup is not None
+            else {"enabled": False},
+            "chaos": self.chaos.report() if self.chaos is not None
+            else {"enabled": False},
+        }
+
+    def _health_resilience(self):
+        """The replica-posture facts ``/debug/health`` folds in."""
+        sup = self.supervisor
+        return {
+            "degraded": sup.degraded if sup is not None else False,
+            "draining": self._draining,
+            "restarts": sup.restarts if sup is not None else 0,
+        }
+
+    # ---------------------------------------------------------- health
+
+    def _health_tick(self, wall_s):
+        """Author one step-ledger row (counter deltas against the
+        previous tick) and feed the health monitor; its wedge verdicts
+        go to the supervisor. The paged pool's conservation audit runs
+        every ``health_audit_every`` steps. The port compiles nothing,
+        so ``new_compiles`` and ``steady_compiles`` are always 0, and
+        without an SLO tracker ``goodput_tokens`` is 0."""
+        M, pool = self.metrics, self.pool
+        self._step_id += 1
+        step = self._step_id
+        conservation_ok = conservation_error = None
+        if self.paged and step % self.config.health_audit_every == 0:
+            audit = pool.audit()
+            conservation_ok, conservation_error = audit["ok"], audit["error"]
+        cur = (M.tokens_generated, M.requests_admitted,
+               M.requests_completed, M.prefill_tokens, M.prefill_chunks,
+               M.deprioritized, M.dispatch_s, M.sync_s,
+               sum(M.shed.values()),
+               pool.index.thrash_count if self.paged else 0,
+               pool.evictable_blocks if self.paged else 0)
+        prev = self._hprev or (0,) * len(cur)
+        self._hprev = cur
+        hits, misses = M.prefix_hits, M.prefix_misses
+        queue = self.scheduler.queue
+        fired = self.health.observe({
+            "step": step,
+            "t": time.time(),
+            "wall_s": wall_s,
+            "dispatch_s": cur[6] - prev[6],
+            "sync_s": cur[7] - prev[7],
+            "queue_depth": len(queue),
+            "queue_age_s": time.perf_counter() - queue[0].t_arrival
+            if queue else 0.0,
+            # parked exports still own their slot and blocks
+            "occupied_slots": (len(self.scheduler.active)
+                               + len(self._held_exports)),
+            "chunked_inflight": len(self._chunk_q),
+            "admitted": cur[1] - prev[1],
+            "tokens": cur[0] - prev[0],
+            "completed": cur[2] - prev[2],
+            "goodput_tokens": 0,
+            "prefill_tokens": cur[3] - prev[3],
+            "prefill_chunks": cur[4] - prev[4],
+            "shed": cur[8] - prev[8],
+            "deprioritized": cur[5] - prev[5],
+            "new_compiles": 0,
+            "steady_compiles": 0,
+            "slo_on": self.config.slo_ttft_ms is not None,
+            "prefix_hit_rate": round(hits / (hits + misses), 4)
+            if (hits + misses) else None,
+            "pool_free_blocks": pool.free_blocks if self.paged else None,
+            "pool_evictable_blocks": pool.evictable_blocks
+            if self.paged else None,
+            "pool_live_blocks": pool.live_blocks if self.paged else None,
+            # a restart's fresh radix index restarts its thrash count
+            "cache_thrash": max(0, cur[9] - prev[9])
+            if self.paged else None,
+            "pool_evictable_delta": cur[10] - prev[10]
+            if self.paged else None,
+            "conservation_ok": conservation_ok,
+            "conservation_error": conservation_error,
+        })
+        if fired and self.supervisor is not None:
+            self.supervisor.consider(fired)
+
+    # ------------------------------------------------- observability
+
+    def declare_warmup(self):
+        """Declare warmup complete: the watchdog's steady state begins
+        (the port records no compile, so it never flags one) and the
+        admission policy forgets the warmup's service samples."""
+        self.watchdog.declare_warmup_complete()
+        self._policy.reset_service()
+
+    def debug_state(self):
+        """The ``/debug/state`` JSON body: live queue, slot and pipeline
+        state, the scheduler, health and resilience sections."""
+        sch, M = self.scheduler, self.metrics
+        wd = self.watchdog.report()
+        return {
+            "replica": M.identity_report(),
+            "queue_depth": len(sch.queue),
+            "queued_rids": [r.rid for r in sch.queue],
+            "active_slots": {str(slot): req.rid
+                             for slot, req in sorted(sch.active.items())},
+            "slot_occupancy": self.pool.occupancy,
+            "inflight_harvests": len(self._pending),
+            "completed_kept": len(sch.completed),
+            "compiles": wd["compiles_total"],
+            "watchdog": {k: wd[k] for k in
+                         ("warmed", "mode", "compiles_total",
+                          "steady_state_compiles")},
+            "paged": self.paged,
+            "role": self.role,
+            "held_exports": len(self._held_exports),
+            "speculative": self.speculative,
+            "spec_k": self.spec_k,
+            "prefix_cache": M.prefix_cache_report(),
+            "scheduler": dict(M.scheduler_report(),
+                              chunked_inflight=len(self._chunk_q)),
+            "health": M.health_report(),
+            "resilience": M.resilience_report(),
+        }
+
+    def serve_metrics(self, port=0, addr="127.0.0.1", post_routes=None,
+                      lock=None):
+        """Serve this engine over HTTP: GET ``/metrics`` (Prometheus
+        text), ``/metrics.json``, ``/debug`` (the route index),
+        ``/debug/state`` and, with the health observatory on,
+        ``/debug/health`` (the router's per-replica signal) and
+        ``/debug/ledger``. ``post_routes`` mounts POST handlers beside
+        them (the router's gateway mounts ``/v1/generate`` this way);
+        ``lock``, when given, is held while a debug route reads the
+        engine (the gateway passes the lock its stepping thread steps
+        under). Returns the server's handle; ``close()`` stops every
+        server this engine started."""
+        routes = {"/debug/state": self.debug_state}
+        if self.health is not None:
+            routes["/debug/health"] = self.health.report
+            routes["/debug/ledger"] = self.health.debug_ledger
+        if lock is not None:
+            def locked(fn):
+                def call():
+                    with lock:
+                        return fn()
+                return call
+            routes = {path: locked(fn) for path, fn in routes.items()}
+        handle = start_metrics_server(
+            self.metrics.registry, port=port, addr=addr,
+            extra_routes=routes, post_routes=post_routes)
+        self._metric_servers.append(handle)
+        return handle

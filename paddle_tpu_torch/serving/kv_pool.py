@@ -11,8 +11,8 @@ every row beyond the request's live prefix.
 
 The reference's ``rebind`` swapped in the arrays a donating executable
 returned; with the caches updated in place there is nothing to swap,
-so it has no counterpart. Quarantine belongs to the resilience layer,
-which is not ported.
+so it has no counterpart. A quarantined slot (repeated same-slot
+dispatch failures) is neither free nor occupied.
 """
 import heapq
 
@@ -36,6 +36,7 @@ class SlotKVPool:
         self.vc = torch.zeros(shape, dtype=dtype, device=self.device)
         self._free = list(range(self.num_slots))   # heap: lowest first
         self._owner = {}                           # slot -> request id
+        self._quarantined = set()   # excluded from admission
         self.reuse_count = 0   # acquisitions of a slot used before
         self._ever_used = set()
 
@@ -45,8 +46,31 @@ class SlotKVPool:
 
     @property
     def occupancy(self):
-        """Fraction of slots owned by live requests."""
+        """Fraction of slots owned by live requests (quarantined slots
+        are neither free nor occupied)."""
         return len(self._owner) / self.num_slots
+
+    @property
+    def quarantined(self):
+        """Slots excluded from admission (sorted)."""
+        return sorted(self._quarantined)
+
+    def quarantine(self, slot):
+        """Exclude a FREE slot from admission (the engine's response to
+        repeated same-slot dispatch failures)."""
+        if slot in self._owner:
+            raise ValueError(f"slot {slot} is live; release it first")
+        if slot in self._quarantined:
+            return
+        self._free.remove(slot)
+        heapq.heapify(self._free)
+        self._quarantined.add(slot)
+
+    def unquarantine_all(self):
+        """Return every quarantined slot to the free heap."""
+        for slot in sorted(self._quarantined):
+            heapq.heappush(self._free, slot)
+        self._quarantined.clear()
 
     def acquire(self, owner):
         """Claim the lowest free slot for ``owner``; None when full."""

@@ -4,21 +4,76 @@ Keeps what the engine writes: tokens, decode steps, prefills and their
 group sizes, admissions, prefix-cache hits and misses, the last TTFT
 samples, the scheduler's decisions (chunk dispatches, shed and deferred
 requests), speculative decoding's economy and the KV handoffs' wire
-bytes. ``snapshot()["prefix_cache"]``, ``["scheduler"]`` and
-``["spec"]`` have the reference's keys (the reference reports ``spec``
-under ``perf``). The Prometheus registry and the health, perf, tenant
-and trace observatories are not ported.
+bytes, as plain numbers. ``snapshot()["prefix_cache"]``,
+``["scheduler"]`` and ``["spec"]`` have the reference's keys (the
+reference reports ``spec`` under ``perf``).
+
+The resilience accounting (dispatch failures, retries, timeouts,
+aborts, callback errors, quarantines, injected faults, supervisor
+restarts), the replica identity and the health monitor's anomaly
+counters live in a per-engine ``observability.MetricsRegistry`` under
+the reference's metric names, which ``/metrics`` serves; their
+``snapshot()`` sections (``resilience``, ``health``, ``replica``) have
+the reference's keys. The perf, cache, tenant, SLO and trace
+observatories are not ported.
 """
 import collections
 import statistics
 import time
+
+from ..observability.registry import MetricsRegistry
+
+
+def _series(family):
+    return {labels[0]: int(child.value)
+            for labels, child in family.series()}
 
 
 class ServingMetrics:
     PREFIX_WINDOW_S = 60.0
     SAMPLES_KEEP = 4096
 
-    def __init__(self):
+    def __init__(self, registry=None):
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        r = self.registry
+        self._c_dispatch_failures = r.counter(
+            "serving_dispatch_failures_total",
+            "dispatch attempts that raised (rolled back, then retried "
+            "or escalated)", labelnames=("kind",))
+        self._c_retries = r.counter(
+            "serving_dispatch_retries_total",
+            "failed dispatches absorbed by the bounded-retry budget")
+        self._c_timeouts = r.counter(
+            "serving_requests_timed_out_total",
+            "requests retired at their deadline_ms")
+        self._c_aborted = r.counter(
+            "serving_requests_aborted_total",
+            "requests retired unfinished (engine close with in-flight "
+            "work, or dispatch retry budget exhausted)")
+        self._c_callback_errors = r.counter(
+            "serving_callback_errors_total",
+            "user on_token callbacks that raised (caught and counted; "
+            "the step loop kept streaming)")
+        self._c_quarantine = r.counter(
+            "serving_slots_quarantined_total",
+            "slots excluded from admission after repeated same-slot "
+            "dispatch failures")
+        self._c_faults = r.counter(
+            "serving_faults_injected_total",
+            "chaos-harness fault injections by site",
+            labelnames=("site",))
+        self._c_restarts = r.counter(
+            "supervisor_restarts_total",
+            "in-process supervisor recoveries (pools reset, programs "
+            "rebuilt, in-flight requests replayed)")
+        self._resilience_fn = None
+        self._health_fn = None
+        self._identity = None
+        # wall seconds issuing device work / blocked on reads (the
+        # health ledger's dispatch_s / sync_s)
+        self.dispatch_s = 0.0
+        self.sync_s = 0.0
         self.tokens_generated = 0
         self.decode_steps = 0
         self.prefills = 0
@@ -58,6 +113,100 @@ class ServingMetrics:
         self._t_first_work = None
         self._t_last_work = None
 
+    # ------------------------------------------------------- resilience
+    def record_dispatch_failure(self, kind):
+        self._c_dispatch_failures.labels(str(kind)).inc()
+
+    def record_retry(self):
+        self._c_retries.inc()
+
+    def record_timeout(self):
+        self._c_timeouts.inc()
+
+    def record_abort(self):
+        self._c_aborted.inc()
+
+    def record_callback_error(self):
+        self._c_callback_errors.inc()
+
+    def record_quarantine(self):
+        self._c_quarantine.inc()
+
+    def record_fault(self, site):
+        self._c_faults.labels(str(site)).inc()
+
+    def record_restart(self):
+        self._c_restarts.inc()
+
+    def set_resilience(self, state_fn):
+        """Attach the engine's live resilience state (quarantined slots,
+        draining flag, supervisor and chaos reports) as the pull source
+        of ``snapshot()["resilience"]``."""
+        self._resilience_fn = state_fn
+
+    def resilience_report(self):
+        """The ``snapshot()["resilience"]`` section: the failure, retry,
+        timeout and abort counters plus the engine's live quarantine,
+        supervisor and chaos state."""
+        fails = _series(self._c_dispatch_failures)
+        state = self._resilience_fn() if self._resilience_fn is not None \
+            else {"quarantined_slots": [], "draining": False,
+                  "supervisor": {"enabled": False},
+                  "chaos": {"enabled": False}}
+        return dict({
+            "dispatch_failures": fails,
+            "dispatch_failures_total": sum(fails.values()),
+            "dispatch_retries": int(self._c_retries.value),
+            "requests_timed_out": int(self._c_timeouts.value),
+            "requests_aborted": int(self._c_aborted.value),
+            "callback_errors": int(self._c_callback_errors.value),
+            "slots_quarantined_total": int(self._c_quarantine.value),
+            "faults_injected": _series(self._c_faults),
+            "supervisor_restarts": int(self._c_restarts.value),
+        }, **state)
+
+    # ------------------------------------------------ identity, health
+    def set_identity(self, identity, version=None, torch_version=None):
+        """Stamp the replica identity into the registry:
+        ``serving_uptime_seconds`` (a pull gauge: uptime going backwards
+        between scrapes means the process bounced) and the
+        ``paddle_tpu_torch_build_info{replica, version, torch_version}``
+        info gauge (value 1)."""
+        self._identity = identity
+        self.registry.gauge(
+            "serving_uptime_seconds",
+            "seconds since this engine replica was constructed"
+        ).set_function(identity.uptime_s)
+        self.registry.gauge(
+            "paddle_tpu_torch_build_info",
+            "replica identity + build info (value is always 1; the "
+            "labels are the payload)",
+            labelnames=("replica", "version", "torch_version"),
+        ).labels(identity.replica_id, str(version or "unknown"),
+                 str(torch_version or "unknown")).set(1)
+
+    def identity_report(self):
+        """The ``snapshot()["replica"]`` section."""
+        if self._identity is None:
+            return {"replica_id": None, "uptime_s": None,
+                    "started_at": None}
+        return self._identity.report()
+
+    def set_health(self, summary_fn):
+        """Attach the health monitor's ``summary()`` as the pull source
+        of ``snapshot()["health"]``."""
+        self._health_fn = summary_fn
+
+    def health_report(self):
+        if self._health_fn is not None:
+            return self._health_fn()
+        from ..observability.health import disabled_health_summary
+        return disabled_health_summary()
+
+    def prometheus_text(self):
+        return self.registry.prometheus_text()
+
+    # -------------------------------------------------------- serving
     def note_work(self, t0, t1):
         """A step that did work ran from ``t0`` to ``t1`` (perf_counter):
         the busy window ``tokens_per_sec`` divides by."""
@@ -210,4 +359,9 @@ class ServingMetrics:
                         "export_bytes": self.kv_export_bytes,
                         "imports": self.kv_imports,
                         "import_bytes": self.kv_import_bytes},
+            "dispatch_s": round(self.dispatch_s, 4),
+            "sync_s": round(self.sync_s, 4),
+            "health": self.health_report(),
+            "resilience": self.resilience_report(),
+            "replica": self.identity_report(),
         }

@@ -90,6 +90,7 @@ class PagedKVPool:
         self.evictions = 0
         self._free_slots = list(range(self.num_slots))
         self._owner = {}
+        self._quarantined = set()   # excluded from admission
         self._slot_blocks = {}
         self.block_tables = np.full(
             (self.num_slots, self.blocks_per_slot), TRASH_BLOCK, np.int32)
@@ -102,6 +103,38 @@ class PagedKVPool:
         return len(self._free_slots)
 
     @property
+    def occupancy(self):
+        """Fraction of slots owned by live requests (quarantined slots
+        are neither free nor occupied)."""
+        return len(self._owner) / self.num_slots
+
+    @property
+    def quarantined(self):
+        """Slots excluded from admission (sorted)."""
+        return sorted(self._quarantined)
+
+    def quarantine(self, slot):
+        """Exclude a FREE slot from admission (the engine's response to
+        repeated same-slot dispatch failures; its table row already
+        names only the trash block, so it pins no block)."""
+        if slot in self._owner:
+            raise ValueError(f"slot {slot} is live; release it first")
+        if slot in self._quarantined:
+            return
+        self._free_slots.remove(slot)
+        heapq.heapify(self._free_slots)
+        self._quarantined.add(slot)
+
+    def unquarantine_all(self):
+        """Return every quarantined slot to the free heap."""
+        for slot in sorted(self._quarantined):
+            heapq.heappush(self._free_slots, slot)
+        self._quarantined.clear()
+
+    def owner_of(self, slot):
+        return self._owner.get(slot)
+
+    @property
     def slot_capacity(self):
         """Tokens one slot's table row can address."""
         return self.blocks_per_slot * self.block_size
@@ -110,6 +143,10 @@ class PagedKVPool:
     @property
     def free_blocks(self):
         return len(self._free_blocks)
+
+    @property
+    def evictable_blocks(self):
+        return self._evictable
 
     @property
     def live_blocks(self):
@@ -293,6 +330,16 @@ class PagedKVPool:
             "evictions": self.evictions,
             "thrash_reinserts": self.index.thrash_count,
         }
+
+    def audit(self):
+        """``check_conservation`` as a report instead of an assert: the
+        health monitor's periodic leak probe feeds a violation to the
+        ``kv_block_leak`` detector rather than crash the serve loop."""
+        try:
+            self.check_conservation()
+        except AssertionError as e:
+            return {"ok": False, "error": str(e) or repr(e)}
+        return {"ok": True, "error": None}
 
     def check_conservation(self):
         """Invariant audit: trash + free + refcounted blocks partition

@@ -42,6 +42,9 @@ class SchedulingPolicy:
     def observe_service(self, service_ms):
         pass
 
+    def reset_service(self):
+        """Forget accumulated service feedback (``declare_warmup()``)."""
+
 
 class FIFOPolicy(SchedulingPolicy):
     """Strict arrival order; every request is served, however late."""
@@ -73,6 +76,9 @@ class SLOFeedbackPolicy(SchedulingPolicy):
             self.service_est_ms = s
         else:
             self.service_est_ms += self.ewma * (s - self.service_est_ms)
+
+    def reset_service(self):
+        self.service_est_ms = 0.0
 
     def headroom_ms(self, request, now):
         """TTFT budget left were the request admitted now (<= 0: the

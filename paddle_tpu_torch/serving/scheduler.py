@@ -6,7 +6,8 @@ blocks) is free; per-slot stop conditions (EOS / max-new-tokens) retire
 requests one by one. Admission on the slot pool returns same-bucket
 prefill groups; prompts longer than the chunk width come back apart, to
 be prefilled chunk by chunk. A scheduling policy (``serving.sched``)
-triages the queue before admission. Deadlines are not ported.
+triages the queue before admission. A request past its
+``deadline_ms`` retires, queued or decoding.
 """
 import collections
 import itertools
@@ -29,12 +30,13 @@ class Request:
     ``temperature`` / ``top_k`` / ``top_p`` / ``seed`` select per-slot
     sampling (engines built with ``sampling=True``); ``sampled`` is
     ``generate()``'s condition (temperature > 0 and top_k != 1), and the
-    seed defaults to the request id. ``hold_kv`` keeps the slot and its
-    blocks past retirement for ``export_kv``."""
+    seed defaults to the request id. ``deadline_ms`` bounds the request
+    end to end from its arrival (None: no deadline). ``hold_kv`` keeps
+    the slot and its blocks past retirement for ``export_kv``."""
 
     def __init__(self, prompt, max_new_tokens, eos_id=None, on_token=None,
                  temperature=0.0, top_k=0, top_p=1.0, seed=None,
-                 hold_kv=False):
+                 deadline_ms=None, hold_kv=False):
         self.rid = next(_rid)
         self.prompt = np.asarray(prompt).reshape(-1).astype(np.int64)
         if self.prompt.size == 0:
@@ -56,6 +58,10 @@ class Request:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         self.seed = self.rid if seed is None else int(seed)
         self.sampled = self.temperature > 0.0 and self.top_k != 1
+        self.deadline_ms = None if deadline_ms is None \
+            else float(deadline_ms)
+        if self.deadline_ms is not None and self.deadline_ms <= 0:
+            raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
         self.hold_kv = bool(hold_kv)
         # policy facts: deferred once ("defer" mode), or shed before
         # admission (done with no tokens)
@@ -65,7 +71,9 @@ class Request:
         self.slot = None
         self.generated = []
         self.inflight = 0   # tokens dispatched on device, not yet read
+        self.dispatch_failures = 0   # dispatch attempts that raised
         self.stop_reason = None
+        self.trace = None   # the propagated TraceContext
         # perf_counter lifecycle: arrival -> admission -> first token ->
         # done; the deltas feed ServingMetrics
         self.t_arrival = time.perf_counter()
@@ -95,6 +103,12 @@ class Request:
     def cache_tokens(self):
         """Cache rows the request can ever need (prompt + max_new)."""
         return len(self.prompt) + self.max_new_tokens
+
+    def past_deadline(self, now=None):
+        if self.deadline_ms is None:
+            return False
+        now = time.perf_counter() if now is None else now
+        return (now - self.t_arrival) * 1000.0 > self.deadline_ms
 
 
 class StepScheduler:
@@ -279,6 +293,26 @@ class StepScheduler:
         request.stop_reason = "aborted"
         request.t_done = time.perf_counter()
         self.completed.append(request)
+
+    def expire_deadlines(self, pool, prefilling=(), now=None):
+        """Retire requests past their ``deadline_ms``: queued ones (no
+        tokens) and running ones that are decoding (first token already
+        read; slots mid-prefill or parked in ``prefilling`` expire on a
+        later step, once their prefill has landed). Returns
+        ``(expired_queued, expired_active)``, each with stop reason
+        "deadline". A retired decode's token still in flight is masked
+        at harvest like an EOS stop's."""
+        now = time.perf_counter() if now is None else now
+        expired_q = [r for r in self.queue if r.past_deadline(now)]
+        for req in expired_q:
+            self.abort(req, pool)
+            req.stop_reason = "deadline"
+        expired_a = [r for slot, r in sorted(self.active.items())
+                     if r.generated and slot not in prefilling
+                     and r.past_deadline(now)]
+        for req in expired_a:
+            self.finish(req, pool, "deadline")
+        return expired_q, expired_a
 
     def stop_reason(self, request, token):
         """"eos" / "max_tokens" / None (keep decoding)."""

@@ -80,3 +80,11 @@ class SpecDecoder:
 
     def acceptance_ewma(self, rid):
         return self._ewma.get(rid, 1.0)
+
+    def reset(self):
+        """Supervisor restart: drop all draft state (the replay rebuilds
+        each request's context from its prompt and emitted tokens)."""
+        self.drafter = NGramDrafter(
+            self.k, max_entries=self.drafter.max_entries,
+            shared_entries=self.drafter.shared_entries)
+        self._ewma.clear()
