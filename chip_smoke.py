@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
 Run from the repository root:  python3 chip_smoke.py [--parent TREE]
-(``--fleet`` runs phases 1, 4 and 16 alone and prints no kernels line)
+(``--fleet`` runs phases 1, 4, 16 and 17 alone and prints no kernels
+line)
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -160,9 +161,33 @@ Phases, one line each:
              router over HTTPTransport: 4 requests, GET /metrics and
              /debug/health answer 200. Every run's pool conserved and
              empty; K4 = 12 x its engines' decode steps.
+ 17. observe the observatories and the fleet telemetry on phase 4's
+             GPT-124M, weights and 16 requests, spread over three
+             tenant_ids, on ServingEngine(paged=True, num_slots=8,
+             block_size=16) with perf, the cache observatory, trace
+             spans and SLO targets on: 17a every stream held to phase
+             5's rule against phase 4's, the pool conserved and empty;
+             17b the decode program's roofline floor equal to this
+             script's reckoning (parameters once, each slot's live K/V
+             read and its new row written, over HBM_BPS), its roofline
+             fraction in (0, 1], attributed_fraction printed, the MFU
+             gauge in (0, 1), the HBM gauges within a pool block of
+             torch.cuda.memory_allocated; 17c tokens per tenant summing
+             to the engine's, SLO attained + violating = completed,
+             /debug/requests?tenant= exactly that tenant's, one trace a
+             request from /debug/traces through the TraceAssembler,
+             /debug/cache with the cache keys and an MRC, every route
+             200; 17d two replicas behind EngineGateway.serve() with a
+             FleetPoller and a FleetServer: both up and healthy, the
+             rollup's sums equal the replicas', /fleet/* 200, one killed
+             and down after down_after cycles with one replica_flap for
+             it alone; 17e tokens/s with every observatory on and off
+             (perf, cache, trace spans, health), on/off/off/on, then on
+             with a poller scraping every 0.25 s, each beside phase 4's.
+             K4 = 12 x each run's decode steps.
 Then the card's name and power limit, one JSON line of kernel numbers
-(launches summed over the main paths: phases 4, 14, 15's paged runs and
-16 for K4, 5, 14 and 16 for the serving K1 row, 7, 11, 12 and 13 for the
+(launches summed over the main paths: phases 4, 14, 15's paged runs, 16
+and 17 for K4, 5, 14, 16 and 17 for the serving K1 row, 7, 11, 12 and 13 for the
 f32 training rows, 10 and 13 for the bf16 ones), and as the last line
 {"ok": true, "device": {...}}.
 
@@ -1765,7 +1790,7 @@ def phase_rest(torch, pa, TransformerLMConfig, prompts, max_new, ref, tps4):
             torch, model, prompts, max_new, pa, "15c", paged=paged,
             max_len=1024, speculative=True, spec_k=4)
         k4_total += k4
-        sp = eng.metrics.snapshot()["spec"]
+        sp = eng.metrics.snapshot()["perf"]["spec"]
         line("paged" if paged else "slot pool", eng, tps, wall, k4,
              f" (12 x {sp['fallback_steps']} plain steps; "
              f"{sp['verify_steps']} verify steps); drafted "
@@ -2199,6 +2224,366 @@ def phase_fleet(torch, pa, attn, TransformerLMConfig, prompts, max_new,
     return k4_total, k1_total
 
 
+# --------------------------------------------------------------- phase 17
+
+# phase 17's SLO targets and tenants, and the observatories on and off
+OBS_SLO = dict(slo_ttft_ms=2000.0, slo_tpot_ms=50.0)
+OBS_TENANTS = ("acme", "zeta", "ortho")
+OBS_ON = dict(perf=True, cache_observatory=True, trace_spans=True,
+              health=True, **OBS_SLO)
+OBS_OFF = dict(perf=False, cache_observatory=False, trace_spans=False,
+               health=False)
+# the debug surface every replica answers over serve_metrics()
+OBS_ROUTES = ("/metrics", "/metrics.json", "/debug", "/debug/state",
+              "/debug/requests", "/debug/traces", "/debug/perf",
+              "/debug/cache", "/debug/tenants", "/debug/health",
+              "/debug/ledger")
+
+
+def get_json(url):
+    """(status, body): JSON bodies decoded, text ones as bytes."""
+    with urllib.request.urlopen(url, timeout=30.0) as resp:
+        body = resp.read()
+        if "json" in resp.headers.get("Content-Type", ""):
+            body = json.loads(body)
+        return resp.status, body
+
+
+def decode_kv_bytes(prompts, max_new, cfg, kv_bytes):
+    """This script's reckoning of the K/V bytes the decode dispatches
+    move: every request rides max_new - 1 decodes (no EOS; a max-token
+    stop is known at dispatch), at cached lengths P .. P + max_new - 2;
+    each reads its live K/V (length + 1 positions: K4 stops there) and
+    writes one position."""
+    nh = cfg.num_heads
+    per_pos = 2 * cfg.num_layers * nh * (cfg.hidden_size // nh) * kv_bytes
+    return sum((base + 2) * per_pos for p, n in zip(prompts, max_new)
+               for base in range(len(p), len(p) + n - 1))
+
+
+def obs_run(torch, model, prompts, max_new, knobs, poll_s=None):
+    """Phase 4's arrivals on a fresh engine, every request tagged with
+    one of three tenants. With ``poll_s`` the engine is served on
+    127.0.0.1 and a FleetPoller scrapes it every ``poll_s`` seconds on
+    its own thread while it serves; the engine then steps and takes
+    requests under the lock its debug routes read under. Returns
+    (engine, requests, wall, tokens/s, poller)."""
+    import threading
+    from paddle_tpu_torch.observability.fleet import FleetPoller
+    eng = fleet_engine(model, "o0", **knobs)
+    poller = None
+    if poll_s is not None:
+        lock = threading.Lock()
+        step, add = eng.step, eng.add_request
+
+        def locked_step():
+            with lock:
+                return step()
+
+        def locked_add(*a, **k):
+            with lock:
+                return add(*a, **k)
+        eng.step, eng.add_request = locked_step, locked_add
+        handle = eng.serve_metrics(lock=lock)
+        poller = FleetPoller([f"127.0.0.1:{handle.port}"],
+                             interval_s=poll_s, timeout_s=5.0)
+        poller.start()
+    kws = [dict(tenant_id=OBS_TENANTS[i % 3]) for i in range(len(prompts))]
+    try:
+        reqs, wall = drive(eng, prompts, max_new, kws)
+    finally:
+        if poller is not None:
+            poller.stop()
+    return eng, reqs, wall, eng.metrics.tokens_per_sec(), poller
+
+
+def phase_observe(torch, pa, attn, TransformerLMConfig, prompts, max_new,
+                  ref, tps4):
+    """Phase 17, the serving engine's observatories and the fleet
+    telemetry on phase 4's GPT-124M (same seed, weights and 16 requests,
+    spread over three tenants; ``ref`` phase 4's streams, ``tps4`` its
+    tokens/s): 17a every observatory on changes no token; 17b the decode
+    program's roofline floor against this script's reckoning, its
+    roofline fraction, the MFU gauge and the HBM gauges; 17c tenants,
+    SLO, flight recorder, traces, the cache section and every route; 17d
+    two replicas over HTTP behind a FleetPoller and a FleetServer, one
+    killed; 17e tokens/s with every observatory on and off in turns, and
+    on with a poller scraping every 0.25 s. K4 = 12 x the decode steps
+    of each run's engines, the counts set to 0 just before and read just
+    after. Returns (K4, K1) launches."""
+    from paddle_tpu_torch.observability.cache import CACHE_KEYS
+    from paddle_tpu_torch.observability.fleet import (FleetPoller,
+                                                      FleetServer)
+    from paddle_tpu_torch.observability.perf import (PERF_KEYS,
+                                                     PERF_SPEC_KEYS)
+    from paddle_tpu_torch.observability.tenant import TENANT_KEYS
+    from paddle_tpu_torch.observability.trace import TraceAssembler
+    from paddle_tpu_torch.serving.router import EngineGateway
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    cfg = TransformerLMConfig(dropout=0.0)
+    L = cfg.num_layers
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        1234)).eval()
+    n = len(prompts)
+    greedy = [{} for _ in range(n)]
+    by_tenant = {t: sum(max_new[i] for i in range(n)
+                        if OBS_TENANTS[i % 3] == t) for t in OBS_TENANTS}
+    totals = {"k4": 0, "k1": 0}
+
+    def start():
+        pa.paged_decode_attention.launches = 0
+        attn.flash_attention_forward.launches = 0
+
+    def counted(label, engines):
+        k4 = pa.paged_decode_attention.launches
+        steps = sum(e.metrics.decode_steps for e in engines)
+        totals["k1"] += attn.flash_attention_forward.launches
+        check(k4 == steps * L and k4 > 0,
+              f"{label}: K4 launches {k4} != {steps} decode steps x {L}")
+        totals["k4"] += k4
+        return k4
+
+    print(f"  [17a] every observatory on: perf, cache, trace spans, SLO "
+          f"{OBS_SLO}, tenants {OBS_TENANTS}")
+    start()
+    eng, reqs, wall, tps, _ = obs_run(torch, model, prompts, max_new,
+                                      OBS_ON)
+    k4 = counted("17a", [eng])
+    eng.pool.check_conservation()
+    check(eng.pool.live_blocks == 0 and eng.pool.free_count == 8,
+          "17a: pool not empty")
+    M = eng.metrics
+    print(f"    {M.tokens_generated} tokens in {wall:.3f} s, tokens/s "
+          f"{tps:.1f} (phase 4: {tps4:.1f}); decode steps "
+          f"{M.decode_steps}, K4 launches {k4} = {M.decode_steps} x {L}")
+    compare(torch, model, prompts, reqs, ref, greedy, "vs phase 4")
+
+    print("  [17b] perf: the decode program against its roofline")
+    rep = M.perf_report()
+    check(set(rep) == set(PERF_KEYS)
+          and set(rep["spec"]) == set(PERF_SPEC_KEYS),
+          f"17b: perf keys {sorted(rep)}")
+    dev = rep["device"]
+    check(dev["device_peak"] and dev["device_hbm"]
+          and dev["hbm_bps"] == HBM_BPS
+          and dev["peak_flops"] == PEAK_FLOPS["bfloat16"],
+          f"17b: device figures {dev}")
+    dec = rep["programs"]["decode"]
+    steps = M.decode_steps
+    check(dec["dispatches"] == steps, f"17b: {dec['dispatches']} decode "
+          f"dispatches timed, {steps} run")
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = n_params * eng.params["wemb"].element_size()
+    kv = decode_kv_bytes(prompts, max_new, cfg, eng.pool.kc.element_size())
+    mean_bytes = param_bytes + kv / steps
+    floor_ms = mean_bytes / HBM_BPS * 1e3
+    check(dec["bound"] == "hbm", f"17b: decode bound by {dec['bound']}")
+    check(abs(dec["roofline_floor_ms"] - floor_ms) <= 2e-6,
+          f"17b: decode floor {dec['roofline_floor_ms']} ms vs this "
+          f"script's {floor_ms:.6f} ms")
+    frac = dec["roofline_fraction"]
+    check(frac is not None and 0 < frac <= 1,
+          f"17b: decode roofline fraction {frac}")
+    mfu = M.estimated_mfu()
+    check(0 < mfu < 1, f"17b: estimated MFU {mfu}")
+    print(f"    decode: {steps} dispatches, {dec['avg_ms']} ms each "
+          f"(dispatch {dec['dispatch_s']} s + sync {dec['sync_s']} s in "
+          f"all); {mean_bytes:.6e} B a dispatch ({n_params} f32 "
+          f"parameters, {kv / steps:.6e} B of K/V); roofline floor "
+          f"{dec['roofline_floor_ms']} ms (this script: {floor_ms:.6f} ms "
+          f"at {HBM_BPS:.3e} B/s); roofline fraction {frac}")
+    print(f"    attributed_fraction {rep['attributed_fraction']} of "
+          f"{rep['step_total_s']} s of steps; estimated MFU {mfu:.3e} "
+          f"(decode FLOPs against the bf16 peak; the engine serves f32)")
+    for label, prog in sorted(rep["programs"].items()):
+        if label != "decode":
+            print(f"    {label}: {prog['dispatches']} dispatches, "
+                  f"{prog['avg_ms']} ms each, floor "
+                  f"{prog['roofline_floor_ms']} ms, fraction "
+                  f"{prog['roofline_fraction']}, bound {prog['bound']}")
+    torch.cuda.synchronize()
+    fams = M.registry.snapshot()
+    in_use = fams["serving_hbm_bytes_in_use"]["values"][""]
+    free = fams["serving_hbm_bytes_free"]["values"][""]
+    direct = torch.cuda.memory_allocated()
+    block = 2 * eng.pool.kc[:, 0].nbytes
+    total = torch.cuda.mem_get_info()[1]
+    check(abs(in_use - direct) <= block, f"17b: HBM gauge {in_use} vs "
+          f"memory_allocated {direct} (a pool block is {block} B)")
+    check(abs(in_use + free - total) <= block,
+          f"17b: in use {in_use} + free {free} != the card's {total}")
+    print(f"    HBM gauges: in use {in_use / 2**20:.1f} MiB "
+          f"(memory_allocated {direct / 2**20:.1f} MiB), free "
+          f"{free / 2**30:.2f} GiB of {total / 2**30:.2f} GiB")
+
+    print("  [17c] tenants, SLO, flight recorder, traces, cache, routes")
+    snap = M.snapshot()
+    rows = snap["tenants"]["tenants"]
+    check(set(snap["tenants"]) == set(TENANT_KEYS)
+          and set(rows) == set(OBS_TENANTS), f"17c: tenants {sorted(rows)}")
+    got = {t: rows[t]["tokens_out"] for t in OBS_TENANTS}
+    check(got == by_tenant and sum(got.values()) == M.tokens_generated,
+          f"17c: tokens per tenant {got} vs {by_tenant}")
+    slo = snap["slo"]
+    violating = sum(1 for r in reqs if eng.request_trace(r.rid)
+                    .events[-1].get("slo_violations"))
+    check(slo["attained"] + violating == M.requests_completed == n,
+          f"17c: attained {slo['attained']} + violating {violating} != "
+          f"{M.requests_completed}")
+    fl = eng.flight.state()
+    check(fl["completed_kept"] == n and fl["active"] == 0,
+          f"17c: flight recorder {fl}")
+    handle = eng.serve_metrics()
+    try:
+        base = f"http://127.0.0.1:{handle.port}"
+        codes = {route: get_json(base + route)[0] for route in OBS_ROUTES}
+        check(all(c == 200 for c in codes.values()), f"17c: {codes}")
+        _, body = get_json(base + "/debug/requests?tenant=zeta")
+        want = {r.rid for r in reqs if r.tenant_id == "zeta"}
+        check({t["rid"] for t in body["completed"]} == want
+              and not body["active"], "17c: /debug/requests?tenant=zeta "
+              "is not exactly zeta's requests")
+        asm = TraceAssembler()
+        asm.scrape(base)
+        ids = asm.trace_ids()
+        check(sorted(ids) == sorted(r.trace.trace_id for r in reqs),
+              f"17c: {len(ids)} traces for {n} requests")
+        for tid in ids:
+            names = sorted(s["name"] for s in asm.assemble(tid).spans)
+            check(names == ["prefill/compute", "prefill/queue"],
+                  f"17c: trace {tid} has {names}")
+        _, cache = get_json(base + "/debug/cache")
+        check(set(cache) == set(CACHE_KEYS) and cache["mrc"]
+              and cache["accesses"] > 0, f"17c: /debug/cache {cache}")
+    finally:
+        handle.close()
+    print(f"    tokens per tenant {got} (sum {M.tokens_generated}); SLO "
+          f"attained {slo['attained']}, violations {slo['violations']}, "
+          f"goodput {slo['goodput_tokens']} of {slo['total_tokens']} "
+          f"tokens; flight traces {fl['completed_kept']}; {len(ids)} "
+          f"assembled traces, each prefill/queue + prefill/compute (a "
+          f"monolithic request's segments); cache: {cache['accesses']} "
+          f"block accesses, {cache['hits']} hits, MRC "
+          f"{[(p['factor'], p['est_hit_rate']) for p in cache['mrc']]}; "
+          f"{len(codes)} routes answer 200")
+    eng.close()
+    del eng
+
+    print("  [17d] the fleet: two replicas over HTTP, a FleetPoller and a "
+          "FleetServer, one replica killed")
+    gws = [EngineGateway(fleet_engine(model, f"f{i}", **OBS_ON))
+           for i in range(2)]
+    server = None
+    try:
+        urls = [f"127.0.0.1:{g.serve().port}" for g in gws]
+        start()
+        t0 = time.perf_counter()
+        sub = [gws[i % 2].submit(prompts[i], max_new_tokens=max_new[i],
+                                 tenant_id=OBS_TENANTS[i % 3])
+               for i in range(n)]
+        for i, r in enumerate(sub):
+            check(gws[i % 2].wait(r, timeout=300.0),
+                  f"17d: request {i} timed out")
+        wall = time.perf_counter() - t0
+        for g in gws:
+            settle(g, "17d")
+        counted("17d", [g.engine for g in gws])
+        compare(torch, model, prompts, sub, ref, greedy, "vs phase 4")
+        clock = {"t": 0.0}
+        poller = FleetPoller(urls, timeout_s=30.0, down_after=2,
+                             clock=lambda: clock["t"])
+        check(poller.poll_once() == [],
+              "17d: a fleet detector fired on a healthy fleet")
+        state = poller.snapshot()
+        verdicts = {e["replica_id"]: (e["verdict"], e["healthy"])
+                    for e in state["replicas"].values()}
+        check(verdicts == {"f0": ("up", True), "f1": ("up", True)},
+              f"17d: verdicts {verdicts}")
+        fleet = state["fleet"]
+        sums = {"tokens_generated": sum(g.engine.metrics.tokens_generated
+                                        for g in gws),
+                "requests_completed": sum(
+                    g.engine.metrics.requests_completed for g in gws),
+                "goodput_tokens": sum(g.engine.metrics.slo.goodput_tokens
+                                      for g in gws)}
+        check({k: fleet[k] for k in sums} == sums,
+              f"17d: fleet sums {fleet} vs the replicas' {sums}")
+        ftok = {t: e["tokens_out"]
+                for t, e in fleet["tenants"]["tenants"].items()}
+        check(ftok == by_tenant, f"17d: fleet tokens per tenant {ftok}")
+        server = FleetServer(poller)
+        fbase = f"http://127.0.0.1:{server.serve(poll=False).port}"
+        fcodes = {r: get_json(fbase + r)[0] for r in (
+            "/fleet/health", "/fleet/state", "/fleet/metrics",
+            "/fleet/tenants")}
+        check(all(c == 200 for c in fcodes.values()), f"17d: {fcodes}")
+        print(f"    16 requests to two gateways in {wall:.3f} s; verdicts "
+              f"{verdicts}; fleet sums {sums} = the replicas'; TTFT "
+              f"p50/p99 {fleet['latency']['ttft']['p50_ms']}/"
+              f"{fleet['latency']['ttft']['p99_ms']} ms from merged "
+              f"buckets; decode roofline fraction (mean) "
+              f"{fleet['roofline_fraction']}; /fleet routes {fcodes}")
+        gws[1].kill()
+        fired, seen = [], []
+        for _ in range(poller.down_after):
+            clock["t"] += 10.0
+            fired += poller.poll_once()
+            seen.append({e["replica_id"]: e["verdict"]
+                         for e in poller.snapshot()["replicas"].values()})
+        check(seen[-1] == {"f0": "up", "f1": "down"}
+              and all(v["f1"] != "down" for v in seen[:-1]),
+              f"17d: verdicts a cycle after the kill {seen}")
+        # the reference's replica_flap fires on an up->down transition:
+        # once, on the eviction cycle, naming the killed replica alone
+        check(len(fired) == 1 and fired[0]["detector"] == "replica_flap"
+              and fired[0]["replicas"] == ["f1"], f"17d: fired {fired}")
+        print(f"    killed f1: verdicts a cycle {seen}; replica_flap once, "
+              f"on the eviction cycle ({fired[0]['reason']}), none for f0")
+    finally:
+        if server is not None:
+            server.close()
+        for g in gws:
+            g.close()
+
+    print("  [17e] what the observatories cost: tokens/s on, off, off, "
+          "on; then on, scraped every 0.25 s")
+    rates = {"on": [], "off": []}
+    for label in ("on", "off", "off", "on"):
+        start()
+        e, rq, w, t, _ = obs_run(torch, model, prompts, max_new,
+                                 OBS_ON if label == "on" else OBS_OFF)
+        counted(f"17e {label}", [e])
+        compare(torch, model, prompts, rq, ref, greedy, f"17e {label}")
+        rates[label].append(t)
+        print(f"    {label}: tokens/s {t:.1f} ({w:.3f} s wall; phase 4: "
+              f"{tps4:.1f})")
+        e.close()
+    start()
+    e, rq, w, t, poller = obs_run(torch, model, prompts, max_new, OBS_ON,
+                                  poll_s=0.25)
+    counted("17e polled", [e])
+    compare(torch, model, prompts, rq, ref, greedy, "17e polled")
+    (st,) = poller.replicas
+    check(st.polls >= 1 and st.failures == 0,
+          f"17e: {st.polls} scrapes, {st.failures} failed")
+    e.close()
+    print(f"    on, scraped every 0.25 s: tokens/s {t:.1f} ({w:.3f} s "
+          f"wall; {st.polls} scrapes, last {st.scrape_s * 1e3:.1f} ms); "
+          f"on {[round(x, 1) for x in rates['on']]}, off "
+          f"{[round(x, 1) for x in rates['off']]}, phase 4 {tps4:.1f}")
+    del model
+    return totals["k4"], totals["k1"]
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return card[0] if card else "nvidia-smi: no output"
+
+
 def main():
     ap = argparse.ArgumentParser(description="Drive the port on one card.")
     ap.add_argument("--parent", metavar="TREE",
@@ -2206,9 +2591,10 @@ def main():
                     "f32 K5) phases 9 and 11 compare with (default: git "
                     "history, where the checkout has it)")
     ap.add_argument("--fleet", action="store_true",
-                    help="phases 1, 4 and 16 only (the build, phase 4's "
-                    "streams, the hardened engine and the router); prints "
-                    "no kernels line")
+                    help="phases 1, 4, 16 and 17 only (the build, phase "
+                    "4's streams, the hardened engine and the router, the "
+                    "observatories and the fleet telemetry); prints no "
+                    "kernels line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     try:
@@ -2297,8 +2683,15 @@ def main():
         k4_fleet, k1_fleet = phase_fleet(
             torch, pa, attn, TransformerLMConfig, prompts, max_new,
             [r.generated for r in reqs], snap["tokens_per_sec"], wall)
-        print(f"phases 1, 4 and 16 in {time.perf_counter() - t_start:.1f} "
-              f"s; phase 16's K4 launches {k4_fleet}, K1 {k1_fleet}")
+        print("[17] the observatories and the fleet telemetry")
+        k4_obs, k1_obs = phase_observe(
+            torch, pa, attn, TransformerLMConfig, prompts, max_new,
+            [r.generated for r in reqs], snap["tokens_per_sec"])
+        print(f"phases 1, 4, 16 and 17 in "
+              f"{time.perf_counter() - t_start:.1f} s; phase 16's K4 "
+              f"launches {k4_fleet}, K1 {k1_fleet}; phase 17's K4 "
+              f"{k4_obs}, K1 {k1_obs}")
+        print(card_line())
         return 0
     print("[5] greedy cross-check against the forward")
     k1 = phase_check(torch, model, reqs, attn)
@@ -2347,16 +2740,21 @@ def main():
     k4_fleet, k1_fleet = phase_fleet(
         torch, pa, attn, TransformerLMConfig, prompts, max_new,
         [r.generated for r in reqs], snap["tokens_per_sec"], wall)
+    print("[17] the observatories (perf, cache, tenants, SLO, flight "
+          "recorder, traces) and the fleet poller, rollup and server")
+    k4_obs, k1_obs = phase_observe(
+        torch, pa, attn, TransformerLMConfig, prompts, max_new,
+        [r.generated for r in reqs], snap["tokens_per_sec"])
 
     # launches summed over the main paths that run each row's kernel: K4
-    # on phases 4, 14, 15's paged runs and 16, the serving K1 row on
-    # phases 5, 14 and 16 (the engine's prefill attends without K1, so
-    # 16 adds only what its stream checks run through the forward); the
-    # f32 training rows
+    # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
+    # phases 5, 14, 16 and 17 (the engine's prefill attends without K1,
+    # so 16 and 17 add only what their stream checks run through the
+    # forward); the f32 training rows
     # (K1 at the training shape, K2, K3, K5-K7) on phases 7, 11, 12 and
     # 13; the bf16 rows on phases 10 and 13
-    k4_row["launches"] = k4 + k4_gen + k4_rest + k4_fleet
-    k1_row["launches"] = k1 + k1_gen + k1_fleet
+    k4_row["launches"] = k4 + k4_gen + k4_rest + k4_fleet + k4_obs
+    k1_row["launches"] = k1 + k1_gen + k1_fleet + k1_obs
     f32 = [a + b + c for a, b, c in zip(counts, optim, rc_f32)]
     k1t_row["launches"] = k1_train + f32[0]
     k2_row["launches"] = k2 + f32[1]
@@ -2366,12 +2764,8 @@ def main():
     for row, n in zip((k1b_row, k2b_row, k3b_row, k5_row, k6_row, k7_row),
                       bf16):
         row["launches"] = n
-    print(f"phases 1-16 in {time.perf_counter() - t_start:.1f} s")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    print(card[0] if card else "nvidia-smi: no output")
+    print(f"phases 1-17 in {time.perf_counter() - t_start:.1f} s")
+    print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1,9 +1,11 @@
 """Observability for the port's serving fleet (a port of part of
 ``paddle_tpu/observability``): the metrics registry and its HTTP
 server, the host-span recorder, the compile watchdog's interface,
-replica identity, the health observatory and the distributed trace
-context. All of it is stdlib Python with no device code; the serving
-engine and the router instrument through it.
+replica identity, the health observatory, the distributed trace context
+and assembler, the request flight recorder, the SLO tracker, the perf,
+cache and tenant observatories, and the fleet poller, rollup and server.
+All of it is stdlib Python with no device code; the serving engine and
+the router instrument through it.
 
 Quick start::
 
@@ -15,16 +17,25 @@ Quick start::
     print(reg.prometheus_text())            # scrape format
     server = obs.start_metrics_server(reg)  # GET /metrics, /metrics.json
     server.close()
-
-Not ported yet: the flight recorder, the SLO tracker, the perf, cache
-and tenant observatories, the fleet poller and server, and the trace
-assembler.
 """
-from .fleet import ReplicaIdentity, default_replica_id  # noqa: F401
+from .cache import (  # noqa: F401
+    CACHE_KEYS, CacheObservatory, ReuseDistanceSampler,
+    disabled_cache_report, exact_mrc, merge_heat_digests,
+    merge_mrc_points, top_prefix_digest,
+)
+from .fleet import (  # noqa: F401
+    FleetPoller, FleetServer, ReplicaIdentity, default_replica_id,
+)
+from .flight import FlightRecorder, RequestTrace  # noqa: F401
 from .health import (  # noqa: F401
     HealthMonitor, IncidentRecorder, LEDGER_ROW_KEYS, StepLedger,
     build_detectors, detector_names, disabled_health_summary,
     register_detector, unregister_detector,
+)
+from .perf import (  # noqa: F401
+    PERF_KEYS, PERF_PROGRAM_KEYS, PERF_SPEC_KEYS, ProgramPerf,
+    disabled_perf_report, disabled_spec_report, format_program_key,
+    hbm_bps_for, peak_flops_for,
 )
 from .registry import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry, MetricsServerHandle,
@@ -32,6 +43,10 @@ from .registry import (  # noqa: F401
     default_registry, merge_histogram_snapshots,
     percentile_from_buckets, prometheus_text_from_snapshots,
     start_metrics_server,
+)
+from .slo import SLOTracker  # noqa: F401
+from .tenant import (  # noqa: F401
+    TENANT_ENTRY_KEYS, TENANT_KEYS, TenantLedger, disabled_tenant_report,
 )
 from .tracing import (  # noqa: F401
     FlowEvent, HostSpan, HostSpanRecorder, default_recorder, span_timer,

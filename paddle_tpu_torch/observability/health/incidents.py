@@ -36,8 +36,8 @@ INCIDENT_SCHEMA = "paddle_tpu.health.incident/v1"
 # (replica_id / uptime) — a bundle collected off one member of a
 # fleet stays attributable after the fact. ``traces`` holds the
 # assembled distributed traces of the requests in flight at capture
-# time (None in the port, which has no trace assembler; ``tenants``
-# likewise, without a tenant ledger).
+# time, and ``tenants`` the top tenants by token share (the
+# noisy-neighbor suspect list).
 INCIDENT_KEYS = (
     "schema", "written_at", "detector", "verdict", "ledger_tail",
     "metrics", "watchdog", "requests", "spans_tail", "health",

@@ -57,6 +57,24 @@ appends a row to the health ledger and runs the anomaly detectors; the
 supervisor (on with health) answers a wedge verdict with an in-process
 restart: fresh pools and programs, in-flight requests re-queued for an
 exact greedy replay.
+
+Observatories, as in the reference, all on by default: the request
+flight recorder (``/debug/requests``, ``?tenant=`` filters), the SLO
+tracker (``slo_ttft_ms``/``slo_tpot_ms`` over ``slo_window_s``), the
+tenant ledger (``add_request(tenant_id=)``, at most ``max_tenants`` live
+ids), per-program perf attribution with roofline fractions (``perf``,
+``/debug/perf``), the cache observatory over the paged pool
+(``cache_observatory``, ``/debug/cache``) and the per-hop trace span
+ring (``trace_spans``, ``/debug/traces``). The perf observatory prices
+each dispatch from its shapes (``observability.perf.program_cost``):
+the reference prices its compiled programs with XLA's
+``cost_analysis``. The decode program runs K4 on the card and is priced
+as the ``"paged_pallas"`` layout, with each slot's live length; on the
+CPU the plain paged version gathers and is priced as ``"paged_xla"``;
+the slot pool is ``"contiguous"``. The dispatch leg is the host time to
+queue a program (CUDA launches return at once) and the sync leg the
+wait in the host read-back: nothing synchronizes the card to time a
+dispatch.
 """
 import time
 import weakref
@@ -66,9 +84,13 @@ import torch
 
 from ..core.device import resolve_device
 from ..observability.fleet import ReplicaIdentity
+from ..observability.flight import FlightRecorder
 from ..observability.health import HealthMonitor, IncidentRecorder
+from ..observability.perf import (build_decode_model, hbm_bps_for,
+                                  peak_flops_for, program_cost)
 from ..observability.registry import start_metrics_server
-from ..observability.trace import TraceContext
+from ..observability.trace import (TraceAssembler, TraceContext,
+                                   TraceRecorder)
 from ..observability.tracing import default_recorder
 from ..observability.watchdog import CompileWatchdog
 from . import kv_wire
@@ -156,8 +178,20 @@ class ServingConfig:
     ``replica_id`` (default host:pid); ``watchdog_mode`` "flag" or
     "raise".
 
-    Not taken: the reference's environment gates and its perf, cache,
-    tenant, SLO-window and trace-span knobs, and buffer donation."""
+    Observatories, as in the reference: ``perf`` (per-program
+    attribution; ``peak_flops`` overrides the card's table), the cache
+    observatory (``cache_observatory``, ``cache_sample_rate``), the SLO
+    tracker (``slo_ttft_ms``, ``slo_tpot_ms``, ``slo_window_s``), the
+    flight recorder (``completed_keep`` retired requests kept by the
+    scheduler, ``trace_keep`` traces, a progress event every
+    ``trace_decode_window`` tokens), the trace span ring
+    (``trace_spans``, ``trace_span_keep``) and the tenant ledger
+    (``max_tenants``; 0 disables it). Each defaults as the reference's
+    does with its environment variable unset.
+
+    Not taken: the reference's environment gates, ``donate_buffers``
+    (PyTorch has no buffer donation) and ``paged_attn`` (the card always
+    runs K4)."""
 
     def __init__(self, num_slots=8, max_len=None, buckets=None,
                  bucket_min=32, eos_id=None, prefill_group_sizes=None,
@@ -172,7 +206,12 @@ class ServingConfig:
                  max_dispatch_retries=0, retry_backoff_s=0.0,
                  quarantine_after=3, supervisor=None,
                  supervisor_max_restarts=8, supervisor_cooldown_s=1.0,
-                 replica_id=None, watchdog_mode="flag"):
+                 replica_id=None, watchdog_mode="flag", perf=True,
+                 peak_flops=None, cache_observatory=True,
+                 cache_sample_rate=0.125, slo_tpot_ms=None,
+                 slo_window_s=60.0, completed_keep=4096, trace_keep=256,
+                 trace_decode_window=32, trace_spans=True,
+                 trace_span_keep=4096, max_tenants=32):
         self.num_slots = int(num_slots)
         self.max_len = max_len
         self.buckets = buckets
@@ -254,6 +293,23 @@ class ServingConfig:
         self.supervisor_cooldown_s = float(supervisor_cooldown_s)
         self.replica_id = replica_id
         self.watchdog_mode = watchdog_mode
+        self.perf = bool(perf)
+        self.peak_flops = peak_flops
+        self.cache_observatory = bool(cache_observatory)
+        self.cache_sample_rate = float(cache_sample_rate)
+        self.slo_tpot_ms = slo_tpot_ms
+        self.slo_window_s = float(slo_window_s)
+        self.completed_keep = completed_keep
+        self.trace_keep = int(trace_keep)
+        self.trace_decode_window = int(trace_decode_window)
+        self.trace_spans = bool(trace_spans)
+        self.trace_span_keep = int(trace_span_keep)
+        if self.trace_span_keep < 1:
+            raise ValueError(
+                f"trace_span_keep must be >= 1, got {trace_span_keep}")
+        self.max_tenants = int(max_tenants)
+        if self.max_tenants < 0:
+            raise ValueError(f"max_tenants must be >= 0, got {max_tenants}")
 
 
 class ServingEngine:
@@ -334,12 +390,32 @@ class ServingEngine:
         self._chunk_q = []        # ChunkPlans awaiting chunk dispatch
         self._prefilling = set()  # slots parked mid-chunked-prefill
         self._policy = resolve_policy(config.policy, config.slo_ttft_ms)
-        self.scheduler = StepScheduler(buckets, cache_len,
-                                       policy=self._policy)
-        self.metrics = M = ServingMetrics()
+        self.flight = FlightRecorder(
+            keep_last=config.trace_keep,
+            decode_window=config.trace_decode_window)
+        self.scheduler = StepScheduler(
+            buckets, cache_len, completed_keep=config.completed_keep,
+            policy=self._policy, flight=self.flight)
+        self.metrics = M = ServingMetrics(
+            slo_ttft_ms=config.slo_ttft_ms, slo_tpot_ms=config.slo_tpot_ms,
+            slo_window_s=config.slo_window_s, perf=config.perf,
+            cache=config.cache_observatory,
+            cache_sample_rate=config.cache_sample_rate,
+            max_tenants=config.max_tenants)
+        self._perf_on = config.perf
         if self.paged:
             M.set_prefix_pool(self.pool.stats)
+            M.cache.attach_pool(self.pool)
         M.set_spec(self.speculative, self.spec_k)
+
+        # scrape-time per-tenant queue depth: a read-only walk of the
+        # queue
+        def _tenant_queue_depths(sch=self.scheduler):
+            depths = {}
+            for r in sch.queue:
+                depths[r.tenant_id] = depths.get(r.tenant_id, 0) + 1
+            return depths
+        M.tenants.set_queue_probe(_tenant_queue_depths)
         M.set_scheduler_info(self._policy.name, self.chunk_len,
                              self.prefill_token_budget)
         # rolling device state: last token and next write position per
@@ -353,6 +429,12 @@ class ServingEngine:
         self.identity = ReplicaIdentity(config.replica_id)
         self.replica_id = self.identity.replica_id
         M.set_identity(self.identity, torch_version=torch.__version__)
+        # this replica's per-hop trace spans, keyed by each request's
+        # TraceContext: /debug/traces, snapshot()["trace"], incidents
+        self.trace = TraceRecorder(self.replica_id,
+                                   capacity=config.trace_span_keep,
+                                   enabled=config.trace_spans)
+        M.set_trace(self.trace.snapshot)
         self.watchdog = CompileWatchdog(mode=config.watchdog_mode)
         # resilience: chaos harness + retry/quarantine/drain state
         self.chaos = resolve_chaos(config.chaos)
@@ -391,10 +473,28 @@ class ServingEngine:
                          "dur": round(sp.dur, 6), "tid": sp.tid}
                         for sp in rec.spans()[-120:]]
 
+            def _incident_traces(trace=self.trace, flight=self.flight):
+                # assembled traces of the requests in flight at capture
+                # time, from the spans this replica holds
+                tids = sorted({t.trace_id for t in flight.active()
+                               if t.trace_id is not None})
+                asm = TraceAssembler()
+                asm.add_recorder(trace)
+                out = []
+                for tid in tids:
+                    at = asm.assemble(tid)
+                    if at is not None:
+                        out.append(at.as_dict())
+                return out
+
             context = {"metrics": M.snapshot,
                        "watchdog": self.watchdog.report,
+                       "requests": self.flight.debug_requests,
                        "spans_tail": _spans_tail,
-                       "replica": M.identity_report}
+                       "traces": _incident_traces,
+                       "replica": M.identity_report,
+                       # the noisy-neighbor suspect list
+                       "tenants": M.tenants.top}
             if self.chaos is not None:
                 # a chaos-found incident replays from its bundle alone
                 context["chaos"] = self.chaos.report
@@ -416,6 +516,76 @@ class ServingEngine:
         self.supervisor = EngineSupervisor(
             self, max_restarts=config.supervisor_max_restarts,
             cooldown_s=config.supervisor_cooldown_s) if sup_on else None
+        self._slo_on = (config.slo_ttft_ms is not None
+                        or config.slo_tpot_ms is not None)
+        self._bind_device_cost(model)
+
+    def _bind_device_cost(self, model):
+        """The device's peak FLOP/s and HBM bandwidth (the card's
+        data-sheet table by ``torch.cuda.get_device_name()``; None on the
+        CPU unless ``peak_flops`` is given), the HBM gauges (a CUDA
+        device only), the decode layout the perf observatory prices, and
+        the static decode-step model (every slot at its full capacity:
+        the most a decode can read)."""
+        config, cfg, M = self.config, model.cfg, self.metrics
+        dev = self.device
+        if dev.type == "cuda":
+            kind = torch.cuda.get_device_name(dev)
+            hbm = hbm_bps_for(kind)
+            peak = config.peak_flops or peak_flops_for(kind)
+
+            def memory(dev=dev):
+                in_use = torch.cuda.memory_allocated(dev)
+                limit = torch.cuda.mem_get_info(dev)[1]
+                return {"bytes_in_use": in_use, "bytes_limit": limit,
+                        "bytes_free": limit - in_use}
+            M.enable_device_memory(memory)
+            self.decode_layout = "paged_pallas" if self.paged \
+                else "contiguous"
+        else:
+            kind, hbm, peak = "cpu", None, config.peak_flops
+            self.decode_layout = "paged_xla" if self.paged \
+                else "contiguous"
+        M.set_peak_flops(peak)
+        nh = cfg.num_heads
+        self._cost_dims = dims = dict(
+            # tied weights are one parameter: each tensor counts once
+            n_params=sum(p.numel() for p in model.parameters()),
+            num_layers=cfg.num_layers, num_heads=nh,
+            head_dim=cfg.hidden_size // nh,
+            param_bytes=self.params["wemb"].element_size(),
+            kv_bytes=self.pool.kc.element_size(), layout=self.decode_layout)
+        if not self._perf_on:
+            return
+        M.perf.set_device(dev.type, kind, peak_flops=peak, hbm_bps=hbm)
+        M.perf.set_decode_model(build_decode_model(
+            batch=config.num_slots, kv_len=self.cache_len,
+            paged=self.paged, peak_flops=peak, hbm_bps=hbm, **dims))
+
+    def _price(self, key, positions):
+        """Price one dispatch of program ``key`` from its shapes
+        (``positions``: ``(cached, new tokens)`` per sequence) into the
+        perf observatory; the decode program's mean price also feeds the
+        MFU gauge."""
+        cost = program_cost(positions, kv_len=self.cache_len,
+                            **self._cost_dims)
+        mean = self.metrics.perf.accrue_cost(key, cost["flops"],
+                                             cost["bytes_accessed"])
+        if key == ("decode",):
+            self.metrics.set_decode_cost(mean["flops"],
+                                         mean["bytes_accessed"])
+
+    def _timed(self, key, fn, *args):
+        """Run one serving program: its host seconds go to the dispatch
+        leg (the health ledger's ``dispatch_s``) and, with perf on, to
+        its program key."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        dt = time.perf_counter() - t0
+        self.metrics.dispatch_s += dt
+        if self._perf_on:
+            self.metrics.perf.record_dispatch(key, dt)
+        return out
 
     def _new_pool(self):
         cfg, config = self._model.cfg, self.config
@@ -469,7 +639,7 @@ class ServingEngine:
     def add_request(self, prompt, max_new_tokens, eos_id=None,
                     on_token=None, temperature=0.0, top_k=0, top_p=1.0,
                     seed=None, deadline_ms=None, hold_kv=False,
-                    trace=None):
+                    trace=None, tenant_id=None):
         """Queue a prompt; returns the Request at once. Tokens stream
         through ``on_token(request, token)`` as they are read back.
         ``temperature``/``top_k``/``top_p``/``seed`` sample this request
@@ -481,7 +651,11 @@ class ServingEngine:
         ``trace`` is the propagated trace context (a TraceContext, a
         traceparent string or its dict form); whatever arrives is
         coerced, a missing or malformed one to a locally minted root.
-        Raises RuntimeError once the engine drains or is closed."""
+        ``tenant_id`` bills the request in the tenant observatory; None
+        falls back to the trace baggage's ``"tenant"`` entry, then to
+        ``"default"``, and the resolved id is written back into the
+        baggage so every later hop inherits it. Raises RuntimeError once
+        the engine drains or is closed."""
         if self._draining or self._closed:
             raise RuntimeError(
                 "engine is draining/closed: no new requests (drain() "
@@ -489,12 +663,22 @@ class ServingEngine:
         if hold_kv and not self.paged:
             raise ValueError("hold_kv requires the paged pool (paged=True):"
                              " the KV wire unit is the paged block")
+        ctx = TraceContext.coerce(trace)
+        if tenant_id is None:
+            tenant_id = ctx.baggage.get("tenant")
         req = Request(prompt, max_new_tokens,
                       eos_id=self.config.eos_id if eos_id is None
                       else eos_id, on_token=on_token,
                       temperature=temperature, top_k=top_k, top_p=top_p,
-                      seed=seed, deadline_ms=deadline_ms, hold_kv=hold_kv)
-        req.trace = TraceContext.coerce(trace)
+                      seed=seed, deadline_ms=deadline_ms, hold_kv=hold_kv,
+                      tenant_id=tenant_id)
+        if ctx.baggage.get("tenant") != req.tenant_id:
+            # annotation, not a new hop: same trace and span ids
+            ctx = TraceContext(ctx.trace_id, ctx.span_id,
+                               baggage={**ctx.baggage,
+                                        "tenant": req.tenant_id},
+                               minted_local=ctx.minted_local)
+        req.trace = ctx
         if req.sampled and not self.sampling:
             raise ValueError(
                 "sampled request on a greedy engine: build the engine "
@@ -525,11 +709,12 @@ class ServingEngine:
         ev.record()
         return hosts, ev
 
-    def _read_back(self, handle):
-        """Wait for one dispatch's host copy and return it as numpy. A
-        failed read (the ``transfer`` seam) retries at once up to the
-        retry budget: the values stay in their host buffers, so nothing
-        is lost; past the budget the failure propagates."""
+    def _read_back(self, handle, key):
+        """Wait for one dispatch's host copy and return it as numpy; the
+        wait is program ``key``'s sync leg. A failed read (the
+        ``transfer`` seam) retries at once up to the retry budget: the
+        values stay in their host buffers, so nothing is lost; past the
+        budget the failure propagates."""
         hosts, ev = handle
         M = self.metrics
         attempt = 0
@@ -540,7 +725,10 @@ class ServingEngine:
                 t0 = time.perf_counter()
                 if ev is not None:
                     ev.synchronize()
-                M.sync_s += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                M.sync_s += dt
+                if self._perf_on:
+                    M.perf.record_sync(key, dt)
                 return [h.numpy() for h in hosts]
             except Exception as e:  # noqa: BLE001 - gated below
                 M.record_dispatch_failure("transfer")
@@ -565,6 +753,31 @@ class ServingEngine:
                 # sample is tainted by a build)
                 self._policy.observe_service(
                     (req.t_first_token - req.t_admitted) * 1000.0)
+                # prefill-side TTFT spans: queue (arrival -> admission)
+                # and compute (admission -> first token)
+                w = self.trace.wall
+                self.trace.record(
+                    req.trace, "prefill/queue", w(req.t_arrival),
+                    max(0.0, req.t_admitted - req.t_arrival),
+                    {"rid": req.rid})
+                self.trace.record(
+                    req.trace, "prefill/compute", w(req.t_admitted),
+                    max(0.0, req.t_first_token - req.t_admitted),
+                    {"rid": req.rid})
+        elif req.imported and len(req.generated) == 2 \
+                and req.t_decode0 is not None:
+            # decode-side TTFT spans, closed at the first locally
+            # decoded token: queue (import -> first decode dispatch) and
+            # first_step (dispatch -> this token)
+            w = self.trace.wall
+            self.trace.record(
+                req.trace, "decode/queue", w(req.t_admitted),
+                max(0.0, req.t_decode0 - req.t_admitted), {"rid": req.rid})
+            self.trace.record(
+                req.trace, "decode/first_step", w(req.t_decode0),
+                max(0.0, time.perf_counter() - req.t_decode0),
+                {"rid": req.rid})
+        self.flight.token_emitted(req, len(req.generated))
         if req.on_token is not None:
             # a user callback never takes the step loop down: a raise
             # is caught and counted, and every slot keeps streaming
@@ -573,12 +786,15 @@ class ServingEngine:
                     self.chaos.maybe_raise("callback",
                                            step=self._step_id + 1)
                 req.on_token(req, token)
-            except Exception:  # noqa: BLE001 - isolation boundary
+            except Exception as e:  # noqa: BLE001 - isolation boundary
                 self.metrics.record_callback_error()
+                self.flight.callback_error(req, e)
         reason = self.scheduler.stop_reason(req, token)
         if reason is not None:
             self.scheduler.finish(req, self.pool, reason)
-            self.metrics.record_completion(req)
+            violations = self.metrics.record_completion(req)
+            self.flight.retired(req, reason,
+                                slo_violations=list(violations))
             if self.supervisor is not None:
                 self.supervisor.note_completion(req.rid)
             if req.hold_kv and req.slot is not None:
@@ -590,8 +806,8 @@ class ServingEngine:
         """Read back dispatched tokens (prefills, chunks and the decode
         of one step, in dispatch order) and run the stop checks."""
         M = self.metrics
-        for kind, handle, members, *extra in pending:
-            vals = self._read_back(handle)
+        for kind, handle, members, key, *extra in pending:
+            vals = self._read_back(handle, key)
             if kind == "prefill":
                 for (req, _slot), tok in zip(members, vals[0]):
                     req.inflight -= 1
@@ -623,6 +839,11 @@ class ServingEngine:
                         M.spec_accepted += n_acc
                         M.spec_rejected += n_draft - n_acc
                         self._spec.observe(req.rid, n_draft, n_acc)
+                        if n_acc:
+                            self.flight.draft_accepted(req, n_acc, n_draft)
+                        if n_draft > n_acc:
+                            self.flight.draft_rejected(
+                                req, n_draft - n_acc, n_draft)
             else:
                 for slot, req in members.items():
                     if req.state != RUNNING:
@@ -653,10 +874,14 @@ class ServingEngine:
                                        torch.int32, torch.float32)))
 
     def _triage(self):
+        M = self.metrics
         shed, deprioritized = self.scheduler.triage()
-        self.metrics.deprioritized += len(deprioritized)
-        for req, _ in shed:
-            self.metrics.record_shed(req.shed_reason)
+        M.record_deprioritized(len(deprioritized))
+        for req, headroom in deprioritized:
+            self.flight.deprioritized(req, headroom)
+        for req, headroom in shed:
+            M.record_shed(req.shed_reason, req.tenant_id)
+            self.flight.shed(req, req.shed_reason, headroom)
 
     def _slot_prefills(self, sync):
         """Admission + grouped bucketed prefill over the slot pool. A
@@ -691,13 +916,15 @@ class ServingEngine:
                 if self.chaos is not None:
                     self.chaos.maybe_raise("prefill_dispatch",
                                            step=self._step_id + 1)
-                self._use_program(("prefill", bucket, G))
-                t0 = time.perf_counter()
-                first, self._toks, self._pos = self._prefill_fn(
-                    self.params, upload(tokens, self.device),
+                key = ("prefill", bucket, G)
+                self._use_program(key)
+                for req, _slot in group:
+                    self.flight.prefill_dispatched(req, bucket, G)
+                first, self._toks, self._pos = self._timed(
+                    key, self._prefill_fn, self.params,
+                    upload(tokens, self.device),
                     upload(lengths, self.device), upload(slots, self.device),
                     self._toks, self._pos, pool.kc, pool.vc, *samp)
-                M.dispatch_s += time.perf_counter() - t0
             except BaseException as e:
                 for req, _slot in group:
                     req.inflight -= 1
@@ -706,11 +933,17 @@ class ServingEngine:
                 if self._absorb_dispatch_failure(e, "prefill", group):
                     return      # rolled back; the retry runs later
                 raise
+            if self._perf_on:
+                self._price(key, [(0, int(n)) for n in lengths])
+            # admission accounting lands only once the dispatch stuck
+            for req, _slot in group:
+                M.record_admission(req)
             M.requests_admitted += G
             M.prefills += 1
             M.prefill_requests += G
             M.record_prefill_group(G, int(lengths.sum()))
-            self._dispatch(("prefill", self._to_host(first), group), sync)
+            self._dispatch(("prefill", self._to_host(first), group, key),
+                           sync)
 
     def _paged_prefills(self, sync):
         """Prefix-aware admission + tail-only prefill. The prompt's full
@@ -743,13 +976,18 @@ class ServingEngine:
                 if self.chaos is not None:
                     self.chaos.maybe_raise("prefill_dispatch",
                                            step=self._step_id + 1)
-                self._use_program(("paged_prefill", bucket))
-                t0 = time.perf_counter()
-                first, self._toks, self._pos = self._prefill_fn(
-                    self.params, upload(tokens, self.device), tail, start,
+                key = ("paged_prefill", bucket)
+                self._use_program(key)
+                if start:
+                    self.flight.prefix_hit(
+                        req, start, tail,
+                        saved_ms=M.cache.estimate_saved_ms(start))
+                self.flight.prefill_dispatched(req, bucket, 1)
+                first, self._toks, self._pos = self._timed(
+                    key, self._prefill_fn, self.params,
+                    upload(tokens, self.device), tail, start,
                     alloc.slot, 1, pool.table_row(alloc.slot), self._toks,
                     self._pos, pool.kc, pool.vc, *self._samp_scalars(req))
-                M.dispatch_s += time.perf_counter() - t0
             except BaseException as e:
                 req.inflight -= 1
                 sch.rollback_admission([req], pool)
@@ -757,14 +995,17 @@ class ServingEngine:
                         e, "prefill", [(req, alloc.slot)]):
                     return      # rolled back; the retry runs later
                 raise
+            if self._perf_on:
+                self._price(key, [(start, tail)])
             pool.commit_prefix(alloc.slot, ids)
+            M.record_admission(req)
             M.requests_admitted += 1
             M.prefills += 1
             M.prefill_requests += 1
             M.record_prefill_group(1, 0)
-            M.record_prefix_reuse(start, tail)
+            M.record_prefix_reuse(start, tail, req.tenant_id)
             self._dispatch(("prefill", self._to_host(first),
-                            [(req, alloc.slot)]), sync)
+                            [(req, alloc.slot)], key), sync)
 
     def _register_chunked(self, chunked, start0=0):
         """Queue freshly admitted long prompts (their first ``start0``
@@ -806,13 +1047,20 @@ class ServingEngine:
                     self.chaos.maybe_raise("chunk_dispatch",
                                            step=self._step_id + 1,
                                            chunk=plan.next)
-                self._use_program(("paged_prefill", C) if self.paged
-                                  else ("chunk_prefill", C))
-                t0 = time.perf_counter()
-                first, self._toks, self._pos = self._chunk_fn(
-                    *args, self._toks, self._pos, pool.kc, pool.vc,
-                    *self._samp_scalars(req))
-                M.dispatch_s += time.perf_counter() - t0
+                key = ("paged_prefill", C) if self.paged \
+                    else ("chunk_prefill", C)
+                self._use_program(key)
+                if plan.next == 0 and plan.start0:
+                    self.flight.prefix_hit(
+                        req, plan.start0, len(plan.ids) - plan.start0,
+                        saved_ms=M.cache.estimate_saved_ms(plan.start0))
+                self.flight.prefill_chunk(req, plan.next, start, clen,
+                                          final)
+                if final:
+                    self.flight.prefill_dispatched(req, C, 1)
+                first, self._toks, self._pos = self._timed(
+                    key, self._chunk_fn, *args, self._toks, self._pos,
+                    pool.kc, pool.vc, *self._samp_scalars(req))
             except BaseException as e:
                 if final:
                     req.inflight -= 1
@@ -823,6 +1071,8 @@ class ServingEngine:
                         e, "chunk", [(req, plan.slot)]):
                     return      # rolled back; the retry re-plans later
                 raise
+            if self._perf_on:
+                self._price(key, [(start, clen)])
             M.record_prefill_chunk(clen)
             budget -= clen
             plan.advance()
@@ -831,12 +1081,13 @@ class ServingEngine:
                 self._prefilling.discard(plan.slot)
                 if self.paged:
                     pool.commit_prefix(plan.slot, plan.ids)
-                    M.record_prefix_reuse(plan.start0, 0)
+                    M.record_prefix_reuse(plan.start0, 0, req.tenant_id)
+                M.record_admission(req)
                 M.requests_admitted += 1
                 M.prefill_requests += 1
                 M.chunked_requests += 1
                 self._dispatch(("prefill", self._to_host(first),
-                                [(req, plan.slot)]), sync)
+                                [(req, plan.slot)], key), sync)
 
     def _decode(self, snapshot, sync):
         """One pooled decode (or, when some slot drafted, one verify)
@@ -847,8 +1098,18 @@ class ServingEngine:
             drafts, dlen, drafted = self._spec.propose(snapshot)
             # nobody drafted: the plain decode program outright
             drafted = drafted or None
+        if self._perf_on:
+            # each slot's cached length before this call: prompt plus
+            # tokens read plus tokens in flight, minus the one this call
+            # writes
+            bases = [len(r.prompt) + len(r.generated) + r.inflight - 1
+                     for r in snapshot.values()]
+        t_dec = time.perf_counter()
         for req in snapshot.values():
             req.inflight += 1
+            if req.t_decode0 is None:
+                # an imported request's decode/queue ends here
+                req.t_decode0 = t_dec
         try:
             if self.chaos is not None:
                 self.chaos.maybe_raise("decode_dispatch",
@@ -857,19 +1118,19 @@ class ServingEngine:
             if self._spec is not None:
                 self._use_program(self._verify_key)
             tables = (pool.device_tables(),) if self.paged else ()
-            t0 = time.perf_counter()
             if drafted is not None:
-                out, acc, nxt, self._pos = self._verify_fn(
-                    self.params, self._toks, self._pos,
-                    upload(drafts, self.device), upload(dlen, self.device),
-                    *tables, pool.kc, pool.vc)
+                key = self._verify_key
+                out, acc, nxt, self._pos = self._timed(
+                    key, self._verify_fn, self.params, self._toks,
+                    self._pos, upload(drafts, self.device),
+                    upload(dlen, self.device), *tables, pool.kc, pool.vc)
             else:
+                key = ("decode",)
                 samp = self._sampler.device_arrays() if self.sampling \
                     else ()
-                nxt, self._pos = self._decode_fn(
-                    self.params, self._toks, self._pos, *tables, pool.kc,
-                    pool.vc, *samp)
-            M.dispatch_s += time.perf_counter() - t0
+                nxt, self._pos = self._timed(
+                    key, self._decode_fn, self.params, self._toks,
+                    self._pos, *tables, pool.kc, pool.vc, *samp)
         except BaseException as e:
             # the seam fires before the call, so the device state is as
             # it was: undo the in-flight marks, then retry on a later
@@ -879,16 +1140,20 @@ class ServingEngine:
             if not self._absorb_decode_failure(e):
                 raise
             return
+        if self._perf_on:
+            width = 1 if drafted is None else self.spec_k + 1
+            self._price(key, [(b, width) for b in bases])
         self._toks = nxt
         self._decode_fail_streak = 0
         M.decode_steps += 1
         if drafted is not None:
             M.spec_verify_steps += 1
-            entry = ("spec", self._to_host(out, acc), snapshot, drafted)
+            entry = ("spec", self._to_host(out, acc), snapshot, key,
+                     drafted)
         else:
             if self._spec is not None:
                 M.spec_fallback_steps += 1
-            entry = ("decode", self._to_host(nxt), snapshot)
+            entry = ("decode", self._to_host(nxt), snapshot, key)
         self._dispatch(entry, sync)
 
     @torch.inference_mode()
@@ -898,8 +1163,10 @@ class ServingEngine:
         the detectors after the timed step."""
         t0 = time.perf_counter()
         more = self._step_inner()
+        dt = time.perf_counter() - t0
+        self.metrics.note_step(dt)
         if self.health is not None:
-            self._health_tick(time.perf_counter() - t0)
+            self._health_tick(dt)
         # a supervisor restart re-queued work the stale verdict predates
         return more or self.pending
 
@@ -955,6 +1222,8 @@ class ServingEngine:
             self._harvest(prev)
         if worked:
             M.note_work(t0, time.perf_counter())
+        M.queue_depth = len(sch.queue)
+        M.slot_occupancy = self.pool.occupancy
         return self.pending
 
     def run(self):
@@ -980,16 +1249,28 @@ class ServingEngine:
                            f"hold_kv=True and let the request retire first")
         pool = self.pool
         self._use_program(("kv_export",))
+        # the kv/export span starts when the KV was ready to ship (the
+        # first token emitted, the blocks parked): the dwell until the
+        # router collects it is part of the handoff's price
+        t0_exp = self.trace.wall(req.t_first_token) \
+            if req.t_first_token is not None else time.time()
         try:
             n = kv_wire.blocks_for_prompt(len(req.prompt), pool.block_size)
-            k, v = pool.read_blocks(pool.row_blocks(req.slot, n))
-            payload = kv_wire.serialize_handoff(k, v, req.prompt,
-                                                req.generated[0])
+            k, v = self._timed(("kv_export",), pool.read_blocks,
+                               pool.row_blocks(req.slot, n))
+            payload = kv_wire.serialize_handoff(
+                k, v, req.prompt, req.generated[0],
+                trace=req.trace.as_dict() if req.trace is not None
+                else None)
         finally:
             pool.release(req.slot)
             req.slot = None
+        wire_bytes = kv_wire.payload_wire_bytes(payload)
+        self.trace.record(req.trace, "kv/export", t0_exp,
+                          time.time() - t0_exp, {"rid": req.rid, "blocks": n})
+        self.flight.kv_exported(req, n, wire_bytes)
         self.metrics.kv_exports += 1
-        self.metrics.kv_export_bytes += kv_wire.payload_wire_bytes(payload)
+        self.metrics.kv_export_bytes += wire_bytes
         return payload
 
     def import_kv(self, payload, max_new_tokens, eos_id=None,
@@ -1002,7 +1283,9 @@ class ServingEngine:
         pool) before the pool changes: a bad one raises ``KVWireError``
         and leaves the pool as it was. The prompt's full blocks are then
         shared through the radix index. ``deadline_ms`` bounds the
-        decode from now. Returns the live Request."""
+        decode from now. The payload's trace context (and the tenant in
+        its baggage) carries over, so the import joins the prefill
+        tier's trace. Returns the live Request."""
         if not self.paged:
             raise RuntimeError("import_kv requires the paged pool "
                                "(paged=True)")
@@ -1010,6 +1293,7 @@ class ServingEngine:
             raise RuntimeError(
                 "engine is draining/closed: no new requests (drain() "
                 "finishes already-submitted work, close() aborts it)")
+        t0_imp = time.time()
         handoff = kv_wire.deserialize_handoff(payload)
         pool, sch, M = self.pool, self.scheduler, self.metrics
         layers, _, heads, bs, hd = pool.kc.shape
@@ -1030,7 +1314,11 @@ class ServingEngine:
                       eos_id=self.config.eos_id if eos_id is None
                       else eos_id, on_token=on_token,
                       deadline_ms=deadline_ms)
-        req.trace = TraceContext.coerce(None)
+        req.trace = TraceContext.coerce(handoff.trace)
+        tenant = req.trace.baggage.get("tenant")
+        if tenant:
+            req.tenant_id = str(tenant)
+        req.imported = True
         if req.deadline_ms is not None:
             self._deadlines_armed = True
         ids = req.prompt
@@ -1040,8 +1328,9 @@ class ServingEngine:
         slot = alloc.slot
         try:
             self._use_program(("kv_import",))
-            pool.write_blocks(pool.row_blocks(slot, handoff.n_blocks),
-                              handoff.k, handoff.v)
+            self._timed(("kv_import",), pool.write_blocks,
+                        pool.row_blocks(slot, handoff.n_blocks), handoff.k,
+                        handoff.v)
             # new tensors: a pending harvest may still read the old ones
             toks = self._toks.clone()
             pos = self._pos.clone()
@@ -1061,14 +1350,25 @@ class ServingEngine:
         # admission and first token happened on the prefill side
         req.t_admitted = req.t_first_token = now
         sch.active[slot] = req
+        M.record_admission(req)
         M.requests_admitted += 1
         M.kv_imports += 1
         M.kv_import_bytes += handoff.wire_bytes
+        self.flight.enqueued(req)
+        self.flight.kv_imported(req, handoff.n_blocks, handoff.wire_bytes)
+        # kv/import covers deserialization, verification and the
+        # splice; decode/queue starts here
+        self.trace.record(req.trace, "kv/import", t0_imp,
+                          time.time() - t0_imp,
+                          {"rid": req.rid, "blocks": handoff.n_blocks,
+                           "wire_bytes": handoff.wire_bytes})
         reason = sch.stop_reason(req, handoff.first_token)
         if reason is not None:
             # nothing left to decode: retire at once
             sch.finish(req, pool, reason)
-            M.record_completion(req)
+            violations = M.record_completion(req)
+            self.flight.retired(req, reason,
+                                slo_violations=list(violations))
             if self.supervisor is not None:
                 self.supervisor.note_completion(req.rid)
         return req
@@ -1148,7 +1448,8 @@ class ServingEngine:
         for r in sorted(owed.values(), key=lambda r: r.rid):
             r.inflight = 0
             sch.abort(r, self.pool)
-            self.metrics.record_abort()
+            self.metrics.record_abort(r.tenant_id)
+            self.flight.retired(r, "aborted")
             if self.supervisor is not None:
                 self.supervisor.note_completion(r.rid)
 
@@ -1178,6 +1479,7 @@ class ServingEngine:
         M.record_dispatch_failure(kind)
         for req, slot in pairs:
             req.dispatch_failures += 1
+            self.flight.dispatch_failed(req, kind, exc)
             self._slot_failures[slot] = self._slot_failures.get(slot, 0) + 1
         if not self._retryable(exc):
             return False
@@ -1234,21 +1536,27 @@ class ServingEngine:
         further tokens."""
         self.scheduler.abort(req, self.pool)
         req.stop_reason = reason
-        self.metrics.record_abort()
+        self.metrics.record_abort(req.tenant_id)
+        self.flight.retired(req, reason)
         if self.supervisor is not None:
             self.supervisor.note_completion(req.rid)
 
     def _expire_deadlines(self):
         """Retire requests past their ``deadline_ms`` (queued or
         decoding) with stop reason "deadline"."""
+        now = time.perf_counter()
         expired_q, expired_a = self.scheduler.expire_deadlines(
-            self.pool, prefilling=self._prefilling)
+            self.pool, prefilling=self._prefilling, now=now)
         for req in expired_q + expired_a:
             if req.hold_kv and req.slot is not None:
                 # nobody will export a handoff dead on its deadline
                 self.pool.release(req.slot)
                 req.slot = None
-            self.metrics.record_timeout()
+            self.metrics.record_timeout(req.tenant_id)
+            over = (now - req.t_arrival) * 1000.0 - req.deadline_ms
+            self.flight.deadline_exceeded(req, over)
+            self.flight.retired(req, "deadline",
+                                slo_violations=["deadline"])
             if self.supervisor is not None:
                 self.supervisor.note_completion(req.rid)
 
@@ -1280,6 +1588,8 @@ class ServingEngine:
         self.pool = self._new_pool()
         if self.paged:
             self.metrics.set_prefix_pool(self.pool.stats)
+            # the cache observatory keeps its history across the swap
+            self.metrics.cache.attach_pool(self.pool)
         S = self.config.num_slots
         self._toks = torch.zeros(S, dtype=torch.int32, device=self.device)
         self._pos = torch.zeros(S, dtype=torch.int32, device=self.device)
@@ -1299,6 +1609,7 @@ class ServingEngine:
             req.inflight = 0
             req.dispatch_failures = 0
             sch.queue.appendleft(req)
+            self.flight.requeued(req, reason)
         self.metrics.record_restart()
         return replayed
 
@@ -1330,8 +1641,7 @@ class ServingEngine:
         previous tick) and feed the health monitor; its wedge verdicts
         go to the supervisor. The paged pool's conservation audit runs
         every ``health_audit_every`` steps. The port compiles nothing,
-        so ``new_compiles`` and ``steady_compiles`` are always 0, and
-        without an SLO tracker ``goodput_tokens`` is 0."""
+        so ``new_compiles`` and ``steady_compiles`` are always 0."""
         M, pool = self.metrics, self.pool
         self._step_id += 1
         step = self._step_id
@@ -1341,10 +1651,10 @@ class ServingEngine:
             conservation_ok, conservation_error = audit["ok"], audit["error"]
         cur = (M.tokens_generated, M.requests_admitted,
                M.requests_completed, M.prefill_tokens, M.prefill_chunks,
-               M.deprioritized, M.dispatch_s, M.sync_s,
-               sum(M.shed.values()),
+               M.deprioritized, M.dispatch_s, M.sync_s, M.shed_count,
                pool.index.thrash_count if self.paged else 0,
-               pool.evictable_blocks if self.paged else 0)
+               pool.evictable_blocks if self.paged else 0,
+               M.slo.goodput_tokens)
         prev = self._hprev or (0,) * len(cur)
         self._hprev = cur
         hits, misses = M.prefix_hits, M.prefix_misses
@@ -1365,14 +1675,14 @@ class ServingEngine:
             "admitted": cur[1] - prev[1],
             "tokens": cur[0] - prev[0],
             "completed": cur[2] - prev[2],
-            "goodput_tokens": 0,
+            "goodput_tokens": cur[11] - prev[11],
             "prefill_tokens": cur[3] - prev[3],
             "prefill_chunks": cur[4] - prev[4],
             "shed": cur[8] - prev[8],
             "deprioritized": cur[5] - prev[5],
             "new_compiles": 0,
             "steady_compiles": 0,
-            "slo_on": self.config.slo_ttft_ms is not None,
+            "slo_on": self._slo_on,
             "prefix_hit_rate": round(hits / (hits + misses), 4)
             if (hits + misses) else None,
             "pool_free_blocks": pool.free_blocks if self.paged else None,
@@ -1399,9 +1709,15 @@ class ServingEngine:
         self.watchdog.declare_warmup_complete()
         self._policy.reset_service()
 
+    def request_trace(self, rid):
+        """The flight recorder's RequestTrace for request ``rid``
+        (completed and kept, or in flight); None when unknown."""
+        return self.flight.trace(rid)
+
     def debug_state(self):
         """The ``/debug/state`` JSON body: live queue, slot and pipeline
-        state, the scheduler, health and resilience sections."""
+        state, the flight recorder's summary and the SLO, cache,
+        scheduler, health, resilience and tenant sections."""
         sch, M = self.scheduler, self.metrics
         wd = self.watchdog.report()
         return {
@@ -1417,36 +1733,61 @@ class ServingEngine:
             "watchdog": {k: wd[k] for k in
                          ("warmed", "mode", "compiles_total",
                           "steady_state_compiles")},
+            "kv_donation": dict(M.kv_donation),
+            "flight": self.flight.state(),
+            "slo": M.slo.report(),
             "paged": self.paged,
+            "paged_attn": self.paged and self.device.type == "cuda",
             "role": self.role,
             "held_exports": len(self._held_exports),
+            "decode_layout": self.decode_layout,
             "speculative": self.speculative,
             "spec_k": self.spec_k,
             "prefix_cache": M.prefix_cache_report(),
+            "cache": M.cache_report(),
             "scheduler": dict(M.scheduler_report(),
                               chunked_inflight=len(self._chunk_q)),
             "health": M.health_report(),
             "resilience": M.resilience_report(),
+            "tenants": M.tenant_report(),
         }
 
     def serve_metrics(self, port=0, addr="127.0.0.1", post_routes=None,
                       lock=None):
         """Serve this engine over HTTP: GET ``/metrics`` (Prometheus
         text), ``/metrics.json``, ``/debug`` (the route index),
-        ``/debug/state`` and, with the health observatory on,
-        ``/debug/health`` (the router's per-replica signal) and
-        ``/debug/ledger``. ``post_routes`` mounts POST handlers beside
+        ``/debug/state``, ``/debug/requests`` (the flight recorder's
+        traces; ``?tenant=<id>`` keeps one tenant's), ``/debug/traces``
+        (this replica's trace span ring), ``/debug/perf``,
+        ``/debug/cache``, ``/debug/tenants`` and, with the health
+        observatory on, ``/debug/health`` (the router's per-replica
+        signal) and ``/debug/ledger``. ``post_routes`` mounts POST handlers beside
         them (the router's gateway mounts ``/v1/generate`` this way);
         ``lock``, when given, is held while a debug route reads the
         engine (the gateway passes the lock its stepping thread steps
         under). Returns the server's handle; ``close()`` stops every
         server this engine started."""
-        routes = {"/debug/state": self.debug_state}
+        def _debug_requests(params):
+            return self.flight.debug_requests(tenant=params.get("tenant"))
+        _debug_requests.accepts_query = True
+        routes = {"/debug/state": self.debug_state,
+                  "/debug/requests": _debug_requests,
+                  "/debug/perf": self.metrics.perf_report,
+                  "/debug/cache": self.metrics.cache_report,
+                  "/debug/traces": self.trace.debug_traces,
+                  "/debug/tenants": self.metrics.tenant_report}
         if self.health is not None:
             routes["/debug/health"] = self.health.report
             routes["/debug/ledger"] = self.health.debug_ledger
         if lock is not None:
             def locked(fn):
+                if getattr(fn, "accepts_query", False):
+                    def call(params):
+                        with lock:
+                            return fn(params)
+                    call.accepts_query = True
+                    return call
+
                 def call():
                     with lock:
                         return fn()

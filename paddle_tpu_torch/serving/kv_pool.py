@@ -18,18 +18,21 @@ import heapq
 
 import torch
 
+from ..core.device import resolve_device
+
 
 class SlotKVPool:
     """Free-list allocator over the pooled cache tensors: the lowest
-    free slot first, from a heap, so runs are reproducible."""
+    free slot first, from a heap, so runs are reproducible. ``device``
+    None means the card, as for every entry point of the port."""
 
     def __init__(self, num_slots, num_layers, num_heads, max_len,
-                 head_dim, dtype=torch.float32, device="cpu"):
+                 head_dim, dtype=torch.float32, device=None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = (int(num_layers), self.num_slots, int(num_heads),
                  self.max_len, int(head_dim))
         self.kc = torch.zeros(shape, dtype=dtype, device=self.device)

@@ -43,19 +43,23 @@ class KVWireError(RuntimeError):
 class KVHandoff:
     """A decoded handoff: ``k``/``v`` ``[layers, n_blocks, heads,
     block_size, head_dim]`` CPU tensors in block-table row order, the
-    prompt, the first token, and ``wire_bytes`` (both caches' raw tile
-    bytes, before base64)."""
+    prompt, the first token, ``wire_bytes`` (both caches' raw tile
+    bytes, before base64) and ``trace``, the request's trace context in
+    its dict form (None from an exporter that sent none; never
+    validated here: the importer coerces it)."""
 
     __slots__ = ("prompt", "first_token", "block_size", "k", "v",
-                 "wire_bytes")
+                 "wire_bytes", "trace")
 
-    def __init__(self, prompt, first_token, block_size, k, v, wire_bytes):
+    def __init__(self, prompt, first_token, block_size, k, v, wire_bytes,
+                 trace=None):
         self.prompt = prompt
         self.first_token = int(first_token)
         self.block_size = int(block_size)
         self.k = k
         self.v = v
         self.wire_bytes = int(wire_bytes)
+        self.trace = trace
 
     @property
     def n_blocks(self):
@@ -83,10 +87,13 @@ def _raw(t):
     return t.numpy().tobytes()
 
 
-def serialize_handoff(k_tiles, v_tiles, prompt, first_token):
+def serialize_handoff(k_tiles, v_tiles, prompt, first_token,
+                      trace=None):
     """Pack prompt-covering block tiles ``[layers, n_blocks, heads,
     block_size, head_dim]`` (in block-table row order) into a JSON-safe
-    handoff dict."""
+    handoff dict. ``trace`` (a TraceContext or its dict form) rides
+    along, so the decode tier's import joins the same trace and keeps
+    the tenant in its baggage."""
     k_tiles, v_tiles = _as_tensor(k_tiles), _as_tensor(v_tiles)
     if k_tiles.dim() != 5 or k_tiles.shape != v_tiles.shape:
         raise ValueError(
@@ -116,7 +123,7 @@ def serialize_handoff(k_tiles, v_tiles, prompt, first_token):
             "v": base64.b64encode(vb).decode("ascii"),
             "digest": zlib.crc32(vb, zlib.crc32(kb)) & 0xFFFFFFFF,
         })
-    return {
+    payload = {
         "version": WIRE_VERSION,
         "dtype": _NAMES[k_tiles.dtype],
         "tile_shape": [int(layers), int(heads), int(block_size),
@@ -126,6 +133,10 @@ def serialize_handoff(k_tiles, v_tiles, prompt, first_token):
         "first_token": int(first_token),
         "frames": frames,
     }
+    if trace is not None:
+        payload["trace"] = trace if isinstance(trace, dict) \
+            else trace.as_dict()
+    return payload
 
 
 def payload_wire_bytes(payload):
@@ -200,4 +211,4 @@ def deserialize_handoff(payload):
     k = torch.stack([_decode(kb, dtype, tile_shape) for kb, _ in raws], 1)
     v = torch.stack([_decode(vb, dtype, tile_shape) for _, vb in raws], 1)
     return KVHandoff(prompt, first_token, block_size, k, v,
-                     2 * tile_bytes * len(raws))
+                     2 * tile_bytes * len(raws), trace=payload.get("trace"))

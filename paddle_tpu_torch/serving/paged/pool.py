@@ -26,6 +26,7 @@ import heapq
 import numpy as np
 import torch
 
+from ...core.device import resolve_device
 from .radix import RadixPrefixIndex
 
 TRASH_BLOCK = 0
@@ -54,11 +55,13 @@ class PagedAllocation:
 
 
 class PagedKVPool:
-    """Block allocator + slot table over the paged cache tensors."""
+    """Block allocator + slot table over the paged cache tensors.
+    ``device`` None means the card, as for every entry point of the
+    port."""
 
     def __init__(self, num_slots, num_layers, num_heads, max_len,
                  head_dim, block_size=16, num_blocks=None,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device=None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if block_size < 1:
@@ -77,7 +80,7 @@ class PagedKVPool:
                 f"num_blocks {self.num_blocks} cannot back even one "
                 f"slot ({self.blocks_per_slot} blocks) plus the trash "
                 "block")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = (int(num_layers), self.num_blocks, int(num_heads),
                  self.block_size, int(head_dim))
         self.kc = torch.zeros(shape, dtype=dtype, device=self.device)
@@ -88,6 +91,11 @@ class PagedKVPool:
         self._evictable = 0
         self._live = 0   # blocks at ref > 0
         self.evictions = 0
+        # the cache observatory's hook (``CacheObservatory.attach_pool``
+        # sets itself here): told of block allocs and frees and of each
+        # successful admission; None keeps every hot-path branch one
+        # attribute test
+        self.observer = None
         self._free_slots = list(range(self.num_slots))
         self._owner = {}
         self._quarantined = set()   # excluded from admission
@@ -156,6 +164,7 @@ class PagedKVPool:
         """A fresh block at ref 1 from the free heap, or by evicting the
         LRU ref-0 radix leaf; None when neither has one (ref-0 interior
         nodes are unreachable while live descendants pin the path)."""
+        obs = self.observer
         if self._free_blocks:
             b = heapq.heappop(self._free_blocks)
         else:
@@ -165,8 +174,14 @@ class PagedKVPool:
                 return None
             self.evictions += 1
             self._evictable -= 1
+            if obs is not None:
+                # the evicted block's cached life ends before its
+                # rebirth as a fresh private block
+                obs.on_block_free(b, evicted=True)
         self._ref[b] = 1
         self._live += 1
+        if obs is not None:
+            obs.on_block_alloc(b)
         return b
 
     def _deref(self, b):
@@ -182,6 +197,8 @@ class PagedKVPool:
             else:
                 del self._ref[b]
                 heapq.heappush(self._free_blocks, b)
+                if self.observer is not None:
+                    self.observer.on_block_free(b, evicted=False)
 
     def match_prefix(self, prompt):
         """Longest cached prefix of ``prompt`` in tokens (a block
@@ -251,6 +268,11 @@ class PagedKVPool:
         self.block_tables[slot, :len(row)] = row
         self._dirty = True
         self.index.note_hits(prefix_blocks)
+        if self.observer is not None:
+            # one cache reference per full prompt block, counted on a
+            # successful admission only (refused ones are re-probed)
+            self.observer.on_admission(
+                self.index.access_fingerprints(prompt), len(matched))
         return PagedAllocation(slot, prefix_tokens, prefix_blocks,
                                new_blocks)
 

@@ -29,7 +29,6 @@ import time
 import urllib.error
 import urllib.request
 
-from ...observability.trace import TraceContext
 from ..kv_wire import KVWireError
 
 __all__ = ["TransportError", "TransportRefused", "EngineGateway",
@@ -137,24 +136,18 @@ class EngineGateway:
         verdict), TransportError when the gateway was killed.
         ``trace`` is the propagated distributed-trace context (any
         form TraceContext.coerce accepts — the engine never rejects
-        a request over a bad trace). ``tenant_id`` is carried in the
-        trace's baggage (the port's engine has no tenant ledger; a
-        routed request already carries it there)."""
+        a request over a bad trace). ``tenant_id`` overrides the
+        attribution id; None defers to the trace baggage (the routed
+        case), then to ``"default"``."""
         if self._dead:
             raise TransportError(
                 f"replica {self.replica_id} is dead")
-        if tenant_id is not None:
-            ctx = TraceContext.coerce(trace)
-            trace = TraceContext(ctx.trace_id, ctx.span_id,
-                                 baggage={**ctx.baggage,
-                                          "tenant": str(tenant_id)},
-                                 minted_local=ctx.minted_local)
         with self._lock:
             try:
                 req = self.engine.add_request(
                     prompt, max_new_tokens, eos_id=eos_id,
                     deadline_ms=deadline_ms, on_token=on_token,
-                    trace=trace)
+                    trace=trace, tenant_id=tenant_id)
             except RuntimeError as e:   # draining/closed
                 raise TransportRefused(str(e)) from e
         self._wake.set()

@@ -32,11 +32,13 @@ class Request:
     ``generate()``'s condition (temperature > 0 and top_k != 1), and the
     seed defaults to the request id. ``deadline_ms`` bounds the request
     end to end from its arrival (None: no deadline). ``hold_kv`` keeps
-    the slot and its blocks past retirement for ``export_kv``."""
+    the slot and its blocks past retirement for ``export_kv``.
+    ``tenant_id`` bills the request in the tenant observatory (None:
+    ``"default"``)."""
 
     def __init__(self, prompt, max_new_tokens, eos_id=None, on_token=None,
                  temperature=0.0, top_k=0, top_p=1.0, seed=None,
-                 deadline_ms=None, hold_kv=False):
+                 deadline_ms=None, hold_kv=False, tenant_id=None):
         self.rid = next(_rid)
         self.prompt = np.asarray(prompt).reshape(-1).astype(np.int64)
         if self.prompt.size == 0:
@@ -80,6 +82,12 @@ class Request:
         self.t_admitted = None
         self.t_first_token = None
         self.t_done = None
+        # disaggregation: an imported request's first token came over
+        # the KV wire; its first decode dispatch (t_decode0) closes the
+        # decode-side trace spans
+        self.imported = False
+        self.t_decode0 = None
+        self.tenant_id = str(tenant_id) if tenant_id else "default"
 
     @property
     def done(self):
@@ -114,10 +122,12 @@ class Request:
 class StepScheduler:
     """FIFO queue + slot table + per-slot stop conditions. ``completed``
     keeps the last ``completed_keep`` retired requests; ``policy`` (a
-    ``serving.sched`` policy, None = strict FIFO) triages the queue."""
+    ``serving.sched`` policy, None = strict FIFO) triages the queue;
+    ``flight`` (an observability.FlightRecorder, optional) is told of
+    every enqueue, admission and admission rollback."""
 
     def __init__(self, buckets, cache_len, completed_keep=4096,
-                 policy=None):
+                 policy=None, flight=None):
         self.buckets = sorted(int(b) for b in buckets)
         self.cache_len = int(cache_len)
         if not self.buckets:
@@ -129,6 +139,7 @@ class StepScheduler:
         self.active = {}       # slot -> Request
         self.completed = collections.deque(maxlen=completed_keep)
         self.policy = policy
+        self.flight = flight
 
     def bucket_for(self, prompt_len):
         """Smallest bucket that holds the prompt."""
@@ -147,6 +158,8 @@ class StepScheduler:
                 f"prompt {n} + max_new_tokens {request.max_new_tokens} "
                 f"exceeds the per-slot cache capacity {self.cache_len}")
         self.queue.append(request)
+        if self.flight is not None:
+            self.flight.enqueued(request)
         return request
 
     def triage(self):
@@ -204,15 +217,22 @@ class StepScheduler:
             n_fill = len(req.prefill_ids)
             if chunk_len is not None and n_fill > chunk_len:
                 chunked.append((req, slot))
+                if self.flight is not None:
+                    # chunked prefills dispatch at the chunk width
+                    self.flight.admitted(req, slot, int(chunk_len), 1)
                 continue
             by_bucket.setdefault(self.bucket_for(n_fill),
                                  []).append((req, slot))
         groups = []
-        for members in by_bucket.values():
+        for bucket, members in by_bucket.items():
             i = 0
             while i < len(members):
                 take = max(g for g in sizes if g <= len(members) - i)
-                groups.append(members[i:i + take])
+                group = members[i:i + take]
+                groups.append(group)
+                if self.flight is not None:
+                    for req, slot in group:
+                        self.flight.admitted(req, slot, bucket, len(group))
                 i += take
         return groups, chunked
 
@@ -264,6 +284,8 @@ class StepScheduler:
         req.state = RUNNING
         req.t_admitted = time.perf_counter()
         self.active[alloc.slot] = req
+        if self.flight is not None:
+            self.flight.admitted(req, alloc.slot, bucket, 1)
         return req, alloc, bucket, chunked
 
     def rollback_admission(self, requests, pool):
@@ -278,6 +300,8 @@ class StepScheduler:
             req.state = QUEUED
             req.t_admitted = None
             self.queue.appendleft(req)
+            if self.flight is not None:
+                self.flight.admission_rolled_back(req)
 
     def abort(self, request, pool):
         """Retire ``request`` unfinished with no further tokens."""

@@ -18,7 +18,8 @@ from paddle_tpu.text.models import _decode_forward_builder
 
 from _torch_port import TINY, jax_gpt, numpy_state_dict, torch_twin
 from paddle_tpu_torch.core.device import resolve_device
-from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.serving import ServingEngine, SlotKVPool
+from paddle_tpu_torch.serving.paged import PagedKVPool
 from paddle_tpu_torch.text import models as tmodels
 from paddle_tpu_torch.text.convert import (state_dict_from_paddle_tpu,
                                            state_dict_to_paddle_tpu)
@@ -147,7 +148,20 @@ def test_port_imports_neither_jax_nor_reference():
                    "serving/sched/sampling.py", "serving/sched/chunker.py",
                    "serving/sched/policy.py", "serving/sched/programs.py",
                    "serving/spec/drafter.py", "serving/spec/decoder.py",
-                   "serving/spec/programs.py"):
+                   "serving/spec/programs.py", "observability/slo.py",
+                   "observability/flight.py",
+                   "observability/tenant/ledger.py",
+                   "observability/trace/assembler.py",
+                   "observability/perf/roofline.py",
+                   "observability/perf/attribution.py",
+                   "observability/perf/ledger.py",
+                   "observability/cache/mrc.py",
+                   "observability/cache/heat.py",
+                   "observability/cache/observatory.py",
+                   "observability/fleet/rollup.py",
+                   "observability/fleet/detectors.py",
+                   "observability/fleet/poller.py",
+                   "observability/fleet/server.py"):
         assert REPO / "paddle_tpu_torch" / module in files, module
     bad = []
     for f in files:
@@ -171,6 +185,17 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(m)
     assert ServingEngine(m, device="cpu").device == torch.device("cpu")
+
+
+def test_pools_need_a_device_without_cuda(monkeypatch):
+    """The exported KV pools default to the card as every entry point
+    does: without CUDA and without a device they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls, kw in ((SlotKVPool, {}), (PagedKVPool, {"block_size": 4})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(2, 1, 2, 16, 4, **kw)
+        assert cls(2, 1, 2, 16, 4, device="cpu", **kw).kc.device \
+            == torch.device("cpu")
 
 
 def test_unported_paths_raise():

@@ -21,7 +21,7 @@ DIMS = (2, 2, 3)   # layers, heads, head_dim
 def _pools(num_slots=4, max_len=32, block_size=4, num_blocks=None):
     L, H, D = DIMS
     return (PagedKVPool(num_slots, L, H, max_len, D, block_size=block_size,
-                        num_blocks=num_blocks),
+                        num_blocks=num_blocks, device="cpu"),
             JaxPool(num_slots, L, H, max_len, D, block_size=block_size,
                     num_blocks=num_blocks))
 

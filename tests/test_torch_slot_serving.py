@@ -187,7 +187,8 @@ def test_pool_acquire_release_fuzz_matches_reference():
     """Random acquire/release traffic: the same slots as the reference
     pool, the lowest free one each time, None when full, double release
     raising, the same reuse count."""
-    ours, ref = SlotKVPool(4, 1, 1, 8, 4), JaxSlotPool(4, 1, 1, 8, 4)
+    ours = SlotKVPool(4, 1, 1, 8, 4, device="cpu")
+    ref = JaxSlotPool(4, 1, 1, 8, 4)
     rs = np.random.RandomState(9)
     live = set()
     for i in range(300):

@@ -238,7 +238,7 @@ def test_spec_streams_match_greedy_and_reference(models, jax_spec, paged,
     for a, b, ref in zip(outs[True], outs[False], jax_spec[paged]):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, ref)
-    spec = eng.metrics.snapshot()["spec"]
+    spec = eng.metrics.snapshot()["perf"]["spec"]
     assert spec["enabled"] is True and spec["k"] == 4
     assert spec["verify_steps"] > 0
     assert spec["drafted_tokens"] == \
@@ -281,7 +281,7 @@ def test_greedy_agreeing_drafts_totally_accepted(models, jax_spec, paged):
     eng.run()
     for r, ref in zip(reqs, refs):
         np.testing.assert_array_equal(r.output_ids, ref)
-    spec = eng.metrics.snapshot()["spec"]
+    spec = eng.metrics.snapshot()["perf"]["spec"]
     assert spec["drafted_tokens"] > 0 and spec["rejected_tokens"] == 0
     assert spec["acceptance_rate"] == 1.0
     assert spec["effective_tokens_per_dispatch"] >= 3.0
@@ -319,4 +319,4 @@ def test_config_rejects_bad_spec_knobs(models):
                       speculative=True, spec_k=8)
     eng = ServingEngine(m, device="cpu", num_slots=2)
     assert eng.speculative is False and eng._spec is None
-    assert eng.metrics.snapshot()["spec"]["enabled"] is False
+    assert eng.metrics.snapshot()["perf"]["spec"]["enabled"] is False
