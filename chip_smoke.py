@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
 Run from the repository root:  python3 chip_smoke.py [--parent TREE]
-(``--fleet`` runs phases 1, 4, 16 and 17 alone and prints no kernels
-line)
+(``--fleet`` runs phases 1, 4, 16, 17 and 18 alone and prints no
+kernels line)
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -185,9 +185,41 @@ Phases, one line each:
              (perf, cache, trace spans, health), on/off/off/on, then on
              with a poller scraping every 0.25 s, each beside phase 4's.
              K4 = 12 x each run's decode steps.
+ 18. drill   the fleet over replica processes (paddle_tpu_torch.tools:
+             replica_worker, router_drill, fleet_top) on phase 4's
+             GPT-124M, weights (one seeded CPU generator in every process)
+             and 16 requests, each replica a ServingEngine(paged,
+             num_slots=8, block_size=16) on the card in a process of its
+             own, the kernels built once by this process: 18a the router
+             drill over 3 replica processes, one SIGKILLed with requests
+             in flight (every request completes, one trace each, the
+             survivors idle and conserved, the no-failover baseline
+             loses), the kill -> done wall; 18b the same with 1 prefill +
+             2 decode replicas and the prefill one killed mid-handoff
+             (handoffs > 0); 18c routed tokens/s over 2 replica
+             processes, the 2 in-process replicas of 16a and one engine,
+             in turns, twice, beside phase 4's; 18d fleet_top over the 2
+             processes: exit 0, then 1 naming the one killed; 18e the
+             lock patrol armed over one in-process gateway (no finding
+             outside DEFAULT_PATROL_ALLOW), tokens/s armed against off.
+             Every stream held to phase 5's rule against phase 4's; every
+             worker reports K4 = 12 x its decode steps.
+ 19. core    the Paddle-style eager core: set_device("gpu"), to_tensor
+             on cuda:0 and its Place; 19a a loss of Tensor operators and
+             core ops around the core's attention op at the training
+             shape [8,12,1024,64] causal f32: K1 forward, K2/K3 in
+             backward(), the grads against the same computation in plain
+             torch through the same kernels (bits, or phase 6's
+             tolerance); 19b paddle.grad(create_graph=True): a gradient
+             penalty through matmul/add/tanh against torch.autograd.grad,
+             x**4's first three grads; 19c a PyLayer, no_grad; 19d a
+             double grad through the attention op (K2/K3's first order,
+             the composition's second) against torch's double grad of
+             the composition.
 Then the card's name and power limit, one JSON line of kernel numbers
-(launches summed over the main paths: phases 4, 14, 15's paged runs, 16
-and 17 for K4, 5, 14, 16 and 17 for the serving K1 row, 7, 11, 12 and 13 for the
+(launches summed over the main paths: phases 4, 14, 15's paged runs,
+16, 17 and 18 (its replica processes' and this process's) for K4, 5,
+14, 16, 17 and 18 for the serving K1 row, 7, 11, 12, 13 and 19 for the
 f32 training rows, 10 and 13 for the bf16 ones), and as the last line
 {"ok": true, "device": {...}}.
 
@@ -2575,6 +2607,471 @@ def phase_observe(torch, pa, attn, TransformerLMConfig, prompts, max_new,
     return totals["k4"], totals["k1"]
 
 
+# --------------------------------------------------------------- phase 18
+
+# the router of phases 16 and 18 (no affinity: requests spread evenly)
+ROUTER_CFG = dict(max_retries=4, backoff_base_s=0.001, backoff_max_s=0.01,
+                  refresh_s=0.05, affinity=False)
+# one replica process of phase 18: phase 4's model (its weights from the
+# same seeded CPU generator) on ServingEngine(paged, num_slots=8,
+# block_size=16)
+DRILL_WORKER = dict(device="cuda", model="gpt", model_seed=1234,
+                    num_slots=8, block_size=16)
+
+
+class Routed:
+    """A finished routed request in the Request's shape compare()
+    reads."""
+
+    def __init__(self, tokens):
+        self.generated = tokens
+
+
+def worker_counts(label, readings, L):
+    """The K4 and K1 launches of replica processes, summed: each
+    worker's reading (``/v1/counts``) holds K4 = its decode steps x L."""
+    k4 = k1 = 0
+    for rid, c in sorted(readings.items()):
+        check(c["num_layers"] == L and c["k4"] == c["decode_steps"] * L,
+              f"{label}: {rid}'s K4 launches {c['k4']} != its "
+              f"{c['decode_steps']} decode steps x {L}")
+        k4 += c["k4"]
+        k1 += c["k1"]
+    return k4, k1
+
+
+def phase_drill(torch, pa, attn, TransformerLMConfig, prompts, max_new,
+                ref, tps4):
+    """Phase 18, the fleet over replica processes on phase 4's GPT-124M
+    (its seed, weights and 16 requests; ``ref`` phase 4's streams,
+    ``tps4`` its tokens/s): 18a the router drill over 3 replica
+    processes with one SIGKILLed, 18b its disaggregated flavour with the
+    prefill replica killed, 18c routed tokens/s over 2 processes against
+    2 in-process replicas and one engine, 18d fleet_top over the 2
+    processes, 18e the lock patrol armed over one in-process gateway.
+    Every stream is held to phase 5's rule against phase 4's. Every
+    worker's K4 = its decode steps x 12 (each reports its own counts);
+    the parent's engines the same. Returns (K4, K1) launches."""
+    import contextlib
+    import io
+    from paddle_tpu_torch.analysis import lock_patrol
+    from paddle_tpu_torch.serving.router import (
+        EngineGateway, HTTPTransport, InProcessTransport, Router,
+        RouterConfig)
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    from paddle_tpu_torch.tools import fleet_top
+    from paddle_tpu_torch.tools import router_drill as rd
+    cfg = TransformerLMConfig(dropout=0.0)
+    L = cfg.num_layers
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        1234)).eval()
+    n = len(prompts)
+    greedy = [{} for _ in range(n)]
+    lists = [[int(t) for t in p] for p in prompts]
+    tokens = sum(max_new)
+    totals = {"k4": 0, "k1": 0}
+    attn.flash_attention_forward.launches = 0
+
+    def start():
+        """Counts to 0 before a run; the parent's K1 launches so far (its
+        stream checks' forwards) are banked first."""
+        totals["k1"] += attn.flash_attention_forward.launches
+        pa.paged_decode_attention.launches = 0
+        attn.flash_attention_forward.launches = 0
+
+    def counted(label, steps):
+        """The parent's K4 launches since start() = steps x L."""
+        k4 = pa.paged_decode_attention.launches
+        check(k4 == steps * L, f"{label}: K4 launches {k4} != {steps} "
+              f"decode steps x {L}")
+        totals["k4"] += k4
+        return k4
+
+    ties = []
+
+    def parity(i, got, want):
+        margin = same_stream(torch, model, prompts[i], got, want, {})
+        if margin is not None:
+            ties.append(margin)
+        return True
+
+    for label, kill in (("18a", "replica"), ("18b", "prefill")):
+        print(f"  [{label}] router_drill --kill {kill}: 3 replica processes"
+              f" ({'1 prefill + 2 decode' if kill == 'prefill' else 'monolithic'}"
+              f"), phase 4's 16 requests a wave")
+        counts = {}
+        ties.clear()
+        start()
+        t0 = time.perf_counter()
+        lines = io.StringIO()
+        try:
+            failures, waves = rd.run_drill(
+                replicas=3, prompts=lists, max_new=max_new, seed=5,
+                kill=kill, parity=parity, counts=counts, timeout_s=600.0,
+                out=lines, **DRILL_WORKER)
+        finally:
+            for line in lines.getvalue().splitlines():
+                print(f"    drill: {line}")
+        wall = time.perf_counter() - t0
+        check(not failures, f"{label}: {failures}")
+        w1, w2, w3 = (waves[k] for k in ("reference", "failover",
+                                         "baseline_no_failover"))
+        check(w2["ok"] == n and w2["shed"] == 0,
+              f"{label}: {w2['ok']}/{n} completed, {w2['shed']} shed")
+        if kill == "prefill":
+            check(w1["handoffs"] > 0, f"{label}: no KV handoff")
+        k4 = k1 = 0
+        for wave, readings in counts.items():
+            a, b = worker_counts(f"{label} {wave}", readings, L)
+            k4, k1 = k4 + a, k1 + b
+        totals["k4"] += k4
+        totals["k1"] += k1
+        print(f"    reference wave: {w1['ok']}/{n} in {w1['wall_s']} s, "
+              f"tokens/s {w1['tokens'] / w1['wall_s']:.1f} (phase 4: "
+              f"{tps4:.1f})" + (f"; handoffs {w1['handoffs']}, wire bytes "
+                                f"{w1['wire_bytes']}" if kill == "prefill"
+                                else ""))
+        print(f"    failover wave: killed {w2['killed']}; {w2['ok']}/{n} "
+              f"completed, lost {w2['lost']}, failovers {w2['failovers']}, "
+              f"retries {w2['retries']}, traced failovers "
+              f"{w2['traced_failovers']}, steady-state compiles "
+              f"{w2['steady_state_compiles']} (the port builds no program "
+              f"per shape); kill -> every request done "
+              f"{w2['kill_to_done_s']} s" + (
+                  f"; handoffs {w2['handoffs']}, handoff failures "
+                  f"{w2['handoff_failures']}" if kill == "prefill" else ""))
+        print(f"    no-failover baseline: killed {w3['killed']}, lost "
+              f"{len(w3['lost'])} ({w3['ok']} completed); survivors clean "
+              f"and conserved; workers' K4 launches {k4} (= their decode "
+              f"steps x {L}); near-ties in the drill's own parity "
+              f"{len(ties)}; {wall:.1f} s")
+        compare(torch, model, prompts, [Routed(t) for t in w1["streams"]],
+                ref, greedy, f"{label} reference wave vs phase 4")
+        compare(torch, model, prompts, [Routed(t) for t in w2["streams"]],
+                ref, greedy, f"{label} failover wave vs phase 4")
+
+    print("  [18c] what processes buy: routed tokens/s over 2 replica "
+          "processes, 2 in-process replicas (16a) and one engine, in turns")
+    w = DRILL_WORKER
+    procs = [rd.spawn(i, device=w["device"], model=w["model"],
+                      seed=w["model_seed"], num_slots=w["num_slots"],
+                      block_size=w["block_size"], paged=True, prefix="t")
+             for i in range(2)]
+    try:
+        infos = [rd.ready(p) for p in procs]
+        urls = [f"http://127.0.0.1:{i['port']}" for i in infos]
+
+        def via_processes():
+            for u in urls:
+                rd.post(u, "/v1/counts", {"reset": True})
+            router = Router([HTTPTransport(u, replica_id=i["replica_id"],
+                                           timeout_s=300.0)
+                             for u, i in zip(urls, infos)],
+                            config=RouterConfig(**ROUTER_CFG))
+            t0 = time.perf_counter()
+            tickets = [router.submit(lists[i], max_new[i]) for i in range(n)]
+            res = [t.result(timeout=300.0) for t in tickets]
+            wall = time.perf_counter() - t0
+            router.close()
+            for i, r in enumerate(res):
+                check(r["ok"] and len(r["tokens"]) == max_new[i],
+                      f"18c: request {i} {r['reason']}")
+            k4, _ = worker_counts("18c", {i["replica_id"]: rd.post(
+                u, "/v1/counts") for u, i in zip(urls, infos)}, L)
+            totals["k4"] += k4
+            return [Routed(r["tokens"]) for r in res], wall
+
+        def in_process():
+            gws = [EngineGateway(fleet_engine(model, f"i{i}"))
+                   for i in range(2)]
+            try:
+                router = Router([InProcessTransport(g) for g in gws],
+                                config=RouterConfig(**ROUTER_CFG))
+                start()
+                t0 = time.perf_counter()
+                tickets = [router.submit(prompts[i], max_new[i])
+                           for i in range(n)]
+                res = [t.result(timeout=300.0) for t in tickets]
+                wall = time.perf_counter() - t0
+                router.close()
+                counted("18c", sum(settle(g, "18c") for g in gws))
+                for i, r in enumerate(res):
+                    check(r["ok"], f"18c: request {i} {r['reason']}")
+                return [Routed(r["tokens"]) for r in res], wall
+            finally:
+                for g in gws:
+                    g.close()
+
+        def one_engine():
+            eng = fleet_engine(model, "e0")
+            start()
+            t0 = time.perf_counter()
+            reqs = [eng.add_request(p, max_new_tokens=k)
+                    for p, k in zip(prompts, max_new)]
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counted("18c", eng.metrics.decode_steps)
+            eng.close()
+            return reqs, wall
+
+        runs = {"processes": via_processes, "in-process": in_process,
+                "one engine": one_engine}
+        rates = {k: [] for k in runs}
+        for label in ("processes", "in-process", "one engine", "one engine",
+                      "in-process", "processes"):
+            got, wall = runs[label]()
+            rates[label].append(tokens / wall)
+            print(f"    {label}: {tokens} tokens in {wall:.3f} s, tokens/s "
+                  f"{tokens / wall:.1f} (phase 4: {tps4:.1f}; "
+                  f"{tokens / wall / tps4:.2f}x)")
+            compare(torch, model, prompts, got, ref, greedy,
+                    f"18c {label} vs phase 4")
+        print("    tokens/s " + "; ".join(
+            f"{k} {[round(x, 1) for x in v]}" for k, v in rates.items())
+            + f"; phase 4 {tps4:.1f}")
+
+        print("  [18d] fleet_top over the 2 replica processes")
+        targets = [u.replace("http://", "") for u in urls]
+
+        def top():
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = fleet_top.main(targets + ["--interval", "0.05",
+                                               "--timeout", "5"])
+            return rc, out.getvalue(), err.getvalue()
+
+        rc, out, err = top()
+        check(rc == 0 and "2/2 up" in out, f"18d: fleet_top exit {rc} with "
+              f"both up:\n{out}{err}")
+        procs[1].kill()
+        procs[1].wait(timeout=30)
+        rc1, out1, err1 = top()
+        check(rc1 == 1 and targets[1] in err1 and "1/2 up" in out1,
+              f"18d: fleet_top exit {rc1} after the kill:\n{out1}{err1}")
+        print(f"    both up: exit {rc} ({out.splitlines()[-1].split('  ')[0]}"
+              f"); {infos[1]['replica_id']} killed: exit {rc1}, "
+              f"{err1.strip().splitlines()[0]}")
+    finally:
+        rd.stop(procs)
+
+    print("  [18e] the lock patrol armed over one in-process gateway: "
+          "phase 4's 16 requests, off/armed/armed/off")
+    rates = {"off": [], "armed": []}
+    report = None
+    for label in ("off", "armed", "armed", "off"):
+        with (lock_patrol() if label == "armed"
+              else contextlib.nullcontext()) as patrol:
+            gw = EngineGateway(fleet_engine(model, "p0"))
+            try:
+                start()
+                t0 = time.perf_counter()
+                reqs = [gw.submit(prompts[i], max_new_tokens=max_new[i])
+                        for i in range(n)]
+                for i, r in enumerate(reqs):
+                    check(gw.wait(r, timeout=300.0),
+                          f"18e: request {i} timed out")
+                wall = time.perf_counter() - t0
+                counted("18e", settle(gw, "18e"))
+            finally:
+                gw.close()
+            if patrol is not None:
+                findings = patrol.findings()
+                report = patrol.report()
+                check(not findings, "18e: patrol findings "
+                      f"{[f.to_dict() for f in findings]}")
+        rates[label].append(tokens / wall)
+        compare(torch, model, prompts, reqs, ref, greedy, f"18e {label}")
+        print(f"    {label}: tokens/s {tokens / wall:.1f} ({wall:.3f} s; "
+              f"phase 4: {tps4:.1f})")
+    print(f"    patrol: {report['locks']} locks patrolled, "
+          f"{report['acquires']} acquires, {report['edges']} order edges, "
+          f"no finding (the gateway's lock across its dispatch is "
+          f"DEFAULT_PATROL_ALLOW's one rule); tokens/s armed "
+          f"{[round(x, 1) for x in rates['armed']]} against off "
+          f"{[round(x, 1) for x in rates['off']]}")
+    start()
+    del model
+    return totals["k4"], totals["k1"]
+
+
+# --------------------------------------------------------------- phase 19
+
+def phase_core(torch, attn, train_shape):
+    """Phase 19, the Paddle-style eager core on the card: set_device,
+    to_tensor and Place; a Paddle-style loss around the core's attention
+    op at the training shape through K1 and, in backward(), K2/K3, held
+    to the same computation in plain torch through the same kernels; a
+    double grad and a gradient penalty through the core's ops against
+    torch's autograd.grad; a PyLayer; no_grad; a double grad through the
+    attention op (K2/K3's first order, the composition's second) against
+    torch's double grad of the composition. Returns (K1, K2, K3)
+    launches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as device_mod
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv)
+
+    def start():
+        for w in wrappers:
+            w.launches = 0
+
+    def launches():
+        return [w.launches for w in wrappers]
+
+    def rel(a, b):
+        a, b = a.detach(), b.detach()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    try:
+        place = paddle.set_device("gpu")
+        dev = paddle.resolve_device()
+        t = paddle.to_tensor([1.0, 2.0])
+        check(place == paddle.CUDAPlace(0) and paddle.get_device() == "gpu:0"
+              and t.value.device == torch.device("cuda", 0)
+              and t.place == paddle.CUDAPlace(0), f"19: to_tensor on "
+              f"{t.value.device}, Place {t.place}")
+        print(f"  set_device('gpu') -> {place}; to_tensor on "
+              f"{t.value.device}, Place {t.place}")
+
+        print(f"  [19a] a Paddle-style loss around the core's attention op "
+              f"at {list(train_shape)} causal f32, backward() through K2/K3")
+        g = torch.Generator().manual_seed(19)
+        arrs = [torch.randn(train_shape, generator=g) * 0.5
+                for _ in range(3)]
+        w_np = torch.randn(train_shape[-1], generator=g).numpy()
+
+        def core_loss():
+            q, k, v = (paddle.to_tensor(a.numpy(), stop_gradient=False)
+                       for a in arrs)
+            out = attn.scaled_dot_product_attention(q, k, v, is_causal=True)
+            w = paddle.to_tensor(w_np)
+            loss = ((out * w).tanh().sum(axis=-1)
+                    + out.square().mean(axis=-1) * 0.5).mean() \
+                + paddle.logsumexp(out[:, :, -1], axis=-1).sum() * 1e-3
+            return loss, (q, k, v)
+
+        def torch_loss():
+            q, k, v = (a.to(dev).requires_grad_() for a in arrs)
+            out = attn.scaled_dot_product_attention(q, k, v, is_causal=True)
+            w = torch.from_numpy(w_np).to(dev)
+            loss = ((out * w).tanh().sum(-1)
+                    + out.square().mean(-1) * 0.5).mean() \
+                + torch.logsumexp(out[:, :, -1], dim=-1).sum() * 1e-3
+            return loss, (q, k, v)
+
+        start()
+        loss, leaves = core_loss()
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = launches()
+        check(counts == [1, 1, 1], f"19a: K1/K2/K3 launches {counts}")
+        tloss, tleaves = torch_loss()
+        tloss.backward()
+        exact = torch.equal(loss.value, tloss) and all(
+            torch.equal(a.grad.value, b.grad)
+            for a, b in zip(leaves, tleaves))
+        errs = [rel(a.grad.value, b.grad) for a, b in zip(leaves, tleaves)]
+        check(exact or max(errs) <= BWD_F32_TOL,
+              f"19a: grads against plain torch {errs}")
+        print(f"    loss {float(loss):.6f} (plain torch {tloss.item():.6f}); "
+              f"grads of q, k, v {'bit for bit' if exact else errs} equal "
+              f"to plain torch through the same kernels; K1/K2/K3 launches "
+              f"{counts}")
+        del leaves, tleaves, loss, tloss
+
+        print("  [19b] paddle.grad(create_graph=True): a double grad and a "
+              "gradient penalty through the core's ops")
+        g = torch.Generator().manual_seed(20)
+        x_np = torch.randn(256, 512, generator=g).numpy()
+        w_np = (torch.randn(512, 64, generator=g) * 0.05).numpy()
+        b_np = torch.randn(64, generator=g).numpy()
+        x = paddle.to_tensor(x_np, stop_gradient=False)
+        w, b = paddle.Parameter(w_np), paddle.Parameter(b_np)
+        y = (paddle.matmul(x, w) + b).tanh()
+        (gx,) = paddle.grad((y * y).sum(), x, create_graph=True)
+        (gx * gx).mean().backward()
+        tx, tw, tb = (torch.from_numpy(a).to(dev).requires_grad_()
+                      for a in (x_np, w_np, b_np))
+        ty = (tx @ tw + tb).tanh()
+        (tgx,) = torch.autograd.grad((ty * ty).sum(), tx, create_graph=True)
+        (tgx * tgx).mean().backward()
+        errs = [rel(a, b_) for a, b_ in ((gx.value, tgx),
+                                          (w.grad.value, tw.grad),
+                                          (b.grad.value, tb.grad))]
+        check(max(errs) <= 1e-5, f"19b: against torch.autograd {errs}")
+        s = paddle.to_tensor(3.0, stop_gradient=False)
+        (g1,) = paddle.grad(s ** 4, s, create_graph=True)
+        (g2,) = paddle.grad(g1, s, create_graph=True)
+        (g3,) = paddle.grad(g2, s)
+        third = [float(v) for v in (g1, g2, g3)]
+        check(third == [108.0, 108.0, 72.0], f"19b: x**4's grads {third}")
+        print(f"    dL/dx, the penalty's grads of w and b against "
+              f"torch.autograd.grad: largest relative differences {errs}; "
+              f"x**4 at 3: {third}")
+
+        print("  [19c] a PyLayer, and no_grad")
+
+        class Double(paddle.autograd.PyLayer):
+            @staticmethod
+            def forward(ctx, x):
+                return x * 2
+
+            @staticmethod
+            def backward(ctx, grad):
+                return grad * 2
+
+        x = paddle.to_tensor([1.5, -2.0], stop_gradient=False)
+        y = Double.apply(x)
+        y.sum().backward()
+        check(y.numpy().tolist() == [3.0, -4.0]
+              and x.grad.numpy().tolist() == [2.0, 2.0]
+              and y.value.is_cuda, f"19c: PyLayer {y.numpy()}, "
+              f"{x.grad.numpy()}")
+        with paddle.no_grad():
+            z = x * 2
+            inner = paddle.is_grad_enabled()
+        check(z.stop_gradient and z.value.grad_fn is None and not inner
+              and paddle.is_grad_enabled(), "19c: no_grad recorded")
+        print("    PyLayer forward and backward on the card; no_grad "
+              "records nothing")
+
+        shape = (2, train_shape[1], 512, train_shape[-1])
+        print(f"  [19d] a double grad through the attention op at "
+              f"{list(shape)}: K2/K3's first order, the composition's "
+              f"second, against torch's double grad of the composition")
+        g = torch.Generator().manual_seed(21)
+        arrs = [torch.randn(shape, generator=g) * 0.5 for _ in range(3)]
+        start()
+        q, k, v = (paddle.to_tensor(a.numpy(), stop_gradient=False)
+                   for a in arrs)
+        out = attn.scaled_dot_product_attention(q, k, v, is_causal=True)
+        (gq,) = paddle.grad((out * out).sum() * 0.5, q, create_graph=True)
+        pen = paddle.grad((gq * gq).sum(), [q, k, v])
+        torch.cuda.synchronize()
+        counts2 = launches()
+        # K2/K3 twice: once for dL/dq (create_graph), once more as the
+        # penalty's grad flows back through dO = out into the forward
+        check(counts2 == [1, 2, 2], f"19d: K1/K2/K3 launches {counts2}")
+        tq, tk, tv = (a.to(dev).requires_grad_() for a in arrs)
+        sc = 1.0 / np.sqrt(shape[-1])
+        tout = attn.reference_attention(tq, tk, tv, None, sc, True)
+        (tgq,) = torch.autograd.grad((tout * tout).sum() * 0.5, tq,
+                                     create_graph=True)
+        tpen = torch.autograd.grad((tgq * tgq).sum(), [tq, tk, tv])
+        errs = [rel(gq.value, tgq)] + [rel(a.value, b_)
+                                       for a, b_ in zip(pen, tpen)]
+        check(max(errs) <= BWD_F32_TOL, f"19d: against the composition "
+              f"{errs}")
+        print(f"    dL/dq and the penalty's grads of q, k, v within "
+              f"{max(errs):.2e} of the composition's (tol {BWD_F32_TOL}); "
+              f"K1/K2/K3 launches {counts2}")
+        return tuple(a + b_ for a, b_ in zip(counts, counts2))
+    finally:
+        device_mod._current_place = None
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -2591,9 +3088,10 @@ def main():
                     "f32 K5) phases 9 and 11 compare with (default: git "
                     "history, where the checkout has it)")
     ap.add_argument("--fleet", action="store_true",
-                    help="phases 1, 4, 16 and 17 only (the build, phase "
-                    "4's streams, the hardened engine and the router, the "
-                    "observatories and the fleet telemetry); prints no "
+                    help="phases 1, 4, 16, 17 and 18 only (the build, "
+                    "phase 4's streams, the hardened engine and the "
+                    "router, the observatories and the fleet telemetry, "
+                    "the fleet over replica processes); prints no "
                     "kernels line")
     args = ap.parse_args()
     t_start = time.perf_counter()
@@ -2687,10 +3185,15 @@ def main():
         k4_obs, k1_obs = phase_observe(
             torch, pa, attn, TransformerLMConfig, prompts, max_new,
             [r.generated for r in reqs], snap["tokens_per_sec"])
-        print(f"phases 1, 4, 16 and 17 in "
+        print("[18] the fleet over replica processes")
+        k4_drill, k1_drill = phase_drill(
+            torch, pa, attn, TransformerLMConfig, prompts, max_new,
+            [r.generated for r in reqs], snap["tokens_per_sec"])
+        print(f"phases 1, 4, 16, 17 and 18 in "
               f"{time.perf_counter() - t_start:.1f} s; phase 16's K4 "
               f"launches {k4_fleet}, K1 {k1_fleet}; phase 17's K4 "
-              f"{k4_obs}, K1 {k1_obs}")
+              f"{k4_obs}, K1 {k1_obs}; phase 18's K4 {k4_drill}, K1 "
+              f"{k1_drill}")
         print(card_line())
         return 0
     print("[5] greedy cross-check against the forward")
@@ -2745,6 +3248,14 @@ def main():
     k4_obs, k1_obs = phase_observe(
         torch, pa, attn, TransformerLMConfig, prompts, max_new,
         [r.generated for r in reqs], snap["tokens_per_sec"])
+    print("[18] the fleet over replica processes: the router drill "
+          "(monolithic and disaggregated), processes against threads, "
+          "fleet_top, the lock patrol")
+    k4_drill, k1_drill = phase_drill(
+        torch, pa, attn, TransformerLMConfig, prompts, max_new,
+        [r.generated for r in reqs], snap["tokens_per_sec"])
+    print("[19] the Paddle-style eager core on the card")
+    core = phase_core(torch, attn, train_shape)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -2753,9 +3264,11 @@ def main():
     # forward); the f32 training rows
     # (K1 at the training shape, K2, K3, K5-K7) on phases 7, 11, 12 and
     # 13; the bf16 rows on phases 10 and 13
-    k4_row["launches"] = k4 + k4_gen + k4_rest + k4_fleet + k4_obs
-    k1_row["launches"] = k1 + k1_gen + k1_fleet + k1_obs
-    f32 = [a + b + c for a, b, c in zip(counts, optim, rc_f32)]
+    k4_row["launches"] = (k4 + k4_gen + k4_rest + k4_fleet + k4_obs
+                          + k4_drill)
+    k1_row["launches"] = k1 + k1_gen + k1_fleet + k1_obs + k1_drill
+    f32 = [a + b + c + d for a, b, c, d in
+           zip(counts, optim, rc_f32, core + (0, 0, 0))]
     k1t_row["launches"] = k1_train + f32[0]
     k2_row["launches"] = k2 + f32[1]
     k3_row["launches"] = k3 + f32[2]
@@ -2764,7 +3277,7 @@ def main():
     for row, n in zip((k1b_row, k2b_row, k3b_row, k5_row, k6_row, k7_row),
                       bf16):
         row["launches"] = n
-    print(f"phases 1-17 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-19 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

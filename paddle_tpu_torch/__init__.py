@@ -19,11 +19,76 @@ GPT, tied head (the default) or untied (``model(ids, labels=labels)``,
 ``nn``, ``optimizer.lr``), with per-block recompute, under
 ``amp.auto_cast`` O1/O2 with ``amp.GradScaler`` or in f32, with the
 flash-attention backward kernels and the fused linear cross-entropy
-kernels; ``seed`` seeds the dropout generators.
+kernels; ``seed`` seeds the dropout generators. The Paddle-style eager
+core: ``Tensor``/``Parameter`` over a torch tensor with ``to_tensor``,
+the dtypes and Places, ``set_device``, ``set_flags``, ``no_grad`` /
+``enable_grad``, ``autograd.PyLayer`` and ``grad`` on torch's autograd,
+and the math, reduction and logic ops (``paddle_tpu_torch.add``,
+``sum``, ...), which are also the Tensor's operators and methods.
 """
-from . import amp, nn, optimizer, regularizer
-from .core.device import resolve_device
-from .core.rng import seed
+import builtins as _builtins
 
-__all__ = ["amp", "nn", "optimizer", "regularizer", "resolve_device",
-           "seed"]
+import numpy as _np
+
+from . import amp, autograd, nn, optimizer, regularizer
+from .autograd import grad
+from .core import errors
+from .core.device import (
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, Place, device_count, get_device,
+    get_place, is_compiled_with_cuda, is_compiled_with_npu,
+    is_compiled_with_rocm, is_compiled_with_tpu, is_compiled_with_xpu,
+    resolve_device, set_device)
+from .core.dispatch import enable_grad, is_grad_enabled, no_grad
+from .core.dtype import (
+    bfloat16, complex64, complex128, float16, float32, float64,
+    get_default_dtype, int8, int16, int32, int64, set_default_dtype, uint8)
+from .core.dtype import bool_ as bool  # noqa: A004
+from .core.flags import get_flags, set_flags
+from .core.rng import default_generator, seed
+from .core.tensor import Parameter, Tensor
+from . import ops  # attaches the operators and methods to Tensor
+from .ops.logic import (
+    allclose, bitwise_and, bitwise_not, bitwise_or, bitwise_xor, equal,
+    equal_all, greater_equal, greater_than, is_empty, is_tensor, isclose,
+    less_equal, less_than, logical_and, logical_not, logical_or,
+    logical_xor, not_equal)
+from .ops.math import (  # noqa: A004
+    abs, acos, add, add_n, addmm, angle, asin, asinh, acosh, atan, atan2,
+    atanh, bmm, cast, ceil, clip, clone, conj, cos, cosh, cross, cumprod,
+    cumsum, cumulative_trapezoid, deg2rad, diff, digamma, divide, dot,
+    einsum, erf, erfinv, exp, expm1, floor, floor_divide, floor_mod, fmax,
+    fmin, frac, heaviside, histogram, hypot, i0, igamma, imag, increment,
+    inner, isfinite, isinf, isnan, kron, lerp, lgamma, log, log1p, log2,
+    log10, logaddexp, logcumsumexp, logit, matmul, maximum, minimum, mm,
+    mod, multiply, mv, nan_to_num, neg, outer, polygamma, pow, rad2deg,
+    real, reciprocal, remainder, renorm, round, rsqrt, scale, sigmoid,
+    sign, sin, sinh, sqrt, square, stanh, subtract, tan, tanh, trace,
+    trapezoid, trunc, vander)
+from .ops.reduction import (  # noqa: A004
+    all, amax, amin, any, count_nonzero, dist, logsumexp, max, mean,
+    median, min, nanmean, nanmedian, nanquantile, nansum, norm, prod,
+    quantile, std, sum, var)
+
+
+def to_tensor(data, dtype=None, place=None, stop_gradient=True):
+    """``paddle.to_tensor``: python floats and float lists default to
+    float32, python ints to int64, numpy arrays keep their dtype; the
+    data lands on ``place`` (default: the current device, the card
+    unless ``set_device`` says otherwise)."""
+    if isinstance(data, Tensor):
+        data = data._value
+    if dtype is None:
+        if isinstance(data, (int, _np.integer)) \
+                and not isinstance(data, (_builtins.bool, _np.bool_)):
+            dtype = "int64"
+        elif isinstance(data, float):
+            dtype = "float32"
+        elif isinstance(data, (list, tuple)) \
+                and _np.asarray(data).dtype == _np.float64:
+            dtype = "float32"
+    return Tensor(data, dtype=dtype,
+                  place=place if place is not None else get_place(),
+                  stop_gradient=stop_gradient)
+
+
+__all__ = [n for n in dir() if not n.startswith("_")]

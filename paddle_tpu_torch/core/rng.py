@@ -9,21 +9,18 @@ not the reference's numbers.
 """
 import torch
 
+from .device import resolve_device
+
 _seed = 0
 _generators = {}   # torch.device -> torch.Generator
 
 
-def _key(device):
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-def default_generator(device="cpu"):
-    """The port's generator for ``device``, made on first use from the
-    last ``seed`` (0 before any)."""
-    dev = _key(device)
+def default_generator(device=None):
+    """The port's generator for ``device`` (``paddle.default_generator``;
+    None: the current device, the card unless ``set_device`` says
+    otherwise), made on first use from the last ``seed`` (0 before
+    any)."""
+    dev = resolve_device(device)
     gen = _generators.get(dev)
     if gen is None:
         gen = _generators[dev] = torch.Generator(device=dev)

@@ -21,6 +21,8 @@ import math
 import torch
 
 from ..amp.auto_cast import cast_inputs, op_body
+from ..core.dispatch import register_op
+from ..core.tensor import Tensor
 from . import _build
 
 _NEG = -1e30
@@ -274,11 +276,57 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v, o, lse = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            # create_graph: the grads must themselves be differentiable
+            return _FlashAttentionGrad.apply(
+                q, k, v, o.detach(), lse.detach(), grad, ctx.scale,
+                ctx.causal) + (None, None)
         # the model's transpose/reshape hands a strided grad
         with op_body():
             dq, dk, dv = flash_attention_backward(q, k, v, o, lse, grad,
                                                   ctx.scale, ctx.causal)
         return dq, dk, dv, None, None
+
+
+class _FlashAttentionGrad(torch.autograd.Function):
+    """The first-order backward as a function of (q, k, v, dO), for a
+    double grad (``create_graph=True``) through the attention: its
+    forward is K2 and K3 as above; its backward, the second-order terms,
+    differentiates the plain composition (``reference_attention``)
+    twice with torch's autograd. The reference gives the same value on
+    its CPU path, where its custom_vjp's backward is the composition's
+    vjp and JAX differentiates that; on its Pallas path JAX fails inside
+    the JVP of a ``pallas_call`` (tests/test_torch_autograd.py holds
+    both)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, o, lse, do, scale, causal):
+        with op_body():
+            dq, dk, dv = flash_attention_backward(q, k, v, o, lse, do,
+                                                  scale, causal)
+        ctx.save_for_backward(q, k, v, do)
+        ctx.scale, ctx.causal = scale, causal
+        return dq, dk, dv
+
+    @staticmethod
+    def backward(ctx, gdq, gdk, gdv):
+        higher = torch.is_grad_enabled()
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t if higher and t.requires_grad
+                   else t.detach().requires_grad_() for t in saved]
+            with op_body():
+                out = reference_attention(*ins[:3], None, ctx.scale,
+                                          ctx.causal)
+            first = torch.autograd.grad(out, ins[:3], ins[3],
+                                        create_graph=True)
+            pairs = [(f, g) for f, g in zip(first, (gdq, gdk, gdv))
+                     if g is not None]
+            second = torch.autograd.grad(
+                [f for f, _ in pairs], ins, [g for _, g in pairs],
+                create_graph=higher, allow_unused=True)
+        dq2, dk2, dv2, ddo = second
+        return dq2, dk2, dv2, None, None, ddo, None, None
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -288,8 +336,14 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     what they cannot take, a mask included); CPU tensors take the plain
     versions through the same autograd function. Under ``amp.auto_cast``
     q, k and v are cast as the reference casts its ``flash_attention`` op
-    (white list: bf16 under O1 and O2)."""
+    (white list: bf16 under O1 and O2). Tensors of the eager core
+    (``paddle_tpu_torch.Tensor``) go through the core's
+    ``flash_attention`` op, which runs this same function on their
+    values."""
     sc = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
+    if isinstance(query, Tensor):
+        return _flash_op(query, key, value, attn_mask, scale=float(sc),
+                         causal=bool(is_causal))
     query, key, value = cast_inputs("flash_attention", query, key, value)
     if attn_mask is not None:
         if query.is_cuda:
@@ -300,6 +354,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                        float(sc), bool(is_causal))
     return _FlashAttention.apply(query, key, value, float(sc),
                                  bool(is_causal))
+
+
+@register_op("flash_attention")
+def _flash_op(q, k, v, mask, *, scale, causal):
+    return scaled_dot_product_attention(q, k, v, mask, is_causal=causal,
+                                        scale=scale)
 
 
 def cached_slot_attention(q, k_cache, v_cache, lengths):

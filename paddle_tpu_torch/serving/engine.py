@@ -82,6 +82,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..analysis import threads as _lockpatrol
 from ..core.device import resolve_device
 from ..observability.fleet import ReplicaIdentity
 from ..observability.flight import FlightRecorder
@@ -578,7 +579,11 @@ class ServingEngine:
     def _timed(self, key, fn, *args):
         """Run one serving program: its host seconds go to the dispatch
         leg (the health ledger's ``dispatch_s``) and, with perf on, to
-        its program key."""
+        its program key. With the lock patrol armed, a patrolled lock
+        held here is a finding: a slow dispatch stalls every waiter on
+        that lock."""
+        if _lockpatrol._armed:
+            _lockpatrol.note_blocking("aot_dispatch", str(key))
         t0 = time.perf_counter()
         out = fn(*args)
         dt = time.perf_counter() - t0
@@ -1765,7 +1770,10 @@ class ServingEngine:
         them (the router's gateway mounts ``/v1/generate`` this way);
         ``lock``, when given, is held while a debug route reads the
         engine (the gateway passes the lock its stepping thread steps
-        under). Returns the server's handle; ``close()`` stops every
+        under). A POST body may be as large as the largest KV handoff
+        this engine's pool could import (1 MiB at least; the reference
+        keeps 1 MiB, which one block of a GPT-124M handoff, 16
+        positions, already passes). Returns the server's handle; ``close()`` stops every
         server this engine started."""
         def _debug_requests(params):
             return self.flight.debug_requests(tenant=params.get("tenant"))
@@ -1793,8 +1801,16 @@ class ServingEngine:
                         return fn()
                 return call
             routes = {path: locked(fn) for path, fn in routes.items()}
+        max_body = 1 << 20
+        if self.paged:
+            cfg = self._model.cfg
+            max_body = max(max_body, kv_wire.payload_bytes_bound(
+                cfg.num_layers, cfg.num_heads,
+                cfg.hidden_size // cfg.num_heads, self.cache_len,
+                self.pool.block_size, self.pool.kc.element_size()))
         handle = start_metrics_server(
             self.metrics.registry, port=port, addr=addr,
-            extra_routes=routes, post_routes=post_routes)
+            extra_routes=routes, post_routes=post_routes,
+            max_body_bytes=max_body)
         self._metric_servers.append(handle)
         return handle

@@ -74,6 +74,17 @@ def blocks_for_prompt(prompt_len, block_size):
     return -(-int(prompt_len) // int(block_size))
 
 
+def payload_bytes_bound(layers, heads, head_dim, tokens, block_size,
+                        itemsize):
+    """The most JSON bytes a handoff of ``tokens`` prompt tokens can take
+    on the wire: two base64 tiles and a digest a block, the prompt's ids
+    and the header (what a replica's import route must accept)."""
+    tile = layers * heads * block_size * head_dim * itemsize
+    per_frame = 2 * 4 * -(-tile // 3) + 64
+    return (blocks_for_prompt(tokens, block_size) * per_frame
+            + 12 * int(tokens) + 4096)
+
+
 def _as_tensor(tiles):
     if isinstance(tiles, torch.Tensor):
         return tiles.detach().cpu().contiguous()
