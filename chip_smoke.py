@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
 Run from the repository root:  python3 chip_smoke.py [--parent TREE]
-(``--fleet`` runs phases 1, 4, 16, 17 and 18 alone and prints no
-kernels line)
+(``--fleet`` runs phases 1, 4, 16, 17 and 18 alone, ``--nn`` phases 1,
+7 and 20 alone; neither prints the kernels line)
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -216,12 +216,30 @@ Phases, one line each:
              double grad through the attention op (K2/K3's first order,
              the composition's second) against torch's double grad of
              the composition.
+ 20. nn      the Paddle nn surface: phase 7's untied GPT-124M written as
+             a user would in it (paddle_surface_gpt: nn.Layer,
+             nn.Embedding, nn.LayerList, nn.LayerNorm, nn.Linear,
+             paddle.reshape/transpose/unbind, nn.functional's
+             scaled_dot_product_attention, gelu and cross_entropy), 8 x
+             1024, f32, dropout 0, phase 7's initial weights carried in
+             (each Linear weight transposed into [in, out]); 20a a
+             transposed-and-unbound q/k/v launches K1; step 1's loss
+             within LOSS_RTOL of phase 7's, every grad within GRAD_TOL
+             of the torch GPT's; 20b 3 AdamW steps with
+             ClipGradByGlobalNorm(1.0): each loss within LOSS_RTOL of
+             phase 7's, each parameter's move within phase 12's L2 rule,
+             K1 = K2 = K3 = 12 a step, step ms and peak memory beside
+             phase 7's; 20c the core's host time an op (add, matmul,
+             reshape, layer_norm, a Linear call) against the same torch
+             calls, in turns; 20d Dropout's keep share within 6 sigma,
+             the same seed the same mask and randn, Linear's Xavier std,
+             torch's global RNG untouched.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
-14, 16, 17 and 18 for the serving K1 row, 7, 11, 12, 13 and 19 for the
-f32 training rows, 10 and 13 for the bf16 ones), and as the last line
-{"ok": true, "device": {...}}.
+14, 16, 17 and 18 for the serving K1 row, 7, 11, 12, 13, 19 and 20 for
+the f32 training rows, 10 and 13 for the bf16 ones), and as the last
+line {"ok": true, "device": {...}}.
 
 TF32 is off for matmuls and cuDNN, so every f32 product is full f32.
 Any failure raises: the exit code is non-zero and no "ok" line prints.
@@ -917,6 +935,7 @@ def train_run(torch, cfg, optimizer, nn, clip):
     labels = ids.clone()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    train_run.held = torch.cuda.memory_allocated()
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -955,12 +974,15 @@ def train_checked(torch, wrappers, want, cfg, optimizer, nn, clip):
 
 
 def phase_train(torch, attn, cfg, optimizer, nn):
+    """Phase 7: ((K1, K2, K3) launches, (losses, step ms, peak bytes,
+    bytes held when the peak was reset))."""
     L = cfg.num_layers
     wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
                 attn.flash_bwd_dkv)
-    train_checked(torch, wrappers, (TRAIN_STEPS * L,) * 3, cfg, optimizer,
-                  nn, True)
-    return tuple(fn.launches for fn in wrappers)
+    losses, times, peak, _ = train_checked(
+        torch, wrappers, (TRAIN_STEPS * L,) * 3, cfg, optimizer, nn, True)
+    return tuple(fn.launches for fn in wrappers), (losses, times, peak,
+                                                   train_run.held)
 
 
 def phase_tied_f32(torch, attn, tce, cfg, optimizer, nn, _build, parent):
@@ -3072,6 +3094,373 @@ def phase_core(torch, attn, train_shape):
         device_mod._current_place = None
 
 
+# --------------------------------------------------------------- phase 20
+
+def paddle_surface_gpt(paddle, cfg):
+    """GPT-124M as a user writes it in the port's Paddle surface, the
+    structure of the reference's paddle_tpu/text/models.py:58-215 (its
+    structured names too): nn.Layer, word and position nn.Embedding, an
+    nn.LayerList of pre-norm blocks with nn.LayerNorm, a fused-QKV
+    nn.Linear split by paddle.reshape/transpose/unbind into
+    nn.functional.scaled_dot_product_attention(is_causal=True), the
+    output and fc1/fc2 nn.Linear with gelu(approximate=True), paddle.add
+    for the residuals and an untied nn.Linear head into
+    nn.functional.cross_entropy. Dropout 0."""
+    nn, F = paddle.nn, paddle.nn.functional
+
+    class SelfAttention(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            h = cfg.hidden_size
+            self.num_heads = cfg.num_heads
+            self.head_dim = h // cfg.num_heads
+            self.qkv = nn.Linear(h, 3 * h)
+            self.out = nn.Linear(h, h)
+
+        def forward(self, x):
+            b, s, h = x.shape
+            qkv = paddle.reshape(self.qkv(x),
+                                 [b, s, 3, self.num_heads, self.head_dim])
+            qkv = paddle.transpose(qkv, [2, 0, 3, 1, 4])
+            q, k, v = paddle.unbind(qkv, axis=0)
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            o = paddle.reshape(paddle.transpose(o, [0, 2, 1, 3]), [b, s, h])
+            return self.out(o)
+
+    class MLP(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+            self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+        def forward(self, x):
+            return self.fc2(F.gelu(self.fc1(x), approximate=True))
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln1 = nn.LayerNorm(cfg.hidden_size)
+            self.attn = SelfAttention()
+            self.ln2 = nn.LayerNorm(cfg.hidden_size)
+            self.mlp = MLP()
+
+        def forward(self, x):
+            x = paddle.add(x, self.attn(self.ln1(x)))
+            return paddle.add(x, self.mlp(self.ln2(x)))
+
+    class GPTModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word_embeddings = nn.Embedding(cfg.vocab_size,
+                                                cfg.hidden_size)
+            self.position_embeddings = nn.Embedding(cfg.max_seq_len,
+                                                    cfg.hidden_size)
+            self.blocks = nn.LayerList([Block()
+                                        for _ in range(cfg.num_layers)])
+            self.ln_f = nn.LayerNorm(cfg.hidden_size)
+
+        def forward(self, ids):
+            pos = paddle.arange(0, ids.shape[1], dtype="int64")
+            x = paddle.add(self.word_embeddings(ids),
+                           self.position_embeddings(pos))
+            for blk in self.blocks:
+                x = blk(x)
+            return self.ln_f(x)
+
+    class GPTForCausalLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.gpt = GPTModel()
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                     bias_attr=False)
+
+        def forward(self, ids, labels):
+            logits = self.lm_head(self.gpt(ids))
+            return F.cross_entropy(
+                paddle.reshape(logits, [-1, cfg.vocab_size]),
+                paddle.reshape(labels, [-1]))
+
+    return GPTForCausalLM()
+
+
+def host_us(torch, fn, n=400):
+    """Host wall time of one call of ``fn``, in us: ``n`` calls, then a
+    synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_paddle_nn(torch, attn, cfg, optimizer, nn, phase7):
+    """Phase 20, the Paddle ``nn`` surface on the card: phase 7's untied
+    GPT-124M written in the port's Paddle surface (paddle_surface_gpt),
+    its initial weights carried in from phase 7's seeded torch GPT
+    (``text.convert``: each Linear weight transposed into [in, out]).
+    20a: a transposed-and-unbound q/k/v launches K1; step 1's loss
+    within LOSS_RTOL of phase 7's and every grad within GRAD_TOL of the
+    torch GPT's (relative to the parameter's largest grad); 20b: three
+    AdamW steps as phase 7's (ClipGradByGlobalNorm(1.0)), each loss
+    within LOSS_RTOL of phase 7's at that step, each parameter's move
+    within phase 12's L2 rule against the torch GPT's 3 steps, K1 = K2 =
+    K3 = 12 launches a step, the step ms and peak memory beside phase
+    7's; 20c: the core's host time an op against the same torch call;
+    20d: Dropout's keep share, seeds, Linear's Xavier std on the card,
+    torch's global RNG untouched. Returns the (K1, K2, K3) launches of
+    20b's steps. ``phase7``: (losses, step ms, peak bytes, bytes held
+    when its peak was reset). The torch GPT's grads and parameters that
+    20a/20b compare with wait on the host, so that the surface's peak
+    counts what phase 7's does: the bytes held before the steps (the
+    model, and whatever earlier phases still hold) and the steps'
+    own."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as device_mod
+    from paddle_tpu_torch.text import convert
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv)
+    L, steps = cfg.num_layers, 3
+    p7_losses, p7_times, p7_peak, p7_held = phase7
+    F = paddle.nn.functional
+
+    def start():
+        for w in wrappers:
+            w.launches = 0
+
+    def launches():
+        return tuple(w.launches for w in wrappers)
+
+    try:
+        paddle.set_device("gpu")
+        ids_np = np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (8, cfg.max_seq_len)).astype(np.int64)
+
+        # the torch GPT of phase 7, 3 of its steps: step 1's grads and
+        # the parameters after 3 steps, to hold the surface's to
+        tg = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+            1234)).train()
+        init_np = convert.state_dict_to_paddle_tpu(tg.state_dict())
+        init = {n: p.detach().cpu() for n, p in tg.named_parameters()}
+        opt = optimizer.AdamW(1e-4, parameters=tg.named_parameters(),
+                              weight_decay=0.01,
+                              grad_clip=nn.ClipGradByGlobalNorm(1.0))
+        tids = torch.from_numpy(ids_np).cuda()
+        t_losses = []
+        for step in range(steps):
+            loss = tg(tids, labels=tids)
+            loss.backward()
+            if step == 0:
+                t_grads = {n: p.grad.detach().cpu()
+                           for n, p in tg.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            t_losses.append(loss.item())
+        t_after = {n: p.detach().cpu() for n, p in tg.named_parameters()}
+        del tg, opt, loss
+        torch.cuda.empty_cache()
+
+        print("  [20a] a transposed-and-unbound q/k/v through the core's "
+              "attention op; step 1 against phase 7")
+        b, s, nh, hd = 8, cfg.max_seq_len, cfg.num_heads, \
+            cfg.hidden_size // cfg.num_heads
+        qkv = paddle.transpose(paddle.reshape(
+            paddle.randn([b, s, 3 * nh * hd]), [b, s, 3, nh, hd]),
+            [2, 0, 3, 1, 4])
+        q, k, v = paddle.unbind(qkv, axis=0)
+        start()
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        torch.cuda.synchronize()
+        want, _ = attn.flash_attention_plain(q.value, k.value, v.value,
+                                             hd ** -0.5, True)
+        err = (o.value - want).abs().max().item()
+        check(not q.value.is_contiguous() and launches() == (1, 0, 0)
+              and err <= F32_FLASH_TOL, f"20a: q contiguous "
+              f"{q.value.is_contiguous()}, launches {launches()}, max abs "
+              f"err {err}")
+        print(f"    q [{b}, {nh}, {s}, {hd}] a strided view: K1 launched "
+              f"once, max abs err {err:.2e} against the plain forward")
+        del qkv, q, k, v, o, want
+
+        model = paddle_surface_gpt(paddle, cfg)
+        names = list(model.state_dict())
+        check(names == list(init_np), f"20: names {names[:4]} ... vs the "
+              f"torch GPT's {list(init_np)[:4]} ...")
+        check(model.set_state_dict(init_np) == [], "20: weights missing")
+        p0 = model.gpt.blocks[0].attn.qkv.weight
+        off = [n for n, p in model.named_parameters() if not p.value.is_cuda]
+        check(not off and p0.shape == [cfg.hidden_size,
+                                       3 * cfg.hidden_size],
+              f"20: qkv weight {p0.shape}; parameters off the card {off}")
+        model.train()
+        popt = paddle.optimizer.AdamW(
+            1e-4, parameters=model.parameters(), weight_decay=0.01,
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+        ids = paddle.to_tensor(ids_np)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        losses, times, counts = [], [], []
+        for step in range(steps):
+            start()
+            t0 = time.perf_counter()
+            loss = model(ids, ids)
+            loss.backward()
+            if step == 0:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                grads = {n: p.grad.value.cpu() for n, p in
+                         model.named_parameters()}
+                worst, where = 0.0, ""
+                for n, g in grads.items():
+                    tw = t_grads[n]
+                    if g.dim() == 2 and "embeddings" not in n:
+                        tw = tw.t()
+                    r = ((g - tw).abs().max()
+                         / tw.abs().max().clamp_min(1e-30)).item()
+                    check(r <= GRAD_TOL, f"20a: grad {n}: {r:.3e} of its "
+                          f"largest (tol {GRAD_TOL})")
+                    if r >= worst:
+                        worst, where = r, n
+                del grads
+                t0 += time.perf_counter() - t1
+            popt.step()
+            popt.clear_grad()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+            counts.append(launches())
+        peak = torch.cuda.max_memory_allocated()
+        rel = [abs(a - b_) / abs(b_) for a, b_ in zip(losses, p7_losses)]
+        print(f"    step 1: loss {losses[0]:.6f} (phase 7: "
+              f"{p7_losses[0]:.6f}), rel diff {rel[0]:.3e} (tol "
+              f"{LOSS_RTOL}); {len(t_grads)} grads against the torch GPT's:"
+              f" worst max|diff|/max|grad| {worst:.3e} at {where} (tol "
+              f"{GRAD_TOL})")
+        check(rel[0] <= LOSS_RTOL, f"20a: loss {losses[0]} vs phase 7's "
+              f"{p7_losses[0]}")
+
+        print(f"  [20b] {steps} AdamW steps (ClipGradByGlobalNorm(1.0))")
+        check(max(rel) <= LOSS_RTOL and all(np.isfinite(losses)),
+              f"20b: losses {losses} vs phase 7's {p7_losses[:steps]}")
+        check(max(abs(a - b_) / abs(b_) for a, b_ in
+                  zip(t_losses, p7_losses)) <= LOSS_RTOL,
+              f"20b: the torch GPT's rerun {t_losses} vs phase 7's "
+              f"{p7_losses[:steps]}")
+        check(all(c == (L, L, L) for c in counts),
+              f"20b: launches a step {counts}, want ({L}, {L}, {L})")
+        after = {n: (p.value.t() if p.value.dim() == 2
+                     and "embeddings" not in n else p.value).detach()
+                 for n, p in model.named_parameters()}
+        mv, mv_where, scale = moves_apart(
+            torch, {n: a.cpu() for n, a in after.items()}, t_after, init,
+            cfg.hidden_size)
+        check(mv <= OPT_SIGN_TOL, f"20b: the move of {mv_where} is "
+              f"{mv:.3e} of the torch GPT's apart (tol {OPT_SIGN_TOL})")
+        med = float(np.median(times[1:]))
+        med7 = float(np.median(p7_times[1:]))
+        tokens = ids_np.size
+        print(f"    losses {[round(x, 6) for x in losses]} (phase 7: "
+              f"{[round(x, 6) for x in p7_losses[:steps]]}; max rel diff "
+              f"{max(rel):.3e}, tol {LOSS_RTOL}); parameters moved up to "
+              f"{scale:.3e}, at most {mv:.3e} of a tensor's move from the "
+              f"torch GPT's ({mv_where}; tol {OPT_SIGN_TOL})")
+        print(f"    step ms {[round(t, 2) for t in times]}: median of steps "
+              f"2-{steps} {med:.2f} ms ({tokens / med * 1e3:.1f} tokens/s) "
+              f"against phase 7's {med7:.2f} ms; peak memory "
+              f"{peak / 2**30:.3f} GiB, {(peak - held) / 2**30:.3f} over "
+              f"the {held / 2**30:.3f} held before the steps, against "
+              f"phase 7's {p7_peak / 2**30:.3f}, "
+              f"{(p7_peak - p7_held) / 2**30:.3f} over "
+              f"{p7_held / 2**30:.3f}; launches K1/K2/K3 a step "
+              f"{counts[0]}")
+        total = tuple(sum(c[i] for c in counts) for i in range(3))
+        del model, popt, loss, after, t_after, init, t_grads
+        torch.cuda.empty_cache()
+
+        print("  [20c] the core's host time an op against the same torch "
+              "call (small card tensors, in turns)")
+        g = torch.Generator().manual_seed(20)
+        a_np, b_np = (torch.randn(64, 64, generator=g).numpy()
+                      for _ in range(2))
+        a, b_ = paddle.to_tensor(a_np), paddle.to_tensor(b_np)
+        av, bv = a.value, b_.value
+        lnw, lnb = paddle.ones([64]), paddle.zeros([64])
+        lin = paddle.nn.Linear(64, 64)
+        wv, bbv = lin.weight.value, lin.bias.value
+        tF = torch.nn.functional
+        pairs = [
+            ("paddle.add", lambda: paddle.add(a, b_),
+             lambda: torch.add(av, bv)),
+            ("paddle.matmul", lambda: paddle.matmul(a, b_),
+             lambda: torch.matmul(av, bv)),
+            ("paddle.reshape", lambda: paddle.reshape(a, [32, 128]),
+             lambda: av.reshape(32, 128)),
+            ("nn.functional.layer_norm",
+             lambda: F.layer_norm(a, 64, lnw, lnb),
+             lambda: tF.layer_norm(av, (64,), lnw.value, lnb.value, 1e-5)),
+            ("nn.Linear call", lambda: lin(a),
+             lambda: torch.matmul(av, wv) + bbv),
+        ]
+        for name, core_fn, torch_fn in pairs:
+            core_fn(), torch_fn()
+            runs = {"core": [], "torch": []}
+            for side in ("core", "torch", "torch", "core"):
+                runs[side].append(host_us(
+                    torch, core_fn if side == "core" else torch_fn))
+            c, t_ = min(runs["core"]), min(runs["torch"])
+            print(f"    {name}: core {c:.2f} us, torch {t_:.2f} us, the "
+                  f"core's dispatch {c - t_:.2f} us an op (turns: core "
+                  f"{[round(x, 2) for x in runs['core']]}, torch "
+                  f"{[round(x, 2) for x in runs['torch']]})")
+
+        print("  [20d] randomness on the card")
+        cuda_state = torch.cuda.get_rng_state()
+        cpu_state = torch.random.get_rng_state()
+        p = 0.1
+        drop = paddle.nn.Dropout(p)
+        x = paddle.ones([8, cfg.max_seq_len, cfg.hidden_size])
+        paddle.seed(2020)
+        m1 = drop(x).value != 0
+        r1 = paddle.randn([1000]).value.clone()
+        paddle.seed(2020)
+        m2 = drop(x).value != 0
+        r2 = paddle.randn([1000]).value
+        n = m1.numel()
+        keep = m1.float().mean().item()
+        bound_keep = 6 * np.sqrt(p * (1 - p) / n)
+        check(abs(keep - (1 - p)) <= bound_keep, f"20d: keep share {keep} "
+              f"vs {1 - p} +- {bound_keep}")
+        check(torch.equal(m1, m2) and torch.equal(r1, r2),
+              "20d: the same seed gave another mask or randn")
+        emb = paddle.nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                  padding_idx=0)
+        ln = paddle.nn.LayerNorm(cfg.hidden_size)
+        check(all(t.value.is_cuda for t in (emb.weight, ln.weight, ln.bias))
+              and not emb.weight.value[0].any(), "20d: Embedding's padding "
+              "row or LayerNorm's parameters not on the card, or not zero")
+        fc = paddle.nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        std = fc.weight.value.std().item()
+        want_std = np.sqrt(2.0 / (cfg.hidden_size + cfg.intermediate_size))
+        check(fc.weight.value.is_cuda and abs(std / want_std - 1) <= 0.01,
+              f"20d: Linear std {std} vs Xavier {want_std}")
+        check(torch.equal(torch.cuda.get_rng_state(), cuda_state)
+              and torch.equal(torch.random.get_rng_state(), cpu_state),
+              "20d: torch's global RNG state moved")
+        print(f"    Dropout({p}) keep share {keep:.6f} over {n} elements "
+              f"(1 - p = {1 - p}, 6-sigma bound {bound_keep:.2e}); the "
+              f"same paddle.seed gives the same mask and randn; "
+              f"Linear({cfg.hidden_size}, {cfg.intermediate_size}) weight "
+              f"std {std:.6f} against Xavier's {want_std:.6f} (bound 1 %);"
+              f" Embedding's padding row (zero) and LayerNorm's weight "
+              f"and bias made on the card; torch's global CUDA and CPU RNG "
+              f"states unchanged")
+        return total
+    finally:
+        device_mod._current_place = None
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -3093,6 +3482,10 @@ def main():
                     "router, the observatories and the fleet telemetry, "
                     "the fleet over replica processes); prints no "
                     "kernels line")
+    ap.add_argument("--nn", action="store_true",
+                    help="phases 1, 7 and 20 only (the build, the untied "
+                    "GPT's training, and the same model written in the "
+                    "Paddle nn surface); prints no kernels line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     try:
@@ -3162,6 +3555,17 @@ def main():
                                     use_flash_attention=True)
     train_shape = (8, train_cfg.num_heads, train_cfg.max_seq_len,
                    train_cfg.hidden_size // train_cfg.num_heads)
+    if args.nn:
+        print("[7] train GPT-124M (untied head)")
+        _, phase7 = phase_train(torch, attn, train_cfg, optimizer, nn)
+        print("[20] the Paddle nn surface: GPT-124M written in it, trained "
+              "on the card")
+        surface = phase_paddle_nn(torch, attn, train_cfg, optimizer, nn,
+                                  phase7)
+        print(f"phases 1, 7 and 20 in {time.perf_counter() - t_start:.1f} "
+              f"s; phase 20's K1/K2/K3 launches {surface}")
+        print(card_line())
+        return 0
     if not args.fleet:
         print("[2] K4 paged decode attention vs plain")
         k4_row = phase_k4(torch, pa)
@@ -3203,7 +3607,8 @@ def main():
     k2_row, k3_row, k1b_row, k2b_row, k3b_row = phase_k2k3(torch, attn,
                                                            train_shape)
     print("[7] train GPT-124M (untied head)")
-    k1_train, k2, k3 = phase_train(torch, attn, train_cfg, optimizer, nn)
+    (k1_train, k2, k3), phase7 = phase_train(torch, attn, train_cfg,
+                                             optimizer, nn)
     print("[8] card against CPU: 2-layer GPT at full width")
     for tie in (False, True):
         phase_card_vs_cpu(torch, optimizer, nn, TransformerLMConfig, tie)
@@ -3256,6 +3661,9 @@ def main():
         [r.generated for r in reqs], snap["tokens_per_sec"])
     print("[19] the Paddle-style eager core on the card")
     core = phase_core(torch, attn, train_shape)
+    print("[20] the Paddle nn surface: GPT-124M written in it, trained on "
+          "the card")
+    surface = phase_paddle_nn(torch, attn, train_cfg, optimizer, nn, phase7)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -3267,8 +3675,9 @@ def main():
     k4_row["launches"] = (k4 + k4_gen + k4_rest + k4_fleet + k4_obs
                           + k4_drill)
     k1_row["launches"] = k1 + k1_gen + k1_fleet + k1_obs + k1_drill
-    f32 = [a + b + c + d for a, b, c, d in
-           zip(counts, optim, rc_f32, core + (0, 0, 0))]
+    f32 = [a + b + c + d + e for a, b, c, d, e in
+           zip(counts, optim, rc_f32, core + (0, 0, 0),
+               surface + (0, 0, 0))]
     k1t_row["launches"] = k1_train + f32[0]
     k2_row["launches"] = k2 + f32[1]
     k3_row["launches"] = k3 + f32[2]
@@ -3277,7 +3686,7 @@ def main():
     for row, n in zip((k1b_row, k2b_row, k3b_row, k5_row, k6_row, k7_row),
                       bf16):
         row["launches"] = n
-    print(f"phases 1-19 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-20 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

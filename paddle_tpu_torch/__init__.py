@@ -23,14 +23,18 @@ kernels; ``seed`` seeds the dropout generators. The Paddle-style eager
 core: ``Tensor``/``Parameter`` over a torch tensor with ``to_tensor``,
 the dtypes and Places, ``set_device``, ``set_flags``, ``no_grad`` /
 ``enable_grad``, ``autograd.PyLayer`` and ``grad`` on torch's autograd,
-and the math, reduction and logic ops (``paddle_tpu_torch.add``,
-``sum``, ...), which are also the Tensor's operators and methods.
+and the math, reduction, logic, creation, manipulation and search ops
+(``paddle_tpu_torch.add``, ``sum``, ``zeros``, ``reshape``, ``topk``,
+...), which are also the Tensor's operators and methods. The ``nn``
+surface: ``nn.Layer`` and the common, activation, container and loss
+layers, ``LayerNorm``, ``nn.initializer`` and ``ParamAttr``, and
+``nn.functional`` (the activations, dropouts, ``linear``, ``layer_norm``,
+``embedding``, the losses, and ``scaled_dot_product_attention`` through
+the flash kernels); the optimizers take ``Layer.parameters()``.
+``paddle_tpu_torch.tensor`` forwards the names as the reference's
+``paddle.tensor`` does.
 """
-import builtins as _builtins
-
-import numpy as _np
-
-from . import amp, autograd, nn, optimizer, regularizer
+from . import amp, autograd, nn, optimizer, regularizer, tensor
 from .autograd import grad
 from .core import errors
 from .core.device import (
@@ -64,31 +68,31 @@ from .ops.math import (  # noqa: A004
     real, reciprocal, remainder, renorm, round, rsqrt, scale, sigmoid,
     sign, sin, sinh, sqrt, square, stanh, subtract, tan, tanh, trace,
     trapezoid, trunc, vander)
+from .ops.creation import (
+    arange, assign, bernoulli, create_parameter, diag, diagflat, empty,
+    empty_like, eye, full, full_like, linspace, logspace, multinomial,
+    normal, ones, ones_like, rand, rand_like, randint, randn, randperm,
+    standard_normal, to_tensor, tril, triu, uniform, zeros, zeros_like)
+from .ops.manipulation import (  # noqa: A004
+    as_complex, as_real, broadcast_shape, broadcast_tensors, broadcast_to,
+    chunk, concat, crop, crop_tensor, diagonal, expand, expand_as, flatten,
+    flip, gather, gather_nd, index_add, index_add_, index_fill,
+    index_fill_, index_sample, index_select, masked_fill, masked_select,
+    meshgrid, moveaxis, multiplex, numel, put_along_axis, repeat_interleave,
+    reshape, reshape_, reverse, roll, rot90, scatter, scatter_,
+    scatter_nd, scatter_nd_add, shape, shard_index, slice, split, squeeze,
+    squeeze_, stack, strided_slice, t, take_along_axis, tensordot, tile,
+    tolist, transpose, unbind, unsqueeze, unsqueeze_, unstack,
+    view_as_complex, view_as_real, where)
+from .ops.nn_ops import one_hot
+from .ops.search import (
+    argmax, argmin, argsort, bincount, bucketize, kthvalue, mode, nonzero,
+    searchsorted, sort, topk, unique)
+from .nn.initializer import ParamAttr
 from .ops.reduction import (  # noqa: A004
     all, amax, amin, any, count_nonzero, dist, logsumexp, max, mean,
     median, min, nanmean, nanmedian, nanquantile, nansum, norm, prod,
     quantile, std, sum, var)
-
-
-def to_tensor(data, dtype=None, place=None, stop_gradient=True):
-    """``paddle.to_tensor``: python floats and float lists default to
-    float32, python ints to int64, numpy arrays keep their dtype; the
-    data lands on ``place`` (default: the current device, the card
-    unless ``set_device`` says otherwise)."""
-    if isinstance(data, Tensor):
-        data = data._value
-    if dtype is None:
-        if isinstance(data, (int, _np.integer)) \
-                and not isinstance(data, (_builtins.bool, _np.bool_)):
-            dtype = "int64"
-        elif isinstance(data, float):
-            dtype = "float32"
-        elif isinstance(data, (list, tuple)) \
-                and _np.asarray(data).dtype == _np.float64:
-            dtype = "float32"
-    return Tensor(data, dtype=dtype,
-                  place=place if place is not None else get_place(),
-                  stop_gradient=stop_gradient)
 
 
 __all__ = [n for n in dir() if not n.startswith("_")]

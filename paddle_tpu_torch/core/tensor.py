@@ -305,5 +305,22 @@ class Parameter(Tensor):
         self.need_clip = True
         self.is_distributed = False
 
+    @classmethod
+    def _own(cls, value, name=None, trainable=True):
+        """A Parameter over the torch tensor ``value`` itself, not a
+        copy: how ``create_parameter`` hands over an initializer's fresh
+        tensor."""
+        p = Tensor._wrap.__func__(cls, value.detach(),
+                                  name=name or _auto_name("param"))
+        p.persistable = True
+        p.trainable = trainable
+        if trainable:
+            p.stop_gradient = False
+        p.optimize_attr = {"learning_rate": 1.0}
+        p.regularizer = None
+        p.need_clip = True
+        p.is_distributed = False
+        return p
+
     def __repr__(self):
         return "Parameter " + super().__repr__()

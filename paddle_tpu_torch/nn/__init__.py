@@ -1,5 +1,29 @@
-"""The ``nn`` surface of the port. So far only the gradient clips the
-optimizers take (``grad_clip=``); layers are ``torch.nn`` modules."""
-from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-
-__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue"]
+"""``paddle.nn`` of the port (reference ``paddle_tpu/nn/__init__.py``):
+``Layer`` and the layers whose ops the port has, ``ParamAttr``,
+``initializer``, ``functional`` and the gradient clips the optimizers
+take (``grad_clip=``)."""
+from . import functional, initializer  # noqa: F401
+from .clip import (  # noqa: F401
+    ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+)
+from .initializer import ParamAttr  # noqa: F401
+from .layer.activation import (  # noqa: F401
+    CELU, ELU, GELU, GLU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
+    LeakyReLU, LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6,
+    SELU, Sigmoid, Silu, Softmax, Softplus, Softshrink, Softsign, Swish,
+    Tanh, Tanhshrink, ThresholdedReLU,
+)
+from .layer.common import (  # noqa: F401
+    AlphaDropout, Bilinear, CosineSimilarity, Dropout, Dropout2D, Dropout3D,
+    Embedding, Flatten, Identity, Linear, Pad1D, Pad2D, Pad3D,
+    PairwiseDistance,
+)
+from .layer.container import (  # noqa: F401
+    LayerDict, LayerList, ParameterList, Sequential,
+)
+from .layer.loss import (  # noqa: F401
+    BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, KLDivLoss, L1Loss,
+    MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
+)
+from .layer.norm import LayerNorm  # noqa: F401
+from .layer_base import HookRemoveHelper, Layer  # noqa: F401

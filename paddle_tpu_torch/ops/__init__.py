@@ -3,11 +3,14 @@
 Kernels live in ``csrc/`` and are built at first use (``_build``); every
 kernel wrapper computes its plain PyTorch version on CPU tensors. The
 Paddle-style ops of the eager core (``math``, ``reduction``, ``logic``,
-``indexing``) take Tensors; importing this package attaches them to the
-Tensor as its operators and methods (reference ``ops/__init__.py``'s
+``indexing``, ``creation``, ``manipulation``, ``search``, ``nn_ops``)
+take Tensors; importing this package attaches them to the Tensor as its
+operators, methods and in-place variants (reference ``ops/__init__.py``'s
 patch, for the ops ported so far).
 """
-from . import indexing, logic, math, reduction  # noqa: F401
+from . import (  # noqa: F401
+    creation, indexing, logic, manipulation, math, nn_ops, reduction,
+    search)
 from ..core.tensor import Tensor
 
 
@@ -24,7 +27,7 @@ def _true_div(a, b):
 
 def _patch():
     T = Tensor
-    m, r, lg = math, reduction, logic
+    m, r, lg, mp, s = math, reduction, logic, manipulation, search
 
     T.__add__ = lambda self, o: m.add(self, o)
     T.__radd__ = lambda self, o: m.add(o, self)
@@ -104,9 +107,48 @@ def _patch():
         "bitwise_or": lg.bitwise_or, "bitwise_xor": lg.bitwise_xor,
         "bitwise_not": lg.bitwise_not, "is_empty": lg.is_empty,
         "is_tensor": lg.is_tensor,
+        # manipulation
+        "reshape": mp.reshape, "transpose": mp.transpose, "t": mp.t,
+        "flatten": mp.flatten, "squeeze": mp.squeeze,
+        "unsqueeze": mp.unsqueeze, "tile": mp.tile, "expand": mp.expand,
+        "expand_as": mp.expand_as, "broadcast_to": mp.broadcast_to,
+        "flip": mp.flip, "roll": mp.roll, "gather": mp.gather,
+        "gather_nd": mp.gather_nd, "scatter": mp.scatter,
+        "scatter_nd_add": mp.scatter_nd_add,
+        "index_select": mp.index_select, "index_sample": mp.index_sample,
+        "masked_select": mp.masked_select, "masked_fill": mp.masked_fill,
+        "split": mp.split, "chunk": mp.chunk, "unbind": mp.unbind,
+        "slice": mp.slice, "take_along_axis": mp.take_along_axis,
+        "put_along_axis": mp.put_along_axis, "unstack": mp.unstack,
+        "repeat_interleave": mp.repeat_interleave, "pad": mp.pad,
+        "where": mp.where, "rot90": mp.rot90, "concat": mp.concat,
+        "stack": mp.stack, "strided_slice": mp.strided_slice,
+        "shard_index": mp.shard_index, "multiplex": mp.multiplex,
+        "reverse": mp.reverse, "broadcast_tensors": mp.broadcast_tensors,
+        "moveaxis": mp.moveaxis, "index_add": mp.index_add,
+        "index_fill": mp.index_fill, "tensordot": mp.tensordot,
+        "as_real": mp.as_real, "as_complex": mp.as_complex,
+        "broadcast_shape": mp.broadcast_shape,
+        # search
+        "argmax": s.argmax, "argmin": s.argmin, "argsort": s.argsort,
+        "sort": s.sort, "topk": s.topk, "nonzero": s.nonzero,
+        "unique": s.unique, "kthvalue": s.kthvalue, "mode": s.mode,
+        "searchsorted": s.searchsorted, "bincount": s.bincount,
+        "bucketize": s.bucketize,
+        # nn and creation
+        "softmax": nn_ops.softmax, "tril": creation.tril,
+        "triu": creation.triu, "diag": creation.diag,
+        "zeros_like": creation.zeros_like, "ones_like": creation.ones_like,
+        "full_like": creation.full_like,
     }
     for name, fn in methods.items():
         setattr(T, name, meth(fn))
+    T.T = property(lambda self: mp.t(self))
+    T.scatter_nd = staticmethod(mp.scatter_nd)
+
+    def rank(self):
+        return creation.to_tensor(self.ndim)
+    T.rank = rank
 
     # in-place variants: the result written into the tensor's value
     def inplace(fn):
@@ -123,6 +165,15 @@ def _patch():
         "tanh_": m.tanh,
     }.items():
         setattr(T, name, inplace(fn))
+
+    # in-place variants that change the shape: the value swapped
+    for name, fn in {
+        "reshape_": mp.reshape_, "squeeze_": mp.squeeze_,
+        "unsqueeze_": mp.unsqueeze_, "flatten_": mp.flatten_,
+        "scatter_": mp.scatter_, "index_add_": mp.index_add_,
+        "index_fill_": mp.index_fill_,
+    }.items():
+        setattr(T, name, meth(fn))
 
 
 _patch()

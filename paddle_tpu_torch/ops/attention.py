@@ -330,13 +330,16 @@ class _FlashAttentionGrad(torch.autograd.Function):
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False, scale=None):
-    """``[b, h, s, d]`` attention (reference ``ops/attention.py:366``).
-    CUDA tensors go through K1 and, under autograd, K2/K3 (and raise on
-    what they cannot take, a mask included); CPU tensors take the plain
-    versions through the same autograd function. Under ``amp.auto_cast``
-    q, k and v are cast as the reference casts its ``flash_attention`` op
-    (white list: bf16 under O1 and O2). Tensors of the eager core
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, scale=None, name=None):
+    """``[b, h, s, d]`` attention (reference ``ops/attention.py:366``,
+    whose signature this is; ``dropout_p`` and ``training`` are taken
+    and, as there, not read). CUDA tensors go through K1 and, under
+    autograd, K2/K3 (and raise on what they cannot take, a mask
+    included); CPU tensors take the plain versions through the same
+    autograd function. Under ``amp.auto_cast`` q, k and v are cast as
+    the reference casts its ``flash_attention`` op (white list: bf16
+    under O1 and O2). Tensors of the eager core
     (``paddle_tpu_torch.Tensor``) go through the core's
     ``flash_attention`` op, which runs this same function on their
     values."""
@@ -358,8 +361,26 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 @register_op("flash_attention")
 def _flash_op(q, k, v, mask, *, scale, causal):
-    return scaled_dot_product_attention(q, k, v, mask, is_causal=causal,
-                                        scale=scale)
+    """The core's attention op. The Paddle surface's q, k and v are
+    views (``transpose`` then ``unbind`` of the fused QKV), so they are
+    made contiguous here, a copy, before K1; the grad that reaches K2/K3
+    is made contiguous by ``flash_attention_backward``. An operand the
+    kernels cannot take (a mask, head_dim 32, f16) still raises on the
+    card."""
+    return scaled_dot_product_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), mask,
+        is_causal=causal, scale=scale)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, name=None):
+    """Reference ``ops/attention.py:489``: causal or full attention over
+    ``[b, h, s, d]``; ``dropout`` is taken and not read; with
+    ``return_softmax`` the weights are ``None``, as there."""
+    out = scaled_dot_product_attention(query, key, value, is_causal=causal)
+    if return_softmax:
+        return out, None
+    return out
 
 
 def cached_slot_attention(q, k_cache, v_cache, lengths):

@@ -19,15 +19,23 @@ f32 learning-rate tensor holds it; an ``LRScheduler`` writes into it.
 Inside an ``amp.auto_cast`` the update runs uncast, like the body of a
 port op.
 
+The parameters are torch tensors (the GPT's) or the eager core's
+``Parameter``s (``nn.Layer.parameters()``): a ``Parameter``'s torch
+leaf is updated in place, so the ``Parameter`` keeps its identity and
+its ``grad``; the grad clip sees the ``Parameter`` itself (its
+``need_clip``).
+
 ``state_dict()`` keys each state tensor ``f"{name}_{kind}"`` (``name``
-as given with the parameters, ``kind`` the reference's: ``moment1``,
-``beta1_pow``, ``velocity``, ...) beside an ``"LR_Scheduler"`` entry;
+as given with the parameters, a ``Parameter``'s own ``.name``, as the
+reference's; ``kind`` the reference's: ``moment1``, ``beta1_pow``,
+``velocity``, ...) beside an ``"LR_Scheduler"`` entry;
 ``text.convert.optimizer_state_from_paddle_tpu`` carries a reference
 optimizer's state across.
 """
 import torch
 
 from ..amp.auto_cast import op_body
+from ..core.tensor import Tensor
 from .lr import LRScheduler
 
 
@@ -35,26 +43,41 @@ def _f32(x):
     return float(torch.tensor(float(x), dtype=torch.float32))
 
 
+def _leaf(entry):
+    """The torch tensor of a parameter: a ``Parameter``'s leaf, or the
+    tensor itself."""
+    return entry._value if isinstance(entry, Tensor) else entry
+
+
 def _named(parameters):
-    """``[(name, tensor)]`` of ``parameters``: tensors, ``(name, tensor)``
-    pairs or param-group dicts (``{"params": [...]}``), flattened as the
-    reference flattens them; a tensor without a name is ``param_<i>`` by
-    its place in the flat list."""
+    """``[(name, parameter)]`` of ``parameters``: tensors or
+    ``Parameter``s, ``(name, tensor)`` pairs or param-group dicts
+    (``{"params": [...]}``), flattened as the reference flattens them; a
+    ``Parameter`` without a given name goes by its ``.name``, a torch
+    tensor by ``param_<i>``, its place in the flat list."""
     flat = []
     for entry in parameters:
         if isinstance(entry, dict):
             flat.extend(entry["params"])
         else:
             flat.append(entry)
-    return [entry if isinstance(entry, tuple) else (f"param_{i}", entry)
-            for i, entry in enumerate(flat)]
+    out = []
+    for i, entry in enumerate(flat):
+        if isinstance(entry, tuple):
+            out.append(entry)
+        elif isinstance(entry, Tensor):
+            out.append((entry.name, entry))
+        else:
+            out.append((f"param_{i}", entry))
+    return out
 
 
 class Optimizer:
-    """``parameters``: tensors (``model.parameters()``), ``(name,
-    tensor)`` pairs (``model.named_parameters()``) or param-group dicts
-    of either; as in the reference, a group's own options are not read.
-    Only parameters with ``requires_grad`` and a grad are updated.
+    """``parameters``: tensors or ``Parameter``s (``model.parameters()``),
+    ``(name, tensor)`` pairs (``model.named_parameters()``) or
+    param-group dicts of either; as in the reference, a group's own
+    options are not read. Only parameters with ``requires_grad`` (not
+    ``stop_gradient``) and a grad are updated.
     ``weight_decay``: a float or ``regularizer.L2Decay`` is L2 decay
     coupled into the update; ``regularizer.L1Decay`` adds
     ``coeff * sign(param)`` to the clipped grad."""
@@ -96,7 +119,16 @@ class Optimizer:
         self._lr = _f32(value)
 
     def _parameter_list(self):
-        return [p for _, p in self._params]
+        """The parameters' torch tensors, in order."""
+        return [_leaf(p) for _, p in self._params]
+
+    def _given(self, leaf):
+        """The parameter as it was given (a ``Parameter`` or the torch
+        tensor) for its torch tensor."""
+        for _, p in self._params:
+            if _leaf(p) is leaf:
+                return p
+        return leaf
 
     def clear_grad(self, set_to_zero=False):
         for p in self._parameter_list():
@@ -106,8 +138,9 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
-        params_grads = [(p, p.grad) for p in self._parameter_list()
-                        if p.grad is not None and p.requires_grad]
+        params_grads = [(p, _leaf(p).grad) for _, p in self._params
+                        if _leaf(p).grad is not None
+                        and _leaf(p).requires_grad]
         for _, g in params_grads:
             if g.is_sparse:
                 raise NotImplementedError("sparse grads are not ported")
@@ -116,17 +149,18 @@ class Optimizer:
                 params_grads = self._grad_clip(params_grads)
             if self._l1_coeff:
                 c = self._l1_coeff
-                params_grads = [(p, g + c * torch.sign(p.to(g.dtype)))
+                params_grads = [(p, g + c * torch.sign(_leaf(p).to(g.dtype)))
                                 for p, g in params_grads]
             names = {id(p): n for n, p in self._params}
             for p, g in params_grads:
-                self._apply_one(names[id(p)], p, g)
+                self._apply_one(names[id(p)], _leaf(p), g)
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """``loss.backward()`` then ``step()``; returns ``(None, None)``
-        as the reference's dygraph branch does."""
-        if not isinstance(loss, torch.Tensor):
+        """``loss.backward()`` then ``step()`` for a torch tensor or a
+        core Tensor loss; returns ``(None, None)`` as the reference's
+        dygraph branch does."""
+        if not isinstance(loss, (torch.Tensor, Tensor)):
             raise NotImplementedError(
                 "minimize of a static-program variable is not ported")
         loss.backward()
@@ -148,7 +182,7 @@ class Optimizer:
         """The live state tensors by ``f"{name}_{kind}"``, and under
         ``"LR_Scheduler"`` the learning rate, the scheduler's own state
         and the parameters' names in order."""
-        names = {id(p): n for n, p in self._params}
+        names = {id(_leaf(p)): n for n, p in self._params}
         sd = {f"{names.get(pid, str(pid))}_{kind}": t
               for kind, store in self._accumulators.items()
               for pid, t in store.items()}
@@ -172,9 +206,10 @@ class Optimizer:
         order = meta.get("param_order") if isinstance(meta, dict) else None
         if hits == 0 and order is not None \
                 and len(order) == len(self._params):
-            pairs = [(saved, p) for saved, (_, p) in zip(order, self._params)]
+            pairs = [(saved, _leaf(p))
+                     for saved, (_, p) in zip(order, self._params)]
         else:
-            pairs = list(self._params)
+            pairs = [(n, _leaf(p)) for n, p in self._params]
         pairs.sort(key=lambda kv: -len(kv[0]))
         for key in keys:
             for name, p in pairs:

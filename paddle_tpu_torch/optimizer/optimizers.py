@@ -198,7 +198,8 @@ class Adam(Optimizer):
 class AdamW(Adam):
     """Decoupled weight decay (reference: operators/optimizers/adamw_op).
     ``apply_decay_param_fun(name)`` returning False exempts a parameter
-    from the decay; names are those given with the parameters.
+    from the decay; names are those given with the parameters (a
+    ``Parameter``'s ``.name``, as the reference's).
     ``lr_ratio`` is taken and, as in the reference, not read."""
     _decoupled = True
 
@@ -266,8 +267,8 @@ class RMSProp(Optimizer):
 
 class Lamb(Optimizer):
     """``exclude_from_weight_decay_fn(param)`` is called with the
-    parameter tensor, as the reference calls it with its ``Parameter``;
-    True exempts it from ``lamb_weight_decay``."""
+    parameter as it was given (a ``Parameter``, as the reference calls
+    it, or a torch tensor); True exempts it from ``lamb_weight_decay``."""
 
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
                  beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
@@ -281,7 +282,8 @@ class Lamb(Optimizer):
 
     def _apply_one(self, name, p, g):
         wd = self._lamb_wd
-        if self._exclude_fn is not None and self._exclude_fn(p):
+        if self._exclude_fn is not None \
+                and self._exclude_fn(self._given(p)):
             wd = 0.0
         _lamb(p, g, self._acc("moment1", p), self._acc("moment2", p),
               self._acc("beta1_pow", p, 1.0, ()),
@@ -293,8 +295,8 @@ class Lamb(Optimizer):
 class LarsMomentum(Optimizer):
     """Layer-wise adaptive rate scaling (reference:
     operators/optimizers/lars_momentum_op.cc). A parameter whose name
-    (as given with the parameters) contains a tag of
-    ``exclude_from_weight_decay`` is not decayed."""
+    (as given with the parameters; a ``Parameter``'s ``.name``) contains a
+    tag of ``exclude_from_weight_decay`` is not decayed."""
 
     def __init__(self, learning_rate=0.001, momentum=0.9,
                  lars_coeff=0.001, lars_weight_decay=0.0005,

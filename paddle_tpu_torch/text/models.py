@@ -91,7 +91,7 @@ class SelfAttention(nn.Module):
         o = attn_ops.scaled_dot_product_attention(q, k, v, is_causal=True)
         o = self.out(o.transpose(1, 2).reshape(b, s, h))
         if self.dropout:
-            o = nn_ops.dropout(o, self.dropout, self.training,
+            o = nn_ops.dropout(o, self.dropout, training=self.training,
                                generator=self.dropout_generator)
         return o
 
@@ -109,7 +109,7 @@ class MLP(nn.Module):
     def forward(self, x):
         x = self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
         if self.dropout:
-            x = nn_ops.dropout(x, self.dropout, self.training,
+            x = nn_ops.dropout(x, self.dropout, training=self.training,
                                generator=self.dropout_generator)
         return x
 
@@ -199,7 +199,7 @@ class _TransformerCore(nn.Module):
         pos = torch.arange(s, device=input_ids.device)
         x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
         if self.cfg.dropout:
-            x = nn_ops.dropout(x, self.cfg.dropout, self.training,
+            x = nn_ops.dropout(x, self.cfg.dropout, training=self.training,
                                generator=self.dropout_generator)
         if self.cfg.recompute and self.training and x.requires_grad:
             # the generator the blocks' dropout draws from

@@ -5,16 +5,14 @@ ops and matmul, accumulation, stop_gradient and detach cuts, the
 backward-twice error, multi-output ops, ``paddle.grad``, hooks,
 ``PyLayer``, ``no_grad``, double and triple grads, the gradient penalty,
 the analytic double-grad sweep, hooks under create_graph — and a double
-grad through the attention op. Each runs on the same inputs in both
+grad through the attention op. ``relu`` among the unary grads, the
+softmax cross-entropy's grad, ``topk``'s multi-output grad, the dense
+embedding's scatter grad and the gradient penalty through ``nn.Linear``
+run on the ops of the ``nn`` slice. Each runs on the same inputs in both
 packages; grads are held with f32 ``allclose`` (rtol 1e-5: the same
 products, the libraries' own rounding), f64 ones at rtol 1e-10.
 
-Scenarios waiting for later slices (their ops are not in the core):
-``relu`` among the unary grads, the softmax cross-entropy, ``conv2d``,
-``topk``'s multi-output grad and the embedding's scatter grad (the
-multi-output case runs here on an op of two outputs registered in both
-packages), and the gradient penalty through ``nn.Linear`` (here through
-``matmul`` and ``add``).
+Waiting for a later slice (its op is not ported): ``conv2d``'s grad.
 """
 import numpy as np
 import pytest
@@ -50,7 +48,7 @@ def _close(got, want, rtol=RTOL, atol=1e-6):
 
 
 @pytest.mark.parametrize("fn_name", [
-    "exp", "tanh", "sigmoid", "sqrt", "square", "log", "reciprocal",
+    "exp", "tanh", "sigmoid", "sqrt", "square", "log", "reciprocal", "relu",
 ])
 def test_unary_grads(fn_name):
     """test_autograd.py::test_unary_grads: the grad of each op's sum in
@@ -60,7 +58,9 @@ def test_unary_grads(fn_name):
 
     def run(pkg):
         t = pkg.to_tensor(x.astype("float64"), stop_gradient=False)
-        getattr(pkg, fn_name)(t).sum().backward()
+        fn = getattr(pkg, fn_name, None) or getattr(pkg.nn.functional,
+                                                    fn_name)
+        fn(t).sum().backward()
         return t.grad.numpy()
     want, got = _both(run)
     _close(got, want, rtol=F64_RTOL)
@@ -146,10 +146,82 @@ def test_backward_without_a_graph_raises():
             pkg.to_tensor([1.0], stop_gradient=False).backward()
 
 
+def test_softmax_cross_entropy_grad():
+    """test_autograd.py::test_softmax_cross_entropy_grad: the grad of
+    F.cross_entropy's mean over f64 logits, against the reference's."""
+    rs = np.random.RandomState(3)
+    logits = rs.randn(4, 10)
+    labels = rs.randint(0, 10, (4,))
+
+    def run(pkg):
+        x = pkg.to_tensor(logits, stop_gradient=False)
+        pkg.nn.functional.cross_entropy(
+            x, pkg.to_tensor(labels)).backward()
+        return x.grad.numpy()
+    want, got = _both(run)
+    _close(got, want, rtol=F64_RTOL)
+
+
+def test_topk_multi_output_grad():
+    """test_autograd.py::test_multi_output_op_grad: topk's values carry
+    the grad back to the chosen elements only."""
+    xs = np.random.RandomState(4).randn(5)
+
+    def run(pkg):
+        x = pkg.to_tensor(xs, stop_gradient=False)
+        vals, idx = pkg.topk(x, k=2)
+        assert idx.dtype.name == "int64" and idx.stop_gradient
+        vals.sum().backward()
+        return x.grad.numpy()
+    want, got = _both(run)
+    expected = np.zeros(5)
+    expected[np.argsort(-xs)[:2]] = 1
+    _close(got, want, rtol=F64_RTOL)
+    _close(got, expected, rtol=F64_RTOL)
+
+
+def test_embedding_grad_scatter():
+    """test_autograd.py::test_embedding_grad_scatter: the dense grad of
+    the table adds a row for every lookup."""
+    w_np = np.random.RandomState(5).randn(10, 4)
+
+    def run(pkg):
+        w = pkg.to_tensor(w_np, stop_gradient=False)
+        out = pkg.nn.functional.embedding(pkg.to_tensor(np.array([1, 1, 3])),
+                                          w)
+        out.sum().backward()
+        return w.grad.numpy()
+    want, got = _both(run)
+    _close(got, want, rtol=F64_RTOL)
+    assert got[1].sum() == pytest.approx(8.0)
+    assert got[3].sum() == pytest.approx(4.0)
+    assert got[0].sum() == 0
+
+
+def test_gradient_penalty_through_nn_linear():
+    """test_autograd.py::test_double_grad_vector_and_gradient_penalty as
+    written there, through nn.Linear (the reference layer's weights
+    carried into the port's): gp = ||dout/dx||^2 = 8 ||w||^2, so
+    d gp / d w = 16 w."""
+    rnet = ref.nn.Linear(4, 1)
+    pnet = paddle.nn.Linear(4, 1)
+    pnet.set_state_dict({k: v.numpy() for k, v in rnet.state_dict().items()})
+    x_np = np.random.RandomState(11).randn(8, 4).astype("float32")
+
+    def run(pkg, net):
+        x = pkg.to_tensor(x_np, stop_gradient=False)
+        (gx,) = pkg.grad(net(x).sum(), x, create_graph=True)
+        (gx * gx).sum().backward()
+        return net.weight.grad.numpy(), gx.numpy()
+    (ww, wgx), (gw, ggx) = run(ref, rnet), run(paddle, pnet)
+    _close(gw, ww)
+    _close(ggx, wgx)
+    _close(gw, 16.0 * pnet.weight.numpy(), rtol=1e-4, atol=1e-5)
+
+
 def test_multi_output_op_grad():
     """A registered op of two outputs: only the output used carries a
-    grad back (test_autograd.py's scenario uses topk, which waits for
-    the search ops)."""
+    grad back (topk's case is test_topk_multi_output_grad)."""
     from paddle_tpu.core.dispatch import register_op as ref_register
     from paddle_tpu_torch.core.dispatch import register_op
 
@@ -280,9 +352,9 @@ def test_double_grad_scalar():
 
 
 def test_double_grad_vector_and_gradient_penalty():
-    """||dout/dx||^2 backpropagated into the weights; test_autograd.py's
-    scenario builds the layer with nn.Linear, here it is matmul + add
-    over the same seeded weights."""
+    """||dout/dx||^2 backpropagated into the weights through matmul + add
+    over the same seeded weights (through nn.Linear:
+    test_gradient_penalty_through_nn_linear)."""
     rs = np.random.RandomState(11)
     w_np = rs.randn(4, 1).astype("float32")
     b_np = rs.randn(1).astype("float32")

@@ -473,6 +473,75 @@ def test_flash_kernel_rejects_and_backward_launches_k2_k3(dev):
         attn.scaled_dot_product_attention(q, q, q, attn_mask=q[0, 0])
 
 
+def test_core_attention_op_takes_transposed_unbound_qkv(dev):
+    """The core's flash_attention op on the Paddle surface's q, k, v
+    (views of a fused QKV after transpose and unbind, non-contiguous)
+    makes them contiguous and launches K1, then K2/K3 in backward() on a
+    strided grad; the values and grads match the plain versions. A mask
+    still raises."""
+    import paddle_tpu_torch as paddle
+    g = torch.Generator().manual_seed(3)
+    b, s, nh, hd = 2, 77, 3, 64
+    qkv_np = (torch.randn(b, s, 3 * nh * hd, generator=g) * 0.5).numpy()
+    # the grad reaches K2/K3 through a transpose: strided, as the model's
+    do = torch.randn(b, s, nh, hd, generator=g).to(dev)
+    card = paddle.CUDAPlace(0)
+    x = paddle.to_tensor(qkv_np, place=card, stop_gradient=False)
+    qkv = paddle.transpose(paddle.reshape(x, [b, s, 3, nh, hd]),
+                           [2, 0, 3, 1, 4])
+    q, k, v = paddle.unbind(qkv, axis=0)
+    assert not q.value.is_contiguous()
+    n = (attn.flash_attention_forward.launches, attn.flash_bwd_dq.launches,
+         attn.flash_bwd_dkv.launches)
+    out = paddle.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True)
+    paddle.transpose(out, [0, 2, 1, 3]).backward(
+        paddle.to_tensor(do.cpu().numpy(), place=card))
+    assert (attn.flash_attention_forward.launches,
+            attn.flash_bwd_dq.launches,
+            attn.flash_bwd_dkv.launches) == tuple(c + 1 for c in n)
+    tx = torch.from_numpy(qkv_np).to(dev).requires_grad_()
+    tq, tk, tv = tx.reshape(b, s, 3, nh, hd).permute(2, 0, 3, 1, 4).unbind(0)
+    want, _ = attn.flash_attention_plain(tq, tk, tv, hd ** -0.5, True)
+    want.permute(0, 2, 1, 3).backward(do)
+    torch.testing.assert_close(out.value, want, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(x.grad.value, tx.grad, atol=1e-4, rtol=1e-4)
+    with pytest.raises(NotImplementedError):
+        paddle.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=paddle.to_tensor(np.zeros((s, s), np.float32),
+                                                place=card))
+
+
+def test_layer_to_the_card_keeps_its_parameters(dev):
+    """A Layer built on the CPU and moved with ``to(device=)`` keeps its
+    Parameters and their torch tensors, so an optimizer built before
+    updates them on the card; a Layer built on the card holds nothing
+    on the CPU (Embedding's padding row, LayerNorm's weights)."""
+    import paddle_tpu_torch as paddle
+    paddle.set_device("cpu")
+    try:
+        fc = paddle.nn.Linear(4, 3)
+        opt = paddle.optimizer.SGD(0.5, parameters=fc.parameters())
+        w, leaf = fc.weight, fc.weight.value
+    finally:
+        paddle.set_device("gpu")
+    try:
+        fc.to(device="gpu")
+        assert fc.weight is w and w.value is leaf and leaf.is_cuda
+        before = w.value.clone()
+        fc(paddle.ones([2, 4])).sum().backward()
+        opt.step()
+        torch.testing.assert_close(w.value, before - 1.0)
+        emb = paddle.nn.Embedding(10, 4, padding_idx=3)
+        ln = paddle.nn.LayerNorm(4)
+        for t in (emb.weight, ln.weight, ln.bias):
+            assert t.value.is_cuda
+        assert not emb.weight.value[3].any()
+    finally:
+        from paddle_tpu_torch.core import device as device_mod
+        device_mod._current_place = None
+
+
 def test_engine_on_card_matches_cpu_engine(dev):
     """The tiny GPT served on the card streams the same greedy tokens as
     on the CPU, and every decode step went through the paged kernel."""

@@ -169,7 +169,16 @@ def test_port_imports_neither_jax_nor_reference():
                    "core/flags.py", "core/device.py", "core/tensor.py",
                    "core/dispatch.py", "core/engine.py",
                    "autograd/__init__.py", "ops/math.py",
-                   "ops/reduction.py", "ops/logic.py", "ops/indexing.py"):
+                   "ops/reduction.py", "ops/logic.py", "ops/indexing.py",
+                   "ops/creation.py", "ops/manipulation.py",
+                   "ops/search.py", "ops/nn_ops.py", "nn/initializer.py",
+                   "nn/layer_base.py", "nn/layer/__init__.py",
+                   "nn/layer/common.py", "nn/layer/activation.py",
+                   "nn/layer/container.py", "nn/layer/loss.py",
+                   "nn/layer/norm.py", "nn/functional/__init__.py",
+                   "nn/__init__.py", "tensor/__init__.py",
+                   "tensor/random.py", "tensor/array.py",
+                   "tensor/attribute.py", "tensor/to_string.py"):
         assert REPO / "paddle_tpu_torch" / module in files, module
     bad = []
     for f in files:

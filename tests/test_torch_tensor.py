@@ -1,10 +1,9 @@
 """paddle_tpu_torch's eager Tensor against the JAX package's on the CPU:
-the scenarios of tests/test_tensor.py whose ops the core ports (the
-creation and manipulation ops they also use — ``zeros``, ``ones``,
-``reshape``, ``transpose``, ``T``, ``unsqueeze``, ``flatten`` — wait for
-the next slice; their inputs are made with ``to_tensor`` here), every
-elementwise, reduction and logic op of the core on the same inputs, and
-the dtype, Place, flag, error and ``enforce`` surfaces.
+the scenarios of tests/test_tensor.py (their ``zeros``/``ones`` inputs,
+and ``test_methods``' ``reshape``, ``transpose``, ``T``, ``unsqueeze`` and
+``flatten`` among them), every elementwise, reduction and logic op of
+the core on the same inputs, and the dtype, Place, flag, error and
+``enforce`` surfaces.
 
 Forward values are held with f32 ``allclose`` (rtol 1e-6, atol 1e-6:
 one op on the same f32 inputs, the libraries' last-bit rounding
@@ -55,7 +54,7 @@ def test_to_tensor_dtypes():
 
 def test_shape_numel_ndim():
     for pkg in (ref, paddle):
-        t = pkg.to_tensor(np.zeros((2, 3, 4), np.float32))
+        t = pkg.zeros([2, 3, 4])
         assert t.shape == [2, 3, 4]
         assert t.ndim == 3 and t.dim() == 3
         assert t.numel() == 24 and t.size == 24
@@ -126,7 +125,7 @@ def test_indexing():
 
 def test_setitem_inplace():
     def run(pkg):
-        t = pkg.to_tensor(np.zeros((3, 3), np.float32))
+        t = pkg.zeros([3, 3])
         t[1] = 5.0
         t[0, 0] = -1.0
         t[2, 1:] = pkg.to_tensor([7.0, 8.0])
@@ -148,7 +147,7 @@ def test_setitem_keeps_a_parameters_identity_and_grad():
 
 def test_set_value_and_item():
     for pkg in (ref, paddle):
-        t = pkg.to_tensor(np.zeros((2, 2), np.float32))
+        t = pkg.zeros([2, 2])
         t.set_value(np.ones((2, 2), np.float32))
         assert t.numpy().sum() == 4
         s = pkg.to_tensor(3.5)
@@ -183,26 +182,59 @@ def test_detach_clone():
 
 
 def test_methods():
-    """test_tensor.py::test_methods' reductions; its reshape, transpose,
-    T, unsqueeze and flatten wait for the manipulation ops."""
+    """test_tensor.py::test_methods: its reductions, and its reshape,
+    transpose, T, unsqueeze and flatten (shapes and values)."""
     x = np.random.RandomState(2).randn(2, 8).astype("float32")
 
     def run(pkg):
         t = pkg.to_tensor(x)
         assert t.sum().shape == []
         assert t.mean(axis=1).shape == [2]
+        assert t.reshape([4, 4]).shape == [4, 4]
+        assert t.transpose([1, 0]).shape == [8, 2]
+        assert t.T.shape == [8, 2]
+        assert t.unsqueeze(0).shape == [1, 2, 8]
+        assert t.flatten().shape == [16]
         assert t.max().numpy() == x.max()
         return [o.numpy() for o in (
             t.sum(), t.mean(axis=1), t.max(), t.min(axis=0, keepdim=True),
             t.prod(axis=1), t.std(), t.var(axis=1, unbiased=False),
-            t.logsumexp(axis=1), t.norm(), t.abs().sqrt(), t.exp().log())]
+            t.logsumexp(axis=1), t.norm(), t.abs().sqrt(), t.exp().log(),
+            t.reshape([4, 4]), t.transpose([1, 0]), t.T, t.unsqueeze(0),
+            t.flatten())]
     want, got = _both(run)
     for w, g in zip(want, got):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
 
 
+def test_manipulation_and_search_methods():
+    """The ops of the nn slice as Tensor methods (reference
+    ops/__init__.py's patch), on the same input in both packages."""
+    x = np.random.RandomState(4).randn(3, 4).astype("float32")
+
+    def run(pkg):
+        t = pkg.to_tensor(x)
+        i = pkg.to_tensor(np.array([2, 0], np.int64))
+        outs = [t.reshape([4, 3]), t.transpose([1, 0]), t.t(),
+                t.flatten(), t.unsqueeze(1), t.unsqueeze(0).squeeze(0),
+                t.tile([2, 1]), t.flip([1]), t.roll(1, axis=0),
+                t.gather(i), t.index_select(i, axis=1), t.argmax(axis=1),
+                t.argmin(), t.argsort(axis=0), t.sort(axis=1),
+                t.topk(2)[0], t.topk(2)[1], t.kthvalue(2)[0],
+                t.split(2, axis=1)[1], t.chunk(3)[2], t.unbind(1)[3],
+                t.softmax(),
+                t.tril(), t.triu(1), t.zeros_like(), t.full_like(2.0),
+                t.expand([2, 3, 4]), t.moveaxis(0, 1),
+                t.masked_fill(t > 0, 0.0), t.rank()]
+        return [o.numpy() for o in outs]
+    want, got = _both(run)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=RTOL, atol=ATOL)
+
+
 def test_repr_does_not_crash():
-    assert "Tensor" in repr(paddle.to_tensor(np.ones(2, np.float32)))
+    assert "Tensor" in repr(paddle.ones([2]))
     assert "Parameter" in repr(paddle.Parameter(np.ones(2, np.float32)))
     assert "bfloat16" in repr(paddle.to_tensor([1.0]).astype("bfloat16"))
 
