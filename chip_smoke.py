@@ -3,7 +3,8 @@
 
 Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 (``--fleet`` runs phases 1, 4, 16, 17 and 18 alone, ``--nn`` phases 1,
-7 and 20 alone; neither prints the kernels line)
+7 and 20 alone, ``--bert`` phases 1 and 21 alone; none prints the
+kernels line)
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -28,7 +29,9 @@ Phases, one line each:
              1 .. 96 and an operand not 16-byte aligned, each twice for
              the same bits; the f32 K1 timed twice in turns with SDPA's f32
              forward, at [1,12,661,64] and [8,12,1024,64] causal, with
-             TFLOP/s and the share of the bound;
+             TFLOP/s and the share of the bound; phase 21's shapes non-
+             causal: BERT's [32,12,128,64] f32 and bf16, the encoder's
+             [8,12,512,64] f32;
   4. serve   GPT-124M (random weights from a seeded torch.Generator) in
              ServingEngine(num_slots=8, block_size=16, async_depth=1):
              16 greedy requests in two staggered waves, four sharing a
@@ -48,6 +51,10 @@ Phases, one line each:
              spread), and in bf16 (the flagship's dtype)
              with K1, SDPA's forward and SDPA's backward three times
              between them, with TFLOP/s and the fraction of the bound;
+             then phase 21's shapes non-causal, checked as the others
+             ([32,12,128,64] f32 and bf16, [8,12,512,64] f32), and K1,
+             K2, K3 at each timed against the plain versions, the full
+             (non-causal) bound and SDPA's forward and backward;
   7. train   GPT-124M with an untied head (random weights from a seeded
              torch.Generator), batch 8 x seq 1024, labels = ids, AdamW(1e-4,
              weight_decay 0.01, ClipGradByGlobalNorm(1.0)), 6 steps: every
@@ -234,12 +241,41 @@ Phases, one line each:
              calls, in turns; 20d Dropout's keep share within 6 sigma,
              the same seed the same mask and randn, Linear's Xavier std,
              torch's global RNG untouched.
+ 21. bert    BERT-base pretraining and the Paddle surface's part B: 21a
+             a float and a bool mask on [32,12,128,64] through SDPA and
+             the core's op give reference_attention's bits, K1 launched
+             0 times; 21b the reference's config 3 (tools/baseline_bench.py
+             bench_bert) eager: bert_base(max_seq_len=128, dropout=0.0)
+             from a seeded generator, AdamW(1e-4, weight_decay 0.01),
+             amp.auto_cast O1 bf16, bench_bert's batch 32 x 128 from
+             RandomState(0), 8 steps: every loss finite, the last below
+             the first, K1 = K2 = K3 = 12 a step; median step ms of steps
+             2-8, samples/s, tokens/s, peak memory; 21c a 2-layer
+             BertForPretraining at width 768, 12 heads, vocab 30522,
+             [2, 128], f32, the same weights on the card and the CPU: the
+             loss within LOSS_RTOL, every grad within GRAD_TOL, one AdamW
+             step's moves within phase 12's rule; 21d the Paddle
+             surface's TransformerEncoder (d_model 768, 12 heads, 3072,
+             12 layers, post-norm, f32) on [8, 512, 768]: output and
+             grads against the same layers through the composition, 2
+             AdamW steps at K1 = K2 = K3 = 12, a src_mask call with no
+             K1, save/load of the layer and optimizer into fresh objects
+             whose next step gives the uninterrupted step's bits; 21e
+             Embedding(1_000_000, 768, sparse=True) under Adam lazy and
+             not, 4096 lookups over 768 rows: the grad sparse, its
+             coalesced rows under 1/1000 of the dense grad's bytes, step
+             2's peak over its start under one dense grad, touched rows
+             a dense-grad Adam's, untouched rows unchanged when lazy;
+             21f solve, cholesky, svd, qr, eigh, lu, det and lstsq on
+             f32 and f64 batches held to the CPU tests' invariants.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
 14, 16, 17 and 18 for the serving K1 row, 7, 11, 12, 13, 19 and 20 for
-the f32 training rows, 10 and 13 for the bf16 ones), and as the last
-line {"ok": true, "device": {...}}.
+the f32 training rows, 10 and 13 for the bf16 ones; the non-causal rows
+21b (bf16 [32,12,128,64]), 21c (f32 [32,12,128,64], its card side at
+[2,12,128,64]) and 21d ([8,12,512,64])), and as the last line
+{"ok": true, "device": {...}}.
 
 TF32 is off for matmuls and cuDNN, so every f32 product is full f32.
 Any failure raises: the exit code is non-zero and no "ok" line prints.
@@ -250,6 +286,7 @@ import argparse
 import base64
 import contextlib
 import ctypes
+import functools
 import json
 import os
 import re
@@ -314,6 +351,25 @@ PARENT_SYMBOLS = {("fused_ce", "fused_ce_forward"): (
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])}
 PARENT_F32_SPLIT = (64, 4)
 FLAGSHIP = dict(batch=8, seq=1024)
+# phase 21: BERT-base pretraining's attention (tools/baseline_bench.py
+# bench_bert: batch 32 x seq 128, 12 heads of 64, non-causal) and the
+# TransformerEncoder at BERT-base width on [8, 512, 768]
+BERT = dict(batch=32, seq=128)
+BERT_SHAPE = (32, 12, 128, 64)
+BERT_CARD_SHAPE = (2, 12, 128, 64)   # 21c's card side, [2, 128] in f32
+ENCODER_SHAPE = (8, 12, 512, 64)
+# phase 21e: a 1M-row table at BERT-base width, 4096 lookups a step over
+# 768 distinct rows
+SPARSE = dict(vocab=1_000_000, dim=768, ids=4096, distinct=768)
+# 21e, sparse against dense-grad Adam, element by element: an element
+# whose grads are all 0 or at least 1000 x Adam's epsilon (1e-8) moves by
+# lr m / sqrt(v) with epsilon out of it, so it carries only the grads'
+# relative rounding (sums of about 5 lookups in another order) and the
+# final subtraction's: 1e-5 is 20 ulps of a weight of 4 (N(0, 1) rows)
+# and 1/1000 of the 2 x lr the two steps move it. An element with a grad
+# under the floor is left out of this check (not of the L2 one)
+SPARSE_GRAD_FLOOR = 1e-5
+SPARSE_EL_TOL = 1e-5
 OPTIM_STEPS = 3
 # phase 12, card against CPU after 3 steps: per parameter, the L2 norm of
 # the difference between the card's and the CPU's move within this share
@@ -327,6 +383,21 @@ OPTIM_STEPS = 3
 # noise) is held to that alone
 OPT_LINEAR_TOL = 1e-3
 OPT_SIGN_TOL = 5e-2
+# phase 21d, MultiHeadAttention's routes on the same 12 post-norm layers,
+# each held to an f64 run of the composition, every grad relative to its
+# tensor's largest. The q and k grads come from dS = P (dP - rowsum(P dP)),
+# which cancels where attention is near uniform. The composition's softmax
+# backward takes P normalised by its own row sum and the rowsum over the
+# very P and dP that dS is made of; the flash formulation (the reference's
+# Pallas path, attention.py:286, and K2/K3) recomputes P as exp(S - LSE)
+# from the forward's LSE, and takes the rowsum as delta = rowsum(dO O), so
+# that dS's rows need not sum to 0. K2/K3's plain version, run with each P
+# and each rowsum, is held to the flash route's bound while it keeps
+# exp(S - LSE), to the composition's with the softmax's P. Each bound is
+# 1.5x a route's reading on the card (NVIDIA H100 80GB HBM3, 700 W): the
+# flash route's 1.64e-2 and 1.70e-2, the composition's 4.68e-3
+FLASH_ROUTE_GRAD_TOL = 2.5e-2
+COMPOSITION_GRAD_TOL = 7e-3
 RECOMPUTE_F32_RTOL = 1e-5
 RECOMPUTE_BF16_RTOL = 1e-3
 
@@ -523,6 +594,10 @@ def phase_k1(torch, attn, main_shape, train_shape, _build):
               (train_shape, True, "float32"),
               ((1, 4, 2048, 128), True, "float32"),
               ((1, 2, 2048, 64), False, "float32")]
+    # BERT's (phase 21): non-causal at its step's shape, and the
+    # TransformerEncoder's
+    cases += [(BERT_SHAPE, False, "float32"), (BERT_SHAPE, False, "bfloat16"),
+              (ENCODER_SHAPE, False, "float32")]
     g = torch.Generator(device="cuda").manual_seed(4)
     main = big = None
     for shape, causal, dtype in cases:
@@ -730,7 +805,6 @@ def bwd_case(torch, attn, shape, causal, dtype, g):
 
 
 def phase_k2k3(torch, attn, train_shape):
-    import torch.nn.functional as F
     cases = [(train_shape, True, "float32"), (train_shape, True, "bfloat16"),
              ((1, 12, 333, 64), True, "float32"),
              ((1, 12, 333, 64), False, "float32"),
@@ -738,7 +812,10 @@ def phase_k2k3(torch, attn, train_shape):
              ((1, 12, 333, 64), False, "bfloat16"),
              ((1, 4, 200, 128), True, "float32"),
              ((1, 4, 200, 128), False, "bfloat16"),
-             ((2, 3, 65, 128), True, "bfloat16")]
+             ((2, 3, 65, 128), True, "bfloat16"),
+             (BERT_SHAPE, False, "float32"), (BERT_SHAPE, False, "bfloat16"),
+             (BERT_CARD_SHAPE, False, "float32"),
+             (ENCODER_SHAPE, False, "float32")]
     g = torch.Generator(device="cuda").manual_seed(6)
     errs = {}
     for shape, causal, dtype in cases:
@@ -779,141 +856,125 @@ def phase_k2k3(torch, attn, train_shape):
         print(f"  K2/K3 {list(shape)} causal={causal} {dtype}: "
               + "; ".join(line))
 
-    # timing at the training shape, f32 causal: K2 and K3, with SDPA's
-    # backward around them
-    q, k, v, do, lse, delta, scale = bwd_case(torch, attn, train_shape, True,
-                                              "float32", g)
-    args = (q, k, v, lse, do, delta, scale, True)
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
-
-    def sdpa_bwd():
-        return time_ms(torch, lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True))
-
-    libs = [sdpa_bwd()]
-    dq_ms = time_ms(torch, lambda: attn.flash_bwd_dq(*args))
-    dkv_ms = time_ms(torch, lambda: attn.flash_bwd_dkv(*args))
-    libs.append(sdpa_bwd())
-    lib_ms = float(np.median(libs))
-    plain_ms = time_ms(torch, lambda: attn.flash_attention_backward_plain(
-        *args))
-    b, h, s, d = train_shape
-    n = b * h * s
-    pairs = b * h * s * (s + 1) // 2
-    reads = 4 * n * d * 4 + 2 * n * 4          # q, k, v, dO; lse, delta
-    k2_flops, k3_flops = 3 * 2 * d * pairs, 4 * 2 * d * pairs
-    k2_b = bound(reads + n * d * 4, k2_flops, "float32")
-    k3_b = bound(reads + 2 * n * d * 4, k3_flops, "float32")
-    all_b = bound(reads + 3 * n * d * 4, 5 * 2 * d * pairs, "float32")
-    rate = [f"{name} {ms:.4f} ms, {f / ms / 1e9:.1f} TFLOP/s, "
-            f"{bd[0] / ms:.4f} of its bound {bd[0]:.4f} ms ({bd[1]})"
-            for name, ms, f, bd in (("K2", dq_ms, k2_flops, k2_b),
-                                    ("K3", dkv_ms, k3_flops, k3_b))]
-    print(f"  {list(train_shape)} causal f32: " + "; ".join(rate)
-          + f"; K2 + K3 {dq_ms + dkv_ms:.4f} ms against the backward's "
-          f"bound {all_b[0]:.4f} ms ({all_b[1]}, 5 products over {pairs} "
-          f"pairs); sdpa backward median {lib_ms:.4f} ms of "
-          f"{[round(x, 4) for x in libs]} ({(dq_ms + dkv_ms) / lib_ms:.2f}x);"
-          f" plain backward {plain_ms:.4f} ms")
-    main = [(train_shape, True, "float32", nm) for nm in ("dq", "dk", "dv")]
-    rows = []
-    for name, src_line, ms, (b_ms, b_by), err in (
-            ("flash_bwd_dq", ":200", dq_ms, k2_b, errs[main[0]]),
-            ("flash_bwd_dkv", ":236", dkv_ms, k3_b,
-             max(errs[main[1]], errs[main[2]]))):
-        rows.append({"name": name, "route": "cuda", "dtype": "float32",
-                     "source": "paddle_tpu_torch/csrc/flash_bwd.cu",
-                     "replaces": "paddle_tpu/ops/attention.py" + src_line,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms})
-    return rows + flash_bf16_rows(torch, attn, train_shape, errs, g)
+    return (flash_rows(torch, attn, train_shape, True, "float32", errs, g,
+                       forward=False)
+            + [row for shape, causal, dtype in (
+                (train_shape, True, "bfloat16"),
+                (BERT_SHAPE, False, "float32"),
+                (BERT_CARD_SHAPE, False, "float32"),
+                (BERT_SHAPE, False, "bfloat16"),
+                (ENCODER_SHAPE, False, "float32"))
+               for row in flash_rows(torch, attn, shape, causal, dtype, errs,
+                                     g)])
 
 
-def flash_bf16_rows(torch, attn, train_shape, errs, g):
-    """K1, K2 and K3 in bf16 at the training shape, causal, as the
-    flagship step (phase 10) runs them: time against the plain versions,
-    the bf16 bound and PyTorch's SDPA forward / backward in bf16. SDPA's
-    backward moved between 0.19 and 0.70 ms from one call to the next, so
-    it is timed three times between the kernels: its median is the row's
-    library time, and the spread is printed."""
+def sdpa_backward_ms(torch, q, k, v, do, causal):
+    """Device time of PyTorch's SDPA backward on (q, k, v, dO): one
+    ``torch.autograd.grad`` of it captured in a CUDA graph, as
+    ``torch.cuda.make_graphed_callables`` captures a backward (the forward
+    runs on the capture stream, so its backward runs there too), and the
+    replay timed. Timed through the autograd engine instead, the reading
+    holds the engine's hand-off to its device thread: 0.05 and 0.40 ms in
+    two runs at one shape while every kernel repeated within 2 %."""
     import torch.nn.functional as F
-    q, k, v, do, lse, delta, scale = bwd_case(torch, attn, train_shape, True,
-                                              "bfloat16", g)
-    o, _ = attn.flash_attention_forward(q, k, v, scale, True)
-    k1_err = 0.0
-    for p_dtype, tol in ((None, BF16_TOL), (torch.bfloat16, BF16P_TOL)):
-        ro, rlse = attn.flash_attention_plain(q, k, v, scale, True,
-                                              p_dtype=p_dtype)
-        eo = (o.float() - ro.float()).abs().max().item()
-        el = (lse - rlse).abs().max().item()
-        check(eo <= tol and el <= FLASH_LSE_TOL,
-              f"K1 {train_shape} bf16 (P {p_dtype or 'f32'}): O err {eo}, "
-              f"LSE err {el}")
-        if p_dtype is not None:
-            k1_err = max(eo, el)
-        del ro, rlse
-    del o
-    args = (q, k, v, lse, do, delta, scale, True)
-    k1_ms = time_ms(torch, lambda: attn.flash_attention_forward(
-        q, k, v, scale, True))
-    k1_plain = time_ms(torch, lambda: attn.flash_attention_plain(
-        q, k, v, scale, True))
-    k1_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
-    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        for _ in range(3):
+            torch.autograd.grad(out, leaves, do, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
+    return time_ms(torch, graph.replay)
 
-    def sdpa_bwd():
-        return time_ms(torch, lambda: torch.autograd.grad(
-            out, leaves, do, retain_graph=True))
 
-    libs = [sdpa_bwd()]
-    dq_ms = time_ms(torch, lambda: attn.flash_bwd_dq(*args))
-    libs.append(sdpa_bwd())
-    dkv_ms = time_ms(torch, lambda: attn.flash_bwd_dkv(*args))
-    libs.append(sdpa_bwd())
-    lib_ms = float(np.median(libs))
-    plain_ms = time_ms(torch, lambda: attn.flash_attention_backward_plain(
-        *args))
-    b, h, s, d = train_shape
+def flash_rows(torch, attn, shape, causal, dtype, errs, g, forward=True):
+    """The kernels line's rows of K1 (with ``forward``), K2 and K3 at
+    ``shape``, ``causal``, in ``dtype``: K1 held against its plain version
+    (bf16: with P kept f32, and rounded to bf16 as the kernel rounds it,
+    the row's error), each kernel timed against its plain version,
+    PyTorch's SDPA forward and backward (device time, sdpa_backward_ms),
+    and the bound of the work the inputs need: 4 d flops a query-key
+    pair forward, over s (s + 1) / 2 pairs a row causal and s^2 not, and
+    2.5 times that backward (K2 3 and K3 4 of the 5 products). K2/K3's
+    errors are phase 6's readings at this case."""
+    import torch.nn.functional as F
+    q, k, v, do, lse, delta, scale = bwd_case(torch, attn, shape, causal,
+                                              dtype, g)
+    b, h, s, d = shape
     n = b * h * s
-    pairs = b * h * s * (s + 1) // 2
-    k1_flops = 2 * 2 * d * pairs
-    k1_b = bound(4 * n * d * 2 + n * 4, k1_flops, "bfloat16")
-    reads = 4 * n * d * 2 + 2 * n * 4
-    k2_flops, k3_flops = 3 * 2 * d * pairs, 4 * 2 * d * pairs
-    k2_b = bound(reads + n * d * 2, k2_flops, "bfloat16")
-    k3_b = bound(reads + 2 * n * d * 2, k3_flops, "bfloat16")
-    print(f"  {list(train_shape)} causal bf16 (the flagship's): K1 "
-          f"{k1_ms:.4f} ms, {k1_flops / k1_ms / 1e9:.1f} TFLOP/s, "
-          f"{k1_b[0] / k1_ms:.4f} of its bound {k1_b[0]:.4f} ms ({k1_b[1]}); "
-          f"sdpa {k1_lib:.4f} ms ({k1_ms / k1_lib:.2f}x); err vs P bf16 "
-          f"{k1_err:.3e}; plain {k1_plain:.4f} ms")
-    rate = [f"{name} {ms:.4f} ms, {f / ms / 1e9:.1f} TFLOP/s, "
-            f"{bd[0] / ms:.4f} of its bound {bd[0]:.4f} ms ({bd[1]})"
-            for name, ms, f, bd in (("K2", dq_ms, k2_flops, k2_b),
-                                    ("K3", dkv_ms, k3_flops, k3_b))]
-    print(f"  {list(train_shape)} causal bf16: " + "; ".join(rate)
-          + f"; K2 + K3 {dq_ms + dkv_ms:.4f} ms, sdpa backward median "
-          f"{lib_ms:.4f} ms of {[round(x, 4) for x in libs]} "
-          f"({(dq_ms + dkv_ms) / lib_ms:.2f}x), plain backward "
-          f"{plain_ms:.4f} ms")
-    main = [(train_shape, True, "bfloat16", nm) for nm in ("dq", "dk", "dv")]
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    esz = 4 if dtype == "float32" else 2
+    tag = f"{list(shape)} {'causal' if causal else 'non-causal'} {dtype}"
     rows = []
-    for name, src, line, ms, pl, lib, (b_ms, b_by), err in (
-            ("flash_attention_forward", "flash_fwd.cu", ":67", k1_ms,
-             k1_plain, k1_lib, k1_b, k1_err),
-            ("flash_bwd_dq", "flash_bwd.cu", ":200", dq_ms, plain_ms, lib_ms,
-             k2_b, errs[main[0]]),
-            ("flash_bwd_dkv", "flash_bwd.cu", ":236", dkv_ms, plain_ms,
-             lib_ms, k3_b, max(errs[main[1]], errs[main[2]]))):
-        rows.append({"name": name, "route": "cuda", "dtype": "bfloat16",
-                     "source": "paddle_tpu_torch/csrc/" + src,
+
+    def row(name, src, line, ms, plain, lib, bd, err):
+        rows.append({"name": name, "route": "cuda", "dtype": dtype,
+                     "shape": tag, "source": "paddle_tpu_torch/csrc/" + src,
                      "replaces": "paddle_tpu/ops/attention.py" + line,
-                     "max_abs_err": err, "ms": ms, "plain_ms": pl,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bd[0], "bound_by": bd[1],
+                     "library_ms": lib})
+
+    def rate(name, ms, flops, bd):
+        return (f"{name} {ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{bd[0] / ms:.4f} of its bound {bd[0]:.4f} ms ({bd[1]})")
+
+    if forward:
+        o, _ = attn.flash_attention_forward(q, k, v, scale, causal)
+        variants = ([(None, F32_FLASH_TOL, F32_FLASH_TOL)]
+                    if dtype == "float32" else
+                    [(None, BF16_TOL, FLASH_LSE_TOL),
+                     (torch.bfloat16, BF16P_TOL, FLASH_LSE_TOL)])
+        for p_dtype, tol, ltol in variants:
+            ro, rlse = attn.flash_attention_plain(q, k, v, scale, causal,
+                                                  p_dtype=p_dtype)
+            eo = (o.float() - ro.float()).abs().max().item()
+            el = (lse - rlse).abs().max().item()
+            check(eo <= tol and el <= ltol,
+                  f"K1 {tag} (P {p_dtype or 'f32'}): O err {eo} > {tol} or "
+                  f"LSE err {el} > {ltol}")
+            k1_err = max(eo, el)
+            del ro, rlse
+        del o
+        k1_ms = time_ms(torch, lambda: attn.flash_attention_forward(
+            q, k, v, scale, causal))
+        k1_plain = time_ms(torch, lambda: attn.flash_attention_plain(
+            q, k, v, scale, causal), iters=10)
+        k1_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal))
+        k1_flops = 4 * d * pairs
+        k1_b = bound(4 * n * d * esz + n * 4, k1_flops, dtype)
+        print(f"  {tag}: {rate('K1', k1_ms, k1_flops, k1_b)}; sdpa "
+              f"{k1_lib:.4f} ms ({k1_ms / k1_lib:.2f}x); err {k1_err:.3e}; "
+              f"plain {k1_plain:.4f} ms")
+        row("flash_attention_forward", "flash_fwd.cu", ":67", k1_ms,
+            k1_plain, k1_lib, k1_b, k1_err)
+    args = (q, k, v, lse, do, delta, scale, causal)
+    dq_ms = time_ms(torch, lambda: attn.flash_bwd_dq(*args))
+    dkv_ms = time_ms(torch, lambda: attn.flash_bwd_dkv(*args))
+    lib_ms = sdpa_backward_ms(torch, q, k, v, do, causal)
+    plain_ms = time_ms(torch, lambda: attn.flash_attention_backward_plain(
+        *args), iters=10)
+    reads = 4 * n * d * esz + 2 * n * 4          # q, k, v, dO; lse, delta
+    k2_flops, k3_flops = 3 * 2 * d * pairs, 4 * 2 * d * pairs
+    k2_b = bound(reads + n * d * esz, k2_flops, dtype)
+    k3_b = bound(reads + 2 * n * d * esz, k3_flops, dtype)
+    all_b = bound(reads + 3 * n * d * esz, 5 * 2 * d * pairs, dtype)
+    print(f"  {tag}: {rate('K2', dq_ms, k2_flops, k2_b)}; "
+          f"{rate('K3', dkv_ms, k3_flops, k3_b)}; K2 + K3 "
+          f"{dq_ms + dkv_ms:.4f} ms against the backward's bound "
+          f"{all_b[0]:.4f} ms ({all_b[1]}) and sdpa's backward "
+          f"{lib_ms:.4f} ms ({(dq_ms + dkv_ms) / lib_ms:.2f}x); plain "
+          f"backward {plain_ms:.4f} ms")
+    key = (shape, causal, dtype)
+    row("flash_bwd_dq", "flash_bwd.cu", ":200", dq_ms, plain_ms, lib_ms,
+        k2_b, errs[key + ("dq",)])
+    row("flash_bwd_dkv", "flash_bwd.cu", ":236", dkv_ms, plain_ms, lib_ms,
+        k3_b, max(errs[key + ("dk",)], errs[key + ("dv",)]))
     return rows
 
 
@@ -3461,6 +3522,525 @@ def phase_paddle_nn(torch, attn, cfg, optimizer, nn, phase7):
         device_mod._current_place = None
 
 
+# --------------------------------------------------------------- phase 21
+
+def bert_data(b, seq, vocab):
+    """bench_bert's batch (tools/baseline_bench.py:108-115): ids, zero
+    token types, MLM labels at 15 % (-1 elsewhere), NSP labels [b, 1],
+    from RandomState(0)."""
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, vocab, (b, seq)).astype("int64")
+    tok = np.zeros((b, seq), "int64")
+    mlm = np.where(rs.rand(b, seq) < 0.15,
+                   rs.randint(0, vocab, (b, seq)), -1).astype("int64")
+    nsp = rs.randint(0, 2, (b, 1)).astype("int64")
+    return ids, tok, mlm, nsp
+
+
+def rel_grads(torch, got, want, tol, label, noise=()):
+    """Every grad of ``want`` within ``tol`` of its largest element (no
+    check for ``tol=None``); the grads named in ``noise`` (a true grad
+    of 0, rounding noise on both sides: MultiHeadAttention's key bias)
+    within ``tol`` of the largest grad of all. Returns the worst ratio
+    and its parameter."""
+    worst, where = 0.0, ""
+    top = max(w.abs().max().item() for w in want.values())
+    for n, w in want.items():
+        scale = top if n in noise else w.abs().max().clamp_min(1e-30)
+        r = ((got[n].double() - w.double()).abs().max() / scale).item()
+        check(tol is None or r <= tol, f"{label}: grad {n}: {r:.3e} of "
+              f"its largest (tol {tol})")
+        if r >= worst:
+            worst, where = r, n
+    return worst, where
+
+
+def phase_bert(torch, attn, amp, optimizer):
+    """Phase 21: BERT-base pretraining and the Paddle surface's part B on
+    the card. 21a the masked attention route; 21b the reference's config
+    3 (bench_bert) eager; 21c card against CPU on 2 layers at full
+    width; 21d the TransformerEncoder at BERT-base width; 21e sparse
+    embedding grads; 21f linalg. Returns the (K1, K2, K3) launches of
+    21b (bf16 at BERT_SHAPE), 21c's card side (f32, [2,12,128,64]) and
+    21d's steps (f32 at ENCODER_SHAPE)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as device_mod
+    from paddle_tpu_torch.text.models import (BertForPretraining,
+                                              TransformerLMConfig, bert_base)
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv)
+
+    def start():
+        for w in wrappers:
+            w.launches = 0
+
+    def launches():
+        return tuple(w.launches for w in wrappers)
+
+    print("  [21a] a masked attention on the card is the reference's "
+          "composition")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn(BERT_SHAPE, generator=g, device="cuda")
+               for _ in range(3))
+    s = BERT_SHAPE[2]
+    fmask = torch.where(torch.rand((BERT_SHAPE[0], 1, 1, s), generator=g,
+                                   device="cuda") < 0.9, 0.0, -1e9)
+    bmask = torch.rand((1, 1, s, s), generator=g, device="cuda") < 0.8
+    for label, mask in (("float", fmask), ("bool", bmask)):
+        start()
+        got = attn.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        core = paddle.nn.functional.scaled_dot_product_attention(
+            *(paddle.Tensor._wrap(t) for t in (q, k, v)),
+            attn_mask=paddle.Tensor._wrap(mask))
+        want = attn.reference_attention(q, k, v, mask, 0.125, False)
+        check(torch.equal(got, want) and torch.equal(core.value, want)
+              and launches() == (0, 0, 0),
+              f"21a: {label} mask: launches {launches()}, SDPA equal "
+              f"{torch.equal(got, want)}, core op equal "
+              f"{torch.equal(core.value, want)}")
+        print(f"    {label} mask on {list(BERT_SHAPE)}: SDPA and the core "
+              f"op give reference_attention's bits, K1 launched 0 times")
+    del q, k, v, got, core, want
+
+    print("  [21b] BERT-base pretraining (the reference's config 3, "
+          "bench_bert), eager, AMP O1 bf16")
+    steps = 8
+    model = bert_base(max_seq_len=BERT["seq"], dropout=0.0,
+                      generator=torch.Generator().manual_seed(0)).train()
+    cfg = model.cfg
+    L = cfg.num_layers
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
+                          weight_decay=0.01)
+    batch = [torch.from_numpy(a).cuda() for a in
+             bert_data(BERT["batch"], BERT["seq"], cfg.vocab_size)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses, times, counts = [], [], []
+    for _ in range(steps):
+        start()
+        t0 = time.perf_counter()
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model(*batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        counts.append(launches())
+    peak = torch.cuda.max_memory_allocated()
+    check(loss.dtype == torch.float32, f"21b: O1 loss dtype {loss.dtype}")
+    del model, opt, loss, batch
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(losses)), f"21b: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"21b: loss did not fall: {losses}")
+    check(all(c == (L, L, L) for c in counts),
+          f"21b: K1/K2/K3 launches a step {counts}, want ({L}, {L}, {L})")
+    step_ms = float(np.median(times[1:]))
+    samples = BERT["batch"] / step_ms * 1e3
+    print(f"    {n_params / 1e6:.2f} M parameters, batch {BERT['batch']} x "
+          f"{BERT['seq']}; losses {[round(x, 6) for x in losses]}; step ms "
+          f"{[round(t, 2) for t in times]}")
+    print(f"    median step (steps 2-{steps}) {step_ms:.2f} ms, "
+          f"{samples:.1f} samples/s, {samples * BERT['seq']:.1f} tokens/s; "
+          f"peak memory {peak / 2**30:.3f} GiB, "
+          f"{(peak - held) / 2**30:.3f} over the {held / 2**30:.3f} held "
+          f"before the steps; K1/K2/K3 launches {counts[0]} a step")
+    bert_counts = tuple(sum(c[i] for c in counts) for i in range(3))
+
+    print("  [21c] card against CPU: a 2-layer BertForPretraining at full "
+          "width (768, 12 heads, vocab 30522), [2, 128], f32")
+    small = TransformerLMConfig(vocab_size=30522, hidden_size=768,
+                                num_layers=2, num_heads=12,
+                                max_seq_len=BERT["seq"], dropout=0.0)
+    data = bert_data(2, BERT["seq"], small.vocab_size)
+    runs = []
+    for device in ("cpu", "cuda"):
+        m = BertForPretraining(small, device=device,
+                               generator=torch.Generator().manual_seed(7))
+        init = {n: p.detach().float().cpu().clone()
+                for n, p in m.named_parameters()}
+        o = optimizer.AdamW(1e-4, parameters=m.named_parameters(),
+                            weight_decay=0.01)
+        start()
+        loss = m(*(torch.from_numpy(a).to(device) for a in data))
+        loss.backward()
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in m.named_parameters() if p.grad is not None}
+        o.step()
+        after = {n: p.detach().float().cpu() for n, p in m.named_parameters()}
+        runs.append((loss.item(), grads, after, init, launches()))
+        del m, o, loss
+    (cl, cg, ca, c0, _), (gl, gg, ga, g0, card_counts) = runs
+    check(all(torch.equal(c0[n], g0[n]) for n in c0),
+          "21c: the two models' initial weights differ")
+    check(card_counts == (2, 2, 2), f"21c: card launches {card_counts}")
+    rel = abs(gl - cl) / abs(cl)
+    check(rel <= LOSS_RTOL, f"21c: loss card {gl} vs CPU {cl}")
+    worst, where = rel_grads(torch, gg, cg, GRAD_TOL, "21c")
+    mv, mv_where, scale = moves_apart(torch, ga, ca, c0, small.hidden_size)
+    check(mv <= OPT_SIGN_TOL, f"21c: the move of {mv_where} is {mv:.3e} of "
+          f"the CPU's apart (tol {OPT_SIGN_TOL})")
+    print(f"    loss card {gl:.6f} vs CPU {cl:.6f}: rel diff {rel:.3e} (tol "
+          f"{LOSS_RTOL}); {len(cg)} grads: worst max|diff|/max|grad| "
+          f"{worst:.3e} at {where} (tol {GRAD_TOL}); one AdamW step's "
+          f"moves up to {scale:.3e}, at most {mv:.3e} of a tensor's CPU "
+          f"move apart ({mv_where}; tol {OPT_SIGN_TOL}); K1/K2/K3 "
+          f"launches {card_counts}")
+    del runs, cg, gg, ca, ga, c0, g0
+
+    try:
+        paddle.set_device("gpu")
+        enc_counts = phase_encoder(torch, attn, paddle, start, launches)
+        phase_sparse(torch, paddle)
+    finally:
+        device_mod._current_place = None
+    phase_linalg(torch, paddle)
+    return bert_counts, card_counts, enc_counts
+
+
+def phase_encoder(torch, attn, paddle, start, launches):
+    """21d: the Paddle surface's TransformerEncoder at BERT-base width
+    (d_model 768, 12 heads, dim_feedforward 3072, 12 layers, post-norm,
+    dropout 0, f32) on [8, 512, 768]. The output and every grad of the
+    flash route, of K1 with K2/K3's plain version taking P and the
+    rowsum each way (FLASH_ROUTE_GRAD_TOL says why), and
+    of the reference's composition (MHA's other route, forced per layer),
+    each against an f64 run of the composition; 2 AdamW steps at K1 = K2 = K3 = 12 each; a
+    src_mask call through the composition (no K1); then save / load of
+    the layer's and the optimizer's state dicts into fresh objects, whose
+    next step gives the uninterrupted step's bits."""
+    import tempfile
+    nn = paddle.nn
+    b, s, d = ENCODER_SHAPE[0], ENCODER_SHAPE[2], 768
+    L = 12
+
+    def make(seed):
+        paddle.seed(seed)
+        layer = nn.TransformerEncoderLayer(d, 12, 3072, dropout=0.0)
+        return nn.TransformerEncoder(layer, L)
+
+    print(f"  [21d] the Paddle surface's TransformerEncoder: {L} layers at "
+          f"BERT-base width on [{b}, {s}, {d}], f32")
+    enc = make(210)
+    rs = np.random.RandomState(21)
+    x = paddle.to_tensor(rs.randn(b, s, d).astype("float32"))
+    w = paddle.to_tensor(rs.randn(b, s, d).astype("float32") / d)
+    params = list(enc.named_parameters())
+
+    def plain_backward(q, k, v, o, lse, do, scale, causal, softmax, own):
+        # K2/K3's plain version (the encoder is non-causal): P as the
+        # flash formulation makes it, exp(S - LSE) with K1's LSE, or
+        # (``softmax``) as the composition's softmax does; the rowsum as
+        # the flash route takes it, rowsum(dO O), or (``own``) rowsum(P
+        # dP) over the very P and dP that dS is made of
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        s = scale * qf @ kf.transpose(-1, -2)
+        p = s.softmax(-1) if softmax else torch.exp(s - lse.transpose(-1,
+                                                                      -2))
+        dp = dof @ vf.transpose(-1, -2)
+        delta = ((p * dp).sum(-1, keepdim=True) if own else
+                 (dof * o.float()).sum(-1, keepdim=True))
+        ds = p * (dp - delta)
+        return ((ds @ kf * scale).to(q.dtype),
+                (ds.transpose(-1, -2) @ qf * scale).to(k.dtype),
+                (p.transpose(-1, -2) @ dof).to(v.dtype))
+
+    backwards = {f"plain, P {pn}, rowsum({rn})": functools.partial(
+        plain_backward, softmax=pn == "softmax", own=rn == "P dP")
+        for pn, rn in (("exp(S - LSE)", "dO O"), ("exp(S - LSE)", "P dP"),
+                       ("softmax", "P dP"))}
+
+    def run(route, xx, ww):
+        if route == "composition":
+            for lyr in enc.layers:
+                lyr.self_attn.flash_route = lambda *a, **k: False
+        kernels = attn.flash_attention_backward
+        attn.flash_attention_backward = backwards.get(route, kernels)
+        try:
+            start()
+            out = enc(xx)
+            paddle.sum(out * ww).backward()
+        finally:
+            attn.flash_attention_backward = kernels
+        got = (out.value.detach().cpu(),
+               {n: p.grad.value.cpu() for n, p in params}, launches())
+        for _, p in params:
+            p.clear_grad()
+        for lyr in enc.layers:
+            lyr.self_attn.__dict__.pop("flash_route", None)
+        return got
+
+    tols = {"flash": FLASH_ROUTE_GRAD_TOL,
+            "composition": COMPOSITION_GRAD_TOL}
+    tols.update((r, COMPOSITION_GRAD_TOL if "softmax" in r
+                 else FLASH_ROUTE_GRAD_TOL) for r in backwards)
+    want = {"flash": (L, L, L), "composition": (0, 0, 0)}
+    routes = {r: run(r, x, w) for r in tols}
+    enc.to(dtype="float64")
+    t_out, t_grads, _ = run("composition", x.astype("float64"),
+                            w.astype("float64"))
+    enc.to(dtype="float32")
+    f_counts = routes["flash"][2]
+    check(all(c == want.get(r, (L, 0, 0)) for r, (_, _, c) in routes.items()),
+          f"21d: launches {[(r, c) for r, (_, _, c) in routes.items()]}")
+    noise = [n for n in t_grads if n.endswith("self_attn.k_proj.bias")]
+    errs = {}
+    for route, (out, grads, _) in routes.items():
+        e_out = ((out.double() - t_out).abs().max()
+                 / t_out.abs().max()).item()
+        check(e_out <= LOSS_RTOL, f"21d: the {route} route's output "
+              f"{e_out:.3e} of its largest from the f64 run's")
+        errs[route] = (e_out, *rel_grads(torch, grads, t_grads, None,
+                                         "21d", noise))
+    check(all(errs[r][1] <= tols[r] for r in routes),
+          "21d: grads off the f64 run's: " + "; ".join(
+              f"{r} {errs[r][1:]} (tol {tols[r]})" for r in routes))
+    apart, where = rel_grads(torch, routes["flash"][1],
+                             routes["composition"][1], None, "21d", noise)
+    print("    against an f64 run of the composition, output and worst "
+          "grad, each of its largest: " + "; ".join(
+              f"{r} {errs[r][0]:.3e}, {errs[r][1]:.3e} ({errs[r][2]}; tol "
+              f"{tols[r]})" for r in routes)
+          + f"; K1/K2/K3 {f_counts} on the flash route; it and the "
+          f"composition {apart:.3e} apart ({where})")
+    del routes, t_out, t_grads
+
+    opt = paddle.optimizer.AdamW(1e-4, parameters=enc.named_parameters(),
+                                 weight_decay=0.01)
+
+    def step(model, o):
+        start()
+        loss = paddle.sum(model(x) * w)
+        loss.backward()
+        o.step()
+        o.clear_grad()
+        torch.cuda.synchronize()
+        return loss.item(), launches()
+
+    times, counts, losses = [], [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        loss, c = step(enc, opt)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        counts.append(c)
+    check(all(c == (L, L, L) for c in counts),
+          f"21d: launches a step {counts}")
+    start()
+    mask = nn.Transformer.generate_square_subsequent_mask(s)
+    with paddle.no_grad():
+        masked = enc(x, mask)
+    check(launches() == (0, 0, 0)
+          and bool(torch.isfinite(masked.value).all()),
+          f"21d: a src_mask call launched {launches()}")
+    del masked
+    with tempfile.TemporaryDirectory() as tmp:
+        paddle.save(enc.state_dict(), os.path.join(tmp, "enc.pdparams"))
+        paddle.save(opt.state_dict(), os.path.join(tmp, "enc.pdopt"))
+        loss3, c3 = step(enc, opt)
+        want = {n: p.value.detach().clone() for n, p in enc.named_parameters()}
+        del opt
+        enc2 = make(211)
+        opt2 = paddle.optimizer.AdamW(1e-4,
+                                      parameters=enc2.named_parameters(),
+                                      weight_decay=0.01)
+        check(enc2.set_state_dict(paddle.load(
+            os.path.join(tmp, "enc.pdparams"))) == [], "21d: names missing")
+        opt2.set_state_dict(paddle.load(os.path.join(tmp, "enc.pdopt")))
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f))
+                     for f in os.listdir(tmp))
+    loss3b, c3b = step(enc2, opt2)
+    same = [n for n, p in enc2.named_parameters()
+            if not torch.equal(p.value, want[n])]
+    check(loss3b == loss3 and not same and c3 == c3b == (L, L, L),
+          f"21d: resumed step loss {loss3b} vs {loss3}, parameters apart "
+          f"{same[:3]}, launches {c3b} / {c3}")
+    print(f"    2 AdamW steps: losses {[round(v, 6) for v in losses]}, "
+          f"step ms {[round(t, 2) for t in times]}, K1/K2/K3 {counts[0]} a "
+          f"step; a src_mask call launched K1 0 times; save/load of the "
+          f"layer and the optimizer ({nbytes / 2**20:.1f} MiB) into fresh "
+          f"objects: the next step's loss {loss3b:.6f} and all "
+          f"{len(want)} parameters the uninterrupted step's bits")
+    del enc, enc2, opt2, want
+    torch.cuda.empty_cache()
+    return tuple(sum(c[i] for c in counts + [c3, c3b, f_counts])
+                 for i in range(3))
+
+
+def phase_sparse(torch, paddle):
+    """21e: nn.Embedding(1_000_000, 768, sparse=True) (f32, 3.07 GB)
+    under Adam(lazy_mode=True), then Adam(lazy_mode=False): 4096 lookups
+    over 768 distinct rows. A first step makes the moments; on the
+    second (other ids over other rows, a quarter shared): the grad is
+    sparse, its coalesced rows under 1/1000 of the dense grad's bytes
+    (the rows as looked up, one a lookup, are printed beside them), the
+    step's peak above what it started with under one dense grad, and the
+    table against a dense-grad Adam's over the same two steps: the
+    difference's L2 norm within 1e-3 of the dense table's move (phase
+    12's rule), and every element whose dense grads are 0 or at least
+    SPARSE_GRAD_FLOOR within SPARSE_EL_TOL (the others, counted, are
+    ill-conditioned: a grad near Adam's epsilon moves its element by up
+    to lr either way on a rounding of the grad): lazy_mode over the rows
+    the second step touches, the untouched ones unchanged by it; the
+    default over every row."""
+    nn = paddle.nn
+    vocab, dim, n_ids, distinct = (SPARSE[k] for k in ("vocab", "dim",
+                                                        "ids", "distinct"))
+    dense_bytes = vocab * dim * 4
+    lr, steps = 1e-2, 2
+    rs = np.random.RandomState(22)
+    pools = [rs.choice(vocab, distinct, replace=False) for _ in range(2)]
+    pools[1][:distinct // 4] = pools[0][:distinct // 4]   # shared rows
+    id_sets = [paddle.to_tensor(rs.choice(pool, n_ids).astype("int64"))
+               for pool in pools]
+    union = torch.from_numpy(np.unique(np.concatenate(pools))).cuda()
+    w_np = (rs.randn(n_ids, dim) / dim).astype("float32")
+    wt = paddle.to_tensor(w_np)
+    print(f"  [21e] sparse grads: Embedding({vocab}, {dim}, sparse=True), "
+          f"{n_ids} lookups over {distinct} rows a step, Adam")
+    for lazy in (True, False):
+        paddle.seed(23)
+        emb = nn.Embedding(vocab, dim, sparse=True)
+        ref = nn.Embedding(vocab, dim)
+        ref.weight.set_value(emb.weight.value)
+        init = emb.weight.value.clone()
+        opt = paddle.optimizer.Adam(lr, parameters=emb.parameters(),
+                                    lazy_mode=lazy)
+        ropt = paddle.optimizer.Adam(lr, parameters=ref.parameters())
+        ill = torch.zeros(len(union), dim, dtype=torch.bool,
+                          device=union.device)
+        for i, ids in enumerate(id_sets):
+            paddle.sum(ref(ids) * wt).backward()
+            rg = ref.weight.grad.value[union].abs()
+            ill |= (rg > 0) & (rg < SPARSE_GRAD_FLOOR)
+            ropt.step()
+            ropt.clear_grad()
+            before = emb.weight.value.clone() if i else None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            paddle.sum(emb(ids) * wt).backward()
+            grad = emb.weight.grad
+            check(grad.is_sparse(), "21e: the grad is not sparse")
+            rows = grad.slices.coalesce()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            over = torch.cuda.max_memory_allocated() - held
+        check(rows.nbytes < dense_bytes / 1000 and over < dense_bytes,
+              f"21e: coalesced grad {rows.nbytes} B, the step's peak "
+              f"{over} B over its start, dense grad {dense_bytes} B")
+        touched = rows.indices
+        got, want = emb.weight.value, ref.weight.value
+        sel = touched if lazy else slice(None)
+        diff = (got[sel] - want[sel]).abs()
+        l2 = (diff.norm() / (want[sel] - init[sel]).norm()).item()
+        # the ill-conditioned elements lie in rows of ``union``
+        if lazy:
+            skip = ill[torch.searchsorted(union, touched)]
+            diff.masked_fill_(skip, 0.0)
+        else:
+            skip = ill
+            diff[union] = diff[union].masked_fill(skip, 0.0)
+        el = diff.max().item()
+        check(el <= SPARSE_EL_TOL and l2 <= 1e-3,
+              f"21e lazy={lazy}: an element {el} from the dense Adam's "
+              f"(tol {SPARSE_EL_TOL}; {int(skip.sum())} ill-conditioned "
+              f"left out), L2 {l2:.3e} of its move")
+        del diff
+        if lazy:
+            keep = torch.ones(vocab, dtype=torch.bool, device=got.device)
+            keep[touched] = False
+            check(torch.equal(got[keep], before[keep]),
+                  "21e: lazy_mode moved a row the step did not touch")
+            tail = ("over the rows it touched; the other rows unchanged "
+                    "by the step")
+            del keep
+        else:
+            tail = "over every row"
+        print(f"    lazy_mode={lazy}: grad {grad.slices.nbytes / 2**20:.2f} "
+              f"MiB as looked up ({int(grad.slices.indices.numel())} rows), "
+              f"{rows.nbytes / 2**20:.2f} MiB coalesced "
+              f"({int(touched.numel())} rows; dense "
+              f"{dense_bytes / 2**30:.3f} GiB, "
+              f"{dense_bytes / rows.nbytes:.0f}x); step 2's peak "
+              f"{over / 2**20:.1f} MiB over its start; against a "
+              f"dense-grad Adam's 2 steps, {tail}: L2 {l2:.3e} of the "
+              f"move (tol 1e-3), largest element {el:.2e} (tol "
+              f"{SPARSE_EL_TOL}) with {int(skip.sum())} ill-conditioned "
+              f"ones (a grad under {SPARSE_GRAD_FLOOR}) left out")
+        del emb, ref, opt, ropt, grad, rows, got, want, before, init, ill
+        torch.cuda.empty_cache()
+
+
+def phase_linalg(torch, paddle):
+    """21f: paddle.linalg on the card, seeded f32 and f64 batches, held
+    to the CPU tests' invariants: solve (A X = B), cholesky (L L^T = A),
+    svd (U S Vh = A, S the CPU's), qr (Q R = A, Q^T Q = I), eigh
+    (V diag(w) V^T = A, w the CPU's), lu (P A = L U with its 1-based
+    pivots), det (the CPU's), lstsq (the CPU's solution)."""
+    print("  [21f] paddle.linalg on the card, f32 and f64")
+    for dt, tol in (("float32", 1e-4), ("float64", 1e-10)):
+        rs = np.random.RandomState(24)
+        a = rs.randn(16, 64, 64) + 8 * np.eye(64)
+        m = rs.randn(16, 64, 64)
+        spd = m @ np.swapaxes(m, -1, -2) + 64 * np.eye(64)
+        rhs = rs.randn(16, 64, 8)
+        tall = rs.randn(16, 96, 48)
+        b96 = rs.randn(96, 8)
+        arrs = {k: v.astype(dt) for k, v in
+                (("a", a), ("spd", spd), ("rhs", rhs), ("tall", tall),
+                 ("b96", b96))}
+        card = {k: paddle.to_tensor(v, place=paddle.CUDAPlace(0))
+                for k, v in arrs.items()}
+        cpu = {k: paddle.to_tensor(v, place=paddle.CPUPlace())
+               for k, v in arrs.items()}
+        T = {k: v.value for k, v in card.items()}
+        worst = {}
+
+        def rel(name, got, want):
+            e = ((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30)).item()
+            check(e <= tol, f"21f {dt} {name}: {e:.3e} (tol {tol})")
+            worst[name] = e
+
+        x = paddle.linalg.solve(card["a"], card["rhs"]).value
+        check(x.is_cuda and x.dtype == getattr(torch, dt),
+              f"21f: solve gave {x.dtype} on {x.device}")
+        rel("solve", T["a"] @ x, T["rhs"])
+        lo = paddle.linalg.cholesky(card["spd"]).value
+        rel("cholesky", lo @ lo.transpose(-1, -2), T["spd"])
+        u, s_, vh = (t.value for t in paddle.linalg.svd(card["tall"]))
+        rel("svd", (u * s_[..., None, :]) @ vh, T["tall"])
+        rel("svd S", s_.cpu(), paddle.linalg.svd(cpu["tall"])[1].value)
+        q_, r_ = (t.value for t in paddle.linalg.qr(card["tall"]))
+        rel("qr", q_ @ r_, T["tall"])
+        eye = torch.eye(q_.shape[-1], dtype=q_.dtype, device=q_.device)
+        rel("qr Q^T Q", q_.transpose(-1, -2) @ q_, eye.expand_as(
+            q_.transpose(-1, -2) @ q_))
+        wv, vv = (t.value for t in paddle.linalg.eigh(card["spd"]))
+        rel("eigh", (vv * wv[..., None, :]) @ vv.transpose(-1, -2),
+            T["spd"])
+        rel("eigh w", wv.cpu(), paddle.linalg.eigh(cpu["spd"])[0].value)
+        lu_, piv = (t.value for t in paddle.linalg.lu(card["a"]))
+        pm, lm, um = torch.lu_unpack(lu_, piv)
+        check(piv.dtype == torch.int32 and int(piv.min()) >= 1,
+              "21f: lu pivots")
+        rel("lu", pm @ lm @ um, T["a"])
+        # det of 16 x 16 blocks: a 64 x 64 one overflows f32
+        rel("det", paddle.linalg.det(card["a"][:, :16, :16]).value.cpu(),
+            paddle.linalg.det(cpu["a"][:, :16, :16]).value)
+        rel("lstsq", paddle.linalg.lstsq(card["tall"][0],
+                                         card["b96"])[0].value.cpu(),
+            paddle.linalg.lstsq(cpu["tall"][0], cpu["b96"])[0].value)
+        print(f"    {dt}: " + ", ".join(f"{n} {e:.2e}"
+                                        for n, e in worst.items())
+              + f" (largest error over the largest value; tol {tol})")
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -3486,6 +4066,10 @@ def main():
                     help="phases 1, 7 and 20 only (the build, the untied "
                     "GPT's training, and the same model written in the "
                     "Paddle nn surface); prints no kernels line")
+    ap.add_argument("--bert", action="store_true",
+                    help="phases 1 and 21 only (the build, BERT-base "
+                    "pretraining and the Paddle surface's part B); prints "
+                    "no kernels line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     try:
@@ -3555,6 +4139,13 @@ def main():
                                     use_flash_attention=True)
     train_shape = (8, train_cfg.num_heads, train_cfg.max_seq_len,
                    train_cfg.hidden_size // train_cfg.num_heads)
+    if args.bert:
+        print("[21] BERT-base pretraining and the Paddle surface's part B")
+        bert = phase_bert(torch, attn, amp, optimizer)
+        print(f"phases 1 and 21 in {time.perf_counter() - t_start:.1f} s; "
+              f"phase 21's K1/K2/K3 launches (21b, 21c, 21d) {bert}")
+        print(card_line())
+        return 0
     if args.nn:
         print("[7] train GPT-124M (untied head)")
         _, phase7 = phase_train(torch, attn, train_cfg, optimizer, nn)
@@ -3604,8 +4195,8 @@ def main():
     k1 = phase_check(torch, model, reqs, attn)
     del model
     print("[6] K2/K3 flash-attention backward vs plain")
-    k2_row, k3_row, k1b_row, k2b_row, k3b_row = phase_k2k3(torch, attn,
-                                                           train_shape)
+    (k2_row, k3_row, k1b_row, k2b_row, k3b_row,
+     *noncausal) = phase_k2k3(torch, attn, train_shape)
     print("[7] train GPT-124M (untied head)")
     (k1_train, k2, k3), phase7 = phase_train(torch, attn, train_cfg,
                                              optimizer, nn)
@@ -3664,6 +4255,10 @@ def main():
     print("[20] the Paddle nn surface: GPT-124M written in it, trained on "
           "the card")
     surface = phase_paddle_nn(torch, attn, train_cfg, optimizer, nn, phase7)
+    print("[21] BERT-base pretraining and the Paddle surface's part B: "
+          "masked attention, config 3 eager, card against CPU, the "
+          "TransformerEncoder, save/load, sparse grads, linalg")
+    bert, bert_cpu, encoder = phase_bert(torch, attn, amp, optimizer)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -3686,17 +4281,26 @@ def main():
     for row, n in zip((k1b_row, k2b_row, k3b_row, k5_row, k6_row, k7_row),
                       bf16):
         row["launches"] = n
-    print(f"phases 1-20 in {time.perf_counter() - t_start:.1f} s")
+    # the non-causal rows (phase 6's timing) on phase 21's paths: no main
+    # path runs f32 at BERT's [32,12,128,64]; 21c's card side runs
+    # [2,12,128,64], BERT-base's steps (21b) the bf16 [32,12,128,64], the
+    # encoder (21d) [8,12,512,64]
+    for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
+        for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
+            row["launches"] = n
+    print(f"phases 1-21 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+    print(json.dumps({"kernels": [{k: row[k] for k in keys + ("shape",)
+                                   if k in row}
                                   for row in (k4_row, k1_row, k1t_row,
                                               k2_row, k3_row, k1b_row,
                                               k2b_row, k3b_row, k5_row,
                                               k6_row, k7_row, k5f_row,
-                                              k6f_row, k7f_row)]}))
+                                              k6f_row, k7f_row,
+                                              *noncausal)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,7 +34,7 @@ the flash kernels); the optimizers take ``Layer.parameters()``.
 ``paddle_tpu_torch.tensor`` forwards the names as the reference's
 ``paddle.tensor`` does.
 """
-from . import amp, autograd, nn, optimizer, regularizer, tensor
+from . import amp, autograd, framework, nn, optimizer, regularizer, tensor
 from .autograd import grad
 from .core import errors
 from .core.device import (
@@ -50,6 +50,7 @@ from .core.dtype import bool_ as bool  # noqa: A004
 from .core.flags import get_flags, set_flags
 from .core.rng import default_generator, seed
 from .core.tensor import Parameter, Tensor
+from .framework.io_utils import load, save
 from . import ops  # attaches the operators and methods to Tensor
 from .ops.logic import (
     allclose, bitwise_and, bitwise_not, bitwise_or, bitwise_xor, equal,
@@ -85,6 +86,11 @@ from .ops.manipulation import (  # noqa: A004
     tolist, transpose, unbind, unsqueeze, unsqueeze_, unstack,
     view_as_complex, view_as_real, where)
 from .ops.nn_ops import one_hot
+from .ops import linalg
+from .ops.linalg import (
+    cholesky, cholesky_solve, corrcoef, cov, det, eig, eigh, eigvalsh,
+    householder_product, inverse, lstsq, lu, matrix_power, matrix_rank,
+    multi_dot, pinv, qr, slogdet, solve, svd, triangular_solve)
 from .ops.search import (
     argmax, argmin, argsort, bincount, bucketize, kthvalue, mode, nonzero,
     searchsorted, sort, topk, unique)

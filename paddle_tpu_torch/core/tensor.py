@@ -131,13 +131,24 @@ class Tensor:
 
     @property
     def grad(self):
+        """The leaf's grad; a sparse one (``Embedding(sparse=True)``'s)
+        as a ``SparseGradTensor`` over its rows."""
         v = self._value
         if not v.is_leaf or v.grad is None:
             return None
+        if v.grad.is_sparse:
+            from .sparse_grad import IndexedSlices, SparseGradTensor
+            return SparseGradTensor(IndexedSlices.from_torch(v.grad),
+                                    name=self.name + "@GRAD")
         return Tensor._wrap(v.grad, name=self.name + "@GRAD")
 
     @grad.setter
     def grad(self, g):
+        from .sparse_grad import sparse_slices
+        sl = sparse_slices(g)
+        if sl is not None:
+            self._value.grad = sl.to_torch()
+            return
         self._value.grad = None if g is None else as_torch(
             g, self._value.dtype, self._value.device)
 

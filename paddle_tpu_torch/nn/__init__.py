@@ -1,8 +1,9 @@
 """``paddle.nn`` of the port (reference ``paddle_tpu/nn/__init__.py``):
-``Layer`` and the layers whose ops the port has, ``ParamAttr``,
-``initializer``, ``functional`` and the gradient clips the optimizers
-take (``grad_clip=``)."""
-from . import functional, initializer  # noqa: F401
+``Layer`` and the layers whose ops the port has (the Transformer
+layers included), ``ParamAttr``, ``initializer``, ``functional``,
+``utils`` (the weight and spectral norm hooks) and the gradient clips
+the optimizers take (``grad_clip=``)."""
+from . import functional, initializer, utils  # noqa: F401
 from .clip import (  # noqa: F401
     ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
 )
@@ -25,5 +26,9 @@ from .layer.loss import (  # noqa: F401
     BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, KLDivLoss, L1Loss,
     MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
 )
-from .layer.norm import LayerNorm  # noqa: F401
+from .layer.norm import LayerNorm, SpectralNorm  # noqa: F401
+from .layer.transformer import (  # noqa: F401
+    MultiHeadAttention, Transformer, TransformerDecoder,
+    TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
+)
 from .layer_base import HookRemoveHelper, Layer  # noqa: F401

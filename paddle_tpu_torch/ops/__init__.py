@@ -3,14 +3,14 @@
 Kernels live in ``csrc/`` and are built at first use (``_build``); every
 kernel wrapper computes its plain PyTorch version on CPU tensors. The
 Paddle-style ops of the eager core (``math``, ``reduction``, ``logic``,
-``indexing``, ``creation``, ``manipulation``, ``search``, ``nn_ops``)
-take Tensors; importing this package attaches them to the Tensor as its
+``indexing``, ``creation``, ``manipulation``, ``search``, ``nn_ops``,
+``linalg``) take Tensors; importing this package attaches them to the Tensor as its
 operators, methods and in-place variants (reference ``ops/__init__.py``'s
 patch, for the ops ported so far).
 """
 from . import (  # noqa: F401
-    creation, indexing, logic, manipulation, math, nn_ops, reduction,
-    search)
+    creation, indexing, linalg, logic, manipulation, math, nn_ops,
+    reduction, search)
 from ..core.tensor import Tensor
 
 

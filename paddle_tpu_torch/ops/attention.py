@@ -334,12 +334,17 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, scale=None, name=None):
     """``[b, h, s, d]`` attention (reference ``ops/attention.py:366``,
     whose signature this is; ``dropout_p`` and ``training`` are taken
-    and, as there, not read). CUDA tensors go through K1 and, under
-    autograd, K2/K3 (and raise on what they cannot take, a mask
-    included); CPU tensors take the plain versions through the same
-    autograd function. Under ``amp.auto_cast`` q, k and v are cast as
-    the reference casts its ``flash_attention`` op (white list: bf16
-    under O1 and O2). Tensors of the eager core
+    and, as there, not read). The route follows the reference's
+    ``_flash_op`` (attention.py:360-363) and is chosen from the
+    arguments alone, before any launch: with an ``attn_mask`` (additive
+    float, or bool as torch's own mask is added) the plain composition
+    ``reference_attention`` on any device, under torch's autograd;
+    without one, CUDA tensors go through K1 and, under autograd, K2/K3
+    (and raise on what they cannot take: head_dim other than 64/128,
+    f16, q/k/v of unequal shapes), CPU tensors take the plain versions
+    through the same autograd function. Under ``amp.auto_cast`` q, k and
+    v are cast as the reference casts its ``flash_attention`` op (white
+    list: bf16 under O1 and O2). Tensors of the eager core
     (``paddle_tpu_torch.Tensor``) go through the core's
     ``flash_attention`` op, which runs this same function on their
     values."""
@@ -349,9 +354,6 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                          causal=bool(is_causal))
     query, key, value = cast_inputs("flash_attention", query, key, value)
     if attn_mask is not None:
-        if query.is_cuda:
-            raise NotImplementedError(
-                "attn_mask: the flash kernel takes no additive mask")
         with op_body():
             return reference_attention(query, key, value, attn_mask,
                                        float(sc), bool(is_causal))
@@ -361,14 +363,17 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 @register_op("flash_attention")
 def _flash_op(q, k, v, mask, *, scale, causal):
-    """The core's attention op. The Paddle surface's q, k and v are
-    views (``transpose`` then ``unbind`` of the fused QKV), so they are
-    made contiguous here, a copy, before K1; the grad that reaches K2/K3
-    is made contiguous by ``flash_attention_backward``. An operand the
-    kernels cannot take (a mask, head_dim 32, f16) still raises on the
-    card."""
+    """The core's attention op. With a mask it is the reference's
+    composition (``_flash_op``, attention.py:360-362), on any device.
+    Without one, the Paddle surface's q, k and v are views
+    (``transpose`` then ``unbind`` of the fused QKV), so they are made
+    contiguous here, a copy, before K1; the grad that reaches K2/K3 is
+    made contiguous by ``flash_attention_backward``. An operand the
+    kernels cannot take (head_dim 32, f16) still raises on the card."""
+    if mask is not None:
+        return reference_attention(q, k, v, mask, scale, causal)
     return scaled_dot_product_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), mask,
+        q.contiguous(), k.contiguous(), v.contiguous(), None,
         is_causal=causal, scale=scale)
 
 

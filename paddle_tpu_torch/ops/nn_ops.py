@@ -387,8 +387,14 @@ def alpha_dropout(x, p=0.5, training=True, name=None, generator=None):
 # ---- embedding / one_hot -------------------------------------------------------
 
 @register_op("lookup_table_v2")
-def _embedding(ids, weight, *, padding_idx):
-    out = F.embedding(ids.long(), weight)
+def _embedding(ids, weight, *, padding_idx, sparse=False):
+    if sparse:
+        # the table's grad is a sparse COO tensor over the looked-up
+        # rows; torch's embedding backward drops the padding_idx rows
+        out = F.embedding(ids.long(), weight, padding_idx=padding_idx,
+                          sparse=True)
+    else:
+        out = F.embedding(ids.long(), weight)
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((ids != padding_idx)[..., None], out,
                           torch.zeros_like(out))
@@ -397,18 +403,18 @@ def _embedding(ids, weight, *, padding_idx):
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     """The rows of ``weight`` at ``x``; the ``padding_idx`` positions
-    give zeros (and no grad), as reference lookup_table_v2_op. The
-    grad of ``weight`` is dense; ``sparse=True`` (row-sparse grads)
-    raises until the port has sparse grads."""
-    if sparse:
-        raise NotImplementedError(
-            "embedding(sparse=True): sparse grads are not ported yet")
+    give zeros (and no grad), as reference lookup_table_v2_op. With
+    ``sparse=True`` the grad of ``weight`` is row-sparse (reference
+    ``_embedding_sparse_grad``, nn_ops.py:754-830; SelectedRows): a
+    sparse COO tensor on its torch leaf, which the core's ``.grad``
+    wraps as a ``SparseGradTensor``, with no rows at ``padding_idx``;
+    otherwise it is dense."""
     pi = None
     if padding_idx is not None:
         pi = int(padding_idx)
         if pi < 0:
             pi = weight.shape[0] + pi
-    return _embedding(x, weight, padding_idx=pi)
+    return _embedding(x, weight, padding_idx=pi, sparse=bool(sparse))
 
 
 @register_op("one_hot_v2", differentiable=False)
@@ -556,7 +562,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
     if reduction != "mean":
         raise ValueError(f"reduction must be 'mean', 'sum' or 'none', got "
                          f"{reduction!r}")
-    n_valid = (label != ignore_index).sum().to(total.dtype)
+    # the count is f32, as the reference's valid mask (nn_ops.py:924):
+    # a bf16 sum over it gives an f32 mean, as there
+    n_valid = (label != ignore_index).sum().to(torch.float32)
     return total / n_valid.clamp(min=1e-12)
 
 
@@ -796,3 +804,34 @@ def sequence_mask(lengths, maxlen=None, dtype="int64"):
     mask = row < lv[..., None]
     return Tensor._wrap(mask.to(dtype_mod.to_torch_dtype(dtype)))
 
+
+# ---- normalization -------------------------------------------------------------
+
+@register_op("spectral_norm_op")
+def _spectral_norm(weight, u, v, *, dim, power_iters, eps):
+    """Reference spectral_norm_op (nn_ops.py:534-557): a power iteration
+    for the largest singular value of ``weight`` flattened around
+    ``dim``; the new u and v are constants for the gradient (the
+    reference's ``stop_gradient``), so they iterate on the detached
+    matrix and only ``sigma = u . (W v)`` carries the grad."""
+    perm = (dim,) + tuple(i for i in range(weight.dim()) if i != dim)
+    mat = weight.permute(perm).reshape(weight.shape[dim], -1)
+    fixed = mat.detach()
+
+    def _l2(x):
+        return x / (torch.linalg.vector_norm(x) + eps)
+
+    uu, vv = u, v
+    for _ in range(max(1, power_iters)):
+        vv = _l2(fixed.t() @ uu)
+        uu = _l2(fixed @ vv)
+    sigma = uu @ (mat @ vv)
+    return weight / sigma, uu, vv
+
+
+def spectral_norm(weight, u, v, dim=0, power_iters=1, eps=1e-12,
+                  name=None):
+    """``(weight / sigma, u, v)``: the weight over its power-iteration
+    estimate of its largest singular value, and the refreshed state."""
+    return _spectral_norm(weight, u, v, dim=int(dim),
+                          power_iters=int(power_iters), eps=float(eps))

@@ -19,6 +19,12 @@ f32 learning-rate tensor holds it; an ``LRScheduler`` writes into it.
 Inside an ``amp.auto_cast`` the update runs uncast, like the body of a
 port op.
 
+A sparse grad (``nn.Embedding(sparse=True)``'s, a sparse COO tensor on
+the leaf) is coalesced and goes to the optimizer's ``_apply_sparse``:
+SGD and Adam/AdamW update the looked-up rows (Adam's default
+``lazy_mode=False`` is dense-equivalent), and the other optimizers
+densify it (reference ``optimizer.py:114-125``).
+
 The parameters are torch tensors (the GPT's) or the eager core's
 ``Parameter``s (``nn.Layer.parameters()``): a ``Parameter``'s torch
 leaf is updated in place, so the ``Parameter`` keeps its identity and
@@ -35,12 +41,19 @@ optimizer's state across.
 import torch
 
 from ..amp.auto_cast import op_body
+from ..core.sparse_grad import sparse_slices
 from ..core.tensor import Tensor
 from .lr import LRScheduler
 
 
 def _f32(x):
     return float(torch.tensor(float(x), dtype=torch.float32))
+
+
+def _dense(grad):
+    """A grad as a dense torch tensor (a sparse one summed into its
+    rows)."""
+    return grad.to_dense() if grad.is_sparse else grad
 
 
 def _leaf(entry):
@@ -141,19 +154,24 @@ class Optimizer:
         params_grads = [(p, _leaf(p).grad) for _, p in self._params
                         if _leaf(p).grad is not None
                         and _leaf(p).requires_grad]
-        for _, g in params_grads:
-            if g.is_sparse:
-                raise NotImplementedError("sparse grads are not ported")
         with op_body():
             if self._grad_clip is not None:
                 params_grads = self._grad_clip(params_grads)
             if self._l1_coeff:
                 c = self._l1_coeff
-                params_grads = [(p, g + c * torch.sign(_leaf(p).to(g.dtype)))
-                                for p, g in params_grads]
+                params_grads = [(p, _dense(g) + c * torch.sign(
+                    _leaf(p).to(g.dtype))) for p, g in params_grads]
             names = {id(p): n for n, p in self._params}
             for p, g in params_grads:
-                self._apply_one(names[id(p)], _leaf(p), g)
+                rows = sparse_slices(g)
+                if rows is not None:
+                    # the rows the grad touches (reference
+                    # optimizer.py:114-125: coalesced, then the
+                    # optimizer's sparse update)
+                    self._apply_sparse(names[id(p)], _leaf(p),
+                                       rows.coalesce())
+                else:
+                    self._apply_one(names[id(p)], _leaf(p), g)
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
@@ -231,3 +249,8 @@ class Optimizer:
 
     def _apply_one(self, name, param, grad):
         raise NotImplementedError
+
+    def _apply_sparse(self, name, param, rows):
+        """An optimizer without a sparse update densifies (reference
+        ``Optimizer._apply_sparse``)."""
+        self._apply_one(name, param, rows.to_dense())

@@ -6,7 +6,11 @@ Plain PyTorch: the reference has no Pallas kernel here either (one XLA
 fusion per parameter). Each update function follows the reference's
 ``register_op`` function of the same name in its order of operations,
 computes in f32 and writes the parameter and its f32 state in place;
-one chain of launches per parameter.
+one chain of launches per parameter. SGD and Adam/AdamW also update a
+sparse grad's rows (``_apply_sparse``, reference optimizers.py:41-108
+and :204-320); Momentum's sparse update is dense-equivalent in the
+reference (absent rows see grad 0), which the base class's densified
+update is.
 """
 import torch
 
@@ -55,6 +59,87 @@ def _adam(param, grad, m, v, beta1_pow, beta2_pow, lr, *, beta1, beta2,
     if wd and decoupled:
         update = update + wd * p32
     param.copy_(p32 - lr * update)
+
+
+# ---- sparse (SelectedRows) row updates --------------------------------------
+# Reference optimizers.py:41-108. ``rows`` is a coalesced IndexedSlices:
+# unique sorted row indices and their grads. index_select / index_copy_
+# / index_add_ read and write those rows alone.
+
+def _sgd_sparse(param, rows, lr, *, wd):
+    idx = rows.indices
+    p_rows = param.index_select(0, idx).float()
+    g = rows.values.float()
+    if wd:
+        g = g + wd * p_rows
+    param.index_copy_(0, idx, (p_rows - lr * g).to(param.dtype))
+
+
+def _adam_rows_lazy(param, rows, m, v, beta1_pow, beta2_pow, lr, *, beta1,
+                    beta2, epsilon, wd, decoupled):
+    """``lazy_mode=True``: only the looked-up rows of the parameter and
+    its moments change, in the reference's order (the learning rate
+    inside the update, the decoupled decay ``lr * wd * p`` added to
+    it)."""
+    idx = rows.indices
+    g = rows.values.float()
+    p_rows = param.index_select(0, idx).float()
+    if wd and not decoupled:
+        g = g + wd * p_rows
+    beta1_pow.mul_(beta1)
+    beta2_pow.mul_(beta2)
+    m_rows = beta1 * m.index_select(0, idx) + (1.0 - beta1) * g
+    v_rows = beta2 * v.index_select(0, idx) + (1.0 - beta2) * g * g
+    m_hat = m_rows / (1.0 - beta1_pow)
+    v_hat = v_rows / (1.0 - beta2_pow)
+    upd = lr * m_hat / (v_hat.sqrt() + epsilon)
+    if wd and decoupled:
+        upd = upd + lr * wd * p_rows
+    param.index_copy_(0, idx, (p_rows - upd).to(param.dtype))
+    m.index_copy_(0, idx, m_rows)
+    v.index_copy_(0, idx, v_rows)
+
+
+_ROW_CHUNK = 1 << 16
+
+
+def _adam_rows_dense(param, rows, m, v, beta1_pow, beta2_pow, lr, *, beta1,
+                     beta2, epsilon, wd, decoupled):
+    """``lazy_mode=False``: the dense update with the grad zero on the
+    rows it does not touch, so every moment decays and every parameter
+    keeps moving, as ``_adam`` would move them; the grad itself is never
+    made dense. The moments of the absent rows take ``beta * m`` (the
+    dense ``beta * m + (1 - beta) * 0``), the looked-up rows the dense
+    expressions; the update then runs over chunks of rows, so no
+    temporary is as large as the table. With coupled L2 decay the grad
+    is ``wd * p`` on every row, dense by nature, and ``_adam`` takes
+    it."""
+    idx = rows.indices
+    if wd and not decoupled:
+        g = wd * param.float()
+        g.index_add_(0, idx, rows.values.float())
+        _adam(param, g, m, v, beta1_pow, beta2_pow, lr, beta1=beta1,
+              beta2=beta2, epsilon=epsilon, wd=0.0, decoupled=False)
+        return
+    g = rows.values.float()
+    m_rows = m.index_select(0, idx)
+    v_rows = v.index_select(0, idx)
+    m.mul_(beta1)
+    v.mul_(beta2)
+    m_rows.mul_(beta1).add_(g, alpha=1.0 - beta1)
+    v_rows.mul_(beta2).addcmul_(g, g, value=1.0 - beta2)
+    m.index_copy_(0, idx, m_rows)
+    v.index_copy_(0, idx, v_rows)
+    beta1_pow.mul_(beta1)
+    beta2_pow.mul_(beta2)
+    for r in range(0, param.shape[0], _ROW_CHUNK):
+        sl = slice(r, r + _ROW_CHUNK)
+        p32 = param[sl].float()
+        update = (m[sl] / (1.0 - beta1_pow)) / (
+            (v[sl] / (1.0 - beta2_pow)).sqrt() + epsilon)
+        if wd:
+            update = update + wd * p32
+        param[sl] = p32 - lr * update
 
 
 def _adamax(param, grad, m, inf_norm, beta1_pow, lr, *, beta1, beta2,
@@ -152,6 +237,9 @@ class SGD(Optimizer):
     def _apply_one(self, name, p, g):
         _sgd(p, g, self._lr, wd=self._weight_decay)
 
+    def _apply_sparse(self, name, p, rows):
+        _sgd_sparse(p, rows, self._lr, wd=self._weight_decay)
+
 
 class Momentum(Optimizer):
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
@@ -182,8 +270,8 @@ class Adam(Optimizer):
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
-        # lazy_mode: only sparse grads read it in the reference, and they
-        # raise here
+        # lazy_mode: read by the sparse update alone, as in the reference
+        self._lazy_mode = bool(lazy_mode)
 
     def _apply_one(self, name, p, g, wd=None):
         _adam(
@@ -193,6 +281,17 @@ class Adam(Optimizer):
             beta1=self._beta1, beta2=self._beta2, epsilon=self._epsilon,
             wd=self._weight_decay if wd is None else wd,
             decoupled=self._decoupled)
+
+    def _apply_sparse(self, name, p, rows, wd=None):
+        """Reference ``_adam_sparse``: ``lazy_mode=True`` updates the
+        looked-up rows alone; the default is dense-equivalent."""
+        fn = _adam_rows_lazy if self._lazy_mode else _adam_rows_dense
+        fn(p, rows, self._acc("moment1", p), self._acc("moment2", p),
+           self._acc("beta1_pow", p, 1.0, ()),
+           self._acc("beta2_pow", p, 1.0, ()), self._lr,
+           beta1=self._beta1, beta2=self._beta2, epsilon=self._epsilon,
+           wd=self._weight_decay if wd is None else wd,
+           decoupled=self._decoupled)
 
 
 class AdamW(Adam):
@@ -216,6 +315,11 @@ class AdamW(Adam):
         fun = self._apply_decay_param_fun
         super()._apply_one(name, p, g,
                            0.0 if fun is not None and not fun(name) else wd)
+
+    def _apply_sparse(self, name, p, rows, wd=None):
+        fun = self._apply_decay_param_fun
+        super()._apply_sparse(
+            name, p, rows, 0.0 if fun is not None and not fun(name) else wd)
 
 
 class Adamax(Optimizer):

@@ -3,7 +3,7 @@ op modules under the reference's submodule names
 (``paddle.tensor.math.add``, ``paddle.tensor.creation.zeros``, ...), and
 every tensor function of the package forwarded at this level
 (``paddle.tensor.add is paddle.add``)."""
-from ..ops import creation, logic, manipulation, math, search  # noqa: F401
+from ..ops import creation, linalg, logic, manipulation, math, search  # noqa: F401,E501
 from ..ops import reduction as stat  # noqa: F401
 from . import array, attribute, random, to_string  # noqa: F401
 

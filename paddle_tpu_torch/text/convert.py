@@ -1,7 +1,9 @@
 """Weights and optimizer state carried across from the JAX reference.
 
-A ``paddle_tpu`` ``state_dict()`` (as numpy arrays) uses the same names
-as the port's modules. Paddle's ``Linear.weight`` is ``[in, out]`` and
+A ``paddle_tpu`` ``state_dict()`` (as numpy arrays) of a GPT or a
+``BertForPretraining`` uses the same names as the port's modules (for
+BERT also the token-type table, the pooler, the MLM transform and its
+LayerNorm and the NSP head; its MLM head is the word embedding). Paddle's ``Linear.weight`` is ``[in, out]`` and
 torch's is ``[out, in]``, so linear weights are transposed; embeddings
 and LayerNorm parameters are copied as they are. An optimizer's state
 is keyed ``f"{param name}_{kind}"``, with the reference's

@@ -1,4 +1,5 @@
-"""GPT causal LM (single-device branches of ``paddle_tpu/text/models.py``).
+"""GPT causal LM and BERT pretraining (single-device branches of
+``paddle_tpu/text/models.py``).
 
 ``torch.nn.Module``s with the reference's names, so a reference
 ``state_dict()`` loads through ``text.convert``: pre-norm blocks,
@@ -72,23 +73,26 @@ class TransformerLMConfig:
 
 
 class SelfAttention(nn.Module):
-    """Fused-QKV causal attention."""
+    """Fused-QKV attention, causal (the GPT's) or not (BERT's)."""
 
-    def __init__(self, cfg, device=None, dropout_generator=None):
+    def __init__(self, cfg, device=None, dropout_generator=None,
+                 causal=True):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_heads
         self.head_dim = h // cfg.num_heads
+        self.causal = causal
         self.dropout = cfg.dropout
         self.dropout_generator = dropout_generator
         self.qkv = nn.Linear(h, 3 * h, device=device)
         self.out = nn.Linear(h, h, device=device)
 
-    def forward(self, x):
+    def forward(self, x, attn_mask=None):
         b, s, h = x.shape
         qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-        o = attn_ops.scaled_dot_product_attention(q, k, v, is_causal=True)
+        o = attn_ops.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, is_causal=self.causal)
         o = self.out(o.transpose(1, 2).reshape(b, s, h))
         if self.dropout:
             o = nn_ops.dropout(o, self.dropout, training=self.training,
@@ -115,18 +119,24 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block."""
+    """Transformer block: pre-norm (the GPT's) or post-norm (BERT's,
+    ``ln1(x + attn(x))`` then ``ln2(x + mlp(x))``)."""
 
-    def __init__(self, cfg, device=None, dropout_generator=None):
+    def __init__(self, cfg, device=None, dropout_generator=None,
+                 causal=True, pre_norm=True):
         super().__init__()
+        self.pre_norm = pre_norm
         self.ln1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
-        self.attn = SelfAttention(cfg, device, dropout_generator)
+        self.attn = SelfAttention(cfg, device, dropout_generator, causal)
         self.ln2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
         self.mlp = MLP(cfg, device, dropout_generator)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, attn_mask=None):
+        if self.pre_norm:
+            x = x + self.attn(self.ln1(x), attn_mask)
+            return x + self.mlp(self.ln2(x))
+        x = self.ln1(x + self.attn(x, attn_mask))
+        return self.ln2(x + self.mlp(x))
 
 
 @contextmanager
@@ -154,50 +164,65 @@ class _BlockRecompute(torch.autograd.Function):
     recomputation and the state the forward left is put back after it.
     ``amp.auto_cast`` is a ``TorchFunctionMode`` that the backward would
     run outside of, so the forward's cast state is re-entered too.
-    ``params`` are the block's parameters, passed so that autograd gives
-    them their grads."""
+    ``mask`` is the attention mask (or None), a constant; ``params`` are
+    the block's parameters, passed so that autograd gives them their
+    grads."""
 
     @staticmethod
-    def forward(ctx, block, generator, x, *params):
-        ctx.block, ctx.generator = block, generator
+    def forward(ctx, block, generator, mask, x, *params):
+        ctx.block, ctx.generator, ctx.mask = block, generator, mask
         ctx.rng_state = None if generator is None else generator.get_state()
         ctx.amp = amp_state()
         ctx.save_for_backward(x)
-        return block(x)
+        return block(x, mask)
 
     @staticmethod
     def backward(ctx, grad):
         (x,) = ctx.saved_tensors
-        needs = ctx.needs_input_grad[2:]
+        needs = ctx.needs_input_grad[3:]
         x = x.detach().requires_grad_(needs[0])
         with torch.enable_grad(), \
                 _rng_replay(ctx.generator, ctx.rng_state), resume(ctx.amp):
-            y = ctx.block(x)
+            y = ctx.block(x, ctx.mask)
         inputs = [x, *ctx.block.parameters()]
         got = iter(torch.autograd.grad(
             y, [t for t, n in zip(inputs, needs) if n], grad,
             allow_unused=True))
-        return (None, None, *(next(got) if n else None for n in needs))
+        return (None, None, None,
+                *(next(got) if n else None for n in needs))
 
 
 class _TransformerCore(nn.Module):
-    def __init__(self, cfg, device=None, dropout_generator=None):
+    """Embeddings, blocks and the final LayerNorm (reference
+    ``_TransformerCore``, models.py:134-211). ``causal``/``pre_norm``:
+    the GPT's (True, True) or BERT's (False, False); a BERT core adds
+    token-type embeddings. ``ln_f`` is a parameter of every core, but
+    only a pre-norm core applies it, as the reference's."""
+
+    def __init__(self, cfg, device=None, dropout_generator=None,
+                 causal=True, pre_norm=True, with_token_type=False):
         super().__init__()
         self.cfg = cfg
         self.dropout_generator = dropout_generator
+        self.pre_norm = pre_norm
         self.word_embeddings = nn.Embedding(cfg.vocab_size,
                                             cfg.hidden_size, device=device)
         self.position_embeddings = nn.Embedding(
             cfg.max_seq_len, cfg.hidden_size, device=device)
+        self.token_type_embeddings = nn.Embedding(
+            2, cfg.hidden_size, device=device) if with_token_type else None
         self.blocks = nn.ModuleList(
-            [Block(cfg, device, dropout_generator)
+            [Block(cfg, device, dropout_generator, causal, pre_norm)
              for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, token_type_ids=None, attn_mask=None):
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)
         x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
+        if self.token_type_embeddings is not None \
+                and token_type_ids is not None:
+            x = x + self.token_type_embeddings(token_type_ids)
         if self.cfg.dropout:
             x = nn_ops.dropout(x, self.cfg.dropout, training=self.training,
                                generator=self.dropout_generator)
@@ -209,11 +234,12 @@ class _TransformerCore(nn.Module):
                 if gen is None:
                     gen = rng.default_generator(x.device)
             for blk in self.blocks:
-                x = _BlockRecompute.apply(blk, gen, x, *blk.parameters())
+                x = _BlockRecompute.apply(blk, gen, attn_mask, x,
+                                          *blk.parameters())
         else:
             for blk in self.blocks:
-                x = blk(x)
-        return self.ln_f(x)
+                x = blk(x, attn_mask)
+        return self.ln_f(x) if self.pre_norm else x
 
 
 class GPTModel(_TransformerCore):
@@ -600,3 +626,85 @@ def decode_forward_builder(num_heads, head_dim, hidden_size):
         return layers_t(pr, x, attend)
 
     return layers_t, hidden_t
+
+
+class BertModel(_TransformerCore):
+    """Encoder core (BERT style: post-norm, non-causal, token types; the
+    reference's ``BertModel``, models.py:812-824) and its pooler
+    ``tanh(Linear(h[:, 0]))``."""
+
+    def __init__(self, cfg, device=None, dropout_generator=None):
+        super().__init__(cfg, device, dropout_generator, causal=False,
+                         pre_norm=False, with_token_type=True)
+        self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size,
+                                device=device)
+
+    def forward(self, input_ids, token_type_ids=None, attn_mask=None):
+        h = super().forward(input_ids, token_type_ids, attn_mask)
+        return h, torch.tanh(self.pooler(h[:, 0]))
+
+
+class BertForPretraining(nn.Module):
+    """MLM and NSP heads over ``BertModel`` (reference models.py:826-855,
+    the objective of its config 3, BERT-base pretraining). The MLM
+    transform is ``gelu(approximate=True)`` then LayerNorm; its logits
+    are ``t @ word_embeddings.weight^T`` (the head tied to the word
+    embeddings); the loss is the mean cross-entropy over the positions
+    whose label is not -1, plus the NSP cross-entropy of
+    ``nsp_head(pooled)`` when ``next_sentence_labels`` are given.
+
+    Built on the card unless ``device`` says otherwise. The weights are
+    made from ``generator`` (a CPU ``torch.Generator``; without one, the
+    port's default CPU generator, which ``paddle_tpu_torch.seed`` seeds),
+    never from torch's global one: the modules are built on the meta
+    device and every matrix and embedding drawn N(0,
+    initializer_range), biases 0, LayerNorm 1/0."""
+
+    def __init__(self, cfg, device=None, generator=None,
+                 dropout_generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        h = cfg.hidden_size
+        meta = torch.device("meta")
+        self.bert = BertModel(cfg, meta, dropout_generator)
+        self.mlm_transform = nn.Linear(h, h, device=meta)
+        self.mlm_ln = nn.LayerNorm(h, eps=1e-5, device=meta)
+        self.nsp_head = nn.Linear(h, 2, device=meta)
+        self.to_empty(device=dev)
+        self.init_weights(generator)
+
+    def init_weights(self, generator=None):
+        if generator is None:
+            generator = rng.default_generator(torch.device("cpu"))
+        GPTForCausalLM.init_weights(self, generator)
+
+    @property
+    def device(self):
+        return self.bert.word_embeddings.weight.device
+
+    def forward(self, input_ids, token_type_ids=None, masked_lm_labels=None,
+                next_sentence_labels=None):
+        h, pooled = self.bert(input_ids, token_type_ids)
+        t = self.mlm_ln(F.gelu(self.mlm_transform(h), approximate="tanh"))
+        logits = torch.matmul(t, self.bert.word_embeddings.weight.t())
+        if masked_lm_labels is None:
+            return logits
+        loss = nn_ops.cross_entropy(
+            logits.reshape(-1, self.cfg.vocab_size),
+            masked_lm_labels.reshape(-1), ignore_index=-1)
+        if next_sentence_labels is not None:
+            loss = loss + nn_ops.cross_entropy(
+                self.nsp_head(pooled), next_sentence_labels.reshape(-1))
+        return loss
+
+
+def bert_base(vocab_size=30522, max_seq_len=512, device=None,
+              generator=None, dropout_generator=None, **kwargs):
+    """BERT-base pretraining (reference ``bert_base``, models.py:858-862;
+    its BASELINE config 3): hidden 768, 12 layers, 12 heads, about 110 M
+    parameters."""
+    cfg = TransformerLMConfig(vocab_size=vocab_size, hidden_size=768,
+                              num_layers=12, num_heads=12,
+                              max_seq_len=max_seq_len, **kwargs)
+    return BertForPretraining(cfg, device, generator, dropout_generator)

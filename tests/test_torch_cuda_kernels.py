@@ -330,6 +330,59 @@ def test_flash_backward_kernels_match_plain(dev, s, d, causal, dtype, tol):
         assert err <= tol * max(want.abs().max().item(), 1.0)
 
 
+@pytest.mark.parametrize("dtype,tol,btol", [(torch.float32, 2e-5, 1e-4),
+                                            (torch.bfloat16, 1e-2, 5e-3)])
+def test_noncausal_kernels_at_bert_shape(dev, dtype, tol, btol):
+    """K1, K2 and K3 non-causal at BERT-base pretraining's shape
+    [32, 12, 128, 64] (two 64-key tiles a row, no causal skip) against
+    their plain versions; bf16 against the plain versions that round P
+    (and dS) to bf16 as the kernels do. K1's O and LSE within ``tol``,
+    the grads within ``btol`` of the largest grad."""
+    q, k, v, do, lse, delta = _bwd_inputs(dev, (32, 12, 128, 64), dtype,
+                                          False, 128)
+    p_dtype = torch.bfloat16 if dtype == torch.bfloat16 else None
+    o, lse2 = attn.flash_attention_forward(q, k, v, 0.125, False)
+    ro, rlse = attn.flash_attention_plain(q, k, v, 0.125, False,
+                                          p_dtype=p_dtype)
+    assert (o.float() - ro.float()).abs().max().item() <= tol
+    assert (lse2 - rlse).abs().max().item() <= 5e-5
+    dq = attn.flash_bwd_dq(q, k, v, lse, do, delta, 0.125, False)
+    dk, dv = attn.flash_bwd_dkv(q, k, v, lse, do, delta, 0.125, False)
+    ref = attn.flash_attention_backward_plain(
+        q.float(), k.float(), v.float(), lse, do.float(), delta, 0.125,
+        False, p_dtype=p_dtype)
+    for got, want in zip((dq, dk, dv), ref):
+        err = (got.float() - want).abs().max().item()
+        assert err <= btol * want.abs().max().item()
+
+
+def test_bert_step_launches_k1_k2_k3_once_a_layer(dev):
+    """A BERT-base pretraining step (12 layers, non-causal, under
+    amp.auto_cast O1 bf16) launches K1, K2 and K3 12 times each; the loss
+    is f32 and finite."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import bert_base
+    model = bert_base(max_seq_len=128, dropout=0.0,
+                      generator=torch.Generator().manual_seed(0))
+    opt = AdamW(1e-4, parameters=model.named_parameters(),
+                weight_decay=0.01)
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, 30522, (2, 128))).to(dev)
+    mlm = torch.where(torch.rand(2, 128, device=dev) < 0.15, ids, -1)
+    nsp = torch.tensor([[0], [1]], device=dev)
+    n = (attn.flash_attention_forward.launches, attn.flash_bwd_dq.launches,
+         attn.flash_bwd_dkv.launches)
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = model(ids, torch.zeros_like(ids), mlm, nsp)
+    loss.backward()
+    opt.step()
+    assert (attn.flash_attention_forward.launches,
+            attn.flash_bwd_dq.launches,
+            attn.flash_bwd_dkv.launches) == tuple(c + 12 for c in n)
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+
+
 @pytest.mark.parametrize("which", ["q", "k", "v", "do"])
 @pytest.mark.parametrize("d", [64, 128])
 def test_f32_flash_backward_misaligned_operand(dev, which, d):
@@ -469,16 +522,23 @@ def test_flash_kernel_rejects_and_backward_launches_k2_k3(dev):
                           True)
     with pytest.raises(ValueError):
         attn.flash_bwd_dkv(q, k, v, lse.cpu(), do, delta, 0.125, True)
-    with pytest.raises(NotImplementedError):
-        attn.scaled_dot_product_attention(q, q, q, attn_mask=q[0, 0])
+    # a mask takes the reference's composition (its _flash_op), no K1
+    mask = torch.zeros(77, 77, device=dev).masked_fill(
+        torch.ones(77, 77, dtype=torch.bool, device=dev).triu(1), -1e9)
+    n1 = attn.flash_attention_forward.launches
+    got = attn.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    assert attn.flash_attention_forward.launches == n1
+    torch.testing.assert_close(
+        got, attn.reference_attention(q, k, v, mask, 0.125, False),
+        atol=0, rtol=0)
 
 
 def test_core_attention_op_takes_transposed_unbound_qkv(dev):
     """The core's flash_attention op on the Paddle surface's q, k, v
     (views of a fused QKV after transpose and unbind, non-contiguous)
     makes them contiguous and launches K1, then K2/K3 in backward() on a
-    strided grad; the values and grads match the plain versions. A mask
-    still raises."""
+    strided grad; the values and grads match the plain versions. With a
+    mask it computes the reference's composition and launches no K1."""
     import paddle_tpu_torch as paddle
     g = torch.Generator().manual_seed(3)
     b, s, nh, hd = 2, 77, 3, 64
@@ -506,10 +566,15 @@ def test_core_attention_op_takes_transposed_unbound_qkv(dev):
     want.permute(0, 2, 1, 3).backward(do)
     torch.testing.assert_close(out.value, want, atol=2e-5, rtol=2e-5)
     torch.testing.assert_close(x.grad.value, tx.grad, atol=1e-4, rtol=1e-4)
-    with pytest.raises(NotImplementedError):
-        paddle.nn.functional.scaled_dot_product_attention(
-            q, k, v, attn_mask=paddle.to_tensor(np.zeros((s, s), np.float32),
-                                                place=card))
+    mask_np = np.triu(np.full((s, s), -1e9, np.float32), 1)
+    n1 = attn.flash_attention_forward.launches
+    got = paddle.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=paddle.to_tensor(mask_np, place=card))
+    assert attn.flash_attention_forward.launches == n1
+    torch.testing.assert_close(
+        got.value, attn.reference_attention(
+            q.value, k.value, v.value, torch.from_numpy(mask_np).to(dev),
+            hd ** -0.5, False), atol=0, rtol=0)
 
 
 def test_layer_to_the_card_keeps_its_parameters(dev):

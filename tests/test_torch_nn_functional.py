@@ -379,7 +379,8 @@ def test_cross_entropy_logits_grad():
 def test_embedding_weight_grad_scatter():
     """test_autograd.py::test_embedding_grad_scatter and
     test_op_grads_sweep.py::test_embedding_weight: the dense grad adds
-    one row a lookup."""
+    one row a lookup; with ``sparse=True`` the grad is row-sparse and
+    sums to the same (tests/test_torch_sparse_grad.py)."""
     w_np = np.random.RandomState(2).randn(10, 4)
     for P in (ref, paddle):
         w = P.to_tensor(w_np, stop_gradient=False)
@@ -388,10 +389,11 @@ def test_embedding_weight_grad_scatter():
         assert g[1].sum() == pytest.approx(8.0)
         assert g[3].sum() == pytest.approx(4.0)
         assert g[0].sum() == 0
-    with pytest.raises(NotImplementedError):
-        F(paddle).embedding(paddle.to_tensor(np.array([1])),
-                            paddle.to_tensor(w_np, stop_gradient=False),
-                            sparse=True)
+    w = paddle.to_tensor(w_np, stop_gradient=False)
+    F(paddle).embedding(paddle.to_tensor(np.array([1, 1, 3])), w,
+                        sparse=True).sum().backward()
+    assert w.grad.is_sparse()
+    np.testing.assert_array_equal(w.grad.numpy(), g)
 
 
 # ---------------------------------------------------------------- dropout

@@ -180,10 +180,12 @@ def test_adam_updates_match_reference(which, kw):
 
 
 def test_optimizer_rejects_what_is_not_ported():
-    """Sparse grads raise; so do a weight_decay that is neither a float
-    nor a regularizer and a missing parameter list. ``lr_ratio`` and
-    ``multi_precision`` are taken (and, as in the reference, not read:
-    tests/test_torch_optimizers.py)."""
+    """A weight_decay that is neither a float nor a regularizer and a
+    missing parameter list raise. ``lr_ratio`` and ``multi_precision``
+    are taken (and, as in the reference, not read:
+    tests/test_torch_optimizers.py). A sparse grad takes the sparse
+    update (tests/test_torch_sparse_grad.py), here the dense one's
+    bits."""
     p = torch.nn.Parameter(torch.ones(3))
     topt.AdamW(1e-3, parameters=[p], lr_ratio=lambda n: 1.0)
     topt.Adam(1e-3, parameters=[p], multi_precision=True)
@@ -193,8 +195,12 @@ def test_optimizer_rejects_what_is_not_ported():
         topt.Adam(1e-3)
     opt = topt.Adam(1e-3, parameters=[p])
     p.grad = torch.ones(3).to_sparse()
-    with pytest.raises(NotImplementedError):
-        opt.step()
+    opt.step()
+    q = torch.nn.Parameter(torch.ones(3))
+    dense = topt.Adam(1e-3, parameters=[q])
+    q.grad = torch.ones(3)
+    dense.step()
+    assert torch.equal(p, q) and not torch.equal(p, torch.ones(3))
 
 
 def _clip_inputs(seed=1):
