@@ -3,8 +3,8 @@
 
 Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 (``--fleet`` runs phases 1, 4, 16, 17 and 18 alone, ``--nn`` phases 1,
-7 and 20 alone, ``--bert`` phases 1 and 21 alone; none prints the
-kernels line)
+7 and 20 alone, ``--bert`` phases 1 and 21 alone, ``--vision`` phases 1
+and 22 alone; none prints the kernels line)
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -268,6 +268,32 @@ Phases, one line each:
              a dense-grad Adam's, untouched rows unchanged when lazy;
              21f solve, cholesky, svd, qr, eigh, lu, det and lstsq on
              f32 and f64 batches held to the CPU tests' invariants.
+ 22. vision  the vision surface, which runs no TPU kernel (the reference
+             computes it in XLA: cuDNN's convolutions and plain torch
+             here, so no kernel row): 22a ResNet-50's ops at its shapes
+             with batch 2, card against CPU in f32 (the 7x7/2 stem, a
+             bottleneck's 1x1 and 3x3/2, the 1x1/2 downsample,
+             MobileNetV2's depthwise 3x3/2, MaxPool2D(3, 2, 1) with its
+             grad and mask on planted ties (bits), BatchNorm2D train with
+             the running buffers after the step and eval,
+             AdaptiveAvgPool2D((1, 1)), interpolate in each mode and
+             alignment, grid_sample in each padding); 22b the reference's
+             config 2 (bench.py:186-211) eager: resnet50(num_classes=1000)
+             from paddle_tpu_torch.seed(0), Momentum(0.1, 0.9,
+             weight_decay 1e-4), CrossEntropyLoss under amp.auto_cast O2
+             bf16, the same seeded batch of 128 x [3, 224, 224] for 8
+             steps: every loss finite, the last below the first; median
+             step ms of steps 2-8, samples/s, the steps' own peak memory;
+             two steps under torch.profiler: the idle share, then with a
+             sync closing forward, backward and optimizer, launches and
+             device ms a step by class; eval() and the O2 forward's
+             images/s, its argmax the f32 forward's on every row with a
+             clear margin; 22c resnet18(num_classes=10) built on the CPU
+             and its card twin, 2 Momentum steps on [2, 3, 64, 64]: the
+             losses, every grad and the running statistics; LeNet and
+             mobilenet_v2 (eval) forward; 22d the reference's config 1
+             (tools/baseline_bench.py:27-45): LeNet, Adam 1e-3, batch 64,
+             20 steps eager, the median step ms.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
@@ -4041,6 +4067,516 @@ def phase_linalg(torch, paddle):
               + f" (largest error over the largest value; tol {tol})")
 
 
+# ---------------------------------------------------------------- phase 22
+
+# phase 22: the reference's config 2 (bench.py:186-211: ResNet-50, AMP O2
+# bf16, Momentum with weight decay, batch 128 of [3, 224, 224]) and
+# config 1 (tools/baseline_bench.py:27-45: LeNet, Adam 1e-3, batch 64)
+RESNET = dict(batch=128, size=224, classes=1000, steps=8)
+LENET = dict(batch=64, steps=20)
+# 22a, 22c: an op or a model on the card against the same on the CPU in
+# f32 (TF32 off in cuBLAS and cuDNN): values and grads within this share
+# of the largest element (a conv's sums over up to 25k products in
+# another order, cuDNN's against oneDNN's); the max pool's picks, masks
+# and tie grads (binary fractions of a cotangent of ones) exactly
+VISION_TOL = 1e-4
+# 22b, the eval forward under O2 against the f32 forward: the argmax must
+# agree on every row whose f32 top-2 margin is at least this share of
+# the row's logit range (bf16 activations through 53 convs and batch
+# norms move a logit by a few per cent of the range)
+VISION_MARGIN = 0.05
+
+
+def vision_on(paddle, device, fn):
+    """``fn()`` with the port's current device set to ``device``, then
+    back to the card."""
+    paddle.set_device(device)
+    try:
+        return fn()
+    finally:
+        paddle.set_device("gpu")
+
+
+def vision_case(torch, paddle, label, fn, arrays, exact=False):
+    """22a: ``fn`` over Tensors of ``arrays`` on the card and on the CPU,
+    f32; every output and every float input's grad against a cotangent
+    (ones where ``exact``: the max pool's grads are then sums of binary
+    fractions, the same bits on both sides), the card's within
+    VISION_TOL of the CPU's largest element, or equal where ``exact``.
+    Returns the worst error."""
+    runs = []
+    for dev in ("cuda", "cpu"):
+        ts = [paddle.Tensor._wrap(torch.tensor(
+            a, device=dev, requires_grad=a.dtype.kind == "f"))
+            for a in arrays]
+        out = fn(*ts)
+        outs = list(out) if isinstance(out, (list, tuple)) else [out]
+        total = None
+        for k, o in enumerate(outs):
+            if o.value.is_floating_point():
+                cot = torch.ones_like(o.value) if exact else torch.from_numpy(
+                    np.random.RandomState(k).randn(*o.shape).astype(
+                        np.float32)).to(dev)
+                term = (o.value * cot).sum()
+                total = term if total is None else total + term
+        total.backward()
+        runs.append([o.value.detach().cpu() for o in outs]
+                    + [t.value.grad.cpu() for t in ts
+                       if t.value.grad is not None])
+    worst = 0.0
+    for got, want in zip(*runs):
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"22a: {label}: {got.shape} {got.dtype} vs {want.shape} "
+              f"{want.dtype}")
+        if exact or not got.is_floating_point():
+            check(torch.equal(got, want), f"22a: {label}: not the CPU's "
+                  f"bits")
+            continue
+        err = ((got.double() - want.double()).abs().max()
+               / want.abs().max().clamp_min(1e-30)).item()
+        check(err <= VISION_TOL, f"22a: {label}: {err:.3e} of the largest "
+              f"(tol {VISION_TOL})")
+        worst = max(worst, err)
+    print(f"    {label}: " + ("the CPU's bits" if exact else
+                              f"worst {worst:.3e} of the largest (tol "
+                              f"{VISION_TOL})"))
+    return worst
+
+
+def vision_ops(torch, paddle):
+    """22a: ResNet-50's ops at its own shapes with batch 2, and
+    MobileNet's depthwise conv, card against CPU."""
+    F = paddle.nn.functional
+    rs = np.random.RandomState(22)
+
+    def r(*shape, scale=1.0):
+        return (rs.randn(*shape) * scale).astype(np.float32)
+
+    for label, x, w, kw in (
+            ("stem conv 7x7/2 [2,3,224,224]", (2, 3, 224, 224),
+             (64, 3, 7, 7), dict(stride=2, padding=3)),
+            ("bottleneck 1x1 [2,256,56,56] -> 64", (2, 256, 56, 56),
+             (64, 256, 1, 1), {}),
+            ("bottleneck 3x3/2 [2,128,56,56]", (2, 128, 56, 56),
+             (128, 128, 3, 3), dict(stride=2, padding=1)),
+            ("downsample 1x1/2 [2,256,56,56] -> 512", (2, 256, 56, 56),
+             (512, 256, 1, 1), dict(stride=2)),
+            ("MobileNetV2 depthwise 3x3/2 [2,144,56,56]", (2, 144, 56, 56),
+             (144, 1, 3, 3), dict(stride=2, padding=1, groups=144))):
+        vision_case(torch, paddle, label,
+                    lambda a, b, kw=kw: F.conv2d(a, b, **kw),
+                    [r(*x), r(*w, scale=0.1)])
+    ties = rs.randint(0, 4, (2, 64, 112, 112)).astype(np.float32)
+    vision_case(torch, paddle, "MaxPool2D(3, 2, 1) and its grad, planted "
+                "ties [2,64,112,112]", paddle.nn.MaxPool2D(3, 2, 1), [ties],
+                exact=True)
+    vision_case(torch, paddle, "max_pool2d's mask, the same ties",
+                lambda a: F.max_pool2d(a, 3, 2, 1, return_mask=True),
+                [ties], exact=True)
+
+    x = r(2, 256, 56, 56, scale=2.0) + 0.5
+    cot = r(2, 256, 56, 56)
+    bns = [vision_on(paddle, d, lambda: paddle.nn.BatchNorm2D(256))
+           for d in ("gpu", "cpu")]
+    states = []
+    for bn, dev in zip(bns, ("cuda", "cpu")):
+        bn.train()
+        xt = paddle.Tensor._wrap(torch.tensor(x, device=dev,
+                                              requires_grad=True))
+        out = bn(xt)
+        (out.value * torch.from_numpy(cot).to(dev)).sum().backward()
+        bn.eval()
+        ev = bn(paddle.Tensor._wrap(torch.tensor(x, device=dev)))
+        states.append([t.detach().cpu() for t in (
+            out.value, xt.value.grad, bn._mean.value, bn._variance.value,
+            ev.value)])
+    worst = max(((g - w).abs().max() / w.abs().max()).item()
+                for g, w in zip(*states))
+    check(worst <= VISION_TOL, f"22a: BatchNorm2D: {worst:.3e}")
+    print(f"    BatchNorm2D(256) train (output, grad), running _mean / "
+          f"_variance after the step, eval output, [2,256,56,56]: worst "
+          f"{worst:.3e} of the largest (tol {VISION_TOL})")
+    vision_case(torch, paddle, "AdaptiveAvgPool2D((1, 1)) [2,2048,7,7]",
+                paddle.nn.AdaptiveAvgPool2D((1, 1)), [r(2, 2048, 7, 7)])
+    img = r(2, 64, 56, 56)
+    for mode in ("nearest", "bilinear", "bicubic"):
+        for align in (False, True):
+            for size in ((112, 80), (28, 30)):
+                vision_case(
+                    torch, paddle, f"interpolate {mode} align_corners="
+                    f"{align} [2,64,56,56] -> {size}",
+                    lambda a, m=mode, al=align, s=size: F.interpolate(
+                        a, size=s, mode=m, align_corners=al), [img])
+    grid = rs.uniform(-1.1, 1.1, (2, 56, 56, 2)).astype(np.float32)
+    for pad in ("zeros", "border", "reflection"):
+        vision_case(torch, paddle, f"grid_sample bilinear {pad} "
+                    "[2,64,56,56]", lambda a, g, p=pad: F.grid_sample(
+                        a, g, padding_mode=p), [img, grid])
+
+
+def vision_class(part, name):
+    """A kernel's class in 22b's profile: the optimizer's part by its
+    range, the rest by the kernel's name."""
+    n = name.lower()
+    if part == "vision/optimizer":
+        return "optimizer (Momentum)"
+    if any(t in n for t in ("conv", "xmma", "cudnn", "implicit", "gemm",
+                            "cutlass", "sm90", "nchw", "nhwc", "wgrad",
+                            "dgrad", "nvjet", "winograd", "fft")):
+        return "convolutions and the fc (cuDNN, cuBLAS)"
+    if "maximum" in n or "pad" in n or "max_pool" in n:
+        return "pooling (the maximum chain, padding)"
+    if "reduce" in n or "welford" in n:
+        return "reductions (batch-norm statistics, the mean pool, loss)"
+    if "copy" in n or "fill" in n:
+        return "casts, copies and fills"
+    return "elementwise (batch-norm affine, ReLU, residual adds)"
+
+
+def vision_work(paddle, net, size):
+    """The work of one image through ``net``, counted by forward hooks
+    over one eval forward of a zero image: conv FLOPs (2 a
+    multiply-add) and the elements its batch norms and ReLUs see."""
+    counts = {"conv": 0, "bn": 0, "relu": 0}
+    hooks = []
+
+    def hook(kind):
+        def h(layer, inputs, out):
+            n = int(np.prod(out.shape[1:]))
+            counts[kind] += 2 * n * int(np.prod(layer.weight.shape[1:])) \
+                if kind == "conv" else n
+        return h
+    kinds = {"Conv2D": "conv", "BatchNorm2D": "bn", "ReLU": "relu"}
+    for layer in net.sublayers():
+        kind = kinds.get(type(layer).__name__)
+        if kind:
+            hooks.append(layer.register_forward_post_hook(hook(kind)))
+    net.eval()
+    with paddle.no_grad():
+        net(paddle.zeros([1, 3, size, size]))
+    net.train()
+    for h in hooks:
+        h.remove()
+    print(f"    one {size}x{size} image forward: {counts['conv'] / 1e9:.3f} "
+          f"GFLOP of convs, {counts['bn'] / 1e6:.3f} M batch-normed and "
+          f"{counts['relu'] / 1e6:.3f} M ReLU'd elements")
+    return counts
+
+
+def vision_resnet50(torch, paddle, amp):
+    """22b: the reference's config 2 eager: resnet50(num_classes=1000)
+    from paddle_tpu_torch.seed(0), Momentum(0.1, momentum=0.9,
+    weight_decay=1e-4), CrossEntropyLoss, the forward and the loss under
+    amp.auto_cast(level="O2", dtype="bfloat16"), the same seeded batch of
+    128 x [3, 224, 224] every step. Then the profile and the eval
+    forward."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.vision import models
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    from profile_port_serving import union_us
+    paddle.seed(0)
+    net = models.resnet50(num_classes=RESNET["classes"])
+    n_params = sum(p.value.numel() for p in net.parameters())
+    opt = paddle.optimizer.Momentum(0.1, momentum=0.9,
+                                    parameters=net.parameters(),
+                                    weight_decay=1e-4)
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    rs = np.random.RandomState(0)
+    b, s = RESNET["batch"], RESNET["size"]
+    work = vision_work(paddle, net, s)
+    x = paddle.to_tensor(rs.randn(b, 3, s, s).astype("float32"))
+    y = paddle.to_tensor(rs.randint(0, RESNET["classes"], (b,)).astype(
+        "int64"))
+
+    def part(label, fn, sync):
+        with torch.profiler.record_function(label):
+            out = fn()
+            if sync:
+                torch.cuda.synchronize()
+        return out
+
+    def step(sync=False):
+        def forward():
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                return loss_fn(net(x), y)
+        loss = part("vision/forward", forward, sync)
+        part("vision/backward", loss.backward, sync)
+
+        def update():
+            opt.step()
+            opt.clear_grad()
+        part("vision/optimizer", update, sync)
+        return loss
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(RESNET["steps"]):
+        t0 = time.perf_counter()
+        loss = step()
+        losses.append(float(loss.value.float().item()))
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"22b: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"22b: loss did not fall: {losses}")
+    step_ms = float(np.median(times[1:]))
+    conv_ms = bound(0, 3 * work["conv"] * b, "bfloat16")[0]
+    print(f"    the convs' forward and backward, {3 * work['conv'] * b / 1e12:.2f}"
+          f" TFLOP a step: {conv_ms:.2f} ms at the bf16 peak")
+    print(f"    {n_params / 1e6:.2f} M parameters, batch {b} x [3, {s}, "
+          f"{s}], loss dtype {loss.dtype.name}; losses "
+          f"{[round(v, 4) for v in losses]}; step ms "
+          f"{[round(t, 2) for t in times]}")
+    print(f"    median step (steps 2-{RESNET['steps']}) {step_ms:.2f} ms, "
+          f"{b / step_ms * 1e3:.1f} samples/s; the steps' own peak "
+          f"{(peak - held) / 2**30:.3f} GiB over the {held / 2**30:.3f} "
+          f"GiB held before them ({peak / 2**30:.3f} GiB in all)")
+
+    n_prof = 2
+    kinds = (torch.autograd.DeviceType.CUDA,)
+    parts_of = ("vision/forward", "vision/backward", "vision/optimizer")
+    for sync in (False, True):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_prof):
+                step(sync)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        kernels = [e for e in events if e.device_type in kinds
+                   and e.name not in parts_of]
+        check(kernels, "22b: the profiler saw no device activity")
+        spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+        if not sync:
+            window = max(e for _, e in spans) - min(st for st, _ in spans)
+            busy = union_us(spans)
+            print(f"    profiled {n_prof} steps: wall {wall:.2f} ms, device "
+                  f"window {window / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, "
+                  f"idle share {1 - busy / window:.4f}")
+            continue
+        # each part closed by a sync: a kernel belongs to the range its
+        # start falls in
+        ranges = [(e.name, e.time_range.start, e.time_range.end)
+                  for e in events if e.name in parts_of
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        by_class, by_part, outside = {}, {}, {}
+        for e in kernels:
+            label = next((nm for nm, a, z in ranges
+                          if a <= e.time_range.start <= z), None)
+            if label is None:
+                # launched by another thread of the process (an earlier
+                # phase's), not by the steps
+                outside[e.name] = outside.get(e.name, 0) + 1
+                continue
+            c = vision_class(label, e.name)
+            d = e.time_range.end - e.time_range.start
+            n, t = by_class.get(c, (0, 0.0))
+            by_class[c] = (n + 1, t + d)
+            n, t = by_part.get(label, (0, 0.0))
+            by_part[label] = (n + 1, t + d)
+        total = sum(t for _, t in by_class.values())
+        print(f"    a step's kernels by part (sync-closed): " + ", ".join(
+            f"{p.split('/')[1]} {n / n_prof:.0f} ({t / n_prof / 1e3:.3f} ms)"
+            for p, (n, t) in sorted(by_part.items()))
+            + f"; {sum(outside.values())} device activities outside the "
+            f"parts, not counted" + "".join(
+                f"; {n} x {name[:60]}" for name, n in sorted(
+                    outside.items(), key=lambda kv: -kv[1])[:3]))
+        for c, (n, t) in sorted(by_class.items(), key=lambda kv: -kv[1][1]):
+            print(f"      {c:56s} {n / n_prof:6.0f} launches "
+                  f"{t / n_prof / 1e3:9.3f} ms a step ({t / total:.4f})")
+
+    net.eval()
+    with paddle.no_grad():
+        ips = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                low = net(x).value.float()
+            torch.cuda.synchronize()
+            ips.append(b / (time.perf_counter() - t0))
+        f32 = net(x).value
+    top2 = f32.topk(2, dim=1).values
+    margin = top2[:, 0] - top2[:, 1]
+    rng = f32.max(dim=1).values - f32.min(dim=1).values
+    rows = margin >= VISION_MARGIN * rng
+    same = low.argmax(1) == f32.argmax(1)
+    check(bool(same[rows].all()), f"22b: eval argmax differs on "
+          f"{int((~same[rows]).sum())} of the {int(rows.sum())} rows with "
+          f"a clear margin")
+    print(f"    eval forward, O2 bf16, batch {b}: "
+          f"{float(np.median(ips[1:])):.1f} images/s (median of 3 after "
+          f"one); argmax the f32 forward's on all {int(rows.sum())} rows "
+          f"whose f32 top-2 margin is at least {VISION_MARGIN} of the "
+          f"logit range ({int(same.sum())} of {b} rows in all)")
+    del net, opt, x, y, loss, low, f32
+    torch.cuda.empty_cache()
+    return step_ms
+
+
+def vision_grads(paddle, model, x, y):
+    """The CrossEntropyLoss of ``model(x)`` and every grad (on the CPU)."""
+    loss = paddle.nn.CrossEntropyLoss()(model(x), y)
+    loss.backward()
+    return float(loss.value.item()), {
+        n: p.grad.value.detach().cpu() for n, p in model.named_parameters()}
+
+
+def vision_card_vs_cpu(torch, paddle):
+    """22c: resnet18(num_classes=10) built on the CPU from a seed and moved
+    to the card as its twin; 2 Momentum steps on two seeded [2, 3, 64,
+    64] batches each side. Step 1's loss and grads card against CPU;
+    step 2 starts from parameters that step 1's rounding set apart, and
+    a model's grads amplify that, so its grads are held to a third model
+    on the CPU loaded with the card's state after step 1 (the same point,
+    only the arithmetic differs), and the CPU's own distance there is
+    printed. Then LeNet and mobilenet_v2(num_classes=10) forward."""
+    from paddle_tpu_torch.vision import models
+    rs = np.random.RandomState(22)
+    data = [(rs.randn(2, 3, 64, 64).astype("float32"),
+             rs.randint(0, 10, (2,)).astype("int64")) for _ in range(2)]
+
+    def twins(make):
+        paddle.seed(7)
+        cpu = vision_on(paddle, "cpu", make)
+        card = vision_on(paddle, "cpu", make)
+        card.set_state_dict({k: v.value for k, v in cpu.state_dict().items()})
+        return card.to(device="gpu"), cpu
+
+    def on(place, i):
+        return (paddle.to_tensor(data[i][0], place=place),
+                paddle.to_tensor(data[i][1], place=place))
+
+    def momentum(model):
+        return paddle.optimizer.Momentum(0.1, momentum=0.9,
+                                         parameters=model.parameters(),
+                                         weight_decay=1e-4)
+
+    def stats(model):
+        return {k: v.value.detach().cpu() for k, v in
+                model.state_dict().items()
+                if k.endswith(("_mean", "_variance"))}
+
+    make = lambda: models.resnet18(num_classes=10)  # noqa: E731
+    gpu, cpu_place = paddle.CUDAPlace(0), paddle.CPUPlace()
+    card, cpu = twins(make)
+    opts = [momentum(card), momentum(cpu)]
+    losses, grads = [], []
+    for i in range(2):
+        if i == 1:
+            at_card = vision_on(paddle, "cpu", make)
+            at_card.set_state_dict({k: v.value.cpu()
+                                    for k, v in card.state_dict().items()})
+            there = vision_grads(paddle, at_card, *on(cpu_place, 1))
+        step = [vision_grads(paddle, card, *on(gpu, i)),
+                vision_grads(paddle, cpu, *on(cpu_place, i))]
+        for o in opts:
+            o.step()
+            o.clear_grad()
+        losses.append([v for v, _ in step])
+        grads.append([g for _, g in step])
+    for i, (a, b_) in enumerate(losses):
+        check(abs(a - b_) <= LOSS_RTOL * abs(b_), f"22c: step {i + 1} loss "
+              f"card {a} vs CPU {b_}")
+    step1, _ = rel_grads(torch, grads[0][0], grads[0][1], GRAD_TOL,
+                         "22c step 1, card vs CPU")
+    step2, where = rel_grads(torch, grads[1][0], there[1], GRAD_TOL,
+                             "22c step 2, card vs the CPU at the card's "
+                             "point")
+    apart, _ = rel_grads(torch, grads[1][0], grads[1][1], None, "")
+    own, _ = rel_grads(torch, there[1], grads[1][1], None, "")
+    st = max(((a - b_).abs().max() / b_.abs().max()).item() for a, b_ in
+             zip(stats(card).values(), stats(at_card).values()))
+    check(st <= VISION_TOL, f"22c: running statistics {st:.3e}")
+    print(f"    resnet18(num_classes=10), [2, 3, 64, 64], 2 Momentum steps: "
+          f"losses card {[round(a, 6) for a, _ in losses]} vs CPU "
+          f"{[round(b_, 6) for _, b_ in losses]} (rtol {LOSS_RTOL}); step "
+          f"1's grads within {step1:.3e} of their largest, step 2's within "
+          f"{step2:.3e} of the CPU's at the card's point ({where}; tol "
+          f"{GRAD_TOL}), {apart:.3e} of the CPU's own (the CPU at the two "
+          f"points: {own:.3e}); _mean / _variance after step 2 within "
+          f"{st:.3e} of the CPU's at the card's point (tol {VISION_TOL})")
+    del card, cpu, at_card
+    for label, make, shape, mode in (
+            ("LeNet()", models.LeNet, (2, 1, 28, 28), "train"),
+            ("mobilenet_v2(num_classes=10)",
+             lambda: models.mobilenet_v2(num_classes=10), (2, 3, 64, 64),
+             "eval")):
+        card, cpu = twins(make)
+        getattr(card, mode)()
+        getattr(cpu, mode)()
+        xs = rs.randn(*shape).astype("float32")
+        got = card(paddle.to_tensor(xs)).value.cpu()
+        want = cpu(paddle.to_tensor(xs, place=cpu_place)).value
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        check(err <= VISION_TOL, f"22c: {label} forward {err:.3e}")
+        print(f"    {label} forward ({mode}), {list(shape)}: within "
+              f"{err:.3e} of the CPU's largest logit (tol {VISION_TOL})")
+
+
+def vision_lenet(torch, paddle):
+    """22d: the reference's config 1 eager: LeNet, Adam(1e-3),
+    CrossEntropyLoss, batch 64 of [1, 28, 28] (seeded numpy), 20 steps."""
+    from paddle_tpu_torch.vision import models
+    paddle.seed(0)
+    net = models.LeNet()
+    opt = paddle.optimizer.Adam(1e-3, parameters=net.parameters())
+    loss_fn = paddle.nn.CrossEntropyLoss()
+    rs = np.random.RandomState(1)
+    b = LENET["batch"]
+    x = paddle.to_tensor(rs.randn(b, 1, 28, 28).astype("float32"))
+    y = paddle.to_tensor(rs.randint(0, 10, (b,)).astype("int64"))
+    losses, times = [], []
+    for _ in range(LENET["steps"]):
+        t0 = time.perf_counter()
+        loss = loss_fn(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.value.item()))
+        times.append((time.perf_counter() - t0) * 1e3)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"22d: losses {losses}")
+    step_ms = float(np.median(times[1:]))
+    print(f"    LeNet, Adam 1e-3, batch {b}, {LENET['steps']} steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; median step (steps 2-"
+          f"{LENET['steps']}) {step_ms:.3f} ms, {b / step_ms * 1e3:.1f} "
+          f"samples/s")
+    return step_ms
+
+
+def phase_vision(torch, amp):
+    """Phase 22: the vision surface on the card. 22a ResNet-50's ops card
+    against CPU; 22b the reference's config 2 (ResNet-50, O2 bf16,
+    Momentum, batch 128) with its profile and eval forward; 22c whole
+    models card against CPU; 22d config 1 (LeNet). Returns its wall
+    seconds."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as device_mod
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    try:
+        print("  [22a] ResNet-50's ops at its shapes (batch 2), card "
+              "against CPU, f32")
+        vision_ops(torch, paddle)
+        print("  [22b] ResNet-50 config 2: O2 bf16, Momentum, batch "
+              f"{RESNET['batch']} x [3, {RESNET['size']}, {RESNET['size']}]")
+        vision_resnet50(torch, paddle, amp)
+        print("  [22c] card against CPU: resnet18 2 Momentum steps, LeNet "
+              "and mobilenet_v2 forward, f32")
+        vision_card_vs_cpu(torch, paddle)
+        print("  [22d] LeNet config 1: Adam, batch 64, eager")
+        vision_lenet(torch, paddle)
+    finally:
+        device_mod._current_place = None
+    secs = time.perf_counter() - t0
+    print(f"  phase 22 in {secs:.1f} s")
+    return secs
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -4070,6 +4606,10 @@ def main():
                     help="phases 1 and 21 only (the build, BERT-base "
                     "pretraining and the Paddle surface's part B); prints "
                     "no kernels line")
+    ap.add_argument("--vision", action="store_true",
+                    help="phases 1 and 22 only (the build, the vision "
+                    "surface and ResNet-50's config 2); prints no kernels "
+                    "line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     try:
@@ -4139,6 +4679,13 @@ def main():
                                     use_flash_attention=True)
     train_shape = (8, train_cfg.num_heads, train_cfg.max_seq_len,
                    train_cfg.hidden_size // train_cfg.num_heads)
+    if args.vision:
+        print("[22] the vision surface: ResNet-50 config 2 (O2 bf16, "
+              "batch 128), LeNet config 1")
+        phase_vision(torch, amp)
+        print(f"phases 1 and 22 in {time.perf_counter() - t_start:.1f} s")
+        print(card_line())
+        return 0
     if args.bert:
         print("[21] BERT-base pretraining and the Paddle surface's part B")
         bert = phase_bert(torch, attn, amp, optimizer)
@@ -4259,6 +4806,10 @@ def main():
           "masked attention, config 3 eager, card against CPU, the "
           "TransformerEncoder, save/load, sparse grads, linalg")
     bert, bert_cpu, encoder = phase_bert(torch, attn, amp, optimizer)
+    print("[22] the vision surface: ResNet-50's ops card against CPU, "
+          "config 2 (ResNet-50, O2 bf16, Momentum, batch 128) with its "
+          "profile, models card against CPU, config 1 (LeNet)")
+    phase_vision(torch, amp)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -4288,7 +4839,7 @@ def main():
     for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
         for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
             row["launches"] = n
-    print(f"phases 1-21 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-22 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

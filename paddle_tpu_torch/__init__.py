@@ -32,9 +32,13 @@ layers, ``LayerNorm``, ``nn.initializer`` and ``ParamAttr``, and
 ``embedding``, the losses, and ``scaled_dot_product_attention`` through
 the flash kernels); the optimizers take ``Layer.parameters()``.
 ``paddle_tpu_torch.tensor`` forwards the names as the reference's
-``paddle.tensor`` does.
+``paddle.tensor`` does. The vision surface: the conv, pooling, batch /
+group / instance norm and resampling ops and layers, ``vision.models``
+(LeNet, ResNet, VGG, MobileNet), ``vision.ops``, ``vision.transforms``,
+``vision.datasets`` over ``io``'s dataset classes.
 """
-from . import amp, autograd, framework, nn, optimizer, regularizer, tensor
+from . import (  # noqa: F401
+    amp, autograd, framework, io, nn, optimizer, regularizer, tensor, utils)
 from .autograd import grad
 from .core import errors
 from .core.device import (
@@ -52,6 +56,7 @@ from .core.rng import default_generator, seed
 from .core.tensor import Parameter, Tensor
 from .framework.io_utils import load, save
 from . import ops  # attaches the operators and methods to Tensor
+from . import vision  # noqa: E402
 from .ops.logic import (
     allclose, bitwise_and, bitwise_not, bitwise_or, bitwise_xor, equal,
     equal_all, greater_equal, greater_than, is_empty, is_tensor, isclose,
@@ -83,7 +88,7 @@ from .ops.manipulation import (  # noqa: A004
     reshape, reshape_, reverse, roll, rot90, scatter, scatter_,
     scatter_nd, scatter_nd_add, shape, shard_index, slice, split, squeeze,
     squeeze_, stack, strided_slice, t, take_along_axis, tensordot, tile,
-    tolist, transpose, unbind, unsqueeze, unsqueeze_, unstack,
+    tolist, transpose, unbind, unfold, unsqueeze, unsqueeze_, unstack,
     view_as_complex, view_as_real, where)
 from .ops.nn_ops import one_hot
 from .ops import linalg

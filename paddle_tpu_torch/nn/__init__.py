@@ -1,6 +1,6 @@
 """``paddle.nn`` of the port (reference ``paddle_tpu/nn/__init__.py``):
 ``Layer`` and the layers whose ops the port has (the Transformer
-layers included), ``ParamAttr``, ``initializer``, ``functional``,
+layers and the vision layers, conv, pooling and the norms, included), ``ParamAttr``, ``initializer``, ``functional``,
 ``utils`` (the weight and spectral norm hooks) and the gradient clips
 the optimizers take (``grad_clip=``)."""
 from . import functional, initializer, utils  # noqa: F401
@@ -17,7 +17,12 @@ from .layer.activation import (  # noqa: F401
 from .layer.common import (  # noqa: F401
     AlphaDropout, Bilinear, CosineSimilarity, Dropout, Dropout2D, Dropout3D,
     Embedding, Flatten, Identity, Linear, Pad1D, Pad2D, Pad3D,
-    PairwiseDistance,
+    PairwiseDistance, PixelShuffle, Unfold, Upsample, UpsamplingBilinear2D,
+    UpsamplingNearest2D,
+)
+from .layer.conv import (  # noqa: F401
+    Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
+    Conv3DTranspose,
 )
 from .layer.container import (  # noqa: F401
     LayerDict, LayerList, ParameterList, Sequential,
@@ -26,7 +31,16 @@ from .layer.loss import (  # noqa: F401
     BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, KLDivLoss, L1Loss,
     MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
 )
-from .layer.norm import LayerNorm, SpectralNorm  # noqa: F401
+from .layer.norm import (  # noqa: F401
+    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
+    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
+    LocalResponseNorm, SpectralNorm, SyncBatchNorm,
+)
+from .layer.pooling import (  # noqa: F401
+    AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
+    AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
+    AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
+)
 from .layer.transformer import (  # noqa: F401
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,

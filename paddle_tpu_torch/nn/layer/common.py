@@ -1,8 +1,9 @@
 """Common layers (a port of ``paddle_tpu/nn/layer/common.py``):
 ``Linear`` (weight ``[in, out]``, Paddle's layout), the dropouts,
 ``Embedding``, ``Flatten``, ``Identity``, the pads, ``CosineSimilarity``,
-``PairwiseDistance`` and ``Bilinear``. ``Upsample*``, ``PixelShuffle``
-and ``Unfold`` are not ported yet.
+``PairwiseDistance``, ``Bilinear``, ``Upsample``,
+``UpsamplingBilinear2D``, ``UpsamplingNearest2D``, ``PixelShuffle`` and
+``Unfold``.
 """
 import torch
 
@@ -214,3 +215,57 @@ class Bilinear(Layer):
         if self.bias is not None:
             out = math_ops.add(out, self.bias)
         return out
+
+
+class Upsample(Layer):
+    """``nn_ops.interpolate`` of ``size`` or ``scale_factor``;
+    ``align_mode`` and ``data_format`` taken and not read."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+
+    def forward(self, x):
+        return nn_ops.interpolate(x, self.size, self.scale_factor, self.mode,
+                                  self.align_corners)
+
+
+class UpsamplingBilinear2D(Upsample):
+    """Bilinear with ``align_corners=True``."""
+
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+
+    def forward(self, x):
+        return nn_ops.pixel_shuffle(x, self.upscale_factor)
+
+
+class Unfold(Layer):
+    """im2col (``manipulation.unfold``)."""
+
+    def __init__(self, kernel_sizes, dilations=1, paddings=0, strides=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        k, s, p, d = self.args
+        return manipulation.unfold(x, k, strides=s, paddings=p, dilations=d)

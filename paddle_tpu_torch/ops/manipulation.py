@@ -1,5 +1,5 @@
 """Shape and layout manipulation ops (a port of
-``paddle_tpu/ops/manipulation.py``, all of it but ``unfold``).
+``paddle_tpu/ops/manipulation.py``).
 
 Each op is a torch function registered with the core's dispatcher under
 the reference's name. Paddle's conventions are kept: ``reshape`` reads 0
@@ -580,6 +580,30 @@ def shape(x):
     return Tensor._wrap(torch.tensor(list(x._value.shape),
                                      dtype=torch.int32,
                                      device=x._value.device))
+
+
+@register_op("unfold")
+def _unfold(x, *, kernel_sizes, strides, paddings, dilations):
+    n, c, h, w = x.shape
+    kh, kw = kernel_sizes
+    sh, sw = strides
+    ph, pw = paddings
+    dh, dw = dilations
+    x = torch.nn.functional.pad(x, (pw, pw, ph, ph))
+    oh = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    ow = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    cols = [x[:, :, i * dh:i * dh + oh * sh:sh, j * dw:j * dw + ow * sw:sw]
+            for i in range(kh) for j in range(kw)]
+    return torch.stack(cols, dim=2).reshape(n, c * kh * kw, oh * ow)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """im2col: ``[N, C * kh * kw, L]``, the columns in (channel, kernel
+    row, kernel column) order (reference manipulation.py:484-513)."""
+    def _p(v):
+        return (v, v) if isinstance(v, int) else tuple(v)
+    return _unfold(x, kernel_sizes=_p(kernel_sizes), strides=_p(strides),
+                   paddings=_p(paddings), dilations=_p(dilations))
 
 
 @register_op("diagonal")

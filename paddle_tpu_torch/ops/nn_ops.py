@@ -1,8 +1,11 @@
 """Neural-net ops of the port (reference ``paddle_tpu/ops/nn_ops.py``):
 the activations, ``softmax``/``log_softmax``, ``linear``, ``layer_norm``,
 ``normalize``, the dropouts, dense ``embedding``, ``one_hot``, the
-cross-entropies and the plain losses. Conv, pooling, the batch, group
-and instance norms, ``interpolate``, ``ctc_loss`` and ``hsigmoid_loss``
+cross-entropies and the plain losses; the vision ops: the convolutions
+and their transposes, the max, average and adaptive pools in 1d, 2d and
+3d, the batch, group and instance norms and ``local_response_norm``,
+``interpolate``, ``pixel_shuffle``, ``temporal_shift``, ``affine_grid``
+and ``grid_sample``. ``ctc_loss``, ``hsigmoid_loss`` and ``gather_tree``
 are not ported yet.
 
 Each op is a torch function registered with the core's dispatcher and
@@ -11,7 +14,11 @@ takes the eager core's Tensors. ``linear`` is ``x @ W + b`` with W
 logits product before a loss, are plain large matmuls that the reference
 also leaves to XLA, so they stay ``torch.matmul`` and no kernel is
 written for them; the softmax, ``layer_norm``, ``gelu`` and the losses
-are plain torch likewise.
+are plain torch likewise. The reference computes the vision ops in XLA
+too (``lax.conv_general_dilated``, window slices, ``jnp`` bodies), with
+no Pallas kernel: the convolutions are ``F.conv*`` (cuDNN on the card),
+the rest plain torch written as the reference writes it, so that ties,
+rounding and padding come out the same (see each op).
 
 ``dropout`` and ``cross_entropy`` also take plain torch tensors, the
 GPT's, the engine's and AMP's path: there ``dropout`` draws from
@@ -20,6 +27,7 @@ GPT's, the engine's and AMP's path: there ``dropout`` draws from
 caller's, or the port's default generator for the tensor's device),
 never from torch's global one.
 """
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -835,3 +843,919 @@ def spectral_norm(weight, u, v, dim=0, power_iters=1, eps=1e-12,
     estimate of its largest singular value, and the refreshed state."""
     return _spectral_norm(weight, u, v, dim=int(dim),
                           power_iters=int(power_iters), eps=float(eps))
+
+
+# ---- convolutions ----------------------------------------------------------------
+
+def _pair(v, n=2):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+def _same_pads(sizes, ksize, strides, dilations):
+    """XLA's ``SAME`` padding: the output is ``ceil(in / stride)`` and
+    the larger half of the padding goes at the end."""
+    pads = []
+    for n, k, s, d in zip(sizes, ksize, strides, dilations):
+        out = -(-n // s)
+        total = max((out - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def _conv_nd(x, w, b, strides, pads, dilations, groups):
+    """``F.conv{1,2,3}d`` of channels-first ``x`` with ``(lo, hi)`` pads a
+    spatial dim: symmetric pads go to the conv, others to ``F.pad``."""
+    conv = (F.conv1d, F.conv2d, F.conv3d)[x.dim() - 3]
+    if any(lo != hi for lo, hi in pads):
+        flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+        x = F.pad(x, flat)
+        pads = [(0, 0)] * len(pads)
+    return conv(x, w, b, stride=strides, padding=tuple(lo for lo, _ in pads),
+                dilation=dilations, groups=groups)
+
+
+def _pads_of(paddings, x, w, strides, dilations):
+    nd = w.dim() - 2
+    if isinstance(paddings, str):
+        if paddings == "VALID":
+            return [(0, 0)] * nd
+        if paddings != "SAME":
+            raise ValueError(f"padding must be 'SAME', 'VALID' or numbers, "
+                             f"got {paddings!r}")
+        return _same_pads(x.shape[2:], w.shape[2:], strides, dilations)
+    if len(paddings) == 2 * nd:
+        return [(paddings[2 * i], paddings[2 * i + 1]) for i in range(nd)]
+    return [(p, p) for p in paddings]
+
+
+@register_op("conv2d")
+def _conv2d(x, w, b, *, strides, paddings, dilations, groups, data_format):
+    # the weight is OIHW for both data formats; NHWC features are
+    # permuted around the channels-first conv
+    if data_format == "NHWC":
+        x = x.permute(0, 3, 1, 2)
+    out = _conv_nd(x, w, b, strides,
+                   _pads_of(paddings, x, w, strides, dilations), dilations,
+                   groups)
+    return out.permute(0, 2, 3, 1) if data_format == "NHWC" else out
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    """Reference ``conv2d`` (nn_ops.py:237-315): weight OIHW; ``padding``
+    an int, a pair, ``[top, bottom, left, right]`` or XLA's ``"SAME"`` /
+    ``"VALID"`` (SAME at stride > 1 pads the larger half at the end)."""
+    if isinstance(padding, str):
+        pad = padding.upper()
+    elif isinstance(padding, (list, tuple)) and len(padding) == 4:
+        pad = tuple(int(p) for p in padding)
+    else:
+        pad = _pair(padding)
+    return _conv2d(x, weight, bias, strides=_pair(stride), paddings=pad,
+                   dilations=_pair(dilation), groups=int(groups),
+                   data_format=data_format)
+
+
+@register_op("conv1d")
+def _conv1d(x, w, b, *, stride, padding, dilation, groups):
+    pads = _pads_of(padding if isinstance(padding, str) else (padding,),
+                    x, w, (stride,), (dilation,))
+    return _conv_nd(x, w, b, (stride,), pads, (dilation,), groups)
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None):
+    """``data_format`` is taken and, as in the reference, not read."""
+    pad = padding.upper() if isinstance(padding, str) else int(padding)
+    return _conv1d(x, weight, bias, stride=int(stride), padding=pad,
+                   dilation=int(dilation), groups=int(groups))
+
+
+@register_op("conv3d")
+def _conv3d(x, w, b, *, strides, paddings, dilations, groups):
+    return _conv_nd(x, w, b, strides,
+                    _pads_of(paddings, x, w, strides, dilations), dilations,
+                    groups)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    pad = padding.upper() if isinstance(padding, str) else _pair(padding, 3)
+    x = _to_ncdhw(x, data_format)
+    out = _conv3d(x, weight, bias, strides=_pair(stride, 3), paddings=pad,
+                  dilations=_pair(dilation, 3), groups=int(groups))
+    return _from_ncdhw(out, data_format)
+
+
+def _conv_transpose(x, w, b, strides, paddings, output_padding, dilations,
+                    groups):
+    """The weight is ``[in, out/groups, *k]``, torch's own layout for a
+    transposed conv, whose output length ``(in - 1) s - 2 p + d (k - 1)
+    + op + 1`` is the reference's fractionally strided conv's."""
+    conv = (F.conv_transpose1d, F.conv_transpose2d,
+            F.conv_transpose3d)[x.dim() - 3]
+    return conv(x, w, b, stride=strides, padding=paddings,
+                output_padding=output_padding, groups=groups,
+                dilation=dilations)
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(x, w, b, *, strides, paddings, output_padding,
+                      dilations, groups):
+    return _conv_transpose(x, w, b, strides, paddings, output_padding,
+                           dilations, groups)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     output_size=None, data_format="NCHW", name=None):
+    """``output_size`` and ``data_format`` are taken and, as in the
+    reference (nn_ops.py:344-352), not read."""
+    return _conv2d_transpose(x, weight, bias, strides=_pair(stride),
+                             paddings=_pair(padding),
+                             output_padding=_pair(output_padding),
+                             dilations=_pair(dilation), groups=int(groups))
+
+
+@register_op("conv_transpose_nd")
+def _conv_transpose_nd(x, w, b, *, strides, paddings, output_padding,
+                       dilations, groups):
+    return _conv_transpose(x, w, b, strides, paddings, output_padding,
+                           dilations, groups)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL", name=None):
+    """``output_size`` and ``data_format`` taken and not read."""
+    def one(v):
+        return (v if isinstance(v, int) else int(v[0]),)
+    return _conv_transpose_nd(x, weight, bias, strides=one(stride),
+                              paddings=one(padding),
+                              output_padding=one(output_padding),
+                              dilations=one(dilation), groups=int(groups))
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW", name=None):
+    """``output_size`` and ``data_format`` taken and not read."""
+    return _conv_transpose_nd(x, weight, bias, strides=_pair(stride, 3),
+                              paddings=_pair(padding, 3),
+                              output_padding=_pair(output_padding, 3),
+                              dilations=_pair(dilation, 3),
+                              groups=int(groups))
+
+
+# ---- pooling ---------------------------------------------------------------------
+#
+# The reference pools by slicing the window's strided views out of the
+# padded input and reducing them elementwise (nn_ops.py:355-379), and so
+# does the port: a max pool is a chain of torch.maximum over the views in
+# window order, whose gradient splits a tie in halves down the chain as
+# jnp.maximum's does (three equal values get 1/4, 1/4, 1/2), where
+# F.max_pool2d gives it all to one element. The with-index pools and the
+# adaptive max pools reduce a stack with amax, which splits a tie evenly,
+# as jnp.max does; their masks take the first maximum.
+
+def _neg_min(dtype):
+    """The padding of a max pool: -inf for floats, the least integer
+    otherwise (reference nn_ops.py:1268-1272)."""
+    if dtype.is_floating_point:
+        return float("-inf")
+    return torch.iinfo(dtype).min
+
+
+def _out_len(size, k, s, p, ceil_mode):
+    if ceil_mode:
+        return -(-(size + 2 * p - k) // s) + 1
+    return (size + 2 * p - k) // s + 1
+
+
+def _pool_views(x, ksize, strides, paddings, pad_value, ceil_mode=False):
+    """The strided window views of ``x`` ([N, C, *spatial]), window
+    position by position in row-major order; ``ceil_mode`` pads the end so
+    that the partial windows exist."""
+    sizes = x.shape[2:]
+    outs = [_out_len(n, k, s, p, ceil_mode)
+            for n, k, s, p in zip(sizes, ksize, strides, paddings)]
+    need = [max(0, (o - 1) * s + k - (n + 2 * p))
+            for o, s, k, n, p in zip(outs, strides, ksize, sizes, paddings)]
+    if any(paddings) or any(need):
+        flat = []
+        for p, e in reversed(list(zip(paddings, need))):
+            flat += [p, p + e]
+        x = F.pad(x, flat, value=pad_value)
+    for offs in np.ndindex(*ksize):
+        idx = (slice(None), slice(None)) + tuple(
+            slice(o, o + (n - 1) * s + 1, s)
+            for o, n, s in zip(offs, outs, strides))
+        yield x[idx]
+
+
+def _max_chain(views):
+    out = None
+    for v in views:
+        out = v if out is None else torch.maximum(out, v)
+    return out
+
+
+def _flat_mask(amax, ksize, strides, paddings, out_shape, in_shape):
+    """Each maximum's flat index in the input's spatial volume from its
+    row-major window slot ``amax``."""
+    nd = len(ksize)
+    flat = None
+    rest = amax
+    offs = []
+    for k in reversed(ksize):
+        offs.append(rest % k)
+        rest = rest // k
+    offs.reverse()
+    for d in range(nd):
+        shape = [1] * nd
+        shape[d] = out_shape[d]
+        base = torch.arange(out_shape[d], device=amax.device).reshape(shape)
+        pos = base * strides[d] - paddings[d] + offs[d]
+        flat = pos if flat is None else flat * in_shape[d] + pos
+    return flat.to(torch.int32)
+
+
+@register_op("pool2d_max")
+def _max_pool2d(x, *, ksize, strides, paddings, ceil_mode):
+    return _max_chain(_pool_views(x, ksize, strides, paddings,
+                                  _neg_min(x.dtype), ceil_mode))
+
+
+def _max_pool_with_index(x, ksize, strides, paddings, ceil_mode):
+    wins = torch.stack(list(_pool_views(x, ksize, strides, paddings,
+                                        _neg_min(x.dtype), ceil_mode)))
+    out = wins.amax(dim=0)
+    amax = wins.detach().argmax(dim=0)
+    return out, _flat_mask(amax, ksize, strides, paddings, out.shape[2:],
+                           x.shape[2:])
+
+
+@register_op("pool2d_max_with_index")
+def _max_pool2d_with_index(x, *, ksize, strides, paddings, ceil_mode=False):
+    return _max_pool_with_index(x, ksize, strides, paddings, ceil_mode)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW", name=None):
+    """``data_format`` is taken and, as in the reference, not read;
+    ``return_mask`` adds each maximum's flat index in the input's
+    ``h * w``, the first maximum of a window winning."""
+    ks = _pair(kernel_size)
+    st = _pair(stride) if stride is not None else ks
+    op = _max_pool2d_with_index if return_mask else _max_pool2d
+    return op(x, ksize=ks, strides=st, paddings=_pair(padding),
+              ceil_mode=bool(ceil_mode))
+
+
+def _exclusive_counts(sizes, ksize, strides, paddings, need, device, dtype):
+    """The in-bounds cells of each window, counted as the reference does
+    (nn_ops.py:424-446), on ``device``."""
+    ones = torch.zeros((1, 1) + tuple(n + 2 * p + e for n, p, e in
+                                      zip(sizes, paddings, need)))
+    ones[(0, 0) + tuple(slice(p, p + n) for p, n in zip(paddings, sizes))] = 1
+    outs = [(n + 2 * p + e - k) // s + 1 for n, p, e, k, s in
+            zip(sizes, paddings, need, ksize, strides)]
+    counts = torch.zeros((1, 1) + tuple(outs))
+    for offs in np.ndindex(*ksize):
+        counts += ones[(slice(None), slice(None)) + tuple(
+            slice(o, o + (n - 1) * s + 1, s)
+            for o, n, s in zip(offs, outs, strides))]
+    return counts.clamp(min=1.0).to(device=device, dtype=dtype)
+
+
+@register_op("pool2d_avg")
+def _avg_pool2d(x, *, ksize, strides, paddings, exclusive):
+    summed = None
+    for v in _pool_views(x, ksize, strides, paddings, 0.0):
+        summed = v if summed is None else summed + v
+    if exclusive and (paddings[0] or paddings[1]):
+        return summed / _exclusive_counts(x.shape[2:], ksize, strides,
+                                          paddings, (0, 0), x.device,
+                                          x.dtype)
+    return summed / (ksize[0] * ksize[1])
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
+    """``ceil_mode``, ``divisor_override`` and ``data_format`` are taken
+    and, as in the reference (nn_ops.py:448-455), not read; ``exclusive``
+    divides by the in-bounds cells only where there is padding."""
+    ks = _pair(kernel_size)
+    st = _pair(stride) if stride is not None else ks
+    return _avg_pool2d(x, ksize=ks, strides=st, paddings=_pair(padding),
+                       exclusive=bool(exclusive))
+
+
+@register_op("adaptive_avg_pool2d")
+def _adaptive_avg_pool2d(x, *, output_size):
+    n, c, h, w = x.shape
+    oh, ow = output_size
+    if h % oh == 0 and w % ow == 0:
+        return x.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+    # the reference resizes where the bins do not divide
+    # (nn_ops.py:464-465): jax.image.resize's antialiased linear
+    return image_resize(x, (n, c, oh, ow), "linear")
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    """``data_format`` taken and not read."""
+    return _adaptive_avg_pool2d(x, output_size=_pair(output_size))
+
+
+def _check_divides(sizes, output_size, what):
+    if any(n % o for n, o in zip(sizes, output_size)):
+        raise ValueError(f"{what} takes only output sizes that divide the "
+                         f"input's: {tuple(sizes)} by {tuple(output_size)}")
+
+
+def _blocks(x, output_size):
+    """[N, C, *out, prod(block)]: each output cell's block of the input."""
+    nd = len(output_size)
+    sizes = x.shape[2:]
+    bs = [n // o for n, o in zip(sizes, output_size)]
+    shape = list(x.shape[:2])
+    for o, b in zip(output_size, bs):
+        shape += [o, b]
+    xb = x.reshape(shape)
+    perm = [0, 1] + [2 + 2 * i for i in range(nd)] \
+        + [3 + 2 * i for i in range(nd)]
+    return xb.permute(perm).reshape(list(x.shape[:2]) + list(output_size)
+                                    + [-1]), bs
+
+
+@register_op("adaptive_max_pool2d")
+def _adaptive_max_pool2d(x, *, output_size):
+    _check_divides(x.shape[2:], output_size, "adaptive_max_pool2d")
+    return _blocks(x, output_size)[0].amax(dim=-1)
+
+
+def _adaptive_max_with_index(x, output_size, what):
+    _check_divides(x.shape[2:], output_size, what)
+    blocks, bs = _blocks(x, output_size)
+    amax = blocks.detach().argmax(dim=-1)
+    return blocks.amax(dim=-1), _flat_mask(amax, bs, bs, [0] * len(bs),
+                                           output_size, x.shape[2:])
+
+
+@register_op("adaptive_max_pool2d_with_index")
+def _adaptive_max_pool2d_with_index(x, *, output_size):
+    return _adaptive_max_with_index(x, output_size, "adaptive_max_pool2d")
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    """Only output sizes that divide the input's (the reference asserts
+    it; the port raises ValueError)."""
+    op = _adaptive_max_pool2d_with_index if return_mask \
+        else _adaptive_max_pool2d
+    return op(x, output_size=_pair(output_size))
+
+
+def _squeeze2(out, return_mask):
+    from . import manipulation
+    if return_mask:
+        return (manipulation.squeeze(out[0], axis=2),
+                manipulation.squeeze(out[1], axis=2))
+    return manipulation.squeeze(out, axis=2)
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, name=None):
+    """The 2d pool over ``[N, C, 1, L]``; ``ceil_mode`` taken and, as in
+    the reference, not read. The mask of a ``[1, L]`` map is the index in
+    L."""
+    from . import manipulation
+    x4 = manipulation.unsqueeze(x, axis=2)
+    out = max_pool2d(x4, (1, kernel_size), (1, stride or kernel_size),
+                     (0, padding if isinstance(padding, int)
+                      else padding[0]), return_mask=return_mask)
+    return _squeeze2(out, return_mask)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, name=None):
+    """``ceil_mode`` taken and not read."""
+    from . import manipulation
+    x4 = manipulation.unsqueeze(x, axis=2)
+    out = avg_pool2d(x4, (1, kernel_size), (1, stride or kernel_size),
+                     (0, padding if isinstance(padding, int)
+                      else padding[0]), exclusive=exclusive)
+    return manipulation.squeeze(out, axis=2)
+
+
+def adaptive_avg_pool1d(x, output_size, name=None):
+    from . import manipulation
+    x4 = manipulation.unsqueeze(x, axis=2)
+    return manipulation.squeeze(
+        adaptive_avg_pool2d(x4, (1, int(output_size))), axis=2)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    from . import manipulation
+    x4 = manipulation.unsqueeze(x, axis=2)
+    return _squeeze2(adaptive_max_pool2d(x4, (1, int(output_size)),
+                                         return_mask=return_mask),
+                     return_mask)
+
+
+def _to_ncdhw(x, data_format):
+    from . import manipulation
+    if data_format == "NDHWC":
+        return manipulation.transpose(x, (0, 4, 1, 2, 3))
+    if data_format != "NCDHW":
+        raise ValueError(f"pool3d: unknown data_format {data_format!r}")
+    return x
+
+
+def _from_ncdhw(x, data_format):
+    from . import manipulation
+    if data_format == "NDHWC":
+        return manipulation.transpose(x, (0, 2, 3, 4, 1))
+    return x
+
+
+@register_op("pool3d")
+def _pool3d(x, *, ksize, strides, paddings, mode, ceil_mode, exclusive,
+            divisor):
+    # the reference pads a 3d max pool with -inf whatever the dtype
+    # (nn_ops.py:1405)
+    pad_v = float("-inf") if mode == "max" else 0.0
+    views = _pool_views(x, ksize, strides, paddings, pad_v, ceil_mode)
+    if mode != "avg":
+        return _max_chain(views)
+    out = None
+    for v in views:
+        out = v if out is None else out + v
+    if divisor is not None:
+        return out / divisor
+    sizes = x.shape[2:]
+    need = [max(0, (_out_len(n, k, s, p, ceil_mode) - 1) * s + k
+                - (n + 2 * p))
+            for n, k, s, p in zip(sizes, ksize, strides, paddings)]
+    if exclusive and (any(paddings) or any(need)):
+        return out / _exclusive_counts(sizes, ksize, strides, paddings,
+                                       need, x.device, x.dtype)
+    return out / (ksize[0] * ksize[1] * ksize[2])
+
+
+@register_op("pool3d_max_with_index")
+def _max_pool3d_with_index(x, *, ksize, strides, paddings, ceil_mode=False):
+    return _max_pool_with_index(x, ksize, strides, paddings, ceil_mode)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCDHW", name=None):
+    """NDHWC is transposed around the NCDHW pool, as in the reference;
+    the mask is each maximum's flat index in the input's ``d * h * w``."""
+    x = _to_ncdhw(x, data_format)
+    ks = _pair(kernel_size, 3)
+    st = _pair(stride, 3) if stride is not None else ks
+    pad3 = _pair(padding, 3)
+    if return_mask:
+        out, mask = _max_pool3d_with_index(x, ksize=ks, strides=st,
+                                           paddings=pad3,
+                                           ceil_mode=bool(ceil_mode))
+        return _from_ncdhw(out, data_format), _from_ncdhw(mask, data_format)
+    out = _pool3d(x, ksize=ks, strides=st, paddings=pad3, mode="max",
+                  ceil_mode=bool(ceil_mode), exclusive=True, divisor=None)
+    return _from_ncdhw(out, data_format)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW",
+               name=None):
+    x = _to_ncdhw(x, data_format)
+    ks = _pair(kernel_size, 3)
+    st = _pair(stride, 3) if stride is not None else ks
+    out = _pool3d(x, ksize=ks, strides=st, paddings=_pair(padding, 3),
+                  mode="avg", ceil_mode=bool(ceil_mode),
+                  exclusive=bool(exclusive),
+                  divisor=None if divisor_override is None
+                  else float(divisor_override))
+    return _from_ncdhw(out, data_format)
+
+
+@register_op("adaptive_pool3d")
+def _adaptive_pool3d(x, *, output_size, mode):
+    _check_divides(x.shape[2:], output_size, f"adaptive_{mode}_pool3d")
+    blocks = _blocks(x, output_size)[0]
+    return blocks.amax(dim=-1) if mode == "max" else blocks.mean(dim=-1)
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
+    """Only output sizes that divide the input's; ``data_format`` taken
+    and not read."""
+    return _adaptive_pool3d(x, output_size=_pair(output_size, 3),
+                            mode="avg")
+
+
+@register_op("adaptive_max_pool3d_with_index")
+def _adaptive_max_pool3d_with_index(x, *, output_size):
+    return _adaptive_max_with_index(x, output_size, "adaptive_max_pool3d")
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    if return_mask:
+        return _adaptive_max_pool3d_with_index(
+            x, output_size=_pair(output_size, 3))
+    return _adaptive_pool3d(x, output_size=_pair(output_size, 3),
+                            mode="max")
+
+
+# ---- batch / group / instance norms ---------------------------------------------
+
+def _channel_shape(x, axis):
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    return shape
+
+
+def _affine(out, scale, bias, shape):
+    if scale is not None:
+        out = out * scale.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+@register_op("batch_norm_infer")
+def _batch_norm_infer(x, mean, var, scale, bias, *, epsilon, channel_axis):
+    shape = _channel_shape(x, channel_axis)
+    inv = torch.rsqrt(var.reshape(shape) + epsilon)
+    return _affine((x - mean.reshape(shape)) * inv, scale, bias, shape)
+
+
+@register_op("batch_norm_train")
+def _batch_norm_train(x, scale, bias, *, epsilon, channel_axis):
+    """The batch's mean and biased variance (``jnp.var``), then
+    ``(x - mean) * rsqrt(var + eps) * scale + bias`` in the reference's
+    order (nn_ops.py:597-611)."""
+    axes = tuple(i for i in range(x.dim()) if i != channel_axis)
+    mean = x.mean(dim=axes)
+    var = x.var(dim=axes, unbiased=False)
+    shape = _channel_shape(x, channel_axis)
+    inv = torch.rsqrt(var.reshape(shape) + epsilon)
+    out = _affine((x - mean.reshape(shape)) * inv, scale, bias, shape)
+    return out, mean, var
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None, name=None):
+    """Reference ``batch_norm`` (nn_ops.py:613-631). Out of training, or
+    with ``use_global_stats``, it normalizes by the running statistics
+    (``batch_norm_infer``); in training by the batch's, and then updates
+    the running ones in place: ``running * momentum + batch * (1 -
+    momentum)`` with the biased batch variance (``F.batch_norm`` would take
+    ``1 - momentum`` and the unbiased one). The update is written without
+    autograd, so no buffer holds a step's graph."""
+    ch_axis = 1 if data_format[1] == "C" or data_format == "NCL" \
+        else x.ndim - 1
+    if use_global_stats is None:
+        use_global_stats = not training
+    if not training or use_global_stats:
+        return _batch_norm_infer(x, running_mean, running_var, weight, bias,
+                                 epsilon=float(epsilon),
+                                 channel_axis=ch_axis)
+    out, batch_mean, batch_var = _batch_norm_train(
+        x, weight, bias, epsilon=float(epsilon), channel_axis=ch_axis)
+    if running_mean is not None:
+        m = float(momentum)
+        with torch.no_grad():
+            running_mean.set_value(running_mean._value * m
+                                   + batch_mean._value * (1 - m))
+            running_var.set_value(running_var._value * m
+                                  + batch_var._value * (1 - m))
+    return out
+
+
+@register_op("group_norm")
+def _group_norm(x, scale, bias, *, groups, epsilon):
+    n, c = x.shape[0], x.shape[1]
+    spatial = tuple(x.shape[2:])
+    xg = x.reshape((n, groups, c // groups) + spatial)
+    axes = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = xg.var(dim=axes, unbiased=False, keepdim=True)
+    out = ((xg - mean) * torch.rsqrt(var + epsilon)).reshape(x.shape)
+    return _affine(out, scale, bias, (1, c) + (1,) * len(spatial))
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
+               data_format="NCHW", name=None):
+    """``data_format`` taken and not read."""
+    return _group_norm(x, weight, bias, groups=int(num_groups),
+                       epsilon=float(epsilon))
+
+
+@register_op("instance_norm")
+def _instance_norm(x, scale, bias, *, epsilon):
+    axes = tuple(range(2, x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, unbiased=False, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    return _affine(out, scale, bias, (1, x.shape[1]) + (1,) * (x.dim() - 2))
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, training=True, momentum=0.9, epsilon=1e-5,
+                  data_format="NCHW", name=None):
+    """Each sample's own statistics; ``running_mean``, ``running_var``,
+    ``training``, ``momentum`` and ``data_format`` are taken and, as in
+    the reference (nn_ops.py:672-675), not read."""
+    return _instance_norm(x, weight, bias, epsilon=float(epsilon))
+
+
+@register_op("local_response_norm")
+def _lrn(x, *, size, alpha, beta, k):
+    half = size // 2
+    pad = [0, 0] * (x.dim() - 2) + [half, size - half - 1]
+    sq = F.pad(x.square(), pad)
+    acc = torch.zeros_like(x)
+    for i in range(size):
+        acc = acc + sq[:, i:i + x.shape[1]]
+    return x / torch.pow(k + alpha * acc, beta)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """Across channels (axis 1); ``data_format`` taken and not read."""
+    return _lrn(x, size=int(size), alpha=float(alpha), beta=float(beta),
+                k=float(k))
+
+
+# ---- resampling ------------------------------------------------------------------
+
+def _triangle(t):
+    return torch.clamp(1.0 - t.abs(), min=0.0)
+
+
+def _keys_cubic(t):
+    # Keys' cubic with a = -0.5, jax.image's kernel
+    out = ((1.5 * t - 2.5) * t) * t + 1.0
+    out = torch.where(t >= 1.0, ((-0.5 * t + 2.5) * t - 4.0) * t + 2.0, out)
+    return torch.where(t >= 2.0, torch.zeros_like(t), out)
+
+
+def _resize_weights(in_len, out_len, kernel, device):
+    """``jax.image.resize``'s weight matrix ``[in, out]`` for one axis
+    (its ``compute_weight_mat``): half-pixel centres, the kernel widened
+    by the shrink factor (antialiasing), each column normalized, and 0
+    for an output whose centre falls outside the input."""
+    inv_scale = 1.0 / (out_len / in_len)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(out_len, dtype=torch.float32, device=device)
+               + 0.5) * inv_scale - 0.5)
+    dist = (sample[None, :] - torch.arange(in_len, dtype=torch.float32,
+                                           device=device)[:, None]).abs()
+    w = kernel(dist / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total,
+                                    torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_len - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def image_resize(x, shape, method="linear"):
+    """``jax.image.resize(x, shape, method)`` for ``"linear"`` and
+    ``"cubic"``, with its default ``antialias=True``, in plain torch:
+    separable scale-and-translate contractions, one axis after the
+    other, whose kernels (triangle; Keys' cubic with a = -0.5) widen by
+    the factor an axis shrinks by. ``F.interpolate`` neither antialiases
+    nor takes this cubic (its a is -0.75), and ``F.adaptive_avg_pool2d``
+    averages bins. The reference calls it for non-aligned interpolation,
+    adaptive average pooling over bins that do not divide, and
+    ``transforms.Resize``."""
+    kernel = {"linear": _triangle, "cubic": _keys_cubic}[method]
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != x.dim():
+        raise ValueError(f"shape {shape} does not match the input's rank "
+                         f"{x.dim()}")
+    for d in range(x.dim()):
+        if shape[d] != x.shape[d]:
+            w = _resize_weights(x.shape[d], shape[d], kernel,
+                                x.device).to(x.dtype)
+            x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
+    return x
+
+
+def _axis_resize(x, axis, out_len, kind, align_corners):
+    """One axis of the reference's own resize (nn_ops.py:1112-1161):
+    corner-aligned positions ``i (in - 1) / (out - 1)``, or half-pixel
+    ones; nearest rounds half up when aligned and takes ``floor(i in /
+    out)`` when not; the cubic is a = -0.75."""
+    in_len = x.shape[axis]
+    if out_len == in_len:
+        return x
+    ar = torch.arange(out_len, dtype=torch.float32, device=x.device)
+    if align_corners:
+        ratio = (in_len - 1) / (out_len - 1) if out_len > 1 else 0.0
+        pos = ar * ratio
+    else:
+        pos = (ar + 0.5) * (in_len / out_len) - 0.5
+    if kind == "nearest":
+        if align_corners:
+            idx = torch.floor(pos + 0.5)
+        else:
+            idx = torch.floor(ar * (in_len / out_len))
+        return x.index_select(axis, idx.clamp(0, in_len - 1).long())
+    base = torch.floor(pos)
+    shape = [1] * x.dim()
+    shape[axis] = out_len
+    frac = (pos - base).to(x.dtype).reshape(shape)
+
+    def take(off):
+        return x.index_select(axis, (base + off).clamp(0, in_len - 1).long())
+
+    if kind == "linear":
+        return take(0) * (1 - frac) + take(1) * frac
+    a = -0.75
+
+    def w0(t):
+        return ((a + 2) * t - (a + 3)) * t * t + 1
+
+    def w1(t):
+        return ((a * t - 5 * a) * t + 8 * a) * t - 4 * a
+
+    weights = [w1(frac + 1), w0(frac), w0(1 - frac), w1(2 - frac)]
+    out = None
+    for off, wt in zip((-1, 0, 1, 2), weights):
+        term = take(off) * wt
+        out = term if out is None else out + term
+    return out
+
+
+_INTERP_KIND = {"nearest": "nearest", "bilinear": "linear",
+                "linear": "linear", "trilinear": "linear",
+                "bicubic": "cubic"}
+
+
+@register_op("interpolate")
+def _interp(x, *, size, method, align_corners):
+    kind = _INTERP_KIND[method]
+    if align_corners or method == "nearest":
+        out = x
+        for i, s in enumerate(size):
+            out = _axis_resize(out, 2 + i, int(s), kind, bool(align_corners))
+        return out
+    return image_resize(x, tuple(x.shape[:2]) + tuple(size), kind)
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """Reference ``interpolate`` (nn_ops.py:1163-1201): aligned modes and
+    ``nearest`` take the reference's own separable resize, the other
+    linear and cubic modes ``jax.image.resize``'s antialiased one
+    (``image_resize``). ``align_mode`` and ``data_format`` are taken and
+    not read."""
+    if size is None:
+        spatial = x.shape[2:]
+        if isinstance(scale_factor, (int, float)):
+            scale_factor = [scale_factor] * len(spatial)
+        size = tuple(int(s * f) for s, f in zip(spatial, scale_factor))
+    else:
+        if isinstance(size, Tensor):
+            size = size.tolist()
+        size = tuple(int(s) for s in size)
+    return _interp(x, size=size, method=mode,
+                   align_corners=bool(align_corners))
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners)
+
+
+@register_op("pixel_shuffle")
+def _pixel_shuffle(x, *, upscale_factor):
+    n, c, h, w = x.shape
+    r = upscale_factor
+    x = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, c // (r * r), h * r, w * r)
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    """``data_format`` taken and not read."""
+    return _pixel_shuffle(x, upscale_factor=int(upscale_factor))
+
+
+@register_op("temporal_shift")
+def _temporal_shift(x, *, seg_num, shift_ratio):
+    nt, c, h, w = x.shape
+    xr = x.reshape(nt // seg_num, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    left = torch.cat([xr[:, 1:, :fold], torch.zeros_like(xr[:, :1, :fold])],
+                     dim=1)
+    right = torch.cat([torch.zeros_like(xr[:, :1, fold:2 * fold]),
+                       xr[:, :-1, fold:2 * fold]], dim=1)
+    return torch.cat([left, right, xr[:, :, 2 * fold:]],
+                     dim=2).reshape(nt, c, h, w)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    return _temporal_shift(x, seg_num=int(seg_num),
+                           shift_ratio=float(shift_ratio))
+
+
+@register_op("affine_grid_op")
+def _affine_grid(theta, *, out_shape, align_corners):
+    n, _, h, w = out_shape
+    dev = theta.device
+    if align_corners:
+        ys = torch.linspace(-1.0, 1.0, h, device=dev)
+        xs = torch.linspace(-1.0, 1.0, w, device=dev)
+    else:
+        ys = (torch.arange(h, device=dev) + 0.5) * 2.0 / h - 1.0
+        xs = (torch.arange(w, device=dev) + 0.5) * 2.0 / w - 1.0
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)
+    base = base.reshape(1, h * w, 3).expand(n, h * w, 3).to(theta.dtype)
+    return torch.einsum("nhk,nck->nhc", base, theta).reshape(n, h, w, 2)
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """The ``[N, H, W, 2]`` sampling grid of ``[N, 2, 3]`` affine
+    matrices (reference affine_grid_op)."""
+    sh = [int(s) for s in (out_shape.tolist() if isinstance(out_shape, Tensor)
+                           else out_shape)]
+    return _affine_grid(theta, out_shape=tuple(sh),
+                        align_corners=bool(align_corners))
+
+
+def _grid_nodes(coord, size, order, padding_mode):
+    """``jax.scipy.ndimage.map_coordinates``'s taps on one axis: a list of
+    (index into the axis, valid, weight)."""
+    if order == 1:
+        lower = torch.floor(coord)
+        upper_w = coord - lower
+        idx = lower.long()
+        nodes = [(idx, 1 - upper_w), (idx + 1, upper_w)]
+    else:
+        # lax.round: half away from zero
+        idx = (torch.sign(coord) * torch.floor(coord.abs() + 0.5)).long()
+        nodes = [(idx, None)]
+    out = []
+    for idx, w in nodes:
+        if padding_mode == "zeros":
+            valid = (idx >= 0) & (idx < size)
+            fixed = idx.clamp(0, size - 1)
+        elif padding_mode == "border":
+            valid, fixed = None, idx.clamp(0, size - 1)
+        else:   # "reflection": scipy's mirror, d c b | a b c d | c b a
+            s = size - 1
+            valid = None
+            fixed = (torch.remainder(idx + s, 2 * s) - s).abs() if s > 0 \
+                else torch.zeros_like(idx)
+        out.append((fixed, valid, w))
+    return out
+
+
+@register_op("grid_sampler")
+def _grid_sample(x, grid, *, mode, padding_mode, align_corners):
+    if padding_mode not in ("zeros", "border", "reflection"):
+        raise ValueError(f"unknown padding_mode {padding_mode!r}")
+    n, c, h, w = x.shape
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        fx = (gx + 1.0) * (w - 1) / 2.0
+        fy = (gy + 1.0) * (h - 1) / 2.0
+    else:
+        fx = ((gx + 1.0) * w - 1.0) / 2.0
+        fy = ((gy + 1.0) * h - 1.0) / 2.0
+    out_hw = fx.shape[1:]
+    fx, fy = fx.reshape(n, -1), fy.reshape(n, -1)
+    order = 1 if mode == "bilinear" else 0
+    flat = x.reshape(n, c, h * w)
+    out = None
+    for iy, vy, wy in _grid_nodes(fy, h, order, padding_mode):
+        for ix, vx, wx in _grid_nodes(fx, w, order, padding_mode):
+            idx = (iy * w + ix)[:, None, :].expand(n, c, iy.shape[1])
+            val = torch.gather(flat, 2, idx)
+            if vy is not None:
+                val = torch.where((vy & vx)[:, None, :], val,
+                                  torch.zeros_like(val))
+            if wy is not None:
+                val = (wy * wx)[:, None, :] * val
+            out = val if out is None else out + val
+    return out.to(x.dtype).reshape((n, c) + tuple(out_hw))
+
+
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    """``x`` ``[N, C, H, W]`` sampled at ``grid`` ``[N, Ho, Wo, 2]``
+    (normalized x, y), as the reference's ``map_coordinates``: bilinear
+    for ``"bilinear"``, nearest (half away from zero) for any other mode;
+    ``"zeros"`` drops each tap outside, ``"border"`` clamps,
+    ``"reflection"`` mirrors about the edge cells."""
+    return _grid_sample(x, grid, mode=mode, padding_mode=padding_mode,
+                        align_corners=bool(align_corners))
