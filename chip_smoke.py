@@ -4,7 +4,8 @@
 Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 (``--fleet`` runs phases 1, 4, 16, 17 and 18 alone, ``--nn`` phases 1,
 7 and 20 alone, ``--bert`` phases 1 and 21 alone, ``--vision`` phases 1
-and 22 alone; none prints the kernels line)
+and 22 alone, ``--rnn`` phases 1 and 23 alone; none prints the kernels
+line)
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -294,6 +295,34 @@ Phases, one line each:
              mobilenet_v2 (eval) forward; 22d the reference's config 1
              (tools/baseline_bench.py:27-45): LeNet, Adam 1e-3, batch 64,
              20 steps eager, the median step ms.
+ 23. rnn     the recurrent surface, which runs no TPU kernel (the reference
+             computes it with lax.scan, optax and jnp: torch's fused RNN
+             ops, cuDNN's in f32, and plain torch here, so no kernel row):
+             23a its ops card against CPU in f32: LSTM, GRU, SimpleRNN
+             (tanh, relu) at [128, 24, 512], 2 layers, forward and
+             bidirectional (outputs, final states, the grads of the input
+             and of every weight), LSTMCell and GRUCell, ctc_loss at
+             DeepSpeech2's [T=200, B=16, C=29] (unnormalised, repeats, an
+             infeasible row), hsigmoid_loss over 7709 classes at [1280,
+             512], gather_tree [32, 128, 10], linear_chain_crf and
+             crf_decoding at Conll05's 67 labels; the kernels a 2-layer
+             LSTM launches in f32 and under O2 (bf16), cuDNN's warnings,
+             the port's LSTM against nn.LSTM over one flat buffer; 23b
+             PaddleNLP's seq2seq (IWSLT15 en-vi widths: vocabularies
+             17191 / 7709, 2 x 512 LSTMs, dropout 0.2, Uniform(-0.1,
+             0.1)) without attention through paddle_tpu_torch.Model.fit
+             over DataLoader(WMT16, batch 128, pad to the longest), Adam
+             1e-3 + ClipGradByGlobalNorm(5.0), 4 epochs = 8 steps in f32:
+             every loss finite, the last below the first; median step ms
+             of steps 2-8, target tokens/s, the steps' own peak memory;
+             two train_batch calls under torch.profiler: idle share,
+             launches a step, device ms a step by class; evaluate over
+             WMT16's test split; 23c BeamSearchDecoder + dynamic_decode
+             (beam 10, 32 steps) at batch 128 on the trained weights,
+             sequences/s, and 8 rows card against a CPU twin (phase 5's
+             rule); 23d the same model at hidden 64, vocabularies 500 /
+             400, 2 Adam steps card against CPU (losses, every grad), and
+             DataLoader(num_workers=2) against num_workers=0 on the card.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
@@ -4577,6 +4606,700 @@ def phase_vision(torch, amp):
     return secs
 
 
+# ---------------------------------------------------------------- phase 23
+
+# phase 23: the recurrent surface and an LSTM encoder-decoder at the width
+# of PaddleNLP's examples/machine_translation/seq2seq (IWSLT15 en-vi:
+# vocabularies 17191 / 7709, 2 layers of 512, dropout 0.2, uniform init
+# 0.1, Adam 1e-3 with ClipGradByGlobalNorm(5.0), batch 128, beam 10),
+# without its attention, over the reference's synthetic WMT16
+S2S = dict(src_vocab=17191, trg_vocab=7709, hidden=512, layers=2,
+           dropout=0.2, init=0.1, batch=128, epochs=4, beam=10, steps=32,
+           small_hidden=64, small_src=500, small_trg=400)
+# 23a: shapes of the path's ops (the RNNs at the encoder's [128, 24, 512],
+# DeepSpeech2's English CTC [T=200, B=16, C=29], hsigmoid over the target
+# vocabulary, the decode's gather_tree, Conll05's 67 labels)
+RNN_SHAPE = (128, 24, 512)
+# 23a, 23d: card against CPU in f32 (TF32 off), relative to each output's
+# or grad's largest element: sums of up to 1024 products a gate, carried
+# through 24 steps, in another order (cuDNN's RNN against the CPU's)
+RNN_TOL = 1e-4
+# 23c: beam ids card against CPU, except rows where a step's k-th and
+# (k+1)-th candidates lie within this (phase 5's rule)
+BEAM_MARGIN = 1e-4
+
+
+def flat_out(out):
+    if isinstance(out, (list, tuple)):
+        return [o for x in out for o in flat_out(x)]
+    return [out]
+
+
+def rnn_case(torch, paddle, label, call, arrays, make=None, tol=RNN_TOL,
+             exact=False, dtype="float32"):
+    """23a: ``call(layer, *tensors)`` (``layer`` None without ``make``) on
+    the card and on the CPU in ``dtype``, the layer made on the CPU from a
+    seed and carried to its card twin; every output, the float inputs'
+    grads and every weight's grad against fixed cotangents, the card's
+    within ``tol`` of the CPU's largest element (equal where ``exact`` or
+    an integer). Returns the worst error."""
+    arrays = [a.astype(dtype) if a.dtype.kind == "f" else a for a in arrays]
+    layers = [None, None]
+    if make is not None:
+        paddle.seed(23)
+        cpu = vision_on(paddle, "cpu", make).to(dtype=dtype)
+        card = vision_on(paddle, "cpu", make).to(dtype=dtype)
+        card.set_state_dict({k: v.value for k, v in cpu.state_dict().items()})
+        layers = [card.to(device="gpu"), cpu]
+    runs = []
+    for layer, dev in zip(layers, ("cuda", "cpu")):
+        ts = [paddle.Tensor._wrap(torch.tensor(
+            a, device=dev, requires_grad=a.dtype.kind == "f" and not exact))
+            for a in arrays]
+        outs = flat_out(call(layer, *ts))
+        total = None
+        for k, o in enumerate(outs):
+            if o.value.is_floating_point() and o.value.requires_grad:
+                cot = torch.from_numpy(np.asarray(np.random.RandomState(
+                    k).randn(*o.shape), np.float32)).to(o.value.device,
+                                                        o.value.dtype)
+                term = (o.value * cot).sum()
+                total = term if total is None else total + term
+        if total is not None:
+            total.backward()
+        params = layer.parameters() if layer is not None else []
+        runs.append([o.value.detach().cpu() for o in outs]
+                    + [t.value.grad.cpu() for t in ts
+                       if t.value.grad is not None]
+                    + [p.value.grad.cpu() for p in params])
+    check(len(runs[0]) == len(runs[1]), f"23a: {label}: {len(runs[0])} vs "
+          f"{len(runs[1])} results")
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(*runs)):
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"23a: {label}: {got.shape} {got.dtype} vs {want.shape} "
+              f"{want.dtype}")
+        if exact or not got.is_floating_point():
+            check(torch.equal(got, want), f"23a: {label}: not the CPU's "
+                  f"values")
+            continue
+        err = ((got.double() - want.double()).abs().max()
+               / want.double().abs().max().clamp_min(1e-30)).item()
+        check(err <= tol, f"23a: {label}: result {i} of {len(runs[0])} "
+              f"{list(got.shape)}: {err:.3e} of the largest (tol {tol})")
+        worst = max(worst, err)
+    print(f"    {label}: " + ("the CPU's values" if exact else
+                              f"{len(runs[0])} tensors, worst {worst:.3e} "
+                              f"of the largest (tol {tol})"))
+    return worst
+
+
+def rnn_kernels(torch, paddle, amp):
+    """23a: the CUDA kernels one 2-layer LSTM forward and backward at the
+    encoder's shape launches, in f32 and under O2 (bf16); cuDNN's warning
+    about weights outside one flat buffer; the port's LSTM (its own
+    parameters, which cuDNN copies into a flat buffer on every call)
+    against torch's nn.LSTM over the same weights flattened once."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    b, t, h = RNN_SHAPE
+    paddle.seed(23)
+    lstm = paddle.nn.LSTM(h, h, num_layers=2)
+    x = torch.randn(b, t, h, device="cuda")
+    for dtype, level in (("float32", None), ("bfloat16", "O2")):
+        def run():
+            xt = paddle.Tensor._wrap(x.clone().requires_grad_(True))
+            if level is None:
+                y, _ = lstm(xt)
+            else:
+                with amp.auto_cast(level=level, dtype="bfloat16"):
+                    y, _ = lstm(xt)
+            y.value.float().sum().backward()
+            lstm.clear_gradients()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, d = names.get(e.name, (0, 0.0))
+                names[e.name] = (n + 1, d + e.time_range.end
+                                 - e.time_range.start)
+        print(f"    2-layer LSTM [{b}, {t}, {h}] forward + backward, {dtype}: "
+              f"{sum(n for n, _ in names.values())} kernels; by time:")
+        for name, (n, d) in sorted(names.items(),
+                                   key=lambda kv: -kv[1][1])[:8]:
+            print(f"      {n:5d} x {d / 1e3:8.3f} ms  {name[:110]}")
+        msgs = sorted({str(w.message).split(".")[0] for w in caught})
+        print(f"    warnings ({dtype}): " + ("; ".join(m[:120] for m in msgs)
+                                           if msgs else "none"))
+    ref_lstm = torch.nn.LSTM(h, h, num_layers=2, batch_first=True).cuda()
+    with torch.no_grad():
+        for name, p in ref_lstm.named_parameters():
+            p.copy_(getattr(lstm, name).value)
+    ref_lstm.flatten_parameters()
+    xt = paddle.Tensor._wrap(x)
+    with torch.no_grad():
+        mine = time_ms(torch, lambda: lstm(xt), iters=10)
+        flat = time_ms(torch, lambda: ref_lstm(x), iters=10)
+        err = (lstm(xt)[0].value - ref_lstm(x)[0]).abs().max().item()
+    print(f"    forward f32: the port's LSTM {mine:.3f} ms, torch's nn.LSTM "
+          f"over one flat buffer of the same weights {flat:.3f} ms "
+          f"(difference {mine - flat:.3f} ms: cuDNN's per-call copy of "
+          f"{sum(p.value.numel() for p in lstm.parameters()) * 4 / 2**20:.1f}"
+          f" MiB of weights, and the port's per-layer calls); max "
+          f"difference {err:.2e}")
+
+
+def rnn_ops(torch, paddle, amp):
+    """23a: the path's ops card against CPU in f32."""
+    F = paddle.nn.functional
+    rs = np.random.RandomState(23)
+    b, t, h = RNN_SHAPE
+    x = rs.randn(b, t, h).astype(np.float32)
+    h0 = rs.randn(4, b, h).astype(np.float32)
+    # the relu RNN in f64: a preactivation within f32 rounding of 0 takes
+    # relu's other branch on one side, and its grad flips whole (1.8e-2 of
+    # the largest grad in f32 on an NVIDIA H100 80GB HBM3); f64 runs
+    # cuDNN's same RNN with no such flip
+    for name, make, dtype in (
+            ("LSTM", lambda d: paddle.nn.LSTM(h, h, num_layers=2,
+                                              direction=d), "float32"),
+            ("GRU", lambda d: paddle.nn.GRU(h, h, num_layers=2,
+                                            direction=d), "float32"),
+            ("SimpleRNN tanh", lambda d: paddle.nn.SimpleRNN(
+                h, h, num_layers=2, direction=d), "float32"),
+            ("SimpleRNN relu", lambda d: paddle.nn.SimpleRNN(
+                h, h, num_layers=2, direction=d, activation="relu"),
+             "float64")):
+        for d in ("forward", "bidirect"):
+            arrays = [x]
+            call = lambda m, a: m(a)  # noqa: E731
+            if d == "bidirect" and name == "GRU":
+                arrays, call = [x, h0], lambda m, a, s: m(a, s)
+            rnn_case(torch, paddle, f"{name} {d} 2 layers [{b}, {t}, {h}]"
+                     + (" from given states" if len(arrays) > 1 else "")
+                     + ("" if dtype == "float32" else f", {dtype}"),
+                     call, arrays, make=lambda d=d, make=make: make(d),
+                     dtype=dtype)
+    xc = x[:, 0]
+    hc = rs.randn(b, h).astype(np.float32)
+    rnn_case(torch, paddle, f"LSTMCell [{b}, {h}] from given (h, c)",
+             lambda m, a, s, c: m(a, (s, c)), [xc, hc, hc * 0.5],
+             make=lambda: paddle.nn.LSTMCell(h, h))
+    rnn_case(torch, paddle, f"GRUCell [{b}, {h}] from a given state",
+             lambda m, a, s: m(a, s), [xc, hc],
+             make=lambda: paddle.nn.GRUCell(h, h))
+    # DeepSpeech2's English CTC: 200 frames, 16 utterances, 28 characters
+    # and the blank; unnormalised scores, row 0 infeasible (60 labels in
+    # 20 frames), row 1 with repeats
+    T, B, C, L = 200, 16, 29, 60
+    scores = (rs.randn(T, B, C) * 4).astype(np.float32)
+    labels = rs.randint(1, C, (B, L)).astype(np.int32)
+    labels[1, :10] = [5, 5, 5, 7, 7, 2, 2, 2, 2, 9]
+    il = rs.randint(150, T + 1, B).astype(np.int64)
+    il[0] = 20
+    ll = rs.randint(20, L + 1, B).astype(np.int64)
+    ll[0] = L
+    for red in ("none", "mean"):
+        rnn_case(torch, paddle, f"ctc_loss {red} [T={T}, B={B}, C={C}], "
+                 f"labels up to {L}, one infeasible row",
+                 lambda _, s, lab, i, n, red=red: F.ctc_loss(
+                     s, lab, i, n, reduction=red),
+                 [scores, labels, il, ll])
+    nc = S2S["trg_vocab"]
+    rnn_case(torch, paddle, f"hsigmoid_loss num_classes={nc} [1280, {h}]",
+             lambda _, a, lab, w, bias: F.hsigmoid_loss(a, lab, nc, w, bias),
+             [rs.randn(1280, h).astype(np.float32),
+              rs.randint(0, nc, (1280,)).astype(np.int64),
+              (rs.randn(nc - 1, h) * 0.05).astype(np.float32),
+              rs.randn(nc - 1).astype(np.float32)])
+    rnn_case(torch, paddle, "gather_tree [32, 128, 10]",
+             lambda _, i, p: F.gather_tree(i, p),
+             [rs.randint(0, nc, (32, 128, 10)).astype(np.int64),
+              rs.randint(0, 10, (32, 128, 10)).astype(np.int64)], exact=True)
+    c = 67
+    em = rs.randn(32, 32, c).astype(np.float32)
+    trans = (rs.randn(c + 2, c) * 0.5).astype(np.float32)
+    lab = rs.randint(0, c, (32, 32)).astype(np.int64)
+    lens = rs.randint(1, 33, 32).astype(np.int64)
+    rnn_case(torch, paddle, f"linear_chain_crf [32, 32, {c}]",
+             lambda _, e, tr, y, n: paddle.ops.sequence.linear_chain_crf(
+                 e, tr, y, n), [em, trans, lab, lens])
+    paths = []
+    for dev in ("cuda", "cpu"):
+        args = [paddle.Tensor._wrap(torch.tensor(a, device=dev))
+                for a in (em, trans, lens)]
+        paths.append(paddle.ops.sequence.crf_decoding(*args).value.cpu())
+    differ = (paths[0] != paths[1]).any(1)
+    if bool(differ.any()):
+        # a row may part only where its two paths score the same
+        def score(p):
+            args = [paddle.Tensor._wrap(torch.tensor(a)) for a in
+                    (em, trans)] + [paddle.Tensor._wrap(p),
+                                    paddle.Tensor._wrap(torch.tensor(lens))]
+            return paddle.ops.sequence.linear_chain_crf(*args).value
+        gap = (score(paths[0]) - score(paths[1])).abs().max().item()
+        check(gap <= 1e-4, f"23a: crf_decoding parts from the CPU's by "
+              f"{gap:.3e} in NLL")
+    print(f"    crf_decoding [32, 32, {c}]: {int(differ.sum())} of 32 paths "
+          f"differ from the CPU's (each only between paths of equal "
+          f"score within 1e-4)")
+    rnn_kernels(torch, paddle, amp)
+
+
+def seq2seq_model(paddle, src_vocab, trg_vocab, hidden, layers, dropout,
+                  init):
+    """PaddleNLP's seq2seq without attention in the port's nn: source and
+    target embeddings, an nn.LSTM encoder, a decoder cell of LSTMCells
+    (dropout on each one's output) with flat states (h0, c0, h1, c1)
+    started from the encoder's, run by nn.RNN, a Linear head; every
+    parameter Uniform(-init, init)."""
+    nn = paddle.nn
+
+    class DecoderCell(nn.RNNCellBase):
+        def __init__(self):
+            super().__init__()
+            self.hidden_size = hidden
+            self.cells = nn.LayerList([nn.LSTMCell(hidden, hidden)
+                                       for _ in range(layers)])
+            self.drop = nn.Dropout(dropout)
+
+        def forward(self, x, states):
+            new = []
+            for i, cell in enumerate(self.cells):
+                out, (h, c) = cell(x, (states[2 * i], states[2 * i + 1]))
+                x = self.drop(out) if dropout else out
+                new += [h, c]
+            return x, tuple(new)
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_emb = nn.Embedding(src_vocab, hidden)
+            self.trg_emb = nn.Embedding(trg_vocab, hidden)
+            self.encoder = nn.LSTM(hidden, hidden, num_layers=layers,
+                                   dropout=dropout)
+            self.decoder = nn.RNN(DecoderCell())
+            self.head = nn.Linear(hidden, trg_vocab)
+
+        def encode(self, src, src_len=None):
+            _, (h, c) = self.encoder(self.src_emb(src),
+                                     sequence_length=src_len)
+            return tuple(s for i in range(layers) for s in (h[i], c[i]))
+
+        def forward(self, src, src_len, trg):
+            out, _ = self.decoder(self.trg_emb(trg),
+                                  self.encode(src, src_len))
+            return self.head(out)
+
+    u = nn.initializer.Uniform(-init, init)
+    nn.initializer.set_global_initializer(u, u)
+    try:
+        return Seq2Seq()
+    finally:
+        nn.initializer.set_global_initializer(None)
+
+
+def seq2seq_criterion(paddle):
+    class CrossEntropyCriterion(paddle.nn.Layer):
+        """PaddleNLP's: per-token CE times the target mask, mean over the
+        batch, sum over time; the mask from the padded label (-100)."""
+
+        def forward(self, logits, label):
+            cost = paddle.nn.functional.cross_entropy(logits, label,
+                                                      reduction="none")
+            cost = paddle.reshape(cost, label.shape)
+            mask = paddle.cast(paddle.greater_equal(
+                label, paddle.zeros_like(label)), "float32")
+            return paddle.sum(paddle.mean(cost * mask, axis=0))
+    return CrossEntropyCriterion()
+
+
+def pad_collate(batch):
+    """(src, src_len, trg, label) padded to the batch's longest; the
+    label (WMT16's trg_next) with -100."""
+    b = len(batch)
+    s_max = max(len(x[0]) for x in batch)
+    t_max = max(len(x[1]) for x in batch)
+    src = np.zeros((b, s_max), "int64")
+    trg = np.zeros((b, t_max), "int64")
+    label = np.full((b, t_max), -100, "int64")
+    for i, (s, t, n) in enumerate(batch):
+        src[i, :len(s)] = s
+        trg[i, :len(t)] = t
+        label[i, :len(n)] = n
+    return src, np.array([len(x[0]) for x in batch], "int64"), trg, label
+
+
+def seq2seq_opt(paddle, net):
+    return paddle.optimizer.Adam(
+        1e-3, parameters=net.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(5.0))
+
+
+def rnn_class(chain, shapes, vocab):
+    """A kernel's class in 23b's profile, from the names of the CPU op
+    that launched it and its ancestors (and the op's input shapes)."""
+    low = " ".join(chain).lower()
+    if "rnn/optimizer" in low:
+        return "optimizer (Adam, ClipGradByGlobalNorm)"
+    if any(k in low for k in ("lstm", "gru", "cudnn_rnn", "cudnnrnn",
+                              "rnn_tanh", "rnn_relu")):
+        return "RNN ops (cuDNN's RNN, the fused LSTM cell)"
+    if any(k in low for k in ("log_softmax", "logsoftmax", "nll_loss",
+                              "nllloss", "cross_entropy")):
+        return "cross-entropy (log-softmax, NLL)"
+    dims = {d for s in (shapes or []) for d in (s or [])}
+    if "mm" in low or "matmul" in low or "linear" in low:
+        return ("the head's product and its grads" if vocab in dims
+                else "the cells' gate products' grads")
+    if "embedding" in low:
+        return "embeddings"
+    return "the rest (elementwise, casts, copies, the mask)"
+
+
+def rnn_profile(torch, model, batch, vocab):
+    """23b: two train_batch calls under torch.profiler: the idle share,
+    launches a step, and device time a step by class (each kernel by the
+    CPU op that launched it; the optimizer by a range around its step)."""
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    from profile_port_serving import union_us
+    opt = model._optimizer
+    step = opt.step
+
+    def ranged():
+        with torch.profiler.record_function("rnn/optimizer"):
+            return step()
+    opt.step = ranged
+    n_prof = 2
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_prof):
+                model.train_batch(list(batch[:3]), [batch[3]])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        del opt.step
+    events = prof.events()
+    kinds = (torch.autograd.DeviceType.CUDA,)
+    kernels = [e for e in events if e.device_type in kinds]
+    check(kernels, "23b: the profiler saw no device activity")
+    spans = [(e.time_range.start, e.time_range.end) for e in kernels]
+    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    busy = union_us(spans)
+    total = sum(e - s for s, e in spans)
+    print(f"    profiled {n_prof} train_batch calls: wall {wall:.2f} ms, "
+          f"device window {window / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, "
+          f"idle share {1 - busy / window:.4f}; {len(kernels) / n_prof:.0f} "
+          f"launches a step, {total / n_prof / 1e3:.3f} ms of kernels a step")
+    # each CPU op's kernels (by name) give a class; a kernel name's time
+    # in the trace is shared among the classes that launched it in
+    # proportion to what they were credited with (the credited durations
+    # need not sum to the trace's: on an H100 with torch 2.11 they fell
+    # short by a third); a name no op was credited with goes by the name
+    # alone
+    credited = {}
+    for e in events:
+        if e.device_type in kinds or not getattr(e, "kernels", None):
+            continue
+        chain, p = [], e
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        c = rnn_class(chain, getattr(e, "input_shapes", None), vocab)
+        for k in e.kernels:
+            parts = credited.setdefault(k.name, {})
+            n, d = parts.get(c, (0, 0.0))
+            parts[c] = (n + 1, d + k.duration)
+    traced = {}
+    for e in kernels:
+        n, d = traced.get(e.name, (0, 0.0))
+        traced[e.name] = (n + 1, d + e.time_range.end - e.time_range.start)
+    by_class, by_name = {}, 0.0
+    for name, (n, d) in traced.items():
+        parts = credited.get(name)
+        if not parts:
+            low = name.lower()
+            parts = {("RNN ops (cuDNN's RNN, the fused LSTM cell)"
+                      if any(k in low for k in ("rnn", "lstm", "gru"))
+                      else "products no op was credited with"
+                      if any(k in low for k in ("gemm", "nvjet", "xmma"))
+                      else "the rest (elementwise, casts, copies, the "
+                      "mask)"): (1, 1.0)}
+            by_name += d
+        cn = sum(c for c, _ in parts.values())
+        cd = sum(t for _, t in parts.values())
+        for c, (pn, pd) in parts.items():
+            share = pd / cd if cd > 0 else pn / cn
+            m, t = by_class.get(c, (0.0, 0.0))
+            by_class[c] = (m + n * pn / cn, t + d * share)
+    print(f"    a step's device time by class ({by_name / total:.4f} of it "
+          f"classed by kernel name alone):")
+    for c, (n, d) in sorted(by_class.items(), key=lambda kv: -kv[1][1]):
+        print(f"      {c:50s} {n / n_prof:6.0f} launches "
+              f"{d / n_prof / 1e3:9.3f} ms a step ({d / total:.4f})")
+
+
+def rnn_train(torch, paddle):
+    """23b: the encoder-decoder at full width trained through Model.fit
+    over DataLoader(WMT16) at batch 128, 4 epochs (8 steps), f32; then
+    the profile and evaluate. Returns the model."""
+    from paddle_tpu_torch.text.datasets import WMT16
+    paddle.seed(0)
+    net = seq2seq_model(paddle, S2S["src_vocab"], S2S["trg_vocab"],
+                        S2S["hidden"], S2S["layers"], S2S["dropout"],
+                        S2S["init"])
+    n_params = sum(p.value.numel() for p in net.parameters())
+    n_emb = net.src_emb.weight.value.numel() + net.trg_emb.weight.value.numel()
+    n_rnn = sum(p.value.numel() for n, p in net.named_parameters()
+                if n.startswith(("encoder.", "decoder.")))
+    model = paddle.Model(net)
+    model.prepare(seq2seq_opt(paddle, net), seq2seq_criterion(paddle))
+    data = WMT16(mode="train", src_dict_size=S2S["src_vocab"],
+                 trg_dict_size=S2S["trg_vocab"])
+    loader = paddle.io.DataLoader(data, batch_size=S2S["batch"],
+                                  shuffle=False, collate_fn=pad_collate)
+    batches = [pad_collate([data[i] for i in idx])
+               for idx in loader.batch_sampler]
+    tokens = [int((b[3] >= 0).sum()) for b in batches]
+    print(f"    {n_params / 1e6:.3f} M parameters ({n_emb / 1e6:.3f} M in the "
+          f"embeddings, {n_rnn / 1e6:.3f} M in the LSTMs); {len(data)} "
+          f"samples, batches {[list(b[2].shape) for b in batches]}, target "
+          f"tokens {tokens}")
+    losses, begins, ends = [], [], []
+
+    class Clock(paddle.callbacks.Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            begins.append(time.perf_counter())
+
+        def on_train_batch_end(self, step, logs=None):
+            ends.append(time.perf_counter())
+            losses.append(logs["loss"])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model.fit(loader, epochs=S2S["epochs"], verbose=0, callbacks=[Clock()])
+    peak = torch.cuda.max_memory_allocated()
+    n = len(losses)
+    check(n == S2S["epochs"] * len(batches), f"23b: {n} steps")
+    check(all(np.isfinite(losses)), f"23b: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"23b: loss did not fall: {losses}")
+    times = [(e - b) * 1e3 for b, e in zip(begins, ends)]
+    step_ms = float(np.median(times[1:]))
+    tok = [tokens[i % len(tokens)] for i in range(n)]
+    tps = float(np.median([t / ms * 1e3 for t, ms in zip(tok[1:],
+                                                          times[1:])]))
+    print(f"    losses {[round(v, 4) for v in losses]}; step ms "
+          f"{[round(v, 2) for v in times]}")
+    print(f"    median step (steps 2-{n}) {step_ms:.2f} ms, "
+          f"{S2S['batch'] / step_ms * 1e3:.1f} sequences/s, median "
+          f"{tps:.1f} target tokens/s; the steps' own peak "
+          f"{(peak - held) / 2**30:.3f} GiB over the {held / 2**30:.3f} GiB "
+          f"held before them ({peak / 2**30:.3f} GiB in all)")
+    rnn_profile(torch, model, batches[0], S2S["trg_vocab"])
+    test = WMT16(mode="test", src_dict_size=S2S["src_vocab"],
+                 trg_dict_size=S2S["trg_vocab"])
+    ev = model.evaluate(paddle.io.DataLoader(
+        test, batch_size=S2S["batch"], collate_fn=pad_collate), verbose=0)
+    check(np.isfinite(ev["loss"]), f"23b: evaluate loss {ev}")
+    print(f"    evaluate over WMT16(mode='test'), {len(test)} samples: loss "
+          f"{ev['loss']:.4f}")
+    return net
+
+
+def beam_decode(paddle, net, src, steps, record=None):
+    """ids [B, T, beam] of the beam search on ``net`` from ``src``;
+    ``record`` collects each step's first beam + 1 candidates (their
+    scores and flat indices, sorted)."""
+    from paddle_tpu_torch.ops import search
+    top_k = search.topk
+    if record is not None:
+        def recording(x, k):
+            vals, idx = top_k(x, k + 1)
+            record.append((vals.value.cpu(), idx.value.cpu()))
+            return vals[:, :k], idx[:, :k]
+        search.topk = recording
+    try:
+        net.eval()
+        with paddle.no_grad():
+            dec = paddle.nn.BeamSearchDecoder(
+                net.decoder.cell, start_token=0, end_token=1,
+                beam_size=S2S["beam"], embedding_fn=net.trg_emb,
+                output_fn=net.head)
+            ids, _ = paddle.nn.dynamic_decode(dec, inits=net.encode(src),
+                                              max_step_num=steps)
+        return ids.value
+    finally:
+        search.topk = top_k
+        net.train()
+
+
+def rnn_decode(torch, paddle, net):
+    """23c: beam search at batch 128 on the trained weights, sequences/s;
+    then 8 rows on the card and on a CPU twin of the same weights."""
+    from paddle_tpu_torch.text.datasets import WMT16
+    test = WMT16(mode="test", src_dict_size=S2S["src_vocab"],
+                 trg_dict_size=S2S["trg_vocab"])
+    src = pad_collate([test[i] for i in range(S2S["batch"])])[0]
+    x = paddle.to_tensor(src)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = beam_decode(paddle, net, x, S2S["steps"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(list(ids.shape) == [S2S["batch"], S2S["steps"], S2S["beam"]],
+          f"23c: ids {list(ids.shape)}")
+    check(bool(((ids >= 0) & (ids < S2S["trg_vocab"])).all()),
+          "23c: an id outside the vocabulary")
+    wall = float(np.median(walls[1:]))
+    print(f"    beam {S2S['beam']}, {S2S['steps']} steps, batch "
+          f"{S2S['batch']}: {wall * 1e3:.1f} ms a decode (median of 2 after "
+          f"one), {S2S['batch'] / wall:.1f} sequences/s")
+    cpu = vision_on(paddle, "cpu", lambda: seq2seq_model(
+        paddle, S2S["src_vocab"], S2S["trg_vocab"], S2S["hidden"],
+        S2S["layers"], S2S["dropout"], S2S["init"]))
+    cpu.set_state_dict({k: v.value.cpu() for k, v in net.state_dict().items()})
+    rows = 8
+    recs = [[], []]
+    card_ids = beam_decode(paddle, net, paddle.to_tensor(src[:rows]),
+                           S2S["steps"], recs[0]).cpu()
+    cpu_ids = vision_on(paddle, "cpu", lambda: beam_decode(
+        paddle, cpu, paddle.to_tensor(src[:rows]), S2S["steps"], recs[1]))
+    # phase 5's rule: a row may part from the CPU's only at a step where,
+    # on either side, two adjacent candidates among its first beam + 1
+    # lie within BEAM_MARGIN; after that its beams hold other states
+    same = (card_ids == cpu_ids).reshape(rows, -1).all(1)
+    excused, first = torch.zeros(rows, dtype=torch.bool), {}
+    k = S2S["beam"]
+    for step, ((cv, ci), (pv, pi)) in enumerate(zip(*recs)):
+        differ = (ci[:, :k] != pi[:, :k]).any(1)
+        gaps = torch.cat([(v[:, :-1] - v[:, 1:]).abs() for v in (cv, pv)], 1)
+        for r in torch.nonzero(differ).flatten().tolist():
+            if r not in first:
+                first[r] = step
+                excused[r] = bool((gaps[r] < BEAM_MARGIN).any())
+    bad = [r for r in range(rows) if not same[r] and not excused[r]]
+    check(not bad, f"23c: rows {bad} part from the CPU's (first at steps "
+          f"{[first.get(r) for r in bad]}) with no near-tie there")
+    print(f"    {rows} rows card against CPU on the same weights: "
+          f"{int(same.sum())} equal; the selections of {len(first)} part at "
+          f"steps {sorted(first.values())}, each at a near-tie (adjacent "
+          f"candidates within {BEAM_MARGIN})")
+
+
+def rnn_card_vs_cpu(torch, paddle):
+    """23d: the encoder-decoder at hidden 64, vocabularies 500 / 400, made
+    from a seed on the CPU and carried to its card twin; 2 Adam steps in
+    f32 with dropout 0: the losses and every grad (step 2's held to a CPU
+    model at the card's point, as 22c's). Then DataLoader(num_workers=2)
+    on the card against num_workers=0."""
+    from paddle_tpu_torch.text.datasets import WMT16
+    make = lambda: seq2seq_model(  # noqa: E731
+        paddle, S2S["small_src"], S2S["small_trg"], S2S["small_hidden"],
+        S2S["layers"], 0.0, S2S["init"])
+    paddle.seed(7)
+    cpu = vision_on(paddle, "cpu", make)
+    card = vision_on(paddle, "cpu", make)
+    card.set_state_dict({k: v.value for k, v in cpu.state_dict().items()})
+    card.to(device="gpu")
+    data = WMT16(mode="train", src_dict_size=S2S["small_src"],
+                 trg_dict_size=S2S["small_trg"])
+    batches = [pad_collate([data[i] for i in range(j * 32, j * 32 + 32)])
+               for j in range(2)]
+    crit = seq2seq_criterion(paddle)
+
+    def grads(model, place, i):
+        ts = [paddle.to_tensor(a, place=place) for a in batches[i]]
+        loss = crit(model(*ts[:3]), ts[3])
+        loss.backward()
+        return float(loss.value.item()), {
+            n: p.grad.value.detach().cpu() for n, p in
+            model.named_parameters()}
+    opts = [seq2seq_opt(paddle, card), seq2seq_opt(paddle, cpu)]
+    gpu, cpu_place = paddle.CUDAPlace(0), paddle.CPUPlace()
+    losses, got = [], []
+    for i in range(2):
+        if i == 1:
+            there = vision_on(paddle, "cpu", make)
+            there.set_state_dict({k: v.value.cpu() for k, v in
+                                  card.state_dict().items()})
+            at_card = grads(there, cpu_place, 1)
+        step = [grads(card, gpu, i), grads(cpu, cpu_place, i)]
+        for o in opts:
+            o.step()
+            o.clear_grad()
+        losses.append([v for v, _ in step])
+        got.append([g for _, g in step])
+    for i, (a, b_) in enumerate(losses):
+        check(abs(a - b_) <= LOSS_RTOL * abs(b_), f"23d: step {i + 1} loss "
+              f"card {a} vs CPU {b_}")
+    step1, w1 = rel_grads(torch, got[0][0], got[0][1], GRAD_TOL,
+                          "23d step 1, card vs CPU")
+    step2, w2 = rel_grads(torch, got[1][0], at_card[1], GRAD_TOL,
+                          "23d step 2, card vs the CPU at the card's point")
+    print(f"    hidden {S2S['small_hidden']}, vocabularies "
+          f"{S2S['small_src']} / {S2S['small_trg']}, batch 32, 2 Adam steps: "
+          f"losses card {[round(a, 6) for a, _ in losses]} vs CPU "
+          f"{[round(b_, 6) for _, b_ in losses]} (rtol {LOSS_RTOL}); step 1's "
+          f"grads within {step1:.3e} of their largest ({w1}), step 2's within "
+          f"{step2:.3e} of the CPU's at the card's point ({w2}; tol "
+          f"{GRAD_TOL})")
+    plain = [[t.value for t in b] for b in paddle.io.DataLoader(
+        data, batch_size=64, collate_fn=pad_collate)]
+    workers = [[t.value for t in b] for b in paddle.io.DataLoader(
+        data, batch_size=64, collate_fn=pad_collate, num_workers=2)]
+    check(len(plain) == len(workers) and all(
+        a.is_cuda and b.is_cuda and torch.equal(a, b)
+        for pa, pb in zip(plain, workers) for a, b in zip(pa, pb)),
+        "23d: DataLoader(num_workers=2) differs from num_workers=0")
+    print(f"    DataLoader(WMT16, batch 64, num_workers=2) on the card: the "
+          f"{len(plain)} batches of num_workers=0, on the card")
+
+
+def phase_rnn(torch, amp):
+    """Phase 23: the recurrent surface on the card. 23a the path's ops
+    card against CPU and the RNNs' kernels; 23b the encoder-decoder at
+    full width through Model.fit; 23c its beam decode; 23d a small one
+    card against CPU and the DataLoader's workers. Returns its wall
+    seconds."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as device_mod
+    t0 = time.perf_counter()
+    paddle.set_device("gpu")
+    try:
+        print("  [23a] the path's ops at its shapes, card against CPU, f32; "
+              "the RNNs' kernels")
+        rnn_ops(torch, paddle, amp)
+        print(f"  [23b] the encoder-decoder through Model.fit: f32, batch "
+              f"{S2S['batch']}, {S2S['epochs']} epochs")
+        net = rnn_train(torch, paddle)
+        print(f"  [23c] beam decode: beam {S2S['beam']}, batch "
+              f"{S2S['batch']}")
+        rnn_decode(torch, paddle, net)
+        del net
+        torch.cuda.empty_cache()
+        print("  [23d] a small encoder-decoder card against CPU; the "
+              "DataLoader's workers")
+        rnn_card_vs_cpu(torch, paddle)
+    finally:
+        device_mod._current_place = None
+    secs = time.perf_counter() - t0
+    print(f"  phase 23 in {secs:.1f} s")
+    return secs
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -4610,6 +5333,10 @@ def main():
                     help="phases 1 and 22 only (the build, the vision "
                     "surface and ResNet-50's config 2); prints no kernels "
                     "line")
+    ap.add_argument("--rnn", action="store_true",
+                    help="phases 1 and 23 only (the build, the recurrent "
+                    "surface and the LSTM encoder-decoder through "
+                    "Model.fit and beam search); prints no kernels line")
     args = ap.parse_args()
     t_start = time.perf_counter()
     try:
@@ -4684,6 +5411,13 @@ def main():
               "batch 128), LeNet config 1")
         phase_vision(torch, amp)
         print(f"phases 1 and 22 in {time.perf_counter() - t_start:.1f} s")
+        print(card_line())
+        return 0
+    if args.rnn:
+        print("[23] the recurrent surface: the LSTM encoder-decoder "
+              "(batch 128) through Model.fit, beam 10")
+        phase_rnn(torch, amp)
+        print(f"phases 1 and 23 in {time.perf_counter() - t_start:.1f} s")
         print(card_line())
         return 0
     if args.bert:
@@ -4810,6 +5544,10 @@ def main():
           "config 2 (ResNet-50, O2 bf16, Momentum, batch 128) with its "
           "profile, models card against CPU, config 1 (LeNet)")
     phase_vision(torch, amp)
+    print("[23] the recurrent surface: its ops card against CPU, the LSTM "
+          "encoder-decoder (batch 128) through Model.fit, beam decode, a "
+          "small one card against CPU")
+    phase_rnn(torch, amp)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -4839,7 +5577,7 @@ def main():
     for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
         for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
             row["launches"] = n
-    print(f"phases 1-22 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-23 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

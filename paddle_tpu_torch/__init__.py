@@ -35,7 +35,14 @@ the flash kernels); the optimizers take ``Layer.parameters()``.
 ``paddle.tensor`` does. The vision surface: the conv, pooling, batch /
 group / instance norm and resampling ops and layers, ``vision.models``
 (LeNet, ResNet, VGG, MobileNet), ``vision.ops``, ``vision.transforms``,
-``vision.datasets`` over ``io``'s dataset classes.
+``vision.datasets`` over ``io``'s dataset classes. The recurrent
+surface: ``nn.LSTM``/``GRU``/``SimpleRNN``, the cells, ``nn.RNN``/
+``BiRNN``, ``BeamSearchDecoder``/``dynamic_decode``, the CTC and
+hierarchical-sigmoid losses, ``gather_tree``; LoD tensors
+(``core.lod``) and the sequence ops with the CRF (``ops.sequence``);
+``io.DataLoader`` with its samplers and worker processes,
+``text.datasets``, ``metric``, and ``Model`` (``fit``, ``evaluate``,
+``predict``), ``callbacks``, ``summary`` and ``flops`` of ``hapi``.
 """
 from . import (  # noqa: F401
     amp, autograd, framework, io, nn, optimizer, regularizer, tensor, utils)
@@ -57,6 +64,10 @@ from .core.tensor import Parameter, Tensor
 from .framework.io_utils import load, save
 from . import ops  # attaches the operators and methods to Tensor
 from . import vision  # noqa: E402
+from . import metric, text  # noqa: E402,F401
+from .hapi import callbacks  # noqa: E402,F401
+from .hapi.model import Model  # noqa: E402,F401
+from .hapi.summary import flops, summary  # noqa: E402,F401
 from .ops.logic import (
     allclose, bitwise_and, bitwise_not, bitwise_or, bitwise_xor, equal,
     equal_all, greater_equal, greater_than, is_empty, is_tensor, isclose,

@@ -1,6 +1,8 @@
 """``paddle.nn`` of the port (reference ``paddle_tpu/nn/__init__.py``):
 ``Layer`` and the layers whose ops the port has (the Transformer
-layers and the vision layers, conv, pooling and the norms, included), ``ParamAttr``, ``initializer``, ``functional``,
+layers, the vision layers (conv, pooling and the norms) and the
+recurrent layers, cells and beam search included), ``ParamAttr``,
+``initializer``, ``functional``,
 ``utils`` (the weight and spectral norm hooks) and the gradient clips
 the optimizers take (``grad_clip=``)."""
 from . import functional, initializer, utils  # noqa: F401
@@ -28,8 +30,8 @@ from .layer.container import (  # noqa: F401
     LayerDict, LayerList, ParameterList, Sequential,
 )
 from .layer.loss import (  # noqa: F401
-    BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, KLDivLoss, L1Loss,
-    MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
+    BCELoss, BCEWithLogitsLoss, CrossEntropyLoss, CTCLoss, HSigmoidLoss,
+    KLDivLoss, L1Loss, MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
 )
 from .layer.norm import (  # noqa: F401
     BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
@@ -40,6 +42,10 @@ from .layer.pooling import (  # noqa: F401
     AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
     AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
     AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
+)
+from .layer.rnn import (  # noqa: F401
+    GRU, LSTM, RNN, BeamSearchDecoder, BiRNN, GRUCell, LSTMCell, RNNBase,
+    RNNCellBase, SimpleRNN, SimpleRNNCell, dynamic_decode,
 )
 from .layer.transformer import (  # noqa: F401
     MultiHeadAttention, Transformer, TransformerDecoder,

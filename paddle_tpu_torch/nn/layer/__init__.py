@@ -17,6 +17,11 @@ from .pooling import (  # noqa: F401
     AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
     AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
 )
+from .loss import CTCLoss, HSigmoidLoss  # noqa: F401
+from .rnn import (  # noqa: F401
+    GRU, LSTM, RNN, BeamSearchDecoder, BiRNN, GRUCell, LSTMCell, RNNBase,
+    RNNCellBase, SimpleRNN, SimpleRNNCell, dynamic_decode,
+)
 from .transformer import (  # noqa: F401
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,

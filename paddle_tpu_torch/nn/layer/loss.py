@@ -1,5 +1,4 @@
-"""Loss layers (a port of ``paddle_tpu/nn/layer/loss.py``). ``CTCLoss`` and
-``HSigmoidLoss`` are not ported yet."""
+"""Loss layers (a port of ``paddle_tpu/nn/layer/loss.py``)."""
 from ..layer_base import Layer
 from ...ops import nn_ops
 
@@ -106,3 +105,42 @@ class MarginRankingLoss(Layer):
     def forward(self, input, other, label):  # noqa: A002
         return nn_ops.margin_ranking_loss(input, other, label, self.margin,
                                           self.reduction)
+
+
+class CTCLoss(Layer):
+    """Reference ``CTCLoss`` over ``warpctc`` (optax's CTC);
+    ``norm_by_times`` is taken and not read."""
+
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return nn_ops.ctc_loss(log_probs, labels, input_lengths,
+                               label_lengths, blank=self.blank,
+                               reduction=self.reduction)
+
+
+class HSigmoidLoss(Layer):
+    """Reference ``HSigmoidLoss``: the complete-binary-tree hierarchical
+    sigmoid with a ``[num_classes - 1, feature_size]`` weight (Xavier, the
+    default) and a zero bias; ``is_custom`` raises, ``is_sparse`` is
+    taken and not read."""
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False,
+                 name=None):
+        super().__init__()
+        if is_custom:
+            raise NotImplementedError("custom-tree hsigmoid not supported")
+        self.num_classes = num_classes
+        self.weight = self.create_parameter(
+            (num_classes - 1, feature_size), weight_attr)
+        self.bias = None if bias_attr is False else self.create_parameter(
+            (num_classes - 1,), bias_attr, is_bias=True)
+
+    def forward(self, input, label, path_table=None, path_code=None):  # noqa: A002
+        return nn_ops.hsigmoid_loss(input, label, self.num_classes,
+                                    self.weight, self.bias)

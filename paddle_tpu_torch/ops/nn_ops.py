@@ -5,8 +5,9 @@ cross-entropies and the plain losses; the vision ops: the convolutions
 and their transposes, the max, average and adaptive pools in 1d, 2d and
 3d, the batch, group and instance norms and ``local_response_norm``,
 ``interpolate``, ``pixel_shuffle``, ``temporal_shift``, ``affine_grid``
-and ``grid_sample``. ``ctc_loss``, ``hsigmoid_loss`` and ``gather_tree``
-are not ported yet.
+and ``grid_sample``; the sequence losses ``ctc_loss`` (optax's CTC, not
+torch's), ``hsigmoid_loss`` (the complete-binary-tree hierarchical
+sigmoid) and the beam backtrace ``gather_tree``.
 
 Each op is a torch function registered with the core's dispatcher and
 takes the eager core's Tensors. ``linear`` is ``x @ W + b`` with W
@@ -790,6 +791,135 @@ def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25,
         from . import math as math_ops
         out = math_ops.divide(out, normalizer)
     return _reduce(out, reduction)
+
+
+# ---- sequence losses: CTC and the hierarchical sigmoid -------------------------
+
+# optax's numerically stable stand-in for log(0)
+_CTC_LOG_EPS = -1e5
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """Reference ``ctc_loss`` (nn_ops.py:1684-1712) over ``warpctc``,
+    which is ``optax.ctc_loss``, not ``F.ctc_loss``: the scores
+    ``[T, B, C]`` go through ``log_softmax`` inside (so unnormalised
+    scores are valid input), log(0) is ``-1e5`` (an infeasible row costs
+    about 1e5 where ``F.ctc_loss`` gives inf), and ``"mean"`` divides
+    each loss by its label length, with no clamp, before the mean; the
+    loss is f64, as the reference's alphas are. ``norm_by_times`` is
+    taken and not read. The grads reach ``log_probs`` (the reference's
+    ``ctc_loss`` re-wraps its input and stops them; its op ``warpctc``
+    has the grads this one has)."""
+    out = _ctc_op(log_probs, labels, input_lengths, label_lengths,
+                  blank=int(blank))
+    if reduction == "mean":
+        from . import math as math_ops
+        from . import reduction as red_ops
+        ll = label_lengths if isinstance(label_lengths, Tensor) \
+            else Tensor(np.asarray(label_lengths), place=out.place)
+        return red_ops.mean(math_ops.divide(
+            out, math_ops.cast(ll, out.dtype)))
+    return _reduce(out, reduction)
+
+
+def _ctc_emit_gather(logprobs, labels):
+    """``einsum('btk,bnk->btn', logprobs, one_hot(labels))`` as a gather:
+    the log-probability of each label at each step, 0 for a label
+    outside ``[0, K)`` (a row of ``jax.nn.one_hot`` is then 0)."""
+    k = logprobs.shape[-1]
+    valid = (labels >= 0) & (labels < k)
+    idx = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    b, t_max = logprobs.shape[:2]
+    got = torch.gather(logprobs, 2, idx[:, None, :].expand(
+        b, t_max, idx.shape[1]))
+    return torch.where(valid[:, None, :], got, torch.zeros_like(got))
+
+
+@register_op("warpctc")
+def _ctc_op(log_probs, labels, input_lengths, label_lengths, *, blank):
+    """``optax.ctc_loss_with_forward_probs``'s recursion in plain torch:
+    blank (phi) and label (emit) log-alphas, a loop over T vectorised
+    over the batch and the labels, autograd for the grads. The alphas
+    are f64, as the reference's (it runs JAX with x64 on, so optax's
+    ``jnp.ones`` start them in f64); the log-softmax stays in the input's
+    dtype, as there."""
+    logits = log_probs.transpose(0, 1)                     # [B, T, C]
+    b, t_max, _ = logits.shape
+    n = labels.shape[1]
+    pdt = logits.dtype
+    logit_pad = (torch.arange(t_max, device=logits.device)[None, :]
+                 >= input_lengths[:, None]).to(pdt)       # [B, T]
+    label_pad = (torch.arange(n, device=logits.device)[None, :]
+                 >= label_lengths[:, None]).to(pdt)       # [B, N]
+    labels = labels.to(torch.int32)
+    logprobs = torch.log_softmax(logits, dim=-1)
+    adt = torch.promote_types(pdt, torch.float64)
+    labellens = n - label_pad.sum(1).to(torch.int32)
+    repeat = (labels[:, :-1] == labels[:, 1:]).to(torch.float32)
+    repeat = F.pad(repeat, (0, 1))
+    lp_phi = logprobs[:, :, blank:blank + 1].transpose(0, 1)    # [T, B, 1]
+    lp_emit = _ctc_emit_gather(logprobs.to(adt), labels).transpose(0, 1)
+    eps = _CTC_LOG_EPS
+    phi = torch.full((b, n + 1), eps, dtype=adt, device=logits.device)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), eps, dtype=adt, device=logits.device)
+
+    def add_phi(phi, added):
+        return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], added)],
+                         dim=-1)
+
+    pads = logit_pad.transpose(0, 1)
+    for t in range(t_max):
+        phi_orig = phi
+        phi = add_phi(phi, emit + eps * repeat)
+        next_emit = torch.logaddexp(phi[:, :-1] + lp_emit[t],
+                                    emit + lp_emit[t])
+        next_phi = add_phi(phi + lp_phi[t],
+                           emit + lp_phi[t] + eps * (1.0 - repeat))
+        pad = pads[t].reshape(b, 1)
+        emit = pad * emit + (1.0 - pad) * next_emit
+        phi = pad * phi_orig + (1.0 - pad) * next_phi
+    phi_last = add_phi(phi, emit)
+    pick = (labellens[:, None] == torch.arange(
+        n + 1, device=logits.device)).to(phi_last.dtype)
+    return -(phi_last * pick).sum(-1)
+
+
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,  # noqa: A002
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    """Reference ``hierarchical_sigmoid_op`` over the default complete
+    binary tree (nn_ops.py:1729-1763): per sample ``[N, 1]``, the summed
+    log-sigmoid cross-entropies of the internal nodes on its class's
+    path. A custom tree (``path_table``/``path_code``) raises, as there;
+    ``is_sparse`` is taken and not read."""
+    if path_table is not None or path_code is not None:
+        raise NotImplementedError(
+            "custom-tree hsigmoid (path_table/path_code) is not supported")
+    return _hsigmoid(input, label, weight, bias,
+                     num_classes=int(num_classes))
+
+
+@register_op("hsigmoid_op")
+def _hsigmoid(x, label, weight, bias, *, num_classes):
+    # class c's path: node (c + num_classes) >> k for k from the code
+    # length down to 1, the bit below it the target; nodes past the
+    # num_classes - 1 internal ones are inactive
+    code_len = int(np.ceil(np.log2(num_classes)))
+    c = label.reshape(-1) + num_classes
+    losses = torch.zeros(c.shape, dtype=x.dtype, device=x.device)
+    for k in range(code_len, 0, -1):
+        node = c >> k
+        bit = ((c >> (k - 1)) & 1).to(x.dtype)
+        active = (node >= 1) & (node - 1 < num_classes - 1)
+        nidx = torch.clamp(node - 1, 0, num_classes - 2).long()
+        logit = (x * weight[nidx]).sum(-1)
+        if bias is not None:
+            logit = logit + bias.reshape(-1)[nidx]
+        ce = -(bit * F.logsigmoid(logit) + (1 - bit) * F.logsigmoid(-logit))
+        losses = losses + torch.where(active, ce, torch.zeros_like(ce))
+    return losses.reshape(tuple(label.shape[:1]) + (1,))
 
 
 def diag_embed(x, offset=0, dim1=-2, dim2=-1):
@@ -1759,3 +1889,24 @@ def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
     ``"reflection"`` mirrors about the edge cells."""
     return _grid_sample(x, grid, mode=mode, padding_mode=padding_mode,
                         align_corners=bool(align_corners))
+
+
+# ---- beam search ---------------------------------------------------------------
+
+def gather_tree(ids, parents):
+    """Reference ``gather_tree_op``: back-trace beam-search parent
+    pointers ``[T, B, beam]`` into whole sequences. Not
+    differentiable."""
+    return _gather_tree(ids, parents)
+
+
+@register_op("gather_tree_op", differentiable=False)
+def _gather_tree(ids, parents):
+    beams = torch.arange(ids.shape[2], device=ids.device).expand(
+        tuple(ids.shape[1:]))
+    parents = parents.long()
+    out = torch.empty_like(ids)
+    for t in range(ids.shape[0] - 1, -1, -1):
+        out[t] = torch.gather(ids[t], -1, beams)
+        beams = torch.gather(parents[t], -1, beams)
+    return out

@@ -48,8 +48,10 @@ def argmin(x, axis=None, keepdim=False, dtype="int64", name=None):
 
 @register_op("top_k_v2")
 def _topk(x, *, k, axis, largest):
-    vals, idx = torch.topk(x, k, dim=axis, largest=largest, sorted=True)
-    return vals, idx
+    # lax.top_k's order: tied values in index order, which torch.topk
+    # does not keep; a stable sort does
+    vals, idx = torch.sort(x, dim=axis, descending=largest, stable=True)
+    return vals.narrow(axis, 0, k), idx.narrow(axis, 0, k)
 
 
 def topk(x, k, axis=-1, largest=True, sorted=True, name=None):  # noqa: A002

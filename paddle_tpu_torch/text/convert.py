@@ -44,12 +44,13 @@ def state_dict_to_paddle_tpu(state_dict):
     return out
 
 
-def _rename_state(state, names, to_array, port_is_dst):
+def _rename_state(state, names, to_array, port_is_dst, same_layout=False):
     """``state`` with each key's parameter name mapped through
     ``names`` (longest name first), linear weights' moments transposed
-    by ``to_array(value, transpose)``, and the ``"LR_Scheduler"`` entry
-    copied with its ``param_order`` mapped. The port's name (the
-    destination's when ``port_is_dst``) tells a linear weight."""
+    by ``to_array(value, transpose)`` (never with ``same_layout``), and
+    the ``"LR_Scheduler"`` entry copied with its ``param_order`` mapped.
+    The port's name (the destination's when ``port_is_dst``) tells a
+    linear weight."""
     by_len = sorted(names, key=len, reverse=True)
     out = {}
     for key, val in state.items():
@@ -65,8 +66,8 @@ def _rename_state(state, names, to_array, port_is_dst):
             raise KeyError(f"optimizer state {key!r}: no parameter name "
                            "in names prefixes it")
         dst = names[src]
-        lin = _is_linear_weight(dst if port_is_dst else src,
-                                len(val.shape))
+        lin = not same_layout and _is_linear_weight(
+            dst if port_is_dst else src, len(val.shape))
         out[f"{dst}_{key[len(src) + 1:]}"] = to_array(val, lin)
     return out
 
@@ -81,19 +82,23 @@ def _to_numpy(val, transpose):
     return np.ascontiguousarray((t.t() if transpose else t).numpy())
 
 
-def optimizer_state_from_paddle_tpu(np_state, names):
+def optimizer_state_from_paddle_tpu(np_state, names, same_layout=False):
     """A reference optimizer's ``state_dict()`` (numpy arrays, and the
     ``"LR_Scheduler"`` dict) -> the port's, for ``set_state_dict``.
     ``names`` maps each reference ``Parameter.name`` to the port's name
     of the same parameter: ``{p.name: n for n, p in
     ref_model.named_parameters()}`` when the port's optimizer was given
-    ``model.named_parameters()``."""
-    return _rename_state(np_state, names, _to_torch, True)
+    ``model.named_parameters()``. The GPT's linear weights are
+    ``[out, in]`` in the port and ``[in, out]`` in the reference, so their
+    moments are transposed; a model written in the Paddle ``nn`` surface
+    (``nn.Linear``'s ``[in, out]`` in both) passes ``same_layout=True``
+    and nothing is."""
+    return _rename_state(np_state, names, _to_torch, True, same_layout)
 
 
-def optimizer_state_to_paddle_tpu(state, names):
+def optimizer_state_to_paddle_tpu(state, names, same_layout=False):
     """The inverse: a port optimizer's ``state_dict()`` -> numpy arrays
     under the reference's names. ``names`` is the same map, reference
     name -> port name."""
     return _rename_state(state, {v: k for k, v in names.items()},
-                         _to_numpy, False)
+                         _to_numpy, False, same_layout)
