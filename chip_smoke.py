@@ -4,8 +4,8 @@
 Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 (``--fleet`` runs phases 1, 4, 16, 17 and 18 alone, ``--nn`` phases 1,
 7 and 20 alone, ``--bert`` phases 1 and 21 alone, ``--vision`` phases 1
-and 22 alone, ``--rnn`` phases 1 and 23 alone; none prints the kernels
-line)
+and 22 alone, ``--rnn`` phases 1 and 23 alone, ``--static`` phases 1 and
+24 alone; none prints the kernels line)
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -323,12 +323,49 @@ Phases, one line each:
              rule); 23d the same model at hidden 64, vocabularies 500 /
              400, 2 Adam steps card against CPU (losses, every grad), and
              DataLoader(num_workers=2) against num_workers=0 on the card.
+ 24. static  jit.to_static: each step captured as a CUDA graph and
+             replayed (call 1 eager, 2 eager under record, 3 capture and
+             replay, then replays), against the same step eager from the
+             same seed and batch, in turns; 24a a 2-layer GPT at full
+             width [2, 1024], forward and backward captured and AdamW
+             eager outside, untied and tied, f32 and O1 bf16: each loss
+             and every grad the eager run's bits, K1-K3 (and tied K5-K7)
+             launches the eager run's (captured x replays + the eager
+             calls); 24b config 2 as bench.py:186-206 writes it (phase
+             22b's step in jit.to_static), 24c config 3
+             (tools/baseline_bench.py:87-107, phase 21b's step), 24d the
+             flagship (tools/baseline_bench.py:163-197, phase 10's step),
+             24e config 1 (tools/baseline_bench.py:27-82, LeNet), each
+             eager, captured, eager, captured over 10 calls (LeNet 20):
+             the losses of every run the first's, 24b's 53 batch norms'
+             running statistics too, launches K1-K3 = 12 a call (24c,
+             24d) and K5-K7 = 1 (24d); eager beside captured: the median
+             step ms, samples/s or tokens/s, the idle share over 3
+             profiled calls, the peak memory and the graph pool's bytes,
+             the capture ms; 24c and 24e compare their runs within
+             STATIC_TOL (eager itself parts between runs), then once more
+             eager against captured under torch's deterministic
+             algorithms, bit for bit, and name the parameters whose
+             grads part over 5 eager backward passes from one state (24c
+             also counts the distinct eager losses of one state over 20
+             forwards); 24e then Model.fit on LeNet after
+             enable_static() against the dygraph fit, both under
+             deterministic algorithms (every batch's loss, evaluate,
+             predict); 24f a StepDecay stepped between
+             replays gives the eager losses and weights, dropout masks
+             differ on every call, and a float() of a Tensor, a torch
+             .item(), a Tensor `if`, an enabled GradScaler and a
+             rebinding inside a captured step raise ToStaticError with
+             the card working on after; 24g distribution on the card:
+             Normal, Uniform and MultivariateNormalDiag samples' moments,
+             Categorical and sampling_id frequencies by chi-square, and
+             each log_prob, entropy and KL against the CPU's.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
 14, 16, 17 and 18 for the serving K1 row, 7, 11, 12, 13, 19 and 20 for
-the f32 training rows, 10 and 13 for the bf16 ones; the non-causal rows
-21b (bf16 [32,12,128,64]), 21c (f32 [32,12,128,64], its card side at
+the f32 training rows, 10, 13 and 24d's captured runs for the bf16 ones;
+the non-causal rows 21b and 24c's captured runs (bf16 [32,12,128,64]), 21c (f32 [32,12,128,64], its card side at
 [2,12,128,64]) and 21d ([8,12,512,64])), and as the last line
 {"ok": true, "device": {...}}.
 
@@ -5300,6 +5337,734 @@ def phase_rnn(torch, amp):
     return secs
 
 
+# ---------------------------------------------------------------- phase 24
+
+# phase 24: the reference's configs through jit.to_static, each run eager
+# and captured in turns from the same seed and batch. A captured run's
+# calls: 1 eager (warm-up), 2 eager under record, 3 capture + replay,
+# then replays; its step ms is the median of calls 4..n (replays alone),
+# an eager run's of calls 2..n
+STATIC = dict(calls=10, small_calls=4, small_batch=2, lenet_calls=20,
+              fit_samples=320, fit_batch=64, rule_calls=6)
+# 24c, 24e: the eager step itself is not bit-reproducible on the card
+# (two eager runs part: nondeterministic kernels, named by
+# static_deterministic), so their runs compare within these (relative);
+# then once more under torch.use_deterministic_algorithms, bit for bit
+STATIC_TOL = dict(bert=1e-3, lenet=1e-6)
+
+
+def static_loss(loss):
+    """A step's loss as a Python float (a torch tensor or a port
+    Tensor)."""
+    v = loss.value if hasattr(loss, "value") else loss
+    return float(v.detach().float().item())
+
+
+def static_idle(torch, fn, args, n=3):
+    """The card's idle share over ``n`` calls of ``fn(*args)`` under
+    torch.profiler (the union of the device's kernels and copies against
+    its window), or None where the profiler saw no device work."""
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    from profile_port_serving import union_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(*args)
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        return None
+    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    return 1 - union_us(spans) / window if window > 0 else None
+
+
+def static_run(torch, build, calls, captured, wrappers=(), idle=True,
+               snap=None):
+    """``build()`` -> (step, args, keep) from the seed; ``calls`` calls of
+    the step, through ``jit.to_static`` when ``captured``. Returns the
+    losses, each call's ms, the median step ms, the peak memory over what
+    was held before, the idle share, the kernels' launches, ``snap(keep)``
+    taken before the idle share's profiled calls, and for a captured run
+    the capture ms, the pool's bytes and the graphs."""
+    from paddle_tpu_torch.jit import to_static
+    step, args, keep = build()
+    fn = to_static(step) if captured else step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    losses, times = [], []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        loss = fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(static_loss(loss))
+    res = dict(losses=losses, times=times,
+               snap=snap(keep) if snap else None,
+               peak=torch.cuda.max_memory_allocated() - held, held=held,
+               launches=tuple(w.launches for w in wrappers),
+               step_ms=float(np.median(times[3:] if captured
+                                       else times[1:])))
+    if captured:
+        graphs = fn.graphs()
+        res.update(capture_ms=graphs[0].capture_ms, pool=fn.pool_bytes(),
+                   graphs=len(graphs),
+                   replays=sum(g.replays for g in graphs))
+    res["idle"] = static_idle(torch, fn, args) if idle else None
+    return res
+
+
+def static_report(label, runs, unit, per_step):
+    """Print eager beside captured: step ms, ``unit``/s (``per_step`` of
+    them a step), idle share, peak memory (and the pool), capture ms."""
+    for r, captured in runs:
+        idle = "not measured" if r["idle"] is None else f"{r['idle']:.4f}"
+        extra = ""
+        if captured:
+            extra = (f"; graph pool {r['pool'] / 2**30:.3f} GiB, capture "
+                     f"{r['capture_ms']:.1f} ms, {r['graphs']} graph(s), "
+                     f"{r['replays']} replays")
+        print(f"    {label} {'captured' if captured else 'eager':8s}: "
+              f"step {r['step_ms']:.3f} ms "
+              f"({per_step / r['step_ms'] * 1e3:.1f} {unit}/s), idle share "
+              f"{idle}, peak {r['peak'] / 2**30:.3f} GiB over "
+              f"{r['held'] / 2**30:.3f} held{extra}; calls ms "
+              f"{[round(t, 2) for t in r['times']]}")
+
+
+STATIC_PARTED = []     # (label, run, captured, calls, largest rel diff)
+
+
+def static_same(label, runs, tol=0.0):
+    """Every run's losses against the first's: bit for bit (``tol`` 0) or
+    within ``tol`` relative. Prints every run's losses where they part
+    and returns the parting calls, [] when none."""
+    base = runs[0][0]["losses"]
+    parted = []
+    for k, (r, captured) in enumerate(runs[1:], 1):
+        got = r["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, base)]
+        bad = [i for i, d in enumerate(rel) if d > tol]
+        if bad:
+            parted.append((label, k, captured, bad, max(rel)))
+            kind = "captured" if captured else "eager"
+            print(f"    {label}: run {k} ({kind}) parts from run 0 (eager) "
+                  f"at calls {bad}, at most {max(rel):.3e} relative: {got} "
+                  f"vs {base}")
+    if not parted:
+        worst = max((abs(a - b) / abs(b) for r, _ in runs[1:]
+                     for a, b in zip(r["losses"], base)), default=0.0)
+        print(f"    {label}: losses {[round(v, 6) for v in base]}, "
+              + ("every run's bits the same" if tol == 0.0 else
+                 f"every run within {worst:.3e} relative of run 0 (tol "
+                 f"{tol})"))
+    STATIC_PARTED.extend(parted)
+    return parted
+
+
+@contextlib.contextmanager
+def static_deterministic(torch, label):
+    """Run the block under torch.use_deterministic_algorithms(True,
+    warn_only=True) (cuDNN's deterministic algorithms too) and print the
+    ops torch flags as nondeterministic on the way."""
+    import warnings
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    names = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                    if "determinis" in str(w.message)})
+    print(f"    {label}, torch's deterministic algorithms: ops flagged: "
+          + (" | ".join(names) if names else "none"))
+
+
+def static_grad_parts(torch, label, loss_fn, named, n=5):
+    """``n`` forward and backward passes of ``loss_fn()`` from one state,
+    eager: the parameters whose grads part from the first pass's, each
+    with its largest difference over its largest grad. Names where
+    eager's own nondeterminism lies."""
+    grads = []
+    for _ in range(n):
+        for _, p in named:
+            p.grad = None
+        loss_fn().backward()
+        grads.append({k: p.grad.detach().float().clone() for k, p in named
+                      if p.grad is not None})
+    parted = {}
+    for g in grads[1:]:
+        for k, v in g.items():
+            if not torch.equal(v, grads[0][k]):
+                d = float(((v - grads[0][k]).abs().max()
+                           / grads[0][k].abs().max().clamp_min(1e-30)).item())
+                parted[k] = max(parted.get(k, 0.0), d)
+    for _, p in named:
+        p.grad = None
+    print(f"    {label}: {n} eager backward passes from one state: "
+          + (f"{len(parted)} of {len(grads[0])} grads part: " + ", ".join(
+              f"{k} {d:.2e}" for k, d in sorted(parted.items(),
+                                                 key=lambda kv: -kv[1]))
+             if parted else f"all {len(grads[0])} grads the same bits"))
+    return parted
+
+
+def static_repeats(torch, label, fn, n=20):
+    """How many distinct values ``fn()`` gives over ``n`` calls on one
+    state: 1 where the computation is deterministic on the card."""
+    vals = []
+    for _ in range(n):
+        vals.append(float(fn().float().item()))
+    distinct = sorted(set(vals))
+    print(f"    {label}: {len(distinct)} distinct value(s) over {n} calls"
+          + ("" if len(distinct) == 1 else
+             f", {distinct[0]!r} .. {distinct[-1]!r}"))
+    return len(distinct)
+
+
+def static_kernels(torch, attn, tce, amp, optimizer, TransformerLMConfig):
+    """24a: a 2-layer GPT at full width (768, 12 heads, vocab 50304),
+    [2, 1024], forward and backward captured, AdamW eager outside the
+    step: untied and tied, f32 and O1 bf16. Each call's loss and every
+    grad the eager run's bits; launches eager = captured (captured x
+    replays + the eager calls)."""
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
+    calls, b, seq = STATIC["small_calls"], STATIC["small_batch"], \
+        FLAGSHIP["seq"]
+    ids = torch.from_numpy(np.random.RandomState(24).randint(
+        0, 50304, (b, seq)).astype(np.int64)).cuda()
+    for tie, dtype in ((False, "float32"), (False, "bfloat16"),
+                       (True, "float32"), (True, "bfloat16")):
+        cfg = TransformerLMConfig(num_layers=2, dropout=0.0,
+                                  use_flash_attention=True, max_seq_len=seq,
+                                  tie_embeddings=tie)
+        runs = []
+        for captured in (False, True):
+            model = GPTForCausalLM(cfg, generator=torch.Generator(
+                ).manual_seed(24)).train()
+            opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
+                                  weight_decay=0.01)
+
+            def fwd_bwd(ids, model=model):
+                with amp.auto_cast(enable=dtype == "bfloat16", level="O1",
+                                   dtype="bfloat16"):
+                    loss = model(ids, labels=ids)
+                loss.backward()
+                return loss
+            fn = to_static(fwd_bwd) if captured else fwd_bwd
+            for w in wrappers:
+                w.launches = 0
+            losses, grads = [], []
+            for _ in range(calls):
+                loss = fn(ids)
+                grads.append([p.grad.detach().clone()
+                              for _, p in model.named_parameters()])
+                opt.step()
+                opt.clear_grad()
+                losses.append(loss.item())
+            runs.append((losses, grads, tuple(w.launches for w in wrappers)))
+            del model, opt, fn
+        (el, eg, ec), (cl, cg, cc) = runs
+        label = f"24a {'tied' if tie else 'untied'} {dtype}"
+        check(el == cl, f"{label}: captured losses {cl} != eager {el}")
+        bad = [i for i, (a, c) in enumerate(zip(eg, cg))
+               if not all(torch.equal(x, y) for x, y in zip(a, c))]
+        check(not bad, f"{label}: grads differ from eager's at calls {bad}")
+        want = (calls * cfg.num_layers,) * 3 + ((calls,) * 3 if tie
+                                                else (0, 0, 0))
+        check(ec == want and cc == want,
+              f"{label}: launches eager {ec}, captured {cc}, want {want}")
+        print(f"    {label}: {calls} calls (2 eager, capture + replay, "
+              f"replay): losses {[round(v, 6) for v in cl]} and all "
+              f"{len(eg[0])} grads the eager run's bits; K1/K2/K3/K5/K6/K7 "
+              f"launches {cc}")
+        del runs, eg, cg
+        torch.cuda.empty_cache()
+
+
+def static_resnet(torch, paddle, amp):
+    """24b: the reference's config 2 as bench.py:186-206 writes it, through
+    jit.to_static: resnet50(1000) from paddle.seed(0), Momentum(0.1, 0.9,
+    1e-4), O2 bf16, 128 x [3, 224, 224] from RandomState(0); eager,
+    captured, eager, captured, STATIC['calls'] calls each: the losses and
+    the 53 batch norms' running statistics bit for bit."""
+    from paddle_tpu_torch.vision import models
+    b, s = RESNET["batch"], RESNET["size"]
+
+    def build():
+        paddle.seed(0)
+        net = models.resnet50(num_classes=RESNET["classes"])
+        opt = paddle.optimizer.Momentum(0.1, momentum=0.9,
+                                        parameters=net.parameters(),
+                                        weight_decay=1e-4)
+        loss_fn = paddle.nn.CrossEntropyLoss()
+        rs = np.random.RandomState(0)
+        x = paddle.to_tensor(rs.randn(b, 3, s, s).astype("float32"))
+        y = paddle.to_tensor(rs.randint(0, RESNET["classes"], (b,)).astype(
+            "int64"))
+
+        def train_step_fn(x, y):
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                out = net(x)
+                loss = loss_fn(out, y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return train_step_fn, (x, y), net
+
+    def stats(net):
+        return [(m._mean.value.clone(), m._variance.value.clone())
+                for m in net.sublayers()
+                if type(m).__name__ == "BatchNorm2D"]
+
+    runs = []
+    for captured in (False, True, False, True):
+        r = static_run(torch, build, STATIC["calls"], captured,
+                       idle=len(runs) >= 2, snap=stats)
+        runs.append((r, captured))
+        torch.cuda.empty_cache()
+    static_same("24b ResNet-50 O2", runs)
+    base = runs[0][0]["snap"]
+    for r, captured in runs[1:]:
+        bad = [i for i, ((a, b_), (c, d)) in enumerate(zip(base, r["snap"]))
+               if not (torch.equal(a, c) and torch.equal(b_, d))]
+        check(len(base) == 53 and not bad,
+              f"24b: {len(base)} batch norms, statistics differ at {bad}")
+        r["snap"] = None
+    print(f"    24b: all {len(base)} batch norms' running mean and variance "
+          f"after {STATIC['calls']} calls the same bits in every run")
+    static_report("24b ResNet-50 O2", runs[2:], "samples", b)
+
+
+def static_bert(torch, amp, optimizer, attn):
+    """24c: config 3 (tools/baseline_bench.py:87-107) through
+    jit.to_static: bert_base(max_seq_len=128, dropout=0.0), AdamW(1e-4,
+    weight_decay 0.01), O1 bf16, bench_bert's batch 32 x 128; eager,
+    captured, eager, captured: losses bit for bit, the non-causal bf16
+    K1-K3 = 12 a call."""
+    from paddle_tpu_torch.text.models import bert_base
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv)
+
+    def build():
+        model = bert_base(max_seq_len=BERT["seq"], dropout=0.0,
+                          generator=torch.Generator().manual_seed(0)).train()
+        opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
+                              weight_decay=0.01)
+        batch = [torch.from_numpy(a).cuda() for a in
+                 bert_data(BERT["batch"], BERT["seq"],
+                           model.cfg.vocab_size)]
+
+        def step_fn(ids, tok, mlm, nsp):
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = model(ids, tok, mlm, nsp)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return step_fn, batch, model
+
+    runs = []
+    for captured in (False, True, False, True):
+        r = static_run(torch, build, STATIC["calls"], captured, wrappers,
+                       idle=len(runs) >= 2)
+        runs.append((r, captured))
+        want = (STATIC["calls"] * 12,) * 3
+        check(r["launches"] == want,
+              f"24c: K1/K2/K3 launches {r['launches']}, want {want}")
+        torch.cuda.empty_cache()
+    static_same("24c BERT-base O1", runs, STATIC_TOL["bert"])
+    static_report("24c BERT-base O1", runs[2:], "samples", BERT["batch"])
+    with static_deterministic(torch, "24c BERT-base O1"):
+        det = [(static_run(torch, build, STATIC["calls"], c, idle=False), c)
+               for c in (False, True)]
+    static_same("24c BERT-base O1 under deterministic algorithms", det)
+    # one fixed state, eager: the forward's own repeatability
+    step, batch, model = build()
+    with torch.no_grad():
+        def fwd():
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                return model(*batch)
+        static_repeats(torch, "24c BERT-base O1 forward loss, eager", fwd)
+    static_grad_parts(torch, "24c BERT-base O1", fwd,
+                      list(model.named_parameters()))
+    del step, batch, model
+    return tuple(sum(r["launches"][i] for r, c in runs if c)
+                 for i in range(3))
+
+
+def static_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig):
+    """24d: the flagship (tools/baseline_bench.py:163-197) through
+    jit.to_static: tied GPT-124M, 8 x 1024, O1 bf16, AdamW(1e-4,
+    weight_decay 0.01); eager, captured, eager, captured: losses bit for
+    bit, K1-K3 = 12 and K5-K7 = 1 a call."""
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
+    cfg = TransformerLMConfig(dropout=0.0, use_flash_attention=True,
+                              max_seq_len=FLAGSHIP["seq"])
+
+    def build():
+        model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+            1234)).train()
+        opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
+                              weight_decay=0.01)
+        ids = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (FLAGSHIP["batch"], FLAGSHIP["seq"])).astype(
+                np.int64)).cuda()
+
+        def step_fn(ids, labels):
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = model(ids, labels=labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return step_fn, (ids, ids), model
+
+    runs = []
+    for captured in (False, True, False, True):
+        r = static_run(torch, build, STATIC["calls"], captured, wrappers,
+                       idle=len(runs) >= 2)
+        runs.append((r, captured))
+        want = (STATIC["calls"] * cfg.num_layers,) * 3 + \
+            (STATIC["calls"],) * 3
+        check(r["launches"] == want,
+              f"24d: launches {r['launches']}, want {want}")
+        torch.cuda.empty_cache()
+    static_same("24d flagship GPT-124M O1", runs)
+    static_report("24d flagship GPT-124M O1", runs[2:], "tokens",
+                  FLAGSHIP["batch"] * FLAGSHIP["seq"])
+    return tuple(sum(r["launches"][i] for r, c in runs if c)
+                 for i in range(6))
+
+
+def static_lenet(torch, paddle):
+    """24e: config 1 (tools/baseline_bench.py:27-82): LeNet, Adam 1e-3,
+    batch 64, the step closing over its batch, eager against captured;
+    then Model.fit on LeNet after enable_static() against the dygraph
+    fit, both under deterministic algorithms: every batch's loss,
+    evaluate and predict."""
+    from paddle_tpu_torch.vision import models
+    b = LENET["batch"]
+
+    def build():
+        paddle.seed(0)
+        net = models.LeNet()
+        opt = paddle.optimizer.Adam(1e-3, parameters=net.parameters())
+        loss_fn = paddle.nn.CrossEntropyLoss()
+        rs = np.random.RandomState(1)
+        x = paddle.to_tensor(rs.randn(b, 1, 28, 28).astype("float32"))
+        y = paddle.to_tensor(rs.randint(0, 10, (b,)).astype("int64"))
+
+        def step():
+            loss = loss_fn(net(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return step, (), net
+
+    runs = []
+    for captured in (False, True, False, True):
+        r = static_run(torch, build, STATIC["lenet_calls"], captured,
+                       idle=len(runs) >= 2)
+        runs.append((r, captured))
+    static_same("24e LeNet config 1", runs, STATIC_TOL["lenet"])
+    static_report("24e LeNet config 1", runs[2:], "samples", b)
+    with static_deterministic(torch, "24e LeNet config 1"):
+        det = [(static_run(torch, build, STATIC["lenet_calls"], c,
+                           idle=False), c) for c in (False, True)]
+    static_same("24e LeNet config 1 under deterministic algorithms", det)
+    paddle.seed(0)
+    net = models.LeNet()
+    rs = np.random.RandomState(1)
+    x = paddle.to_tensor(rs.randn(b, 1, 28, 28).astype("float32"))
+    y = paddle.to_tensor(rs.randint(0, 10, (b,)).astype("int64"))
+    static_grad_parts(torch, "24e LeNet config 1",
+                      lambda: paddle.nn.CrossEntropyLoss()(net(x), y).value,
+                      [(k, p.value) for k, p in net.named_parameters()])
+    del net, x, y
+
+    n = STATIC["fit_samples"]
+    rs = np.random.RandomState(2)
+    xs = rs.randn(n, 1, 28, 28).astype("float32")
+    ys = rs.randint(0, 10, (n, 1)).astype("int64")
+
+    class Arrays(paddle.io.Dataset):
+        def __getitem__(self, i):
+            return xs[i], ys[i]
+
+        def __len__(self):
+            return n
+
+    def fit(static):
+        paddle.seed(0)
+        net = models.LeNet()
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.Adam(1e-3,
+                                            parameters=net.parameters()),
+                      paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        seen, times = [], []
+
+        class Rec(paddle.callbacks.Callback):
+            def on_train_batch_begin(self, step, logs=None):
+                self.t0 = time.perf_counter()
+
+            def on_train_batch_end(self, step, logs=None):
+                times.append((time.perf_counter() - self.t0) * 1e3)
+                seen.append(logs["loss"])
+        if static:
+            paddle.enable_static()
+        try:
+            model.fit(Arrays(), batch_size=STATIC["fit_batch"], epochs=2,
+                      verbose=0, shuffle=False, callbacks=[Rec()])
+            ev = model.evaluate(Arrays(), batch_size=STATIC["fit_batch"],
+                                verbose=0)
+            pred = model.predict(Arrays(), batch_size=STATIC["fit_batch"],
+                                 stack_outputs=True, verbose=0)[0]
+            graphs = sum(len(s.graphs()) for s in
+                         model._static_steps.values())
+        finally:
+            paddle.disable_static()
+        return seen, ev, pred, times, graphs
+
+    with static_deterministic(torch, "24e Model.fit, dygraph and static"):
+        fits = [fit(False), fit(True)]
+    (dl, dev_, dp, dt, _), (sl, sev, sp, st, graphs) = fits
+    check(sl == dl, f"24e: static fit losses {sl} != dygraph {dl}")
+    check(sev == dev_ and np.array_equal(sp, dp),
+          f"24e: static evaluate {sev} / predict differ from dygraph's "
+          f"{dev_}")
+    print(f"    24e Model.fit on LeNet after enable_static(), under "
+          f"deterministic algorithms: {len(sl)} batches' losses, evaluate "
+          f"{sev} and predict the dygraph fit's bits; {graphs} graphs "
+          f"(train, eval, predict); train_batch ms "
+          f"dygraph {float(np.median(dt[1:])):.3f}, static (replays) "
+          f"{float(np.median(st[3:])):.3f}")
+
+
+def static_rules(torch, paddle, amp):
+    """24f: an LR schedule stepped between replays gives the eager
+    trajectory; dropout masks differ on every replay; a float(), an
+    .item(), a Tensor `if`, a GradScaler and a rebinding inside a
+    captured step raise ToStaticError, and the card works on after."""
+    from paddle_tpu_torch.jit import ToStaticError, to_static
+    calls = STATIC["rule_calls"]
+    runs = []
+    for captured in (False, True):
+        paddle.seed(5)
+        lin = paddle.nn.Linear(64, 64)
+        sched = paddle.optimizer.lr.StepDecay(0.1, step_size=2, gamma=0.5)
+        opt = paddle.optimizer.SGD(sched, parameters=lin.parameters())
+        rs = np.random.RandomState(5)
+        x = paddle.to_tensor(rs.randn(32, 64).astype("float32"))
+        y = paddle.to_tensor(rs.randn(32, 64).astype("float32"))
+
+        def step(x, y):
+            loss = paddle.nn.functional.mse_loss(lin(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        fn = to_static(step) if captured else step
+        losses, lrs = [], []
+        for _ in range(calls):
+            losses.append(static_loss(fn(x, y)))
+            sched.step()
+            lrs.append(opt.get_lr())
+        runs.append((losses, lrs, lin.weight.value.clone()))
+    (el, elr, ew), (cl, clr, cw) = runs
+    check(el == cl and elr == clr and torch.equal(ew, cw),
+          f"24f: StepDecay captured {cl} vs eager {el}")
+    print(f"    24f StepDecay(0.1, 2, 0.5) stepped between {calls} calls: "
+          f"the captured losses {[round(v, 6) for v in cl]} and weights "
+          f"the eager run's bits (rates {clr})")
+
+    paddle.seed(11)
+    drop = to_static(lambda x: paddle.nn.functional.dropout(
+        x, p=0.5, training=True))
+    x = paddle.ones([1 << 16])
+    masks = [drop(x).value.clone() for _ in range(calls)]
+    same = [(i, j) for i in range(calls) for j in range(i)
+            if torch.equal(masks[i], masks[j])]
+    keep = [float((m != 0).float().mean().item()) for m in masks]
+    check(not same and all(abs(k - 0.5) < 0.01 for k in keep),
+          f"24f: dropout masks repeat at {same}, keep shares {keep}")
+    print(f"    24f dropout(0.5) over {calls} calls (2 eager, then "
+          f"replays): no two masks alike, keep shares "
+          f"{[round(k, 4) for k in keep]}")
+
+    xt = paddle.ones([256])
+    xr = torch.ones(256, device="cuda")
+    w = paddle.ones([4])
+    w.stop_gradient = False
+    h = w * 2
+    scaler = paddle.amp.GradScaler()
+
+    def host_float(x):
+        loss = (x * 2).sum()
+        return loss * float(loss)
+
+    def host_item(x):
+        s = (x * 2).sum()
+        return s * s.item()
+
+    def tensor_if(x):
+        if (x * 2).sum() > 0:
+            return x * 2
+        return x
+
+    def scaled(x):
+        return scaler.scale((x * 2).sum())
+
+    def rebinds(x):
+        h.stop_gradient = True
+        return x + 1
+    cases = (("float() of a Tensor", host_float, xt, "host read"),
+             ("torch .item()", host_item, xr, "capturing the step"),
+             ("a Tensor if", tensor_if, xt, "dy2static"),
+             ("a GradScaler", scaled, xr, "GradScaler"),
+             ("a rebinding", rebinds, xt, "rebinds"))
+    for label, fn, arg, word in cases:
+        traced = to_static(fn, warmup=0)
+        try:
+            for _ in range(3):
+                traced(arg)
+        except ToStaticError as e:
+            check(word in str(e), f"24f: {label}: {e}")
+            torch.cuda.synchronize()
+            ok = float((xr + 1).sum().item())
+            check(ok == 512.0, f"24f: the card after {label}: {ok}")
+            print(f"    24f {label} inside the step: ToStaticError "
+                  f"({str(e)[:90]}...); eager work goes on")
+            continue
+        raise SmokeFailure(f"24f: {label} inside a captured step did not "
+                           "raise")
+
+
+def static_distribution(torch, paddle):
+    """24g: distribution on the card: Normal, Uniform and
+    MultivariateNormalDiag samples (1M draws) hold their mean and
+    standard deviation within 6 standard errors, a Categorical's and
+    sampling_id's frequencies pass a chi-square at p = 0.001; each
+    log_prob, entropy and KL on the card within 1e-5 relative (1e-6
+    absolute) of the same on the CPU."""
+    D = paddle.distribution
+    n = 1 << 20
+    paddle.seed(24)
+
+    def moments(x, mean, std, label):
+        x = x.value.double()
+        m, sd = float(x.mean().item()), float(x.std().item())
+        se = std / np.sqrt(x.numel())
+        check(abs(m - mean) < 6 * se and abs(sd - std) < 6 * se * 0.7072,
+              f"24g: {label}: mean {m} (want {mean}), std {sd} (want {std})")
+        return f"{label} mean {m:.5f} std {sd:.5f}"
+    seen = [moments(D.Normal(1.5, 2.0).sample([n]), 1.5, 2.0, "Normal"),
+            moments(D.Uniform(-1.0, 3.0).sample([n]), 1.0, 4 / np.sqrt(12),
+                    "Uniform")]
+    mvn = D.MultivariateNormalDiag(np.zeros(2, "float32"),
+                                   np.diag([1.0, 9.0]).astype("float32"))
+    x = mvn.sample((n,))
+    check(x.value.is_cuda, "24g: the MultivariateNormalDiag sample is not "
+          "on the card")
+    for j, sd in enumerate((1.0, 3.0)):
+        seen.append(moments(paddle.Tensor._wrap(x.value[:, j]), 0.0, sd,
+                            f"MVN[{j}]"))
+    probs = np.array([0.1, 0.2, 0.3, 0.4], "float32")
+    for label, draws in (
+            ("Categorical", D.Categorical(np.log(probs)).sample([n])),
+            ("sampling_id", D.sampling_id(np.tile(probs, (1 << 16, 1))))):
+        counts = np.bincount(draws.numpy().reshape(-1), minlength=4)
+        expect = counts.sum() * probs
+        chi2 = float(((counts - expect) ** 2 / expect).sum())
+        check(chi2 < 16.27, f"24g: {label} chi-square {chi2}: {counts}")
+        seen.append(f"{label} chi-square {chi2:.2f}")
+    rs = np.random.RandomState(24)
+    loc, loc2, val = (rs.randn(64, 16).astype("float32") for _ in range(3))
+    sc, sc2 = ((rs.rand(64, 16) + 0.5).astype("float32") for _ in range(2))
+    logits = rs.randn(64, 50).astype("float32")
+    idx = rs.randint(0, 50, (64,)).astype("int64")
+    cov = np.diag((rs.rand(16) + 0.5).astype("float32"))
+    worst = 0.0
+    outs = {}
+    for place in ("cpu", "cuda"):
+        def T(a):
+            return paddle.to_tensor(a, place=place)
+        nd, nd2 = D.Normal(T(loc), T(sc)), D.Normal(T(loc2), T(sc2))
+        ud = D.Uniform(T(loc), T(loc + sc))
+        cd = D.Categorical(T(logits))
+        md = D.MultivariateNormalDiag(T(loc), T(cov))
+        outs[place] = [nd.log_prob(T(val)), nd.entropy(),
+                       nd.kl_divergence(nd2),
+                       ud.log_prob(T(loc + 0.5 * sc)), ud.entropy(),
+                       cd.log_prob(T(idx)), cd.entropy(), md.log_prob(T(val)),
+                       md.entropy(),
+                       md.kl_divergence(D.MultivariateNormalDiag(
+                           T(loc2), T(cov)))]
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        a, b = a.numpy(), b.numpy()
+        err = float(np.max(np.abs(a - b) - 1e-5 * np.abs(a)))
+        check(err <= 1e-6, f"24g: card vs CPU {err}")
+        worst = max(worst, float(np.max(np.abs(a - b) / np.maximum(
+            np.abs(a), 1e-6))))
+    print(f"    24g {'; '.join(seen)}; {len(outs['cpu'])} log_prob / "
+          f"entropy / KL outputs card vs CPU within {worst:.3e} relative")
+
+
+def phase_static(torch, attn, tce, amp, optimizer, TransformerLMConfig):
+    """Phase 24: jit.to_static on the card (24a-24f), and distribution
+    (24g). Returns the
+    captured runs' launches: 24c's (K1, K2, K3) and 24d's six."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as device_mod
+    t0 = time.perf_counter()
+    print("  [24a] K1-K3 and K5-K7 inside a graph: a 2-layer GPT at full "
+          "width, forward and backward captured")
+    static_kernels(torch, attn, tce, amp, optimizer, TransformerLMConfig)
+    print("  [24c] config 3: BERT-base O1 bf16, 32 x 128, captured")
+    bert = static_bert(torch, amp, optimizer, attn)
+    print("  [24d] the flagship: tied GPT-124M O1 bf16, 8 x 1024, captured")
+    flagship = static_flagship(torch, attn, tce, amp, optimizer,
+                               TransformerLMConfig)
+    paddle.set_device("gpu")
+    try:
+        print("  [24b] config 2: ResNet-50 O2 bf16, Momentum, batch "
+              f"{RESNET['batch']}, captured")
+        static_resnet(torch, paddle, amp)
+        print("  [24e] config 1: LeNet captured; Model.fit after "
+              "enable_static()")
+        static_lenet(torch, paddle)
+        print("  [24f] the rules: an LR schedule, dropout masks, what "
+              "raises")
+        static_rules(torch, paddle, amp)
+        print("  [24g] distribution on the card: samples' moments, "
+              "log_prob / entropy / KL against the CPU")
+        static_distribution(torch, paddle)
+    finally:
+        device_mod._current_place = None
+    print(f"  phase 24 in {time.perf_counter() - t0:.1f} s")
+    check(not STATIC_PARTED, f"24: losses parted from the eager run's: "
+          f"{STATIC_PARTED}")
+    return bert, flagship
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -5333,6 +6098,11 @@ def main():
                     help="phases 1 and 22 only (the build, the vision "
                     "surface and ResNet-50's config 2); prints no kernels "
                     "line")
+    ap.add_argument("--static", action="store_true",
+                    help="phases 1 and 24 only (the build and jit.to_static: "
+                    "the kernels inside a graph, configs 1-3 and the "
+                    "flagship captured against eager, the rules); prints "
+                    "no kernels line")
     ap.add_argument("--rnn", action="store_true",
                     help="phases 1 and 23 only (the build, the recurrent "
                     "surface and the LSTM encoder-decoder through "
@@ -5411,6 +6181,15 @@ def main():
               "batch 128), LeNet config 1")
         phase_vision(torch, amp)
         print(f"phases 1 and 22 in {time.perf_counter() - t_start:.1f} s")
+        print(card_line())
+        return 0
+    if args.static:
+        print("[24] jit.to_static: whole steps captured as CUDA graphs")
+        bert24, flag24 = phase_static(torch, attn, tce, amp, optimizer,
+                                      TransformerLMConfig)
+        print(f"phases 1 and 24 in {time.perf_counter() - t_start:.1f} s; "
+              f"phase 24's captured launches: 24c K1/K2/K3 {bert24}, 24d "
+              f"K1/K2/K3/K5/K6/K7 {flag24}")
         print(card_line())
         return 0
     if args.rnn:
@@ -5548,6 +6327,10 @@ def main():
           "encoder-decoder (batch 128) through Model.fit, beam decode, a "
           "small one card against CPU")
     phase_rnn(torch, amp)
+    print("[24] jit.to_static: K1-K3 and K5-K7 inside graphs, configs 1-3 "
+          "and the flagship captured against eager, the rules")
+    bert24, flag24 = phase_static(torch, attn, tce, amp, optimizer,
+                                  TransformerLMConfig)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -5566,7 +6349,7 @@ def main():
     k2_row["launches"] = k2 + f32[1]
     k3_row["launches"] = k3 + f32[2]
     k5f_row["launches"], k6f_row["launches"], k7f_row["launches"] = f32[3:]
-    bf16 = [a + b for a, b in zip(flagship, rc_bf16)]
+    bf16 = [a + b + c for a, b, c in zip(flagship, rc_bf16, flag24)]
     for row, n in zip((k1b_row, k2b_row, k3b_row, k5_row, k6_row, k7_row),
                       bf16):
         row["launches"] = n
@@ -5574,10 +6357,11 @@ def main():
     # path runs f32 at BERT's [32,12,128,64]; 21c's card side runs
     # [2,12,128,64], BERT-base's steps (21b) the bf16 [32,12,128,64], the
     # encoder (21d) [8,12,512,64]
+    bert = tuple(a + b for a, b in zip(bert, bert24))
     for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
         for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
             row["launches"] = n
-    print(f"phases 1-23 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-24 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -43,6 +43,10 @@ hierarchical-sigmoid losses, ``gather_tree``; LoD tensors
 ``io.DataLoader`` with its samplers and worker processes,
 ``text.datasets``, ``metric``, and ``Model`` (``fit``, ``evaluate``,
 ``predict``), ``callbacks``, ``summary`` and ``flops`` of ``hapi``.
+``jit.to_static`` captures a whole step as one CUDA graph on the card
+(``enable_static()`` puts ``Model``'s steps through it); ``reader``, the
+legacy ``dataset`` reader creators, ``distribution`` and ``core.native``
+(the C++ runtime's bindings).
 """
 from . import (  # noqa: F401
     amp, autograd, framework, io, nn, optimizer, regularizer, tensor, utils)
@@ -64,7 +68,10 @@ from .core.tensor import Parameter, Tensor
 from .framework.io_utils import load, save
 from . import ops  # attaches the operators and methods to Tensor
 from . import vision  # noqa: E402
-from . import metric, text  # noqa: E402,F401
+from . import jit, metric, static, text  # noqa: E402,F401
+from . import dataset, distribution, reader  # noqa: E402,F401
+from .static import (  # noqa: E402,F401
+    disable_static, enable_static, in_dynamic_mode)
 from .hapi import callbacks  # noqa: E402,F401
 from .hapi.model import Model  # noqa: E402,F401
 from .hapi.summary import flops, summary  # noqa: E402,F401

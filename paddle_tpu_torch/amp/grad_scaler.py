@@ -9,13 +9,20 @@ counters are f32 / int32 scalars on the CPU, updated by the reference's
 rule (``_update_loss_scaling``, :37-52). The reference masks a skipped
 step branch-free so that it traces; eager PyTorch reads the flag and
 does not call ``optimizer.step()``, which leaves the parameters and the
-optimizer's state as they were, as the reference's masking does. Inside
+optimizer's state as they were, as the reference's masking does. That
+read is a host sync and the state lives on the host, so an enabled
+scaler inside a step captured by ``jit.to_static`` raises
+``ToStaticError``. Inside
 an ``auto_cast`` the unscaling runs uncast, like the body of a port op:
 a grad keeps its parameter's dtype.
 """
 import torch
 
+from ..core import trace as _trace
 from .auto_cast import op_body
+
+_HOST_STATE = ("GradScaler (its scale and counters live on the host and "
+               "it reads the inf flag there)")
 
 
 class GradScaler:
@@ -40,6 +47,7 @@ class GradScaler:
     def scale(self, loss):
         if not self._enable:
             return loss
+        _trace.refuse_in_capture(_HOST_STATE)
         return loss * self._scale.to(loss.device, loss.dtype)
 
     @torch.no_grad()
@@ -49,6 +57,7 @@ class GradScaler:
         finite."""
         if not self._enable:
             return
+        _trace.refuse_in_capture(_HOST_STATE)
         params = [p for p in optimizer._parameter_list() if p.grad is not None]
         if not params:
             return

@@ -24,6 +24,7 @@ import torch
 
 from . import dtype as dtype_mod
 from . import device as device_mod
+from . import trace as _trace
 
 _name_counter = [0]
 
@@ -68,6 +69,8 @@ class Tensor:
         self.name = name or _auto_name()
         self.persistable = persistable
         self.trainable = True
+        if _trace._active is not None:
+            _trace._active.register_created(self)
         if not stop_gradient:
             self.stop_gradient = False
 
@@ -80,6 +83,8 @@ class Tensor:
         t.name = name or _auto_name()
         t.persistable = False
         t.trainable = True
+        if _trace._active is not None:
+            _trace._active.register_created(t)
         return t
 
     # ---- value -----------------------------------------------------------
@@ -98,8 +103,17 @@ class Tensor:
             raise InvalidArgumentError(
                 f"set_value shape mismatch {tuple(v.shape)} vs "
                 f"{tuple(self._value.shape)}")
+        if _trace._active is not None:
+            _trace._active.write(self)
         with torch.no_grad():
             self._value.copy_(v)
+
+    def _rebind(self, v):
+        """Replace the wrapped torch tensor (not a write into it): a
+        captured step refuses it (``core/trace.py``)."""
+        if _trace._active is not None:
+            _trace._active.rebind(self)
+        self._value = v
 
     def set_value(self, value):
         """In-place assignment (reference: paddle.Tensor.set_value)."""
@@ -119,14 +133,15 @@ class Tensor:
                 if v.grad_fn is None:
                     v.requires_grad_(False)
                 else:
-                    self._value = v.detach()
+                    self._rebind(v.detach())
         elif not v.requires_grad:
             if not (v.is_floating_point() or v.is_complex()):
                 raise TypeError(
                     f"stop_gradient=False needs a floating tensor, got "
                     f"{self.dtype.name}")
             if v.grad_fn is not None:
-                self._value = v = v.detach()
+                v = v.detach()
+                self._rebind(v)
             v.requires_grad_(True)
 
     @property
@@ -145,6 +160,8 @@ class Tensor:
     @grad.setter
     def grad(self, g):
         from .sparse_grad import sparse_slices
+        if _trace._active is not None:
+            _trace._active.write(self)
         sl = sparse_slices(g)
         if sl is not None:
             self._value.grad = sl.to_torch()
@@ -216,6 +233,8 @@ class Tensor:
     def numpy(self):
         """The values as a numpy array (a copy on the host); bfloat16
         comes back as float32, numpy having no bfloat16."""
+        if _trace._active is not None:
+            _trace._active.host_read(self, "numpy")
         v = self._value.detach()
         if v.dtype == torch.bfloat16:
             v = v.float()
@@ -223,9 +242,13 @@ class Tensor:
         return out.copy() if v.device.type == "cpu" else out
 
     def item(self, *args):
+        if _trace._active is not None:
+            _trace._active.host_read(self, "item")
         return self.numpy().item(*args)
 
     def tolist(self):
+        if _trace._active is not None:
+            _trace._active.host_read(self, "tolist")
         return self.numpy().tolist()
 
     def __float__(self):
@@ -235,6 +258,8 @@ class Tensor:
         return int(self.item())
 
     def __bool__(self):
+        if _trace._active is not None:
+            _trace._active.host_read(self, "bool")
         if self.size != 1:
             raise ValueError(
                 "truth value of multi-element Tensor is ambiguous")

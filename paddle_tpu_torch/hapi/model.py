@@ -1,11 +1,17 @@
-"""The high-level ``Model`` API (a port of ``paddle_tpu/hapi/model.py``,
-its dygraph branch): ``prepare``, ``train_batch``, ``eval_batch``,
-``predict_batch``, ``fit`` (with gradient accumulation), ``evaluate``,
-``predict``, ``save`` and ``load``.
+"""The high-level ``Model`` API (a port of ``paddle_tpu/hapi/model.py``):
+``prepare``, ``train_batch``, ``eval_batch``, ``predict_batch``, ``fit``
+(with gradient accumulation), ``evaluate``, ``predict``, ``save`` and
+``load``.
 
-The reference's static-mode branch compiles each step through
-``jit.to_static``, which the port does not have yet, so every step runs
-eagerly. Each batch runs inside an ``observability.tracing.span_timer``
+Both of the reference's branches: in dygraph mode each step runs
+eagerly; after ``enable_static()`` the train, eval and predict steps run
+through ``jit.to_static`` (``_static_step``), one ``TracedFunction`` a
+mode, captured as CUDA graphs on the card, and ``fit`` with
+``accumulate_grad_batches=k`` runs each window of k batches as one step
+(``_run_static_window``). Metrics stay eager over the step's returned
+outputs. ``prepare`` drops the compiled steps, which close over the
+loss and the optimizer. Each batch runs inside an
+``observability.tracing.span_timer``
 named ``hapi/train_batch``, ``hapi/eval_batch`` or
 ``hapi/predict_batch``, the reference's ``record_scope`` names. As in the
 reference, a batch's last element is its only label (``_split_batch``),
@@ -32,6 +38,11 @@ def _listed(x):
     return list(x) if isinstance(x, (list, tuple)) else [x]
 
 
+def _in_static_mode():
+    from ..static import _static_mode
+    return bool(_static_mode[0])
+
+
 class Model:
     def __init__(self, network, inputs=None, labels=None):
         self.network = network
@@ -39,12 +50,84 @@ class Model:
         self._loss = None
         self._metrics = []
         self.stop_training = False
+        # the static branch's steps, one TracedFunction a mode
+        self._static_steps = {}
+
+    # ---- the static branch (reference hapi/model.py:43-115) --------------
+    def _total(self, outs, labs):
+        loss_list = self._losses(outs, labs)
+        total = loss_list[0]
+        for extra in loss_list[1:]:
+            total = math_ops.add(total, extra)
+        return loss_list, total
+
+    def _static_step(self, mode):
+        step = self._static_steps.get(mode)
+        if step is not None:
+            return step
+        from ..jit import to_static
+        model = self
+
+        if mode == "train":
+            def raw(ins, labs, update):
+                outs = _listed(model.network(*ins))
+                loss_list, total = model._total(outs, labs)
+                total.backward()
+                if update:
+                    model._optimizer.step()
+                    model._optimizer.clear_grad()
+                return loss_list, outs
+        elif mode == "train_window":
+            # gradient accumulation: the window of k batches is one step,
+            # k backwards into the grads, then one update
+            def raw(ins_seq, labs_seq):
+                per = []
+                for ins, labs in zip(ins_seq, labs_seq):
+                    outs = _listed(model.network(*ins))
+                    loss_list, total = model._total(outs, labs)
+                    total.backward()
+                    per.append((loss_list, outs))
+                model._optimizer.step()
+                model._optimizer.clear_grad()
+                return per
+        elif mode == "eval":
+            def raw(ins, labs):
+                outs = _listed(model.network(*ins))
+                if model._loss is None:
+                    return [], outs
+                return model._losses(outs, labs), outs
+        else:
+            def raw(ins):
+                return _listed(model.network(*ins))
+        step = self._static_steps[mode] = to_static(raw)
+        return step
+
+    def _run_static_window(self, window, cbks, batch_size):
+        """One accumulation window as one static step, then each batch's
+        callbacks, metrics and logs in order."""
+        self.network.train()
+        ins_seq = [_as_tensors(ins) for _, ins, _ in window]
+        labs_seq = [_as_tensors(labs, allow_none=True)
+                    for _, _, labs in window]
+        with span_timer("hapi/train_window"):
+            results = self._static_step("train_window")(ins_seq, labs_seq)
+        logs = {}
+        for (step, _, _), labs, (loss_list, outs) in zip(window, labs_seq,
+                                                         results):
+            cbks.on_batch_begin("train", step, {})
+            metrics = self._update_metrics(outs, labs)
+            vals = [float(v.numpy()) for v in loss_list]
+            logs = self._pack_logs((vals, metrics) if metrics else vals,
+                                   batch_size)
+            cbks.on_batch_end("train", step, logs)
+        return logs
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None):
         """``amp_configs`` is taken and not read, as in the reference."""
         self._optimizer = optimizer
         self._loss = loss
+        self._static_steps = {}
         if metrics is None:
             self._metrics = []
         elif isinstance(metrics, (list, tuple)):
@@ -67,15 +150,16 @@ class Model:
         ins = _as_tensors(_listed(inputs))
         labs = _as_tensors(_listed(labels), allow_none=True)
         with span_timer("hapi/train_batch"):
-            outs = _listed(self.network(*ins))
-            loss_list = self._losses(outs, labs)
-            total = loss_list[0]
-            for extra in loss_list[1:]:
-                total = math_ops.add(total, extra)
-            total.backward()
-            if update:
-                self._optimizer.step()
-                self._optimizer.clear_grad()
+            if _in_static_mode():
+                loss_list, outs = self._static_step("train")(
+                    ins, labs, bool(update))
+            else:
+                outs = _listed(self.network(*ins))
+                loss_list, total = self._total(outs, labs)
+                total.backward()
+                if update:
+                    self._optimizer.step()
+                    self._optimizer.clear_grad()
         metrics = self._update_metrics(outs, labs)
         vals = [float(v.numpy()) for v in loss_list]
         return (vals, metrics) if metrics else vals
@@ -86,9 +170,13 @@ class Model:
         ins = _as_tensors(_listed(inputs))
         labs = _as_tensors(_listed(labels), allow_none=True)
         with span_timer("hapi/eval_batch"):
-            outs = _listed(self.network(*ins))
-            loss_list = self._losses(outs, labs) \
-                if self._loss is not None else None
+            if _in_static_mode():
+                loss_list, outs = self._static_step("eval")(ins, labs)
+                loss_list = loss_list if self._loss is not None else None
+            else:
+                outs = _listed(self.network(*ins))
+                loss_list = self._losses(outs, labs) \
+                    if self._loss is not None else None
         metrics = self._update_metrics(outs, labs)
         if loss_list is not None:
             vals = [float(v.numpy()) for v in loss_list]
@@ -100,7 +188,10 @@ class Model:
         self.network.eval()
         ins = _as_tensors(_listed(inputs))
         with span_timer("hapi/predict_batch"):
-            outs = _listed(self.network(*ins))
+            if _in_static_mode():
+                outs = self._static_step("predict")(ins)
+            else:
+                outs = _listed(self.network(*ins))
         return [o.numpy() for o in outs]
 
     # ---- loops -----------------------------------------------------------
@@ -137,9 +228,24 @@ class Model:
             train_logs = {}
             n_steps = _safe_len(train_loader)
             k = max(1, int(accumulate_grad_batches))
+            # the static branch runs each window of k batches as one step
+            use_window = _in_static_mode() and k > 1
+            window = []
             pending = False
             for step, batch in enumerate(train_loader):
                 ins, labs = _split_batch(batch)
+                if use_window:
+                    window.append((step, ins, labs))
+                    if len(window) == k or (n_steps is not None
+                                            and step + 1 == n_steps):
+                        train_logs = self._run_static_window(
+                            window, cbks, batch_size)
+                        window = []
+                    it_count += 1
+                    if (num_iters is not None and it_count >= num_iters) \
+                            or self.stop_training:
+                        break
+                    continue
                 cbks.on_batch_begin("train", step, {})
                 # grads sum over the backwards between updates, since
                 # clear_grad runs only with one
@@ -153,6 +259,10 @@ class Model:
                 if (num_iters is not None and it_count >= num_iters) or \
                         self.stop_training:
                     break
+            if window:
+                # the tail of a loader of unknown length, or a break
+                train_logs = self._run_static_window(window, cbks,
+                                                     batch_size)
             if pending:
                 # a loader of unknown length ended between updates: step
                 # on what the last batches accumulated

@@ -37,7 +37,7 @@ def _swap_value(x, new):
     new = new.detach()
     if rg:
         new.requires_grad_(True)
-    x._value = new
+    x._rebind(new)
     return x
 
 

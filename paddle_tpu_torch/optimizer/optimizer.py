@@ -14,8 +14,14 @@ clipped grads, then one update per parameter, which writes the
 parameter and its f32 state in place (the reference returned new
 arrays).
 
-The learning rate is a Python float rounded to f32, as the reference's
-f32 learning-rate tensor holds it; an ``LRScheduler`` writes into it.
+The learning rate is a 0-d f32 tensor on the parameters' device that
+every update reads, as the reference's persistable learning-rate tensor
+is (``paddle_tpu/optimizer/optimizer.py:59-62``): ``set_lr`` and an
+``LRScheduler`` fill it in place, so a step captured as a CUDA graph
+(``jit.to_static``) reads the rate of the moment it is replayed.
+``get_lr()`` returns a host mirror, the value rounded to f32, without a
+sync. Setting the rate or making a parameter's state inside a captured
+step raises ``ToStaticError``: either would happen once, at capture.
 Inside an ``amp.auto_cast`` the update runs uncast, like the body of a
 port op.
 
@@ -41,6 +47,7 @@ optimizer's state across.
 import torch
 
 from ..amp.auto_cast import op_body
+from ..core import trace as _trace
 from ..core.sparse_grad import sparse_slices
 from ..core.tensor import Tensor
 from .lr import LRScheduler
@@ -118,6 +125,9 @@ class Optimizer:
             if getattr(weight_decay, "_mode", "l2") == "l1":
                 self._l1_coeff, self._weight_decay = self._weight_decay, 0.0
         self._lr = 0.0
+        # device -> the rate as a 0-d f32 tensor there
+        self._lr_dev = {d: torch.zeros((), dtype=torch.float32, device=d)
+                        for d in {_leaf(p).device for _, p in self._params}}
         if isinstance(learning_rate, LRScheduler):
             self._lr_scheduler = learning_rate
             learning_rate._bind(self)
@@ -129,7 +139,21 @@ class Optimizer:
         return self._lr
 
     def set_lr(self, value):
+        _trace.refuse_in_capture(
+            "set_lr (an LRScheduler's step included): step the scheduler "
+            "between replays")
         self._lr = _f32(value)
+        for t in self._lr_dev.values():
+            t.fill_(self._lr)
+
+    def _lr_of(self, param):
+        """The rate tensor on ``param``'s device."""
+        t = self._lr_dev.get(param.device)
+        if t is None:
+            _trace.refuse_in_capture("a learning-rate tensor made")
+            t = self._lr_dev[param.device] = torch.full(
+                (), self._lr, dtype=torch.float32, device=param.device)
+        return t
 
     def _parameter_list(self):
         """The parameters' torch tensors, in order."""
@@ -191,6 +215,9 @@ class Optimizer:
         store = self._accumulators.setdefault(kind, {})
         key = id(param)
         if key not in store:
+            _trace.refuse_in_capture(
+                f"the optimizer's {kind!r} state made (its first step): run "
+                "a step eagerly first (to_static's warm-up)")
             store[key] = torch.full(param.shape if shape is None else shape,
                                     init, dtype=torch.float32,
                                     device=param.device)
@@ -215,15 +242,18 @@ class Optimizer:
         """Load a ``state_dict()``: each key goes to the parameter whose
         name prefixes it, longest name first (so a name that prefixes
         another's cannot take its state); where no key matches a current
-        name, by the saved ``param_order``. Values are copied into
-        existing state, or made f32 on the parameter's device."""
+        name, or the saved ``param_order`` names parameters this
+        optimizer does not have (auto names of another process or package
+        that overlap the current ones by chance), by that order. Values
+        are copied into existing state, or made f32 on the parameter's
+        device."""
         meta = state_dict.get("LR_Scheduler")
         keys = [k for k in state_dict if k != "LR_Scheduler"]
         hits = sum(1 for k in keys
                    if any(k.startswith(n + "_") for n, _ in self._params))
         order = meta.get("param_order") if isinstance(meta, dict) else None
-        if hits == 0 and order is not None \
-                and len(order) == len(self._params):
+        if order is not None and len(order) == len(self._params) and (
+                hits == 0 or not set(order) <= {n for n, _ in self._params}):
             pairs = [(saved, _leaf(p))
                      for saved, (_, p) in zip(order, self._params)]
         else:

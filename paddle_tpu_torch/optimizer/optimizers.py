@@ -235,10 +235,10 @@ class SGD(Optimizer):
                          name)
 
     def _apply_one(self, name, p, g):
-        _sgd(p, g, self._lr, wd=self._weight_decay)
+        _sgd(p, g, self._lr_of(p), wd=self._weight_decay)
 
     def _apply_sparse(self, name, p, rows):
-        _sgd_sparse(p, rows, self._lr, wd=self._weight_decay)
+        _sgd_sparse(p, rows, self._lr_of(p), wd=self._weight_decay)
 
 
 class Momentum(Optimizer):
@@ -251,7 +251,7 @@ class Momentum(Optimizer):
         self._use_nesterov = bool(use_nesterov)
 
     def _apply_one(self, name, p, g):
-        _momentum(p, g, self._acc("velocity", p), self._lr,
+        _momentum(p, g, self._acc("velocity", p), self._lr_of(p),
                   mu=self._momentum, wd=self._weight_decay,
                   use_nesterov=self._use_nesterov)
 
@@ -277,7 +277,7 @@ class Adam(Optimizer):
         _adam(
             p, g, self._acc("moment1", p), self._acc("moment2", p),
             self._acc("beta1_pow", p, 1.0, ()),
-            self._acc("beta2_pow", p, 1.0, ()), self._lr,
+            self._acc("beta2_pow", p, 1.0, ()), self._lr_of(p),
             beta1=self._beta1, beta2=self._beta2, epsilon=self._epsilon,
             wd=self._weight_decay if wd is None else wd,
             decoupled=self._decoupled)
@@ -288,7 +288,7 @@ class Adam(Optimizer):
         fn = _adam_rows_lazy if self._lazy_mode else _adam_rows_dense
         fn(p, rows, self._acc("moment1", p), self._acc("moment2", p),
            self._acc("beta1_pow", p, 1.0, ()),
-           self._acc("beta2_pow", p, 1.0, ()), self._lr,
+           self._acc("beta2_pow", p, 1.0, ()), self._lr_of(p),
            beta1=self._beta1, beta2=self._beta2, epsilon=self._epsilon,
            wd=self._weight_decay if wd is None else wd,
            decoupled=self._decoupled)
@@ -333,7 +333,7 @@ class Adamax(Optimizer):
 
     def _apply_one(self, name, p, g):
         _adamax(p, g, self._acc("moment", p), self._acc("inf_norm", p),
-                self._acc("beta1_pow", p, 1.0, ()), self._lr,
+                self._acc("beta1_pow", p, 1.0, ()), self._lr_of(p),
                 beta1=self._beta1, beta2=self._beta2, epsilon=self._epsilon,
                 wd=self._weight_decay)
 
@@ -348,7 +348,8 @@ class Adagrad(Optimizer):
         self._init_acc = float(initial_accumulator_value)
 
     def _apply_one(self, name, p, g):
-        _adagrad(p, g, self._acc("moment", p, self._init_acc), self._lr,
+        _adagrad(p, g, self._acc("moment", p, self._init_acc),
+                 self._lr_of(p),
                  epsilon=self._epsilon, wd=self._weight_decay)
 
 
@@ -364,7 +365,7 @@ class RMSProp(Optimizer):
     def _apply_one(self, name, p, g):
         _rmsprop(p, g, self._acc("mean_square", p),
                  self._acc("mean_grad", p), self._acc("momentum_acc", p),
-                 self._lr, rho=self._rho, epsilon=self._epsilon,
+                 self._lr_of(p), rho=self._rho, epsilon=self._epsilon,
                  momentum=self._momentum, centered=self._centered,
                  wd=self._weight_decay)
 
@@ -391,7 +392,7 @@ class Lamb(Optimizer):
             wd = 0.0
         _lamb(p, g, self._acc("moment1", p), self._acc("moment2", p),
               self._acc("beta1_pow", p, 1.0, ()),
-              self._acc("beta2_pow", p, 1.0, ()), self._lr,
+              self._acc("beta2_pow", p, 1.0, ()), self._lr_of(p),
               beta1=self._beta1, beta2=self._beta2, epsilon=self._epsilon,
               wd=wd)
 
@@ -417,7 +418,8 @@ class LarsMomentum(Optimizer):
         wd = self._lars_wd
         if any(tag in name for tag in self._exclude):
             wd = 0.0
-        _lars(p, g, self._acc("velocity", p), self._lr, mu=self._momentum,
+        _lars(p, g, self._acc("velocity", p), self._lr_of(p),
+              mu=self._momentum,
               lars_coeff=self._lars_coeff, wd=wd, epsilon=self._epsilon)
 
 
@@ -455,5 +457,5 @@ class Ftrl(Optimizer):
 
     def _apply_one(self, name, p, g):
         _ftrl(p, g, self._acc("squared_accum", p),
-              self._acc("linear_accum", p), self._lr, l1=self._l1,
+              self._acc("linear_accum", p), self._lr_of(p), l1=self._l1,
               l2=self._l2, lr_power=self._lr_power)
