@@ -4,8 +4,8 @@
 Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 (``--fleet`` runs phases 1, 4, 16, 17 and 18 alone, ``--nn`` phases 1,
 7 and 20 alone, ``--bert`` phases 1 and 21 alone, ``--vision`` phases 1
-and 22 alone, ``--rnn`` phases 1 and 23 alone, ``--static`` phases 1 and
-24 alone; none prints the kernels line)
+and 22 alone, ``--rnn`` phases 1 and 23 alone, ``--static`` phases 1, 24
+and 25 alone; none prints the kernels line)
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -359,12 +359,45 @@ Phases, one line each:
              the card working on after; 24g distribution on the card:
              Normal, Uniform and MultivariateNormalDiag samples' moments,
              Categorical and sampling_id frequencies by chi-square, and
-             each log_prob, entropy and KL against the CPU's.
+             each log_prob, entropy and KL against the CPU's; 24f's
+             Tensor `if` raises only where no dy2static conversion
+             reached it (enable_ast=False, an unconverted callee).
+ 25. dy2st   dy2static and the static graph: 25a dy2static's scenarios
+             (if/elif/else, guard clauses and nested returns, a Tensor
+             while, a Tensor-bounded for with break and continue, for
+             over Tensor rows, a return inside a loop, and/or/not, and a
+             branch that indexes out of range unless its predicate
+             holds) through jit.to_static on CUDA tensors over 8 calls,
+             each against the same converted function eagerly on the
+             CPU: one graph a case, its 6 replays taking the branch and
+             the trip count the data picks (CUDA conditional nodes,
+             csrc/graph_cond.cu), the out-of-range branch never run;
+             25b phase 24d's flagship step with a loss-spike guard (a
+             Tensor `if` on the detached loss against a 0-d Tensor that
+             alternates between calls): 10 calls eager against captured,
+             losses and weights bit for bit, one graph, K1-K3 = 12 and
+             K5-K7 = 1 a call, step ms, idle share, peak and pool; 25c
+             phase 20's surface GPT-124M (phase 7's weights) as a static
+             program under enable_static() + program_guard (static.data,
+             F.cross_entropy, AdamW + ClipGradByGlobalNorm(1.0) minimize)
+             trained 10 steps through Executor.run (one CUDA graph for
+             the feed signature) against 10 of phase 20b's eager steps
+             from the same weights: step 1's loss within LOSS_RTOL of
+             20b's, every step's within LOSS_RTOL of the eager steps
+             with the position embedding frozen (the reference's program
+             computes the position lookup eagerly while it is built, so
+             the embedding gets no grad; the distance to 20b's steps is
+             printed), K1-K3 = 12 a step, step ms, idle share, peak and pool beside the
+             eager steps'; clone(for_test=True) leaves the weights; 25d
+             with birth tracking on, a Tensor leaked out of a captured
+             branch raises TracerLeakError naming its op, file:line and
+             scope, and the card works on.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
 14, 16, 17 and 18 for the serving K1 row, 7, 11, 12, 13, 19 and 20 for
-the f32 training rows, 10, 13 and 24d's captured runs for the bf16 ones;
+the f32 training rows (and 25c's program), 10, 13, 24d's and 25b's
+captured runs for the bf16 ones;
 the non-causal rows 21b and 24c's captured runs (bf16 [32,12,128,64]), 21c (f32 [32,12,128,64], its card side at
 [2,12,128,64]) and 21d ([8,12,512,64])), and as the last line
 {"ok": true, "device": {...}}.
@@ -5862,8 +5895,10 @@ def static_lenet(torch, paddle):
 def static_rules(torch, paddle, amp):
     """24f: an LR schedule stepped between replays gives the eager
     trajectory; dropout masks differ on every replay; a float(), an
-    .item(), a Tensor `if`, a GradScaler and a rebinding inside a
-    captured step raise ToStaticError, and the card works on after."""
+    .item(), a Tensor `if` no dy2static conversion reached
+    (enable_ast=False, an unconverted callee), a GradScaler and a
+    rebinding inside a captured step raise ToStaticError, and the card
+    works on after."""
     from paddle_tpu_torch.jit import ToStaticError, to_static
     calls = STATIC["rule_calls"]
     runs = []
@@ -5930,19 +5965,28 @@ def static_rules(torch, paddle, amp):
             return x * 2
         return x
 
+    def calls_tensor_if(x):
+        return tensor_if(x) + 1
+
     def scaled(x):
         return scaler.scale((x * 2).sum())
 
     def rebinds(x):
         h.stop_gradient = True
         return x + 1
-    cases = (("float() of a Tensor", host_float, xt, "host read"),
-             ("torch .item()", host_item, xr, "capturing the step"),
-             ("a Tensor if", tensor_if, xt, "dy2static"),
-             ("a GradScaler", scaled, xr, "GradScaler"),
-             ("a rebinding", rebinds, xt, "rebinds"))
-    for label, fn, arg, word in cases:
-        traced = to_static(fn, warmup=0)
+    # a Tensor `if` that dy2static converts captures (phase 25a); one
+    # it does not reach still raises: with enable_ast=False, and in a
+    # callee of the converted function
+    cases = (("float() of a Tensor", host_float, xt, "host read", True),
+             ("torch .item()", host_item, xr, "capturing the step", True),
+             ("a Tensor if with enable_ast=False", tensor_if, xt,
+              "dy2static", False),
+             ("a Tensor if in an unconverted callee", calls_tensor_if, xt,
+              "dy2static", True),
+             ("a GradScaler", scaled, xr, "GradScaler", True),
+             ("a rebinding", rebinds, xt, "rebinds", True))
+    for label, fn, arg, word, ast_on in cases:
+        traced = to_static(fn, warmup=0, enable_ast=ast_on)
         try:
             for _ in range(3):
                 traced(arg)
@@ -6065,6 +6109,455 @@ def phase_static(torch, attn, tce, amp, optimizer, TransformerLMConfig):
     return bert, flagship
 
 
+# -- phase 25: dy2static and the static graph on the card -------------------
+
+DY2 = dict(calls=8, flagship_calls=10, program_steps=10)
+# 25a's card against CPU: the same f32 ops, summed in another order
+DY2_TOL = 1e-5
+
+
+def dy2_cases(P):
+    """25a's steps, each converted by to_static, with the arguments of
+    each call (numpy): the data changes the branch taken and the trip
+    count from call to call, never a shape."""
+    def if_elif(x):
+        s = x.sum()
+        if s > 10.0:
+            return x * 10.0
+        elif s > 0.0:
+            return x * 1.0
+        else:
+            return x * -1.0
+
+    def guards(x, y):
+        if x.max() > 100.0:
+            return x
+        z = x + y
+        if z.sum() > 0:
+            if z.max() > 3.0:
+                return z * 4.0
+            return z * 2.0
+        return z * -1.0
+
+    def tensor_while(x, n):
+        s = x * 0.0
+        i = P.zeros([], dtype="int64")
+        while i < n:
+            s = s + x
+            i = i + 1
+        return s
+
+    def for_break_continue(x, n, cap):
+        s = x * 0.0
+        t = P.zeros([], dtype="float32")
+        for i in range(n):
+            t = t + 1.0
+            if P.sum(t % 2.0) > 0.5:
+                continue
+            if s.sum() >= cap:
+                break
+            s = s + x
+        return s
+
+    def rows(m, thr):
+        s = m[0] * 0.0
+        for row in m:
+            if row.sum() > thr:
+                s = s + row
+        return s
+
+    def loop_return(n, x):
+        for _i in range(n):
+            x = x + 1.0
+            if x.sum() > 6.0:
+                return x
+        return x * 10.0
+
+    def logic(x, y):
+        if (x.sum() > 0 and x.max() < 5.0) or not y.sum() > 0:
+            z = x + y
+        else:
+            z = x - y
+        return z
+
+    def guarded_index(x, idx):
+        # in range only where the predicate holds: the other branch must
+        # never run (an index past the end is a device-side assert)
+        if idx < 4:
+            out = P.gather(x, idx)
+        else:
+            out = x[:1] * 0.0 - 7.0
+        return out
+
+    f32 = np.float32
+    rs = np.random.RandomState(25)
+    vec = [np.full(3, v, f32) for v in (5.0, 0.5, -2.0, 5.0, -2.0, 0.5,
+                                         -2.0, 5.0)]
+    n = [np.int64(v) for v in (3, 0, 7, 1, 5, 2, 9, 4)]
+    sign = [1.0, -1.0, 1.0, -1.0, -1.0, 1.0, 1.0, -1.0]
+    return (
+        ("if/elif/else", if_elif, [(v,) for v in vec]),
+        ("guard clauses, nested returns", guards,
+         [(v * sg, np.full(3, 0.8, f32) * sg) for v, sg in zip(vec, sign)]),
+        ("a Tensor while", tensor_while,
+         [(np.arange(3, dtype=f32), k) for k in n]),
+        ("a Tensor-bounded for, break and continue", for_break_continue,
+         [(np.ones(4, f32), np.int64(k), f32(c)) for k, c in
+          zip((10, 3, 20, 0, 7, 12, 5, 30), (8.0, 2.0, 20.0, 4.0, 100.0,
+                                             6.0, 0.0, 12.0))]),
+        ("for over Tensor rows", rows,
+         [(rs.randn(6, 3).astype(f32), f32(t)) for t in
+          (0.0, 1.0, -1.0, 0.5, 9.0, -9.0, 0.2, -0.3)]),
+        ("a return inside a loop", loop_return,
+         [(np.int64(k), np.full(3, v, f32)) for k, v in
+          ((5, 1.0), (1, 0.0), (3, 0.0), (8, 1.5), (0, 2.0), (2, 1.0),
+           (6, -1.0), (4, 0.5))]),
+        ("and/or/not", logic,
+         [(v * sg, np.full(3, 0.5, f32) * -sg) for v, sg in
+          zip(vec, sign)]),
+        ("an untaken branch out of range", guarded_index,
+         [(np.arange(4, dtype=f32) + 1, np.array([i], np.int64)) for i in
+          (0, 9, 2, 11, 3, 7, 1, 100)]),
+    )
+
+
+def dy2_cases_run(torch, paddle):
+    """25a: each case through jit.to_static on CUDA tensors, against the
+    same converted function eagerly on the CPU; one graph a case, its
+    replays following the data."""
+    from paddle_tpu_torch.jit import dy2static, to_static
+    calls = DY2["calls"]
+    for label, fn, arg_sets in dy2_cases(paddle):
+        check(len(arg_sets) == calls, f"25a {label}: {len(arg_sets)} calls")
+        traced = to_static(fn)
+        twin = dy2static.convert_to_static(fn)
+        outs = []
+        for args in arg_sets:
+            paddle.set_device("cpu")
+            want = twin(*[paddle.to_tensor(a) for a in args]).numpy()
+            paddle.set_device("gpu")
+            got = traced(*[paddle.to_tensor(a) for a in args])
+            torch.cuda.synchronize()
+            got = got.numpy()
+            err = float(np.abs(got - want).max()) if got.size else 0.0
+            top = max(float(np.abs(want).max()) if want.size else 0.0, 1.0)
+            check(got.shape == want.shape and err <= DY2_TOL * top,
+                  f"25a {label}: card {got} vs CPU {want}")
+            outs.append(got)
+        graphs = traced.graphs()
+        replays = sum(g.replays for g in graphs)
+        check(len(graphs) == 1 and replays == calls - 2,
+              f"25a {label}: {len(graphs)} graphs, {replays} replays")
+        distinct = len({o.tobytes() for o in outs})
+        print(f"    25a {label}: {calls} calls on the card = the CPU's "
+              f"eager run (within {DY2_TOL:g} of the largest value), one "
+              f"graph, {replays} replays, {distinct} distinct outputs")
+
+
+def dy2_flagship(torch, attn, tce, amp, optimizer, TransformerLMConfig,
+                 paddle):
+    """25b: phase 24d's flagship step (tied GPT-124M, 8 x 1024, O1 bf16,
+    AdamW) with a loss-spike guard as dy2static writes it, a Tensor `if`
+    on the detached loss against a 0-d Tensor argument that alternates
+    between calls (0: scale 0.5; 1e9: scale 1.0): eager against
+    captured over 10 calls, losses and weights bit for bit, one graph,
+    K1-K3 = 12 and K5-K7 = 1 a call. Returns the captured run's six
+    launches."""
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
+    cfg = TransformerLMConfig(dropout=0.0, use_flash_attention=True,
+                              max_seq_len=FLAGSHIP["seq"])
+    calls = DY2["flagship_calls"]
+    spikes = [0.0 if i % 2 == 0 else 1e9 for i in range(calls)]
+    runs = []
+    for captured in (False, True):
+        model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+            1234)).train()
+        opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
+                              weight_decay=0.01)
+        ids = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (FLAGSHIP["batch"], FLAGSHIP["seq"])).astype(
+                np.int64)).cuda()
+        spike = paddle.to_tensor(np.float32(0.0))
+
+        def step_fn(ids, labels, spike):
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = model(ids, labels=labels)
+            if loss.detach() > spike:
+                scale = 0.5
+            else:
+                scale = 1.0
+            (loss * scale).backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        fn = to_static(step_fn) if captured else step_fn
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers:
+            w.launches = 0
+        losses, times = [], []
+        for v in spikes:
+            spike.set_value(np.float32(v))
+            t0 = time.perf_counter()
+            loss = fn(ids, ids, spike)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(static_loss(loss))
+        r = dict(losses=losses, times=times,
+                 peak=torch.cuda.max_memory_allocated() - held, held=held,
+                 launches=tuple(w.launches for w in wrappers),
+                 weights=[p.detach().clone() for p in model.parameters()],
+                 step_ms=float(np.median(times[3:] if captured
+                                         else times[1:])))
+        want = (calls * cfg.num_layers,) * 3 + (calls,) * 3
+        check(r["launches"] == want,
+              f"25b: launches {r['launches']}, want {want}")
+        if captured:
+            graphs = fn.graphs()
+            r.update(capture_ms=graphs[0].capture_ms, pool=fn.pool_bytes(),
+                     graphs=len(graphs),
+                     replays=sum(g.replays for g in graphs))
+            check(r["graphs"] == 1 and r["replays"] == calls - 2,
+                  f"25b: {r['graphs']} graphs, {r['replays']} replays")
+        r["idle"] = static_idle(torch, fn, (ids, ids, spike))
+        runs.append((r, captured))
+        del model, opt, fn
+        torch.cuda.empty_cache()
+    (eager, _), (capt, _) = runs
+    same_w = all(torch.equal(a, b) for a, b in zip(eager["weights"],
+                                                   capt["weights"]))
+    check(eager["losses"] == capt["losses"] and same_w,
+          f"25b: captured losses {capt['losses']} vs eager "
+          f"{eager['losses']}; weights the same: {same_w}")
+    print(f"    25b losses {[round(v, 6) for v in eager['losses']]}: "
+          f"captured = eager bit for bit, and every weight after "
+          f"{calls} calls; the guard took scale "
+          f"{[0.5 if v < 1 else 1.0 for v in spikes]} (a branch a call, "
+          f"one graph)")
+    for r, _ in runs:
+        r.pop("weights")
+    static_report("25b flagship GPT-124M O1 + Tensor if", runs, "tokens",
+                  FLAGSHIP["batch"] * FLAGSHIP["seq"])
+    return capt["launches"]
+
+
+def dy2_program(torch, attn, TransformerLMConfig, paddle):
+    """25c: phase 20's GPT-124M written in the Paddle surface
+    (paddle_surface_gpt, phase 7's seeded weights carried in) built as a
+    static program under enable_static() + program_guard: static.data ids
+    and labels [8, 1024], F.cross_entropy, AdamW(1e-4, weight_decay 0.01,
+    ClipGradByGlobalNorm(1.0)).minimize; 10 steps of Executor.run against
+    10 of phase 20b's eager steps from the same weights: each loss within
+    LOSS_RTOL, K1 = K2 = K3 = 12 a step, one graph for the feed
+    signature; step ms, idle share, peak memory and the graph pool beside
+    the eager steps'; then clone(for_test=True) leaves the weights as
+    they are. Step 1's loss is 20b's; later steps are held to the eager
+    steps with the position embedding frozen, as the reference's program
+    leaves it (the distance to 20b's is printed). Returns the program's
+    (K1, K2, K3) launches."""
+    from paddle_tpu_torch.text import convert
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv)
+    cfg = TransformerLMConfig(tie_embeddings=False, dropout=0.0,
+                              use_flash_attention=True)
+    steps, b, s = DY2["program_steps"], 8, cfg.max_seq_len
+    tg = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(1234))
+    init_np = convert.state_dict_to_paddle_tpu(tg.state_dict())
+    del tg
+    ids_np = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (b, s)).astype(np.int64)
+
+    def model_at_init():
+        m = paddle_surface_gpt(paddle, cfg)
+        check(m.set_state_dict(init_np) == [], "25c: weights missing")
+        return m.train()
+
+    def opt_for(m):
+        return paddle.optimizer.AdamW(
+            1e-4, parameters=m.parameters(), weight_decay=0.01,
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+
+    def measure(step):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers:
+            w.launches = 0
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(step())
+            times.append((time.perf_counter() - t0) * 1e3)
+        return dict(losses=losses, times=times, held=held,
+                    peak=torch.cuda.max_memory_allocated() - held,
+                    launches=tuple(w.launches for w in wrappers))
+
+    def eager_run(frozen):
+        model, ids = model_at_init(), paddle.to_tensor(ids_np)
+        if frozen:
+            model.gpt.position_embeddings.weight.stop_gradient = True
+        opt = opt_for(model)
+
+        def eager_step():
+            loss = model(ids, ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return float(loss.item())
+        r = measure(eager_step)
+        r["step_ms"] = float(np.median(r["times"][1:]))
+        r["idle"] = None if frozen else static_idle(torch, eager_step, ())
+        del model, opt, ids
+        torch.cuda.empty_cache()
+        return r
+    # 20b's eager steps, and the same with the position embedding frozen:
+    # the reference's program runs the position lookup (arange, then the
+    # embedding, on no Variable) eagerly while it is built, so its
+    # output is a constant and the embedding takes no grad from
+    # Executor.run (ROADMAP's reference caveats)
+    eager, frozen = eager_run(False), eager_run(True)
+
+    model = model_at_init()
+    paddle.enable_static()
+    try:
+        main = paddle.static.Program()
+        with paddle.static.program_guard(main):
+            i = paddle.static.data("ids", [b, s], "int64")
+            lab = paddle.static.data("labels", [b, s], "int64")
+            loss = model(i, lab)
+            opt_for(model).minimize(loss)
+        exe = paddle.static.Executor()
+        feed = {"ids": ids_np, "labels": ids_np}
+
+        def program_step():
+            lv, = exe.run(main, feed=feed, fetch_list=[loss])
+            return float(lv)
+        prog = measure(program_step)
+        prog["step_ms"] = float(np.median(prog["times"][3:]))
+        fn, = exe._cache.values()
+        graphs = fn.graphs()
+        prog.update(capture_ms=graphs[0].capture_ms, pool=fn.pool_bytes(),
+                    graphs=len(graphs),
+                    replays=sum(g.replays for g in graphs))
+        prog["idle"] = static_idle(torch, program_step, ())
+        kinds = {}
+        for rec in main.global_block().ops:
+            kinds[rec.type] = kinds.get(rec.type, 0) + 1
+        test = main.clone(for_test=True)
+        w = model.gpt.blocks[0].attn.qkv.weight
+        before = w.value.detach().clone()
+        tl, = exe.run(test, feed=feed, fetch_list=[loss])
+        torch.cuda.synchronize()
+        unchanged = torch.equal(before, w.value)
+    finally:
+        paddle.disable_static()
+    def distance(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    rel = distance(prog["losses"], frozen["losses"])
+    rel20 = distance(prog["losses"], eager["losses"])
+    print(f"    25c the program: {len(main.ops)} records "
+          f"({kinds.get('flash_attention', 0)} flash_attention, "
+          f"{kinds.get('linear', 0)} linear, {kinds.get('@grad', 0)} grad, "
+          f"{kinds.get('@update', 0)} update); Executor.run losses "
+          f"{[round(v, 6) for v in prog['losses']]}; eager, position "
+          f"embedding frozen {[round(v, 6) for v in frozen['losses']]}: "
+          f"largest distance {max(rel):.3e} relative; 20b's eager steps "
+          f"{[round(v, 6) for v in eager['losses']]}: step 1 "
+          f"{rel20[0]:.3e}, then up to {max(rel20):.3e} (step "
+          f"{int(np.argmax(rel20)) + 1}; the position embedding trains "
+          "there)")
+    check(max(rel) <= LOSS_RTOL and rel20[0] <= LOSS_RTOL,
+          f"25c: losses part from the eager steps' (frozen position "
+          f"embedding) {rel}, 20b's step 1 {rel20[0]}")
+    want = (steps * cfg.num_layers,) * 3
+    check(prog["launches"] == want and eager["launches"] == want,
+          f"25c: launches program {prog['launches']}, eager "
+          f"{eager['launches']}, want {want}")
+    check(prog["losses"][-1] < prog["losses"][0],
+          f"25c: the program does not train: {prog['losses']}")
+    check(prog["graphs"] == 1 and prog["replays"] == steps - 2,
+          f"25c: {prog['graphs']} graphs, {prog['replays']} replays")
+    check(unchanged and np.isfinite(tl),
+          f"25c: clone(for_test=True) moved the weights ({unchanged}) or "
+          f"gave {tl}")
+    print(f"    25c clone(for_test=True): forward loss {float(tl):.6f}, the "
+          "weights unchanged")
+    static_report("25c surface GPT-124M f32 eager / Executor.run",
+                  [(eager, False), (prog, True)], "tokens", b * s)
+    return prog["launches"]
+
+
+def dy2_birth(torch, paddle):
+    """25d: with birth tracking on, a Tensor born in a captured branch and
+    read after it raises TracerLeakError naming its op, file:line and
+    scope; the card works on after."""
+    from paddle_tpu_torch import analysis
+    from paddle_tpu_torch.jit import to_static
+    holder = {}
+
+    def leaky(x):
+        paddle.static.nn.cond(x.sum() > 0,
+                              lambda: holder.__setitem__("t", x * 3.0),
+                              lambda: None)
+        return holder["t"] + 1.0
+
+    traced = to_static(leaky)
+    x = paddle.to_tensor(np.ones(256, np.float32))
+    with analysis.birth_tracking():
+        try:
+            for _ in range(3):
+                traced(x)
+        except analysis.TracerLeakError as e:
+            f, = e.findings
+            torch.cuda.synchronize()
+            ok = float((x + 1).sum().item())
+            check(f["birth_op"] == "elementwise_mul"
+                  and "chip_smoke.py:" in f["birth_site"]
+                  and f["birth_trace"].startswith("cond_true#")
+                  and ok == 512.0, f"25d: {f}; the card after: {ok}")
+            print(f"    25d TracerLeakError: born in {f['birth_op']} at "
+                  f"{os.path.basename(f['birth_site'])} under "
+                  f"{f['birth_trace']}, read at "
+                  f"{os.path.basename(f['escape_site'])}; eager work goes "
+                  "on")
+            return
+    raise SmokeFailure("25d: a Tensor leaked out of a captured branch did "
+                       "not raise")
+
+
+def phase_dy2static(torch, attn, tce, amp, optimizer, TransformerLMConfig):
+    """Phase 25: dy2static and the static graph on the card (25a-25d).
+    Returns 25b's six launches and 25c's three."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as device_mod
+    t0 = time.perf_counter()
+    try:
+        paddle.set_device("gpu")
+        print("  [25a] dy2static's scenarios captured, against the CPU")
+        dy2_cases_run(torch, paddle)
+        print("  [25d] a Tensor leaked out of a captured branch")
+        dy2_birth(torch, paddle)
+        print("  [25b] the flagship with a Tensor `if` (a loss-spike guard)")
+        flag = dy2_flagship(torch, attn, tce, amp, optimizer,
+                            TransformerLMConfig, paddle)
+        print("  [25c] the surface GPT-124M as a static program through "
+              "Executor.run")
+        prog = dy2_program(torch, attn, TransformerLMConfig, paddle)
+    finally:
+        device_mod._current_place = None
+    print(f"  phase 25 in {time.perf_counter() - t0:.1f} s")
+    return flag, prog
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -6099,10 +6592,12 @@ def main():
                     "surface and ResNet-50's config 2); prints no kernels "
                     "line")
     ap.add_argument("--static", action="store_true",
-                    help="phases 1 and 24 only (the build and jit.to_static: "
+                    help="phases 1, 24 and 25 only (the build, jit.to_static: "
                     "the kernels inside a graph, configs 1-3 and the "
-                    "flagship captured against eager, the rules); prints "
-                    "no kernels line")
+                    "flagship captured against eager, the rules; dy2static "
+                    "and the static graph: Tensor control flow captured, "
+                    "the flagship with a Tensor if, the surface GPT through "
+                    "Executor.run); prints no kernels line")
     ap.add_argument("--rnn", action="store_true",
                     help="phases 1 and 23 only (the build, the recurrent "
                     "surface and the LSTM encoder-decoder through "
@@ -6187,9 +6682,14 @@ def main():
         print("[24] jit.to_static: whole steps captured as CUDA graphs")
         bert24, flag24 = phase_static(torch, attn, tce, amp, optimizer,
                                       TransformerLMConfig)
-        print(f"phases 1 and 24 in {time.perf_counter() - t_start:.1f} s; "
-              f"phase 24's captured launches: 24c K1/K2/K3 {bert24}, 24d "
-              f"K1/K2/K3/K5/K6/K7 {flag24}")
+        print("[25] dy2static and the static graph: Tensor control flow "
+              "captured, the surface GPT through Executor.run")
+        flag25, prog25 = phase_dy2static(torch, attn, tce, amp, optimizer,
+                                         TransformerLMConfig)
+        print(f"phases 1, 24 and 25 in {time.perf_counter() - t_start:.1f} "
+              f"s; phase 24's captured launches: 24c K1/K2/K3 {bert24}, 24d "
+              f"K1/K2/K3/K5/K6/K7 {flag24}; phase 25's: 25b "
+              f"K1/K2/K3/K5/K6/K7 {flag25}, 25c K1/K2/K3 {prog25}")
         print(card_line())
         return 0
     if args.rnn:
@@ -6331,6 +6831,11 @@ def main():
           "and the flagship captured against eager, the rules")
     bert24, flag24 = phase_static(torch, attn, tce, amp, optimizer,
                                   TransformerLMConfig)
+    print("[25] dy2static and the static graph: dy2static's scenarios "
+          "captured against the CPU, the flagship with a Tensor if, the "
+          "surface GPT-124M through Executor.run, a leak attributed")
+    flag25, prog25 = phase_dy2static(torch, attn, tce, amp, optimizer,
+                                     TransformerLMConfig)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -6342,14 +6847,15 @@ def main():
     k4_row["launches"] = (k4 + k4_gen + k4_rest + k4_fleet + k4_obs
                           + k4_drill)
     k1_row["launches"] = k1 + k1_gen + k1_fleet + k1_obs + k1_drill
-    f32 = [a + b + c + d + e for a, b, c, d, e in
+    f32 = [a + b + c + d + e + f for a, b, c, d, e, f in
            zip(counts, optim, rc_f32, core + (0, 0, 0),
-               surface + (0, 0, 0))]
+               surface + (0, 0, 0), prog25 + (0, 0, 0))]
     k1t_row["launches"] = k1_train + f32[0]
     k2_row["launches"] = k2 + f32[1]
     k3_row["launches"] = k3 + f32[2]
     k5f_row["launches"], k6f_row["launches"], k7f_row["launches"] = f32[3:]
-    bf16 = [a + b + c for a, b, c in zip(flagship, rc_bf16, flag24)]
+    bf16 = [a + b + c + d for a, b, c, d in
+            zip(flagship, rc_bf16, flag24, flag25)]
     for row, n in zip((k1b_row, k2b_row, k3b_row, k5_row, k6_row, k7_row),
                       bf16):
         row["launches"] = n
@@ -6361,7 +6867,7 @@ def main():
     for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
         for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
             row["launches"] = n
-    print(f"phases 1-24 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-25 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -43,8 +43,13 @@ hierarchical-sigmoid losses, ``gather_tree``; LoD tensors
 ``io.DataLoader`` with its samplers and worker processes,
 ``text.datasets``, ``metric``, and ``Model`` (``fit``, ``evaluate``,
 ``predict``), ``callbacks``, ``summary`` and ``flops`` of ``hapi``.
-``jit.to_static`` captures a whole step as one CUDA graph on the card
-(``enable_static()`` puts ``Model``'s steps through it); ``reader``, the
+``jit.to_static`` converts a step's Tensor control flow (dy2static) and
+captures the whole step as one CUDA graph on the card, a Tensor
+``if``/``while`` as CUDA conditional nodes; ``static`` builds programs
+(``enable_static()``, ``program_guard``, ``Executor``, ``static.nn``),
+and ``enable_static()`` puts ``Model``'s steps through ``to_static``;
+``analysis`` attributes a Tensor that leaks out of a captured branch;
+``reader``, the
 legacy ``dataset`` reader creators, ``distribution`` and ``core.native``
 (the C++ runtime's bindings).
 """

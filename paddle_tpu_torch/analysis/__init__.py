@@ -23,6 +23,13 @@
   the call returns (``torch.from_numpy``, a non-blocking copy, the
   engine's dispatch, the wire). :func:`audit_default` runs both.
 
+* **Leak detector** (:mod:`.birth`) — birth-site attribution for a
+  Tensor born inside a captured branch or loop body (``static.nn.cond``
+  / ``while_loop``) that escapes its scope other than as an output:
+  :func:`birth_tracking` turns it on, an escape raises
+  :class:`TracerLeakError` naming the birth op, its ``file:line`` and
+  the scope (``cond_true#n``, ``while_body#n``).
+
 Quick start::
 
     from paddle_tpu_torch import analysis
@@ -40,6 +47,10 @@ from .lint import (  # noqa: F401
 from .threads import (  # noqa: F401
     DEFAULT_PATROL_ALLOW, HeldAcrossFinding, LockOrderFinding, LockPatrol,
     disable_patrol, enable_patrol, lock_patrol, note_blocking, patrol_report,
+)
+from .birth import (  # noqa: F401
+    BirthSite, TracerLeakError, birth_of, birth_tracking, check_trace,
+    disable, enable, enabled, subtrace,
 )
 from .concurrency import (  # noqa: F401
     DEFAULT_AUDIT_ALLOW, DEFAULT_AUDIT_SOURCES, DEFAULT_ROLE_MAP,

@@ -18,6 +18,12 @@ uncast, as the reference casts at dispatch.
 mode, which is per thread as the reference's flag is; inside
 ``no_grad`` the port's GPT and engine record nothing either.
 ``FLAGS_check_nan_inf`` scans every float output.
+
+While a static program is being built (``static.program``), an op called
+with a symbolic ``Variable`` among its arguments appends a record to the
+program, with the ``auto_cast`` dtype of its name, instead of running
+(reference ``paddle_tpu/core/dispatch.py:125-140``); the eager path pays
+one boolean test for it.
 """
 import functools
 
@@ -26,6 +32,7 @@ import torch
 
 from ..amp.auto_cast import cast_inputs, op_body
 from . import flags as flags_mod
+from . import trace as _trace
 from .tensor import Tensor, as_torch
 
 
@@ -66,6 +73,11 @@ class enable_grad:
 
 _REGISTRY = {}
 
+# set by static.program: the Variable class, and whether a program is
+# being built (so the eager path tests one boolean, not every argument)
+_static_variable_cls = None
+_static_active = False
+
 
 def get_op(name):
     return _REGISTRY[name]
@@ -99,10 +111,16 @@ class Op:
         return f"<op {self.name}>"
 
     def __call__(self, *args, **attrs):
+        if _static_active \
+                and any(isinstance(a, _static_variable_cls) for a in args):
+            return self._record(args, attrs)
         dev = None
         values = []
+        hook = _trace._capture_hook   # analysis.birth's, None when off
         for a in args:
             if isinstance(a, Tensor):
+                if hook is not None:
+                    hook(a)
                 values.append(a._value)
             elif a is None or isinstance(a, (torch.Tensor, bool, int, float)):
                 values.append(a)
@@ -123,6 +141,20 @@ class Op:
             _check_finite(self.name, out_list)
         wrapped = [Tensor._wrap(o) for o in out_list]
         return tuple(wrapped) if multi else wrapped[0]
+
+    def _record(self, args, attrs):
+        """Append this op to the building program (reference: the
+        append_op path of every op helper), with the auto_cast dtype of
+        its name as the record's cast."""
+        from ..amp.auto_cast import _cast_dtype_for
+        from ..static.program import building_program
+        prog = building_program()
+        if prog is None:
+            raise RuntimeError(
+                f"op {self.name!r} called on a static Variable outside "
+                "a program_guard / enable_static context")
+        return prog.append_op(self, args, attrs,
+                              cast_dtype=_cast_dtype_for(self.name))
 
 
 def _check_finite(op_name, out_list):

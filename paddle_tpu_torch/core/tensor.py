@@ -18,6 +18,9 @@ Setting ``stop_gradient = True`` on an op's output cuts the graph there
 autograd, so the Tensor keeps its identity and its ``grad``; a backward
 through a graph that saved the old value raises torch's in-place error,
 where the reference would still see the value the forward saw.
+
+Under a trace, a Tensor's birth is registered with it, and, while
+``analysis.birth`` tracking is on, stamped with its birth site.
 """
 import numpy as np
 import torch
@@ -56,6 +59,7 @@ def as_torch(value, dtype=None, device=None):
 class Tensor:
     __slots__ = ("_value", "name", "persistable", "trainable",
                  "__weakref__")
+    _symbolic = False   # True on static.program's Variable
 
     def __init__(self, value, dtype=None, place=None, stop_gradient=True,
                  name=None, persistable=False):
@@ -71,6 +75,8 @@ class Tensor:
         self.trainable = True
         if _trace._active is not None:
             _trace._active.register_created(self)
+            if _trace._birth_hook is not None:
+                _trace._birth_hook(self)
         if not stop_gradient:
             self.stop_gradient = False
 
@@ -85,6 +91,8 @@ class Tensor:
         t.trainable = True
         if _trace._active is not None:
             _trace._active.register_created(t)
+            if _trace._birth_hook is not None:
+                _trace._birth_hook(t)
         return t
 
     # ---- value -----------------------------------------------------------
@@ -95,6 +103,11 @@ class Tensor:
 
     @value.setter
     def value(self, v):
+        if isinstance(v, Tensor) and v._symbolic:
+            # building a static program: the op that made ``v`` writes
+            # this Tensor at the end of each run
+            v.program.mark_writeback(v, self)
+            return
         self._assign(as_torch(v, self._value.dtype, self._value.device))
 
     def _assign(self, v):

@@ -20,12 +20,18 @@ there is nothing to bind:
   replay draws anew).
 - ``capture``: the step runs under ``torch.cuda.graph``. A host read of
   a CUDA Tensor (``numpy``, ``item``, ``tolist``, ``float``, ``int``, a
-  Tensor ``if``) or a rebinding raises ``ToStaticError`` before it
-  reaches the device.
+  Tensor ``if`` that no conversion turned into ``static.nn.cond``) or a
+  rebinding raises ``ToStaticError`` before it reaches the device. The
+  context holds the graph being captured and its pools, so that
+  ``static.nn.cond``/``while_loop`` capture their branches and bodies
+  into conditional nodes (``core/graph_cond.py``).
 
 The reference's jit-mode ``bind``/``final_value`` have no counterpart.
 Without a trace the hooks cost one attribute test (``_active``), as the
-reference's ``_birth_hook``/``_capture_hook`` do.
+reference's do. ``_birth_hook`` and ``_capture_hook`` are set while
+``analysis.birth`` tracking is on: the first stamps every Tensor made
+under a trace with its birth site, the second sees every Tensor an op
+reads; off, each costs one ``is not None`` test.
 """
 import threading
 import weakref
@@ -41,6 +47,14 @@ _state = threading.local()
 # Module-global, not thread-local: a step's backward runs on autograd's
 # device threads, and what it does belongs to the same capture.
 _active = None
+
+# analysis.birth's hooks (None while tracking is off)
+_birth_hook = None
+_capture_hook = None
+
+# True while static.nn warms a branch or loop body that the record call
+# did not take, in a capture that never runs (static/nn.py)
+_warming = False
 
 
 class ToStaticError(PreconditionNotMetError):
@@ -77,6 +91,14 @@ class TraceContext:
         self.leaves = {}
         self.generators = {}
         self.cuda = False
+        # under capture: the CUDAGraph being captured, the pool its
+        # conditional bodies allocate from, and the card's counter of the
+        # kernel launches captured inside those bodies (jit/to_static.py
+        # sets them; core/graph_cond.py adds to the counter)
+        self.graph = None
+        self.body_pool = None
+        self.cond_launches = None
+        self.cond_counted = False
 
     def write(self, tensor):
         if not self.is_created(tensor):
@@ -102,9 +124,11 @@ class TraceContext:
         if what == "bool":
             raise ToStaticError(
                 f"a Tensor `if` (bool of {tensor.name!r}) inside a captured "
-                "step: Python control flow on a tensor's value needs the "
-                "dy2static rewrite, which is not ported (ROADMAP queue 1 "
-                "item 12); compute both branches and select with where()")
+                "step that no dy2static conversion reached: to_static "
+                "converts the decorated function's own if/while/for "
+                "(not its callees, nor with enable_ast=False); write the "
+                "branch with static.nn.cond, or compute both branches and "
+                "select with where()")
         raise ToStaticError(
             f"{what}() of Tensor {tensor.name!r} inside a captured step: "
             "a host read syncs the card, which a CUDA graph cannot "
@@ -123,9 +147,19 @@ class TraceContext:
 def refuse_in_capture(what):
     """Raise ``ToStaticError`` when a capture runs: ``what`` keeps its
     state on the host, so a graph would change it once, at capture, and
-    never on a replay."""
-    if _active is not None and _active.mode == "capture":
+    never on a replay. The record call's warm-up of an untaken branch is
+    refused too: its capture never runs, so state made there would keep
+    no values."""
+    if _active is None:
+        return
+    if _active.mode == "capture":
         raise ToStaticError(f"{what} inside a captured step")
+    if _warming:
+        raise ToStaticError(
+            f"{what} inside a branch or loop body that to_static's record "
+            "call did not take: that body is warmed in a capture that "
+            "never runs, so the state would be left without its values. "
+            "Let an eager call take that body first")
 
 
 def _note(ctx, obj):

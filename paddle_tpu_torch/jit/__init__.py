@@ -1,5 +1,6 @@
 """``paddle.jit`` (a port of ``paddle_tpu/jit/__init__.py``): ``to_static``
-(whole-step CUDA-graph capture, ``to_static.py``), ``not_to_static``,
+(whole-step CUDA-graph capture, ``to_static.py``, after the dy2static
+conversion of ``dy2static.py``), ``not_to_static``,
 ``ProgramTranslator``, ``set_code_level``/``set_verbosity`` and
 ``TracedLayer``. ``jit.save``/``jit.load`` (``jit/save_load.py``) are not
 ported yet: ``TracedLayer.save_inference_model`` raises."""
@@ -29,9 +30,11 @@ class ProgramTranslator:
 
 
 def set_code_level(level=100, also_to_stdout=False):
-    """Reference: jit.set_code_level — dy2static transformed-code dump
-    verbosity (advisory here: capture has no AST dump stages)."""
-    return None
+    """Reference: jit.set_code_level — above 0, each function dy2static
+    converts from now on has its converted source printed (the three
+    passes' output)."""
+    from . import dy2static
+    dy2static._code_level[0] = int(level)
 
 
 def set_verbosity(level=0, also_to_stdout=False):

@@ -42,16 +42,30 @@ state kept on the host) and nothing runs eagerly in its place.
 
 The hand-written kernels' launch counters move only while a graph is
 captured; ``to_static`` takes that back and adds the captured launches
-at each replay, so a counter reads captured x replays. Each generator a
+at each replay, so a counter reads captured x replays. A launch captured
+inside a branch or loop body runs only when the body does: the body adds
+it to a counter on the card, which the replay reads (one sync, only for
+a graph that has such launches). Each generator a
 step draws from is registered with its graph (torch's graph-safe
 generator state), so every replay draws new numbers. The entries of one
 ``TracedFunction`` share one memory pool; ``pool_bytes()`` reads it.
 
-``enable_ast`` is taken and not read: the dy2static rewrite of tensor
-control flow is not ported.
+With ``enable_ast`` (the default) the function is first converted by
+``jit/dy2static.py``, as the reference's ``TracedFunction.__init__``
+does: its own ``if``/``while``/``for`` on a Tensor become
+``static.nn.cond``/``while_loop``, which a capture turns into CUDA
+conditional nodes (``core/graph_cond.py``): one graph, captured once,
+takes either branch and any trip count the data asks for on each replay.
+The record call warms the branch it did not take (a capture thrown
+away). A Tensor ``if`` that no conversion reached (``enable_ast=False``,
+a callee's, ``ProgramTranslator().enable(False)``) still raises
+``ToStaticError`` under capture. With ``analysis.birth`` tracking on, a
+step's output born inside a branch or loop body (a Tensor that escaped
+its scope) raises ``TracerLeakError``.
 """
 import contextlib
 import functools
+import gc
 import time
 
 import torch
@@ -61,6 +75,7 @@ from ..core import rng
 from ..core import trace as trace_mod
 from ..core.tensor import Tensor
 from ..core.trace import ToStaticError
+from ..analysis.birth import TracerLeakError
 
 
 def _flatten(obj, leaves):
@@ -105,6 +120,32 @@ def _torch_of(leaf):
     return leaf._value if isinstance(leaf, Tensor) else leaf
 
 
+@contextlib.contextmanager
+def no_collection():
+    """Collect Python's cyclic garbage now and not again until the block
+    ends: a CUDA graph in that garbage (an earlier step's) destroyed
+    while another captures fails ("operation not permitted when stream is
+    capturing") and leaves torch's graph state broken."""
+    gc.collect()
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+def _check_births(out):
+    """With birth tracking on: an output of the step born inside a
+    branch or loop body that has closed escaped its scope."""
+    if trace_mod._capture_hook is not None:
+        from ..analysis import birth
+        leaves = []
+        _flatten(out, leaves)
+        birth.check_outputs([t for t in leaves if isinstance(t, Tensor)])
+
+
 def _counted():
     """The kernel wrappers whose ``launches`` a replay moves."""
     from ..ops import attention, fused_ce, paged_attention
@@ -145,7 +186,7 @@ class _Graph:
     after it."""
 
     def __init__(self, graph, static_in, out_struct, static_out, grads,
-                 launches, capture_ms):
+                 launches, capture_ms, cond_launches=None):
         self.graph = graph
         self.static_in = static_in
         self.out_struct = out_struct
@@ -154,16 +195,25 @@ class _Graph:
         self.launches = launches
         self.capture_ms = capture_ms
         self.replays = 0
+        # the card's counter of the launches inside conditional bodies
+        # (None when there are none) and its value at the last read
+        self.cond_launches = cond_launches
+        self.cond_read = [0] * len(launches)
 
 
 class TracedFunction:
     def __init__(self, fn, input_spec=None, warmup=1, enable_ast=True):
+        if enable_ast and not getattr(fn, "__wrapped_dy2static__", False):
+            # the reference's TracedFunction.__init__: Tensor control
+            # flow of the function's own body into static.nn's
+            from .dy2static import convert_to_static
+            fn = convert_to_static(fn)
         self._fn = fn
         self._input_spec = input_spec
-        self._enable_ast = enable_ast   # taken, not read
+        self._enable_ast = enable_ast
         self._warmup = max(0, warmup)
         self._entries = {}  # signature -> dict(calls, record, graphs)
-        self._shared = {"pool": None, "stream": None}
+        self._shared = {"pool": None, "stream": None, "body_pool": None}
         functools.update_wrapper(self, fn)
         self._bound_instance = None
 
@@ -249,6 +299,9 @@ class TracedFunction:
         if self._shared["stream"] is None:
             self._shared["stream"] = torch.cuda.Stream()
             self._shared["pool"] = torch.cuda.graph_pool_handle()
+            # conditional bodies allocate from a pool of their own
+            # (core/graph_cond.py)
+            self._shared["body_pool"] = torch.cuda.graph_pool_handle()
         return self._shared["stream"]
 
     # -- calls 1 and 2: eager, the second under record ---------------------
@@ -282,6 +335,7 @@ class TracedFunction:
                 f"{names} (their storage replaced, not written): a CUDA "
                 "graph would replay into storage they no longer hold. Write "
                 "them in place (set_value) instead")
+        _check_births(out)
         entry["record"] = _Record(ctx)
         return out
 
@@ -311,13 +365,19 @@ class TracedFunction:
         for gen in gens.values():
             graph.register_generator_state(gen)
         ctx = trace_mod.TraceContext("capture")
+        ctx.graph = graph
+        ctx.body_pool = self._shared["body_pool"]
+        ctx.cond_launches = torch.zeros(len(counted), dtype=torch.int64,
+                                        device=torch.cuda.current_device())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
-            with trace_mod.trace_guard(ctx), torch.cuda.graph(
-                    graph, pool=self._shared["pool"], stream=stream):
+            with trace_mod.trace_guard(ctx), no_collection(), \
+                    torch.cuda.graph(graph, pool=self._shared["pool"],
+                                     stream=stream):
                 out = self._fn(*cargs, **ckwargs)
-        except ToStaticError:
+                _check_births(out)
+        except (ToStaticError, TracerLeakError):
             raise
         except Exception as e:  # noqa: BLE001 - every cause is re-raised
             cause = e.__context__ if e.__context__ is not None else e
@@ -341,7 +401,8 @@ class TracedFunction:
         grads = [(leaf, leaf.grad) for leaf in rec.leaves
                  if leaf.grad is not None]
         g = _Graph(graph, static_in, out_struct, out_leaves, grads,
-                   captured, capture_ms)
+                   captured, capture_ms,
+                   ctx.cond_launches if ctx.cond_counted else None)
         entry["graphs"][key] = g
         return g
 
@@ -356,6 +417,11 @@ class TracedFunction:
         g.replays += 1
         for w, n in zip(_counted(), g.launches):
             w.launches += n
+        if g.cond_launches is not None:
+            now = g.cond_launches.tolist()
+            for w, n, seen in zip(_counted(), now, g.cond_read):
+                w.launches += n - seen
+            g.cond_read = now
         for leaf, grad in g.grads:
             leaf.grad = grad
         outs = []

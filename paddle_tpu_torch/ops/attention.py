@@ -25,6 +25,11 @@ from ..core.dispatch import register_op
 from ..core.tensor import Tensor
 from . import _build
 
+# devices whose tensors take the plain forward: the CPU, and "meta",
+# where a static program infers an op's output shapes (no data, no
+# launch)
+_PLAIN_DEVICES = ("cpu", "meta")
+
 _NEG = -1e30
 _P_BLOCK = 64     # keys of a K/V tile in the bf16 K1 kernel
 
@@ -110,7 +115,7 @@ def flash_attention_forward(q, k, v, scale, causal):
     """K1 on CUDA tensors, its plain version on CPU tensors:
     ``(O, LSE)``. Counts each kernel launch in
     ``flash_attention_forward.launches``."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, scale, causal)
     _check_flash_operands(q, k, v)
     b, h, s, d = q.shape

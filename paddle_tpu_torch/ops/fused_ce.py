@@ -28,6 +28,11 @@ import torch
 from ..amp.auto_cast import cast_inputs, op_body
 from . import _build
 
+# devices whose tensors take the plain forward: the CPU, and "meta",
+# where a static program infers an op's output shapes (no data, no
+# launch)
+_PLAIN_DEVICES = ("cpu", "meta")
+
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LABEL_DTYPES = {torch.int32: 0, torch.int64: 1}
 # K5's (rows of a token or vocab tile, blocks per SM the vocab split aims
@@ -126,7 +131,7 @@ def fused_ce_forward(x, w_vh, labels, ignore_index=-100):
     """K5 on CUDA tensors, its plain version on CPU tensors:
     ``(loss, lse)``. Counts each kernel launch in
     ``fused_ce_forward.launches``."""
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return fused_linear_cross_entropy_plain(x, w_vh, labels, ignore_index)
     _check_operands(x, w_vh, labels)
     t, h = x.shape

@@ -8,10 +8,24 @@ from ..core.tensor import Tensor
 from .math import _wrap_scalar
 
 
-def _cmp(name, fn):
+def _on_device_of(x, other):
+    """A Python scalar as a 0-d tensor on ``other``'s device, made by a
+    fill (which a CUDA graph can capture): torch's logical ops take no
+    CPU scalar beside a CUDA tensor, as its comparisons do."""
+    v = other._value if isinstance(other, Tensor) else other
+    if isinstance(x, (bool, int, float)) and isinstance(v, torch.Tensor) \
+            and v.device.type != "cpu":
+        return Tensor._wrap(torch.full((), x, dtype=v.dtype,
+                                       device=v.device))
+    return x
+
+
+def _cmp(name, fn, scalar_on_device=False):
     op = register_op(name, differentiable=False)(fn)
 
     def api(x, y, name=None):
+        if scalar_on_device:
+            x, y = _on_device_of(x, y), _on_device_of(y, x)
         x = _wrap_scalar(x, y)
         y = _wrap_scalar(y, x)
         return op(x, y)
@@ -25,9 +39,9 @@ greater_than = _cmp("greater_than", torch.gt)
 greater_equal = _cmp("greater_equal", torch.ge)
 less_than = _cmp("less_than", torch.lt)
 less_equal = _cmp("less_equal", torch.le)
-logical_and = _cmp("logical_and", torch.logical_and)
-logical_or = _cmp("logical_or", torch.logical_or)
-logical_xor = _cmp("logical_xor", torch.logical_xor)
+logical_and = _cmp("logical_and", torch.logical_and, scalar_on_device=True)
+logical_or = _cmp("logical_or", torch.logical_or, scalar_on_device=True)
+logical_xor = _cmp("logical_xor", torch.logical_xor, scalar_on_device=True)
 bitwise_and = _cmp("bitwise_and", torch.bitwise_and)
 bitwise_or = _cmp("bitwise_or", torch.bitwise_or)
 bitwise_xor = _cmp("bitwise_xor", torch.bitwise_xor)

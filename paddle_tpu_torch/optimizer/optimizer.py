@@ -37,6 +37,16 @@ leaf is updated in place, so the ``Parameter`` keeps its identity and
 its ``grad``; the grad clip sees the ``Parameter`` itself (its
 ``need_clip``).
 
+``minimize`` of a static program's Variable loss (under
+``enable_static``) appends the gradient boundary and one update record
+to the program (``static/program.py``): at each ``Executor.run`` the
+record runs this optimizer's clip, L1 decay and per-parameter updates on
+the program's grads, as ``step()`` does on ``.grad``. The reference
+records each update through its op hooks; the port's updates are
+torch-level, so the record runs them (the op list differs, the values do
+not). In static mode ``parameters`` may be None: the update covers the
+program's trainable persistables.
+
 ``state_dict()`` keys each state tensor ``f"{name}_{kind}"`` (``name``
 as given with the parameters, a ``Parameter``'s own ``.name``, as the
 reference's; ``kind`` the reference's: ``moment1``, ``beta1_pow``,
@@ -105,8 +115,12 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
         if parameters is None:
-            raise ValueError("parameters must be given (pass "
-                             "model.parameters() or model.named_parameters())")
+            from ..static.program import building_program
+            if building_program() is None:
+                raise ValueError(
+                    "parameters must be given (pass model.parameters() or "
+                    "model.named_parameters())")
+            parameters = []    # static: minimize takes the program's
         self._params = _named(parameters)
         self._grad_clip = grad_clip
         self._accumulators = {}
@@ -173,11 +187,16 @@ class Optimizer:
 
     clear_gradients = clear_grad
 
-    @torch.no_grad()
     def step(self):
-        params_grads = [(p, _leaf(p).grad) for _, p in self._params
-                        if _leaf(p).grad is not None
-                        and _leaf(p).requires_grad]
+        self._apply_grads([(p, _leaf(p).grad) for _, p in self._params
+                           if _leaf(p).grad is not None
+                           and _leaf(p).requires_grad])
+
+    @torch.no_grad()
+    def _apply_grads(self, params_grads):
+        """The clip, the L1 decay and one update a parameter over
+        ``[(parameter as given, grad)]`` (``step()``'s body; a static
+        program's update record calls it with the program's grads)."""
         with op_body():
             if self._grad_clip is not None:
                 params_grads = self._grad_clip(params_grads)
@@ -200,14 +219,39 @@ class Optimizer:
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
         """``loss.backward()`` then ``step()`` for a torch tensor or a
-        core Tensor loss; returns ``(None, None)`` as the reference's
-        dygraph branch does."""
+        core Tensor loss, returning ``(None, None)`` as the reference's
+        dygraph branch does; for a static Variable, the gradient
+        boundary and the update record, returning ``(None,
+        [(param, grad_var)])``."""
+        if isinstance(loss, Tensor) and loss._symbolic:
+            return self._minimize_static(loss, parameters)
         if not isinstance(loss, (torch.Tensor, Tensor)):
             raise NotImplementedError(
-                "minimize of a static-program variable is not ported")
+                f"minimize takes a torch tensor, a Tensor or a static "
+                f"program's Variable, got {type(loss).__name__}")
         loss.backward()
         self.step()
         return None, None
+
+    def _minimize_static(self, loss, parameters=None):
+        """Reference ``_minimize_static`` (optimizer.py:127-154): the
+        grads of ``parameters`` (else this optimizer's, else the
+        program's trainable persistables), then one record that updates
+        them at each run."""
+        from ..static.program import UpdateRecord
+        prog = loss.program
+        params = parameters
+        if params is None:
+            params = [p for _, p in self._params
+                      if isinstance(p, Tensor)] or None
+        params_grads = prog.append_backward(loss, params)
+        have = {id(p) for _, p in self._params}
+        for p, _ in params_grads:
+            if id(p) not in have:
+                self._params.append((p.name, p))
+        prog.ops.append(UpdateRecord(self, [(p, g.name)
+                                            for p, g in params_grads]))
+        return None, params_grads
 
     def _acc(self, kind, param, init=0.0, shape=None):
         """The f32 state ``kind`` of ``param`` on its device, made on

@@ -42,8 +42,10 @@ refused import, decode death mid-stream, no decode tier left — lands in
 the ordinary monolithic retry machinery, which continues from the
 journal without regenerating committed tokens.
 
-The reference's ``FleetPoller`` is not ported: the router takes
-``poller=None`` and probes its transports directly.
+A ``FleetPoller`` (``observability/fleet/poller.py``) given as
+``poller`` supplies each replica's posture and verdict, which feed its
+breaker; a replica the poller does not know, or a router built with
+``poller=None``, is probed through its transport directly.
 """
 import itertools
 import threading
