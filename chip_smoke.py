@@ -5,7 +5,8 @@ Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 (``--fleet`` runs phases 1, 4, 16, 17 and 18 alone, ``--nn`` phases 1,
 7 and 20 alone, ``--bert`` phases 1 and 21 alone, ``--vision`` phases 1
 and 22 alone, ``--rnn`` phases 1 and 23 alone, ``--static`` phases 1, 24
-and 25 alone; none prints the kernels line)
+and 25 alone, ``--deploy`` phases 1 and 26 alone; none prints the
+kernels line)
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -392,12 +393,42 @@ Phases, one line each:
              with birth tracking on, a Tensor leaked out of a captured
              branch raises TracerLeakError naming its op, file:line and
              scope, and the card works on.
+ 26. deploy  phase 20's surface GPT-124M (phase 7's weights, f32) as a
+             user deploys it: first the f32 K1 at the batch-1 Predictor's
+             [1,12,1024,64] causal shape against its plain version, timed
+             with SDPA and the bound; 26a jit.save with InputSpec([None,
+             1024]) (the .pdmodel holds no parameter values), then
+             inference.create_predictor on the card through its handles at
+             batches 1, 4 and 8, 6 runs each: K1 = 12 a run, one CUDA graph
+             a batch size, every run the eager model's logits bit for bit
+             (or within DEPLOY_TOL), run ms host to host and device ms,
+             tokens/s, peak memory and the graph pool beside the eager
+             forward's; batch 1 against the CPU twin (jit.load on the CPU)
+             within LOSS_RTOL of the largest logit; jit.load = the
+             Predictor; a PredictorPool of 4 from 4 threads, each its own
+             batch's logits; 26b PostTrainingQuantization (abs_max, 4
+             calibration batches of 8 x 1024) and convert_to_int8: 49
+             Int8Linear with int8 w_q on the card, saved and served at
+             batches 1 and 8, the products through torch._int_mm, logits
+             within the reference's bar of f32 (max|diff| / max|f32| <
+             0.1) with the top-1 agreement, the int8 model's eager bits;
+             run ms, tokens/s, peak and .pdiparams bytes against 26a's, the
+             GEMMs' device ms int8 against f32 in one profiled forward
+             each; 26c ImperativeQuantAware and 3 AdamW steps at 8 x 1024
+             through the straight-through estimator (K1 = K2 = K3 = 12 a
+             step), save_quantized_model, the Predictor = the eval
+             forward; 26d onnx.export at [1, 1024] from the card: the file
+             re-parsed, every weight an initializer of the card's bits,
+             nodes by type; 26e a changed position embedding in the saved
+             .pdiparams: jit.load gives the changed eager model's logits.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
 14, 16, 17 and 18 for the serving K1 row, 7, 11, 12, 13, 19 and 20 for
-the f32 training rows (and 25c's program), 10, 13, 24d's and 25b's
-captured runs for the bf16 ones;
+the f32 training rows (and 25c's program, 26's batch-8 Predictor runs
+and its QAT steps), 26's batch-1 and batch-4 Predictor runs for the
+[1,12,1024,64] row, 10, 13, 24d's and 25b's captured runs for the bf16
+ones;
 the non-causal rows 21b and 24c's captured runs (bf16 [32,12,128,64]), 21c (f32 [32,12,128,64], its card side at
 [2,12,128,64]) and 21d ([8,12,512,64])), and as the last line
 {"ok": true, "device": {...}}.
@@ -417,6 +448,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -3291,7 +3323,7 @@ def paddle_surface_gpt(paddle, cfg):
     nn.functional.scaled_dot_product_attention(is_causal=True), the
     output and fc1/fc2 nn.Linear with gelu(approximate=True), paddle.add
     for the residuals and an untied nn.Linear head into
-    nn.functional.cross_entropy. Dropout 0."""
+    nn.functional.cross_entropy (the logits without labels). Dropout 0."""
     nn, F = paddle.nn, paddle.nn.functional
 
     class SelfAttention(nn.Layer):
@@ -3360,8 +3392,10 @@ def paddle_surface_gpt(paddle, cfg):
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
                                      bias_attr=False)
 
-        def forward(self, ids, labels):
+        def forward(self, ids, labels=None):
             logits = self.lm_head(self.gpt(ids))
+            if labels is None:
+                return logits
             return F.cross_entropy(
                 paddle.reshape(logits, [-1, cfg.vocab_size]),
                 paddle.reshape(labels, [-1]))
@@ -6558,6 +6592,569 @@ def phase_dy2static(torch, attn, tce, amp, optimizer, TransformerLMConfig):
     return flag, prog
 
 
+# --------------------------------------------------------------- phase 26
+
+# phase 26: the Predictor's batches, runs a batch (run 1 eager, 2 recorded,
+# 3 captured, then replays), PTQ's calibration batches, QAT's steps, the
+# PredictorPool's threads
+DEPLOY = dict(batches=(1, 4, 8), int8_batches=(1, 8), runs=6, calib=4,
+              qat_steps=3, pool=4, pool_runs=4)
+# 26a/26c/26e, a loaded program (the Predictor's CUDA graph) against the
+# eager model on the card: the same kernels on the same operands, so the
+# same bits are expected; where they part, within this share of the
+# largest logit (f32 sums in another order)
+DEPLOY_TOL = 1e-5
+# 26a, the card's batch-1 logits against the CPU twin's (the same program
+# on the CPU, plain attention): f32 sums in another order through 12
+# layers (cuBLAS and K1 against the CPU's BLAS and the plain composition),
+# held to phase 20a's card-against-CPU loss rule, LOSS_RTOL, as a share
+# of the largest logit
+# 26b, the W8A8 model against f32: the reference's own bar
+# (tests/test_int8_inference.py:27-29)
+INT8_REL_BAR = 0.1
+
+
+def k1_inference_row(torch, attn, shape):
+    """The f32 K1 at the batch-1 Predictor's shape, causal: against its
+    plain version (twice for the same bits), timed twice in turns with
+    SDPA's f32 forward, the plain version, the bound."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(26)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda")
+               for _ in range(3))
+    scale = 1.0 / shape[-1] ** 0.5
+    o, lse = attn.flash_attention_forward(q, k, v, scale, True)
+    again = attn.flash_attention_forward(q, k, v, scale, True)
+    ro, rlse = attn.flash_attention_plain(q, k, v, scale, True)
+    torch.cuda.synchronize()
+    err = max((o - ro).abs().max().item(), (lse - rlse).abs().max().item())
+    check(err <= F32_FLASH_TOL and torch.equal(o, again[0])
+          and torch.equal(lse, again[1]), f"26: K1 {list(shape)} causal f32:"
+          f" err {err} (tol {F32_FLASH_TOL}) or two runs differ")
+    times, libs = [], []
+    for _ in range(2):
+        times.append(time_ms(torch, lambda: attn.flash_attention_forward(
+            q, k, v, scale, True)))
+        libs.append(time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)))
+    ms, lib_ms = float(np.median(times)), float(np.median(libs))
+    plain_ms = time_ms(torch, lambda: attn.flash_attention_plain(
+        q, k, v, scale, True), iters=10)
+    b, h, s, d = shape
+    flops = 4 * d * (b * h * s * (s + 1) // 2)
+    b_ms, b_by = bound(4 * b * h * s * d * 4 + b * h * s * 4, flops,
+                       "float32")
+    print(f"    K1 {list(shape)} causal f32: max abs err {err:.3e} (tol "
+          f"{F32_FLASH_TOL}), a second run the same bits; {ms:.4f} ms "
+          f"({[round(t, 4) for t in times]}), {flops / ms / 1e9:.1f} "
+          f"TFLOP/s, {b_ms / ms:.4f} of its bound {b_ms:.4f} ms ({b_by}); "
+          f"SDPA f32 {lib_ms:.4f} ms ({[round(t, 4) for t in libs]}); plain "
+          f"{plain_ms:.4f} ms")
+    return {"name": "flash_attention_forward", "route": "cuda",
+            "dtype": "float32", "shape": list(shape),
+            "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "paddle_tpu/ops/attention.py:67",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def same_or_close(a, b, tol, label):
+    """Bits, or within ``tol`` of the largest |b|: returns the max abs
+    difference and whether the bits are the same."""
+    bits = np.array_equal(a, b)
+    diff = 0.0 if bits else float(np.abs(a - b).max())
+    scale = float(np.abs(b).max())
+    check(bits or diff <= tol * scale, f"{label}: max abs diff {diff} > "
+          f"{tol} of the largest {scale}")
+    return diff, bits
+
+
+def predictor_runs(torch, pred, ids, runs, attn):
+    """``runs`` runs of ``pred`` on ``ids`` through its handles: each run's
+    logits (copy_to_cpu), host-to-host ms and K1 launches."""
+    k1 = attn.flash_attention_forward
+    outs, times, launches = [], [], []
+    name = pred.get_input_names()[0]
+    for _ in range(runs):
+        k1.launches = 0
+        t0 = time.perf_counter()
+        pred.get_input_handle(name).copy_from_cpu(ids)
+        pred.run()
+        out = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(k1.launches)
+        outs.append(out)
+    return outs, times, launches
+
+
+def device_ms(torch, fn, n=5):
+    """Median device time of ``fn()`` between CUDA events."""
+    out = []
+    for _ in range(n):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e))
+    return float(np.median(out))
+
+
+def gemm_device_ms(torch, fn):
+    """Device ms of the GEMM kernels (cuBLAS's, whatever their dtype) in
+    one profiled call of ``fn``, and of every kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    gemm = total = 0.0
+    names = set()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        total += us
+        low = e.name.lower()
+        if "gemm" in low or "imma" in low or "i8" in low or "s8" in low:
+            gemm += us
+            names.add(e.name[:60])
+    return gemm / 1e3, total / 1e3, sorted(names)[:3]
+
+
+def phase_deploy(torch, attn, cfg):
+    """Phase 26: phase 20's surface GPT-124M (phase 7's weights) saved
+    with jit.save and served by inference.create_predictor on the card,
+    in f32 (26a) and after PTQ + convert_to_int8 (26b); QAT steps and
+    save_quantized_model (26c); onnx.export (26d); a changed position
+    embedding in a saved .pdiparams (26e). Returns the K1 launches of
+    the Predictor runs at batch 8 and at the other batches, the (K1, K2,
+    K3) launches of the QAT steps, and the new K1 row."""
+    import pickle
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference, onnx, quantization
+    from paddle_tpu_torch.core import device as device_mod
+    from paddle_tpu_torch.device import max_memory_allocated
+    from paddle_tpu_torch.jit.save_load import load_program
+    from paddle_tpu_torch.onnx_proto import onnx_pb2
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.text import convert
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    k1, k2, k3 = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                  attn.flash_bwd_dkv)
+    L, S, V = cfg.num_layers, cfg.max_seq_len, cfg.vocab_size
+    small, big = 0, 0            # K1 launches at batches 1/4 and at 8
+    t_start = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        paddle.set_device("gpu")
+        print("  [26] the new K1 row: the batch-1 Predictor's shape")
+        row = k1_inference_row(torch, attn, (1, cfg.num_heads, S,
+                                             cfg.hidden_size
+                                             // cfg.num_heads))
+        tg = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+            1234))
+        init_np = convert.state_dict_to_paddle_tpu(tg.state_dict())
+        del tg
+
+        def model_at_init():
+            m = paddle_surface_gpt(paddle, cfg)
+            check(m.set_state_dict(init_np) == [], "26: weights missing")
+            return m.eval()
+
+        def ids_for(b, seed):
+            return np.random.RandomState(seed).randint(0, V, (b, S)).astype(
+                np.int64)
+
+        def eager_logits(m, ids):
+            with paddle.no_grad():
+                return m(paddle.to_tensor(ids)).numpy()
+
+        spec = [InputSpec([None, S], "int64")]
+        print("  [26a] f32: jit.save, then create_predictor on the card")
+        model = model_at_init()
+        path = os.path.join(tmp.name, "gpt")
+        t0 = time.perf_counter()
+        paddle.jit.save(model, path, input_spec=spec)
+        save_s = time.perf_counter() - t0
+        sizes = {ext: os.path.getsize(path + ext)
+                 for ext in (".pdmodel", ".pdiparams", ".pdmeta")}
+        with open(path + ".pdmodel", "rb") as f:
+            blob = pickle.load(f)
+        with open(path + ".pdmeta", "rb") as f:
+            meta = pickle.load(f)
+        pnames = set(meta["program_names"].values())
+        valued = [n for n in pnames if blob["persist"][n][0] is not None]
+        kinds = {}
+        for r in blob["records"]:
+            kinds[r.get("type", r["kind"])] = kinds.get(
+                r.get("type", r["kind"]), 0) + 1
+        check(not valued and sizes[".pdmodel"] < (1 << 20),
+              f"26a: .pdmodel {sizes['.pdmodel']} bytes, values kept for "
+              f"{valued[:3]}")
+        print(f"    saved in {save_s:.2f} s: .pdmodel {sizes['.pdmodel']} B "
+              f"({len(blob['records'])} records: "
+              f"{kinds.get('flash_attention', 0)} flash_attention, "
+              f"{kinds.get('linear', 0)} linear, "
+              f"{kinds.get('lookup_table_v2', 0)} lookup_table_v2; "
+              f"{len(pnames)} parameters by name and shape, no values), "
+              f".pdiparams {sizes['.pdiparams']} B, .pdmeta "
+              f"{sizes['.pdmeta']} B")
+        pred = inference.create_predictor(inference.Config(path + ".pdmodel"))
+        check(pred.layer._device.type == "cuda", "26a: not on the card")
+        want, f32 = {}, {}
+        for b in DEPLOY["batches"]:
+            ids = ids_for(b, 260 + b)
+            want[b] = eager_logits(model, ids)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            outs, times, launches = predictor_runs(torch, pred, ids,
+                                                   DEPLOY["runs"], attn)
+            peak = max_memory_allocated()
+            check(launches == [L] * DEPLOY["runs"],
+                  f"26a: batch {b}: K1 launches a run {launches}, want {L}")
+            if b == 8:
+                big += sum(launches)
+            else:
+                small += sum(launches)
+            diffs = [same_or_close(o, want[b], DEPLOY_TOL,
+                                   f"26a batch {b} run {i + 1}")
+                     for i, o in enumerate(outs)]
+            check(all(np.array_equal(o, outs[2]) for o in outs[2:]),
+                  f"26a batch {b}: the replays differ")
+            x_dev = paddle.to_tensor(ids)
+            dev = device_ms(torch, lambda: pred.layer(x_dev))
+            f32[b] = dict(times=times, run_ms=float(np.median(times[3:])),
+                          dev_ms=dev, peak=peak, held=held, logits=outs[-1])
+            print(f"    batch {b}: run ms {[round(t, 2) for t in times]} "
+                  f"(median of replays {f32[b]['run_ms']:.2f}, host to "
+                  f"host, {b * S / f32[b]['run_ms'] * 1e3:.1f} scored "
+                  f"tokens/s), device {dev:.3f} ms a replay "
+                  f"({b * S / dev * 1e3:.1f} tokens/s); K1 {launches}; "
+                  f"against the eager model: "
+                  + ("the same bits every run" if all(d[1] for d in diffs)
+                     else f"max abs diff {max(d[0] for d in diffs):.3e} "
+                     f"(tol {DEPLOY_TOL} of the largest logit)")
+                  + f"; peak {peak / 2**30:.3f} GiB, "
+                  f"{(peak - held) / 2**30:.3f} over the {held / 2**30:.3f} "
+                  "held before the runs")
+        graphs = pred.layer.graphs()
+        check(len(graphs) == len(DEPLOY["batches"]),
+              f"26a: {len(graphs)} graphs for {len(DEPLOY['batches'])} "
+              "batch sizes")
+        pool_f32 = pred.layer.pool_bytes()
+        ids8 = ids_for(8, 268)
+        x8 = paddle.to_tensor(ids8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        e_times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            eager_logits(model, ids8)
+            e_times.append((time.perf_counter() - t0) * 1e3)
+        e_peak = max_memory_allocated()
+        with paddle.no_grad():
+            e_dev = device_ms(torch, lambda: model(x8))
+        e_ms = float(np.median(e_times[1:]))
+        print(f"    batch 8 eager forward (no_grad, to_tensor to numpy): "
+              f"{[round(t, 2) for t in e_times]} ms, median {e_ms:.2f} "
+              f"({8 * S / e_ms * 1e3:.1f} tokens/s), device {e_dev:.3f} ms, "
+              f"peak {e_peak / 2**30:.3f} GiB over {held / 2**30:.3f} held; "
+              f"the Predictor's {len(graphs)} graphs' pool "
+              f"{pool_f32 / 2**30:.3f} GiB, capture ms "
+              f"{[round(g.capture_ms, 1) for g in graphs]}")
+
+        # where the host-to-host time goes: the batch-8 logits (1.65 GB)
+        # copied to pageable host memory, as copy_to_cpu does, against a
+        # copy into a pinned buffer
+        lv = pred.layer(x8).value
+        pinned = torch.empty(lv.shape, dtype=lv.dtype, pin_memory=True)
+        copies = {"pageable": [], "pinned": []}
+        for _ in range(3):
+            for kind in copies:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if kind == "pinned":
+                    pinned.copy_(lv)
+                else:
+                    lv.cpu()
+                torch.cuda.synchronize()
+                copies[kind].append((time.perf_counter() - t0) * 1e3)
+        print(f"    the batch-8 logits ({lv.numel() * 4 / 1e9:.2f} GB) to the "
+              f"host: pageable {[round(t, 1) for t in copies['pageable']]} "
+              f"ms, into a pinned buffer "
+              f"{[round(t, 1) for t in copies['pinned']]} ms")
+        del lv, pinned
+        cpu = paddle.jit.load(path, device="cpu")
+        t0 = time.perf_counter()
+        cpu_out = cpu(paddle.to_tensor(ids_for(1, 261),
+                                       place=paddle.CPUPlace())).numpy()
+        cpu_s = time.perf_counter() - t0
+        err = float(np.abs(f32[1]["logits"] - cpu_out).max())
+        scale = float(np.abs(cpu_out).max())
+        check(err <= LOSS_RTOL * scale, f"26a: batch 1 card vs CPU twin: "
+              f"{err} > {LOSS_RTOL} of {scale}")
+        print(f"    batch 1 against the CPU twin (the same files, "
+              f"jit.load(device='cpu'), {cpu_s:.1f} s): max abs diff "
+              f"{err:.3e}, {err / scale:.3e} of the largest logit (tol "
+              f"{LOSS_RTOL})")
+        del cpu, cpu_out
+
+        loaded = paddle.jit.load(path)
+        k1.launches = 0
+        lo = [loaded(paddle.to_tensor(ids_for(4, 264))).numpy()
+              for _ in range(4)]
+        small += k1.launches
+        check(all(np.array_equal(o, f32[4]["logits"]) for o in lo),
+              "26a: jit.load's batch-4 logits are not the Predictor's")
+        print("    jit.load: batch 4 over 4 calls = the Predictor's logits, "
+              "bit for bit")
+        del loaded, lo
+
+        pool = inference.PredictorPool(inference.Config(path + ".pdmodel"),
+                                       size=DEPLOY["pool"])
+        pool_ids = [ids_for(1, 270 + i) for i in range(DEPLOY["pool"])]
+        pool_want = [eager_logits(model, x) for x in pool_ids]
+        got, errs = [None] * DEPLOY["pool"], []
+        k1.launches = 0
+
+        def serve(i):
+            try:
+                p = pool.retrieve(i)
+                name = p.get_input_names()[0]
+                for _ in range(DEPLOY["pool_runs"]):
+                    p.get_input_handle(name).copy_from_cpu(pool_ids[i])
+                    p.run()
+                    got[i] = p.get_output_handle("out0").copy_to_cpu()
+            except Exception as e:  # noqa: BLE001 - reported below
+                errs.append((i, repr(e)))
+        threads = [threading.Thread(target=serve, args=(i,))
+                   for i in range(DEPLOY["pool"])]
+        [t.start() for t in threads]
+        [t.join() for t in threads]
+        small += k1.launches
+        check(not errs, f"26a: PredictorPool threads: {errs}")
+        shared = {id(pool.retrieve(i).layer.state_dict()["gpt.ln_f.weight"])
+                  for i in range(DEPLOY["pool"])}
+        check(len(shared) == 1, "26a: the pool's predictors hold "
+              f"{len(shared)} copies of the parameters")
+        pool_diffs = [same_or_close(g, w, DEPLOY_TOL, f"26a pool {i}")
+                      for i, (g, w) in enumerate(zip(got, pool_want))]
+        check(k1.launches == DEPLOY["pool"] * DEPLOY["pool_runs"] * L,
+              f"26a: the pool's K1 launches {k1.launches}")
+        print(f"    PredictorPool({DEPLOY['pool']}) from {DEPLOY['pool']} "
+              f"threads, {DEPLOY['pool_runs']} runs each on its own batch: "
+              + ("every thread its own batch's logits, the same bits"
+                 if all(d[1] for d in pool_diffs) else
+                 f"max abs diff {max(d[0] for d in pool_diffs):.3e}")
+              + f"; K1 {k1.launches}; one copy of the parameters")
+        del pool, pred
+        torch.cuda.empty_cache()
+
+        print("  [26b] int8: PTQ abs_max over 4 batches, convert_to_int8, "
+              "jit.save, create_predictor")
+        qm = model_at_init()
+        ptq = quantization.PostTrainingQuantization(qm, algo="abs_max")
+        t0 = time.perf_counter()
+        with paddle.no_grad():
+            for i in range(DEPLOY["calib"]):
+                ptq.sample(paddle.to_tensor(ids_for(8, 280 + i)))
+        ptq.convert()
+        quantization.convert_to_int8(qm)
+        calib_s = time.perf_counter() - t0
+        lins = [m for m in qm.sublayers()
+                if isinstance(m, quantization.Int8Linear)]
+        check(len(lins) == 4 * L + 1 and all(
+            m.w_q.value.dtype == torch.int8 and m.w_q.value.is_cuda
+            for m in lins), f"26b: {len(lins)} Int8Linear")
+        qpath = os.path.join(tmp.name, "gpt_int8")
+        paddle.jit.save(qm, qpath, input_spec=spec)
+        qsize = os.path.getsize(qpath + ".pdiparams")
+        qpred = inference.create_predictor(inference.Config(
+            qpath + ".pdmodel"))
+        calls = [0]
+        real_int_mm = torch._int_mm
+
+        def counted(a, b_):
+            calls[0] += 1
+            return real_int_mm(a, b_)
+        int8 = {}
+        for b in DEPLOY["int8_batches"]:
+            ids = ids_for(b, 260 + b)
+            qwant = eager_logits(qm, ids)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            torch._int_mm = counted
+            try:
+                outs, times, launches = predictor_runs(torch, qpred, ids,
+                                                       DEPLOY["runs"], attn)
+            finally:
+                torch._int_mm = real_int_mm
+            peak = max_memory_allocated()
+            check(launches == [L] * DEPLOY["runs"],
+                  f"26b: batch {b}: K1 launches a run {launches}")
+            if b == 8:
+                big += sum(launches)
+            else:
+                small += sum(launches)
+            check(calls[0] == 3 * len(lins), f"26b: batch {b}: "
+                  f"torch._int_mm called {calls[0]} times in the eager, "
+                  f"record and capture runs, want {3 * len(lins)}")
+            calls[0] = 0
+            diffs = [same_or_close(o, qwant, DEPLOY_TOL, f"26b batch {b}")
+                     for o in outs]
+            ref32 = want[b]
+            rel = float(np.abs(ref32 - outs[-1]).max() / np.abs(ref32).max())
+            top1 = float((ref32.argmax(-1) == outs[-1].argmax(-1)).mean())
+            check(rel < INT8_REL_BAR, f"26b: batch {b}: max|f32 - int8| / "
+                  f"max|f32| = {rel} (bar {INT8_REL_BAR})")
+            x_dev = paddle.to_tensor(ids)
+            dev = device_ms(torch, lambda: qpred.layer(x_dev))
+            int8[b] = dict(run_ms=float(np.median(times[3:])), dev_ms=dev,
+                           peak=peak)
+            print(f"    batch {b}: run ms {[round(t, 2) for t in times]} "
+                  f"(median of replays {int8[b]['run_ms']:.2f}, "
+                  f"{b * S / int8[b]['run_ms'] * 1e3:.1f} tokens/s; f32 "
+                  f"{f32[b]['run_ms']:.2f}), device {dev:.3f} ms "
+                  f"({b * S / dev * 1e3:.1f} tokens/s; f32 "
+                  f"{f32[b]['dev_ms']:.3f}); K1 {launches}; torch._int_mm "
+                  f"{len(lins)} a run; against f32: max|diff|/max|f32| "
+                  f"{rel:.4f} (bar {INT8_REL_BAR}), top-1 agreement {top1:.4f}; "
+                  f"against the int8 model eager: "
+                  + ("the same bits" if all(d[1] for d in diffs) else
+                     f"max abs diff {max(d[0] for d in diffs):.3e}")
+                  + f"; peak {peak / 2**30:.3f} GiB, "
+                  f"{(peak - held) / 2**30:.3f} over {held / 2**30:.3f} held "
+                  f"(f32 {(f32[b]['peak'] - f32[b]['held']) / 2**30:.3f} over "
+                  f"{f32[b]['held'] / 2**30:.3f})")
+        with paddle.no_grad():
+            g32, all32, n32 = gemm_device_ms(torch, lambda: model(x8))
+            g8, all8, n8 = gemm_device_ms(torch, lambda: qm(x8))
+        print(f"    PTQ + convert in {calib_s:.1f} s; {len(lins)} Int8Linear, "
+              f"w_q int8 on the card; .pdiparams {qsize} B against f32's "
+              f"{sizes['.pdiparams']} B; the graph pool "
+              f"{qpred.layer.pool_bytes() / 2**30:.3f} GiB; one profiled "
+              f"eager forward at batch 8: GEMMs {g8:.3f} ms of {all8:.3f} "
+              f"(int8, {n8}) against {g32:.3f} of {all32:.3f} (f32 cuBLAS, "
+              f"TF32 off, {n32})")
+        del qpred, qm, ptq
+        torch.cuda.empty_cache()
+
+        print(f"  [26c] QAT: ImperativeQuantAware, {DEPLOY['qat_steps']} "
+              "AdamW steps at 8 x 1024, save_quantized_model, Predictor")
+        qat = paddle_surface_gpt(paddle, cfg)
+        check(qat.set_state_dict(init_np) == [], "26c: weights missing")
+        quantization.ImperativeQuantAware().quantize(qat)
+        qat.train()
+        opt = paddle.optimizer.AdamW(
+            1e-4, parameters=qat.parameters(), weight_decay=0.01,
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+        ids = paddle.to_tensor(ids_for(8, 290))
+        losses, steps_ms, qat_counts = [], [], []
+        for _ in range(DEPLOY["qat_steps"]):
+            for w in (k1, k2, k3):
+                w.launches = 0
+            t0 = time.perf_counter()
+            loss = qat(ids, ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.item()))
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            qat_counts.append((k1.launches, k2.launches, k3.launches))
+        check(all(np.isfinite(losses)) and all(c == (L, L, L)
+                                               for c in qat_counts),
+              f"26c: losses {losses}, launches {qat_counts}")
+        qat_total = tuple(sum(c[i] for c in qat_counts) for i in range(3))
+        del opt, loss
+        qpath = os.path.join(tmp.name, "gpt_qat")
+        quantization.ImperativeQuantAware().save_quantized_model(
+            qat, qpath, input_spec=spec)
+        qpred = inference.create_predictor(inference.Config(
+            qpath + ".pdmodel"))
+        ids1 = ids_for(1, 261)
+        qwant = eager_logits(qat, ids1)
+        outs, _, launches = predictor_runs(torch, qpred, ids1, 4, attn)
+        small += sum(launches)
+        diffs = [same_or_close(o, qwant, DEPLOY_TOL, "26c") for o in outs]
+        print(f"    losses {[round(v, 6) for v in losses]}, step ms "
+              f"{[round(t, 1) for t in steps_ms]}, K1/K2/K3 a step "
+              f"{qat_counts[0]}; the saved QAT model's Predictor at batch 1 "
+              f"over 4 runs: "
+              + ("the eval forward's bits" if all(d[1] for d in diffs) else
+                 f"max abs diff {max(d[0] for d in diffs):.3e}")
+              + f"; K1 {launches}")
+        del qpred, qat
+        torch.cuda.empty_cache()
+
+        print("  [26d] onnx.export of the f32 model at [1, 1024] from the "
+              "card")
+        t0 = time.perf_counter()
+        opath = onnx.export(model, os.path.join(tmp.name, "gpt"),
+                            input_spec=[InputSpec([1, S], "int64")])
+        ex_s = time.perf_counter() - t0
+        mp = onnx_pb2.ModelProto()
+        with open(opath, "rb") as f:
+            mp.ParseFromString(f.read())
+        inits = {t.name: t for t in mp.graph.initializer}
+        sd = model.state_dict()
+        matched = 0
+        for n, p in sd.items():
+            if n in inits:
+                arr = np.frombuffer(inits[n].raw_data, np.float32).reshape(
+                    list(inits[n].dims))
+                check(np.array_equal(arr, p.numpy()),
+                      f"26d: initializer {n} is not the card's weight")
+                matched += 1
+        nodes = {}
+        for n in mp.graph.node:
+            nodes[n.op_type] = nodes.get(n.op_type, 0) + 1
+        check(matched == len(sd) - 1 and mp.ir_version == 8
+              and nodes.get("Softmax") == L,
+              f"26d: {matched} of {len(sd)} weights as initializers, "
+              f"nodes {nodes}")
+        print(f"    exported in {ex_s:.1f} s, {os.path.getsize(opath)} B, "
+              f"re-parsed: ir_version {mp.ir_version}, opset "
+              f"{mp.opset_import[0].version}, {len(mp.graph.node)} nodes "
+              f"{dict(sorted(nodes.items()))}; {matched} of {len(sd)} "
+              "weights as initializers under their structured names, the "
+              "card's bits (the position embedding folded into its lookup)")
+        del mp, inits
+
+        print("  [26e] a changed position embedding in a saved .pdiparams")
+        sd_np = paddle.load(path + ".pdiparams")
+        key = "gpt.position_embeddings.weight"
+        new = sd_np[key] + np.random.RandomState(26).randn(
+            *sd_np[key].shape).astype(np.float32) * 0.05
+        sd_np[key] = new
+        paddle.save(sd_np, path + ".pdiparams")
+        changed = paddle.jit.load(path)
+        k1.launches = 0
+        got = changed(paddle.to_tensor(ids1)).numpy()
+        small += k1.launches
+        old = want[1]
+        model.gpt.position_embeddings.weight.set_value(new)
+        ew = eager_logits(model, ids1)
+        d, bits = same_or_close(got, ew, DEPLOY_TOL, "26e")
+        moved = float(np.abs(ew - old).max())
+        check(moved > 1e-3, f"26e: the change moved the logits by {moved}")
+        print(f"    jit.load gives the changed model's logits "
+              + ("bit for bit" if bits else f"within {d:.3e}")
+              + f" (they moved by up to {moved:.3e} from the saved model's)")
+        del changed, model
+        torch.cuda.empty_cache()
+    finally:
+        device_mod._current_place = None
+        tmp.cleanup()
+    print(f"  phase 26 in {time.perf_counter() - t_start:.1f} s")
+    return big, small, qat_total, row
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -6598,6 +7195,11 @@ def main():
                     "and the static graph: Tensor control flow captured, "
                     "the flagship with a Tensor if, the surface GPT through "
                     "Executor.run); prints no kernels line")
+    ap.add_argument("--deploy", action="store_true",
+                    help="phases 1 and 26 only (the build, the surface "
+                    "GPT-124M saved with jit.save and served by a Predictor "
+                    "in f32 and int8, QAT, onnx.export); prints no kernels "
+                    "line")
     ap.add_argument("--rnn", action="store_true",
                     help="phases 1 and 23 only (the build, the recurrent "
                     "surface and the LSTM encoder-decoder through "
@@ -6690,6 +7292,15 @@ def main():
               f"s; phase 24's captured launches: 24c K1/K2/K3 {bert24}, 24d "
               f"K1/K2/K3/K5/K6/K7 {flag24}; phase 25's: 25b "
               f"K1/K2/K3/K5/K6/K7 {flag25}, 25c K1/K2/K3 {prog25}")
+        print(card_line())
+        return 0
+    if args.deploy:
+        print("[26] deployment: jit.save, the Predictor in f32 and int8, "
+              "QAT, onnx.export")
+        big, small, qat, _ = phase_deploy(torch, attn, train_cfg)
+        print(f"phases 1 and 26 in {time.perf_counter() - t_start:.1f} s; "
+              f"phase 26's K1 launches: {big} at batch 8, {small} at batches "
+              f"1 and 4; QAT's K1/K2/K3 {qat}")
         print(card_line())
         return 0
     if args.rnn:
@@ -6836,6 +7447,10 @@ def main():
           "surface GPT-124M through Executor.run, a leak attributed")
     flag25, prog25 = phase_dy2static(torch, attn, tce, amp, optimizer,
                                      TransformerLMConfig)
+    print("[26] deployment: the surface GPT-124M through jit.save and "
+          "create_predictor in f32 and int8, QAT, onnx.export, a changed "
+          ".pdiparams")
+    big26, small26, qat26, k1p_row = phase_deploy(torch, attn, train_cfg)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -6850,9 +7465,12 @@ def main():
     f32 = [a + b + c + d + e + f for a, b, c, d, e, f in
            zip(counts, optim, rc_f32, core + (0, 0, 0),
                surface + (0, 0, 0), prog25 + (0, 0, 0))]
-    k1t_row["launches"] = k1_train + f32[0]
-    k2_row["launches"] = k2 + f32[1]
-    k3_row["launches"] = k3 + f32[2]
+    # phase 26: the Predictor's batch-8 runs and QAT's steps on the f32
+    # training shape's rows; its batch-1 and batch-4 runs on their own row
+    k1t_row["launches"] = k1_train + f32[0] + big26 + qat26[0]
+    k2_row["launches"] = k2 + f32[1] + qat26[1]
+    k3_row["launches"] = k3 + f32[2] + qat26[2]
+    k1p_row["launches"] = small26
     k5f_row["launches"], k6f_row["launches"], k7f_row["launches"] = f32[3:]
     bf16 = [a + b + c + d for a, b, c, d in
             zip(flagship, rc_bf16, flag24, flag25)]
@@ -6867,7 +7485,7 @@ def main():
     for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
         for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
             row["launches"] = n
-    print(f"phases 1-25 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-26 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -6875,6 +7493,7 @@ def main():
     print(json.dumps({"kernels": [{k: row[k] for k in keys + ("shape",)
                                    if k in row}
                                   for row in (k4_row, k1_row, k1t_row,
+                                              k1p_row,
                                               k2_row, k3_row, k1b_row,
                                               k2b_row, k3b_row, k5_row,
                                               k6_row, k7_row, k5f_row,

@@ -51,7 +51,12 @@ and ``enable_static()`` puts ``Model``'s steps through ``to_static``;
 ``analysis`` attributes a Tensor that leaks out of a captured branch;
 ``reader``, the
 legacy ``dataset`` reader creators, ``distribution`` and ``core.native``
-(the C++ runtime's bindings).
+(the C++ runtime's bindings). Deployment: ``jit.save``/``jit.load``
+(the forward recorded as a static program beside its parameters),
+``inference`` (``Config``, ``create_predictor``, ``PredictorPool``: the
+loaded program replayed as a CUDA graph), ``quantization`` (QAT, PTQ,
+W8A8 int8 through ``torch._int_mm`` on the card), ``onnx.export``,
+``device`` (memory queries, streams) and ``version``.
 """
 from . import (  # noqa: F401
     amp, autograd, framework, io, nn, optimizer, regularizer, tensor, utils)
@@ -77,6 +82,8 @@ from . import jit, metric, static, text  # noqa: E402,F401
 from . import dataset, distribution, reader  # noqa: E402,F401
 from .static import (  # noqa: E402,F401
     disable_static, enable_static, in_dynamic_mode)
+from . import device, onnx, quantization, version  # noqa: E402,F401
+from .device import get_cudnn_version  # noqa: E402,F401
 from .hapi import callbacks  # noqa: E402,F401
 from .hapi.model import Model  # noqa: E402,F401
 from .hapi.summary import flops, summary  # noqa: E402,F401
@@ -128,5 +135,7 @@ from .ops.reduction import (  # noqa: A004
     median, min, nanmean, nanmedian, nanquantile, nansum, norm, prod,
     quantile, std, sum, var)
 
+
+__version__ = version.full_version
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -2,9 +2,10 @@
 (whole-step CUDA-graph capture, ``to_static.py``, after the dy2static
 conversion of ``dy2static.py``), ``not_to_static``,
 ``ProgramTranslator``, ``set_code_level``/``set_verbosity`` and
-``TracedLayer``. ``jit.save``/``jit.load`` (``jit/save_load.py``) are not
-ported yet: ``TracedLayer.save_inference_model`` raises."""
+``TracedLayer``, and ``save``/``load``/``TranslatedLayer``
+(``jit/save_load.py``: the forward recorded as a static ``Program``)."""
 from ..core.trace import ToStaticError  # noqa: F401
+from .save_load import TranslatedLayer, load, save  # noqa: F401
 from .to_static import TracedFunction, not_to_static, to_static  # noqa: F401
 
 
@@ -43,22 +44,24 @@ def set_verbosity(level=0, also_to_stdout=False):
 
 class TracedLayer:
     """Reference: fluid/dygraph/jit.py TracedLayer — trace a layer once
-    and replay the captured step."""
+    and replay the captured step; ``save_inference_model`` saves it with
+    ``jit.save``, the inputs given to ``trace`` its input spec (what the
+    reference's docstring promises; its own call passes no spec and
+    raises)."""
 
-    def __init__(self, layer, traced):
+    def __init__(self, layer, traced, inputs=None):
         self._layer = layer
         self._traced = traced
+        self._inputs = list(inputs) if inputs is not None else None
 
     @staticmethod
     def trace(layer, inputs):
         traced = to_static(layer.forward)
         outs = traced(*inputs)
-        return outs, TracedLayer(layer, traced)
+        return outs, TracedLayer(layer, traced, inputs)
 
     def __call__(self, *inputs):
         return self._traced(*inputs)
 
     def save_inference_model(self, path, feed=None, fetch=None, **kwargs):
-        raise NotImplementedError(
-            "TracedLayer.save_inference_model needs jit.save, which is not "
-            "ported yet (paddle_tpu/jit/save_load.py)")
+        save(self._layer, path, input_spec=self._inputs)

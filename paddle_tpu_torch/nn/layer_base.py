@@ -252,8 +252,9 @@ class Layer:
         """Copy ``state_dict``'s values (Tensors, torch tensors or numpy
         arrays, such as the reference's ``state_dict()`` as arrays) into
         this layer's parameters and buffers of the same structured
-        names, in place, cast to each one's dtype and device. Returns the
-        names it had no value for."""
+        names, in place, cast to each one's dtype and device, then calls
+        each sublayer's ``_after_load_state_dict`` where it has one.
+        Returns the names it had no value for."""
         missing = []
         for name, tgt in self.state_dict().items():
             if name not in state_dict:
@@ -267,6 +268,13 @@ class Layer:
                 raise ValueError(f"shape mismatch for {name}: "
                                  f"{tuple(arr.shape)} vs {tgt.shape}")
             tgt.set_value(arr)
+        # let layers re-derive their Python state from the loaded buffers
+        # (a quantization observer marks itself calibrated), as the
+        # reference's set_state_dict does
+        for _, layer in self.named_sublayers(include_self=True):
+            hook = getattr(layer, "_after_load_state_dict", None)
+            if hook is not None:
+                hook()
         return missing
 
     set_dict = set_state_dict

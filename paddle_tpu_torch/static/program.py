@@ -359,6 +359,28 @@ def _infer(op, values, attrs, cast):
             return op.fn(*cpu, **attrs)
 
 
+def _dynamic_shapes(op, args, values, attrs, cast, shapes):
+    """``shapes`` with -1 where an output dim follows a -1 dim of a
+    Variable argument: the op inferred again with those dims at 3; a dim
+    that moves is dynamic. An op that cannot take the other size (a
+    shape baked into its attributes) keeps the shapes as they are."""
+    if not any(isinstance(a, Variable) and -1 in a._shape for a in args):
+        return shapes
+    alt = [_meta(tuple(3 if d == -1 else d for d in a._shape),
+                 a._value.dtype)
+           if isinstance(a, Variable) and -1 in a._shape else v
+           for a, v in zip(args, values)]
+    try:
+        outs = _infer(op, alt, attrs, cast)
+    except Exception:  # noqa: BLE001 - the concrete shapes stand
+        return shapes
+    outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+    if [len(o.shape) for o in outs] != [len(s) for s in shapes]:
+        return shapes
+    return [tuple(-1 if d != e else d for d, e in zip(s, o.shape))
+            for s, o in zip(shapes, outs)]
+
+
 class Program:
     """An editable op-list program (reference framework.py Program; one
     block)."""
@@ -371,6 +393,10 @@ class Program:
         self._counter = [0]
         self._layer_cache = {}  # static.nn name -> layer (per program)
         self.random_seed = None
+        # jit.save's recording: a -1 feed dim stays -1 in the variables
+        # that depend on it (the reference's jax.export symbolic dims);
+        # off, as in the reference's static graph, it is 1 downstream
+        self.dynamic_dims = False
 
     # -- building ---------------------------------------------------------
     def _new_name(self, hint):
@@ -439,10 +465,15 @@ class Program:
                 values.append(t)
         outs = _infer(op, values, attrs, cast_dtype)
         multi = isinstance(outs, (tuple, list))
+        out_list = list(outs) if multi else [outs]
+        shapes = [tuple(o.shape) for o in out_list]
+        if self.dynamic_dims:
+            shapes = _dynamic_shapes(op, args, values, attrs, cast_dtype,
+                                     shapes)
         out_vars = []
-        for o in (list(outs) if multi else [outs]):
+        for o, shape in zip(out_list, shapes):
             name = self._new_name(op.name)
-            v = Variable(name, o.shape, o.dtype, self, stop_gradient=False)
+            v = Variable(name, shape, o.dtype, self, stop_gradient=False)
             self.vars[name] = v
             out_vars.append(v)
         self.ops.append(OpRecord(op, in_refs, [v.name for v in out_vars],
@@ -900,11 +931,16 @@ def _serialize_record(rec):
     }
 
 
-def _serialize_program(program):
+def _serialize_program(program, without_values=()):
+    """The program as the reference's blob; the persistables named in
+    ``without_values`` keep their names, trainable and stop_gradient
+    flags but not their values (``jit.save`` keeps those in its
+    ``.pdiparams``; their shapes and dtypes are among the variables)."""
     var_meta = {n: (list(v._shape), _dtype_name(v._value.dtype),
                     v.stop_gradient)
                 for n, v in program.vars.items()}
-    persist = {n: (_np(t), bool(getattr(t, "trainable", True)),
+    persist = {n: (None if n in without_values else _np(t),
+                   bool(getattr(t, "trainable", True)),
                    bool(t.stop_gradient))
                for n, t in program.persist.items()}
     return {"records": [_serialize_record(r) for r in program.ops],
@@ -959,7 +995,10 @@ def _deserialize_record(r, prog):
     return rec
 
 
-def _deserialize_program(blob, device=None):
+def _deserialize_program(blob, device=None, values=None):
+    """The Program of ``blob``, its persistables on ``device`` (else the
+    current device); a persistable saved without its value takes it
+    from ``values`` (name -> array), cast to its variable's dtype."""
     from ..core import device as device_mod
     dev = device if device is not None else device_mod.resolve_device()
     prog = Program()
@@ -969,7 +1008,22 @@ def _deserialize_program(blob, device=None):
         prog.vars[n] = Variable(n, shape, str(dtype), prog,
                                 stop_gradient=stop_grad)
     for n, (arr, trainable, stop_grad) in blob["persist"].items():
-        t = Tensor._wrap(_tensor(arr).to(dev), name=n)
+        if arr is None:
+            if values is None or n not in values:
+                raise ValueError(
+                    f"the program's persistable {n!r} has no value: it "
+                    "was saved without one (jit.save keeps the values in "
+                    "its .pdiparams)")
+            var = prog.vars[n]
+            src = as_torch(values[n], device=torch.device("cpu"))
+            if tuple(src.shape) != tuple(var._shape):
+                raise ValueError(
+                    f"parameter {n!r}: the value has shape "
+                    f"{tuple(src.shape)}, the program {tuple(var._shape)}")
+            t = Tensor._wrap(src.to(device=dev, dtype=var._value.dtype),
+                             name=n)
+        else:
+            t = Tensor._wrap(_tensor(arr).to(dev), name=n)
         t.persistable = True
         t.trainable = trainable
         if not stop_grad:
@@ -1003,17 +1057,21 @@ def save_inference_model(path_prefix, feed_vars, fetch_vars, executor=None,
 def load_inference_model(path_prefix, executor=None, **kwargs):
     """Reference paddle.static.load_inference_model: ``(program,
     feed_target_names, fetch_targets)``, the persistables on the
-    executor's place (else the current device)."""
-    path = str(path_prefix)
-    if not path.endswith(".pdmodel"):
-        path += ".pdmodel"
-    with open(path, "rb") as f:
-        blob = pickle.load(f)
+    executor's place (else the current device). A ``jit.save`` model
+    loads too: its parameters' values from its ``.pdiparams``."""
+    from ..jit.save_load import persist_values, read_program_blob
+    prefix = str(path_prefix)
+    if prefix.endswith(".pdmodel"):
+        prefix = prefix[:-len(".pdmodel")]
+    blob = read_program_blob(prefix)
     dev = None
     if executor is not None and executor.place is not None:
         from ..core import device as device_mod
         dev = device_mod.resolve_device(executor.place)
-    prog = _deserialize_program(blob, dev)
+    values = None
+    if any(arr is None for arr, _, _ in blob["persist"].values()):
+        values = persist_values(prefix)
+    prog = _deserialize_program(blob, dev, values)
     fetch = [prog.vars[n] for n in blob.get("fetch_targets", [])]
     return prog, list(blob.get("feed_targets", [])), fetch
 

@@ -412,7 +412,7 @@ def test_capture_refuses_host_state():
         opt.step()  # and a later step makes none
 
 
-def test_jit_and_static_surface():
+def test_jit_and_static_surface(tmp_path):
     spec = paddle.static.InputSpec([None, 4], "float32", "x")
     assert spec.shape == (None, 4) and spec.name == "x"
     assert paddle.static.InputSpec.from_tensor(paddle.ones([2, 3])).shape \
@@ -429,8 +429,11 @@ def test_jit_and_static_surface():
     net = paddle.nn.Linear(3, 2)
     out, traced = paddle.jit.TracedLayer.trace(net, [paddle.ones([1, 3])])
     np.testing.assert_allclose(_np(traced(paddle.ones([1, 3]))), _np(out))
-    with pytest.raises(NotImplementedError, match="jit.save"):
-        traced.save_inference_model("/nonexistent")
+    # saved with the inputs given to trace() as its input spec, reloaded
+    path = str(tmp_path / "traced")
+    traced.save_inference_model(path)
+    np.testing.assert_allclose(
+        _np(paddle.jit.load(path)(paddle.ones([1, 3]))), _np(out))
     layer = paddle.jit.to_static(paddle.nn.Linear(3, 2))
     for _ in range(3):
         layer(paddle.ones([1, 3]))
