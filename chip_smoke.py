@@ -5,8 +5,19 @@ Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 (``--fleet`` runs phases 1, 4, 16, 17 and 18 alone, ``--nn`` phases 1,
 7 and 20 alone, ``--bert`` phases 1 and 21 alone, ``--vision`` phases 1
 and 22 alone, ``--rnn`` phases 1 and 23 alone, ``--static`` phases 1, 24
-and 25 alone, ``--deploy`` phases 1 and 26 alone; none prints the
-kernels line)
+and 25 alone, ``--deploy`` phases 1 and 26 alone, ``--lazy`` phases 1 and
+27 alone; none prints the kernels line)
+
+Every phase runs under the default FLAGS_lazy_eager (True): the Paddle
+surface's eager steps are deferred into graphs (paddle_tpu_torch/core/
+lazy.py) that run at a host read or at clear_grad(), on the card as one
+CUDA graph a step from its third. Where a phase means the immediate path
+it sets the flag False and says so: 20c's host time an op, 22b (its
+profile times the forward, backward and update apart) and phase 24's
+eager runs. Where a phase counts a step's launches before any host
+read it runs the pending graph first (lazy.flush(), the executor's step
+boundary), and a phase that swaps a function for one step runs the step's
+graph before it swaps it back.
 
 Phases, one line each:
   1. build   every csrc/*.cu kernel with nvcc (one process per source,
@@ -421,15 +432,50 @@ Phases, one line each:
              re-parsed, every weight an initializer of the card's bits,
              nodes by type; 26e a changed position embedding in the saved
              .pdiparams: jit.load gives the changed eager model's logits.
+ 27. lazy    the lazy eager executor: 27a phase 20's surface GPT-124M
+             (phase 7's weights, untied f32, 8 x 1024, AdamW +
+             ClipGradByGlobalNorm(1.0)) as a plain eager loop
+             (loss.backward(); opt.step(); opt.clear_grad(); then
+             float(loss)), 10 steps lazily against 10 immediately in turns
+             (lazy, immediate, immediate, lazy): every loss and weight
+             immediate's bits (else the first sublayer that parts and by
+             how much), K1 = K2 = K3 = 12 a step (captured x replays), one
+             replay-cache entry, each step's flush form (warm-up, record,
+             capture, then a graph replay every step), median step ms,
+             idle share over 3 profiled steps, peak memory and the graph
+             pool beside the immediate run's; 27e _C_ops.matmul_v2 and
+             softmax on the card against the ops, a Profiler with a
+             scheduler over three of 27a's steps writing a chrome trace
+             with optimizer/step spans and K1-K3's kernels, record_scope's
+             counters; 27b config 1 (LeNet, 24e's step) lazily,
+             immediately and through to_static under deterministic
+             algorithms: losses bit for bit, step ms and idle share each;
+             27c config 3 (BERT-base, bench_bert's 32 x 128, O1 bf16,
+             AdamW) written in the Paddle surface (paddle_surface_bert,
+             the reference's structure and names) with the torch
+             bert_base's weights: its f32 loss within LOSS_RTOL of the
+             torch model's, 8 steps lazily against immediately under
+             deterministic algorithms (bit for bit), then under the
+             default ones (K1-K3 = 12 a step, losses within STATIC_TOL
+             or one quantum of the O1 loss, a bf16 step of its MLM sum
+             over the masked tokens), step ms and idle share; 27d a
+             float(loss) before backward() (two segments a step, both
+             node by node and counted), the GradScaler's skipped inf step,
+             dropout masks new at every replay and the immediate masks of
+             the seed, masked_select after a pending graph, a write
+             through a view, a set_value between steps and a StepDecay
+             stepped between replays (immediate's weights),
+             paddle.grad(create_graph=True) at once.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
 14, 16, 17 and 18 for the serving K1 row, 7, 11, 12, 13, 19 and 20 for
-the f32 training rows (and 25c's program, 26's batch-8 Predictor runs
-and its QAT steps), 26's batch-1 and batch-4 Predictor runs for the
+the f32 training rows (and 25c's program, 26's batch-8 Predictor runs,
+its QAT steps and 27a's lazy runs), 26's batch-1 and batch-4 Predictor runs for the
 [1,12,1024,64] row, 10, 13, 24d's and 25b's captured runs for the bf16
 ones;
-the non-causal rows 21b and 24c's captured runs (bf16 [32,12,128,64]), 21c (f32 [32,12,128,64], its card side at
+the non-causal rows 21b, 24c's captured runs and 27c's lazy runs (bf16
+[32,12,128,64]), 21c (f32 [32,12,128,64], its card side at
 [2,12,128,64]) and 21d ([8,12,512,64])), and as the last line
 {"ok": true, "device": {...}}.
 
@@ -3150,6 +3196,7 @@ def phase_core(torch, attn, train_shape):
     launches."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.core import device as device_mod
+    from paddle_tpu_torch.core import lazy
     wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
                 attn.flash_bwd_dkv)
 
@@ -3204,6 +3251,7 @@ def phase_core(torch, attn, train_shape):
         start()
         loss, leaves = core_loss()
         loss.backward()
+        lazy.flush()        # the step's graph runs (a step boundary)
         torch.cuda.synchronize()
         counts = launches()
         check(counts == [1, 1, 1], f"19a: K1/K2/K3 launches {counts}")
@@ -3600,7 +3648,9 @@ def phase_paddle_nn(torch, attn, cfg, optimizer, nn, phase7):
         torch.cuda.empty_cache()
 
         print("  [20c] the core's host time an op against the same torch "
-              "call (small card tensors, in turns)")
+              "call (small card tensors, in turns), on the immediate path "
+              "(FLAGS_lazy_eager False); beside it the lazy executor's "
+              "host time to record the op (the flag True)")
         g = torch.Generator().manual_seed(20)
         a_np, b_np = (torch.randn(64, 64, generator=g).numpy()
                       for _ in range(2))
@@ -3623,17 +3673,35 @@ def phase_paddle_nn(torch, attn, cfg, optimizer, nn, phase7):
             ("nn.Linear call", lambda: lin(a),
              lambda: torch.matmul(av, wv) + bbv),
         ]
+        from paddle_tpu_torch.core import lazy
+
+        def recorded(fn):
+            # the lazy executor's host time to record one op (its graph
+            # runs after the timing)
+            us = host_us(torch, fn)
+            lazy.flush()
+            return us
+
         for name, core_fn, torch_fn in pairs:
-            core_fn(), torch_fn()
-            runs = {"core": [], "torch": []}
-            for side in ("core", "torch", "torch", "core"):
-                runs[side].append(host_us(
-                    torch, core_fn if side == "core" else torch_fn))
+            paddle.set_flags({"FLAGS_lazy_eager": False})
+            try:
+                core_fn(), torch_fn()
+                runs = {"core": [], "torch": []}
+                for side in ("core", "torch", "torch", "core"):
+                    runs[side].append(host_us(
+                        torch, core_fn if side == "core" else torch_fn))
+            finally:
+                paddle.set_flags({"FLAGS_lazy_eager": True})
+            core_fn()
+            lazy.flush()
+            rec = [recorded(core_fn) for _ in range(2)]
             c, t_ = min(runs["core"]), min(runs["torch"])
             print(f"    {name}: core {c:.2f} us, torch {t_:.2f} us, the "
                   f"core's dispatch {c - t_:.2f} us an op (turns: core "
                   f"{[round(x, 2) for x in runs['core']]}, torch "
-                  f"{[round(x, 2) for x in runs['torch']]})")
+                  f"{[round(x, 2) for x in runs['torch']]}); lazily "
+                  f"recorded {min(rec):.2f} us an op (turns "
+                  f"{[round(x, 2) for x in rec]})")
 
         print("  [20d] randomness on the card")
         cuda_state = torch.cuda.get_rng_state()
@@ -3872,6 +3940,7 @@ def phase_encoder(torch, attn, paddle, start, launches):
     the layer's and the optimizer's state dicts into fresh objects, whose
     next step gives the uninterrupted step's bits."""
     import tempfile
+    from paddle_tpu_torch.core import lazy
     nn = paddle.nn
     b, s, d = ENCODER_SHAPE[0], ENCODER_SHAPE[2], 768
     L = 12
@@ -3922,6 +3991,7 @@ def phase_encoder(torch, attn, paddle, start, launches):
             start()
             out = enc(xx)
             paddle.sum(out * ww).backward()
+            lazy.flush()    # the backward runs with the route's kernels
         finally:
             attn.flash_attention_backward = kernels
         got = (out.value.detach().cpu(),
@@ -4397,7 +4467,9 @@ def vision_work(paddle, net, size):
 
 
 def vision_resnet50(torch, paddle, amp):
-    """22b: the reference's config 2 eager: resnet50(num_classes=1000)
+    """22b: the reference's config 2 eager, on the immediate path
+    (FLAGS_lazy_eager False: its profile times the forward, backward and
+    update apart): resnet50(num_classes=1000)
     from paddle_tpu_torch.seed(0), Momentum(0.1, momentum=0.9,
     weight_decay=1e-4), CrossEntropyLoss, the forward and the loss under
     amp.auto_cast(level="O2", dtype="bfloat16"), the same seeded batch of
@@ -4407,6 +4479,16 @@ def vision_resnet50(torch, paddle, amp):
     from paddle_tpu_torch.vision import models
     sys.path.insert(0, os.path.join(HERE, "tools"))
     from profile_port_serving import union_us
+    paddle.set_flags({"FLAGS_lazy_eager": False})
+    try:
+        return _vision_resnet50(torch, paddle, amp, profile,
+                                ProfilerActivity, models, union_us)
+    finally:
+        paddle.set_flags({"FLAGS_lazy_eager": True})
+
+
+def _vision_resnet50(torch, paddle, amp, profile, ProfilerActivity, models,
+                     union_us):
     paddle.seed(0)
     net = models.resnet50(num_classes=RESNET["classes"])
     n_params = sum(p.value.numel() for p in net.parameters())
@@ -5449,13 +5531,29 @@ def static_idle(torch, fn, args, n=3):
 
 
 def static_run(torch, build, calls, captured, wrappers=(), idle=True,
-               snap=None):
+               snap=None, lazy=False):
     """``build()`` -> (step, args, keep) from the seed; ``calls`` calls of
-    the step, through ``jit.to_static`` when ``captured``. Returns the
-    losses, each call's ms, the median step ms, the peak memory over what
-    was held before, the idle share, the kernels' launches, ``snap(keep)``
-    taken before the idle share's profiled calls, and for a captured run
-    the capture ms, the pool's bytes and the graphs."""
+    the step, through ``jit.to_static`` when ``captured``, else eagerly:
+    lazily (FLAGS_lazy_eager, the default) when ``lazy``, otherwise on
+    the immediate path (the flag False: phase 24's eager runs mean it).
+    Returns the losses, each call's ms, the median step ms, the peak
+    memory over what was held before, the idle share, the kernels'
+    launches, ``snap(keep)`` taken before the idle share's profiled
+    calls, for a captured run the capture ms, the pool's bytes and the
+    graphs, and for a lazy one each call's flush forms."""
+    import paddle_tpu_torch as paddle
+    if not captured:
+        paddle.set_flags({"FLAGS_lazy_eager": bool(lazy)})
+    try:
+        return _static_run(torch, build, calls, captured, wrappers, idle,
+                           snap, lazy)
+    finally:
+        paddle.set_flags({"FLAGS_lazy_eager": True})
+
+
+def _static_run(torch, build, calls, captured, wrappers, idle, snap,
+                lazy):
+    from paddle_tpu_torch.core import lazy as lazy_mod
     from paddle_tpu_torch.jit import to_static
     step, args, keep = build()
     fn = to_static(step) if captured else step
@@ -5465,18 +5563,20 @@ def static_run(torch, build, calls, captured, wrappers=(), idle=True,
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
         w.launches = 0
-    losses, times = [], []
+    losses, times, forms = [], [], []
     for _ in range(calls):
+        seen = lazy_mod.flushes[0]
         t0 = time.perf_counter()
         loss = fn(*args)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(static_loss(loss))
-    res = dict(losses=losses, times=times,
+        forms.append(lazy_mod.forms_since(seen))
+    res = dict(losses=losses, times=times, forms=forms,
                snap=snap(keep) if snap else None,
                peak=torch.cuda.max_memory_allocated() - held, held=held,
                launches=tuple(w.launches for w in wrappers),
-               step_ms=float(np.median(times[3:] if captured
+               step_ms=float(np.median(times[3:] if captured or lazy
                                        else times[1:])))
     if captured:
         graphs = fn.graphs()
@@ -7155,6 +7255,691 @@ def phase_deploy(torch, attn, cfg):
     return big, small, qat_total, row
 
 
+# --------------------------------------------------------------- phase 27
+
+LAZY = dict(steps=10, bert_steps=8, edge_steps=6)
+
+
+def memory_report(torch, label):
+    """Collect garbage, return the card's free segments, and print what
+    the caching allocator still holds: allocated and reserved GiB, the
+    CUDA graphs alive, and the reserved segments of the default pool and
+    of the CUDA graphs' private pools with the GiB in use in them (a
+    segment that stays reserved holds at least one live block).
+    tools/phase_memory.py prints the same lines for another checkout's
+    phases."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    graphs = sum(1 for o in gc.get_objects()
+                 if isinstance(o, torch.cuda.CUDAGraph))
+    pools = {}
+    for seg in torch.cuda.memory_snapshot():
+        pid = tuple(seg.get("segment_pool_id", (0, 0)))
+        n, size, used = pools.get(pid, (0, 0, 0))
+        pools[pid] = (n + 1, size + seg["total_size"],
+                      used + seg["allocated_size"])
+    gib = 2 ** 30
+    dn, dsize, dused = pools.pop((0, 0), (0, 0, 0))
+    gn, gsize, gused = (sum(v[i] for v in pools.values()) for i in range(3))
+    print(f"    {label}: {torch.cuda.memory_allocated() / gib:.3f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / gib:.3f} reserved; "
+          f"{graphs} CUDA graphs alive; default pool {dn} segments "
+          f"{dsize / gib:.3f} GiB ({dused / gib:.3f} in use); "
+          f"{len(pools)} graph pools {gn} segments {gsize / gib:.3f} GiB "
+          f"({gused / gib:.3f} in use)")
+
+
+def lazy_release(torch, label=None):
+    """Drop the lazy executor's replay cache and this thread's graph pool,
+    and return the card's free memory (between the phases that train
+    through it); with ``label``, print what the card still holds."""
+    import gc
+    from paddle_tpu_torch.core import lazy
+    lazy.flush()
+    lazy.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if label is not None:
+        memory_report(torch, label)
+
+
+def paddle_surface_bert(paddle, cfg):
+    """BERT-base pretraining as a user writes it in the port's Paddle
+    surface, the structure and names of the reference's
+    paddle_tpu/text/models.py:224-286 and :812-851 (the _TransformerCore
+    post-norm blocks with token types, the pooler, the MLM transform and
+    LayerNorm with the word embedding as the MLM head, the NSP head):
+    nn.Layer, nn.Embedding, nn.LayerList, nn.LayerNorm, nn.Linear, a
+    fused QKV split by paddle.reshape/transpose/unbind into
+    nn.functional.scaled_dot_product_attention (non-causal), gelu
+    (approximate=True), paddle.matmul(transpose_y=True) and
+    nn.functional.cross_entropy(ignore_index=-1). Dropout 0."""
+    nn, F = paddle.nn, paddle.nn.functional
+    h, heads = cfg.hidden_size, cfg.num_heads
+
+    class SelfAttention(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.qkv = nn.Linear(h, 3 * h)
+            self.out = nn.Linear(h, h)
+
+        def forward(self, x):
+            b, s, _ = x.shape
+            qkv = paddle.reshape(self.qkv(x), [b, s, 3, heads, h // heads])
+            q, k, v = paddle.unbind(paddle.transpose(qkv, [2, 0, 3, 1, 4]),
+                                    axis=0)
+            o = F.scaled_dot_product_attention(q, k, v, is_causal=False)
+            return self.out(paddle.reshape(
+                paddle.transpose(o, [0, 2, 1, 3]), [b, s, h]))
+
+    class MLP(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.fc1 = nn.Linear(h, cfg.intermediate_size)
+            self.fc2 = nn.Linear(cfg.intermediate_size, h)
+
+        def forward(self, x):
+            return self.fc2(F.gelu(self.fc1(x), approximate=True))
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln1 = nn.LayerNorm(h)
+            self.attn = SelfAttention()
+            self.ln2 = nn.LayerNorm(h)
+            self.mlp = MLP()
+
+        def forward(self, x):
+            x = self.ln1(paddle.add(x, self.attn(x)))
+            return self.ln2(paddle.add(x, self.mlp(x)))
+
+    class BertModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
+            self.position_embeddings = nn.Embedding(cfg.max_seq_len, h)
+            self.token_type_embeddings = nn.Embedding(2, h)
+            self.blocks = nn.LayerList([Block()
+                                        for _ in range(cfg.num_layers)])
+            self.ln_f = nn.LayerNorm(h)
+            self.pooler = nn.Linear(h, h)
+
+        def forward(self, ids, tok):
+            pos = paddle.arange(0, ids.shape[1], dtype="int64")
+            x = paddle.add(self.word_embeddings(ids),
+                           self.position_embeddings(pos))
+            x = paddle.add(x, self.token_type_embeddings(tok))
+            for blk in self.blocks:
+                x = blk(x)
+            return x, paddle.tanh(self.pooler(x[:, 0]))
+
+    class BertForPretraining(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.bert = BertModel()
+            self.mlm_transform = nn.Linear(h, h)
+            self.mlm_ln = nn.LayerNorm(h)
+            self.nsp_head = nn.Linear(h, 2)
+
+        def forward(self, ids, tok, mlm, nsp):
+            x, pooled = self.bert(ids, tok)
+            t = self.mlm_ln(F.gelu(self.mlm_transform(x), approximate=True))
+            logits = paddle.matmul(t, self.bert.word_embeddings.weight,
+                                   transpose_y=True)
+            mlm_loss = F.cross_entropy(
+                paddle.reshape(logits, [-1, cfg.vocab_size]),
+                paddle.reshape(mlm, [-1]), ignore_index=-1)
+            nsp_loss = F.cross_entropy(self.nsp_head(pooled),
+                                       paddle.reshape(nsp, [-1]))
+            return paddle.add(mlm_loss, nsp_loss)
+
+    return BertForPretraining()
+
+
+def lazy_train(torch, paddle, build, steps, flag, wrappers, profile=False,
+               idle=True):
+    """From a released cache, ``steps`` plain eager steps
+    (``loss.backward(); opt.step(); opt.clear_grad()``, then
+    ``float(loss)``) of ``build()`` -> (model, opt, args, amp_ctx) with
+    FLAGS_lazy_eager ``flag``: the losses,
+    each step's ms, flush forms and launches, the peak memory over what
+    was held before, the graph pool's bytes, the weights after, and the
+    idle share over 3 more profiled steps."""
+    from paddle_tpu_torch.core import lazy
+    lazy_release(torch)
+    paddle.set_flags({"FLAGS_lazy_eager": flag})
+    try:
+        model, opt, args, ctx = build()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = dict(losses=[], times=[], forms=[], launches=[])
+
+        def step():
+            with ctx():
+                loss = model(*args)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return float(loss)
+
+        for _ in range(steps):
+            for w in wrappers:
+                w.launches = 0
+            seen = lazy.flushes[0]
+            t0 = time.perf_counter()
+            res["losses"].append(step())
+            torch.cuda.synchronize()
+            res["times"].append((time.perf_counter() - t0) * 1e3)
+            res["forms"].append(lazy.forms_since(seen))
+            res["launches"].append(tuple(w.launches for w in wrappers))
+        res["peak"] = torch.cuda.max_memory_allocated() - held
+        res["held"] = held
+        res["pool"] = lazy.pool_bytes()
+        res["entries"] = len(lazy._replay_cache)
+        res["weights"] = {n: p.value.detach().clone()
+                          for n, p in model.named_parameters()}
+        res["idle"] = static_idle(torch, step, ()) if idle else None
+        if profile:
+            res["model"], res["opt"], res["step"] = model, opt, step
+        res["step_ms"] = float(np.median(res["times"][3:] if flag
+                                         else res["times"][1:]))
+        return res
+    finally:
+        paddle.set_flags({"FLAGS_lazy_eager": True})
+
+
+def lazy_first_difference(torch, paddle, build):
+    """Step 1's forward lazily and immediately with every sublayer's
+    output read as it is made: the first sublayer whose output differs
+    and by how much (the diagnosis of a lazy run that left immediate's
+    bits)."""
+    outs = {}
+    for flag in (True, False):
+        paddle.set_flags({"FLAGS_lazy_eager": flag})
+        model, _, args, ctx = build()
+        seen = outs[flag] = []
+        for name, layer in model.named_sublayers():
+            layer.register_forward_post_hook(
+                lambda lay, inp, out, name=name: seen.append(
+                    (name, out.value.detach().clone()
+                     if hasattr(out, "value") else None)))
+        with ctx():
+            model(*args)
+    paddle.set_flags({"FLAGS_lazy_eager": True})
+    for (name, a), (_, b) in zip(outs[True], outs[False]):
+        if a is not None and not torch.equal(a, b):
+            return name, (a.float() - b.float()).abs().max().item()
+    return None, 0.0
+
+
+def lazy_gpt(torch, attn, cfg):
+    """27a: phase 20's surface GPT-124M (phase 7's weights, untied f32,
+    8 x 1024, AdamW + ClipGradByGlobalNorm(1.0)) as a plain eager loop,
+    10 steps lazily against 10 immediately, in turns (lazy, immediate,
+    immediate, lazy): losses and weights bit for bit, K1 = K2 = K3 = 12 a
+    step, one replay-cache entry, a graph replay every step from step 3;
+    median step ms, idle share, peak memory and the graph pool. Returns
+    the lazy runs' (K1, K2, K3) and the last lazy run (its model kept,
+    for 27e's profile)."""
+    import contextlib as cl
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import lazy
+    from paddle_tpu_torch.text import convert
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv)
+    L, steps = cfg.num_layers, LAZY["steps"]
+    init_np = convert.state_dict_to_paddle_tpu(GPTForCausalLM(
+        cfg, generator=torch.Generator().manual_seed(1234),
+        device="cpu").state_dict())
+    ids_np = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, cfg.max_seq_len)).astype(np.int64)
+
+    def build():
+        model = paddle_surface_gpt(paddle, cfg)
+        check(model.set_state_dict(init_np) == [], "27a: weights missing")
+        model.train()
+        opt = paddle.optimizer.AdamW(
+            1e-4, parameters=model.parameters(), weight_decay=0.01,
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+        ids = paddle.to_tensor(ids_np)
+        return model, opt, (ids, ids), cl.nullcontext
+
+    runs = [lazy_train(torch, paddle, build, steps, flag, wrappers,
+                       profile=k == 3)
+            for k, flag in enumerate((True, False, False, True))]
+    lz, im = runs[0], runs[1]
+    same_losses = all(r["losses"] == lz["losses"] for r in runs[1:])
+    apart = [n for n in im["weights"]
+             if not torch.equal(lz["weights"][n], im["weights"][n])]
+    if not same_losses or apart:
+        name, diff = lazy_first_difference(torch, paddle, build)
+        print(f"    27a: the lazy run parts from immediate's: first at "
+              f"sublayer {name!r}, max abs diff {diff:.3e}; weights apart "
+              f"{apart[:4]}")
+    check(same_losses, f"27a: losses lazy {lz['losses']} vs immediate "
+          f"{im['losses']}")
+    check(not apart, f"27a: weights apart from immediate's: {apart[:4]}")
+    for r in (runs[0], runs[3]):
+        check(all(c == (L, L, L) for c in r["launches"]),
+              f"27a: K1/K2/K3 a step {r['launches']}, want {(L, L, L)}")
+        check(all(len(f) == 1 for f in r["forms"])
+              and [f[0] for f in r["forms"][:3]]
+              == ["warmup", "record", "capture"]
+              and all(f == ["replay"] for f in r["forms"][3:]),
+              f"27a: flush forms a step {r['forms']}")
+        check(r["entries"] == 1, f"27a: {r['entries']} replay-cache "
+              "entries in steady state, want 1")
+    print(f"    losses {[round(v, 6) for v in lz['losses']]}: every run's "
+          f"bits the same (lazy, immediate, immediate, lazy), and every "
+          f"weight after 10 steps; flush forms a step "
+          f"{[f[0] for f in lz['forms']]}; K1/K2/K3 a step "
+          f"{lz['launches'][0]} (captured x replays from step 3); replay-"
+          f"cache entries {lz['entries']}")
+    for label, r in (("lazy", runs[3]), ("immediate", runs[2])):
+        idle = "not measured" if r["idle"] is None else f"{r['idle']:.4f}"
+        print(f"    {label:9s}: median step {r['step_ms']:.3f} ms "
+              f"({ids_np.size / r['step_ms'] * 1e3:.1f} tokens/s), idle "
+              f"share {idle}, peak {r['peak'] / 2**30:.3f} GiB over "
+              f"{r['held'] / 2**30:.3f} held, graph pool "
+              f"{r['pool'] / 2**30:.3f} GiB; step ms "
+              f"{[round(t, 2) for t in r['times']]}")
+    total = tuple(sum(sum(c[i] for c in r["launches"])
+                      for r in (runs[0], runs[3])) for i in range(3))
+    return total, runs[3]
+
+
+def lazy_lenet(torch, paddle):
+    """27b: config 1 (LeNet, Adam 1e-3, batch 64, 24e's step) lazily,
+    immediately and through to_static, under deterministic algorithms:
+    losses bit for bit; step ms and idle share each."""
+    from paddle_tpu_torch.vision import models
+    b = LENET["batch"]
+
+    def build():
+        paddle.seed(0)
+        net = models.LeNet()
+        opt = paddle.optimizer.Adam(1e-3, parameters=net.parameters())
+        loss_fn = paddle.nn.CrossEntropyLoss()
+        rs = np.random.RandomState(1)
+        x = paddle.to_tensor(rs.randn(b, 1, 28, 28).astype("float32"))
+        y = paddle.to_tensor(rs.randint(0, 10, (b,)).astype("int64"))
+
+        def step():
+            loss = loss_fn(net(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return step, (), net
+
+    with static_deterministic(torch, "27b LeNet config 1"):
+        runs = [(static_run(torch, build, STATIC["lenet_calls"], cap,
+                            lazy=lz), cap, lz)
+                for cap, lz in ((False, True), (False, False), (True, False))]
+    static_same("27b LeNet config 1 (lazy, immediate, to_static) under "
+                "deterministic algorithms", [(r, c) for r, c, _ in runs])
+    forms = runs[0][0]["forms"]
+    check(all(f == ["replay"] for f in forms[3:]),
+          f"27b: lazy flush forms {forms}")
+    for (r, cap, lz), label in zip(runs, ("lazy", "immediate",
+                                          "to_static")):
+        idle = "not measured" if r["idle"] is None else f"{r['idle']:.4f}"
+        print(f"    27b {label:9s}: step {r['step_ms']:.3f} ms "
+              f"({b / r['step_ms'] * 1e3:.1f} samples/s), idle share "
+              f"{idle}, peak {r['peak'] / 2**30:.3f} GiB")
+
+
+def lazy_bert(torch, attn, amp):
+    """27c: config 3 (BERT-base, bench_bert's 32 x 128, O1 bf16, AdamW)
+    written in the Paddle surface (paddle_surface_bert) with the torch
+    bert_base's weights through text.convert: its f32 loss at those
+    weights within LOSS_RTOL of the torch model's; 8 steps lazily and
+    immediately, first under deterministic algorithms (bit for bit), then
+    under the default ones (lazy, immediate, immediate): K1-K3 = 12 a
+    step (the bf16 non-causal [32,12,128,64]), losses within STATIC_TOL
+    of immediate's or one quantum of the O1 loss apart (one bf16 step of
+    its MLM sum); step ms and idle share. Returns the default lazy run's
+    (K1, K2, K3)."""
+    import contextlib as cl
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.text import convert
+    from paddle_tpu_torch.text.models import bert_base
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv)
+    tb = bert_base(max_seq_len=BERT["seq"], dropout=0.0,
+                   generator=torch.Generator().manual_seed(0)).train()
+    cfg = tb.cfg
+    init_np = convert.state_dict_to_paddle_tpu(tb.state_dict())
+    data = bert_data(BERT["batch"], BERT["seq"], cfg.vocab_size)
+    with torch.no_grad():
+        want = tb(*(torch.from_numpy(a).cuda() for a in data)).item()
+    del tb
+    torch.cuda.empty_cache()
+
+    def build(ctx=True):
+        model = paddle_surface_bert(paddle, cfg)
+        check(model.set_state_dict(init_np) == [], "27c: weights missing")
+        model.train()
+        opt = paddle.optimizer.AdamW(1e-4, parameters=model.parameters(),
+                                     weight_decay=0.01)
+        args = tuple(paddle.to_tensor(a) for a in data)
+        amp_ctx = (lambda: amp.auto_cast(level="O1", dtype="bfloat16")) \
+            if ctx else cl.nullcontext
+        return model, opt, args, amp_ctx
+
+    model, _, args, _ = build(ctx=False)
+    with paddle.no_grad():
+        got = float(model(*args))
+    del model, args
+    rel = abs(got - want) / abs(want)
+    check(rel <= LOSS_RTOL, f"27c: the surface BERT's f32 loss {got} vs "
+          f"the torch bert_base's {want}")
+    print(f"    the surface BERT-base at the torch bert_base's weights: f32 "
+          f"loss {got:.6f} against {want:.6f} (rel {rel:.2e}, tol "
+          f"{LOSS_RTOL})")
+    steps, L = LAZY["bert_steps"], cfg.num_layers
+    with static_deterministic(torch, "27c BERT-base O1"):
+        det = [lazy_train(torch, paddle, build, steps, flag, wrappers,
+                          idle=False) for flag in (True, False)]
+    lazy_release(torch)
+    check(det[0]["losses"] == det[1]["losses"], f"27c: under deterministic "
+          f"algorithms lazy {det[0]['losses']} vs {det[1]['losses']}")
+    runs = [lazy_train(torch, paddle, build, steps, flag, wrappers)
+            for flag in (True, False, False)]
+    lazy_release(torch)
+    lz, im, im2 = runs
+    check(all(c == (L, L, L) for c in lz["launches"]),
+          f"27c: K1/K2/K3 a step {lz['launches']}")
+    check(all(f == ["replay"] for f in lz["forms"][3:]),
+          f"27c: flush forms {lz['forms']}")
+    check(lz["losses"][-1] < lz["losses"][0], f"27c: loss did not fall "
+          f"{lz['losses']}")
+    # the MLM loss is a bf16 sum over the batch's masked tokens divided by
+    # their count (cross_entropy op for op as the reference's, under O1):
+    # its resolution is one bf16 step of that sum over the count, which a
+    # run whose bits part at all (eager BERT does: its embedding grads)
+    # may cross
+    n_mlm = int((data[2] != -1).sum())
+
+    def quantum(loss):
+        return 2.0 ** (np.floor(np.log2(loss * n_mlm)) - 7) / n_mlm
+
+    def parts(a, b):
+        rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+        steps_apart = [i for i, (x, y) in enumerate(zip(a, b))
+                       if abs(x - y) / abs(y) > STATIC_TOL["bert"]]
+        return max(rel), steps_apart, all(
+            abs(a[i] - b[i]) <= 1.01 * quantum(b[i]) for i in steps_apart)
+
+    worst, apart, one_step = parts(lz["losses"], im["losses"])
+    worst_im, apart_im, _ = parts(im2["losses"], im["losses"])
+    check(one_step, f"27c: lazy losses {lz['losses']} vs immediate "
+          f"{im['losses']}: steps {apart} past STATIC_TOL by more than the "
+          "loss's resolution")
+    print(f"    {steps} steps each under deterministic algorithms: lazy = "
+          f"immediate bit for bit, losses "
+          f"{[round(v, 6) for v in det[0]['losses']]}")
+    print(f"    default algorithms: losses lazy "
+          f"{[round(v, 6) for v in lz['losses']]}, within {worst:.3e} of "
+          f"immediate's (tol {STATIC_TOL['bert']}"
+          + (f"; steps {apart} one quantum apart, "
+             f"{quantum(im['losses'][apart[0]]):.4f}: one bf16 step of the "
+             f"MLM sum over its {n_mlm} tokens" if apart else "")
+          + f"); a second immediate run {worst_im:.3e} from the first"
+          + (f" (steps {apart_im})" if apart_im else "")
+          + f"; flush forms {[f[0] for f in lz['forms']]}; K1/K2/K3 a step "
+          f"{lz['launches'][0]}")
+    for label, r in (("lazy", lz), ("immediate", im), ("immediate", im2)):
+        idle = "not measured" if r["idle"] is None else f"{r['idle']:.4f}"
+        print(f"    {label:9s}: median step {r['step_ms']:.3f} ms "
+              f"({BERT['batch'] / r['step_ms'] * 1e3:.1f} samples/s), idle "
+              f"share {idle}, peak {r['peak'] / 2**30:.3f} GiB, graph pool "
+              f"{r['pool'] / 2**30:.3f} GiB")
+    return tuple(sum(c[i] for c in lz["launches"]) for i in range(3))
+
+
+def lazy_edges(torch, paddle):
+    """27d: edge cases on the card, each leaving it working: a float(loss)
+    before backward() (two segments, the forward's node by node, counted);
+    the GradScaler's skipped inf step; dropout's masks new on every replay
+    and the immediate masks for the same seed; masked_select after a
+    pending graph; a write through a view; a set_value between steps; a
+    StepDecay stepped between replays; paddle.grad(create_graph=True)."""
+    from paddle_tpu_torch.core import lazy
+    nn, F = paddle.nn, paddle.nn.functional
+    n = LAZY["edge_steps"]
+    rs = np.random.RandomState(27)
+    x_np = rs.randn(64, 256).astype("float32")
+    state = None
+
+    def mlp():
+        nonlocal state
+        net = nn.Sequential(nn.Linear(256, 512), nn.ReLU(),
+                            nn.Linear(512, 16))
+        if state is None:
+            state = {k: v.numpy() for k, v in net.state_dict().items()}
+        check(net.set_state_dict(state) == [], "27d: weights")
+        return net
+
+    def both(fn):
+        out = {}
+        for flag in (True, False):
+            paddle.set_flags({"FLAGS_lazy_eager": flag})
+            try:
+                out[flag] = fn()
+            finally:
+                paddle.set_flags({"FLAGS_lazy_eager": True})
+        return out[True], out[False]
+
+    def early_read():
+        net = mlp()
+        opt = paddle.optimizer.SGD(0.1, parameters=net.parameters())
+        x = paddle.to_tensor(x_np)
+        losses = []
+        for _ in range(n):
+            loss = net(x).square().mean()
+            losses.append(float(loss))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        return losses
+
+    before = lazy.stats["eager"]
+    got, want = both(early_read)
+    eager = lazy.stats["eager"] - before
+    check(got == want and eager == 2 * n, f"27d: float(loss) before "
+          f"backward: losses {got} vs {want}, {eager} node-by-node flushes "
+          f"(want {2 * n})")
+    print(f"    a float(loss) before backward(): {n} steps, immediate's "
+          f"bits, {eager} segments replayed node by node and counted (the "
+          f"forward and the backward + step of each)")
+
+    def inf_step():
+        net = mlp()
+        opt = paddle.optimizer.SGD(0.1, parameters=net.parameters())
+        scaler = paddle.amp.GradScaler(init_loss_scaling=8.0)
+        w0 = net[0].weight.numpy().copy()
+        big = paddle.to_tensor(np.full((2, 256), 3e38, np.float32))
+        scaler.scale((net(big) * 1e30).sum()).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return (np.array_equal(net[0].weight.numpy(), w0),
+                float(scaler._scale))
+
+    got, want = both(inf_step)
+    check(got == want and got[0] and got[1] < 8.0,
+          f"27d: the inf step {got} vs {want}")
+    print(f"    GradScaler: the inf step skipped (weights unchanged), the "
+          f"scale backed off to {got[1]}, as immediately")
+
+    def dropout_masks(seed):
+        net = mlp()
+        opt = paddle.optimizer.SGD(0.1, parameters=net.parameters())
+        x = paddle.to_tensor(x_np)
+        paddle.seed(seed)
+        masks = []
+        for _ in range(n):
+            h = F.dropout(paddle.ones([64, 16]), 0.5)
+            (net(x) * h).sum().backward()
+            opt.step()
+            opt.clear_grad()
+            masks.append(h.value != 0)
+        return masks
+
+    seen = lazy.flushes[0]
+    got, want = both(lambda: dropout_masks(5))
+    forms = lazy.forms_since(seen)
+    fresh = all(not torch.equal(got[i], got[i + 1]) for i in range(n - 1))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)) and fresh
+          and "replay" in forms, f"27d: dropout masks (lazy forms {forms})")
+    print(f"    dropout: {n} steps' masks (captured from step 3: "
+          f"{forms[:n]}) new at every replay and the immediate masks of "
+          f"the same seed")
+
+    y = paddle.to_tensor(x_np) * 2.0
+    z = paddle.masked_select(y, y > 1.0)
+    check(not lazy.pending() and z.value.is_cuda and np.array_equal(
+        z.numpy(), (x_np * 2)[x_np * 2 > 1.0]), "27d: masked_select")
+    base = paddle.zeros([4, 8])
+    view = base.reshape([32])
+    view[5] = 7.0
+    check(base.numpy()[0, 5] == 7.0 and base.value.is_cuda,
+          "27d: a write through a view")
+    print("    masked_select ran after the pending graph (on the card); a "
+          "write through a view reached its source")
+
+    def set_value_between():
+        net = mlp()
+        opt = paddle.optimizer.SGD(0.1, parameters=net.parameters())
+        x = paddle.to_tensor(x_np)
+        for i in range(n):
+            net(x).square().mean().backward()
+            opt.step()
+            opt.clear_grad()
+            if i == 3:
+                net[2].bias.set_value(np.full(16, 0.5, np.float32))
+        return {k: v.numpy() for k, v in net.state_dict().items()}
+
+    def step_decay():
+        net = mlp()
+        sched = paddle.optimizer.lr.StepDecay(0.1, step_size=2, gamma=0.5)
+        opt = paddle.optimizer.Momentum(sched, parameters=net.parameters())
+        x = paddle.to_tensor(x_np)
+        for _ in range(n):
+            net(x).square().mean().backward()
+            opt.step()
+            opt.clear_grad()
+            sched.step()
+        return {k: v.numpy() for k, v in net.state_dict().items()}
+
+    for label, fn in (("a set_value between steps", set_value_between),
+                      ("a StepDecay stepped between replays", step_decay)):
+        seen = lazy.flushes[0]
+        got, want = both(fn)
+        forms = lazy.forms_since(seen)
+        check(all(np.array_equal(got[k], want[k]) for k in want)
+              and "replay" in forms, f"27d: {label} (forms {forms})")
+        print(f"    {label}: immediate's weights bit for bit after {n} "
+              f"steps (replays {forms.count('replay')})")
+
+    xg = paddle.to_tensor(np.asarray([3.0], np.float32), stop_gradient=False)
+    (g1,) = paddle.grad(xg * xg * xg, xg, create_graph=True)
+    ran = not lazy.pending() and not isinstance(g1._v, lazy.LazyArray)
+    (g2,) = paddle.grad(g1, xg)
+    check(ran and float(g1) == 27.0 and float(g2) == 18.0,
+          f"27d: create_graph {float(g1)}, {float(g2)}")
+    print("    paddle.grad(create_graph=True) ran at once: 27 and 18")
+    lazy_release(torch)
+
+
+def lazy_tools(torch, paddle, attn, run):
+    """27e: _C_ops on the card against the ops; a Profiler with a
+    scheduler over three of 27a's lazy steps: its chrome trace holds the
+    optimizer/step spans and K1-K3's kernels; record_scope's counters
+    move."""
+    from paddle_tpu_torch import _C_ops, profiler
+    from paddle_tpu_torch.observability import registry
+    g = torch.Generator().manual_seed(27)
+    a, b_ = (paddle.to_tensor(torch.randn(64, 128, generator=g).numpy())
+             for _ in range(2))
+    mm = _C_ops.matmul_v2(a, b_, "trans_x", False, "trans_y", True)
+    sm = _C_ops.softmax(a, "axis", -1)
+    check(mm.value.is_cuda and torch.equal(
+        mm.value, paddle.matmul(a, b_, transpose_y=True).value)
+        and torch.equal(sm.value, paddle.nn.functional.softmax(a).value),
+        "27e: _C_ops against the ops")
+    calls = registry.default_registry().counter(
+        "host_span_calls_total", labelnames=("span",)).labels(
+            "optimizer/step")
+    before = calls.value
+    # the window: step 1 closed, steps 2-4 (record, capture, replay)
+    lazy_release(torch)
+    import tempfile
+    with tempfile.TemporaryDirectory() as out_dir:
+        prof = profiler.Profiler(
+            scheduler=profiler.make_scheduler(closed=1, ready=0, record=3,
+                                              repeat=1),
+            on_trace_ready=profiler.export_chrome_tracing(out_dir, "lazy"))
+        prof.start()
+        for _ in range(5):
+            run["step"]()
+            prof.step()
+        prof.stop()
+        with open(prof.traces[0]) as fh:
+            events = [e.get("name", "")
+                      for e in json.load(fh)["traceEvents"]]
+    names = set(events)
+    spans = events.count("optimizer/step")
+    kernels = {k: any(k in n for n in names)
+               for k in ("flash_fwd_f32_kernel", "flash_bwd_dq_f32_kernel",
+                         "flash_bwd_dkv_f32_kernel")}
+    moved = calls.value - before
+    check(spans and all(kernels.values()) and moved == 5,
+          f"27e: trace spans {spans}, kernels {kernels}, optimizer/step "
+          f"calls moved {moved}")
+    k1 = sum(1 for n in events if "flash_fwd_f32_kernel" in n)
+    print(f"    _C_ops.matmul_v2 / softmax on the card: the ops' bits; a "
+          f"Profiler over 3 lazy steps (record, capture, replay) wrote a "
+          f"chrome trace with {spans} optimizer/step spans and K1-K3's "
+          f"kernels {sorted(kernels)} (K1 events {k1}: a replayed graph's "
+          f"launches appear by name when that is more than 12); "
+          f"record_scope('optimizer/step') calls +{moved}")
+
+
+def phase_lazy(torch, attn, amp, cfg):
+    """Phase 27, the lazy eager executor on the card (27a-27e). Returns
+    27a's and 27c's (K1, K2, K3) launches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import device as device_mod
+    try:
+        paddle.set_device("gpu")
+        lazy_release(torch, "before phase 27")
+        print("  [27a] the surface GPT-124M, a plain eager loop, lazy "
+              "against immediate")
+        gpt, run = lazy_gpt(torch, attn, cfg)
+        print("  [27e] _C_ops and the profiler")
+        lazy_tools(torch, paddle, attn, run)
+        del run
+        lazy_release(torch)
+        print("  [27b] config 1 (LeNet): lazy, immediate, to_static")
+        lazy_lenet(torch, paddle)
+        lazy_release(torch)
+        print("  [27c] config 3 (BERT-base, O1 bf16) in the Paddle surface")
+        bert = lazy_bert(torch, attn, amp)
+        print("  [27d] edge cases")
+        lazy_edges(torch, paddle)
+        return gpt, bert
+    finally:
+        device_mod._current_place = None
+        paddle.set_flags({"FLAGS_lazy_eager": True})
+        lazy_release(torch, "after phase 27")
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -7200,6 +7985,12 @@ def main():
                     "GPT-124M saved with jit.save and served by a Predictor "
                     "in f32 and int8, QAT, onnx.export); prints no kernels "
                     "line")
+    ap.add_argument("--lazy", action="store_true",
+                    help="phases 1 and 27 only (the build, the lazy eager "
+                    "executor: the surface GPT-124M's plain eager loop "
+                    "lazily against immediately, LeNet, the surface "
+                    "BERT-base, the edge cases, _C_ops and the profiler); "
+                    "prints no kernels line")
     ap.add_argument("--rnn", action="store_true",
                     help="phases 1 and 23 only (the build, the recurrent "
                     "surface and the LSTM encoder-decoder through "
@@ -7301,6 +8092,14 @@ def main():
         print(f"phases 1 and 26 in {time.perf_counter() - t_start:.1f} s; "
               f"phase 26's K1 launches: {big} at batch 8, {small} at batches "
               f"1 and 4; QAT's K1/K2/K3 {qat}")
+        print(card_line())
+        return 0
+    if args.lazy:
+        print("[27] the lazy eager executor: plain eager steps replayed "
+              "as CUDA graphs")
+        gpt27, bert27 = phase_lazy(torch, attn, amp, train_cfg)
+        print(f"phases 1 and 27 in {time.perf_counter() - t_start:.1f} s; "
+              f"phase 27's K1/K2/K3 launches: 27a {gpt27}, 27c {bert27}")
         print(card_line())
         return 0
     if args.rnn:
@@ -7423,34 +8222,47 @@ def main():
         [r.generated for r in reqs], snap["tokens_per_sec"])
     print("[19] the Paddle-style eager core on the card")
     core = phase_core(torch, attn, train_shape)
+    lazy_release(torch, "after phase 19")
     print("[20] the Paddle nn surface: GPT-124M written in it, trained on "
           "the card")
     surface = phase_paddle_nn(torch, attn, train_cfg, optimizer, nn, phase7)
+    lazy_release(torch, "after phase 20")
     print("[21] BERT-base pretraining and the Paddle surface's part B: "
           "masked attention, config 3 eager, card against CPU, the "
           "TransformerEncoder, save/load, sparse grads, linalg")
     bert, bert_cpu, encoder = phase_bert(torch, attn, amp, optimizer)
+    lazy_release(torch, "after phase 21")
     print("[22] the vision surface: ResNet-50's ops card against CPU, "
           "config 2 (ResNet-50, O2 bf16, Momentum, batch 128) with its "
           "profile, models card against CPU, config 1 (LeNet)")
     phase_vision(torch, amp)
+    lazy_release(torch, "after phase 22")
     print("[23] the recurrent surface: its ops card against CPU, the LSTM "
           "encoder-decoder (batch 128) through Model.fit, beam decode, a "
           "small one card against CPU")
     phase_rnn(torch, amp)
+    lazy_release(torch, "after phase 23")
     print("[24] jit.to_static: K1-K3 and K5-K7 inside graphs, configs 1-3 "
           "and the flagship captured against eager, the rules")
     bert24, flag24 = phase_static(torch, attn, tce, amp, optimizer,
                                   TransformerLMConfig)
+    lazy_release(torch, "after phase 24")
     print("[25] dy2static and the static graph: dy2static's scenarios "
           "captured against the CPU, the flagship with a Tensor if, the "
           "surface GPT-124M through Executor.run, a leak attributed")
     flag25, prog25 = phase_dy2static(torch, attn, tce, amp, optimizer,
                                      TransformerLMConfig)
+    lazy_release(torch, "after phase 25")
     print("[26] deployment: the surface GPT-124M through jit.save and "
           "create_predictor in f32 and int8, QAT, onnx.export, a changed "
           ".pdiparams")
     big26, small26, qat26, k1p_row = phase_deploy(torch, attn, train_cfg)
+    lazy_release(torch, "after phase 26")
+    print("[27] the lazy eager executor: the surface GPT-124M's plain "
+          "eager loop replayed as one CUDA graph a step against the "
+          "immediate path, LeNet and BERT-base, the edge cases, _C_ops "
+          "and the profiler")
+    gpt27, bert27 = phase_lazy(torch, attn, amp, train_cfg)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -7467,9 +8279,9 @@ def main():
                surface + (0, 0, 0), prog25 + (0, 0, 0))]
     # phase 26: the Predictor's batch-8 runs and QAT's steps on the f32
     # training shape's rows; its batch-1 and batch-4 runs on their own row
-    k1t_row["launches"] = k1_train + f32[0] + big26 + qat26[0]
-    k2_row["launches"] = k2 + f32[1] + qat26[1]
-    k3_row["launches"] = k3 + f32[2] + qat26[2]
+    k1t_row["launches"] = k1_train + f32[0] + big26 + qat26[0] + gpt27[0]
+    k2_row["launches"] = k2 + f32[1] + qat26[1] + gpt27[1]
+    k3_row["launches"] = k3 + f32[2] + qat26[2] + gpt27[2]
     k1p_row["launches"] = small26
     k5f_row["launches"], k6f_row["launches"], k7f_row["launches"] = f32[3:]
     bf16 = [a + b + c + d for a, b, c, d in
@@ -7481,11 +8293,11 @@ def main():
     # path runs f32 at BERT's [32,12,128,64]; 21c's card side runs
     # [2,12,128,64], BERT-base's steps (21b) the bf16 [32,12,128,64], the
     # encoder (21d) [8,12,512,64]
-    bert = tuple(a + b for a, b in zip(bert, bert24))
+    bert = tuple(a + b + c for a, b, c in zip(bert, bert24, bert27))
     for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
         for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
             row["launches"] = n
-    print(f"phases 1-26 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-27 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -56,7 +56,12 @@ legacy ``dataset`` reader creators, ``distribution`` and ``core.native``
 ``inference`` (``Config``, ``create_predictor``, ``PredictorPool``: the
 loaded program replayed as a CUDA graph), ``quantization`` (QAT, PTQ,
 W8A8 int8 through ``torch._int_mm`` on the card), ``onnx.export``,
-``device`` (memory queries, streams) and ``version``.
+``device`` (memory queries, streams) and ``version``. Eager code runs
+lazily by default (``FLAGS_lazy_eager``, ``core/lazy.py``): an eager
+training step is deferred into one graph, run at ``clear_grad()`` or a
+host read and, on the card, replayed as one CUDA graph from its third
+step; ``_C_ops`` holds the ops' fast entry points and ``profiler`` the
+``record_scope`` instrument and a ``Profiler`` writing chrome traces.
 """
 from . import (  # noqa: F401
     amp, autograd, framework, io, nn, optimizer, regularizer, tensor, utils)
@@ -78,6 +83,8 @@ from .core.tensor import Parameter, Tensor
 from .framework.io_utils import load, save
 from . import ops  # attaches the operators and methods to Tensor
 from . import vision  # noqa: E402
+from . import observability, profiler  # noqa: E402,F401
+from . import _C_ops  # noqa: E402,F401
 from . import jit, metric, static, text  # noqa: E402,F401
 from . import dataset, distribution, reader  # noqa: E402,F401
 from .static import (  # noqa: E402,F401

@@ -14,11 +14,14 @@ read is a host sync and the state lives on the host, so an enabled
 scaler inside a step captured by ``jit.to_static`` raises
 ``ToStaticError``. Inside
 an ``auto_cast`` the unscaling runs uncast, like the body of a port op:
-a grad keeps its parameter's dtype.
+a grad keeps its parameter's dtype, and is divided in place. Under lazy
+eager the inf check's read ends the step's first graph (forward and
+backward); the update after it is a second.
 """
 import torch
 
 from ..core import trace as _trace
+from ..core.tensor import Tensor
 from .auto_cast import op_body
 
 _HOST_STATE = ("GradScaler (its scale and counters live on the host and "
@@ -48,6 +51,11 @@ class GradScaler:
         if not self._enable:
             return loss
         _trace.refuse_in_capture(_HOST_STATE)
+        if isinstance(loss, Tensor):
+            # an eager core loss: the product is an op (deferred under
+            # lazy eager), the scale joining it on its device and dtype
+            v = loss._v
+            return loss * Tensor._wrap(self._scale.to(v.device, v.dtype))
         return loss * self._scale.to(loss.device, loss.dtype)
 
     @torch.no_grad()
@@ -66,7 +74,9 @@ class GradScaler:
                                   for p in params]).all()
             inv = 1.0 / self._scale
             for p in params:
-                p.grad = p.grad * inv.to(p.grad.device, p.grad.dtype)
+                # in place: the grads keep the storage a lazy step's
+                # graph replays into
+                p.grad.mul_(inv.to(p.grad.device, p.grad.dtype))
         self._found_inf = not bool(finite)
 
     def step(self, optimizer):

@@ -7,12 +7,15 @@ its ``forward(ctx, ...)`` runs without recording, on Tensors, and its
 ``backward(ctx, *grads)`` runs without recording too, so under
 ``create_graph`` the grads it returns are constants: the chain stops
 there, as in the reference, whose PyLayer needs explicit double-grad
-support.
+support. Both run their ops at once (not into the lazy graph), and each
+call counts in ``core.engine.host_callbacks``: a step through a PyLayer
+is not captured by lazy eager, whose replay would skip them.
 """
 import torch
 
+from ..core import lazy
 from ..core.dispatch import enable_grad, is_grad_enabled, no_grad  # noqa: F401
-from ..core.engine import run_backward, run_grad
+from ..core.engine import host_callbacks, run_backward, run_grad
 from ..core.tensor import Tensor, as_torch
 
 
@@ -48,7 +51,9 @@ def _function_of(layer):
                 full[i] = Tensor._wrap(v)
             ctx = PyLayerContext()
             tctx.paddle_ctx = ctx
-            out = layer.forward(ctx, *full, **kwargs)
+            host_callbacks[0] += 1
+            with lazy.suspended():
+                out = layer.forward(ctx, *full, **kwargs)
             multi = isinstance(out, (tuple, list))
             outs = list(out) if multi else [out]
             tctx.multi = multi
@@ -57,7 +62,8 @@ def _function_of(layer):
 
         @staticmethod
         def backward(tctx, *grads):
-            with torch.no_grad():
+            host_callbacks[0] += 1
+            with torch.no_grad(), lazy.suspended():
                 gin = layer.backward(tctx.paddle_ctx,
                                      *[Tensor._wrap(g) for g in grads])
             gins = gin if isinstance(gin, (tuple, list)) else (gin,)

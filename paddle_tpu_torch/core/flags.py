@@ -7,11 +7,15 @@ What reads each flag in the port:
 * ``FLAGS_check_nan_inf`` — the eager dispatcher (``core/dispatch.py``)
   scans every float output of a core op and raises FloatingPointError on
   a NaN or an Inf.
-* ``FLAGS_deterministic``, ``FLAGS_log_compiles``,
-  ``FLAGS_fuse_parameter_memory_size`` and ``FLAGS_lazy_eager`` — kept
-  and read by nothing: the port's kernels use no atomics (two runs give
-  the same bits), it compiles nothing per op, has no data-parallel
-  reducer yet and no lazy executor.
+* ``FLAGS_lazy_eager`` (default True, as the reference's) — read by
+  the lazy eager executor (``core/lazy.py``): eager ops, backward and
+  optimizer steps are deferred into a graph that runs at a host read or
+  at ``optimizer.clear_grad()``, on the card as one CUDA graph replayed
+  per step. False gives the immediate path, each op run when called.
+* ``FLAGS_deterministic``, ``FLAGS_log_compiles`` and
+  ``FLAGS_fuse_parameter_memory_size`` — kept and read by nothing: the
+  port's kernels use no atomics (two runs give the same bits), it
+  compiles nothing per op and has no data-parallel reducer yet.
 * ``FLAGS_compilation_cache_dir`` and
   ``FLAGS_compilation_cache_min_compile_secs`` — configured XLA's
   persistent compilation cache in the reference; kept and read by

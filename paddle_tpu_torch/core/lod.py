@@ -35,7 +35,7 @@ class LoDTensor(Tensor):
         self._check()
 
     def _check(self):
-        n = self._value.shape[0] if self._value.dim() else 0
+        n = self._v.shape[0] if self._v.dim() else 0
         for i, lv in enumerate(self._lod):
             if lv and lv[0] != 0:
                 raise ValueError(f"LoD level {i} must start at 0: {lv}")

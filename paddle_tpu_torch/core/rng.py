@@ -20,6 +20,12 @@ def default_generator(device=None):
     None: the current device, the card unless ``set_device`` says
     otherwise), made on first use from the last ``seed`` (0 before
     any)."""
+    if isinstance(device, torch.device) and device.type == "meta":
+        return None     # a lazy op's shapes inferred on meta: no draw
+    from . import lazy
+    if lazy.enabled() and lazy.pending():
+        # pending deferred draws come first, as in immediate order
+        lazy.flush()
     dev = resolve_device(device)
     gen = _generators.get(dev)
     if gen is None:
@@ -32,6 +38,8 @@ def seed(s):
     """``paddle.seed``: reseed every device's default generator with
     ``s``; returns the CPU one."""
     global _seed
+    from . import lazy
+    lazy.flush()        # pending draws use the generators as they were
     _seed = int(s)
     for gen in _generators.values():
         gen.manual_seed(_seed)

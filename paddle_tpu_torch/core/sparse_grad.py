@@ -22,7 +22,7 @@ import torch
 
 from .tensor import Tensor, as_torch
 
-_VALUE = Tensor.__dict__["_value"]   # the slot under the lazy property
+_VALUE = Tensor.__dict__["_v"]   # the slot under the densifying property
 
 
 class IndexedSlices:
@@ -113,16 +113,18 @@ class SparseGradTensor(Tensor):
         self.trainable = True
 
     @property
-    def _value(self):
+    def _v(self):
         v = _VALUE.__get__(self)
         if v is None and self.slices is not None:
             v = self.slices.to_dense()
             _VALUE.__set__(self, v)
         return v
 
-    @_value.setter
-    def _value(self, v):
+    @_v.setter
+    def _v(self, v):
         _VALUE.__set__(self, v)
+
+    _value = _v
 
     def is_sparse(self):
         return _VALUE.__get__(self) is None and self.slices is not None

@@ -21,12 +21,24 @@ where the reference would still see the value the forward saw.
 
 Under a trace, a Tensor's birth is registered with it, and, while
 ``analysis.birth`` tracking is on, stamped with its birth site.
+
+Under lazy eager (``core/lazy.py``) a Tensor may hold a placeholder of a
+deferred op's output (slot ``_v``). Its shape, dtype, place, ``ndim``,
+``size`` and ``stop_gradient`` read the placeholder; ``_value``, the
+torch value, runs the pending graph first, and so does any host read
+(``numpy``, ``item``, ``tolist``, ``float``, ``int``, ``bool``). A
+torch value is also read after a flush while a deferred write (a
+backward, an optimizer step, an assignment) is pending, as that write
+may change it. ``set_value`` / ``value =`` of a pending value into a
+Tensor that existed before is deferred as a write; of anything else it
+runs the pending graph first.
 """
 import numpy as np
 import torch
 
 from . import dtype as dtype_mod
 from . import device as device_mod
+from . import lazy as _lazy
 from . import trace as _trace
 
 _name_counter = [0]
@@ -57,7 +69,7 @@ def as_torch(value, dtype=None, device=None):
 
 
 class Tensor:
-    __slots__ = ("_value", "name", "persistable", "trainable",
+    __slots__ = ("_v", "name", "persistable", "trainable",
                  "__weakref__")
     _symbolic = False   # True on static.program's Variable
 
@@ -69,7 +81,7 @@ class Tensor:
         v = as_torch(value, tdt, dev)
         if isinstance(value, (Tensor, torch.Tensor)):
             v = v.detach().clone()      # a new tensor owns its data
-        self._value = v
+        self._v = v
         self.name = name or _auto_name()
         self.persistable = persistable
         self.trainable = True
@@ -85,7 +97,7 @@ class Tensor:
         """A Tensor over ``value`` as it is (its graph kept): how the
         dispatcher hands back an op's output."""
         t = object.__new__(cls)
-        t._value = value
+        t._v = value
         t.name = name or _auto_name()
         t.persistable = False
         t.trainable = True
@@ -96,6 +108,21 @@ class Tensor:
         return t
 
     # ---- value -----------------------------------------------------------
+    @property
+    def _value(self):
+        """The torch value: a pending placeholder runs its graph, and a
+        pending deferred write runs before the value is read."""
+        v = self._v
+        if type(v) is _lazy.LazyArray:
+            v = self._v = v.materialize()
+        elif _lazy._writes[0]:
+            _lazy.flush_writes()
+        return v
+
+    @_value.setter
+    def _value(self, v):
+        self._v = v
+
     @property
     def value(self):
         """The wrapped ``torch.Tensor``."""
@@ -108,9 +135,14 @@ class Tensor:
             # this Tensor at the end of each run
             v.program.mark_writeback(v, self)
             return
-        self._assign(as_torch(v, self._value.dtype, self._value.device))
+        self.set_value(v)
 
     def _assign(self, v):
+        if not self._defer_write(v):
+            _lazy.flush()
+            self._write(as_torch(v, self._value.dtype, self._value.device))
+
+    def _write(self, v):
         if tuple(v.shape) != tuple(self._value.shape):
             from .errors import InvalidArgumentError
             raise InvalidArgumentError(
@@ -121,6 +153,28 @@ class Tensor:
         with torch.no_grad():
             self._value.copy_(v)
 
+    def _defer_write(self, v):
+        """Defer the write of ``v``, a pending value, into this Tensor
+        (a node of the lazy graph that copies it in place); False when
+        ``v`` is not pending or lazy eager is off."""
+        src = v._v if isinstance(v, Tensor) else v
+        if type(src) is not _lazy.LazyArray or src._concrete is not None \
+                or not _lazy.enabled():
+            return False
+        dst = self._v
+        if tuple(src.shape) != tuple(dst.shape):
+            from .errors import InvalidArgumentError
+            raise InvalidArgumentError(
+                f"set_value shape mismatch {tuple(src.shape)} vs "
+                f"{tuple(dst.shape)}")
+        try:
+            _lazy.dispatch(_copy_into, ("set_value",), [dst, src],
+                           owners=[self, None], writer=True, bound=(0,),
+                           device=dst.device)
+        except _lazy.Fallback:
+            return False
+        return True
+
     def _rebind(self, v):
         """Replace the wrapped torch tensor (not a write into it): a
         captured step refuses it (``core/trace.py``)."""
@@ -130,13 +184,13 @@ class Tensor:
 
     def set_value(self, value):
         """In-place assignment (reference: paddle.Tensor.set_value)."""
-        self._assign(as_torch(value, self._value.dtype, self._value.device))
+        self._assign(value)
         return self
 
     # ---- autograd state --------------------------------------------------
     @property
     def stop_gradient(self):
-        return not self._value.requires_grad
+        return not self._v.requires_grad
 
     @stop_gradient.setter
     def stop_gradient(self, stop):
@@ -161,6 +215,8 @@ class Tensor:
     def grad(self):
         """The leaf's grad; a sparse one (``Embedding(sparse=True)``'s)
         as a ``SparseGradTensor`` over its rows."""
+        if type(self._v) is _lazy.LazyArray:
+            return None     # a deferred op's output has no grad
         v = self._value
         if not v.is_leaf or v.grad is None:
             return None
@@ -184,7 +240,10 @@ class Tensor:
 
     @property
     def is_leaf(self):
-        return self._value.grad_fn is None
+        v = self._v
+        if type(v) is _lazy.LazyArray:
+            return not v.requires_grad
+        return v.grad_fn is None
 
     def clear_grad(self):
         self._value.grad = None
@@ -200,6 +259,10 @@ class Tensor:
         return register_tensor_hook(self, hook)
 
     def detach(self):
+        v = self._v
+        if type(v) is _lazy.LazyArray and _lazy.enabled():
+            return Tensor._wrap(_lazy.dispatch(_detach, ("detach",), [v]),
+                                name=self.name + ".detach")
         return Tensor._wrap(self._value.detach(), name=self.name + ".detach")
 
     def detach_(self):
@@ -213,23 +276,23 @@ class Tensor:
     # ---- metadata --------------------------------------------------------
     @property
     def shape(self):
-        return list(self._value.shape)
+        return list(self._v.shape)
 
     @property
     def ndim(self):
-        return self._value.dim()
+        return self._v.dim()
 
     @property
     def dtype(self):
-        return dtype_mod.to_paddle_dtype(self._value.dtype)
+        return dtype_mod.to_paddle_dtype(self._v.dtype)
 
     @property
     def place(self):
-        return device_mod.place_of(self._value.device)
+        return device_mod.place_of(self._v.device)
 
     @property
     def size(self):
-        return self._value.numel()
+        return self._v.numel()
 
     def numel(self):
         return self.size
@@ -240,7 +303,7 @@ class Tensor:
     ndimension = dim
 
     def element_size(self):
-        return self._value.element_size()
+        return self._v.element_size()
 
     # ---- host interop ----------------------------------------------------
     def numpy(self):
@@ -281,12 +344,12 @@ class Tensor:
     def __len__(self):
         if not self.ndim:
             raise TypeError("len() of a 0-d tensor")
-        return self._value.shape[0]
+        return self._v.shape[0]
 
     def __iter__(self):
         if not self.ndim:
             raise TypeError("iteration over a 0-d tensor")
-        return (self[i] for i in range(self._value.shape[0]))
+        return (self[i] for i in range(self._v.shape[0]))
 
     def __repr__(self):
         body = np.array2string(self.numpy(), precision=6, threshold=64)
@@ -314,7 +377,7 @@ class Tensor:
             "cuda" if device_id is None else f"cuda:{int(device_id)}"))
 
     def _moved(self, dev):
-        if self._value.device == dev:
+        if self._v.device == dev:
             return self
         return Tensor._wrap(self._value.to(dev))
 
@@ -336,6 +399,16 @@ class Tensor:
         return out
 
     # ---- operators: patched in ops/__init__.py ---------------------------
+
+
+def _copy_into(dst, src):
+    """A deferred ``set_value``: ``src`` written into ``dst`` in place."""
+    with torch.no_grad():
+        dst.copy_(src)
+
+
+def _detach(v):
+    return v.detach()
 
 
 class Parameter(Tensor):

@@ -57,6 +57,23 @@ _capture_hook = None
 _warming = False
 
 
+def capture_stream():
+    """This thread's capture stream on the current device, made once.
+    Every ``to_static`` function and the lazy executor warm up and
+    capture on it: cuBLAS keeps a workspace for each stream it runs on
+    for the life of the process, and each workspace, carved from a
+    segment of the caching allocator, keeps that whole segment
+    reserved."""
+    streams = getattr(_state, "capture_streams", None)
+    if streams is None:
+        streams = _state.capture_streams = {}
+    dev = torch.cuda.current_device()
+    s = streams.get(dev)
+    if s is None:
+        s = streams[dev] = torch.cuda.Stream()
+    return s
+
+
 class ToStaticError(PreconditionNotMetError):
     """A step that ``jit.to_static`` cannot capture as a CUDA graph."""
 
@@ -203,6 +220,8 @@ class _Guard:
         global _active
         if current_trace() is not None:
             raise RuntimeError("nested traces are not supported")
+        from . import lazy
+        lazy.flush()    # a pending lazy graph runs before the trace
         _state.trace = self.ctx
         _active = self.ctx
         return self.ctx

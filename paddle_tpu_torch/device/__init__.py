@@ -18,6 +18,7 @@ import gc
 
 import torch
 
+from ..core import trace as trace_mod
 from ..core.device import (  # noqa: F401
     CPUPlace, CUDAPinnedPlace, CUDAPlace, Place, device_count, get_device,
     get_place, is_compiled_with_cuda, is_compiled_with_npu,
@@ -218,7 +219,7 @@ def program_memory_analysis(fn, *args, **kwargs):
             "function on the card; this process has no CUDA device (the "
             "reference's XLA compile-time analysis has no counterpart on "
             "the CPU)")
-    stream = torch.cuda.Stream()
+    stream = trace_mod.capture_stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         inner(*args, **kwargs)           # warm-up: workspaces, lazy init

@@ -26,7 +26,7 @@ def _arr(x):
     """``x`` (a Tensor, array or number) as an f32 Tensor: a Tensor's
     own value, anything else a new one on the current device."""
     if isinstance(x, Tensor):
-        return x if x._value.dtype == torch.float32 \
+        return x if x._v.dtype == torch.float32 \
             else Tensor._wrap(x._value.float())
     return Tensor._wrap(as_torch(np.asarray(x, "float32")))
 
@@ -119,8 +119,8 @@ class Uniform(Distribution):
                                    logic.less_than(value, self.high))
         lp = math_ops.scale(math_ops.log(span), -1.0)
         neg_inf = Tensor._wrap(torch.full(
-            torch.broadcast_shapes(value._value.shape, lp._value.shape),
-            -math.inf, dtype=torch.float32, device=lp._value.device))
+            torch.broadcast_shapes(value._v.shape, lp._v.shape),
+            -math.inf, dtype=torch.float32, device=lp._v.device))
         return manipulation.where(inside, lp, neg_inf)
 
     def entropy(self):

@@ -10,10 +10,10 @@ mode, captured as CUDA graphs on the card, and ``fit`` with
 ``accumulate_grad_batches=k`` runs each window of k batches as one step
 (``_run_static_window``). Metrics stay eager over the step's returned
 outputs. ``prepare`` drops the compiled steps, which close over the
-loss and the optimizer. Each batch runs inside an
-``observability.tracing.span_timer``
-named ``hapi/train_batch``, ``hapi/eval_batch`` or
-``hapi/predict_batch``, the reference's ``record_scope`` names. As in the
+loss and the optimizer. Each batch runs inside a
+``profiler.record_scope`` named ``hapi/train_batch``,
+``hapi/eval_batch``, ``hapi/predict_batch`` or ``hapi/train_window``, as
+the reference's. As in the
 reference, a batch's last element is its only label (``_split_batch``),
 and ``Model(inputs=, labels=)`` are taken and not read.
 """
@@ -24,8 +24,8 @@ import numpy as np
 from ..core.dispatch import no_grad
 from ..core.tensor import Tensor
 from ..io import DataLoader
-from ..observability.tracing import span_timer
 from ..ops import math as math_ops
+from ..profiler import record_scope
 from . import callbacks as cb_mod
 
 
@@ -109,7 +109,7 @@ class Model:
         ins_seq = [_as_tensors(ins) for _, ins, _ in window]
         labs_seq = [_as_tensors(labs, allow_none=True)
                     for _, _, labs in window]
-        with span_timer("hapi/train_window"):
+        with record_scope("hapi/train_window"):
             results = self._static_step("train_window")(ins_seq, labs_seq)
         logs = {}
         for (step, _, _), labs, (loss_list, outs) in zip(window, labs_seq,
@@ -149,7 +149,7 @@ class Model:
         self.network.train()
         ins = _as_tensors(_listed(inputs))
         labs = _as_tensors(_listed(labels), allow_none=True)
-        with span_timer("hapi/train_batch"):
+        with record_scope("hapi/train_batch"):
             if _in_static_mode():
                 loss_list, outs = self._static_step("train")(
                     ins, labs, bool(update))
@@ -169,7 +169,7 @@ class Model:
         self.network.eval()
         ins = _as_tensors(_listed(inputs))
         labs = _as_tensors(_listed(labels), allow_none=True)
-        with span_timer("hapi/eval_batch"):
+        with record_scope("hapi/eval_batch"):
             if _in_static_mode():
                 loss_list, outs = self._static_step("eval")(ins, labs)
                 loss_list = loss_list if self._loss is not None else None
@@ -187,7 +187,7 @@ class Model:
     def predict_batch(self, inputs):
         self.network.eval()
         ins = _as_tensors(_listed(inputs))
-        with span_timer("hapi/predict_batch"):
+        with record_scope("hapi/predict_batch"):
             if _in_static_mode():
                 outs = self._static_step("predict")(ins)
             else:

@@ -131,7 +131,7 @@ def _feed_specs(input_spec, concrete):
                 dims = [1 if d == -1 else d for d in dims]
             out.append((dims, dtype_mod.to_torch_dtype(spec.dtype)))
         elif isinstance(spec, Tensor):
-            out.append((list(spec.shape), spec._value.dtype))
+            out.append((list(spec.shape), spec._v.dtype))
         elif isinstance(spec, torch.Tensor):
             out.append((list(spec.shape), spec.dtype))
         else:
@@ -167,7 +167,7 @@ def record(layer, input_spec, concrete=False, what="jit.save"):
             while pname in taken:
                 pname += "_"
             taken.add(pname)
-            var = Variable(pname, t.shape, t._value.dtype, prog)
+            var = Variable(pname, t.shape, t._v.dtype, prog)
             var.persistable = True
             var.trainable = bool(getattr(t, "trainable", True))
             prog.vars[pname] = var
@@ -290,10 +290,10 @@ class TranslatedLayer:
                 raise ValueError(
                     f"input {var.name!r}: dim {i} is {got}, the program "
                     f"fixes it at {d} (shape {list(want)})")
-        if v.dtype != var._value.dtype:
+        if v.dtype != var._v.dtype:
             raise ValueError(
                 f"input {var.name!r}: dtype {v.dtype}, the program takes "
-                f"{var._value.dtype}")
+                f"{var._v.dtype}")
         return v
 
     def __call__(self, *inputs):

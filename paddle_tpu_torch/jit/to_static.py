@@ -35,6 +35,11 @@ calls, as the reference's ``_same_struct_compiled`` does. A
 ``to_static`` inside a trace inlines; ``ProgramTranslator().enable(
 False)`` runs everything eagerly.
 
+A pending lazy-eager graph (``core/lazy.py``) runs when the function
+is called, and the function's own ops run at once, never deferred. The
+lazy executor captures its segments through the same calls (its
+``_Segment`` subclass).
+
 On CPU tensors nothing is captured: after its record the function is
 called eagerly. On CUDA a failed capture raises ``ToStaticError`` with
 its cause (a host read, a Tensor ``if``, a rebinding, an H2D copy,
@@ -71,7 +76,7 @@ import time
 import torch
 
 from ..amp.auto_cast import amp_state
-from ..core import rng
+from ..core import lazy, rng
 from ..core import trace as trace_mod
 from ..core.tensor import Tensor
 from ..core.trace import ToStaticError
@@ -216,6 +221,8 @@ class TracedFunction:
         self._shared = {"pool": None, "stream": None, "body_pool": None}
         functools.update_wrapper(self, fn)
         self._bound_instance = None
+        # what the last call did: warmup, record, capture, replay, eager
+        self.last_form = None
 
     def __get__(self, instance, owner):
         if instance is None:
@@ -262,6 +269,12 @@ class TracedFunction:
         if not _enabled() or trace_mod.current_trace() is not None:
             # disabled, or nested to_static inside a trace: inline
             return self._fn(*args, **kwargs)
+        # a pending lazy graph runs first; nothing defers inside
+        lazy.flush()
+        with lazy.suspended():
+            return self._dispatch(args, kwargs)
+
+    def _dispatch(self, args, kwargs):
         sig, leaves, struct = self._signature(args, kwargs)
         entry = self._entries.get(sig)
         if entry is None:
@@ -271,17 +284,22 @@ class TracedFunction:
         rec = entry["record"]
         if rec is not None:
             if not rec.cuda:
+                self.last_form = "eager"
                 return self._fn(*args, **kwargs)
             key = rec.state()
             g = entry["graphs"].get(key)
             if g is None:
                 g = self._capture(entry, key, args, kwargs, struct, leaves)
+                self.last_form = "capture"
             else:
                 self._copy_in(g, leaves)
+                self.last_form = "replay"
             return self._replay(g)
         entry["calls"] += 1
         if entry["calls"] <= self._warmup:
+            self.last_form = "warmup"
             return self._eager(args, kwargs, leaves)
+        self.last_form = "record"
         return self._record(entry, args, kwargs, leaves)
 
     def _same_struct_record(self, sig):
@@ -297,7 +315,7 @@ class TracedFunction:
 
     def _stream(self):
         if self._shared["stream"] is None:
-            self._shared["stream"] = torch.cuda.Stream()
+            self._shared["stream"] = trace_mod.capture_stream()
             self._shared["pool"] = torch.cuda.graph_pool_handle()
             # conditional bodies allocate from a pool of their own
             # (core/graph_cond.py)

@@ -165,7 +165,7 @@ def accuracy(input, label, k=1, correct=None, total=None, name=None):  # noqa: A
     lv = label
     if lv.ndim == 1:
         lv = ops.manipulation.unsqueeze(lv, axis=-1)
-    correct_mat = ops.logic.equal(topk_idx, ops.math.cast(lv, topk_idx.value.dtype))
+    correct_mat = ops.logic.equal(topk_idx, ops.math.cast(lv, topk_idx._v.dtype))
     acc = ops.reduction.mean(
         ops.reduction.max(ops.math.cast(correct_mat, "float32"), axis=-1))
     return acc

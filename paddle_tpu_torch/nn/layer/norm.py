@@ -145,8 +145,8 @@ class SpectralNorm(Layer):
         out, u_n, v_n = nn_ops.spectral_norm(
             weight, self.weight_u, self.weight_v, dim=self._dim,
             power_iters=self._power_iters, eps=self._eps)
-        self.weight_u.set_value(u_n.value)
-        self.weight_v.set_value(v_n.value)
+        self.weight_u.set_value(u_n)
+        self.weight_v.set_value(v_n)
         return out
 
 

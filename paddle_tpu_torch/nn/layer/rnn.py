@@ -99,7 +99,7 @@ def _simple_rnn_layer(x, h0, w_ih, w_hh, b_ih, b_hh, *, reverse,
 
 def _zeros(shape, like):
     """Zeros on ``like``'s device in its dtype (a Tensor)."""
-    v = like.value
+    v = like._v
     return Tensor._wrap(torch.zeros(shape, dtype=v.dtype, device=v.device))
 
 
@@ -302,7 +302,7 @@ class RNNCellBase(Layer):
         b = batch_ref.shape[batch_dim_idx]
         hs = getattr(self, "hidden_size")
         dt = dtype_mod.to_torch_dtype(dtype or "float32")
-        dev = batch_ref.value.device
+        dev = batch_ref._v.device
 
         def full():
             return Tensor._wrap(torch.full((b, hs), init_value, dtype=dt,
@@ -425,7 +425,7 @@ def dynamic_decode(decoder, inits=None, max_step_num=32, **kwargs):
     states = inits
     h0 = states[0] if isinstance(states, (tuple, list)) else states
     b = h0.shape[0]
-    dev = h0.value.device
+    dev = h0._v.device
 
     def tile(t):
         return manipulation.reshape(

@@ -89,7 +89,7 @@ class MultiHeadAttention(Layer):
                 and not (self.dropout and self.training)
                 and q.shape == k.shape == v.shape
                 and self.head_dim in _FLASH_HEAD_DIMS
-                and q.value.dtype in _FLASH_DTYPES)
+                and q._v.dtype in _FLASH_DTYPES)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -103,7 +103,7 @@ class MultiHeadAttention(Layer):
             v = manipulation.concat([cache[1], v], axis=2)
             new_cache = (k, v)
         scale = self.head_dim ** -0.5
-        attn_mask = _convert_attn_mask(attn_mask, q.value.dtype)
+        attn_mask = _convert_attn_mask(attn_mask, q._v.dtype)
         weights = None
         if self.flash_route(q, k, v, cache):
             out = attn_ops.scaled_dot_product_attention(
@@ -133,7 +133,7 @@ class MultiHeadAttention(Layer):
         """An empty cache ``(k, v)``, each ``[b, heads, 0, head_dim]``,
         on key's device."""
         shape = (key.shape[0], self.num_heads, 0, self.head_dim)
-        dev = key.value.device
+        dev = key._v.device
         return (Tensor._wrap(torch.zeros(shape, device=dev)),
                 Tensor._wrap(torch.zeros(shape, device=dev)))
 

@@ -263,8 +263,8 @@ class Layer:
             src = state_dict[name]
             if not isinstance(src, (Tensor, torch.Tensor)):
                 src = np.asarray(src)
-            arr = as_torch(src, tgt._value.dtype, tgt._value.device)
-            if tuple(arr.shape) != tuple(tgt._value.shape):
+            arr = as_torch(src, tgt._v.dtype, tgt._v.device)
+            if tuple(arr.shape) != tuple(tgt._v.shape):
                 raise ValueError(f"shape mismatch for {name}: "
                                  f"{tuple(arr.shape)} vs {tgt.shape}")
             tgt.set_value(arr)

@@ -44,7 +44,7 @@ def weight_norm(layer, name="weight", dim=0):
         g0 = np.sqrt((wv * wv).sum(axis=axes))
     v = Parameter(w.value, name=f"{w.name}_v")
     g = Parameter(torch.as_tensor(np.asarray(g0, np.float32),
-                                  device=w.value.device),
+                                  device=w._v.device),
                   name=f"{w.name}_g")
     setattr(layer, f"{name}_v", v)
     setattr(layer, f"{name}_g", g)

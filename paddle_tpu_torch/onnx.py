@@ -495,7 +495,7 @@ def _convert(program, feed_names, fetch_names, values, init_names,
     for n in feed_names:
         var = program.vars[n]
         env[n] = _In(g, edge=n, shape=list(var._shape),
-                     dtype=var._value.dtype, dynamic=-1 in var._shape)
+                     dtype=var._v.dtype, dynamic=-1 in var._shape)
     for n, val in values.items():
         env[n] = _In(g, value=val, shape=list(val.shape), dtype=val.dtype,
                      init_name=init_names.get(n))
@@ -540,7 +540,7 @@ def _convert(program, feed_names, fetch_names, values, init_names,
         for name, edge in zip(rec.out_names, names):
             var = program.vars[name]
             env[name] = _In(g, edge=edge, shape=list(var._shape),
-                            dtype=var._value.dtype, dynamic=dyn)
+                            dtype=var._v.dtype, dynamic=dyn)
 
     model = pb.ModelProto()
     model.ir_version = _IR_VERSION

@@ -197,7 +197,7 @@ def flash_bwd_dq(q, k, v, lse, do, delta, scale, causal):
     (P and dS in f32, as in the reference's CPU path, the XLA
     composition; the bf16 kernel rounds them as the Pallas kernels do).
     Counts each kernel launch in ``flash_bwd_dq.launches``."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return flash_attention_backward_plain(q, k, v, lse, do, delta,
                                               scale, causal)[0]
     _check_backward_operands(q, k, v, lse, do, delta)
@@ -226,7 +226,7 @@ def flash_bwd_dkv(q, k, v, lse, do, delta, scale, causal):
     """K3 on CUDA tensors, the ``(dk, dv)`` of its plain version on CPU
     tensors (P and dS in f32, as for ``flash_bwd_dq``). Counts each
     kernel launch in ``flash_bwd_dkv.launches``."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return flash_attention_backward_plain(q, k, v, lse, do, delta,
                                               scale, causal)[1:]
     _check_backward_operands(q, k, v, lse, do, delta)

@@ -294,11 +294,11 @@ def multinomial(x, num_samples=1, replacement=False, name=None,
 def rand_like(x, dtype=None, generator=None):
     """Uniform ``[0, 1)`` of ``x``'s shape and (default) dtype, on
     ``x``'s device."""
-    dev = x._value.device
-    v = torch.rand(x._value.shape, generator=_gen(generator, dev),
+    dev = x._v.device
+    v = torch.rand(x._v.shape, generator=_gen(generator, dev),
                    device=dev)
     return Tensor._wrap(v.to(_tdt(dtype) if dtype is not None
-                             else x._value.dtype))
+                             else x._v.dtype))
 
 
 def create_parameter(shape, dtype, name=None, attr=None,

@@ -185,7 +185,7 @@ def _backward_kernel(symbol, x, w_vh, labels, lse, g, ignore_index, out):
 def fused_ce_bwd_dx(x, w_vh, labels, lse, g, ignore_index=-100):
     """K6 on CUDA tensors, the dx of the plain backward on CPU tensors.
     Counts each kernel launch in ``fused_ce_bwd_dx.launches``."""
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return fused_linear_cross_entropy_backward_plain(
             x, w_vh, labels, lse, g, ignore_index)[0]
     dx = torch.empty_like(x)
@@ -201,7 +201,7 @@ fused_ce_bwd_dx.launches = 0
 def fused_ce_bwd_dw(x, w_vh, labels, lse, g, ignore_index=-100):
     """K7 on CUDA tensors, the dW of the plain backward on CPU tensors.
     Counts each kernel launch in ``fused_ce_bwd_dw.launches``."""
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return fused_linear_cross_entropy_backward_plain(
             x, w_vh, labels, lse, g, ignore_index)[1]
     dw = torch.empty_like(w_vh)

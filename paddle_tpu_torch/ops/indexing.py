@@ -6,10 +6,13 @@ numpy arrays) index as in numpy; reading is an op (differentiable).
 Writing is in place and untracked, as the reference's, whose
 ``set_value`` op swaps the tensor's value without recording the
 overwritten slots: the Tensor keeps its identity (and a leaf its grad).
+Under lazy eager a write runs the pending graph first, so an op deferred
+before it reads the value it would have read eagerly.
 """
 import numpy as np
 import torch
 
+from ..core import lazy as _lazy
 from ..core.dispatch import register_op
 from ..core.tensor import Tensor, as_torch
 
@@ -63,14 +66,15 @@ def _getitem(x, *dyn, spec):
 
 
 def getitem(x, index):
-    spec, dyn = _split_index(index, x._value.device)
+    spec, dyn = _split_index(index, x._v.device)
     return _getitem(x, *dyn, spec=spec)
 
 
 def setitem(x, index, value):
-    spec, dyn = _split_index(index, x._value.device)
-    v = as_torch(value, x._value.dtype, x._value.device)
+    spec, dyn = _split_index(index, x._v.device)
+    v = as_torch(value, x._v.dtype, x._v.device)
     idx = _rebuild_index(spec, [d._value for d in dyn])
+    _lazy.flush()
     with torch.no_grad():
         x._value[idx] = v
     return x

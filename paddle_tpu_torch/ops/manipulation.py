@@ -33,7 +33,7 @@ def _shape_tuple(shape):
 def _swap_value(x, new):
     """Put ``new`` (any shape) into ``x`` untracked; a leaf keeps
     requiring grad."""
-    rg = x._value.requires_grad and x._value.is_leaf
+    rg = x._v.requires_grad and x._value.is_leaf
     new = new.detach()
     if rg:
         new.requires_grad_(True)
@@ -306,7 +306,7 @@ def _put_along_axis(x, index, value, *, axis, reduce):
 def put_along_axis(x, indices, values, axis, reduce="assign"):
     if not isinstance(values, Tensor):
         values = Tensor._wrap(torch.as_tensor(
-            np.asarray(values), device=x._value.device).to(x._value.dtype))
+            np.asarray(values), device=x._v.device).to(x._v.dtype))
     return _put_along_axis(x, indices, values, axis=int(axis), reduce=reduce)
 
 
@@ -535,8 +535,8 @@ def masked_select(x, mask, name=None):
 def masked_fill(x, mask, value, name=None):
     if isinstance(value, Tensor):
         value = value.item()
-    fill = Tensor._wrap(torch.tensor(value, dtype=x._value.dtype,
-                                     device=x._value.device))
+    fill = Tensor._wrap(torch.tensor(value, dtype=x._v.dtype,
+                                     device=x._v.device))
     return _where(mask, fill, x)
 
 
@@ -571,15 +571,15 @@ def shard_index(input, index_num, nshards, shard_id,  # noqa: A002
 
 def numel(x):
     """The element count as an int64 0-d tensor on ``x``'s device."""
-    return Tensor._wrap(torch.tensor(x._value.numel(), dtype=torch.int64,
-                                     device=x._value.device))
+    return Tensor._wrap(torch.tensor(x._v.numel(), dtype=torch.int64,
+                                     device=x._v.device))
 
 
 def shape(x):
     """The shape as an int32 tensor on ``x``'s device."""
-    return Tensor._wrap(torch.tensor(list(x._value.shape),
+    return Tensor._wrap(torch.tensor(list(x._v.shape),
                                      dtype=torch.int32,
-                                     device=x._value.device))
+                                     device=x._v.device))
 
 
 @register_op("unfold")

@@ -23,7 +23,7 @@ def _wrap_scalar(x, other):
     dtype; a 0-d CPU tensor joins a CUDA operand as a scalar does."""
     if isinstance(x, (Tensor, torch.Tensor)):
         return x
-    dt = other._value.dtype if isinstance(other, Tensor) else None
+    dt = other._v.dtype if isinstance(other, Tensor) else None
     if dt is None:
         return Tensor._wrap(torch.tensor(np.asarray(x)))
     return Tensor._wrap(torch.tensor(x).to(dt))
@@ -118,7 +118,7 @@ def _static_int_exponent(base, y):
     base, no negative exponent on an integer base)."""
     if isinstance(y, bool) or not isinstance(y, (int, float)):
         return None
-    dt = base._value.dtype if isinstance(base, Tensor) else torch.float32
+    dt = base._v.dtype if isinstance(base, Tensor) else torch.float32
     if dt == torch.bool:
         return None
     inexact = dt.is_floating_point or dt.is_complex
@@ -252,7 +252,7 @@ def _clip(x, mn, mx):
 
 
 def clip(x, min=None, max=None, name=None):  # noqa: A002
-    dt = x._value.dtype
+    dt = x._v.dtype
     mn = min if isinstance(min, Tensor) else Tensor._wrap(torch.tensor(
         -_pymath.inf if min is None else min).to(dt))
     mx = max if isinstance(max, Tensor) else Tensor._wrap(torch.tensor(
@@ -267,7 +267,7 @@ def _lerp(x, y, w):
 
 def lerp(x, y, weight, name=None):
     if not isinstance(weight, Tensor):
-        weight = Tensor._wrap(torch.tensor(weight).to(x._value.dtype))
+        weight = Tensor._wrap(torch.tensor(weight).to(x._v.dtype))
     return _lerp(x, y, weight)
 
 

@@ -32,8 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..amp.auto_cast import cast_inputs, op_body
-from ..core import rng
+from ..amp.auto_cast import amp_state, cast_inputs, op_body, resume
+from ..core import lazy, rng
 from ..core.dispatch import register_op
 from ..core.tensor import Tensor
 
@@ -262,7 +262,16 @@ def linear(x, weight, bias=None, name=None):
 
 @register_op("layer_norm")
 def _layer_norm(x, scale, bias, *, epsilon, begin_norm_axis):
+    """A bf16 input with f32 weights (an O1 white-list op's output into
+    the black-listed norm) runs at the wider dtype, as the reference's
+    jnp body promotes them."""
     shape = tuple(x.shape[begin_norm_axis:])
+    dt = x.dtype
+    for t in (scale, bias):
+        if t is not None and t.dtype != dt:
+            dt = torch.promote_types(dt, t.dtype)
+    x, scale, bias = (None if t is None else t.to(dt)
+                      for t in (x, scale, bias))
     return F.layer_norm(x, shape,
                         None if scale is None else scale.reshape(shape),
                         None if bias is None else bias.reshape(shape),
@@ -1558,12 +1567,36 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         x, weight, bias, epsilon=float(epsilon), channel_axis=ch_axis)
     if running_mean is not None:
         m = float(momentum)
-        with torch.no_grad():
-            running_mean.set_value(running_mean._value * m
-                                   + batch_mean._value * (1 - m))
-            running_var.set_value(running_var._value * m
-                                  + batch_var._value * (1 - m))
+        for running, batch in ((running_mean, batch_mean),
+                               (running_var, batch_var)):
+            if not _defer_running_update(running, batch, m):
+                with torch.no_grad():
+                    running.set_value(running._value * m
+                                      + batch._value * (1 - m))
     return out
+
+
+def _defer_running_update(running, batch, m):
+    """Under lazy eager, ``running <- running * m + batch * (1 - m)`` as
+    one deferred write, computed as the eager update computes it (the
+    same torch calls, under the ``auto_cast`` state of the moment); False
+    when the batch statistic is not pending."""
+    if type(batch._v) is not lazy.LazyArray or not lazy.enabled():
+        return False
+    amp = amp_state()
+
+    def write(r, b):
+        with torch.no_grad():
+            if amp is None:
+                r.copy_(r * m + b * (1 - m))
+            else:
+                with resume(amp):
+                    r.copy_(r * m + b * (1 - m))
+
+    lazy.dispatch(write, ("batch_norm_running", m, amp),
+                  [running._v, batch._v], owners=[running, None],
+                  writer=True, bound=(0,), device=running._v.device)
+    return True
 
 
 @register_op("group_norm")

@@ -90,7 +90,7 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, lengths):
     """Same signature and semantics as ``cached_paged_attention``; the
     output has q's dtype. Counts each call's launch (the chunks and the
     merge of their partials) in ``paged_decode_attention.launches``."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return paged_decode_plain(q, k_cache, v_cache, block_tables,
                                   lengths)
     if not q.is_cuda:

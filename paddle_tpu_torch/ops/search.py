@@ -126,7 +126,7 @@ def unique(x, return_index=False, return_inverse=False, return_counts=False,
                               "amin")
         out.append(first)
     if return_inverse:
-        out.append(inv.reshape(x._value.shape) if axis is None else inv)
+        out.append(inv.reshape(x._v.shape) if axis is None else inv)
     if return_counts:
         out.append(counts)
     return tuple(Tensor._wrap(r) for r in out)

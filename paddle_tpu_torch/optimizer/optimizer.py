@@ -47,6 +47,17 @@ torch-level, so the record runs them (the op list differs, the values do
 not). In static mode ``parameters`` may be None: the update covers the
 program's trainable persistables.
 
+Under lazy eager (``core/lazy.py``) ``step()`` of an optimizer over the
+eager core's ``Parameter``s is one deferred node of the step's graph,
+which runs this body when the graph runs (as the static update record
+does); ``clear_grad()`` runs the pending graph and then clears, so an
+eager step with no annotation is flushed there and, on the card, replayed
+as one CUDA graph from its third step. ``set_lr`` (an ``LRScheduler``'s
+step) runs a pending graph first, so a rate set between steps reaches the
+next replay through the 0-d rate tensor. An optimizer over plain torch
+tensors steps at once. ``step()`` runs inside
+``profiler.record_scope("optimizer/step")``.
+
 ``state_dict()`` keys each state tensor ``f"{name}_{kind}"`` (``name``
 as given with the parameters, a ``Parameter``'s own ``.name``, as the
 reference's; ``kind`` the reference's: ``moment1``, ``beta1_pow``,
@@ -54,13 +65,21 @@ reference's; ``kind`` the reference's: ``moment1``, ``beta1_pow``,
 ``text.convert.optimizer_state_from_paddle_tpu`` carries a reference
 optimizer's state across.
 """
+import itertools
+
 import torch
 
 from ..amp.auto_cast import op_body
+from ..core import lazy as _lazy
 from ..core import trace as _trace
 from ..core.sparse_grad import sparse_slices
 from ..core.tensor import Tensor
 from .lr import LRScheduler
+
+# each optimizer's step node key: a serial never given to another
+# optimizer (an id() is reused once its object is freed, and a replay
+# entry keyed on it would replay a dead optimizer's captured step)
+_step_serials = itertools.count()
 
 
 def _f32(x):
@@ -124,6 +143,7 @@ class Optimizer:
         self._params = _named(parameters)
         self._grad_clip = grad_clip
         self._accumulators = {}
+        self._step_key = ("optimizer.step", next(_step_serials))
         self._l1_coeff = 0.0
         if isinstance(weight_decay, (int, float)):
             self._weight_decay = float(weight_decay)  # grad += wd * param
@@ -156,6 +176,7 @@ class Optimizer:
         _trace.refuse_in_capture(
             "set_lr (an LRScheduler's step included): step the scheduler "
             "between replays")
+        _lazy.flush()
         self._lr = _f32(value)
         for t in self._lr_dev.values():
             t.fill_(self._lr)
@@ -182,12 +203,32 @@ class Optimizer:
         return leaf
 
     def clear_grad(self, set_to_zero=False):
+        _lazy.flush()
         for p in self._parameter_list():
             p.grad = None
 
     clear_gradients = clear_grad
 
     def step(self):
+        from ..profiler import record_scope
+        with record_scope("optimizer/step"):
+            if not self._defer_step():
+                self._step_now()
+
+    def _defer_step(self):
+        """Defer this step as one node of the lazy graph (an optimizer
+        over the eager core's Parameters, under lazy eager)."""
+        if not (self._params and isinstance(self._params[0][1], Tensor)
+                and _lazy.enabled()):
+            return False
+        _lazy.dispatch(self._run_step, self._step_key, [], writer=True,
+                       device=self._params[0][1]._v.device, holder=self)
+        return True
+
+    def _run_step(self):
+        self._step_now()
+
+    def _step_now(self):
         self._apply_grads([(p, _leaf(p).grad) for _, p in self._params
                            if _leaf(p).grad is not None
                            and _leaf(p).requires_grad])

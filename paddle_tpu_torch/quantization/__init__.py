@@ -325,14 +325,9 @@ def int8_matmul_plain(a, b):
     return a.to(torch.int32) @ b.to(torch.int32)
 
 
-def int8_matmul(a, b):
-    """int8 x int8 -> int32. On the CPU the plain product; on the card
-    ``torch._int_mm``, after checking its rules (raises naming the one
-    an operand breaks; nothing falls back)."""
-    if not a.is_cuda:
-        return int8_matmul_plain(a, b)
-    m, k = a.shape
-    n = b.shape[1]
+def check_int_mm(m, k, n):
+    """Raise naming the rule of ``torch._int_mm`` that an ``[m, k] x
+    [k, n]`` product on the card breaks."""
     if m <= 16:
         raise ValueError(
             f"int8 product on CUDA: torch._int_mm needs more than 16 rows; "
@@ -341,6 +336,15 @@ def int8_matmul(a, b):
         raise ValueError(
             f"int8 product on CUDA: torch._int_mm needs the inner and output "
             f"sizes to be multiples of 8; got K = {k}, N = {n}")
+
+
+def int8_matmul(a, b):
+    """int8 x int8 -> int32. On the CPU the plain product; on the card
+    ``torch._int_mm``, after checking its rules (raises naming the one
+    an operand breaks; nothing falls back)."""
+    if not a.is_cuda:
+        return int8_matmul_plain(a, b)
+    check_int_mm(a.shape[0], a.shape[1], b.shape[1])
     return torch._int_mm(a.contiguous(), b)
 
 
@@ -365,7 +369,7 @@ def _int8_dequant_w(w_q, w_scale):
 
 
 def _int8_buffers(layer, w, scale):
-    dev = layer.weight.value.device
+    dev = layer.weight._v.device
     q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
     w_q = Tensor._wrap(torch.from_numpy(q).to(dev))
     w_scale = Tensor._wrap(torch.from_numpy(
@@ -386,6 +390,10 @@ class Int8Linear(Layer):
         self.bias = layer.bias
 
     def forward(self, x):
+        v, (k, n) = x._v, self.w_q.shape
+        if v.device.type == "cuda":
+            # at the call, not when a lazy graph runs the product
+            check_int_mm(v.numel() // k, k, n)
         return _int8_linear_op(x, self.w_q, self.w_scale, self.bias)
 
 

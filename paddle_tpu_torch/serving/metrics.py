@@ -23,8 +23,9 @@ engine's span ring). ``resilience``, ``health`` and ``replica`` are the
 hardened engine's. The port adds ``kv_wire`` (handoff counts and
 bytes).
 
-Differences from the reference: the port has no profiler scopes, so it
-accrues only the ``serving/step`` span (the perf report's denominator)
+Differences from the reference: the engine opens no
+``profiler.record_scope`` (the reference's prefill, decode and compile
+scopes), so it accrues only the ``serving/step`` span (the perf report's denominator)
 and keeps the dispatch and sync legs as plain seconds
 (``dispatch_sync_split``); it compiles nothing, so ``compiles`` is 0;
 and the decode cost behind ``estimated_mfu`` is the mean price of the

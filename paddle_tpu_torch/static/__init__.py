@@ -284,7 +284,7 @@ def py_func(func, x, out, backward_func=None,
     a capture refuses). ``out`` gives the result's dtype."""
     from ..core.dispatch import register_op
     xs = x if isinstance(x, (list, tuple)) else [x]
-    out_dt = out._value.dtype if hasattr(out, "_value") \
+    out_dt = out._v.dtype if hasattr(out, "_value") \
         and out._value is not None else torch.float32
 
     def _op(*arrs):

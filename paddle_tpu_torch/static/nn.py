@@ -54,7 +54,7 @@ def _label_scope(label):
 def _device_of(*objs):
     for o in objs:
         if isinstance(o, Tensor):
-            return o._value.device
+            return o._v.device
         if isinstance(o, torch.Tensor):
             return o.device
         if isinstance(o, (list, tuple)):

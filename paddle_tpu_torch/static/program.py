@@ -56,6 +56,9 @@ def building_program():
 
 
 def _set_building(prog):
+    if prog is not None:
+        from ..core import lazy
+        lazy.flush()     # a pending lazy graph runs before building
     _state.program = prog
     # the dispatcher's gate: one boolean test on the eager path. It is
     # process-wide while the building state is per thread, as the
@@ -367,7 +370,7 @@ def _dynamic_shapes(op, args, values, attrs, cast, shapes):
     if not any(isinstance(a, Variable) and -1 in a._shape for a in args):
         return shapes
     alt = [_meta(tuple(3 if d == -1 else d for d in a._shape),
-                 a._value.dtype)
+                 a._v.dtype)
            if isinstance(a, Variable) and -1 in a._shape else v
            for a, v in zip(args, values)]
     try:
@@ -507,7 +510,7 @@ class Program:
         for p in params:
             gname = p.name + "@GRAD"
             self.vars[gname] = Variable(gname, tuple(p.shape),
-                                        p._value.dtype, self)
+                                        p._v.dtype, self)
             grad_names.append(gname)
         self.ops.append(GradRecord(loss.name, list(params), grad_names,
                                    len(self.ops)))
@@ -812,11 +815,17 @@ class Executor:
         if self.place is not None:
             return device_mod.resolve_device(self.place)
         for t in program.persist.values():
-            return t._value.device
+            return t._v.device
         return device_mod.resolve_device()
 
     def run(self, program=None, feed=None, fetch_list=None,
             return_numpy=True):
+        from ..core import lazy
+        lazy.flush()        # a pending lazy graph runs first
+        with lazy.suspended():
+            return self._run(program, feed, fetch_list, return_numpy)
+
+    def _run(self, program, feed, fetch_list, return_numpy):
         feed = feed or {}
         if callable(program) and not isinstance(program, Program):
             out = program(**feed)
@@ -936,7 +945,7 @@ def _serialize_program(program, without_values=()):
     ``without_values`` keep their names, trainable and stop_gradient
     flags but not their values (``jit.save`` keeps those in its
     ``.pdiparams``; their shapes and dtypes are among the variables)."""
-    var_meta = {n: (list(v._shape), _dtype_name(v._value.dtype),
+    var_meta = {n: (list(v._shape), _dtype_name(v._v.dtype),
                     v.stop_gradient)
                 for n, v in program.vars.items()}
     persist = {n: (None if n in without_values else _np(t),
@@ -1020,7 +1029,7 @@ def _deserialize_program(blob, device=None, values=None):
                 raise ValueError(
                     f"parameter {n!r}: the value has shape "
                     f"{tuple(src.shape)}, the program {tuple(var._shape)}")
-            t = Tensor._wrap(src.to(device=dev, dtype=var._value.dtype),
+            t = Tensor._wrap(src.to(device=dev, dtype=var._v.dtype),
                              name=n)
         else:
             t = Tensor._wrap(_tensor(arr).to(dev), name=n)
