@@ -6,7 +6,8 @@ Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 7 and 20 alone, ``--bert`` phases 1 and 21 alone, ``--vision`` phases 1
 and 22 alone, ``--rnn`` phases 1 and 23 alone, ``--static`` phases 1, 24
 and 25 alone, ``--deploy`` phases 1 and 26 alone, ``--lazy`` phases 1 and
-27 alone; none prints the kernels line)
+27 alone, ``--dist`` phases 1 and 28 alone; none prints the kernels
+line)
 
 Every phase runs under the default FLAGS_lazy_eager (True): the Paddle
 surface's eager steps are deferred into graphs (paddle_tpu_torch/core/
@@ -466,6 +467,34 @@ Phases, one line each:
              through a view, a set_value between steps and a StepDecay
              stepped between replays (immediate's weights),
              paddle.grad(create_graph=True) at once.
+ 28. dist    the distributed layer (paddle_tpu_torch.distributed): 28a a
+             world of one over NCCL: every collective the identity on a
+             CUDA tensor, NCCL's own all_reduce, a DataParallel GPT-124M
+             f32 step (8 x 1024) = the plain step bit for bit; 28b two
+             NCCL ranks on the one card (reported: NCCL refuses them),
+             then two rank processes (spawn, after the build) over gloo:
+             GPT-124M with use_mp=True at mp = 2 (vocab 25152 and 6 heads a
+             rank, tied head through the vocab-split K5-K7), 8 x 1024, 3
+             AdamW steps in f32 and 3 under O1 bf16: both ranks' losses
+             equal, within TP_LOSS_RTOL / TP_BF16_LOSS_RTOL of one process
+             on the same weights, each gathered leaf after the f32
+             steps within TP_WEIGHT_RTOL of its update's norm (the QKV
+             biases' key thirds, whose grad is 0, within TP_KBIAS_STEPS x
+             lr), the ranks' O1 losses apart from their f32 losses by
+             more than TP_O1_FROM_F32 (O1 ran), K1-K3 = 36 and K5-K7 = 3
+             a rank, the collectives staged through pinned host memory
+             counted; 28c sp = 2 over the same
+             ranks: Ulysses (K1, K2/K3 on 6 heads at S = 1024) and ring
+             attention at [8,12,1024,64] causal f32, outputs and grads
+             against one process's flash attention within SP_TOL; 28d the
+             TP shard route of K5-K7 in one process at T = 8192, H = 768,
+             V = 50304 over mp = 2 and 4, f32 and bf16: each shard's
+             K5-K7 against their plain versions on the shard's inputs
+             (shifted labels, the global LSE), then the shards combined
+             against the full-vocab K5 (loss and LSE), K6's dx and K7's
+             dW slices; each shard call timed with its bound and F.cross_entropy(F.linear) on
+             the same shard; 28e the captured flagship step and the paged
+             engine's decode lint clean, a planted f64 upcast flagged.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
@@ -476,7 +505,9 @@ its QAT steps and 27a's lazy runs), 26's batch-1 and batch-4 Predictor runs for 
 ones;
 the non-causal rows 21b, 24c's captured runs and 27c's lazy runs (bf16
 [32,12,128,64]), 21c (f32 [32,12,128,64], its card side at
-[2,12,128,64]) and 21d ([8,12,512,64])), and as the last line
+[2,12,128,64]) and 21d ([8,12,512,64]); 28b's ranks for the TP shard
+rows at [8192, 768, 25152] (none runs mp = 4: the [8192, 768, 12576]
+rows read 0), 28c's for the Ulysses rows), and as the last line
 {"ok": true, "device": {...}}.
 
 TF32 is off for matmuls and cuDNN, so every f32 product is full f32.
@@ -7940,6 +7971,701 @@ def phase_lazy(torch, attn, amp, cfg):
         lazy_release(torch, "after phase 27")
 
 
+# --------------------------------------------------------------- phase 28
+
+# phase 28: the distributed layer. 28b/28c run 2 rank processes on the one
+# card over gloo (NCCL refuses two ranks on one device, which 28b checks);
+# the f32 TP step's losses are held to the one-process run's at
+# TP_LOSS_RTOL (the ranks' partial products summed in another order); the
+# bf16 O1 step's at TP_BF16_LOSS_RTOL: each row-parallel output is the sum
+# of the ranks' two bf16 partials, rounded to bf16 once more than the
+# dense product; sound runs read 1.5e-5 on the card. The loss at init is
+# about ln V whatever the model, so one process's f32 and O1 losses read
+# only 4e-5 apart: no loss bound tells a run in the other precision from a
+# sound one, and the bound (7x the sound readings) is for structural
+# faults, which move the model's part of the loss (5e-3 to 8e-2 of it
+# over the steps). A slip to f32 is checked apart: the ranks' O1 losses
+# must differ from their f32 losses by more than TP_O1_FROM_F32 (f32
+# paths read 1.8e-7 apart, O1 2.5e-5 from f32). After 3 f32 AdamW steps each gathered leaf
+# is held to the one-process run's by the norm of the difference over the
+# norm of the leaf's own update, within TP_WEIGHT_RTOL: Adam normalises
+# each element's grad, so among 124M elements those whose grad is near 0
+# move by up to 0.2 lr apart on a sound run (the largest element reads
+# 1.9e-5 at lr 1e-4), while a wrong or missing update moves a whole leaf
+# by about its update. The key third of each QKV bias has a grad of 0 (a
+# key bias shifts every score of a query alike), so its update is
+# rounding noise, up to about lr a step either way: within
+# TP_KBIAS_STEPS x lr
+DIST = dict(batch=8, seq=1024, steps=3, lr=1e-4, timeout=900)
+TP_LOSS_RTOL = 1e-4
+TP_BF16_LOSS_RTOL = 1e-4
+TP_O1_FROM_F32 = 2e-6
+TP_WEIGHT_RTOL = 1e-2
+TP_KBIAS_STEPS = 2 * DIST["steps"]
+SP_SHAPE = (8, 12, 1024, 64)
+# 28c: Ulysses runs K1-K3 on 6 of 12 heads (the f32 K1 may split the keys
+# otherwise at that grid, so the sums run in another order); the ring is
+# the plain online softmax in f32 against the flash kernels: each within
+# this share of its tensor's largest element
+SP_TOL = 1e-4
+TP_SHARD_T, TP_SHARD_H, TP_SHARD_V = 8192, 768, 50304
+
+
+def dist_gpt(torch, TransformerLMConfig, GPTForCausalLM, **knobs):
+    cfg = TransformerLMConfig(dropout=0.0, max_seq_len=DIST["seq"], **knobs)
+    return GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        2024)).train()
+
+
+def dist_steps(torch, amp, optimizer, model, dtype, steps=DIST["steps"]):
+    """``steps`` AdamW steps of phase 10's batch (8 x 1024, labels = ids),
+    f32 or under O1 bf16; the losses."""
+    vocab = getattr(model, "_layers", model).cfg.vocab_size
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, vocab, (DIST["batch"], DIST["seq"])).astype(np.int64)).cuda()
+    opt = optimizer.AdamW(DIST["lr"], parameters=model.named_parameters(),
+                          weight_decay=0.01)
+    from paddle_tpu_torch.distributed import fleet, topology
+    if topology.get_hybrid_communicate_group() is not None:
+        opt = fleet.distributed_optimizer(opt)
+    losses = []
+    for _ in range(steps):
+        with (amp.auto_cast(level="O1", dtype="bfloat16")
+              if dtype == "bfloat16" else contextlib.nullcontext()):
+            loss = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    return losses
+
+
+def sp_inputs(torch):
+    g = torch.Generator().manual_seed(28)
+    return [torch.randn(SP_SHAPE, generator=g) for _ in range(4)]
+
+
+def dist_rank(rank, world, port, outdir, queue, nccl=False):
+    """One rank of 28b/28c (a spawned process on the card): the TP
+    GPT-124M at mp = 2, f32 then O1 bf16, 3 AdamW steps each; then sp =
+    2, Ulysses and ring attention at SP_SHAPE against nothing here (the
+    parent compares the blocks it writes). With ``nccl``: only try an
+    NCCL group of the two ranks on the one card and report."""
+    os.environ.update(PADDLE_TRAINER_ID=str(rank),
+                      PADDLE_TRAINERS_NUM=str(world),
+                      PADDLE_TRAINER_ENDPOINTS=f"127.0.0.1:{port}")
+    try:
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        sys.path.insert(0, HERE)
+        from paddle_tpu_torch.distributed import init_parallel_env
+        if nccl:
+            import torch.distributed as dist
+            try:
+                init_parallel_env(backend="nccl", timeout=60)
+                x = torch.ones(4, device="cuda")
+                dist.all_reduce(x)
+                torch.cuda.synchronize()
+                queue.put((rank, {"nccl": f"took two ranks: {x.tolist()}"}))
+            except Exception as e:  # noqa: BLE001 - reported, not passed
+                queue.put((rank, {"nccl": f"{type(e).__name__}: "
+                                  f"{str(e).splitlines()[0][:200]}"}))
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            return
+        queue.put((rank, _dist_rank(torch, world, outdir)))
+    except BaseException as e:  # noqa: BLE001 - the parent raises it
+        import traceback
+        queue.put((rank, {"error": traceback.format_exc()[-3000:]}))
+        raise
+
+
+def _dist_rank(torch, world, outdir):
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.distributed import (collective, fleet,
+                                              init_parallel_env, topology)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_layers
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import fused_ce as tce
+    from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.text.models import (GPTForCausalLM,
+                                              TransformerLMConfig)
+    env = init_parallel_env(timeout=120)
+    out = {"backend": collective._default_group().backend}
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"mp_degree": world}
+    fleet.init(is_collective=True, strategy=s)
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
+    for dtype in ("float32", "bfloat16"):
+        model = fleet.distributed_model(dist_gpt(
+            torch, TransformerLMConfig, GPTForCausalLM, use_mp=True))
+        layers = model._layers
+        torch.cuda.synchronize()
+        for fn in wrappers:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        losses = dist_steps(torch, amp, optimizer, model, dtype)
+        torch.cuda.synchronize()
+        out[f"{dtype}_s"] = time.perf_counter() - t0
+        out[f"{dtype}_launches"] = [fn.launches for fn in wrappers]
+        out[f"{dtype}_losses"] = losses
+        out[f"{dtype}_heads"] = layers.gpt.blocks[0].attn.local_heads
+        out[f"{dtype}_vocab"] = layers.gpt.word_embeddings.weight.shape[0]
+        if dtype == "float32":
+            state = {k: v.cpu() for k, v in
+                     mp_layers.full_tensors(layers).items()}
+            if env.rank == 0:
+                torch.save(state, os.path.join(outdir, "tp_state.pt"))
+            del state
+        del model, layers
+        torch.cuda.empty_cache()
+    out["staged"] = dict(collective.host_staged)
+    # 28c: sequence parallelism over the same two ranks
+    topology.reset()
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"sp_degree": world}
+    fleet.init(is_collective=True, strategy=s)
+    g = fleet.get_hybrid_communicate_group().get_sequence_parallel_group()
+    q, k, v, cot = sp_inputs(torch)
+    blk = SP_SHAPE[2] // world
+    mine = slice(g.rank * blk, (g.rank + 1) * blk)
+    got = {}
+    for mode, fn in (("ulysses", ra.ulysses_attention),
+                     ("ring", ra.ring_attention)):
+        qt, kt, vt = (t[:, :, mine].contiguous().cuda().requires_grad_()
+                      for t in (q, k, v))
+        for w in wrappers:
+            w.launches = 0
+        o = fn(qt, kt, vt, g, causal=True)
+        (o * cot[:, :, mine].cuda()).sum().backward()
+        torch.cuda.synchronize()
+        out[f"{mode}_launches"] = [w.launches for w in wrappers[:3]]
+        got[mode] = {"o": o.detach().cpu(), "dq": qt.grad.cpu(),
+                     "dk": kt.grad.cpu(), "dv": vt.grad.cpu()}
+    torch.save(got, os.path.join(outdir, f"sp_rank{g.rank}.pt"))
+    out["sp_rank"] = g.rank
+    out["staged_after_sp"] = dict(collective.host_staged)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return out
+
+
+def spawn_ranks(world, outdir, nccl=False, timeout=DIST["timeout"]):
+    """``world`` rank processes (spawn, never fork) running dist_rank;
+    their results by rank. Every process is joined or killed. With
+    ``nccl`` (a probe whose outcome is reported, not checked) a rank that
+    gives no result in ``timeout`` or dies is reported as such."""
+    import multiprocessing as mp
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=dist_rank,
+                         args=(r, world, port, outdir, queue, nccl))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.time() + timeout
+    try:
+        while len(results) < world:
+            left = deadline - time.time()
+            if left <= 0 and nccl:
+                break
+            check(left > 0, f"28: ranks "
+                  f"{sorted(set(range(world)) - set(results))} gave no "
+                  f"result in {timeout} s")
+            try:
+                rank, res = queue.get(timeout=min(left, 10))
+            except Exception:  # noqa: BLE001 - queue.Empty: poll again
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead and nccl:
+                    break
+                check(not dead, f"28: a rank exited {dead} without a result")
+                continue
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r, res in results.items():
+        check("error" not in res, f"28: rank {r} failed:\n{res.get('error')}")
+    return [results.get(r, {"nccl": f"no answer (exit code "
+                               f"{procs[r].exitcode})"})
+            for r in range(world)]
+
+
+def phase_dist_world1(torch, TransformerLMConfig, GPTForCausalLM):
+    """28a: a world of one over NCCL on the card: every collective is the
+    identity on a CUDA tensor, NCCL's own all_reduce runs, and a
+    DataParallel GPT-124M f32 step gives the plain step's loss and grads
+    bit for bit."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import (DataParallel, collective,
+                                              init_parallel_env, topology)
+    env = init_parallel_env()
+    backend = collective._default_group().backend or dist.get_backend()
+    check(backend == "nccl", f"28a: a world of one on the card runs "
+          f"{backend}, not NCCL")
+    x = torch.randn(4, 6, device="cuda")
+    C = collective
+    outs = {
+        "all_reduce": C.all_reduce(x.clone()),
+        "all_gather": C.all_gather([], x.clone())[0],
+        "broadcast": C.broadcast(x.clone()),
+        "reduce": C.reduce(x.clone(), dst=0),
+        "scatter": C.scatter(torch.zeros_like(x), [x.clone()]),
+        "alltoall": C.alltoall([x.clone()])[0],
+        "reduce_scatter": C.reduce_scatter(torch.zeros_like(x), [x.clone()]),
+        "_c_identity": C._c_identity(x.clone()),
+        "_mp_allreduce": C._mp_allreduce(x.clone())}
+    C.send(x.clone(), dst=0)
+    outs["send/recv"] = C.recv(torch.zeros_like(x), src=0)
+    for name, o in outs.items():
+        check(o.is_cuda and torch.equal(o, x), f"28a: {name} is not the "
+              "identity in a world of one")
+    y = x.clone()
+    dist.all_reduce(y)
+    torch.cuda.synchronize()
+    check(torch.equal(y, x), "28a: NCCL's all_reduce of one rank changed it")
+    C.barrier()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 50304, (DIST["batch"], DIST["seq"])).astype(np.int64)).cuda()
+    got = []
+    for wrap in (False, True):
+        model = dist_gpt(torch, TransformerLMConfig, GPTForCausalLM)
+        m = DataParallel(model) if wrap else model
+        loss = m(ids, labels=ids)
+        loss.backward()
+        torch.cuda.synchronize()
+        got.append((loss.item(), {n: p.grad.clone() for n, p in
+                                  model.named_parameters()}))
+        del model, m, loss
+    same = got[0][0] == got[1][0] and all(
+        torch.equal(a, got[1][1][n]) for n, a in got[0][1].items())
+    check(same, "28a: the DataParallel step differs from the plain step")
+    del got
+    torch.cuda.empty_cache()
+    print(f"  28a world of one over {backend} (rank {env.rank} of "
+          f"{env.world_size}): {len(outs)} collectives the identity on a "
+          f"CUDA tensor, NCCL's all_reduce ran; DataParallel GPT-124M f32 "
+          f"step = the plain step's loss and every grad, bit for bit")
+    dist.destroy_process_group()
+    collective.reset()
+    topology.reset()
+
+
+def phase_dist_ranks(torch, amp, optimizer, TransformerLMConfig,
+                     GPTForCausalLM, attn):
+    """28b/28c: the two-rank TP GPT-124M and sequence parallelism,
+    against one process on the card."""
+    import tempfile
+    res = spawn_ranks(2, tempfile.gettempdir(), nccl=True, timeout=180)
+    nccl = [r["nccl"] for r in res]
+    print(f"  28b two NCCL ranks on the one card: rank 0 {nccl[0]}; rank 1 "
+          f"{nccl[1]}")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(2, outdir)
+        spawn_s = time.perf_counter() - t0
+        check(all(r["backend"] == "gloo" for r in ranks),
+              f"28b: backends {[r['backend'] for r in ranks]}")
+        L = 12
+        for dtype in ("float32", "bfloat16"):
+            a, b = (r[f"{dtype}_losses"] for r in ranks)
+            check(a == b, f"28b {dtype}: the ranks' losses differ: {a} {b}")
+            for r in ranks:
+                check(r[f"{dtype}_launches"] == [DIST["steps"] * L] * 3
+                      + [DIST["steps"]] * 3,
+                      f"28b {dtype}: launches {r[f'{dtype}_launches']}")
+                check((r[f"{dtype}_heads"], r[f"{dtype}_vocab"])
+                      == (6, 25152), "28b: not 6 heads and 25152 rows a rank")
+        # one process, the same weights and batch
+        want = {}
+        for dtype in ("float32", "bfloat16"):
+            model = dist_gpt(torch, TransformerLMConfig, GPTForCausalLM)
+            init = {n: p.detach().cpu().clone()
+                    for n, p in model.named_parameters()}
+            t1 = time.perf_counter()
+            want[dtype] = dist_steps(torch, amp, optimizer, model, dtype)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t1
+            tol = TP_LOSS_RTOL if dtype == "float32" else TP_BF16_LOSS_RTOL
+            got = ranks[0][f"{dtype}_losses"]
+            rel = [abs(x - y) / abs(y) for x, y in zip(got, want[dtype])]
+            check(max(rel) <= tol, f"28b {dtype}: losses {got} against one "
+                  f"process's {want[dtype]}: {max(rel)} > {tol}")
+            print(f"  28b GPT-124M mp = 2 {dtype}: losses {got} (both ranks "
+                  f"equal), one process {want[dtype]}, largest relative "
+                  f"difference {max(rel):.3e} (tol {tol}); 3 steps "
+                  f"{ranks[0][f'{dtype}_s']:.2f} s on the ranks, "
+                  f"{one_s:.2f} s in one process")
+            if dtype == "float32":
+                tp = torch.load(os.path.join(outdir, "tp_state.pt"))
+                check(set(tp) == {n for n, _ in model.named_parameters()},
+                      "28b: the gathered state's keys")
+                tp_leaves_check(torch, tp, model, init)
+                del tp
+            del model, init
+            torch.cuda.empty_cache()
+        control = max(abs(x - y) / abs(y) for x, y in
+                      zip(want["bfloat16"], want["float32"]))
+        slip = max(abs(x - y) / abs(y) for x, y in
+                   zip(ranks[0]["bfloat16_losses"],
+                       ranks[0]["float32_losses"]))
+        print(f"  28b controls: one process's O1 losses against its f32 "
+              f"losses {control:.3e}; the ranks' O1 losses against their "
+              f"f32 losses {slip:.3e} (must exceed {TP_O1_FROM_F32})")
+        check(slip > TP_O1_FROM_F32, f"28b: the ranks' O1 losses are their "
+              f"f32 losses within {slip}: O1 did not run")
+        staged = ranks[0]["staged"]
+        print(f"  28b host-staged collectives (gloo takes CUDA tensors in "
+              f"all_reduce and broadcast only): {staged}; the spawn "
+              f"{spawn_s:.1f} s")
+        # 28c against one process's flash attention on the card
+        q, k, v, cot = (t.cuda() for t in sp_inputs(torch))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = attn.scaled_dot_product_attention(*leaves, is_causal=True)
+        (o * cot).sum().backward()
+        want = {"o": o.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad,
+                "dv": leaves[2].grad}
+        blocks = [torch.load(os.path.join(outdir, f"sp_rank{r}.pt"))
+                  for r in range(2)]
+        for mode in ("ulysses", "ring"):
+            errs = []
+            for name, w in want.items():
+                top = float(w.abs().max())
+                err = max(float((blocks[r][mode][name].cuda()
+                                 - w.chunk(2, dim=2)[r]).abs().max())
+                          for r in range(2))
+                check(err <= SP_TOL * top, f"28c {mode} {name}: err {err} > "
+                      f"{SP_TOL} x {top}")
+                errs.append(f"{name} {err:.3e}")
+            launches = [sum(x) for x in zip(*(r[f"{mode}_launches"]
+                                              for r in ranks))]
+            print(f"  28c sp = 2 {mode} causal at {list(SP_SHAPE)}: against "
+                  f"one process's flash attention: {', '.join(errs)} (tol "
+                  f"{SP_TOL} of each largest); K1/K2/K3 launches {launches}")
+        check([sum(x) for x in zip(*(r["ulysses_launches"] for r in ranks))]
+              == [2, 2, 2], "28c: Ulysses did not run K1-K3 once a rank")
+        check([sum(x) for x in zip(*(r["ring_launches"] for r in ranks))]
+              == [0, 0, 0], "28c: the ring ran a flash kernel")
+        print(f"  28c host-staged collectives after sp: "
+              f"{ranks[0]['staged_after_sp']}")
+        del q, k, v, cot, leaves, o, want, blocks
+        torch.cuda.empty_cache()
+    f32 = [sum(x) for x in zip(*(r["float32_launches"] for r in ranks))]
+    bf16 = [sum(x) for x in zip(*(r["bfloat16_launches"] for r in ranks))]
+    uly = [sum(x) for x in zip(*(r["ulysses_launches"] for r in ranks))]
+    return f32, bf16, uly
+
+
+def tp_leaves_check(torch, tp, model, init):
+    """28b: each gathered leaf of the TP run after the f32 steps against
+    the one-process run's: the norm of their difference within
+    TP_WEIGHT_RTOL of the norm of the leaf's own update in the
+    one-process run (``init`` the weights before it), and the QKV
+    biases' key thirds, whose update is noise, within TP_KBIAS_STEPS x
+    lr of each other; prints, for each kind of leaf over the layers, the
+    largest of those shares and the largest element difference."""
+    h = model.cfg.hidden_size
+    lr = DIST["lr"]
+    kinds, bad = {}, []
+    kbias = 0.0
+    for n, p in model.named_parameters():
+        one = p.detach().cpu()
+        diff, move = tp[n] - one, one - init[n]
+        if n.endswith("attn.qkv.bias"):
+            kb = float(diff[h:2 * h].abs().max())
+            kbias = max(kbias, kb)
+            if kb > TP_KBIAS_STEPS * lr:
+                bad.append(f"{n}[{h}:{2 * h}] {kb:.3e}")
+            keep = torch.cat([torch.arange(h), torch.arange(2 * h, 3 * h)])
+            diff, move = diff[keep], move[keep]
+        share = float(diff.norm() / move.norm())
+        kind = re.sub(r"\.\d+\.", ".*.", n)
+        top, el = kinds.get(kind, (0.0, 0.0))
+        kinds[kind] = (max(top, share), max(el, float(diff.abs().max())))
+        if not share <= TP_WEIGHT_RTOL:
+            bad.append(f"{n} {share:.3e}")
+    print(f"  28b gathered state after 3 steps, for each leaf |TP - one "
+          f"process| / |one process's update| (tol {TP_WEIGHT_RTOL}) and "
+          f"the largest element difference (lr {lr}): "
+          + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e}"
+                      for k, v in kinds.items())
+          + f"; the key thirds of the QKV biases {kbias:.3e} (tol "
+          f"{TP_KBIAS_STEPS} x lr)")
+    check(not bad, f"28b: gathered leaves off the one-process run: {bad}")
+
+
+def phase_tp_shards(torch, tce):
+    """28d: the TP shard route of K5-K7 in one process: for mp = 2 and 4
+    over V = 50304, each shard's K5 with its shifted labels and K6/K7
+    with the global LSE against their plain versions on the same inputs
+    (these errors are the rows' max_abs_err); then the shards combined
+    against the full-vocab K5 (loss and LSE), K6's dx (summed over the
+    shards) and K7's dW slice; f32 and bf16; each shard call timed with
+    its bound and F.cross_entropy(F.linear) on the same shard. Returns
+    the mp = 2 rows (the shape 28b runs) for the kernels line and prints
+    the mp = 4 rows on a line of their own."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(28)
+    T, H, V = TP_SHARD_T, TP_SHARD_H, TP_SHARD_V
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        x, w, labels, gg = ce_case(torch, T, H, V, dtype, g)
+        loss, lse = tce.fused_ce_forward(x, w, labels)
+        dx = tce.fused_ce_bwd_dx(x, w, labels, lse, gg)
+        dw = tce.fused_ce_bwd_dw(x, w, labels, lse, gg)
+        gtol = CE_F32_TOL if dtype == "float32" else CE_BF16_TOL
+        # the shard's K6/K7 against the plain backward: d kept f32 (f32),
+        # or rounded to bf16 as the kernels round it (bf16)
+        d_dtype, ptol = ((None, CE_F32_TOL) if dtype == "float32"
+                         else (torch.bfloat16, CE_BF16D_TOL))
+        for mp in (2, 4):
+            vl = V // mp
+            parts = []
+            for r in range(mp):
+                shifted, valid = tce._tp_shift(labels, -100, r, vl)
+                wr = w[r * vl:(r + 1) * vl].contiguous()
+                parts.append((wr, shifted,
+                              tce.fused_ce_forward(x, wr, shifted,
+                                                   tce._NEVER)))
+            lses = torch.stack([p[2][1] for p in parts])
+            m = lses.max(0).values
+            lse_g = m + torch.log(torch.exp(lses - m).sum(0))
+            ll = sum(p[2][1] - p[2][0] for p in parts)
+            tloss = torch.where(valid, lse_g - ll, torch.zeros_like(lse_g))
+            el = max(float((tloss - loss).abs().max()),
+                     float((lse_g - lse).abs().max()))
+            check(el <= CE_LOSS_TOL, f"28d mp {mp} {dtype}: loss/LSE err "
+                  f"{el} > {CE_LOSS_TOL}")
+            g_eff = (gg * valid.float()).contiguous()
+            tdx = None
+            edw = 0.0
+            e5 = e6 = e7 = 0.0
+            for r, (wr, shifted, (lr_, lser)) in enumerate(parts):
+                pl, plse = tce.tp_local_forward_plain(x.float(), wr.float(),
+                                                      shifted)
+                # the loss of the rows the combine keeps: on an ignored row
+                # rank 0's K5 gives 0 (its label is the ignored sentinel)
+                # and the plain version, as the reference's composition,
+                # the LSE; the combine masks both
+                e5 = max(e5, float((lr_ - pl)[valid].abs().max()),
+                         float((lser - plse).abs().max()))
+                d = tce.fused_ce_bwd_dx(x, wr, shifted, lse_g, g_eff,
+                                        tce._NEVER)
+                dwr = tce.fused_ce_bwd_dw(x, wr, shifted, lse_g, g_eff,
+                                          tce._NEVER)
+                rdx, rdw = tce.fused_linear_cross_entropy_backward_plain(
+                    x.float(), wr.float(), shifted, lse_g, g_eff, tce._NEVER,
+                    d_dtype=d_dtype)
+                for name, got, want_ in (("K6 dx", d, rdx), ("K7 dW", dwr,
+                                                               rdw)):
+                    err = float((got.float() - want_).abs().max())
+                    top = float(want_.abs().max())
+                    check(bool(torch.isfinite(got).all())
+                          and err <= ptol * top,
+                          f"28d mp {mp} {dtype} shard {r} {name}: err {err} "
+                          f"> {ptol} x {top} against its plain version")
+                    if name == "K6 dx":
+                        e6 = max(e6, err)
+                    else:
+                        e7 = max(e7, err)
+                del pl, plse, rdx, rdw
+                d = d.float()
+                tdx = d if tdx is None else tdx + d
+                edw = max(edw, float((dwr.float() - dw[r * vl:(r + 1) * vl]
+                                      .float()).abs().max()))
+            check(e5 <= CE_LOSS_TOL, f"28d mp {mp} {dtype}: a shard's K5 "
+                  f"loss/LSE err {e5} > {CE_LOSS_TOL} against its plain "
+                  f"version")
+            edx = float((tdx - dx.float()).abs().max())
+            tdx_top = float(dx.float().abs().max())
+            dw_top = float(dw.float().abs().max())
+            check(edx <= gtol * tdx_top and edw <= gtol * dw_top,
+                  f"28d mp {mp} {dtype}: dx err {edx}, dW err {edw} (tol "
+                  f"{gtol} of {tdx_top} / {dw_top})")
+            # times of rank 0's shard calls
+            wr, shifted, _ = parts[0]
+            k5 = time_ms(torch, lambda: tce.fused_ce_forward(
+                x, wr, shifted, tce._NEVER), iters=10, warmup=2)
+            k6 = time_ms(torch, lambda: tce.fused_ce_bwd_dx(
+                x, wr, shifted, lse_g, g_eff, tce._NEVER), iters=10, warmup=2)
+            k7 = time_ms(torch, lambda: tce.fused_ce_bwd_dw(
+                x, wr, shifted, lse_g, g_eff, tce._NEVER), iters=10, warmup=2)
+            pf = time_ms(torch, lambda: tce.tp_local_forward_plain(
+                x, wr, shifted), iters=3, warmup=1)
+            pb = time_ms(torch, lambda: tce.fused_linear_cross_entropy_backward_plain(
+                x, wr, shifted, lse_g, g_eff, tce._NEVER), iters=3, warmup=1)
+            hit = (shifted >= 0) & (shifted < vl)
+            local = torch.where(hit, shifted, torch.full_like(shifted, -100))
+            leaves = [a.clone().requires_grad_() for a in (x, wr)]
+
+            def comp():
+                return F.cross_entropy(F.linear(leaves[0], leaves[1]), local,
+                                       ignore_index=-100, reduction="none")
+            cf = time_ms(torch, comp, iters=3, warmup=1)
+            closs = comp()
+            cb = time_ms(torch, lambda: torch.autograd.grad(
+                closs, leaves, g_eff.to(closs.dtype), retain_graph=True),
+                iters=3, warmup=1)
+            del closs, leaves
+            esz = x.element_size()
+            flops = 2.0 * T * vl * H
+            ins = (T * H + vl * H) * esz + T * 8
+            b5 = bound(ins + 2 * T * 4, flops, dtype)
+            b6 = bound(ins + 2 * T * 4 + T * H * esz, 2 * flops, dtype)
+            b7 = bound(ins + 2 * T * 4 + vl * H * esz, 2 * flops, dtype)
+            tag = f"TP shard [{T}, {H}, {vl}] {dtype}"
+            print(f"  28d mp = {mp} {dtype}: each shard against its plain "
+                  f"version: K5 loss/LSE err {e5:.3e}, K6 dx err {e6:.3e}, "
+                  f"K7 dW err {e7:.3e} (tol {CE_LOSS_TOL} / {ptol} of the "
+                  f"largest grad); combined: loss/LSE err {el:.3e}, dx err "
+                  f"{edx:.3e}, dW err {edw:.3e} against the full vocab; "
+                  f"rank 0's shard [{T}, {H}, {vl}]: K5 {k5:.3f} ms, K6 "
+                  f"{k6:.3f} ms, K7 {k7:.3f} ms (bounds {b5[0]:.3f} / "
+                  f"{b6[0]:.3f} / {b7[0]:.3f} ms, {b5[1]}); plain "
+                  f"{pf:.3f} / {pb:.3f} ms; F.cross_entropy(F.linear) "
+                  f"{cf:.3f} / {cb:.3f} ms")
+            for name, line, ms, plain, lib, bd, err in (
+                    ("fused_ce_forward", ":384", k5, pf, cf, b5, e5),
+                    ("fused_ce_bwd_dx", ":446", k6, pb, cb, b6, e6),
+                    ("fused_ce_bwd_dw", ":446", k7, pb, cb, b7, e7)):
+                row = {"name": name, "route": "cuda", "dtype": dtype,
+                       "shape": tag, "mp": mp,
+                       "source": "paddle_tpu_torch/csrc/fused_ce.cu",
+                       "replaces": "paddle_tpu/ops/fused_ce.py" + line,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                       "bound_ms": bd[0], "bound_by": bd[1],
+                       "library_ms": lib}
+                if mp == 2:     # launches: 28b's, filled in by phase_dist
+                    rows.append(row)
+                else:           # no main path runs mp = 4
+                    print("  28d not on the main path, so not in the kernels "
+                          "line: " + json.dumps(row))
+            del parts
+        del x, w, labels, gg, loss, lse, dx, dw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ulysses_rows(torch, attn):
+    """The kernels line's rows of K1-K3 on the Ulysses route's shape
+    (phase 28c: 6 of 12 heads at the full sequence, causal, f32), each
+    held against its plain version here."""
+    g = torch.Generator(device="cuda").manual_seed(29)
+    shape = (SP_SHAPE[0], SP_SHAPE[1] // 2) + SP_SHAPE[2:]
+    q, k, v, do, lse, delta, scale = bwd_case(torch, attn, shape, True,
+                                              "float32", g)
+    args = (q, k, v, lse, do, delta, scale, True)
+    dq = attn.flash_bwd_dq(*args)
+    dk, dv = attn.flash_bwd_dkv(*args)
+    rq, rk, rv = attn.flash_attention_backward_plain(*args)
+    key = (shape, True, "float32")
+    errs = {key + ("dq",): float((dq - rq).abs().max()),
+            key + ("dk",): float((dk - rk).abs().max()),
+            key + ("dv",): float((dv - rv).abs().max())}
+    for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        err = errs[key + (name,)]
+        check(err <= 1e-4 * float(want.abs().max()),
+              f"28c Ulysses shape K2/K3 {name}: err {err}")
+    del q, k, v, do, lse, delta, dq, dk, dv, rq, rk, rv
+    return flash_rows(torch, attn, shape, True, "float32", errs, g)
+
+
+def phase_lint(torch, amp, optimizer, TransformerLMConfig, GPTForCausalLM):
+    """28e: the captured flagship step (tied GPT-124M, O1 bf16, AdamW,
+    through jit.to_static) and the paged engine's decode lint clean; a
+    planted f64 upcast on the card is flagged."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.analysis import lint
+    from paddle_tpu_torch.serving import ServingEngine
+    model = dist_gpt(torch, TransformerLMConfig, GPTForCausalLM)
+    opt = optimizer.AdamW(1e-4, parameters=model.named_parameters(),
+                          weight_decay=0.01)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, model.cfg.vocab_size, (DIST["batch"], DIST["seq"])).astype(
+            np.int64)).cuda()
+
+    @jit.to_static(lint=True)
+    def step(ids, labels):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    forms = []
+    for _ in range(4):
+        step(ids, ids)
+        forms.append(step.last_form)
+    check(forms == ["warmup", "record", "capture", "replay"],
+          f"28e: forms {forms}")
+    program = next(iter(step.entries.values()))["record"].program
+    found = step.lint()
+    check(program.cuda and found == [],
+          "28e: the captured flagship step lints with "
+          + "; ".join(map(str, found)))
+    del step, model, opt
+    cfg = TransformerLMConfig(dropout=0.0)
+    served = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        1234)).eval()
+    eng = ServingEngine(served)
+    r = eng.add_request(np.arange(1, 65), max_new_tokens=4)
+    eng.run()
+    check(r.done, "28e: the engine did not finish its request")
+    found_eng = eng.lint()
+    check(found_eng == [], "28e: the engine's decode lints with "
+          + "; ".join(map(str, found_eng)))
+    planted = lint.lint_fn(lambda x: (x.double() * 2).float().sum(),
+                           torch.ones(1024, device="cuda"))
+    check([f.pass_name for f in planted] == ["f64-upcast"]
+          and planted[0].severity == "error",
+          f"28e: the planted upcast gave {planted}")
+    print(f"  28e lint: the captured flagship step ({len(program.ops)} ops "
+          f"recorded, forms {forms}) clean; the paged engine's decode "
+          f"clean; a planted f64 upcast flagged at {planted[0].site}")
+    eng.close()
+    del eng, served
+    torch.cuda.empty_cache()
+
+
+def phase_dist(torch, amp, optimizer, attn, tce, TransformerLMConfig,
+               GPTForCausalLM):
+    """Phase 28: 28a-28e; returns the kernels line's rows (the TP shard
+    rows of K5-K7 with 28b's launches, the Ulysses rows of K1-K3 with
+    28c's)."""
+    t0 = time.perf_counter()
+    phase_dist_world1(torch, TransformerLMConfig, GPTForCausalLM)
+    f32, bf16, uly = phase_dist_ranks(torch, amp, optimizer,
+                                      TransformerLMConfig, GPTForCausalLM,
+                                      attn)
+    rows = phase_tp_shards(torch, tce)
+    for row in rows:
+        i = {"fused_ce_forward": 3, "fused_ce_bwd_dx": 4,
+             "fused_ce_bwd_dw": 5}[row["name"]]
+        row["launches"] = (f32 if row["dtype"] == "float32" else bf16)[i]
+    urows = ulysses_rows(torch, attn)
+    for row, n in zip(urows, uly):
+        row["launches"] = n
+        row["shape"] = "Ulysses " + row["shape"]
+    phase_lint(torch, amp, optimizer, TransformerLMConfig, GPTForCausalLM)
+    print(f"  phase 28 in {time.perf_counter() - t0:.1f} s")
+    return rows + urows
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -7990,6 +8716,12 @@ def main():
                     "executor: the surface GPT-124M's plain eager loop "
                     "lazily against immediately, LeNet, the surface "
                     "BERT-base, the edge cases, _C_ops and the profiler); "
+                    "prints no kernels line")
+    ap.add_argument("--dist", action="store_true",
+                    help="phases 1 and 28 only (the build, the distributed "
+                    "layer: a world of one over NCCL, the two-rank "
+                    "tensor-parallel GPT-124M and sequence parallelism on "
+                    "the one card, the TP shard route of K5-K7, the lint); "
                     "prints no kernels line")
     ap.add_argument("--rnn", action="store_true",
                     help="phases 1 and 23 only (the build, the recurrent "
@@ -8100,6 +8832,17 @@ def main():
         gpt27, bert27 = phase_lazy(torch, attn, amp, train_cfg)
         print(f"phases 1 and 27 in {time.perf_counter() - t_start:.1f} s; "
               f"phase 27's K1/K2/K3 launches: 27a {gpt27}, 27c {bert27}")
+        print(card_line())
+        return 0
+    if args.dist:
+        print("[28] the distributed layer: collectives, DataParallel, "
+              "tensor and sequence parallelism, the lint")
+        rows28 = phase_dist(torch, amp, optimizer, attn, tce,
+                            TransformerLMConfig, GPTForCausalLM)
+        print(f"phases 1 and 28 in {time.perf_counter() - t_start:.1f} s; "
+              f"phase 28's launches: " + ", ".join(
+                  f"{r['name']} {r['shape']} {r['launches']}"
+                  for r in rows28 if r["launches"]))
         print(card_line())
         return 0
     if args.rnn:
@@ -8263,6 +9006,12 @@ def main():
           "immediate path, LeNet and BERT-base, the edge cases, _C_ops "
           "and the profiler")
     gpt27, bert27 = phase_lazy(torch, attn, amp, train_cfg)
+    lazy_release(torch, "after phase 27")
+    print("[28] the distributed layer: a world of one over NCCL, the "
+          "two-rank tensor-parallel GPT-124M and sequence parallelism on "
+          "the one card, the TP shard route of K5-K7, the lint")
+    rows28 = phase_dist(torch, amp, optimizer, attn, tce,
+                        TransformerLMConfig, GPTForCausalLM)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -8297,7 +9046,7 @@ def main():
     for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
         for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
             row["launches"] = n
-    print(f"phases 1-27 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-28 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -8310,7 +9059,7 @@ def main():
                                               k2b_row, k3b_row, k5_row,
                                               k6_row, k7_row, k5f_row,
                                               k6f_row, k7f_row,
-                                              *noncausal)]}))
+                                              *noncausal, *rows28)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

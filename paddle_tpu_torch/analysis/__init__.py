@@ -2,9 +2,13 @@
 ``paddle_tpu/analysis``).
 
 * **Lint framework** (:mod:`.lint`) — :class:`Finding`, pluggable passes
-  registered by name, and :func:`run_passes`, the runner with the
-  reference's ``(passes, **meta)`` contract. The reference's jaxpr walk
-  and its four jaxpr passes wait for the port's capture analogue.
+  registered by name, :func:`run_passes`, and the reference's four
+  program passes (``f64-upcast``, ``donation``, ``dynamic-shape-risk``,
+  ``host-callback``) over the op list a recording keeps
+  (:class:`Program`): :func:`lint_fn` records a function on ``meta``
+  tensors, ``TracedFunction.lint()`` (of a ``to_static(...,
+  lint=True)`` function) and ``ServingEngine.lint()`` walk a captured
+  step and the engine's decode.
 
 * **Lock patrol** (:mod:`.threads`) — lockdep-style runtime deadlock
   lint: :func:`lock_patrol` wraps every Lock/RLock/Condition created
@@ -41,8 +45,9 @@ Quick start::
     findings = analysis.audit_default()      # static concurrency audit
 """
 from .lint import (  # noqa: F401
-    SEVERITIES, Finding, findings_to_json, lint_passes, register_lint_pass,
-    run_passes,
+    SEVERITIES, Finding, Program, donated_invars_from_argnums, eqn_site,
+    findings_to_json, iter_eqns, lint_fn, lint_jaxpr, lint_passes,
+    lint_program, record_program, register_lint_pass, run_passes,
 )
 from .threads import (  # noqa: F401
     DEFAULT_PATROL_ALLOW, HeldAcrossFinding, LockOrderFinding, LockPatrol,

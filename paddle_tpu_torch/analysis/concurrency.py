@@ -794,7 +794,7 @@ DEFAULT_SNAPSHOT_SOURCES = (
 
 
 @register_lint_pass("cross-role-write")
-def _cross_role_write_pass(meta):
+def _cross_role_write_pass(program, meta):
     """Thread-role shared-state auditor. Inert without ``meta["thread_audit"]``."""
     cfg = meta.get("thread_audit")
     if cfg is None:
@@ -807,7 +807,7 @@ def _cross_role_write_pass(meta):
 
 
 @register_lint_pass("snapshot-discipline")
-def _snapshot_discipline_pass(meta):
+def _snapshot_discipline_pass(program, meta):
     """Live-buffer-to-dispatch lint. Inert without ``meta["snapshot_audit"]``."""
     cfg = meta.get("snapshot_audit")
     if cfg is None:

@@ -611,7 +611,7 @@ def patrol_report():
 
 
 @register_lint_pass("lock-patrol")
-def _lock_patrol_pass(meta):
+def _lock_patrol_pass(program, meta):
     """Surface runtime patrol findings through the lint framework.
 
     Inert unless ``meta["patrol"]`` carries a :class:`LockPatrol` view.

@@ -26,6 +26,16 @@ there is nothing to bind:
   ``static.nn.cond``/``while_loop`` capture their branches and bodies
   into conditional nodes (``core/graph_cond.py``).
 
+With ``ctx.ops`` a list (``analysis.lint`` sets it, and the record of a
+``to_static(..., lint=True)`` function), ``RecordMode`` also keeps the
+op list the lint passes walk: one ``OpRecord`` per torch call (its
+name, its inputs' and outputs' shapes, dtypes and devices, the user's
+call site, the inputs it writes in place) and one per host read
+(``item``, ``tolist``, ``numpy``, a Tensor's ``bool``/``float``/
+``int``). With ``ctx.placeholders`` (a
+recording on ``meta`` tensors, which hold no values) a host read of a
+meta tensor gives zeros, so the walk goes on past it.
+
 The reference's jit-mode ``bind``/``final_value`` have no counterpart.
 Without a trace the hooks cost one attribute test (``_active``), as the
 reference's do. ``_birth_hook`` and ``_capture_hook`` are set while
@@ -33,9 +43,12 @@ reference's do. ``_birth_hook`` and ``_capture_hook`` are set while
 under a trace with its birth site, the second sees every Tensor an op
 reads; off, each costs one ``is not None`` test.
 """
+import os
+import sys
 import threading
 import weakref
 
+import numpy as np
 import torch
 from torch.overrides import TorchFunctionMode
 
@@ -116,6 +129,12 @@ class TraceContext:
         self.body_pool = None
         self.cond_launches = None
         self.cond_counted = False
+        # the op list analysis.lint walks (None: not kept), the id of each
+        # input's root tensor -> its index, and whether a host read of a
+        # meta tensor gives zeros
+        self.ops = None
+        self.invar_ids = {}
+        self.placeholders = False
 
     def write(self, tensor):
         if not self.is_created(tensor):
@@ -136,6 +155,10 @@ class TraceContext:
         """``what`` (numpy, item, bool, ...) reads ``tensor`` on the
         host: under capture, a CUDA tensor's read is a sync the graph
         cannot hold."""
+        if self.ops is not None:
+            v = tensor._value
+            self.ops.append(OpRecord(what, (_aval(v),), (), call_site(),
+                                     kind="host_read"))
         if self.mode != "capture" or not tensor._value.is_cuda:
             return
         if what == "bool":
@@ -194,10 +217,99 @@ def _note(ctx, obj):
                 _note(ctx, o)
 
 
+class OpRecord:
+    """One recorded call: ``name`` (``torch.matmul``, ``Tensor.add_``, a
+    host read's ``item``), ``inputs``/``outputs`` as ``(shape, dtype,
+    device)``, ``site`` (``file:line (function)`` of the user frame),
+    ``kind`` (``op`` or ``host_read``) and ``writes``, the indices of
+    the program's inputs it writes in place."""
+    __slots__ = ("name", "inputs", "outputs", "site", "kind", "writes")
+
+    def __init__(self, name, inputs, outputs, site, kind="op", writes=()):
+        self.name = name
+        self.inputs = inputs
+        self.outputs = outputs
+        self.site = site
+        self.kind = kind
+        self.writes = tuple(writes)
+
+    def __repr__(self):
+        return (f"OpRecord({self.name!r}, {self.kind}, in={self.inputs}, "
+                f"out={self.outputs}, site={self.site!r})")
+
+
+def _aval(t):
+    return (tuple(t.shape), t.dtype, t.device.type)
+
+
+def _tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (list, tuple)):
+        return [o for o in obj if isinstance(o, torch.Tensor)]
+    return []
+
+
+def root_tensor(t):
+    """The tensor ``t`` is a view of (itself when it is none)."""
+    while t._base is not None:
+        t = t._base
+    return t
+
+
+_TORCH_DIR = os.path.dirname(torch.__file__)
+_CORE_DIR = os.path.dirname(os.path.abspath(__file__))
+_SKIP_DIRS = (_TORCH_DIR, _CORE_DIR,
+              os.path.join(os.path.dirname(_CORE_DIR), "amp"),
+              os.path.dirname(os.path.abspath(__import__("contextlib").__file__)))
+
+
+def call_site():
+    """``file:line (function)`` of the nearest frame outside torch, the
+    port's core and ``amp`` (the dispatch layers), "<unknown>" if none."""
+    f = sys._getframe(1)
+    while f is not None:
+        fn = os.path.abspath(f.f_code.co_filename)
+        if not fn.startswith(_SKIP_DIRS):
+            return f"{fn}:{f.f_lineno} ({f.f_code.co_name})"
+        f = f.f_back
+    return "<unknown>"
+
+
+# torch calls that read a tensor's values on the host
+HOST_READS = frozenset({"item", "tolist", "numpy", "__bool__", "__float__",
+                        "__int__", "__index__"})
+
+
+def _op_name(func):
+    name = getattr(func, "__name__", repr(func))
+    qual = getattr(func, "__qualname__", "")
+    if qual.startswith("TensorBase.") or qual.startswith("Tensor."):
+        return "Tensor." + name
+    mod = getattr(func, "__module__", None) or "torch"
+    return f"{mod}.{name}" if not mod.startswith("torch._C") \
+        else f"torch.{name}"
+
+
+def _placeholder(what, t):
+    """What a host read of the meta tensor ``t`` gives while recording."""
+    zeros = np.zeros(tuple(t.shape), dtype=torch.empty(
+        (), dtype=t.dtype).numpy().dtype)
+    if what == "numpy":
+        return zeros
+    if what == "tolist":
+        return zeros.tolist()
+    if what == "__bool__":
+        return False
+    if what == "__float__":
+        return 0.0
+    return zeros.reshape(-1)[0].item() if zeros.size else 0
+
+
 class RecordMode(TorchFunctionMode):
     """Under ``record``: every torch call's tensors and generators, for
     the leaves a replay hands grads back to and the generators a graph
-    must register."""
+    must register; with ``ctx.ops`` a list, the op list too."""
 
     def __init__(self, ctx):
         super().__init__()
@@ -205,11 +317,37 @@ class RecordMode(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        ctx = self.ctx
         for a in args:
-            _note(self.ctx, a)
+            _note(ctx, a)
         for a in kwargs.values():
-            _note(self.ctx, a)
-        return func(*args, **kwargs)
+            _note(ctx, a)
+        if ctx.ops is None:
+            return func(*args, **kwargs)
+        name = getattr(func, "__name__", "")
+        if name in HOST_READS and args \
+                and isinstance(args[0], torch.Tensor):
+            t = args[0]
+            ctx.ops.append(OpRecord(name.strip("_"), (_aval(t),), (),
+                                    call_site(), kind="host_read"))
+            if ctx.placeholders and t.device.type == "meta":
+                return _placeholder(name, t)
+            return func(*args, **kwargs)
+        ins = [t for a in args for t in _tensors(a)] \
+            + [t for a in kwargs.values() for t in _tensors(a)]
+        out = func(*args, **kwargs)
+        written = []
+        if (name.endswith("_") and not name.startswith("__")) \
+                or name == "__setitem__":
+            written = ins[:1]
+        if "out" in kwargs:
+            written = written + _tensors(kwargs["out"])
+        writes = sorted({ctx.invar_ids[id(root_tensor(t))] for t in written
+                         if id(root_tensor(t)) in ctx.invar_ids})
+        ctx.ops.append(OpRecord(_op_name(func), tuple(map(_aval, ins)),
+                                tuple(map(_aval, _tensors(out))),
+                                call_site(), writes=writes))
+        return out
 
 
 class _Guard:

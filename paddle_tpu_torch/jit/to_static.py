@@ -26,7 +26,10 @@ later   replay: the arguments are copied into the static buffers, the
 ``warmup=0`` skips call 1. The signature is the reference's (the
 arguments' structure, each tensor's shape and dtype, here also its
 device, the scalar constants, the bound instance) plus grad mode and
-the ``auto_cast`` state the call is made under. The
+the ``auto_cast`` state the call is made under. A bound instance is
+keyed by a serial it is given at its first call, never by its ``id()``
+(a new object may reuse a freed one's), and its entries and graphs go
+when it is collected. The
 state a capture assumed is keyed too: for each recorded leaf, whether
 its grad was None, and if not, its address; a call whose state differs
 captures again and never replays a graph made for another state. A new
@@ -71,7 +74,9 @@ its scope) raises ``TracerLeakError``.
 import contextlib
 import functools
 import gc
+import itertools
 import time
+import weakref
 
 import torch
 
@@ -160,6 +165,21 @@ def _counted():
             paged_attention.paged_decode_attention)
 
 
+# each bound instance's serial, given at its first to_static call and never
+# given again: an id() is reused by a new object once the old one is
+# freed, and would reach the freed instance's records and graphs
+_serials = itertools.count(1)
+_instance_serials = weakref.WeakKeyDictionary()
+
+
+def _drop_instance(entries, dead, serial):
+    """``weakref.finalize`` callback of a bound instance: its entries
+    leave ``entries`` now and are destroyed with their graphs at the next
+    call (``dead``), never inside another capture."""
+    for sig in [s for s in entries if s[2] == serial]:
+        dead.append(entries.pop(sig))
+
+
 def _enabled():
     from . import ProgramTranslator
     return ProgramTranslator.get_instance().enable_to_static
@@ -207,7 +227,8 @@ class _Graph:
 
 
 class TracedFunction:
-    def __init__(self, fn, input_spec=None, warmup=1, enable_ast=True):
+    def __init__(self, fn, input_spec=None, warmup=1, enable_ast=True,
+                 lint=False):
         if enable_ast and not getattr(fn, "__wrapped_dy2static__", False):
             # the reference's TracedFunction.__init__: Tensor control
             # flow of the function's own body into static.nn's
@@ -217,8 +238,15 @@ class TracedFunction:
         self._input_spec = input_spec
         self._enable_ast = enable_ast
         self._warmup = max(0, warmup)
+        # keep each record's op list for lint() (off: a record then costs
+        # no OpRecord a torch call and no walk up the frames for its site)
+        self._lint = lint
         self._entries = {}  # signature -> dict(calls, record, graphs)
         self._shared = {"pool": None, "stream": None, "body_pool": None}
+        # the bound instances: serials watched for collection, the entries
+        # of collected ones (destroyed at the next call), instances that
+        # take no weak reference
+        self._instances = {"watched": set(), "dead": [], "pinned": {}}
         functools.update_wrapper(self, fn)
         self._bound_instance = None
         # what the last call did: warmup, record, capture, replay, eager
@@ -229,9 +257,10 @@ class TracedFunction:
             return self
         bound = TracedFunction(self._fn.__get__(instance, owner),
                                self._input_spec, self._warmup,
-                               self._enable_ast)
+                               self._enable_ast, self._lint)
         bound._entries = self._entries  # share cache across accesses
         bound._shared = self._shared
+        bound._instances = self._instances
         bound._bound_instance = instance
         return bound
 
@@ -260,10 +289,35 @@ class TracedFunction:
         for t in leaves:
             v = _torch_of(t)
             avals.append((tuple(v.shape), str(v.dtype), str(v.device)))
-        inst = id(self._bound_instance) \
-            if self._bound_instance is not None else 0
+        inst = self._instance_key()
         return (struct, tuple(avals), inst, torch.is_grad_enabled(),
                 amp_state()), leaves, struct
+
+    def _instance_key(self):
+        """The bound instance's serial (0 unbound). The first call from an
+        instance gives it its serial and watches it: when it is
+        collected, its entries go with their graphs. An instance that
+        takes no weak reference is kept alive by this function instead,
+        so its serial is never reached through a reused id."""
+        inst = self._bound_instance
+        if inst is None:
+            return 0
+        try:
+            serial = _instance_serials.get(inst)
+            if serial is None:
+                serial = _instance_serials[inst] = next(_serials)
+        except TypeError:       # no weak reference to it
+            pinned = self._instances["pinned"]
+            serial = next((s for s, o in pinned.items() if o is inst), None)
+            if serial is None:
+                serial = next(_serials)
+                pinned[serial] = inst
+            return serial
+        if serial not in self._instances["watched"]:
+            self._instances["watched"].add(serial)
+            weakref.finalize(inst, _drop_instance, self._entries,
+                             self._instances["dead"], serial)
+        return serial
 
     def __call__(self, *args, **kwargs):
         if not _enabled() or trace_mod.current_trace() is not None:
@@ -275,6 +329,8 @@ class TracedFunction:
             return self._dispatch(args, kwargs)
 
     def _dispatch(self, args, kwargs):
+        # the entries of collected instances, destroyed outside a capture
+        self._instances["dead"].clear()
         sig, leaves, struct = self._signature(args, kwargs)
         entry = self._entries.get(sig)
         if entry is None:
@@ -344,7 +400,11 @@ class TracedFunction:
             return out
 
     def _record(self, entry, args, kwargs, leaves):
+        from ..analysis import lint as lint_mod
         ctx = trace_mod.TraceContext("record")
+        if self._lint:
+            ctx.ops = []    # the op list TracedFunction.lint() walks
+            ctx.invar_ids = lint_mod.input_ids(leaves)
         out = self._eager(args, kwargs, leaves, ctx)
         if ctx.rebinds:
             names = ", ".join(repr(t.name) for t in ctx.rebinds.values())
@@ -355,6 +415,9 @@ class TracedFunction:
                 "them in place (set_value) instead")
         _check_births(out)
         entry["record"] = _Record(ctx)
+        if self._lint:
+            entry["record"].program = lint_mod.program_from_trace(
+                ctx, leaves, out)
         return out
 
     def _name(self):
@@ -451,19 +514,76 @@ class TracedFunction:
     def concrete_program(self):
         return self._entries
 
+    # -- static analysis ---------------------------------------------------
+    def signature_groups(self):
+        """The entries grouped by all of their signature but the tensors'
+        shapes and dtypes, in ``CompileWatchdog.signature_groups()``'s
+        form: a group of more than one signature captured once for each
+        shape (the ``dynamic-shape-risk`` pass reads it)."""
+        code = getattr(self._fn, "__code__", None)
+        site = f"{code.co_filename}:{code.co_firstlineno} " \
+            f"({self._name()})" if code is not None else self._name()
+        keys, groups = {}, {}
+        for struct, avals, inst, grad, amp in self._entries:
+            k = (struct, tuple(a[2] for a in avals), inst, grad, amp)
+            name = keys.setdefault(
+                k, f"to_static({self._name()})#{len(keys)}")
+            g = groups.setdefault(name, {"signatures": [],
+                                         "call_sites": [site]})
+            sig = ", ".join(f"{a[1].replace('torch.', '')}"
+                            f"[{','.join(map(str, a[0]))}]" for a in avals)
+            if sig not in g["signatures"]:
+                g["signatures"].append(sig)
+        return groups
+
+    def lint(self, passes=None, **meta):
+        """The ``analysis.lint`` passes over every recorded entry of this
+        function (the whole step: forward, backward and optimizer, as its
+        record call ran them), from the op list the record kept; nothing
+        runs. The op list is kept only by a function made with
+        ``to_static(..., lint=True)``; without it the passes other than
+        ``dynamic-shape-risk`` raise ``ValueError``.
+        ``dynamic-shape-risk`` reads this function's entries
+        (``signature_groups``). Returns the combined findings, most
+        severe first (see ``analysis.lint_program``)."""
+        from ..analysis import lint as lint_mod
+        names = list(passes) if passes is not None \
+            else lint_mod.lint_passes()
+        program_passes = [n for n in names if n != "dynamic-shape-risk"]
+        if program_passes and not self._lint:
+            raise ValueError(
+                f"{self._name()} keeps no op list for the passes "
+                f"{program_passes}: make it with to_static(..., lint=True)")
+        findings, seen = [], set()
+        for entry in self._entries.values():
+            program = getattr(entry["record"], "program", None)
+            if program is None or id(program) in seen:
+                continue
+            seen.add(id(program))
+            findings.extend(lint_mod.lint_program(
+                program, passes=program_passes, **meta))
+        if "dynamic-shape-risk" in names:
+            findings.extend(lint_mod.run_passes(
+                ["dynamic-shape-risk"], traced=self, **meta))
+        findings.sort(key=lambda f: lint_mod.SEVERITIES.index(f.severity))
+        return findings
+
 
 def to_static(function=None, input_spec=None, build_strategy=None,
-              property=False, warmup=1, enable_ast=True):  # noqa: A002
+              property=False, warmup=1, enable_ast=True,  # noqa: A002
+              lint=False):
     """paddle.jit.to_static equivalent: a function, or a ``Layer`` whose
-    ``forward`` is wrapped."""
+    ``forward`` is wrapped. ``lint=True`` keeps each record's op list for
+    ``TracedFunction.lint()``."""
     def deco(fn):
         from ..nn.layer_base import Layer
         if isinstance(fn, Layer):
             fn.forward = TracedFunction(fn.forward, input_spec,
-                                        warmup=warmup, enable_ast=enable_ast)
+                                        warmup=warmup, enable_ast=enable_ast,
+                                        lint=lint)
             return fn
         return TracedFunction(fn, input_spec, warmup=warmup,
-                              enable_ast=enable_ast)
+                              enable_ast=enable_ast, lint=lint)
     if function is not None:
         return deco(function)
     return deco

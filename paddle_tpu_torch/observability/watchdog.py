@@ -124,6 +124,22 @@ class CompileWatchdog:
     def steady_state_events(self):
         return [e for e in self.events() if e["steady_state"]]
 
+    def signature_groups(self):
+        """Build signatures grouped by key — the feed of the
+        ``dynamic-shape-risk`` lint pass: one key built under more than
+        one signature re-specialized per input shape, attributed by the
+        recorded call sites."""
+        with self._lock:
+            groups = {}
+            for e in self._events:
+                g = groups.setdefault(
+                    e["key"], {"signatures": [], "call_sites": []})
+                if e["signature"] not in g["signatures"]:
+                    g["signatures"].append(e["signature"])
+                if e["call_site"] not in g["call_sites"]:
+                    g["call_sites"].append(e["call_site"])
+            return groups
+
     def report(self):
         """The reference's ``watchdog`` section: warm state, mode and
         the compile counts (all 0 on the port's engine)."""

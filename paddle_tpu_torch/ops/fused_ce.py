@@ -14,7 +14,9 @@ K6 (dx) and K7 (dW), from the forward's saved LSE as the reference's
 ``csrc/fused_ce.cu`` (and a raise on what they cannot take), on CPU
 tensors their plain versions. The reference's gates (``_use_pallas``,
 ``PADDLE_FUSED_CE*``) have no counterpart: on the card the op always
-launches the kernels. The vocab-sharded variant is not ported.
+launches the kernels. The vocab-split variant for tensor parallelism
+(``fused_linear_cross_entropy_tp``) runs the same kernels on each
+rank's shard, combined by all-reduces (see its section below).
 
 A label outside ``[0, V)`` that is not ``ignore_index`` is undefined:
 the reference's composition clips it into range, its kernels give it a
@@ -257,3 +259,132 @@ def fused_linear_cross_entropy(x, weight_vh, labels, ignore_index=-100):
                                           labels.contiguous(),
                                           int(ignore_index))
 
+
+
+# ---- tensor-parallel (vocab-split) variant -----------------------------------
+#
+# Reference fused_ce.py:361-519, after Paddle's
+# c_softmax_with_cross_entropy_op.cu: each ``mp`` rank holds the rows
+# ``[r·V/n, (r+1)·V/n)`` of the weight, runs K5 on its shard with the
+# labels shifted into it, and the ranks combine their logsumexp and label
+# log-likelihood by an all-reduce max and an all-reduce sum. The backward
+# runs K6/K7 on the shard with the *global* LSE (so each shard's
+# recomputed tile exponentiates to its slice of the global softmax) and
+# the cotangent zeroed on ignored rows; dx is summed over the ranks, dW is
+# the rank's own shard. Over ``dp`` the grads are averaged by the model's
+# wrapper (``DataParallel``/``TensorParallel``) with every other grad,
+# where the reference's single program sums dW over its ``dp`` axis here.
+
+# out-of-vocab sentinel of ignored rows (the reference's): the kernels
+# take it as ignore_index, so every other row is "valid" to them and
+# validity is applied outside (ignore_index must be global: a shifted
+# ignore label could land on a real local id). The shift is int64, so
+# the sentinel minus a rank's offset stays far below 0, a miss.
+_NEVER = -(2 ** 31 - 123)
+
+
+def tp_local_forward_plain(x, w_local, shifted):
+    """The plain per-shard forward (reference ``_local_fwd``, :379-395):
+    ``(loss_l, lse_l)`` f32 with a label outside ``[0, V/n)`` a miss (a
+    label logit of 0, never clipped into range), as K5 treats it."""
+    logits = x.float() @ w_local.float().t()
+    lse = torch.logsumexp(logits, dim=-1)
+    v_l = w_local.shape[0]
+    hit = (shifted >= 0) & (shifted < v_l)
+    ll = torch.where(hit, logits.gather(
+        1, shifted.clamp(0, v_l - 1)[:, None])[:, 0], torch.zeros_like(lse))
+    return lse - ll, lse
+
+
+def _tp_shift(labels, ignore_index, rank, v_local):
+    lab = labels.long()
+    valid = lab != int(ignore_index)
+    shifted = torch.where(valid, lab, torch.full_like(lab, _NEVER)) \
+        - rank * v_local
+    return shifted.contiguous(), valid
+
+
+def tp_forward(x, w_local, labels, group, ignore_index=-100):
+    """``(loss, lse_g)``: the shard's K5 (its plain version on the CPU)
+    and the combine over ``group``."""
+    from ..distributed import collective
+    shifted, valid = _tp_shift(labels, ignore_index, group.rank,
+                               w_local.shape[0])
+    if x.device.type in _PLAIN_DEVICES:
+        loss_l, lse_l = tp_local_forward_plain(x, w_local, shifted)
+    else:
+        loss_l, lse_l = fused_ce_forward(x, w_local, shifted, _NEVER)
+    m = lse_l.clone()
+    collective.all_reduce(m, op="max", group=group)
+    stats = torch.stack([torch.exp(lse_l - m), lse_l - loss_l])
+    collective.all_reduce(stats, group=group)
+    lse_g = m + torch.log(stats[0])
+    loss = torch.where(valid, lse_g - stats[1], torch.zeros_like(lse_g))
+    return loss, lse_g
+
+
+def tp_backward(x, w_local, labels, lse_g, g, group, ignore_index=-100,
+                need_dx=True, need_dw=True):
+    """``(dx, dW_local)``: K6/K7 on the shard (their plain version on the
+    CPU) with the global LSE and ``g`` zeroed on ignored rows; dx summed
+    over ``group``."""
+    from ..distributed import collective
+    shifted, valid = _tp_shift(labels, ignore_index, group.rank,
+                               w_local.shape[0])
+    g_eff = (g.float() * valid.float()).contiguous()
+    lse_g = lse_g.contiguous()
+    dx = dw = None
+    if need_dx:
+        dx = fused_ce_bwd_dx(x, w_local, shifted, lse_g, g_eff, _NEVER)
+        collective.all_reduce(dx, group=group)
+    if need_dw:
+        dw = fused_ce_bwd_dw(x, w_local, shifted, lse_g, g_eff, _NEVER)
+    return dx, dw
+
+
+class _FusedLinearCrossEntropyTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_local, labels, group, ignore_index):
+        with op_body():
+            loss, lse_g = tp_forward(x, w_local, labels, group, ignore_index)
+        ctx.save_for_backward(x, w_local, labels, lse_g)
+        ctx.group, ctx.ignore_index = group, ignore_index
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_local, labels, lse_g = ctx.saved_tensors
+        with op_body():
+            dx, dw = tp_backward(x, w_local, labels, lse_g, g, ctx.group,
+                                 ctx.ignore_index, ctx.needs_input_grad[0],
+                                 ctx.needs_input_grad[1])
+        return dx, dw, None, None, None
+
+
+def tp_fused_applicable(mesh, t, h, v):
+    """Reference :497: a mesh with an ``mp`` axis above 1 that divides
+    the vocab, no pipeline stages (they slice the program before the
+    head), and tokens that divide over ``dp``."""
+    if mesh is None or "mp" not in mesh.axis_names:
+        return False
+    mp = int(mesh.shape["mp"])
+    if mp <= 1 or v % mp != 0:
+        return False
+    if int(mesh.shape.get("pp", 1)) != 1:
+        return False
+    dp = int(mesh.shape.get("dp", 1))
+    return t % max(dp, 1) == 0
+
+
+def fused_linear_cross_entropy_tp(x, weight_local, labels, group,
+                                  ignore_index=-100):
+    """Per-token loss ``[T]`` f32 of the vocab-split head (reference
+    ``fused_linear_cross_entropy_tp``, :505): x ``[T, H]`` (whole on
+    every rank of ``group``), ``weight_local`` this rank's ``[V/n, H]``
+    rows of the weight, labels ``[T]`` global ids. Cast under
+    ``amp.auto_cast`` as the single-device op."""
+    x, weight_local = cast_inputs("fused_linear_cross_entropy", x,
+                                  weight_local)
+    return _FusedLinearCrossEntropyTP.apply(
+        x.contiguous(), weight_local.contiguous(), labels.contiguous(),
+        group, int(ignore_index))

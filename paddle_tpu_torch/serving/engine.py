@@ -1719,6 +1719,47 @@ class ServingEngine:
         (completed and kept, or in flight); None when unknown."""
         return self.flight.trace(rid)
 
+    def lint(self, passes=None, min_donation_bytes=1 << 20,
+             program="decode"):
+        """The ``analysis.lint`` passes over this engine's hot path
+        (reference ``ServingEngine.lint``): the chosen program is
+        recorded on ``meta`` copies of its arguments (nothing runs, and
+        the pool is not touched) and walked by ``f64-upcast``,
+        ``host-callback`` and ``donation``; the engine's compile
+        watchdog feeds ``dynamic-shape-risk``. ``program``: "decode"
+        (default) or "spec_verify" (the speculative verify program). The
+        programs write the KV cache in place, so ``donation`` finds it
+        aliased; aliasing is assumed on CUDA and not on the CPU, as the
+        reference decides from the platform."""
+        from ..analysis import lint as lint_mod
+        pool = self.pool
+        tables = (pool.device_tables(),) if self.paged else ()
+        if program == "spec_verify":
+            if self._verify_fn is None:
+                raise ValueError(
+                    "no verify program on this engine "
+                    "(ServingConfig(speculative=True) builds one)")
+            S = self.config.num_slots
+            drafts = torch.zeros((S, self.spec_k), dtype=torch.int32,
+                                 device=self.device)
+            dlen = torch.zeros((S,), dtype=torch.int32, device=self.device)
+            fn, args = self._verify_fn, (self.params, self._toks, self._pos,
+                                         drafts, dlen, *tables, pool.kc,
+                                         pool.vc)
+        elif program == "decode":
+            samp = self._sampler.device_arrays() if self.sampling else ()
+            fn, args = self._decode_fn, (self.params, self._toks, self._pos,
+                                         *tables, pool.kc, pool.vc, *samp)
+        else:
+            raise ValueError(f"unknown program {program!r}; expected "
+                             "'decode' or 'spec_verify'")
+        with torch.inference_mode(False):
+            prog = lint_mod.record_program(fn, *args)
+        return lint_mod.lint_program(
+            prog, passes=passes,
+            backend_aliases=self.device.type == "cuda",
+            watchdog=self.watchdog, min_donation_bytes=min_donation_bytes)
+
     def debug_state(self):
         """The ``/debug/state`` JSON body: live queue, slot and pipeline
         state, the flight recorder's summary and the SLO, cache,

@@ -102,3 +102,54 @@ def optimizer_state_to_paddle_tpu(state, names, same_layout=False):
     name -> port name."""
     return _rename_state(state, {v: k for k, v in names.items()},
                          _to_numpy, False, same_layout)
+
+
+# the GPT's tensor-parallel splits, in the port's (torch) layout, by the
+# end of a parameter's name: (axis, chunks) as
+# distributed.fleet.meta_parallel.mp_layers.shard takes them. The fused
+# QKV is 3 blocks (q, k, v), each split by heads.
+GPT_TP_SPLITS = (
+    ("word_embeddings.weight", (0, 1)),
+    ("attn.qkv.weight", (0, 3)),
+    ("attn.qkv.bias", (0, 3)),
+    ("attn.out.weight", (1, 1)),
+    ("mlp.fc1.weight", (0, 1)),
+    ("mlp.fc1.bias", (0, 1)),
+    ("mlp.fc2.weight", (1, 1)),
+)
+
+
+def tp_split_of(name):
+    """``(axis, chunks)`` of the GPT parameter ``name`` under tensor
+    parallelism, None for one every ``mp`` rank holds whole."""
+    return next((sp for end, sp in GPT_TP_SPLITS
+                 if name == end or name.endswith("." + end)), None)
+
+
+def tp_state_dict_from_paddle_tpu(np_params, mp_rank, mp_degree):
+    """The reference's whole ``{name: np.ndarray}`` of a GPT -> the torch
+    state dict of the rank at ``mp_rank`` of ``mp_degree`` (its
+    coordinate in the ``HybridCommunicateGroup``'s ``mp`` axis): the
+    split parameters' shards (the QKV's rows permuted so the rank holds
+    q, k and v of its own heads), the rest whole. ``load_state_dict`` of
+    a ``use_mp`` GPTForCausalLM takes it as it is."""
+    from ..distributed.fleet.meta_parallel.mp_layers import shard
+    out = {}
+    for name, t in state_dict_from_paddle_tpu(np_params).items():
+        sp = tp_split_of(name)
+        out[name] = t if sp is None or mp_degree == 1 \
+            else shard(t, sp[0], sp[1], mp_rank, mp_degree)
+    return out
+
+
+def tp_state_dict_to_paddle_tpu(rank_states):
+    """The inverse: the state dicts of every ``mp`` rank, in rank order
+    (each rank's shards) -> the reference's whole ``{name: np.ndarray}``
+    layout."""
+    from ..distributed.fleet.meta_parallel.mp_layers import unshard
+    whole = {}
+    for name, t in rank_states[0].items():
+        sp = tp_split_of(name)
+        whole[name] = t if sp is None or len(rank_states) == 1 else unshard(
+            [s[name].detach().cpu() for s in rank_states], sp[0], sp[1])
+    return state_dict_to_paddle_tpu(whole)

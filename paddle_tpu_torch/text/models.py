@@ -13,6 +13,26 @@ cross-entropy kernels; plain matmuls stay ``torch.matmul``, as the
 reference left them to XLA. Dropout draws from an explicit generator
 (``ops.nn_ops.dropout``).
 
+With ``use_mp=True`` and a hybrid topology whose ``mp`` group has more
+than one rank (``distributed.fleet.init``), the blocks and the word
+embedding are tensor-parallel (reference models.py:48-55, 70-100,
+112-118): the fused QKV and the first MLP linear are
+``ColumnParallelLinear`` (the QKV split by heads: each rank holds q, k
+and v of its ``num_heads / mp`` heads), the attention's output and the
+second MLP linear ``RowParallelLinear``, the word embedding
+``VocabParallelEmbedding``, and the tied head's loss the vocab-split
+``fused_linear_cross_entropy_tp`` (K5-K7 on each rank's shard, reference
+:321-340). With ``use_sp=True`` and an ``sp`` group of more than one
+rank, each rank runs ``S / sp`` of every sequence (the model takes the
+whole ``[b, S]`` ids and labels and keeps its block, with its positions
+offset by its rank), attention goes through ``ring_attention`` or
+``ulysses_attention`` (``sp_mode``), and the loss's sum and valid count
+are all-reduced over ``sp``; the parameters' grads are then partial sums
+over the group, which ``fleet.distributed_model``'s wrapper adds up.
+Without such groups both flags build the dense model, as in the
+reference. ``state_dict()`` of a tensor-parallel model is the dense
+model's (split weights gathered whole).
+
 With ``recompute=True`` each block keeps only its input in the forward
 and is run again in the backward (``_BlockRecompute``), with the dropout
 generator's state and the ``auto_cast`` state of its forward.
@@ -32,6 +52,9 @@ from torch import nn
 from ..amp.auto_cast import amp_state, resume
 from ..core import rng
 from ..core.device import resolve_device
+from ..distributed import collective, topology
+from ..distributed.fleet.meta_parallel import mp_layers
+from ..distributed.fleet.meta_parallel import sequence_parallel as sp_attn
 from ..ops import attention as attn_ops
 from ..ops import fused_ce, nn_ops
 
@@ -40,18 +63,17 @@ class TransformerLMConfig:
     """The reference's knobs and defaults for the single-device GPT; the
     defaults are GPT-124M (vocab 50304, hidden 768, 12 layers, 12 heads,
     1024 positions). ``recompute`` recomputes each block in the
-    backward. Tensor and sequence parallelism are not ported and raise.
-    ``use_flash_attention`` and ``sp_mode`` are stored and, as in the
-    reference, not consulted: attention always takes the flash path."""
+    backward. ``use_mp``/``use_sp``: tensor and sequence parallelism
+    over the hybrid topology's ``mp``/``sp`` groups (the module's
+    docstring); ``sp_mode`` ``"ring"`` or ``"ulysses"``.
+    ``use_flash_attention`` is stored and, as in the reference, not
+    consulted: attention always takes the flash path."""
 
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, intermediate_size=None, max_seq_len=1024,
                  dropout=0.1, use_mp=False, tie_embeddings=True,
                  use_flash_attention=True, initializer_range=0.02,
                  recompute=False, use_sp=False, sp_mode="ring"):
-        if use_mp or use_sp:
-            raise NotImplementedError(
-                "use_mp / use_sp: the distributed branches are not ported")
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} is not a multiple "
                              f"of num_heads {num_heads}")
@@ -69,11 +91,32 @@ class TransformerLMConfig:
         self.use_flash_attention = use_flash_attention
         self.initializer_range = initializer_range
         self.recompute = recompute
+        self.use_mp = use_mp
+        self.use_sp = use_sp
         self.sp_mode = sp_mode
 
 
+def _group_of(axis):
+    """The hybrid topology's group of ``axis`` when it has more than one
+    rank, else None (the dense model)."""
+    hcg = topology.get_hybrid_communicate_group()
+    if hcg is None or int(hcg.mesh.shape[axis]) == 1:
+        return None
+    return hcg.group(axis)
+
+
+def _mp_group(cfg):
+    return _group_of("mp") if getattr(cfg, "use_mp", False) else None
+
+
+def _sp_group(cfg):
+    return _group_of("sp") if getattr(cfg, "use_sp", False) else None
+
+
 class SelfAttention(nn.Module):
-    """Fused-QKV attention, causal (the GPT's) or not (BERT's)."""
+    """Fused-QKV attention, causal (the GPT's) or not (BERT's); with an
+    ``mp`` group, this rank's heads; with an ``sp`` group, ring or
+    Ulysses attention over the ranks' sequence blocks."""
 
     def __init__(self, cfg, device=None, dropout_generator=None,
                  causal=True):
@@ -84,16 +127,37 @@ class SelfAttention(nn.Module):
         self.causal = causal
         self.dropout = cfg.dropout
         self.dropout_generator = dropout_generator
-        self.qkv = nn.Linear(h, 3 * h, device=device)
-        self.out = nn.Linear(h, h, device=device)
+        mp = _mp_group(cfg)
+        self.sp_group = _sp_group(cfg)
+        self.sp_mode = getattr(cfg, "sp_mode", "ring")
+        if mp is not None:
+            if cfg.num_heads % mp.nranks:
+                raise ValueError(f"num_heads {cfg.num_heads} is not a "
+                                 f"multiple of mp {mp.nranks}")
+            self.local_heads = cfg.num_heads // mp.nranks
+            self.qkv = mp_layers.ColumnParallelLinear(
+                h, 3 * h, gather_output=False, chunks=3, mp_group=mp,
+                device=device)
+            self.out = mp_layers.RowParallelLinear(
+                h, h, input_is_parallel=True, mp_group=mp, device=device)
+        else:
+            self.local_heads = cfg.num_heads
+            self.qkv = nn.Linear(h, 3 * h, device=device)
+            self.out = nn.Linear(h, h, device=device)
 
     def forward(self, x, attn_mask=None):
-        b, s, h = x.shape
-        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        b, s, _ = x.shape
+        qkv = self.qkv(x).reshape(b, s, 3, self.local_heads, self.head_dim)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)
-        o = attn_ops.scaled_dot_product_attention(
-            q, k, v, attn_mask=attn_mask, is_causal=self.causal)
-        o = self.out(o.transpose(1, 2).reshape(b, s, h))
+        if self.sp_group is not None and attn_mask is None:
+            fn = sp_attn.ring_attention if self.sp_mode == "ring" \
+                else sp_attn.ulysses_attention
+            o = fn(q, k, v, causal=self.causal, group=self.sp_group)
+        else:
+            o = attn_ops.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, is_causal=self.causal)
+        o = self.out(o.transpose(1, 2).reshape(
+            b, s, self.local_heads * self.head_dim))
         if self.dropout:
             o = nn_ops.dropout(o, self.dropout, training=self.training,
                                generator=self.dropout_generator)
@@ -103,10 +167,19 @@ class SelfAttention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg, device=None, dropout_generator=None):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
-                             device=device)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                             device=device)
+        mp = _mp_group(cfg)
+        if mp is not None:
+            self.fc1 = mp_layers.ColumnParallelLinear(
+                cfg.hidden_size, cfg.intermediate_size, gather_output=False,
+                mp_group=mp, device=device)
+            self.fc2 = mp_layers.RowParallelLinear(
+                cfg.intermediate_size, cfg.hidden_size,
+                input_is_parallel=True, mp_group=mp, device=device)
+        else:
+            self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
+                                 device=device)
+            self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
+                                 device=device)
         self.dropout = cfg.dropout
         self.dropout_generator = dropout_generator
 
@@ -205,8 +278,16 @@ class _TransformerCore(nn.Module):
         self.cfg = cfg
         self.dropout_generator = dropout_generator
         self.pre_norm = pre_norm
-        self.word_embeddings = nn.Embedding(cfg.vocab_size,
-                                            cfg.hidden_size, device=device)
+        # the groups fixed at build, which the shards were cut for; the
+        # forward reads these, never the topology of the moment
+        self.mp_group = mp = _mp_group(cfg)
+        self.sp_group = _sp_group(cfg)
+        if mp is not None:
+            self.word_embeddings = mp_layers.VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size, mp_group=mp, device=device)
+        else:
+            self.word_embeddings = nn.Embedding(
+                cfg.vocab_size, cfg.hidden_size, device=device)
         self.position_embeddings = nn.Embedding(
             cfg.max_seq_len, cfg.hidden_size, device=device)
         self.token_type_embeddings = nn.Embedding(
@@ -216,9 +297,11 @@ class _TransformerCore(nn.Module):
              for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
 
-    def forward(self, input_ids, token_type_ids=None, attn_mask=None):
+    def forward(self, input_ids, token_type_ids=None, attn_mask=None,
+                pos_offset=0):
         s = input_ids.shape[1]
-        pos = torch.arange(s, device=input_ids.device)
+        pos = torch.arange(pos_offset, pos_offset + s,
+                           device=input_ids.device)
         x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
         if self.token_type_embeddings is not None \
                 and token_type_ids is not None:
@@ -244,6 +327,18 @@ class _TransformerCore(nn.Module):
 
 class GPTModel(_TransformerCore):
     """Decoder-only causal LM core (GPT style: pre-norm)."""
+
+
+def _divide_seq(s, sp):
+    if s % sp:
+        raise ValueError(f"sequence length {s} is not a multiple of sp {sp}")
+    return s // sp
+
+
+def _gather_seq(t, group):
+    """Every rank's sequence block of ``t`` ``[b, s/sp, ...]`` put back
+    in order (the grad of this rank's block backward)."""
+    return collective._c_concat(t.transpose(1, -1), group).transpose(1, -1)
 
 
 class GPTForCausalLM(nn.Module):
@@ -272,7 +367,14 @@ class GPTForCausalLM(nn.Module):
         std = self.cfg.initializer_range
         for name, p in self.named_parameters():
             if p.dim() == 2:
-                w = torch.randn(p.shape, generator=generator) * std
+                # a split weight: the whole one drawn, this rank's shard
+                # kept, so every topology starts from the same weights
+                split = mp_layers.split_of(p)
+                w = torch.randn(p.shape if split is None
+                                else split.full_shape,
+                                generator=generator) * std
+                if split is not None:
+                    w = mp_layers.shard_of(p, w)
                 p.copy_(w)
             elif name.endswith("bias"):
                 p.zero_()
@@ -289,22 +391,55 @@ class GPTForCausalLM(nn.Module):
         (``-100`` ignored; no shift, as in the reference). The tied head
         computes the loss with the fused linear cross-entropy, so its
         logits never exist (reference ``_head_loss``, models.py:301-320)."""
-        h = self.gpt(input_ids)
+        sp = self.gpt.sp_group
+        offset = 0
+        if sp is not None:      # this rank's block of every sequence
+            s_local = _divide_seq(input_ids.shape[1], sp.nranks)
+            offset = sp.rank * s_local
+            input_ids = input_ids[:, offset:offset + s_local]
+            if labels is not None:
+                labels = labels[:, offset:offset + s_local]
+        h = self.gpt(input_ids, pos_offset=offset)
+        mp = self.gpt.mp_group
+        if labels is None:
+            if self.cfg.tie_embeddings:
+                wemb = self.gpt.word_embeddings.weight
+                if mp is not None:      # the vocab-split logits gathered
+                    logits = collective._c_concat(torch.matmul(
+                        collective._c_identity(h, mp), wemb.t()), mp)
+                else:
+                    logits = torch.matmul(h, wemb.t())
+            else:
+                logits = self.lm_head(h)
+            if sp is not None:
+                logits = _gather_seq(logits, sp)
+            return logits
+        flat = labels.reshape(-1)
+        x = h.reshape(-1, self.cfg.hidden_size)
         if self.cfg.tie_embeddings:
             wemb = self.gpt.word_embeddings.weight
-            if labels is None:
-                return torch.matmul(h, wemb.t())
-            flat = labels.reshape(-1)
-            per_tok = fused_ce.fused_linear_cross_entropy(
-                h.reshape(-1, self.cfg.hidden_size), wemb, flat)
-            # mean over the tokens that are not ignored
-            valid = (flat != -100).float().sum()
-            return per_tok.sum() / valid.clamp(min=1.0)
-        logits = self.lm_head(h)
-        if labels is None:
-            return logits
-        return nn_ops.cross_entropy(logits.reshape(-1, self.cfg.vocab_size),
-                                    labels.reshape(-1))
+            if mp is not None:
+                # tp_fused_applicable holds by construction: the vocab
+                # divides over mp (VocabParallelEmbedding checks it) and
+                # no pipeline stage runs (PipelineParallel is not ported)
+                per_tok = fused_ce.fused_linear_cross_entropy_tp(
+                    x, wemb, flat, mp)
+            else:
+                per_tok = fused_ce.fused_linear_cross_entropy(x, wemb, flat)
+            total = per_tok.sum()
+        elif sp is None:
+            return nn_ops.cross_entropy(
+                self.lm_head(h).reshape(-1, self.cfg.vocab_size), flat)
+        else:
+            total = nn_ops.cross_entropy(
+                self.lm_head(x), flat, reduction="sum")
+        # mean over the tokens that are not ignored (all of the sp
+        # group's tokens: the sum and the count all-reduced)
+        valid = (flat != -100).float().sum()
+        if sp is not None:
+            total = collective._mp_allreduce(total, group=sp)
+            collective.all_reduce(valid, group=sp)
+        return total / valid.clamp(min=1.0)
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
@@ -418,6 +553,11 @@ class GPTForCausalLM(nn.Module):
         with matrices as ``[in, out]`` (``x @ W``, the reference's
         layout), per-layer views of them (``layers``), the embeddings,
         the final LayerNorm and the (tied or separate) head."""
+        if self.gpt.mp_group is not None:
+            raise NotImplementedError(
+                "decoding a tensor-parallel model: load its state_dict() "
+                "(the whole weights) into a dense GPTForCausalLM")
+
         def W(t):
             return t.detach().clone()
 

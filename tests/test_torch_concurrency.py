@@ -255,8 +255,10 @@ def test_patrol_lint_pass_registered_and_inert():
         findings = run_passes(passes=["lock-patrol"], patrol=patrol)
     assert [f.pass_name for f in findings] == ["lock-order"]
     assert run_passes(passes=["lock-patrol"]) == []
+    # the program passes share the runner, inert without a program
+    assert run_passes(passes=["f64-upcast"]) == []
     with pytest.raises(KeyError):
-        run_passes(passes=["f64-upcast"])   # the jaxpr passes stay out
+        run_passes(passes=["no-such-pass"])
 
 
 def _tiny_model():
@@ -685,5 +687,6 @@ def test_real_tree_audit_clean():
 def test_all_new_passes_inert_without_meta():
     assert run_passes(passes=["cross-role-write", "snapshot-discipline",
                               "lock-patrol"]) == []
-    assert analysis.lint_passes() == ["cross-role-write", "lock-patrol",
-                                      "snapshot-discipline"]
+    assert analysis.lint_passes() == [
+        "cross-role-write", "donation", "dynamic-shape-risk", "f64-upcast",
+        "host-callback", "lock-patrol", "snapshot-discipline"]

@@ -183,7 +183,22 @@ def test_port_imports_neither_jax_nor_reference():
                    "static/nn.py", "jit/__init__.py", "jit/to_static.py",
                    "jit/dy2static.py", "analysis/birth.py",
                    "core/trace.py", "core/graph_cond.py", "core/lazy.py",
-                   "_C_ops.py", "profiler/__init__.py"):
+                   "_C_ops.py", "profiler/__init__.py",
+                   "distributed/__init__.py", "distributed/env.py",
+                   "distributed/topology.py", "distributed/collective.py",
+                   "distributed/parallel.py",
+                   "distributed/utils_recompute.py",
+                   "distributed/fleet/__init__.py",
+                   "distributed/fleet/fleet_base.py",
+                   "distributed/fleet/distributed_strategy.py",
+                   "distributed/fleet/role_maker.py",
+                   "distributed/fleet/hybrid_optimizer.py",
+                   "distributed/fleet/meta_parallel/__init__.py",
+                   "distributed/fleet/meta_parallel/mp_layers.py",
+                   "distributed/fleet/meta_parallel/random.py",
+                   "distributed/fleet/meta_parallel/parallel_wrappers.py",
+                   "distributed/fleet/meta_parallel/sequence_parallel.py",
+                   "ops/ring_attention.py"):
         assert REPO / "paddle_tpu_torch" / module in files, module
     bad = []
     for f in files:
@@ -221,9 +236,8 @@ def test_pools_need_a_device_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """Tensor and sequence parallelism still raise. The serving knobs
-    the port once refused now serve; the reference's invalid
-    combinations of them raise its ValueErrors."""
+    """The serving knobs the port once refused now serve; the
+    reference's invalid combinations of them raise its ValueErrors."""
     cfg = tmodels.TransformerLMConfig(**TINY)
     m = tmodels.GPTForCausalLM(cfg, device="cpu")
     for knob in (dict(paged=False), dict(sampling=True),
@@ -237,10 +251,29 @@ def test_unported_paths_raise():
                  dict(role="prefill", paged=False), dict(role="x")):
         with pytest.raises(ValueError):
             ServingEngine(m, device="cpu", **knob)
-    with pytest.raises(NotImplementedError):
-        tmodels.TransformerLMConfig(use_mp=True)
-    with pytest.raises(NotImplementedError):
-        tmodels.TransformerLMConfig(use_sp=True)
+
+
+@pytest.mark.parametrize("knobs", [dict(use_mp=True), dict(use_sp=True),
+                                   dict(use_mp=True, use_sp=True,
+                                        tie_embeddings=False)])
+def test_mp_sp_without_groups_build_the_dense_model(knobs):
+    """As in the reference, ``use_mp``/``use_sp`` with no ``mp``/``sp``
+    group of more than one rank build the dense layers, and give the
+    reference's loss on the same weights (f32, rtol 1e-5)."""
+    jm = jax_gpt(**knobs)
+    tm = tmodels.GPTForCausalLM(tmodels.TransformerLMConfig(**TINY, **knobs),
+                                device="cpu")
+    assert type(tm.gpt.blocks[0].attn.qkv) is torch.nn.Linear
+    assert type(tm.gpt.word_embeddings) is torch.nn.Embedding
+    assert tm.gpt.sp_group is None
+    tm.load_state_dict(state_dict_from_paddle_tpu(numpy_state_dict(jm)))
+    rs = np.random.RandomState(6)
+    ids = rs.randint(0, 97, (2, 16)).astype(np.int64)
+    labels = rs.randint(0, 97, (2, 16)).astype(np.int64)
+    want = float(jm(paddle.to_tensor(ids),
+                    labels=paddle.to_tensor(labels)).numpy())
+    got = float(tm(torch.from_numpy(ids), labels=torch.from_numpy(labels)))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
 def test_config_takes_the_reference_keywords():

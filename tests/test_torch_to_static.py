@@ -438,3 +438,44 @@ def test_jit_and_static_surface(tmp_path):
     for _ in range(3):
         layer(paddle.ones([1, 3]))
     assert isinstance(layer.forward, paddle.jit.TracedFunction)
+
+
+def test_a_recycled_instance_id_reaches_no_stale_record(monkeypatch):
+    """A bound method's entries are keyed by a serial the instance gets at
+    its first call, not by ``id()``: a new instance that shows a freed
+    instance's id (every instance shows one id here, as Python shows a
+    freed object's id again when it places a new one at its address) gets
+    a record of its own (its first call is a warm-up, not the freed
+    one's recorded entry), and the freed instance's entries go with it."""
+    import gc
+
+    from paddle_tpu_torch.jit import to_static as ts
+
+    class Step:
+        def __init__(self, k):
+            self.k = k
+
+        @paddle.jit.to_static
+        def run(self, x):
+            return x * self.k
+
+    monkeypatch.setattr(ts, "id", lambda obj: 4242, raising=False)
+    x = torch.ones(3)
+    traced = Step.run
+    a = Step(2.0)
+    for _ in range(3):
+        a.run(x)
+    assert len(traced.entries) == 1
+    b = Step(3.0)                   # the same id() as a, while a lives
+    bound = b.run
+    torch.testing.assert_close(bound(x), x * 3.0)
+    assert bound.last_form == "warmup"
+    assert len(traced.entries) == 2
+    del a
+    gc.collect()
+    assert len(traced.entries) == 1     # a's dropped with it
+    c = Step(4.0)
+    bound = c.run
+    torch.testing.assert_close(bound(x), x * 4.0)
+    assert bound.last_form == "warmup"
+    assert all(sig[2] > 0 for sig in traced.entries)
