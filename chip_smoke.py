@@ -6,8 +6,8 @@ Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 7 and 20 alone, ``--bert`` phases 1 and 21 alone, ``--vision`` phases 1
 and 22 alone, ``--rnn`` phases 1 and 23 alone, ``--static`` phases 1, 24
 and 25 alone, ``--deploy`` phases 1 and 26 alone, ``--lazy`` phases 1 and
-27 alone, ``--dist`` phases 1 and 28 alone; none prints the kernels
-line)
+27 alone, ``--dist`` phases 1, 28 and 29 alone; none prints the
+kernels line)
 
 Every phase runs under the default FLAGS_lazy_eager (True): the Paddle
 surface's eager steps are deferred into graphs (paddle_tpu_torch/core/
@@ -495,6 +495,26 @@ Phases, one line each:
              dW slices; each shard call timed with its bound and F.cross_entropy(F.linear) on
              the same shard; 28e the captured flagship step and the paged
              engine's decode lint clean, a planted f64 upcast flagged.
+ 29. rest    the rest of the distributed layer on 2 rank processes
+             started by the port's launcher (launch_mod.spawn), gloo on
+             the one card: 29a GPT-124M at pp = 2 (6 blocks a stage, 4
+             microbatches of [2, 1024], 1F1B), 3 f32 AdamW steps of 28b's
+             batch: the stages' losses equal and within TP_LOSS_RTOL of
+             28b's one process, each gathered leaf by 28b's rule, the tied
+             embedding's two copies bit-equal, K1-K3 = 72 a stage and
+             K5-K7 = 12 on the last, the bytes staged through pinned
+             memory; 29b ZeRO-2 (os_g, sharding = 2, each rank [4, 1024]):
+             the mean of the ranks' losses and the gathered leaves the
+             same way, each rank's optimizer state at most
+             ZERO_STATE_SHARE of one process's, the ranks' train state
+             saved with save_sharded_train_state and loaded by this
+             process bit for bit; 29c the MoE layer at ep = 2 (MOE:
+             d_model 768, hidden 3072, 8 experts, top-2, 8192 tokens,
+             f32): output, aux loss and grads against one process's
+             within MOE_TOL of each largest, one GradientMerge and one
+             DGCMomentum step against their plain steps; K1-K3 and K5-K7
+             at a stage's and a ZeRO rank's shapes held against their
+             plain versions and timed (the kernels line's rows).
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
@@ -507,7 +527,8 @@ the non-causal rows 21b, 24c's captured runs and 27c's lazy runs (bf16
 [32,12,128,64]), 21c (f32 [32,12,128,64], its card side at
 [2,12,128,64]) and 21d ([8,12,512,64]); 28b's ranks for the TP shard
 rows at [8192, 768, 25152] (none runs mp = 4: the [8192, 768, 12576]
-rows read 0), 28c's for the Ulysses rows), and as the last line
+rows read 0), 28c's for the Ulysses rows, 29a's stages and 29b's ranks
+for theirs), and as the last line
 {"ok": true, "device": {...}}.
 
 TF32 is off for matmuls and cuDNN, so every f32 product is full f32.
@@ -8314,7 +8335,12 @@ def phase_dist_ranks(torch, amp, optimizer, TransformerLMConfig,
                 tp = torch.load(os.path.join(outdir, "tp_state.pt"))
                 check(set(tp) == {n for n, _ in model.named_parameters()},
                       "28b: the gathered state's keys")
-                tp_leaves_check(torch, tp, model, init)
+                final = {n: p.detach().cpu().clone()
+                         for n, p in model.named_parameters()}
+                tp_leaves_check(torch, "28b TP", tp, final, init)
+                # phase 29 holds its pipeline and ZeRO runs to this run
+                one = {"losses": want["float32"], "final": final,
+                       "init": init}
                 del tp
             del model, init
             torch.cuda.empty_cache()
@@ -8367,24 +8393,24 @@ def phase_dist_ranks(torch, amp, optimizer, TransformerLMConfig,
     f32 = [sum(x) for x in zip(*(r["float32_launches"] for r in ranks))]
     bf16 = [sum(x) for x in zip(*(r["bfloat16_launches"] for r in ranks))]
     uly = [sum(x) for x in zip(*(r["ulysses_launches"] for r in ranks))]
-    return f32, bf16, uly
+    return f32, bf16, uly, one
 
 
-def tp_leaves_check(torch, tp, model, init):
-    """28b: each gathered leaf of the TP run after the f32 steps against
-    the one-process run's: the norm of their difference within
-    TP_WEIGHT_RTOL of the norm of the leaf's own update in the
-    one-process run (``init`` the weights before it), and the QKV
-    biases' key thirds, whose update is noise, within TP_KBIAS_STEPS x
-    lr of each other; prints, for each kind of leaf over the layers, the
-    largest of those shares and the largest element difference."""
-    h = model.cfg.hidden_size
+def tp_leaves_check(torch, label, tp, final, init):
+    """28b and 29: each gathered leaf of a run over ranks after the f32
+    steps (``tp``) against the one-process run's (``final``): the norm of
+    their difference within TP_WEIGHT_RTOL of the norm of the leaf's own
+    update in the one-process run (``init`` the weights before it), and
+    the QKV biases' key thirds, whose update is noise, within
+    TP_KBIAS_STEPS x lr of each other; prints, for each kind of leaf over
+    the layers, the largest of those shares and the largest element
+    difference."""
+    h = final["gpt.position_embeddings.weight"].shape[1]
     lr = DIST["lr"]
     kinds, bad = {}, []
     kbias = 0.0
-    for n, p in model.named_parameters():
-        one = p.detach().cpu()
-        diff, move = tp[n] - one, one - init[n]
+    for n, one in final.items():
+        diff, move = tp[n].cpu() - one, one - init[n]
         if n.endswith("attn.qkv.bias"):
             kb = float(diff[h:2 * h].abs().max())
             kbias = max(kbias, kb)
@@ -8398,14 +8424,16 @@ def tp_leaves_check(torch, tp, model, init):
         kinds[kind] = (max(top, share), max(el, float(diff.abs().max())))
         if not share <= TP_WEIGHT_RTOL:
             bad.append(f"{n} {share:.3e}")
-    print(f"  28b gathered state after 3 steps, for each leaf |TP - one "
-          f"process| / |one process's update| (tol {TP_WEIGHT_RTOL}) and "
+    print(f"  {label}: the gathered state after 3 steps, for each leaf |"
+          f"ranks - one process| / |one process's update| (tol "
+          f"{TP_WEIGHT_RTOL}) and "
           f"the largest element difference (lr {lr}): "
           + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e}"
                       for k, v in kinds.items())
           + f"; the key thirds of the QKV biases {kbias:.3e} (tol "
           f"{TP_KBIAS_STEPS} x lr)")
-    check(not bad, f"28b: gathered leaves off the one-process run: {bad}")
+    check(not bad, f"{label}: gathered leaves off the one-process run: "
+          f"{bad}")
 
 
 def phase_tp_shards(torch, tce):
@@ -8649,9 +8677,9 @@ def phase_dist(torch, amp, optimizer, attn, tce, TransformerLMConfig,
     28c's)."""
     t0 = time.perf_counter()
     phase_dist_world1(torch, TransformerLMConfig, GPTForCausalLM)
-    f32, bf16, uly = phase_dist_ranks(torch, amp, optimizer,
-                                      TransformerLMConfig, GPTForCausalLM,
-                                      attn)
+    f32, bf16, uly, one = phase_dist_ranks(torch, amp, optimizer,
+                                           TransformerLMConfig,
+                                           GPTForCausalLM, attn)
     rows = phase_tp_shards(torch, tce)
     for row in rows:
         i = {"fused_ce_forward": 3, "fused_ce_bwd_dx": 4,
@@ -8663,7 +8691,565 @@ def phase_dist(torch, amp, optimizer, attn, tce, TransformerLMConfig,
         row["shape"] = "Ulysses " + row["shape"]
     phase_lint(torch, amp, optimizer, TransformerLMConfig, GPTForCausalLM)
     print(f"  phase 28 in {time.perf_counter() - t0:.1f} s")
-    return rows + urows
+    return rows + urows, one
+
+
+# Phase 29: the rest of the distributed layer on two rank processes that
+# share the card over gloo, started by the port's launcher
+# (distributed.launch_mod.spawn): 29a GPT-124M in two pipeline stages
+# (pp = 2, 4 microbatches of [2, 1024], 1F1B), 29b ZeRO-2 (os_g,
+# sharding = 2, each rank half of the batch), both 3 f32 AdamW steps of
+# phase 28b's batch, held to 28b's one-process run (its losses within
+# TP_LOSS_RTOL, each gathered leaf by tp_leaves_check). 29a's stages each
+# hold the parameters they run and no others (PP_HELD_SHARE at most of the
+# model: the tied embedding sits on both ends); 29b's ranks hold the grads
+# of their partition only after the backward (ZERO_STATE_SHARE at most of
+# the model's), and their peak device memory over the steps is printed
+# beside one process's on the same [4, 1024] batch; 29b's ranks save
+# their train state (incubate.checkpoint) and one process loads it, each
+# tensor torch.equal to the ranks'; 29c the MoE layer at ep = 2 (MOE
+# shape) against one process's, within MOE_TOL of each tensor's largest
+# element (the combine summed over the ranks in another order), and one
+# GradientMerge and one DGCMomentum step against their plain steps. A
+# rank's launches are counted from the wrappers' counters. The state on
+# disk goes under a temporary directory.
+MOE = dict(d_model=768, hidden=3072, experts=8, top_k=2, tokens=8192)
+MOE_TOL = 1e-4
+ZERO_STATE_SHARE = 0.6
+# a stage's parameters over the model's: 6 of 12 blocks and the 38.6M tied
+# embedding (its copy on each end) come to about 0.66 at pp = 2
+PP_HELD_SHARE = 0.7
+PP_DIST = dict(acc=4)
+
+
+def _zero_opt_state(inner, model):
+    """{parameter name_kind: tensor} of an optimizer's state."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {f"{names[pid]}_{kind}": t
+            for kind, store in inner._accumulators.items()
+            for pid, t in store.items()}
+
+
+def phase29_rank(outdir, queue):
+    """One rank of phase 29 (the launcher set its PADDLE_* variables)."""
+    rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
+    try:
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        sys.path.insert(0, HERE)
+        queue.put((rank, _phase29_rank(torch, outdir)))
+    except BaseException:  # noqa: BLE001 - the parent raises it
+        import traceback
+        queue.put((rank, {"error": traceback.format_exc()[-3000:]}))
+        raise
+
+
+def _phase29_rank(torch, outdir):
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import (collective, fleet,
+                                              init_parallel_env, sharding,
+                                              topology)
+    from paddle_tpu_torch.incubate import moe
+    from paddle_tpu_torch.incubate.checkpoint import sharded
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import fused_ce as tce
+    from paddle_tpu_torch.text.models import (GPTForCausalLM,
+                                              TransformerLMConfig)
+    env = init_parallel_env(timeout=300)
+    out = {"backend": collective._default_group().backend,
+           "rank": env.rank}
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 50304, (DIST["batch"], DIST["seq"])).astype(np.int64)).cuda()
+
+    def strategy(**degrees):
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs = degrees
+        s.pipeline_configs = {"accumulate_steps": PP_DIST["acc"]}
+        s.sharding_configs = {"stage": 2}
+        return s
+
+    # 29a: two pipeline stages
+    fleet.init(is_collective=True, strategy=strategy(pp_degree=2))
+    model = fleet.distributed_model(dist_gpt(torch, TransformerLMConfig,
+                                             GPTForCausalLM))
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        DIST["lr"], parameters=model._layers.named_parameters(),
+        weight_decay=0.01))
+    collective.host_staged_bytes.clear()
+    torch.cuda.synchronize()
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = [float(model.train_batch((ids, ids), opt))
+              for _ in range(DIST["steps"])]
+    torch.cuda.synchronize()
+    out["pp_s"] = time.perf_counter() - t0
+    out["pp_launches"] = [fn.launches for fn in wrappers]
+    out["pp_losses"] = losses
+    out["pp_blocks"] = model.stage_blocks
+    out["pp_staged_bytes"] = dict(collective.host_staged_bytes)
+    wemb = model._layers.gpt.word_embeddings.weight.detach().clone()
+    other = wemb.clone()
+    collective.broadcast(other, src=1, group=model._pp)
+    out["pp_tied_equal"] = bool(torch.equal(wemb, other))
+    leaves = [p for p in model._layers.parameters()]
+    out["pp_held_bytes"] = sum(p.untyped_storage().nbytes() for p in leaves)
+    out["pp_runs_bytes"] = sum(p.numel() * p.element_size()
+                               for p in model._local)
+    out["pp_model_bytes"] = sum(p.numel() * p.element_size() for p in leaves)
+    state = {k: v.cpu() for k, v in model.full_state_dict().items()}
+    if env.rank == 0:
+        torch.save(state, os.path.join(outdir, "pp_state.pt"))
+    del model, opt, state, wemb, other
+    torch.cuda.empty_cache()
+    # 29b: ZeRO-2 over the two ranks, each half the batch
+    topology.reset()
+    fleet.init(is_collective=True, strategy=strategy(sharding_degree=2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    m = dist_gpt(torch, TransformerLMConfig, GPTForCausalLM)
+    model = fleet.distributed_model(m)
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        DIST["lr"], parameters=m.named_parameters(), weight_decay=0.01))
+    per = DIST["batch"] // 2
+    mine = ids[env.rank * per:(env.rank + 1) * per]
+    torch.cuda.synchronize()
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(DIST["steps"]):
+        loss = model(mine, labels=mine)
+        loss.backward()
+        if "zero_grad_bytes" not in out:
+            out["zero_grad_bytes"] = sum(
+                p.grad.numel() * p.grad.element_size()
+                for p in m.parameters() if p.grad is not None)
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    out["zero_s"] = time.perf_counter() - t0
+    out["zero_peak"] = torch.cuda.max_memory_allocated() - base
+    out["zero_launches"] = [fn.launches for fn in wrappers]
+    out["zero_losses"] = losses
+    out["zero_state_bytes"] = sharding.state_bytes(opt)
+    out["zero_sizes"] = opt._zero.sizes
+    path = os.path.join(outdir, "zero_ckpt")
+    t0 = time.perf_counter()
+    sharded.save_sharded_train_state(dict(m.named_parameters()), opt, path)
+    out["zero_save_s"] = time.perf_counter() - t0
+    state = _zero_opt_state(opt._inner_opt, m)
+    torch.save({k: v.cpu() for k, v in state.items()},
+               os.path.join(outdir, f"zero_opt{env.rank}.pt"))
+    if env.rank == 0:
+        torch.save({k: v.detach().cpu() for k, v in m.named_parameters()},
+                   os.path.join(outdir, "zero_state.pt"))
+    del model, opt, m, state
+    torch.cuda.empty_cache()
+    # 29c: the MoE layer at ep = 2
+    topology.reset()
+    fleet.init(is_collective=True, strategy=strategy(mp_degree=2))
+    layer = moe.MoELayer(MOE["d_model"], MOE["hidden"], MOE["experts"],
+                         top_k=MOE["top_k"],
+                         generator=torch.Generator().manual_seed(29))
+    x, cot = moe_inputs(torch)
+    x = x.cuda().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = layer(x)
+    ((y * cot.cuda()).sum() + layer.aux_loss).backward()
+    torch.cuda.synchronize()
+    out["moe_s"] = time.perf_counter() - t0
+    got = {"y": y.detach().cpu(), "aux": layer.aux_loss.detach().cpu(),
+           "dx": x.grad.cpu(), "dgate": layer.gate.grad.cpu()}
+    for k in ("w1", "b1", "w2", "b2"):
+        got["d" + k] = getattr(layer, k).grad.cpu()
+    torch.save(got, os.path.join(outdir, f"moe_rank{env.rank}.pt"))
+    out["moe_local_experts"] = layer.local_experts
+    out["staged"] = dict(collective.host_staged)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return out
+
+
+def moe_inputs(torch):
+    g = torch.Generator().manual_seed(291)
+    return (torch.randn(MOE["tokens"], MOE["d_model"], generator=g),
+            torch.randn(MOE["tokens"], MOE["d_model"], generator=g) * 1e-3)
+
+
+def spawn29(outdir, timeout=DIST["timeout"]):
+    """Phase 29's two ranks through the port's launcher; their results by
+    rank. Every process is joined or killed."""
+    import multiprocessing as mp
+    from paddle_tpu_torch.distributed import launch_mod
+    queue = mp.get_context("spawn").Queue()
+    ctx = launch_mod.spawn(phase29_rank, args=(outdir, queue), nprocs=2,
+                           join=False)
+    results = {}
+    deadline = time.time() + timeout
+    try:
+        while len(results) < 2:
+            left = deadline - time.time()
+            check(left > 0, f"29: ranks {sorted({0, 1} - set(results))} "
+                  f"gave no result in {timeout} s")
+            try:
+                rank, res = queue.get(timeout=min(left, 10))
+            except Exception:  # noqa: BLE001 - queue.Empty: poll again
+                dead = [p.exitcode for p in ctx.processes
+                        if p.exitcode not in (None, 0)]
+                check(not dead, f"29: a rank exited {dead} without a result")
+                continue
+            results[rank] = res
+    finally:
+        for p in ctx.processes:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r, res in results.items():
+        check("error" not in res, f"29: rank {r} failed:\n{res.get('error')}")
+    return [results[r] for r in range(2)]
+
+
+def phase29_one(torch, optimizer, TransformerLMConfig, GPTForCausalLM,
+                outdir):
+    """29b's checkpoint loaded by one process (a world of one, no process
+    group): every parameter and every state tensor torch.equal to what
+    the ranks held (their own saves beside the checkpoint)."""
+    from paddle_tpu_torch.incubate.checkpoint import sharded
+    model = dist_gpt(torch, TransformerLMConfig, GPTForCausalLM)
+    opt = optimizer.AdamW(DIST["lr"], parameters=model.named_parameters(),
+                          weight_decay=0.01)
+    t0 = time.perf_counter()
+    sharded.load_sharded_train_state(os.path.join(outdir, "zero_ckpt"),
+                                     dict(model.named_parameters()), opt)
+    load_s = time.perf_counter() - t0
+    got = _zero_opt_state(opt, model)
+    want = {}
+    for r in range(2):
+        want.update(torch.load(os.path.join(outdir, f"zero_opt{r}.pt")))
+    check(set(got) == set(want), f"29b: the loaded state's keys differ: "
+          f"{sorted(set(got) ^ set(want))[:6]}")
+    bad = [k for k, v in want.items() if not torch.equal(got[k].cpu(), v)]
+    check(not bad, f"29b: loaded state differs from the ranks': {bad[:6]}")
+    params = torch.load(os.path.join(outdir, "zero_state.pt"))
+    pbad = [k for k, p in model.named_parameters()
+            if not torch.equal(p.detach().cpu(), params[k])]
+    check(not pbad, f"29b: loaded parameters differ: {pbad[:6]}")
+    print(f"  29b one process loaded the ranks' train state ({len(got)} "
+          f"optimizer tensors, {len(params)} parameters) in {load_s:.2f} s: "
+          f"each torch.equal to the ranks'")
+    del model, opt, got, want, params
+    torch.cuda.empty_cache()
+
+
+def phase29_one_peak(torch, optimizer, TransformerLMConfig, GPTForCausalLM):
+    """One process's peak device memory over 29b's steps on one rank's
+    batch ([4, 1024], the whole state unpartitioned), as 29b's ranks
+    measure theirs: from before the model is built."""
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 50304, (DIST["batch"], DIST["seq"])).astype(np.int64)).cuda()
+    mine = ids[:DIST["batch"] // 2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = dist_gpt(torch, TransformerLMConfig, GPTForCausalLM)
+    opt = optimizer.AdamW(DIST["lr"], parameters=model.named_parameters(),
+                          weight_decay=0.01)
+    for _ in range(DIST["steps"]):
+        loss = model(mine, labels=mine)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del model, opt, loss, ids, mine
+    torch.cuda.empty_cache()
+    return peak
+
+
+def phase29_moe(torch, outdir, optimizer):
+    """29c: the two ranks' MoE layer against one process's on the same
+    weights and tokens; then one GradientMerge (k = 2) and one
+    DGCMomentum step on the one-process layer against their plain
+    steps."""
+    from paddle_tpu_torch.distributed.fleet import meta_optimizers as meta
+    from paddle_tpu_torch.incubate import moe
+    layer = moe.MoELayer(MOE["d_model"], MOE["hidden"], MOE["experts"],
+                         top_k=MOE["top_k"],
+                         generator=torch.Generator().manual_seed(29))
+    x, cot = moe_inputs(torch)
+    x = x.cuda().requires_grad_()
+    y = layer(x)
+    ((y * cot.cuda()).sum() + layer.aux_loss).backward()
+    want = {"y": y.detach(), "aux": layer.aux_loss.detach(), "dx": x.grad,
+            "dgate": layer.gate.grad}
+    for k in ("w1", "b1", "w2", "b2"):
+        want["d" + k] = getattr(layer, k).grad
+    ranks = [torch.load(os.path.join(outdir, f"moe_rank{r}.pt"))
+             for r in range(2)]
+    errs = []
+    el = MOE["experts"] // 2
+    for name, w in want.items():
+        top = float(w.abs().max())
+        err = 0.0
+        for r, got in enumerate(ranks):
+            ref = w[r * el:(r + 1) * el] if name in ("dw1", "db1", "dw2",
+                                                     "db2") else w
+            err = max(err, float((got[name].cuda() - ref).abs().max()))
+        check(err <= MOE_TOL * max(top, 1e-30), f"29c {name}: err {err} > "
+              f"{MOE_TOL} x {top}")
+        errs.append(f"{name} {err:.3e}")
+    cap = int(max(1, 1.25 * MOE["tokens"] * MOE["top_k"] / MOE["experts"]))
+    print(f"  29c MoE ep = 2 ({MOE['experts']} experts, top-{MOE['top_k']}, "
+          f"{MOE['tokens']} tokens, d {MOE['d_model']}, hidden "
+          f"{MOE['hidden']}, capacity {cap}, f32) against one process: "
+          f"{', '.join(errs)} (tol {MOE_TOL} of each largest)")
+    # one GradientMerge step (k = 2: the mean of two steps' grads)
+    ps = [layer.w1, layer.gate]
+    g1 = [p.grad.clone() for p in ps]
+    g2 = [torch.randn_like(p) * 1e-3 for p in ps]
+    before = [p.detach().clone() for p in ps]
+    gm = meta.GradientMergeOptimizer(optimizer.SGD(
+        0.1, parameters=ps), k_steps=2)
+    for grads in (g1, g2):
+        for p, g in zip(ps, grads):
+            p.grad = g.clone()
+        gm.step()
+    gm_err = max(float((p - (b - 0.1 * (a + c) / 2)).abs().max())
+                 for p, b, a, c in zip(ps, before, g1, g2))
+    check(gm_err <= 1e-6, f"29c GradientMerge: err {gm_err}")
+    # one DGCMomentum step at sparsity 0.999 against its plain formula
+    w = layer.w2
+    g = w.grad.clone()
+    w0 = w.detach().clone()
+    dgc = meta.DGCMomentumOptimizer(0.1, momentum=0.9, parameters=[w],
+                                    sparsity=[0.999])
+    dgc.step()
+    thr = torch.topk(g.abs().reshape(-1),
+                     max(1, int(g.numel() * 0.001))).values[-1]
+    plain = w0 - 0.1 * g * (g.abs() >= thr).float()
+    dgc_err = float((w.detach() - plain).abs().max())
+    kept = int((w.detach() != w0).sum())
+    check(dgc_err == 0.0, f"29c DGCMomentum: err {dgc_err}")
+    print(f"  29c GradientMerge (k = 2) step against the plain SGD step on "
+          f"the mean grad: err {gm_err:.3e}; DGCMomentum at sparsity 0.999 "
+          f"against its plain top-k step: err {dgc_err:.3e}, "
+          f"{kept} of {w.numel()} elements moved")
+    del layer, x, y, want, ranks
+    torch.cuda.empty_cache()
+
+
+def ce_rows29(torch, tce, t, label, g):
+    """The kernels line's K5-K7 rows at [t, 768, 50304] f32 (a pipeline
+    stage's or a ZeRO rank's head), each held against its plain version
+    and timed with its bound and F.cross_entropy(F.linear)."""
+    import torch.nn.functional as F
+    h, v = 768, 50304
+    x, w, labels, gg = ce_case(torch, t, h, v, "float32", g)
+    loss, lse = tce.fused_ce_forward(x, w, labels)
+    dx = tce.fused_ce_bwd_dx(x, w, labels, lse, gg)
+    dw = tce.fused_ce_bwd_dw(x, w, labels, lse, gg)
+    rloss, rlse = tce.fused_linear_cross_entropy_plain(x, w, labels)
+    e5 = max(float((loss - rloss).abs().max()),
+             float((lse - rlse).abs().max()))
+    check(e5 <= CE_LOSS_TOL, f"29 K5 [{t}]: err {e5}")
+    rdx, rdw = tce.fused_linear_cross_entropy_backward_plain(
+        x, w, labels, lse, gg)
+    e6 = float((dx - rdx).abs().max())
+    e7 = float((dw - rdw).abs().max())
+    check(e6 <= CE_F32_TOL * float(rdx.abs().max())
+          and e7 <= CE_F32_TOL * float(rdw.abs().max()),
+          f"29 K6/K7 [{t}]: err {e6} / {e7}")
+    del rloss, rlse, rdx, rdw
+    k5 = time_ms(torch, lambda: tce.fused_ce_forward(x, w, labels), iters=5,
+                 warmup=1)
+    k6 = time_ms(torch, lambda: tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
+                 iters=5, warmup=1)
+    k7 = time_ms(torch, lambda: tce.fused_ce_bwd_dw(x, w, labels, lse, gg),
+                 iters=5, warmup=1)
+    pf = time_ms(torch, lambda: tce.fused_linear_cross_entropy_plain(
+        x, w, labels), iters=3, warmup=1)
+    pb = time_ms(torch, lambda: tce.fused_linear_cross_entropy_backward_plain(
+        x, w, labels, lse, gg), iters=3, warmup=1)
+    leaves = [a.clone().requires_grad_() for a in (x, w)]
+
+    def comp():
+        return F.cross_entropy(F.linear(leaves[0], leaves[1]), labels,
+                               ignore_index=-100, reduction="none")
+    cf = time_ms(torch, comp, iters=3, warmup=1)
+    closs = comp()
+    cb = time_ms(torch, lambda: torch.autograd.grad(
+        closs, leaves, gg, retain_graph=True), iters=3, warmup=1)
+    del closs, leaves
+    flops = 2.0 * t * v * h
+    ins = (t * h + v * h) * 4 + t * 8
+    b5 = bound(ins + 2 * t * 4, flops, "float32")
+    b6 = bound(ins + 2 * t * 4 + t * h * 4, 2 * flops, "float32")
+    b7 = bound(ins + 2 * t * 4 + v * h * 4, 2 * flops, "float32")
+    tag = f"{label} [{t}, {h}, {v}] float32"
+    print(f"  {tag}: K5 {k5:.3f} ms, K6 {k6:.3f} ms, K7 {k7:.3f} ms "
+          f"(bounds {b5[0]:.3f} / {b6[0]:.3f} / {b7[0]:.3f} ms); plain "
+          f"{pf:.3f} / {pb:.3f} ms; F.cross_entropy(F.linear) {cf:.3f} / "
+          f"{cb:.3f} ms; errs {e5:.3e} / {e6:.3e} / {e7:.3e}")
+    rows = []
+    for name, line, ms, plain, lib, bd, err in (
+            ("fused_ce_forward", ":93", k5, pf, cf, b5, e5),
+            ("fused_ce_bwd_dx", ":183", k6, pb, cb, b6, e6),
+            ("fused_ce_bwd_dw", ":198", k7, pb, cb, b7, e7)):
+        rows.append({"name": name, "route": "cuda", "dtype": "float32",
+                     "shape": tag,
+                     "source": "paddle_tpu_torch/csrc/fused_ce.cu",
+                     "replaces": "paddle_tpu/ops/fused_ce.py" + line,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bd[0], "bound_by": bd[1],
+                     "library_ms": lib})
+    del x, w, labels, gg, loss, lse, dx, dw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dist_rest(torch, optimizer, attn, tce, TransformerLMConfig,
+                    GPTForCausalLM, one):
+    """Phase 29 (above); ``one`` is 28b's one-process f32 run. Returns the
+    kernels line's rows: K1-K3 at a stage's microbatch and at a ZeRO
+    rank's batch, K5-K7 at the last stage's microbatch and at a ZeRO
+    rank's batch, with the ranks' launches."""
+    import tempfile
+    t0 = time.perf_counter()
+    L = 12
+    steps, acc = DIST["steps"], PP_DIST["acc"]
+    with tempfile.TemporaryDirectory() as outdir:
+        ranks = spawn29(outdir)
+        spawn_s = time.perf_counter() - t0
+        check(all(r["backend"] == "gloo" for r in ranks),
+              f"29: backends {[r['backend'] for r in ranks]}")
+        # 29a
+        a, b = (r["pp_losses"] for r in ranks)
+        check(a == b, f"29a: the stages' losses differ: {a} {b}")
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, one["losses"]))
+        check(rel <= TP_LOSS_RTOL, f"29a: losses {a} against one process's "
+              f"{one['losses']}: {rel} > {TP_LOSS_RTOL}")
+        blocks = [r["pp_blocks"] for r in ranks]
+        check(blocks == [list(range(6)), list(range(6, 12))],
+              f"29a: stage blocks {blocks}")
+        for s, r in enumerate(ranks):
+            want = [steps * acc * 6] * 3 + [steps * acc * s] * 3
+            check(r["pp_launches"] == want, f"29a stage {s}: launches "
+                  f"{r['pp_launches']}, not {want}")
+        check(all(r["pp_tied_equal"] for r in ranks),
+              "29a: the two copies of the tied embedding differ")
+        held = [r["pp_held_bytes"] / r["pp_model_bytes"] for r in ranks]
+        check(all(r["pp_held_bytes"] == r["pp_runs_bytes"] for r in ranks)
+              and max(held) <= PP_HELD_SHARE,
+              f"29a: parameter bytes a stage "
+              f"{[r['pp_held_bytes'] for r in ranks]}, of what it runs "
+              f"{[r['pp_runs_bytes'] for r in ranks]}, shares {held}")
+        pp = torch.load(os.path.join(outdir, "pp_state.pt"))
+        tp_leaves_check(torch, "29a pp = 2", pp, one["final"], one["init"])
+        del pp
+        print(f"  29a GPT-124M pp = 2 ({acc} microbatches of [2, 1024], "
+              f"1F1B) f32 AdamW: losses {a} on both stages, one process "
+              f"{one['losses']}, largest relative difference {rel:.3e} (tol "
+              f"{TP_LOSS_RTOL}); the tied embedding's two copies bit-equal; "
+              f"3 steps {ranks[0]['pp_s']:.2f} s; launches K1/K2/K3/K5/K6/K7 "
+              f"stage 0 {ranks[0]['pp_launches']}, stage 1 "
+              f"{ranks[1]['pp_launches']}; bytes staged through pinned "
+              f"memory, stage 0 {ranks[0]['pp_staged_bytes']}, stage 1 "
+              f"{ranks[1]['pp_staged_bytes']}; parameter bytes a stage "
+              f"{[r['pp_held_bytes'] for r in ranks]} of the model's "
+              f"{ranks[0]['pp_model_bytes']} "
+              f"({[round(x, 4) for x in held]}, tol {PP_HELD_SHARE})")
+        # 29b
+        mean = [(x + y) / 2 for x, y in zip(*(r["zero_losses"]
+                                              for r in ranks))]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(mean, one["losses"]))
+        check(rel <= TP_LOSS_RTOL, f"29b: mean losses {mean} against one "
+              f"process's {one['losses']}: {rel} > {TP_LOSS_RTOL}")
+        for r in ranks:
+            want = [steps * L] * 3 + [steps] * 3
+            check(r["zero_launches"] == want, f"29b: launches "
+                  f"{r['zero_launches']}, not {want}")
+        whole = sum(2 * v.numel() * 4 + 8 for v in one["final"].values())
+        shares = [r["zero_state_bytes"] / whole for r in ranks]
+        check(max(shares) <= ZERO_STATE_SHARE and
+              sum(r["zero_state_bytes"] for r in ranks) == whole,
+              f"29b: optimizer state shares {shares}")
+        model_bytes = sum(v.numel() * 4 for v in one["final"].values())
+        gshares = [r["zero_grad_bytes"] / model_bytes for r in ranks]
+        check(max(gshares) <= ZERO_STATE_SHARE,
+              f"29b: grads held after the backward, shares {gshares}")
+        zs = torch.load(os.path.join(outdir, "zero_state.pt"))
+        tp_leaves_check(torch, "29b ZeRO os_g", zs, one["final"],
+                        one["init"])
+        del zs
+        one_peak = phase29_one_peak(torch, optimizer, TransformerLMConfig,
+                                    GPTForCausalLM)
+        print(f"  29b GPT-124M ZeRO os_g sharding = 2 (each rank [4, 1024]) "
+              f"f32 AdamW: mean of the ranks' losses {mean}, one process "
+              f"{one['losses']}, largest relative difference {rel:.3e}; "
+              f"partition sizes {ranks[0]['zero_sizes']} elements (the tied "
+              f"embedding's 38.6M on rank 0); optimizer state a rank "
+              f"{[r['zero_state_bytes'] for r in ranks]} bytes, "
+              f"{[round(x, 4) for x in shares]} of one process's {whole} "
+              f"(tol {ZERO_STATE_SHARE}); 3 steps {ranks[0]['zero_s']:.2f} "
+              f"s; save_sharded_train_state {ranks[0]['zero_save_s']:.2f} "
+              f"s; launches a rank {ranks[0]['zero_launches']}; grads "
+              f"held after the backward "
+              f"{[r['zero_grad_bytes'] for r in ranks]} bytes "
+              f"({[round(x, 4) for x in gshares]} of the model's); "
+              f"peak device memory over the steps a rank "
+              f"{[r['zero_peak'] for r in ranks]} bytes, one process on the "
+              f"same [4, 1024] batch {one_peak} bytes")
+        phase29_one(torch, optimizer, TransformerLMConfig, GPTForCausalLM,
+                    outdir)
+        # 29c
+        check([r["moe_local_experts"] for r in ranks] == [4, 4],
+              "29c: not 4 experts a rank")
+        phase29_moe(torch, outdir, optimizer)
+        print(f"  29 host-staged collectives, rank 0: {ranks[0]['staged']}; "
+              f"the spawn {spawn_s:.1f} s; MoE step on the ranks "
+              f"{ranks[0]['moe_s']:.2f} s")
+    g = torch.Generator(device="cuda").manual_seed(2929)
+    rows = []
+    for shape, label, counts, key in (
+            ((2, 12, 1024, 64), "29a stage", 3, "pp_launches"),
+            ((4, 12, 1024, 64), "29b rank", 3, "zero_launches")):
+        errs = {}
+        q, k, v, do, lse, delta, scale = bwd_case(torch, attn, shape, True,
+                                                  "float32", g)
+        args = (q, k, v, lse, do, delta, scale, True)
+        for name, got, want in zip(
+                ("dq", "dk", "dv"),
+                (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args)),
+                attn.flash_attention_backward_plain(*args)):
+            err = float((got - want).abs().max())
+            check(err <= 1e-4 * float(want.abs().max()),
+                  f"29 K2/K3 {shape} {name}: err {err}")
+            errs[(shape, True, "float32", name)] = err
+        del q, k, v, do, lse, delta
+        frows = flash_rows(torch, attn, shape, True, "float32", errs, g)
+        for row, n in zip(frows, (sum(r[key][i] for r in ranks)
+                                  for i in range(3))):
+            row["launches"] = n
+            row["shape"] = f"{label} {row['shape']}"
+        rows += frows
+    for t, label, key in ((2048, "29a last stage", "pp_launches"),
+                          (4096, "29b rank", "zero_launches")):
+        crows = ce_rows29(torch, tce, t, label, g)
+        for row, i in zip(crows, (3, 4, 5)):
+            row["launches"] = sum(r[key][i] for r in ranks)
+        rows += crows
+    print(f"  phase 29 in {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def card_line():
@@ -8718,10 +9304,12 @@ def main():
                     "BERT-base, the edge cases, _C_ops and the profiler); "
                     "prints no kernels line")
     ap.add_argument("--dist", action="store_true",
-                    help="phases 1 and 28 only (the build, the distributed "
-                    "layer: a world of one over NCCL, the two-rank "
-                    "tensor-parallel GPT-124M and sequence parallelism on "
-                    "the one card, the TP shard route of K5-K7, the lint); "
+                    help="phases 1, 28 and 29 only (the build, the "
+                    "distributed layer: a world of one over NCCL, the "
+                    "two-rank tensor-parallel GPT-124M and sequence "
+                    "parallelism on the one card, the TP shard route of "
+                    "K5-K7, the lint; two pipeline stages, ZeRO-2 and its "
+                    "checkpoint, MoE at ep = 2, the meta-optimizers); "
                     "prints no kernels line")
     ap.add_argument("--rnn", action="store_true",
                     help="phases 1 and 23 only (the build, the recurrent "
@@ -8837,12 +9425,18 @@ def main():
     if args.dist:
         print("[28] the distributed layer: collectives, DataParallel, "
               "tensor and sequence parallelism, the lint")
-        rows28 = phase_dist(torch, amp, optimizer, attn, tce,
-                            TransformerLMConfig, GPTForCausalLM)
-        print(f"phases 1 and 28 in {time.perf_counter() - t_start:.1f} s; "
-              f"phase 28's launches: " + ", ".join(
+        rows28, one = phase_dist(torch, amp, optimizer, attn, tce,
+                                 TransformerLMConfig, GPTForCausalLM)
+        print("[29] the rest of the distributed layer: two pipeline stages, "
+              "ZeRO-2 and its sharded checkpoint, MoE at ep = 2, "
+              "meta-optimizers")
+        rows29 = phase_dist_rest(torch, optimizer, attn, tce,
+                                 TransformerLMConfig, GPTForCausalLM, one)
+        del one
+        print(f"phases 1, 28 and 29 in {time.perf_counter() - t_start:.1f} "
+              f"s; phases 28 and 29's launches: " + ", ".join(
                   f"{r['name']} {r['shape']} {r['launches']}"
-                  for r in rows28 if r["launches"]))
+                  for r in rows28 + rows29 if r["launches"]))
         print(card_line())
         return 0
     if args.rnn:
@@ -9010,8 +9604,15 @@ def main():
     print("[28] the distributed layer: a world of one over NCCL, the "
           "two-rank tensor-parallel GPT-124M and sequence parallelism on "
           "the one card, the TP shard route of K5-K7, the lint")
-    rows28 = phase_dist(torch, amp, optimizer, attn, tce,
-                        TransformerLMConfig, GPTForCausalLM)
+    rows28, one = phase_dist(torch, amp, optimizer, attn, tce,
+                             TransformerLMConfig, GPTForCausalLM)
+    print("[29] the rest of the distributed layer: GPT-124M in two pipeline "
+          "stages and under ZeRO-2 on two rank processes started by the "
+          "port's launcher, the ZeRO train state saved sharded and loaded "
+          "by one process, MoE at ep = 2, GradientMerge and DGCMomentum")
+    rows29 = phase_dist_rest(torch, optimizer, attn, tce,
+                             TransformerLMConfig, GPTForCausalLM, one)
+    del one
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -9046,7 +9647,7 @@ def main():
     for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
         for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
             row["launches"] = n
-    print(f"phases 1-28 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-29 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -9059,7 +9660,8 @@ def main():
                                               k2b_row, k3b_row, k5_row,
                                               k6_row, k7_row, k5f_row,
                                               k6f_row, k7f_row,
-                                              *noncausal, *rows28)]}))
+                                              *noncausal, *rows28,
+                                              *rows29)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -62,22 +62,29 @@ class GradScaler:
     def unscale_(self, optimizer):
         """Divide every grad by the scale (reference
         ``check_finite_and_unscale``) and note whether any was not
-        finite."""
+        finite. An optimizer whose update is partitioned over ranks (ZeRO:
+        its ``_sharding`` engine) names the grads and agrees on the flag
+        over its group."""
         if not self._enable:
             return
         _trace.refuse_in_capture(_HOST_STATE)
-        params = [p for p in optimizer._parameter_list() if p.grad is not None]
-        if not params:
-            return
-        with op_body():
-            finite = torch.stack([torch.isfinite(p.grad).all().cpu()
-                                  for p in params]).all()
-            inv = 1.0 / self._scale
-            for p in params:
-                # in place: the grads keep the storage a lazy step's
-                # graph replays into
-                p.grad.mul_(inv.to(p.grad.device, p.grad.dtype))
-        self._found_inf = not bool(finite)
+        sharded = getattr(optimizer, "_sharding", None)
+        params = sharded.grad_leaves() if sharded is not None else [
+            p for p in optimizer._parameter_list() if p.grad is not None]
+        found = None
+        if params:
+            with op_body():
+                finite = torch.stack([torch.isfinite(p.grad).all().cpu()
+                                      for p in params]).all()
+                inv = 1.0 / self._scale
+                for p in params:
+                    # in place: the grads keep the storage a lazy step's
+                    # graph replays into
+                    p.grad.mul_(inv.to(p.grad.device, p.grad.dtype))
+            found = not bool(finite)
+        if sharded is not None:
+            found = sharded.found_inf(found)
+        self._found_inf = found
 
     def step(self, optimizer):
         if not self._enable:

@@ -1,16 +1,17 @@
 """``paddle.distributed`` (a port of ``paddle_tpu/distributed``): one
 rank a process on ``torch.distributed``, as Paddle runs.
 
-Ported: ``env`` (ranks, ``ParallelEnv``), ``topology`` (the hybrid
-layout and its groups), ``collective`` (the collectives, groups and the
-tensor-parallel autograd pairs), ``parallel`` (``init_parallel_env``,
-``DataParallel``), ``utils_recompute`` and ``fleet``'s collective half
-with ``meta_parallel``'s tensor- and sequence-parallel layers. Not bound
-yet, each with the item that brings it: ``launch_mod`` (``spawn``,
-``launch``), ``sharding``, ``pipeline``, ``ps``, ``fleet.dataset``
-(``InMemoryDataset``, ``QueueDataset``), ``fleet.utils_fs``,
-``fleet.data_generator``, ``meta_parallel.pp_layers`` and
-``fleet.meta_optimizers`` — queue 1 item 13's next slice.
+``env`` (ranks, ``ParallelEnv``), ``topology`` (the hybrid layout and its
+groups), ``collective`` (the collectives, groups, the point-to-point
+exchange and the tensor-parallel autograd pairs), ``parallel``
+(``init_parallel_env``, ``DataParallel``), ``launch_mod`` (``spawn``,
+``launch``; ``python -m paddle_tpu_torch.distributed.launch``),
+``pipeline`` (the 1F1B schedule and its functional API), ``sharding``
+(ZeRO: ``group_sharded_parallel``), ``ps`` (the parameter server),
+``utils_recompute`` and ``fleet``: its collective and parameter-server
+halves, ``meta_parallel`` (tensor, sequence and pipeline parallelism,
+``PipelineLayer``), the meta-optimizers, the datasets, ``elastic`` and
+the distributed embeddings.
 """
 from . import env  # noqa: F401
 from .env import get_rank, get_world_size, ParallelEnv  # noqa: F401
@@ -22,6 +23,9 @@ from .collective import (  # noqa: F401
 )
 from . import topology  # noqa: F401
 from . import fleet  # noqa: F401
+from .launch_mod import spawn, launch  # noqa: F401
+from . import sharding  # noqa: F401
+from .fleet.dataset import InMemoryDataset, QueueDataset  # noqa: F401
 
 
 class ProbabilityEntry:

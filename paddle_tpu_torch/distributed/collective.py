@@ -26,9 +26,10 @@ catching its error:
   other collectives of a gloo group on CUDA tensors (``all_gather``,
   ``reduce``, ``scatter``, ``alltoall``, ``reduce_scatter``, ``send``,
   ``recv``) are staged through pinned host memory: copied out, run on
-  the host copy, copied back. ``host_staged`` counts them by name. This
-  is the route of ranks that share one card (NCCL refuses two ranks on
-  one device).
+  the host copy, copied back. ``host_staged`` counts them by name and
+  ``host_staged_bytes`` the bytes each name copied out. This is the
+  route of ranks that share one card (NCCL refuses two ranks on one
+  device).
 * on gloo, ``reduce_scatter`` is an ``all_reduce`` of the stacked inputs
   of which each rank keeps its own block, and ``ReduceOp.AVG`` a sum
   divided by the group's size.
@@ -38,7 +39,9 @@ forward with an all-reduced grad, and the reverse), ``_c_concat``/
 ``_c_split`` (gather and split along the last axis), ``_ring_shift``
 (each rank's value to the next, the ring attention's hop) and
 ``_all_to_all`` (the Ulysses exchange) are ``torch.autograd.Function``s
-whose backward is the collective's transpose.
+whose backward is the collective's transpose. ``p2p_exchange`` posts a
+round of sends and receives at once (the pipeline's neighbours send to
+each other in the same round).
 """
 import torch
 import torch.distributed as dist
@@ -55,8 +58,10 @@ CUDA_NATIVE = frozenset({("gloo", "all_reduce"), ("gloo", "broadcast")})
 # (backend, op) built from other collectives
 COMPOSED = frozenset({("gloo", "reduce_scatter"), ("gloo", "avg")})
 
-# collectives staged through pinned host memory, by name
+# collectives staged through pinned host memory, by name, and the bytes
+# each name copied out to the host and back
 host_staged = {}
+host_staged_bytes = {}
 
 
 def _initialized():
@@ -228,6 +233,7 @@ class _Stage:
 
     def __init__(self, g, op, tensors):
         self.on = any(_staged(g, t, op) for t in tensors)
+        self.op = op
         self.pairs = []
         if self.on:
             host_staged[op] = host_staged.get(op, 0) + 1
@@ -236,6 +242,9 @@ class _Stage:
         if not self.on:
             return t
         h = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+        if t.is_cuda:
+            host_staged_bytes[self.op] = host_staged_bytes.get(self.op, 0) \
+                + t.numel() * t.element_size()
         if copy:
             h.copy_(t)
         if out:
@@ -506,6 +515,28 @@ def recv(tensor, src=0, group=None, sync_op=True):
         dist.recv(st.host(t, copy=False), src=src, group=g.process_group)
         st.back()
     return tensor
+
+
+def p2p_exchange(sends=(), recvs=(), group=None):
+    """Post every ``(tensor, dst)`` send and ``(tensor, src)`` receive
+    (global ranks) at once and wait for all of them: neighbours that
+    send to each other at the same moment do not wait on each other. A
+    receive writes its tensor in place. On gloo, CUDA tensors are staged
+    through pinned host memory (``host_staged["send"]`` / ``["recv"]``)."""
+    g = _group(group)
+    _check_capture(g, "p2p_exchange")
+    sends = [(_torch(t).contiguous(), d) for t, d in sends]
+    recvs = [(_torch(t), s) for t, s in recvs]
+    with torch.no_grad():
+        st_s = _Stage(g, "send", [t for t, _ in sends])
+        st_r = _Stage(g, "recv", [t for t, _ in recvs])
+        reqs = [dist.irecv(st_r.host(t, copy=False), src=s,
+                           group=g.process_group) for t, s in recvs]
+        reqs += [dist.isend(st_s.host(t, out=False), dst=d,
+                            group=g.process_group) for t, d in sends]
+        for r in reqs:
+            r.wait()
+        st_r.back()
 
 
 def get_rank(group=None):

@@ -102,7 +102,7 @@ class DistributedStrategy:
                 "proto: distributed_strategy.proto:159-211)")
         object.__setattr__(self, key, value)
 
-    # the meta-optimizers, which the port does not run yet (queue 1 item 13)
+    # the meta-optimizers (fleet/meta_optimizers.py)
     META_OPTIMIZERS = ("gradient_merge", "lars", "lamb", "dgc",
                        "fp16_allreduce", "localsgd", "adaptive_localsgd")
 

@@ -11,5 +11,4 @@ from .random import (  # noqa: F401
 from .sequence_parallel import (  # noqa: F401
     SequenceParallelAttention, ring_attention, ulysses_attention,
 )
-# pp_layers (PipelineLayer, LayerDesc, SharedLayerDesc) comes with the
-# pipeline engine, queue 1 item 13
+from .pp_layers import PipelineLayer, LayerDesc, SharedLayerDesc  # noqa: F401

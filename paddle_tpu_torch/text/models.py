@@ -297,8 +297,8 @@ class _TransformerCore(nn.Module):
              for _ in range(cfg.num_layers)])
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5, device=device)
 
-    def forward(self, input_ids, token_type_ids=None, attn_mask=None,
-                pos_offset=0):
+    def embed(self, input_ids, token_type_ids=None, pos_offset=0):
+        """The embeddings' sum (and its dropout): the blocks' input."""
         s = input_ids.shape[1]
         pos = torch.arange(pos_offset, pos_offset + s,
                            device=input_ids.device)
@@ -309,6 +309,12 @@ class _TransformerCore(nn.Module):
         if self.cfg.dropout:
             x = nn_ops.dropout(x, self.cfg.dropout, training=self.training,
                                generator=self.dropout_generator)
+        return x
+
+    def run_blocks(self, x, attn_mask=None, blocks=None):
+        """``blocks`` (all of them by default) in turn, each recomputed in
+        the backward under ``cfg.recompute``."""
+        blocks = self.blocks if blocks is None else blocks
         if self.cfg.recompute and self.training and x.requires_grad:
             # the generator the blocks' dropout draws from
             gen = None
@@ -316,12 +322,18 @@ class _TransformerCore(nn.Module):
                 gen = self.dropout_generator
                 if gen is None:
                     gen = rng.default_generator(x.device)
-            for blk in self.blocks:
+            for blk in blocks:
                 x = _BlockRecompute.apply(blk, gen, attn_mask, x,
                                           *blk.parameters())
         else:
-            for blk in self.blocks:
+            for blk in blocks:
                 x = blk(x, attn_mask)
+        return x
+
+    def forward(self, input_ids, token_type_ids=None, attn_mask=None,
+                pos_offset=0):
+        x = self.run_blocks(self.embed(input_ids, token_type_ids,
+                                       pos_offset), attn_mask)
         return self.ln_f(x) if self.pre_norm else x
 
 
@@ -399,7 +411,12 @@ class GPTForCausalLM(nn.Module):
             input_ids = input_ids[:, offset:offset + s_local]
             if labels is not None:
                 labels = labels[:, offset:offset + s_local]
-        h = self.gpt(input_ids, pos_offset=offset)
+        return self._head(self.gpt(input_ids, pos_offset=offset), labels)
+
+    def _head(self, h, labels=None):
+        """The logits of the final hidden states ``h`` (this rank's
+        sequence block under sp), or with ``labels`` the mean loss."""
+        sp = self.gpt.sp_group
         mp = self.gpt.mp_group
         if labels is None:
             if self.cfg.tie_embeddings:
@@ -420,8 +437,13 @@ class GPTForCausalLM(nn.Module):
             wemb = self.gpt.word_embeddings.weight
             if mp is not None:
                 # tp_fused_applicable holds by construction: the vocab
-                # divides over mp (VocabParallelEmbedding checks it) and
-                # no pipeline stage runs (PipelineParallel is not ported)
+                # divides over mp (VocabParallelEmbedding checks it). The
+                # reference refuses it under pp > 1, where its program is
+                # cut into stages before the head; here the head runs
+                # whole on the last stage's mp group, whose shards of the
+                # tied weight are the first stage's (PipelineParallel
+                # sums the two copies' grads), so K5-K7 on each shard
+                # compute the reference's composition
                 per_tok = fused_ce.fused_linear_cross_entropy_tp(
                     x, wemb, flat, mp)
             else:
@@ -440,6 +462,32 @@ class GPTForCausalLM(nn.Module):
             total = collective._mp_allreduce(total, group=sp)
             collective.all_reduce(valid, group=sp)
         return total / valid.clamp(min=1.0)
+
+    def pp_segments(self):
+        """The pipeline's cut of the model (reference models.py:788-808):
+        ``pre`` the embeddings, ``blocks`` the transformer blocks (run
+        through ``run_blocks``, which recomputes them under
+        ``cfg.recompute``), ``post`` the final LayerNorm and the head's
+        mean loss over a microbatch, ``count`` the tokens a loss averages
+        over (``PipelineParallel`` weights each microbatch by its share of
+        the batch's), and the parameters ``pre`` and ``post`` read (the
+        tied embedding in both)."""
+        core = self.gpt
+        if core.sp_group is not None:
+            raise ValueError("pipeline parallelism does not combine with "
+                             "use_sp here")
+        wemb = core.word_embeddings.weight
+        head = [wemb] if self.cfg.tie_embeddings \
+            else list(self.lm_head.parameters())
+        return {"pre": lambda ids: core.embed(ids),
+                "blocks": list(core.blocks),
+                "run_blocks": lambda blocks, x: core.run_blocks(
+                    x, blocks=blocks),
+                "post": lambda h, labels=None: self._head(core.ln_f(h),
+                                                          labels),
+                "count": lambda labels: (labels != -100).sum(),
+                "pre_params": [wemb, core.position_embeddings.weight],
+                "post_params": list(core.ln_f.parameters()) + head}
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=32, temperature=1.0,

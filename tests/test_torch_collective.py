@@ -329,20 +329,26 @@ def test_hybrid_group_sizes_and_mesh():
 
 
 def test_strategy_and_fleet_refusals():
-    """The reference's strategy validation, and what the port does not
-    run yet raises NotImplementedError naming its item."""
+    """The reference's strategy validation, and its refusals: the
+    meta-optimizers and the parameter-server mode now run (fleet's
+    parameter-server mode without a process group), and init_worker
+    without a role maker raises the reference's RuntimeError."""
     s = fleet.DistributedStrategy()
     with pytest.raises(ValueError, match="unknown hybrid_configs"):
         s.hybrid_configs = {"dp_degre": 2}
     with pytest.raises(AttributeError, match="no field"):
         s.shardng = True
     s.gradient_merge = True
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fleet.init(is_collective=True, strategy=s)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fleet.init(role_maker=fleet.PaddleCloudRoleMaker(
-            is_collective=False))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    fleet.init(is_collective=True, strategy=s)
+    from paddle_tpu_torch import optimizer
+    opt = fleet.distributed_optimizer(optimizer.SGD(
+        0.1, parameters=[torch.zeros(1, requires_grad=True)]))
+    assert type(opt._inner_opt).__name__ == "GradientMergeOptimizer"
+    topology.reset()
+    fleet.init(role_maker=fleet.PaddleCloudRoleMaker(is_collective=False))
+    assert fleet.get_hybrid_communicate_group() is None
+    fleet.init(is_collective=True)
+    with pytest.raises(RuntimeError, match="init_worker needs"):
         fleet.init_worker()
     topology.reset()
 

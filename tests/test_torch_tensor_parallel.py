@@ -8,8 +8,9 @@ port's ranks (tests/torch_dist_worker.py, suite ``tp``) hold shards,
 loaded from the reference's weights through
 ``text.convert.tp_state_dict_from_paddle_tpu``, and gather their grads
 and weights whole to be compared. Two spawns: ``mp = 2`` (the layers,
-the fused CE, the tiny GPT tied and untied) and ``mp = 4`` (the fused
-CE), about 15 s and 10 s.
+the fused CE, the tiny GPT tied and untied, the tied GPT by a clipped SGD
+under two meta-optimizers) and ``mp = 4`` (the fused CE), about 15 s and
+10 s.
 
 Tolerances, f32 without TF32:
 - the layers and the TP fused CE through the reference's composition:
@@ -23,7 +24,9 @@ Tolerances, f32 without TF32:
   order moves a weight by lr times its relative change, up to about
   1e-3 on the grads of small magnitude, in each of 3 steps), except the
   key third of each QKV bias (true grad 0, rounding noise on both sides
-  that the normalised step turns into up to lr a step: 2 x 3 x lr).
+  that the normalised step turns into up to lr a step: 2 x 3 x lr);
+  3 clipped SGD steps (the update is the clipped grad): weights rtol
+  1e-5, atol 1e-6.
 """
 import jax
 import numpy as np
@@ -37,7 +40,7 @@ from paddle_tpu.ops import fused_ce as ref_ce
 from paddle_tpu.text.models import GPTForCausalLM, TransformerLMConfig
 
 from _torch_dist import run_ranks
-from torch_dist_worker import TINY_GPT, gpt_batch, tp_ce_inputs
+from torch_dist_worker import TINY_GPT, TP_SGD_LR, gpt_batch, tp_ce_inputs
 from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_layers
 from paddle_tpu_torch.text import convert
 
@@ -123,9 +126,10 @@ def _ref_layers():
     return inputs, want
 
 
-def _ref_gpt(tie):
+def _ref_gpt(tie, sgd=False):
     """The reference GPT with use_mp on its mp = 2 mesh: its weights,
-    step-1 loss and grads, 3 AdamW steps' losses and the weights after."""
+    step-1 loss and grads, 3 AdamW (or SGD) steps' losses and the weights
+    after."""
     hcg = _ref_hcg(2)
     try:
         paddle.seed(11)
@@ -134,9 +138,11 @@ def _ref_gpt(tie):
                                                **TINY_GPT))
         m.train()
         weights = {k: _np(v) for k, v in m.state_dict().items()}
-        opt = paddle.optimizer.AdamW(
-            LR, parameters=m.parameters(),
-            grad_clip=paddle.nn.ClipGradByGlobalNorm(CLIP))
+        clip = paddle.nn.ClipGradByGlobalNorm(CLIP)
+        opt = paddle.optimizer.SGD(TP_SGD_LR, parameters=m.parameters(),
+                                   grad_clip=clip) if sgd else \
+            paddle.optimizer.AdamW(LR, parameters=m.parameters(),
+                                   grad_clip=clip)
         ids, labels = gpt_batch()
         losses, grads = [], None
         for step in range(3):
@@ -157,6 +163,7 @@ def _ref_gpt(tie):
 def ref_cases():
     layers_in, layers_want = _ref_layers()
     gpts = {tie: _ref_gpt(tie) for tie in (False, True)}
+    gpts["sgd"] = _ref_gpt(True, sgd=True)
     ces = {(n, tag): _ref_tp_ce(n, tag) for n in (2, 4)
            for tag in ("comp", "pallas")}
     return layers_in, layers_want, gpts, ces
@@ -171,6 +178,8 @@ def _inputs(n, ref_cases):
     if n == 2:
         inputs.update(layers_in)
         for tie, (weights, *_rest) in gpts.items():
+            if tie == "sgd":
+                continue
             label = "tied" if tie else "untied"
             inputs.update({f"{label}.{k}": v for k, v in weights.items()})
     return inputs
@@ -286,6 +295,27 @@ def test_gpt_mp2_matches_reference(spawns, ref_cases, tie):
                 t, v = np.delete(t, np.s_[h:2 * h]), \
                     np.delete(v, np.s_[h:2 * h])
             np.testing.assert_allclose(t, v, rtol=0, atol=1e-2 * LR,
+                                       err_msg=f"rank {r} {k}")
+
+
+def test_clip_under_stacked_meta_optimizers(spawns, ref_cases):
+    """Gradient merge over LocalSGD over a clipped SGD at mp = 2 (both the
+    identity at k = 1 on a dp group of one): the clip installed is the
+    one of the optimizer under both wrappers, with the norm summed over
+    the mp ranks, so 3 SGD steps (the update is the clipped grad) match
+    the reference's plain clipped SGD. Tolerances: losses rtol 1e-5,
+    weights rtol 1e-5, atol 1e-6."""
+    lines, arrays = spawns(2)
+    _, _, ref_losses, ref_after = ref_cases[2]["sgd"]
+    for r, (line, a) in enumerate(zip(lines, arrays)):
+        assert line["stacked_wrappers"] == ["LocalSGDOptimizer",
+                                            "GradientMergeOptimizer"]
+        assert line["stacked_clip"] == "HybridParallelClipGrad"
+        np.testing.assert_allclose(line["stacked_losses"], ref_losses,
+                                   rtol=1e-5)
+        for k, v in ref_after.items():
+            np.testing.assert_allclose(a[f"stacked.param.{k}"], v,
+                                       rtol=1e-5, atol=1e-6,
                                        err_msg=f"rank {r} {k}")
 
 

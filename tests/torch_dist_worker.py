@@ -215,10 +215,18 @@ def _data_parallel(rank, n, out):
     return {"dp_losses": losses, "sdp_losses": slosses}
 
 
-def _fleet(**degrees):
+def _fleet(acc=None, stage=None, meta=None, **degrees):
+    """fleet.init over ``degrees``; ``meta``: strategy attributes to set
+    (the meta-optimizers and their configs)."""
     from paddle_tpu_torch.distributed import fleet
     s = fleet.DistributedStrategy()
     s.hybrid_configs = degrees
+    if acc is not None:
+        s.pipeline_configs = {"accumulate_steps": acc}
+    if stage is not None:
+        s.sharding_configs = {"stage": stage}
+    for k, v in (meta or {}).items():
+        setattr(s, k, v)
     fleet.init(is_collective=True, strategy=s)
     return fleet
 
@@ -281,9 +289,54 @@ def suite_tp(rank, n, out, inputs):
         res[f"{tag}_shard_is_mine"] = all(
             torch.equal(shards[g.rank][k], p.detach())
             for k, p in local.items())
+    _stacked_meta_clip(fleet, g, inputs, out, res)
     _build_topology_kept(inputs, res)
     C.barrier()
     return res
+
+
+TP_SGD_LR = 0.1     # SGD: the update is the clipped grad, so the clip shows
+
+
+def _stacked_meta_clip(fleet, g, inputs, out, res):
+    """The tied GPT at mp = 2 (the ``tied`` weights) by SGD with a
+    global-norm clip under two meta-optimizers, gradient merge over
+    LocalSGD (each the identity at k = 1 on a dp group of one): the clip
+    of the optimizer under both must be the hybrid one, its norm summed
+    over ``mp``. 3 steps: the losses and the whole weights after."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.text import convert, models
+    m = models.GPTForCausalLM(models.TransformerLMConfig(
+        use_mp=True, tie_embeddings=True, **TINY_GPT), device="cpu")
+    ref = {k[len("tied."):]: inputs[k] for k in inputs.files
+           if k.startswith("tied.")}
+    m.load_state_dict(convert.tp_state_dict_from_paddle_tpu(
+        ref, g.rank, g.nranks))
+    model = fleet.distributed_model(m)
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"mp_degree": g.nranks}
+    strategy.gradient_merge = True
+    strategy.gradient_merge_configs = {"k_steps": 1, "avg": True}
+    strategy.localsgd = True
+    strategy.localsgd_configs = {"k_steps": 1, "begin_step": 1}
+    inner = optimizer.SGD(TP_SGD_LR, parameters=m.named_parameters(),
+                          grad_clip=ClipGradByGlobalNorm(0.1))
+    opt = fleet.distributed_optimizer(inner, strategy=strategy)
+    res["stacked_wrappers"] = [type(opt._inner_opt).__name__,
+                               type(opt._inner_opt._inner_opt).__name__]
+    res["stacked_clip"] = type(inner._grad_clip).__name__
+    ids, labels = gpt_batch()
+    losses = []
+    for _ in range(3):
+        loss = model(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    res["stacked_losses"] = losses
+    for k, v in convert.state_dict_to_paddle_tpu(m.state_dict()).items():
+        out[f"stacked.param.{k}"] = v
 
 
 def _build_topology_kept(inputs, res):
@@ -482,7 +535,581 @@ def _sp_gpts(fleet, out, inputs, res, mp_layers, cases):
             out[f"gpt.{tag}.grad.{k}"] = v
 
 
-SUITES = {"collective": suite_collective, "tp": suite_tp, "sp": suite_sp}
+# ------------------------------------------------ pipeline, ZeRO, MoE, ...
+
+PP_LR = 0.1       # SGD: the update is the clipped grad, so the clip shows
+PP_CLIP = 0.5
+
+
+def pp_batch(b=8, s=32, vocab=256):
+    """ids and labels of the pipeline cases: -100 only in the first of
+    the 4 microbatches (rows 0-1), so its share of the kept tokens is not
+    a quarter."""
+    rs = np.random.RandomState(5)
+    ids = rs.randint(0, vocab, (b, s)).astype(np.int64)
+    labels = rs.randint(0, vocab, (b, s)).astype(np.int64)
+    labels[0:2, ::2] = -100
+    return ids, labels
+
+
+def _port_gpt(inputs, prefix, mp_group=None, **knobs):
+    from paddle_tpu_torch.text import convert, models
+    cfg = models.TransformerLMConfig(**dict(TINY_GPT, **knobs))
+    m = models.GPTForCausalLM(cfg, device="cpu")
+    ref = {k[len(prefix) + 1:]: inputs[k] for k in inputs.files
+           if k.startswith(prefix + ".")}
+    if mp_group is not None:
+        sd = convert.tp_state_dict_from_paddle_tpu(ref, mp_group.rank,
+                                                   mp_group.nranks)
+    else:
+        sd = convert.state_dict_from_paddle_tpu(ref)
+    m.load_state_dict(sd)
+    return m
+
+
+def _ref_names(named, tag, out, what):
+    from paddle_tpu_torch.text import convert
+    for k, v in convert.state_dict_to_paddle_tpu(named).items():
+        out[f"{tag}.{what}.{k}"] = v
+
+
+def _pp_train(fleet, inputs, tag, out, steps=3, scaler=None, adam=False,
+              name=None, **knobs):
+    """The tiny GPT of ``inputs[tag.*]`` through PipelineParallel: its
+    eval loss, ``steps`` train_batch steps (SGD, or AdamW, with a
+    global-norm clip), the first step's grads as the clip sees them (this
+    stage's), the whole state after (full_state_dict), the parameters
+    that hold storage on this stage and its copy of the tied embedding
+    (where it holds one)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    hcg = fleet.get_hybrid_communicate_group()
+    mp = hcg.get_model_parallel_group()
+    m = _port_gpt(inputs, tag, mp if mp.nranks > 1 else None,
+                  use_mp=mp.nranks > 1, **knobs)
+    model = fleet.distributed_model(m)
+    clip = ClipGradByGlobalNorm(PP_CLIP)
+    inner = optimizer.AdamW(1e-3, parameters=m.named_parameters(),
+                            grad_clip=clip) if adam else \
+        optimizer.SGD(PP_LR, parameters=m.named_parameters(), grad_clip=clip)
+    opt = fleet.distributed_optimizer(inner)
+    grads = {}
+    step = opt.step
+
+    def first_grads():
+        if not grads:
+            grads.update({n: p.grad.clone() for n, p in m.named_parameters()
+                          if p.grad is not None})
+        step()
+    opt.step = first_grads
+    ids, labels = (torch.from_numpy(inputs[k]) for k in ("pp.ids",
+                                                           "pp.labels"))
+    tag = name or tag
+    res = {f"{tag}_eval": float(model.eval_batch((ids, labels)))}
+    gs = amp.GradScaler(init_loss_scaling=1024.0) if scaler else None
+    res[f"{tag}_losses"] = [float(model.train_batch((ids, labels), opt,
+                                                    scaler=gs))
+                            for _ in range(steps)]
+    res[f"{tag}_blocks"] = model.stage_blocks
+    res[f"{tag}_clip"] = type(inner._grad_clip).__name__
+    if mp.nranks == 1:
+        _ref_names(grads, tag, out, "grad")
+        _ref_names(model.full_state_dict(), tag, out, "param")
+        res[f"{tag}_held"] = [k for k, p in m.named_parameters()
+                              if p.untyped_storage().size() > 0]
+        wemb = m.gpt.word_embeddings.weight
+        if wemb.untyped_storage().size():
+            out[f"{tag}.wemb"] = wemb.detach().numpy()
+    return res
+
+
+def _surface_pipe(fleet, inputs, tag, layers, steps, name=None,
+                  recompute_interval=0):
+    """A PipelineLayer of Paddle-surface layers (the reference's
+    parameters in order) through PipelineParallel, SGD 0.1."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineLayer
+    pipe = PipelineLayer(layers=layers, num_stages=2,
+                         loss_fn=paddle.nn.CrossEntropyLoss(),
+                         recompute_interval=recompute_interval)
+    for i, p in enumerate(pipe.parameters()):
+        p.set_value(inputs[f"{tag}.p{i}"])
+    model = fleet.distributed_model(pipe)
+    opt = fleet.distributed_optimizer(paddle.optimizer.SGD(
+        0.1, parameters=pipe.parameters()))
+    x = paddle.to_tensor(inputs[f"{tag}.x"])
+    y = paddle.to_tensor(inputs[f"{tag}.y"])
+    name = name or tag
+    return {f"{name}_losses": [float(model.train_batch((x, y), opt))
+                               for _ in range(steps)],
+            f"{name}_blocks": len(model._segs["blocks"]),
+            f"{name}_stage_blocks": model.stage_blocks}
+
+
+def _masked_linear():
+    import paddle_tpu_torch as paddle
+
+    class MaskedLinear(paddle.nn.Layer):
+        def __init__(self, d):
+            super().__init__()
+            self.fc = paddle.nn.Linear(d, d)
+            self.register_buffer("keep", paddle.to_tensor(
+                np.ones((d,), dtype="int32")))
+
+        def forward(self, x):
+            return self.fc(x) * self.keep.astype("float32")
+    return MaskedLinear
+
+
+def suite_pp(rank, n, out, inputs):
+    """pp = 2: the tiny GPT (4 blocks, 4 microbatches, -100 in the first
+    only) by SGD with a clip, the same with a GradScaler, 5 blocks
+    (uneven) by AdamW, and two PipelineLayers of surface layers (an int
+    buffer in the second's blocks)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import LayerDesc
+    fleet = _fleet(acc=4, pp_degree=n)
+    res = {"stage": fleet.get_hybrid_communicate_group().get_stage_id()}
+    res.update(_pp_train(fleet, inputs, "pp4l", out, num_layers=4))
+    res.update(_pp_train(fleet, inputs, "pp4l", out, steps=2, scaler=True,
+                         name="scaled", num_layers=4))
+    res.update(_pp_train(fleet, inputs, "pp5l", out, adam=True,
+                         num_layers=5))
+    # two meta-optimizers over the clipped SGD, each the identity at k = 1
+    # on a dp group of one: the clip must still be the hybrid one
+    topology.reset()
+    fleet = _fleet(acc=4, pp_degree=n, meta=dict(
+        gradient_merge=True, gradient_merge_configs={"k_steps": 1},
+        localsgd=True, localsgd_configs={"k_steps": 1}))
+    res.update(_pp_train(fleet, inputs, "pp4l", out, name="stacked",
+                         num_layers=4))
+    topology.reset()
+    fleet = _fleet(acc=2, pp_degree=n)
+    nn = paddle.nn
+    descs = [LayerDesc(nn.Linear, 8, 16)] + [LayerDesc(nn.Linear, 16,
+                                                       16)] * 4 \
+        + [LayerDesc(nn.Linear, 16, 4)]
+    res.update(_surface_pipe(fleet, inputs, "layer", descs, 5))
+    res.update(_surface_pipe(fleet, inputs, "layer", descs, 5,
+                             name="recompute", recompute_interval=1))
+    ml = _masked_linear()
+    res.update(_surface_pipe(fleet, inputs, "intbuf", [
+        LayerDesc(nn.Linear, 8, 16), LayerDesc(ml, 16), LayerDesc(ml, 16),
+        LayerDesc(nn.Linear, 16, 4)], 4))
+    from paddle_tpu_torch.distributed import collective
+    res["staged"] = dict(collective.host_staged)
+    return res
+
+
+def suite_pp4(rank, n, out, inputs):
+    """pp = 4 over the 8-block GPT (4 microbatches), then pp = 2 x mp = 2
+    (the tied head's vocab-split fused CE on the last stage)."""
+    from paddle_tpu_torch.distributed import topology
+    fleet = _fleet(acc=4, pp_degree=n)
+    res = _pp_train(fleet, inputs, "deep", out, num_layers=8)
+    topology.reset()
+    fleet = _fleet(acc=4, pp_degree=2, mp_degree=2)
+    res.update(_pp_train(fleet, inputs, "pp4l", out, name="ppmp",
+                         num_layers=4))
+    return res
+
+
+def _pipe_stage_fn(params, x):
+    w, b = params
+    return torch.tanh(x @ w + b)
+
+
+def _pipe_block_fn(params, x):
+    return torch.tanh(x @ params["w"] + params["b"])
+
+
+def suite_pipefn(rank, n, out, inputs):
+    """distributed.pipeline's functional API at pp = n: pipeline_apply,
+    pipeline_loss_and_grad (remat on and off) and pipeline_blocks_apply
+    with uneven stages."""
+    from paddle_tpu_torch.distributed import pipeline
+    _fleet(pp_degree=n)
+    t = {k: torch.from_numpy(inputs[k]) for k in inputs.files}
+    stacked = pipeline.stack_stage_params(
+        [(t[f"fwd.w{s}"], t[f"fwd.b{s}"]) for s in range(n)])
+    out["fwd"] = pipeline.pipeline_apply(_pipe_stage_fn, stacked,
+                                         t["fwd.x"]).numpy()
+    stacked = pipeline.stack_stage_params(
+        [(t[f"grad.w{s}"], t[f"grad.b{s}"]) for s in range(n)])
+    for remat in (True, False):
+        loss, grads = pipeline.pipeline_loss_and_grad(
+            _pipe_stage_fn, lambda o, y: ((o - y) ** 2).mean(), stacked,
+            t["grad.x"], t["grad.y"], remat=remat)
+        out[f"grad.loss.{remat}"] = loss.numpy()
+        out[f"grad.dw.{remat}"] = grads[0].numpy()
+        out[f"grad.db.{remat}"] = grads[1].numpy()
+    blocks = {"w": t["blocks.w"], "b": t["blocks.b"]}
+    out["blocks"] = pipeline.pipeline_blocks_apply(
+        _pipe_block_fn, blocks, t["blocks.valid"].bool(), t["blocks.h"],
+        4).numpy()
+    return {}
+
+
+def suite_pipemem(rank, n, out, inputs):
+    """pipeline_loss_and_grad at pp = n over one batch cut into 4 and into
+    16 microbatches: the loss, and the most microbatches whose
+    activations were alive at once on this stage."""
+    from paddle_tpu_torch.distributed import pipeline
+    _fleet(pp_degree=n)
+    t = {k: torch.from_numpy(inputs[k]) for k in inputs.files}
+    mem = {"w": t["mem.w"], "b": t["mem.b"]}
+    res = {}
+    in_flight = _count_in_flight(pipeline)
+    for m in (4, 16):
+        x = t["mem.x"].reshape(m, -1, t["mem.x"].shape[-1])
+        y = t["mem.y"].reshape(m, -1, t["mem.y"].shape[-1])
+        in_flight[:] = [0, 0]
+        loss, _ = pipeline.pipeline_loss_and_grad(
+            _mem_stage, lambda o, yy: ((o - yy) ** 2).mean(), mem, x, y)
+        res[f"loss{m}"] = float(loss)
+        res[f"in_flight{m}"] = in_flight[1]
+    return res
+
+
+def _count_in_flight(pipeline):
+    """Wrap ``pipeline.run_schedule`` so that its microbatches' forwards
+    and backwards are counted: ``[alive now, most alive at once]``, the
+    activations a forward made and no backward has consumed yet."""
+    seen = [0, 0]
+    run = pipeline.run_schedule
+
+    def counted(p2p, m, forward_step, backward_step=None):
+        def fwd(i, x):
+            seen[0] += 1
+            seen[1] = max(seen)
+            return forward_step(i, x)
+
+        def bwd(i, out, grad):
+            seen[0] -= 1
+            return backward_step(i, out, grad)
+        return run(p2p, m, fwd, backward_step and bwd)
+    pipeline.run_schedule = counted
+    return seen
+
+
+def _mem_stage(params, x):
+    for w, b in zip(params["w"], params["b"]):
+        x = torch.tanh(x @ w + b)
+    return x
+
+
+ZERO_LR = 1e-3
+
+
+def zero_batch(b=8, s=32, vocab=256):
+    """The ZeRO cases' batch: no ignored labels, so the mean of the two
+    ranks' half-batch losses is the whole batch's."""
+    rs = np.random.RandomState(9)
+    return (rs.randint(0, vocab, (b, s)).astype(np.int64),
+            rs.randint(0, vocab, (b, s)).astype(np.int64))
+
+
+def _zero_run(rank, n, out, inputs, tag, make):
+    """3 AdamW steps (decay off for biases, a global-norm clip) of the
+    tiny GPT on this rank's half of zero_batch, through ``make(model,
+    opt) -> (model, opt)``: the losses, this rank's optimizer-state bytes,
+    the elements of the grads it held after the first backward (before
+    the step), its partition's elements and the whole weights after."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import sharding
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    m = _port_gpt(inputs, "zero")
+    opt = optimizer.AdamW(ZERO_LR, parameters=m.named_parameters(),
+                          grad_clip=ClipGradByGlobalNorm(0.1),
+                          apply_decay_param_fun=lambda name:
+                          not name.endswith("bias"))
+    model, opt = make(m, opt)
+    ids, labels = (torch.from_numpy(a) for a in zero_batch())
+    per = ids.shape[0] // n
+    mine = slice(rank * per, (rank + 1) * per)
+    losses, held = [], None
+    for _ in range(3):
+        loss = model(ids[mine], labels=labels[mine])
+        loss.backward()
+        if held is None:
+            held = sum(p.grad.numel() for p in m.parameters()
+                       if p.grad is not None)
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    with sharding.gathered(m):
+        _ref_names({k: v.detach().clone() for k, v in m.named_parameters()},
+                   tag, out, "param")
+    return {f"{tag}_losses": losses,
+            f"{tag}_state_bytes": sharding.state_bytes(opt),
+            f"{tag}_grad_elems": held,
+            f"{tag}_mine": opt._sharding.sizes[rank]}
+
+
+SCALED_LR = 0.1
+
+
+def scaled_batches():
+    """The ZeRO GradScaler case's three batches of 8 rows (each rank takes
+    its half): the second has 1e30 in row 5 (rank 1's half), which
+    overflows that rank's grads only."""
+    rs = np.random.RandomState(17)
+    xs = [rs.randn(8, 8).astype(np.float32) for _ in range(3)]
+    ys = [rs.randn(8, 4).astype(np.float32) for _ in range(3)]
+    xs[1][5, 3] = 1e30
+    return xs, ys
+
+
+def _zero_scaled(rank, n, out, inputs, level):
+    """A Linear-ReLU-Linear MLP (the reference's weights) under ZeRO at
+    ``level`` (or ``fleet``: sharding_degree = 2, stage 2), 3 SGD steps
+    of an MSE loss through a GradScaler(1024) on this rank's half of
+    each scaled_batches batch: the losses, the scale after, the
+    parameters after each step."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.distributed import sharding, topology
+    m = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.ReLU(),
+                            torch.nn.Linear(16, 4))
+    with torch.no_grad():
+        for i, lin in enumerate((m[0], m[2])):
+            lin.weight.copy_(torch.from_numpy(inputs[f"mlp.w{i}"]).T)
+            lin.bias.copy_(torch.from_numpy(inputs[f"mlp.b{i}"]))
+    opt = optimizer.SGD(SCALED_LR, parameters=m.named_parameters())
+    scaler = amp.GradScaler(init_loss_scaling=1024.0)
+    if level == "fleet":
+        fleet = _fleet(stage=2, sharding_degree=n)
+        model = fleet.distributed_model(m)
+        opt = fleet.distributed_optimizer(opt)
+    else:
+        model, opt, scaler = sharding.group_sharded_parallel(
+            m, opt, level, scaler)
+    xs, ys = scaled_batches()
+    per = 8 // n
+    mine = slice(rank * per, (rank + 1) * per)
+    losses = []
+    for step, (x, y) in enumerate(zip(xs, ys)):
+        loss = ((model(torch.from_numpy(x[mine]))
+                 - torch.from_numpy(y[mine])) ** 2).mean()
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        losses.append(float(loss))
+        with sharding.gathered(m):
+            # copies (a numpy view would pin the storage p_g_os frees)
+            for i, lin in enumerate((m[0], m[2])):
+                out[f"scaled.{level}.{step}.w{i}"] = \
+                    lin.weight.detach().clone().numpy().T
+                out[f"scaled.{level}.{step}.b{i}"] = \
+                    lin.bias.detach().clone().numpy()
+    if level == "fleet":
+        topology.reset()
+    return {f"scaled_{level}_losses": losses,
+            f"scaled_{level}_scale": float(scaler.get_loss_scaling())}
+
+
+def suite_zero(rank, n, out, inputs):
+    """ZeRO over 2 ranks: group_sharded_parallel at os, os_g and p_g_os,
+    then fleet's route (sharding_degree = 2, sharding_configs stage 2:
+    ShardingParallel and HybridParallelOptimizer); each also with a
+    GradScaler on an MLP (_zero_scaled)."""
+    from paddle_tpu_torch.distributed import collective, sharding, topology
+    res = {}
+    for level in sharding.LEVELS:
+        def make(m, opt, level=level):
+            model, opt, _ = sharding.group_sharded_parallel(m, opt, level)
+            res[f"{level}_sizes"] = opt._sharding.sizes
+            res[f"{level}_freed"] = sum(
+                int(p.untyped_storage().size() == 0)
+                for p in m.parameters())
+            return model, opt
+        res.update(_zero_run(rank, n, out, inputs, level, make))
+        res.update(_zero_scaled(rank, n, out, inputs, level))
+    with pytest_raises(ValueError):
+        sharding.group_sharded_parallel(None, None, "p_g")
+    fleet = _fleet(stage=2, sharding_degree=n)
+
+    def make_fleet(m, opt):
+        model = fleet.distributed_model(m)
+        opt = fleet.distributed_optimizer(opt)
+        res["fleet_kinds"] = [type(model).__name__, opt._zero.level]
+        return model, opt
+    res.update(_zero_run(rank, n, out, inputs, "fleet", make_fleet))
+    topology.reset()
+    res.update(_zero_scaled(rank, n, out, inputs, "fleet"))
+    collective.barrier()
+    return res
+
+
+class pytest_raises:
+    """``pytest.raises`` for a worker (no pytest there)."""
+
+    def __init__(self, exc):
+        self.exc = exc
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, typ, val, tb):
+        if typ is None:
+            raise AssertionError(f"{self.exc.__name__} not raised")
+        return issubclass(typ, self.exc)
+
+
+def suite_meta(rank, n, out, inputs):
+    """LocalSGD over the dp group (here the world) at k_steps = 2, each
+    rank stepping on its own grads; FP16AllReduceOptimizer over a
+    group."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.fleet import meta_optimizers as meta
+    p = torch.ones(8, requires_grad=True)
+    opt = meta.LocalSGDOptimizer(optimizer.SGD(0.1, parameters=[p]),
+                                 k_steps=2)
+    sync = opt._sync_params
+    step = [0]
+
+    def recorded():
+        out[f"pre{step[0]}"] = p.detach().numpy().copy()
+        sync()
+    opt._sync_params = recorded
+    for i in range(1, 5):
+        step[0] = i
+        p.grad = torch.from_numpy(rank_values(rank, 40 + i, (8,)))
+        opt.step()
+        out[f"lsgd{i}"] = p.detach().numpy().copy()
+    q = torch.zeros(16, requires_grad=True)
+    fp = meta.FP16AllReduceOptimizer(optimizer.SGD(1.0, parameters=[q]),
+                                     group=collective._default_group())
+    q.grad = torch.from_numpy(
+        np.random.RandomState(50 + rank).randn(16).astype(np.float32))
+    fp.step()
+    out["fp16ar"] = q.detach().numpy()
+    return {}
+
+
+MOE_SHAPE = dict(d_model=16, d_hidden=32, num_experts=4, top_k=2)
+
+
+def _port_moe(inputs, cf, device="cpu"):
+    """The port's MoELayer with the reference's weights (each rank keeps
+    its experts)."""
+    from paddle_tpu_torch.incubate import moe
+    layer = moe.MoELayer(capacity_factor=cf, device=device, **MOE_SHAPE)
+    lo = layer.local_experts * (0 if layer.ep_group is None
+                                else layer.ep_group.rank)
+    with torch.no_grad():
+        layer.gate.copy_(torch.from_numpy(inputs["moe.gate"]))
+        for k in ("w1", "b1", "w2", "b2"):
+            full = torch.from_numpy(inputs[f"moe.{k}"])
+            getattr(layer, k).copy_(full[lo:lo + layer.local_experts])
+    return layer
+
+
+def suite_moe(rank, n, out, inputs):
+    """MoE at dp = 2 x ep (mp) = 2: each dp rank its half of the tokens,
+    each ep rank its half of the experts, at capacity factors that bind
+    (0.5) and that do not (2.0): the output rows, the aux loss, and the
+    grads of mean-over-tokens (y * cot).sum(-1) + aux averaged over dp
+    (DataParallel's rule)."""
+    from paddle_tpu_torch.distributed import collective
+    fleet = _fleet(dp_degree=2, mp_degree=2)
+    hcg = fleet.get_hybrid_communicate_group()
+    dp = hcg.get_data_parallel_group()
+    x_all = torch.from_numpy(inputs["moe.x"])
+    cot_all = torch.from_numpy(inputs["moe.cot"])
+    per = x_all.shape[0] // dp.nranks
+    mine = slice(dp.rank * per, (dp.rank + 1) * per)
+    res = {"ep": hcg.get_model_parallel_rank(), "dp": dp.rank}
+    for cf in (0.5, 2.0):
+        layer = _port_moe(inputs, cf)
+        x = x_all[mine].clone().requires_grad_()
+        y = layer(x)
+        loss = (y * cot_all[mine]).sum() / per + layer.aux_loss
+        loss.backward()
+        out[f"y{cf}"] = y.detach().numpy()
+        out[f"aux{cf}"] = layer.aux_loss.detach().numpy()
+        out[f"dx{cf}"] = x.grad.numpy()
+        for k in ("gate", "w1", "b1", "w2", "b2"):
+            g = getattr(layer, k).grad.clone()
+            collective.all_reduce(g, op="avg", group=dp)
+            out[f"d{k}{cf}"] = g.numpy()
+    res["local_experts"] = layer.local_experts
+    return res
+
+
+def suite_ckpt(rank, n, out, inputs):
+    """Sharded checkpoints over 2 ranks: the tiny GPT at mp = 2 saves its
+    shards (save_sharded) and loads a whole-model checkpoint the test
+    wrote into its shards; then ZeRO os_g (sharding = 2) takes 2 AdamW
+    steps and saves its train state (save_sharded_train_state), each rank
+    its partition's optimizer state."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import collective, sharding, topology
+    from paddle_tpu_torch.incubate.checkpoint import sharded
+    root = str(inputs["ckptdir"])
+    fleet = _fleet(mp_degree=n)
+    g = fleet.get_hybrid_communicate_group().get_model_parallel_group()
+    m = _port_gpt(inputs, "ckpt", g, use_mp=True)
+    sharded.save_sharded(dict(m.named_parameters()), root + "/tp")
+    fresh = _port_gpt(inputs, "ckpt", g, use_mp=True)
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.zero_()
+    sharded.load_sharded(root + "/dense", dict(fresh.named_parameters()))
+    for k, p in fresh.named_parameters():
+        out[f"loaded.{k}"] = p.detach().numpy()
+    topology.reset()
+    fleet = _fleet(stage=2, sharding_degree=n)
+    m = _port_gpt(inputs, "ckpt")
+    model = fleet.distributed_model(m)
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        1e-3, parameters=m.named_parameters()))
+    ids, labels = (torch.from_numpy(a) for a in zero_batch())
+    per = ids.shape[0] // n
+    for _ in range(2):
+        loss = model(ids[rank * per:(rank + 1) * per],
+                     labels=labels[rank * per:(rank + 1) * per])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+    sharded.save_sharded_train_state(dict(m.named_parameters()), opt,
+                                     root + "/zero")
+    for k, p in m.named_parameters():
+        out[f"zero.param.{k}"] = p.detach().numpy()
+    base = opt._inner_opt
+    names = {id(p): k for k, p in m.named_parameters()}
+    for kind, store in base._accumulators.items():
+        for pid, t in store.items():
+            out[f"zero.opt.{names[pid]}_{kind}"] = t.numpy()
+    collective.barrier()
+    return {"state_bytes": sharding.state_bytes(opt)}
+
+
+def suite_emb(rank, n, out, inputs):
+    """DistributedEmbedding over an mp = 2 group: each rank its rows, the
+    lookup assembled by the all-reduce, the grad of each rank's rows."""
+    from paddle_tpu_torch.distributed.fleet.distributed_embedding import (
+        DistributedEmbedding)
+    _fleet(mp_degree=n)
+    emb = DistributedEmbedding(16, 8, device="cpu")
+    w = torch.from_numpy(inputs["emb.w"])
+    with torch.no_grad():
+        emb.weight.copy_(w[emb.start:emb.start + emb.per_rank])
+    ids = torch.from_numpy(inputs["emb.ids"])
+    y = emb(ids)
+    (y * torch.from_numpy(inputs["emb.cot"])).sum().backward()
+    out["y"] = y.detach().numpy()
+    out["dw"] = emb.weight.grad.numpy()
+    return {"start": emb.start, "rows": emb.per_rank}
+
+
+SUITES = {"collective": suite_collective, "tp": suite_tp, "sp": suite_sp,
+          "pp": suite_pp, "pp4": suite_pp4, "pipefn": suite_pipefn,
+          "pipemem": suite_pipemem, "zero": suite_zero,
+          "meta": suite_meta, "moe": suite_moe,
+          "ckpt": suite_ckpt, "emb": suite_emb}
 
 
 def main():
