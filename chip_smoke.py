@@ -6,8 +6,8 @@ Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 7 and 20 alone, ``--bert`` phases 1 and 21 alone, ``--vision`` phases 1
 and 22 alone, ``--rnn`` phases 1 and 23 alone, ``--static`` phases 1, 24
 and 25 alone, ``--deploy`` phases 1 and 26 alone, ``--lazy`` phases 1 and
-27 alone, ``--dist`` phases 1, 28 and 29 alone; none prints the
-kernels line)
+27 alone, ``--dist`` phases 1, 28 and 29 alone, ``--fluid`` phases 1
+and 30 alone; none prints the kernels line)
 
 Every phase runs under the default FLAGS_lazy_eager (True): the Paddle
 surface's eager steps are deferred into graphs (paddle_tpu_torch/core/
@@ -494,7 +494,14 @@ Phases, one line each:
              against the full-vocab K5 (loss and LSE), K6's dx and K7's
              dW slices; each shard call timed with its bound and F.cross_entropy(F.linear) on
              the same shard; 28e the captured flagship step and the paged
-             engine's decode lint clean, a planted f64 upcast flagged.
+             engine's decode lint clean, a planted f64 upcast flagged;
+             28f GPT-124M built with use_mp (mp = 2) on the same two
+             ranks: greedy generate() of 32 tokens from 4 prompts on each
+             rank = one process's dense model's tokens from the same
+             weights, and so is each rank's ServingEngine stream; K1 of
+             the teacher-forced forward (6 heads a rank) and K4 of the
+             engine's decode counted a rank, each held to its plain
+             version at those shapes and timed (the kernels line's rows).
  29. rest    the rest of the distributed layer on 2 rank processes
              started by the port's launcher (launch_mod.spawn), gloo on
              the one card: 29a GPT-124M at pp = 2 (6 blocks a stage, 4
@@ -515,6 +522,31 @@ Phases, one line each:
              DGCMomentum step against their plain steps; K1-K3 and K5-K7
              at a stage's and a ZeRO rank's shapes held against their
              plain versions and timed (the kernels line's rows).
+ 30. fluid   the fluid compat layer (paddle_tpu_torch/fluid/): 30a the
+             fluid-1.x ResNet-50 program of PaddleCV
+             image_classification (fluid.layers, [32, 3, 224, 224] f32,
+             Momentum 0.9, L2Decay 1e-4, piecewise_decay) through
+             fluid.Executor(CUDAPlace(0)), 10 steps against the same
+             fluid code eager under fluid.dygraph.guard() from the same
+             weights (each step's loss within LOSS_RTOL, the moving
+             statistics within FLUID_STAT_TOL), save_persistables ->
+             load_persistables into a fresh program the same next loss
+             bit for bit, step ms, idle share and peak; 30b PaddleNLP's
+             PTB LM "small" with StaticRNN, 10 Executor.run steps, the
+             first 3 against the same program on the CPU within
+             LOSS_RTOL; 30c While programs (the fed bound, assign's
+             copy) on the card = the CPU's, one graph; cond, case,
+             switch_case and the arrays under to_static = eager on the
+             CPU, one graph; 30d phase 7's untied f32 GPT-124M through
+             fluid.io.save_inference_model (jit.save's torch.export
+             path: one K1 custom-op node a layer) and a Predictor at
+             batches 1 and 8, 6 runs each: K1 = 12 a run, the eager
+             model's bits or DEPLOY_TOL, run and device ms; onnx.export
+             of it re-parsed, every initializer the card's bits; the K1
+             rows at [1|8,12,1024,64] through the operator; 30e the
+             legacy collective fleet: 3 minimize steps of GPT-124M at 8
+             x 1024 = a plain AdamW's losses and weights bit for bit,
+             K1 = K2 = K3 = 12 a step.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
@@ -528,7 +560,9 @@ the non-causal rows 21b, 24c's captured runs and 27c's lazy runs (bf16
 [2,12,128,64]) and 21d ([8,12,512,64]); 28b's ranks for the TP shard
 rows at [8192, 768, 25152] (none runs mp = 4: the [8192, 768, 12576]
 rows read 0), 28c's for the Ulysses rows, 29a's stages and 29b's ranks
-for theirs), and as the last line
+for theirs, 28f's ranks for the TP rank's K1 and K4 rows, 30d's
+Predictor runs for the exported node's K1 rows, 30e's steps on the f32
+training rows), and as the last line
 {"ok": true, "device": {...}}.
 
 TF32 is off for matmuls and cuDNN, so every f32 product is full f32.
@@ -6766,27 +6800,29 @@ DEPLOY_TOL = 1e-5
 INT8_REL_BAR = 0.1
 
 
-def k1_inference_row(torch, attn, shape):
-    """The f32 K1 at the batch-1 Predictor's shape, causal: against its
-    plain version (twice for the same bits), timed twice in turns with
-    SDPA's f32 forward, the plain version, the bound."""
+def k1_inference_row(torch, attn, shape, fn=None, label="26"):
+    """The f32 K1 at a Predictor's shape, causal: against its plain
+    version (twice for the same bits), timed twice in turns with SDPA's
+    f32 forward, the plain version, the bound. ``fn``: the entry that
+    launches it (the wrapper, or the custom operator an exported program
+    calls)."""
+    fn = fn or attn.flash_attention_forward
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(26)
     q, k, v = (torch.randn(shape, generator=g, device="cuda")
                for _ in range(3))
     scale = 1.0 / shape[-1] ** 0.5
-    o, lse = attn.flash_attention_forward(q, k, v, scale, True)
-    again = attn.flash_attention_forward(q, k, v, scale, True)
+    o, lse = fn(q, k, v, scale, True)
+    again = fn(q, k, v, scale, True)
     ro, rlse = attn.flash_attention_plain(q, k, v, scale, True)
     torch.cuda.synchronize()
     err = max((o - ro).abs().max().item(), (lse - rlse).abs().max().item())
     check(err <= F32_FLASH_TOL and torch.equal(o, again[0])
-          and torch.equal(lse, again[1]), f"26: K1 {list(shape)} causal f32:"
+          and torch.equal(lse, again[1]), f"{label}: K1 {list(shape)} causal f32:"
           f" err {err} (tol {F32_FLASH_TOL}) or two runs differ")
     times, libs = [], []
     for _ in range(2):
-        times.append(time_ms(torch, lambda: attn.flash_attention_forward(
-            q, k, v, scale, True)))
+        times.append(time_ms(torch, lambda: fn(q, k, v, scale, True)))
         libs.append(time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True)))
     ms, lib_ms = float(np.median(times)), float(np.median(libs))
@@ -8023,6 +8059,10 @@ TP_BF16_LOSS_RTOL = 1e-4
 TP_O1_FROM_F32 = 2e-6
 TP_WEIGHT_RTOL = 1e-2
 TP_KBIAS_STEPS = 2 * DIST["steps"]
+# 28f: greedy decoding of the use_mp GPT-124M on each rank against one
+# process's dense model from the same weights
+TPGEN = dict(prompts=4, prompt_len=16, new=32, slots=4, block=16)
+TPGEN_AGREE = 0.9    # the forward's argmax against the decoded tokens
 SP_SHAPE = (8, 12, 1024, 64)
 # 28c: Ulysses runs K1-K3 on 6 of 12 heads (the f32 K1 may split the keys
 # otherwise at that grid, so the sums run in another order); the ring is
@@ -8064,6 +8104,72 @@ def dist_steps(torch, amp, optimizer, model, dtype, steps=DIST["steps"]):
 def sp_inputs(torch):
     g = torch.Generator().manual_seed(28)
     return [torch.randn(SP_SHAPE, generator=g) for _ in range(4)]
+
+
+def tp_decode(torch, model):
+    """28f on one process (a TP rank, or the dense model in the parent):
+    greedy generate() of TPGEN["new"] tokens from the seeded prompts, the
+    teacher-forced forward over them (K1: on a rank, its heads' share),
+    and the ServingEngine's greedy streams (K4 on the paged decode).
+    Every rank of an mp group must call it."""
+    from paddle_tpu_torch.ops import attention as attn
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import ServingEngine
+    model.eval()
+    p = TPGEN["prompt_len"]
+    prompts = np.random.RandomState(28).randint(
+        0, model.cfg.vocab_size, (TPGEN["prompts"], p)).astype(np.int64)
+    toks = model.generate(torch.from_numpy(prompts).cuda(),
+                          max_new_tokens=TPGEN["new"], temperature=0.0)
+    attn.flash_attention_forward.launches = 0
+    with torch.no_grad():
+        logits = model(toks[:, :-1])
+    torch.cuda.synchronize()
+    k1 = attn.flash_attention_forward.launches
+    agree = float((logits[:, p - 1:].argmax(-1) == toks[:, p:]).float()
+                  .mean())
+    eng = ServingEngine(model, num_slots=TPGEN["slots"],
+                        block_size=TPGEN["block"], async_depth=1)
+    pa.paged_decode_attention.launches = 0
+    reqs = [eng.add_request(q, max_new_tokens=TPGEN["new"])
+            for q in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    return {"tokens": toks[:, p:].cpu().tolist(),
+            "engine": [[int(t) for t in r.generated] for r in reqs],
+            "k1": k1, "k4": pa.paged_decode_attention.launches,
+            "steps": eng.metrics.decode_steps, "agree": agree,
+            "k1_shape": [TPGEN["prompts"],
+                         getattr(model.gpt.blocks[0].attn, "local_heads",
+                                 model.cfg.num_heads),
+                         p + TPGEN["new"] - 1,
+                         model.cfg.hidden_size // model.cfg.num_heads]}
+
+
+def k4_row_at(torch, pa, S, lengths, label):
+    """K4 at a decode shape of GPT-124M's engine (12 heads of 64, blocks
+    of TPGEN["block"]): against its plain version, timed, its bound."""
+    nh, hd, BS = 12, 64, TPGEN["block"]
+    MB = -(-max(lengths) // BS)
+    args = paged_case(torch, S, nh, hd, BS, MB, lengths, "float32", 28)
+    err = k4_case(torch, pa, label, args, F32_TOL)
+    ms = time_ms(torch, lambda: pa.paged_decode_attention(*args))
+    plain_ms = time_ms(torch, lambda: pa.paged_decode_plain(*args))
+    rows = sum(lengths)
+    row_bytes = nh * hd * 4
+    nbytes = 2 * S * row_bytes + 2 * rows * row_bytes + args[3].numel() * 4 \
+        + S * 4
+    b_ms, b_by = bound(nbytes, 4 * rows * nh * hd, "float32")
+    print(f"  K4 {label}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "dtype": "float32",
+            "shape": f"28f TP rank decode S={S} nh={nh} hd={hd} BS={BS} "
+                     f"lengths={lengths}",
+            "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "paddle_tpu/ops/paged_attention.py:92",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def dist_rank(rank, world, port, outdir, queue, nccl=False):
@@ -8145,6 +8251,11 @@ def _dist_rank(torch, world, outdir):
         del model, layers
         torch.cuda.empty_cache()
     out["staged"] = dict(collective.host_staged)
+    # 28f: the use_mp GPT-124M decoding greedily on each rank
+    tp = dist_gpt(torch, TransformerLMConfig, GPTForCausalLM, use_mp=True)
+    out["tpgen"] = tp_decode(torch, tp)
+    del tp
+    torch.cuda.empty_cache()
     # 28c: sequence parallelism over the same two ranks
     topology.reset()
     s = fleet.DistributedStrategy()
@@ -8358,6 +8469,33 @@ def phase_dist_ranks(torch, amp, optimizer, TransformerLMConfig,
         print(f"  28b host-staged collectives (gloo takes CUDA tensors in "
               f"all_reduce and broadcast only): {staged}; the spawn "
               f"{spawn_s:.1f} s")
+        # 28f: each rank's greedy tokens against one process's dense
+        # GPT-124M from the same weights
+        dense = dist_gpt(torch, TransformerLMConfig, GPTForCausalLM)
+        want = tp_decode(torch, dense)
+        del dense
+        torch.cuda.empty_cache()
+        for r, res in enumerate(ranks):
+            got = res["tpgen"]
+            check(got["tokens"] == want["tokens"], f"28f rank {r}: "
+                  f"generate() tokens differ from one process's")
+            check(got["engine"] == want["tokens"], f"28f rank {r}: the "
+                  f"engine's streams differ from one process's tokens")
+            check(got["agree"] >= TPGEN_AGREE and got["k4"] == got["steps"]
+                  * 12 and got["k1"] == 12, f"28f rank {r}: agree "
+                  f"{got['agree']}, K1 {got['k1']}, K4 {got['k4']} over "
+                  f"{got['steps']} steps")
+        tpgen = [r["tpgen"] for r in ranks]
+        print(f"  28f GPT-124M use_mp mp = 2: greedy generate() of "
+              f"{TPGEN['new']} tokens from {TPGEN['prompts']} prompts of "
+              f"{TPGEN['prompt_len']} on each rank = one process's dense "
+              f"tokens, and so is each rank's ServingEngine stream; the "
+              f"teacher-forced forward's argmax agrees on "
+              f"{[t['agree'] for t in tpgen]} of them; K1 a rank "
+              f"{[t['k1'] for t in tpgen]} at {tpgen[0]['k1_shape']}, "
+              f"K4 a rank {[t['k4'] for t in tpgen]} over "
+              f"{[t['steps'] for t in tpgen]} decode steps (one process: "
+              f"K1 {want['k1']}, K4 {want['k4']})")
         # 28c against one process's flash attention on the card
         q, k, v, cot = (t.cuda() for t in sp_inputs(torch))
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -8393,7 +8531,7 @@ def phase_dist_ranks(torch, amp, optimizer, TransformerLMConfig,
     f32 = [sum(x) for x in zip(*(r["float32_launches"] for r in ranks))]
     bf16 = [sum(x) for x in zip(*(r["bfloat16_launches"] for r in ranks))]
     uly = [sum(x) for x in zip(*(r["ulysses_launches"] for r in ranks))]
-    return f32, bf16, uly, one
+    return f32, bf16, uly, one, tpgen
 
 
 def tp_leaves_check(torch, label, tp, final, init):
@@ -8677,9 +8815,8 @@ def phase_dist(torch, amp, optimizer, attn, tce, TransformerLMConfig,
     28c's)."""
     t0 = time.perf_counter()
     phase_dist_world1(torch, TransformerLMConfig, GPTForCausalLM)
-    f32, bf16, uly, one = phase_dist_ranks(torch, amp, optimizer,
-                                           TransformerLMConfig,
-                                           GPTForCausalLM, attn)
+    f32, bf16, uly, one, tpgen = phase_dist_ranks(
+        torch, amp, optimizer, TransformerLMConfig, GPTForCausalLM, attn)
     rows = phase_tp_shards(torch, tce)
     for row in rows:
         i = {"fused_ce_forward": 3, "fused_ce_bwd_dx": 4,
@@ -8689,9 +8826,20 @@ def phase_dist(torch, amp, optimizer, attn, tce, TransformerLMConfig,
     for row, n in zip(urows, uly):
         row["launches"] = n
         row["shape"] = "Ulysses " + row["shape"]
+    # 28f's rows: K1 at a rank's share of the heads, K4 at its engine's
+    # decode shape
+    k1_shape = tuple(tpgen[0]["k1_shape"])
+    trow = k1_inference_row(torch, attn, k1_shape, label="28f")
+    trow["shape"] = "28f TP rank forward " + str(list(k1_shape))
+    trow["launches"] = sum(t["k1"] for t in tpgen)
+    from paddle_tpu_torch.ops import paged_attention
+    krow = k4_row_at(torch, paged_attention, TPGEN["slots"],
+                     [TPGEN["prompt_len"] + TPGEN["new"]] * TPGEN["slots"],
+                     "28f TP rank decode")
+    krow["launches"] = sum(t["k4"] for t in tpgen)
     phase_lint(torch, amp, optimizer, TransformerLMConfig, GPTForCausalLM)
     print(f"  phase 28 in {time.perf_counter() - t0:.1f} s")
-    return rows + urows, one
+    return rows + urows + [trow, krow], one
 
 
 # Phase 29: the rest of the distributed layer on two rank processes that
@@ -9252,6 +9400,648 @@ def phase_dist_rest(torch, optimizer, attn, tce, TransformerLMConfig,
     return rows
 
 
+# ---------------------------------------------------------------- phase 30
+# The fluid compat layer on the card (paddle_tpu_torch/fluid/): 30a the
+# fluid-1.x ResNet-50 image-classification program (PaddlePaddle/models
+# PaddleCV/image_classification/models/resnet.py, ResNet50) built with
+# fluid.layers and trained through fluid.Executor(fluid.CUDAPlace(0))
+# against the same fluid code eager under fluid.dygraph.guard(); 30b the
+# PTB language model of PaddleNLP's language_model "small" config with
+# StaticRNN; 30c fluid control flow on the card; 30d the port's torch
+# GPT-124M through fluid.io and a Predictor (jit.save's torch.export
+# path: the attention one custom-op node, K1), and onnx.export of it;
+# 30e the legacy collective fleet on one rank.
+# PaddleCV's piecewise learning rates (0.1, 0.01, 0.001) are for batch
+# 256; at batch 32 the linear scaling rule makes them 1/8 (at 0.1 the
+# repeated batch sends the loss from 7.6 to 32, and a 1e-6 difference
+# between two runs' second losses grows to 0.34 by the fifth)
+FLUID = dict(batch=32, size=224, classes=1000, steps=10,
+             depth=(3, 4, 6, 3), filters=(64, 128, 256, 512),
+             bounds=(10000, 20000), values=(0.0125, 0.00125, 0.000125),
+             decay=1e-4)
+PTB = dict(vocab=10000, hidden=200, layers=2, steps=20, batch=20,
+           init_scale=0.1, lr=1.0, clip=5.0, train_steps=10, cpu_steps=3)
+# the batch-norm moving statistics after 30a's 10 steps, program against
+# eager, relative to each buffer's largest
+FLUID_STAT_TOL = 1e-4
+FLUID_RUNS = 6       # Predictor runs a batch size in 30d
+LEGACY_STEPS = 3     # 30e's minimize steps
+
+
+def fluid_resnet50(fluid, img, label, prefix):
+    """ResNet50 of PaddleCV image_classification/models/resnet.py in
+    fluid.layers: conv2d without bias then batch_norm(act), bottlenecks
+    [3, 4, 6, 3] with 1x1/3x3/1x1 convs and a projection where the shape
+    changes, global average pool2d, fc to 1000 classes;
+    softmax_with_cross_entropy + mean, top-1 and top-5 accuracy. Every
+    parameter-making call is named, so the same code run eagerly reuses
+    the program's layers."""
+    L = fluid.layers
+
+    def conv_bn(x, nf, k, stride=1, act=None, name=None):
+        c = L.conv2d(x, nf, k, stride=stride, padding=(k - 1) // 2,
+                     bias_attr=False, name=name)
+        return L.batch_norm(c, act=act, name="bn_" + name)
+
+    conv = conv_bn(img, 64, 7, 2, "relu", prefix + "conv1")
+    conv = L.pool2d(conv, pool_size=3, pool_type="max", pool_stride=2,
+                    pool_padding=1)
+    for block, (n, nf) in enumerate(zip(FLUID["depth"], FLUID["filters"])):
+        for i in range(n):
+            stride = 2 if i == 0 and block != 0 else 1
+            nm = f"{prefix}res{block + 2}{chr(97 + i)}"
+            c0 = conv_bn(conv, nf, 1, act="relu", name=nm + "_branch2a")
+            c1 = conv_bn(c0, nf, 3, stride, "relu", nm + "_branch2b")
+            c2 = conv_bn(c1, nf * 4, 1, name=nm + "_branch2c")
+            short = conv
+            if int(conv.shape[1]) != nf * 4 or stride != 1:
+                short = conv_bn(conv, nf * 4, 1, stride,
+                                name=nm + "_branch1")
+            conv = L.elementwise_add(short, c2, act="relu")
+    pool = L.pool2d(conv, pool_type="avg", global_pooling=True)
+    logits = L.fc(pool, FLUID["classes"], name=prefix + "fc")
+    loss = L.mean(L.softmax_with_cross_entropy(logits, label))
+    prob = L.softmax(logits)
+    return loss, L.accuracy(prob, label, k=1), L.accuracy(prob, label, k=5)
+
+
+def fluid_lr(paddle):
+    """30a's learning rate: fluid.layers.piecewise_decay at the global
+    step (0 here)."""
+    lr = paddle.fluid.layers.piecewise_decay(list(FLUID["bounds"]),
+                                             list(FLUID["values"]))
+    return float(lr.numpy())
+
+
+def fluid_program(paddle, prefix):
+    fluid = paddle.fluid
+    paddle.enable_static()
+    try:
+        main = fluid.Program()
+        with fluid.program_guard(main):
+            img = fluid.data("img", [FLUID["batch"], 3, FLUID["size"],
+                                     FLUID["size"]], "float32")
+            label = fluid.data("label", [FLUID["batch"], 1], "int64")
+            fetch = fluid_resnet50(fluid, img, label, prefix)
+            fluid.optimizer.Momentum(
+                fluid_lr(paddle), momentum=0.9,
+                weight_decay=fluid.regularizer.L2Decay(FLUID["decay"])
+            ).minimize(fetch[0])
+    finally:
+        paddle.disable_static()
+    return main, list(fetch)
+
+
+def fluid_feed(seed):
+    rs = np.random.RandomState(seed)
+    b, s = FLUID["batch"], FLUID["size"]
+    return {"img": rs.randn(b, 3, s, s).astype(np.float32),
+            "label": rs.randint(0, FLUID["classes"], (b, 1)).astype(
+                np.int64)}
+
+
+def fluid_stats_err(a, b):
+    """The largest difference of the moving statistics between two
+    layer-cache states, relative to each buffer's largest value."""
+    worst = 0.0
+    for key, arrays in a.items():
+        for name in ("_mean", "_variance"):
+            if name in arrays:
+                top = max(float(np.abs(arrays[name]).max()), 1e-30)
+                worst = max(worst, float(np.abs(
+                    arrays[name] - b[key][name]).max()) / top)
+    return worst
+
+
+def fluid_resnet_phase(torch, paddle):
+    """30a: the program's 10 steps, the eager twin's, the persistables
+    round trip, step ms, idle share and peak."""
+    from paddle_tpu_torch.fluid import convert
+    fluid = paddle.fluid
+    L = fluid.layers
+    paddle.set_device("gpu")
+    L.clear_layer_cache()
+    t0 = time.perf_counter()
+    main, fetch = fluid_program(paddle, "a_")
+    build_s = time.perf_counter() - t0
+    init = convert.layer_cache_state(L._layer_cache)
+    n_params = sum(a.size for arrays in init.values()
+                   for k, a in arrays.items()
+                   if not k.startswith("_"))
+    feed = fluid_feed(30)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    losses, accs, times = [], [], []
+    # both runs under torch's deterministic algorithms: cuDNN's default
+    # weight-grad algorithms part two runs at about 1e-6 by step 2, which
+    # ResNet-50 on a repeated batch grows to percents by step 5
+    with static_deterministic(torch, "30a program"):
+        for _ in range(FLUID["steps"]):
+            t1 = time.perf_counter()
+            loss, top1, top5 = exe.run(main, feed=feed, fetch_list=fetch)
+            times.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(loss))
+            accs.append((float(top1), float(top5)))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"30a: losses {losses}")
+    trained = convert.layer_cache_state(L._layer_cache)
+    step_ms = float(np.median(times[3:]))
+    graphs = [g for fn in exe._cache.values() if hasattr(fn, "graphs")
+              for g in fn.graphs()]
+    check(len(graphs) == 1, f"30a: {len(graphs)} graphs for one feed "
+          "signature")
+    print(f"  30a fluid ResNet-50 program ({len(main.ops)} records, "
+          f"{len(init)} layers, {n_params} parameters, built in "
+          f"{build_s:.2f} s) at [{FLUID['batch']}, 3, {FLUID['size']}, "
+          f"{FLUID['size']}] f32 through fluid.Executor(CUDAPlace(0)), "
+          f"torch's deterministic algorithms: "
+          f"losses {[round(x, 6) for x in losses]}, top-1/top-5 of the "
+          f"last {accs[-1]}; step ms {[round(t, 1) for t in times]} "
+          f"(median of steps 4-{FLUID['steps']} {step_ms:.2f}, "
+          f"{FLUID['batch'] / step_ms * 1e3:.1f} images/s), one graph, "
+          f"peak {peak / 2**30:.3f} GiB over {held / 2**30:.3f} held")
+    # the eager twin: the same fluid code under dygraph.guard, the
+    # program's layers (their name= keys) back at their initial values
+    convert.load_layer_cache(init)
+    params = []
+    for layer in L._layer_cache.values():
+        params += list(layer.parameters())
+    opt = paddle.optimizer.Momentum(
+        fluid_lr(paddle), momentum=0.9, parameters=params,
+        weight_decay=fluid.regularizer.L2Decay(FLUID["decay"]))
+    img = paddle.to_tensor(feed["img"])
+    label = paddle.to_tensor(feed["label"])
+    eager, e_times = [], []
+    with fluid.dygraph.guard(fluid.CUDAPlace(0)), \
+            static_deterministic(torch, "30a eager"):
+        for _ in range(FLUID["steps"]):
+            t1 = time.perf_counter()
+            loss = fluid_resnet50(fluid, img, label, "a_")[0]
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            eager.append(float(loss.numpy()))
+            e_times.append((time.perf_counter() - t1) * 1e3)
+    rel = max(abs(a - b) / max(abs(b), 1e-12)
+              for a, b in zip(losses, eager))
+    check(rel <= LOSS_RTOL, f"30a: program losses {losses} against eager "
+          f"{eager}: {rel} > {LOSS_RTOL}")
+    stats = fluid_stats_err(trained, convert.layer_cache_state(
+        L._layer_cache))
+    check(stats <= FLUID_STAT_TOL, f"30a: moving statistics {stats} > "
+          f"{FLUID_STAT_TOL}")
+    print(f"    eager under dygraph.guard from the same weights: losses "
+          f"{[round(x, 6) for x in eager]}, largest relative difference "
+          f"{rel:.3e} (tol {LOSS_RTOL}); the 53 batch norms' moving "
+          f"statistics within {stats:.3e} of each largest (tol "
+          f"{FLUID_STAT_TOL}); eager step ms "
+          f"{[round(t, 1) for t in e_times]}")
+    # persistables: the trained program saved, loaded into a fresh one
+    convert.load_layer_cache(trained)
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        fluid.io.save_persistables(exe, d, main)
+        kept = dict(L._layer_cache)
+        L.clear_layer_cache()
+        fresh, fresh_fetch = fluid_program(paddle, "a_")
+        fluid.io.load_persistables(exe, d, fresh)
+        L._layer_cache.clear()
+        L._layer_cache.update(kept)
+    nxt = fluid_feed(31)
+    a = exe.run(main, feed=nxt, fetch_list=fetch[:1])[0]
+    b = fluid.Executor(fluid.CUDAPlace(0)).run(fresh, feed=nxt,
+                                               fetch_list=fresh_fetch[:1])[0]
+    check(np.array_equal(a, b), f"30a: the next loss {float(a)} against "
+          f"the loaded program's {float(b)}")
+    idle = static_idle(torch, lambda: exe.run(main, feed=nxt,
+                                              fetch_list=fetch[:1]), ())
+    print(f"    save_persistables -> load_persistables into a fresh "
+          f"program: the next loss {float(a):.6f}, bit for bit; the "
+          f"program's idle share over 3 replays "
+          + ("not measured (no device time)" if idle is None
+             else f"{idle:.4f}"))
+    del main, fresh, exe, opt, params, kept
+    L.clear_layer_cache()
+    return step_ms
+
+
+def ptb_program(paddle, prefix, lr):
+    """PaddleNLP language_model "small": 2 LSTM layers of 200 in a
+    StaticRNN over 20 steps (the cell in fluid ops: fc over [x, h], four
+    gates split), the 10000-word softmax, the loss summed over steps and
+    averaged over the batch, SGD(1.0) with ClipGradByGlobalNorm(5.0);
+    every parameter uniform in +-0.1."""
+    fluid = paddle.fluid
+    L = fluid.layers
+    F = paddle.nn.functional
+    V, H, T, B = PTB["vocab"], PTB["hidden"], PTB["steps"], PTB["batch"]
+
+    def attr():
+        return fluid.ParamAttr(initializer=paddle.nn.initializer.Uniform(
+            -PTB["init_scale"], PTB["init_scale"]))
+    paddle.enable_static()
+    try:
+        main = fluid.Program()
+        with fluid.program_guard(main):
+            x = fluid.data("x", [T, B], "int64")
+            y = fluid.data("y", [T * B, 1], "int64")
+            emb = L.embedding(x, [V, H], param_attr=attr(),
+                              name=prefix + "emb")
+            rnn = L.StaticRNN()
+            with rnn.step():
+                inp = rnn.step_input(emb)
+                for layer in range(PTB["layers"]):
+                    h_prev = rnn.memory(shape=[B, H], batch_ref=inp)
+                    c_prev = rnn.memory(shape=[B, H], batch_ref=inp)
+                    gates = L.fc(L.concat([inp, h_prev], axis=1), 4 * H,
+                                 param_attr=attr(), bias_attr=attr(),
+                                 name=f"{prefix}lstm{layer}")
+                    i, j, f, o = L.split(gates, 4, dim=1)
+                    c = c_prev * F.sigmoid(f) \
+                        + F.sigmoid(i) * paddle.tanh(j)
+                    h = paddle.tanh(c) * F.sigmoid(o)
+                    rnn.update_memory(h_prev, h)
+                    rnn.update_memory(c_prev, c)
+                    inp = h
+                rnn.step_output(inp)
+            out = L.reshape(rnn(), [T * B, H])
+            logits = L.fc(out, V, param_attr=attr(), bias_attr=attr(),
+                          name=prefix + "softmax")
+            loss = L.scale(L.reduce_sum(
+                L.softmax_with_cross_entropy(logits, y)), 1.0 / B)
+            paddle.optimizer.SGD(
+                lr, grad_clip=paddle.nn.ClipGradByGlobalNorm(PTB["clip"])
+            ).minimize(loss)
+    finally:
+        paddle.disable_static()
+    return main, loss
+
+
+def ptb_feeds(n):
+    rs = np.random.RandomState(301)
+    out = []
+    for _ in range(n):
+        seq = rs.randint(0, PTB["vocab"], (PTB["steps"] + 1, PTB["batch"]))
+        out.append({"x": seq[:-1].astype(np.int64),
+                    "y": seq[1:].reshape(-1, 1).astype(np.int64)})
+    return out
+
+
+def fluid_ptb_phase(torch, paddle):
+    """30b: 10 Executor.run steps on the card (a ScanRecord forward and
+    backward), the first 3 against the same program on the CPU from the
+    same weights."""
+    from paddle_tpu_torch.fluid import convert
+    fluid = paddle.fluid
+    L = fluid.layers
+    feeds = ptb_feeds(PTB["train_steps"])
+    paddle.set_device("gpu")
+    L.clear_layer_cache()
+    main, loss = ptb_program(paddle, "p_", PTB["lr"])
+    init = convert.layer_cache_state(L._layer_cache)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    losses, times = [], []
+    for f in feeds:
+        t1 = time.perf_counter()
+        losses.append(float(exe.run(main, feed=f, fetch_list=[loss])[0]))
+        times.append((time.perf_counter() - t1) * 1e3)
+    check(all(np.isfinite(losses)), f"30b: losses {losses}")
+    kinds = sorted({type(r).__name__ for r in main.ops})
+    paddle.set_device("cpu")
+    L.clear_layer_cache()
+    cpu_main, cpu_loss = ptb_program(paddle, "p_", PTB["lr"])
+    convert.load_layer_cache(init)
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    cpu = [float(cpu_exe.run(cpu_main, feed=f, fetch_list=[cpu_loss])[0])
+           for f in feeds[:PTB["cpu_steps"]]]
+    paddle.set_device("gpu")
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, cpu))
+    check(rel <= LOSS_RTOL, f"30b: card losses {losses[:3]} against the "
+          f"CPU's {cpu}: {rel} > {LOSS_RTOL}")
+    step_ms = float(np.median(times[3:]))
+    tokens = PTB["steps"] * PTB["batch"]
+    print(f"  30b PTB LM (PaddleNLP language_model small: vocab "
+          f"{PTB['vocab']}, hidden {PTB['hidden']}, {PTB['layers']} LSTM "
+          f"layers, {PTB['steps']} steps, batch {PTB['batch']}) with "
+          f"StaticRNN ({kinds}): losses {[round(x, 5) for x in losses]}; "
+          f"the first {PTB['cpu_steps']} against the CPU program's "
+          f"{[round(x, 5) for x in cpu]}, largest relative difference "
+          f"{rel:.3e} (tol {LOSS_RTOL}); step ms "
+          f"{[round(t, 1) for t in times]} (median of steps 4-10 "
+          f"{step_ms:.2f}, {tokens / step_ms * 1e3:.0f} tokens/s)")
+    L.clear_layer_cache()
+    del main, cpu_main, exe, cpu_exe
+    return step_ms
+
+
+def fluid_while_programs(paddle):
+    """30c's While programs: the counter loop over a fed vector, the
+    fed bound, and assign's copy inside the body."""
+    fluid = paddle.fluid
+    L = fluid.layers
+    progs = {}
+    paddle.enable_static()
+    try:
+        main = fluid.Program()
+        with fluid.program_guard(main):
+            x = fluid.data("x", [4], "float32")
+            n = fluid.data("n", [1], "int64")
+            i = L.fill_constant([1], "int64", 0)
+            acc = L.fill_constant([4], "float32", 0.0)
+            snap = L.fill_constant([1], "int64", -1)
+            cond = L.less_than(i, n)
+            w = L.While(cond)
+            with w.block():
+                L.assign(acc * 0.5 + x, output=acc)
+                copy = L.assign(i)
+                L.assign(copy, output=snap)
+                i = L.increment(i, in_place=True)
+                L.less_than(i, n, cond=cond)
+            out = acc * 1.0
+        progs["while"] = (main, [out, snap])
+    finally:
+        paddle.disable_static()
+    return progs
+
+
+def fluid_control_phase(torch, paddle):
+    """30c: While programs under Executor.run on the card (one graph, a
+    conditional while node, the trip count from the feed) against the
+    CPU's; cond, case, switch_case and the tensor arrays under
+    jit.to_static (they have no program record in either package: the
+    reference's programs hold While and StaticRNN records only)."""
+    from paddle_tpu_torch.core import graph_cond
+    fluid = paddle.fluid
+    L = fluid.layers
+    made = []          # the conditional nodes the captures make, by kind
+    real_node = graph_cond.node
+
+    def counting_node(flag, kind, *a, **k):
+        made.append(kind)
+        return real_node(flag, kind, *a, **k)
+    graph_cond.node = counting_node
+    try:
+        _fluid_control(torch, paddle, fluid, L, made)
+    finally:
+        graph_cond.node = real_node
+
+
+def _fluid_control(torch, paddle, fluid, L, made):
+    results = []
+    for device, place in (("gpu", fluid.CUDAPlace(0)),
+                          ("cpu", fluid.CPUPlace())):
+        paddle.set_device(device)
+        main, fetch = fluid_while_programs(paddle)["while"]
+        exe = fluid.Executor(place)
+        got = []
+        for n in (3, 7, 2, 9, 5, 1):
+            x = np.arange(4, dtype=np.float32) + n
+            got.append(exe.run(main, feed={"x": x, "n": np.array(
+                [n], np.int64)}, fetch_list=fetch))
+        results.append((got, exe))
+    paddle.set_device("gpu")
+    (card, exe), (cpu, _) = results
+    for a, b in zip(card, cpu):
+        for u, v in zip(a, b):
+            check(np.allclose(u, v, rtol=1e-6, atol=0), f"30c While: card "
+                  f"{u} against CPU {v}")
+    graphs = [g for fn in exe._cache.values()
+              for g in getattr(fn, "graphs", list)()]
+    whiles = made.count("while")
+    check(len(graphs) == 1 and whiles == 1, f"30c: While programs made "
+          f"{len(graphs)} graphs and {whiles} while nodes for one feed "
+          "signature")
+    snaps = [int(r[1][0]) for r in card]
+    check(snaps == [n - 1 for n in (3, 7, 2, 9, 5, 1)],
+          f"30c: assign's snapshots {snaps}")
+
+    def branches(x, k):
+        y = L.cond(x.sum() > 0, lambda: x * 2.0, lambda: x - 1.0)
+        z = L.case([(k == 0, lambda: y + 1.0), (k == 1, lambda: y * 3.0)],
+                   default=lambda: y)
+        w = L.switch_case(k, {0: lambda: z * 0.5, 1: lambda: z - 2.0},
+                          default=lambda: z)
+        arr = L.create_array("float32")
+        L.array_write(w, 0, arr)
+        L.array_write(y, 1, arr)
+        # (array_length is a host count made into a tensor: a copy from
+        # the host, which a capture refuses; it stays outside the step)
+        return L.array_read(arr, 0) + L.array_read(arr, 1)
+
+    f = paddle.jit.to_static(branches)
+    before = len(made)
+    cases = [(s, k) for s in (1.0, -1.0) for k in (0, 1, 2)] * 2
+    for s, k in cases:
+        x = np.linspace(-1, 2, 6).astype(np.float32) * s
+        kk = np.array([k], np.int64)
+        got = f(paddle.to_tensor(x), paddle.to_tensor(kk)).numpy()
+        paddle.set_device("cpu")
+        want = branches(paddle.to_tensor(x), paddle.to_tensor(kk)).numpy()
+        paddle.set_device("gpu")
+        check(np.array_equal(got, want), f"30c branches ({s}, {k}): card "
+              f"{got} against CPU {want}")
+    n_graphs = len(f.graphs())
+    ifs = made[before:].count("if")
+    check(n_graphs == 1 and ifs > 0, f"30c: the branches made {n_graphs} "
+          f"graphs, {ifs} if nodes")
+    print(f"  30c fluid control flow on the card: While programs under "
+          f"Executor.run for bounds (3, 7, 2, 9, 5, 1) = the CPU's, one "
+          f"graph with {whiles} while node, assign's copy the "
+          f"pre-increment counter; cond, case, switch_case and the tensor "
+          f"arrays under jit.to_static over {len(cases)} calls = eager on "
+          f"the CPU, one graph with {ifs} if nodes")
+
+
+def fluid_deploy_phase(torch, attn, cfg):
+    """30d: phase 7's untied f32 GPT-124M through fluid.io (jit.save's
+    torch.export path) and a Predictor at batches 1 and 8, K1 = 12 a run;
+    onnx.export of the module. Returns the Predictor's K1 launches by
+    batch and the two K1 rows of the exported node."""
+    import collections
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.jit.save_load import export_module
+    from paddle_tpu_torch.onnx_proto import onnx_pb2
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    L, S, V = cfg.num_layers, cfg.max_seq_len, cfg.vocab_size
+    hd = cfg.hidden_size // cfg.num_heads
+    op = torch.ops.paddle_tpu_torch.flash_attention_forward
+    rows = [k1_inference_row(torch, attn, (b, cfg.num_heads, S, hd),
+                             fn=op, label="30d")
+            for b in (1, 8)]
+    for row in rows:
+        row["name"] = "flash_attention_forward (torch.export node)"
+    paddle.set_device("gpu")
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        1234)).eval()
+    spec = [InputSpec([None, S], "int64")]
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "gpt")
+        t0 = time.perf_counter()
+        paddle.fluid.io.save_inference_model(path, model=model,
+                                             input_spec=spec)
+        save_s = time.perf_counter() - t0
+        check(os.path.getsize(path + ".pdmodel") < (64 << 20),
+              f"30d: the .pdmodel is {os.path.getsize(path + '.pdmodel')} "
+              "B: it holds the values")
+        ep = export_module(model, spec)
+        nodes = [str(n.target) for n in ep.graph.nodes
+                 if n.op == "call_function"]
+        k1_nodes = sum("flash_attention_forward" in t for t in nodes)
+        check(k1_nodes == L and not any(
+            "softmax" in t or "scaled_dot_product" in t for t in nodes),
+            f"30d: the exported graph's attention: {k1_nodes} K1 nodes")
+        del ep
+        loaded = paddle.fluid.io.load_inference_model(path)
+        ids1 = np.random.RandomState(301).randint(0, V, (1, S))
+        with torch.no_grad():
+            want1 = model(torch.from_numpy(ids1).cuda()).cpu().numpy()
+        same_or_close(loaded(paddle.to_tensor(ids1)).numpy(), want1,
+                      DEPLOY_TOL, "30d load_inference_model")
+        del loaded
+        pred = inference.create_predictor(inference.Config(path))
+        print(f"  30d torch GPT-124M (phase 7's untied f32 weights) through "
+              f"fluid.io.save_inference_model in {save_s:.2f} s "
+              f"(torch.export: {len(nodes)} nodes, {k1_nodes} of them the "
+              f"K1 operator, no softmax or SDPA; .pdmodel "
+              f"{os.path.getsize(path + '.pdmodel')} B, .pdiparams "
+              f"{os.path.getsize(path + '.pdiparams')} B)")
+        for b in (1, 8):
+            ids = np.random.RandomState(300 + b).randint(0, V, (b, S))
+            with torch.no_grad():
+                want = model(torch.from_numpy(ids).cuda()).cpu().numpy()
+            outs, times, k1s = predictor_runs(torch, pred, ids, FLUID_RUNS,
+                                              attn)
+            check(k1s == [L] * FLUID_RUNS, f"30d batch {b}: K1 {k1s}")
+            launches[b] = sum(k1s)
+            diffs = [same_or_close(o, want, DEPLOY_TOL, f"30d batch {b}")
+                     for o in outs]
+            x = paddle.to_tensor(ids)
+            dev = device_ms(torch, lambda: pred.layer(x))
+            print(f"    batch {b}: run ms {[round(t, 2) for t in times]} "
+                  f"(host to host, median of replays "
+                  f"{float(np.median(times[3:])):.2f}), device {dev:.3f} ms "
+                  f"a replay; K1 {k1s}; against eager: "
+                  + ("the same bits every run" if all(d[1] for d in diffs)
+                     else f"max abs diff {max(d[0] for d in diffs):.3e}"))
+        check(len(pred.layer.graphs()) == 2, "30d: not one graph a batch")
+        del pred
+        t0 = time.perf_counter()
+        onnx_path = paddle.onnx.export(model, os.path.join(d, "gpt"),
+                                       input_spec=spec)
+        onnx_s = time.perf_counter() - t0
+        proto = onnx_pb2.ModelProto()
+        with open(onnx_path, "rb") as f:
+            proto.ParseFromString(f.read())
+        sd = model.state_dict()
+        checked = 0
+        for t in proto.graph.initializer:
+            if t.name not in sd:
+                continue
+            card = sd[t.name].detach()
+            if card.dim() == 2 and "embeddings" not in t.name:
+                card = card.t()
+            arr = np.frombuffer(t.raw_data, np.float32).reshape(list(t.dims))
+            check(np.array_equal(arr, card.contiguous().cpu().numpy()),
+                  f"30d onnx initializer {t.name} is not the card's bits")
+            checked += 1
+        kinds = collections.Counter(n.op_type for n in proto.graph.node)
+        check(kinds["Softmax"] == L, f"30d onnx: {kinds['Softmax']} Softmax")
+        print(f"    onnx.export from the card in {onnx_s:.1f} s "
+              f"({os.path.getsize(onnx_path)} B): re-parsed, {checked} "
+              f"initializers = the card's bits (a linear weight as "
+              f"[in, out]); nodes {dict(sorted(kinds.items()))}")
+    del model
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def fluid_legacy_phase(torch, attn, cfg):
+    """30e: the legacy collective fleet on one rank: distributed_optimizer
+    (AdamW) and 3 minimize steps of phase 7's GPT-124M at 8 x 1024 against
+    a plain AdamW's, bit for bit; the (K1, K2, K3) launches of the legacy
+    steps."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.fluid.incubate.fleet.base import role_maker
+    from paddle_tpu_torch.fluid.incubate.fleet.collective import fleet
+    from paddle_tpu_torch.text.models import GPTForCausalLM
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (8, cfg.max_seq_len)).astype(np.int64)).cuda()
+    runs = []
+    for legacy in (False, True):
+        model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+            1234)).train()
+        opt = paddle.optimizer.AdamW(1e-4, parameters=model.named_parameters(),
+                                     weight_decay=0.01)
+        step = None
+        if legacy:
+            os.environ.setdefault("PADDLE_TRAINER_ID", "0")
+            fleet.init(role_maker.PaddleCloudRoleMaker(is_collective=True))
+            step = fleet.distributed_optimizer(opt)
+        for w in wrappers:
+            w.launches = 0
+        losses = []
+        for _ in range(LEGACY_STEPS):
+            loss = model(ids, labels=ids)
+            if legacy:
+                step.minimize(loss)
+            else:
+                loss.backward()
+                opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        torch.cuda.synchronize()
+        runs.append((losses, [w.launches for w in wrappers],
+                     {n: p.detach().clone()
+                      for n, p in model.named_parameters()}))
+        del model, opt, step, loss
+    (plain, pl_k, pw), (legacy, lg_k, lw) = runs
+    same = plain == legacy and all(torch.equal(pw[n], lw[n]) for n in pw)
+    check(same, f"30e: legacy fleet losses {legacy} against plain AdamW "
+          f"{plain}, weights the same bits: {same}")
+    want = [LEGACY_STEPS * cfg.num_layers] * 3
+    check(lg_k == want and pl_k == want, f"30e: launches {lg_k} {pl_k}")
+    print(f"  30e legacy collective fleet (fluid.incubate.fleet.collective, "
+          f"PaddleCloudRoleMaker(is_collective=True), worker "
+          f"{fleet.worker_index()} of {fleet.worker_num()}): "
+          f"{LEGACY_STEPS} minimize steps of GPT-124M at 8 x "
+          f"{cfg.max_seq_len} = plain AdamW's losses {legacy} and every "
+          f"weight, bit for bit; K1/K2/K3 {lg_k}")
+    del runs, pw, lw
+    torch.cuda.empty_cache()
+    return tuple(lg_k)
+
+
+def phase_fluid(torch, attn, cfg):
+    """Phase 30: 30a-30e. Returns 30d's Predictor K1 launches by batch and
+    its two K1 rows, and 30e's (K1, K2, K3) launches."""
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    try:
+        fluid_resnet_phase(torch, paddle)
+        lazy_release(torch)
+        fluid_ptb_phase(torch, paddle)
+        fluid_control_phase(torch, paddle)
+        lazy_release(torch)
+        launches, rows = fluid_deploy_phase(torch, attn, cfg)
+        legacy = fluid_legacy_phase(torch, attn, cfg)
+    finally:
+        from paddle_tpu_torch.core import device as device_mod
+        device_mod._current_place = None
+    for row, b in zip(rows, (1, 8)):
+        row["launches"] = launches[b]
+    print(f"  phase 30 in {time.perf_counter() - t0:.1f} s")
+    return rows, legacy
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -9311,6 +10101,12 @@ def main():
                     "K5-K7, the lint; two pipeline stages, ZeRO-2 and its "
                     "checkpoint, MoE at ep = 2, the meta-optimizers); "
                     "prints no kernels line")
+    ap.add_argument("--fluid", action="store_true",
+                    help="phases 1 and 30 only (the build, the fluid "
+                    "compat layer: the fluid ResNet-50 program, the PTB "
+                    "StaticRNN LM, control flow, the torch GPT-124M "
+                    "through fluid.io and a Predictor, the legacy "
+                    "collective fleet); prints no kernels line")
     ap.add_argument("--rnn", action="store_true",
                     help="phases 1 and 23 only (the build, the recurrent "
                     "surface and the LSTM encoder-decoder through "
@@ -9437,6 +10233,17 @@ def main():
               f"s; phases 28 and 29's launches: " + ", ".join(
                   f"{r['name']} {r['shape']} {r['launches']}"
                   for r in rows28 + rows29 if r["launches"]))
+        print(card_line())
+        return 0
+    if args.fluid:
+        print("[30] the fluid compat layer: ResNet-50 and the PTB LM as "
+              "fluid programs, control flow, the torch GPT through fluid.io, "
+              "the legacy fleet")
+        rows30, legacy30 = phase_fluid(torch, attn, train_cfg)
+        print(f"phases 1 and 30 in {time.perf_counter() - t_start:.1f} s; "
+              f"phase 30's launches: 30d K1 " + ", ".join(
+                  f"{r['shape']} {r['launches']}" for r in rows30)
+              + f"; 30e K1/K2/K3 {legacy30}")
         print(card_line())
         return 0
     if args.rnn:
@@ -9613,6 +10420,13 @@ def main():
     rows29 = phase_dist_rest(torch, optimizer, attn, tce,
                              TransformerLMConfig, GPTForCausalLM, one)
     del one
+    lazy_release(torch, "after phase 29")
+    print("[30] the fluid compat layer: the fluid ResNet-50 program through "
+          "fluid.Executor against eager, the PTB StaticRNN LM card against "
+          "CPU, While/cond/case/switch_case and arrays on the card, the "
+          "torch GPT-124M through fluid.io, a Predictor and onnx.export, the "
+          "legacy collective fleet")
+    rows30, legacy30 = phase_fluid(torch, attn, train_cfg)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -9629,9 +10443,10 @@ def main():
                surface + (0, 0, 0), prog25 + (0, 0, 0))]
     # phase 26: the Predictor's batch-8 runs and QAT's steps on the f32
     # training shape's rows; its batch-1 and batch-4 runs on their own row
-    k1t_row["launches"] = k1_train + f32[0] + big26 + qat26[0] + gpt27[0]
-    k2_row["launches"] = k2 + f32[1] + qat26[1] + gpt27[1]
-    k3_row["launches"] = k3 + f32[2] + qat26[2] + gpt27[2]
+    k1t_row["launches"] = (k1_train + f32[0] + big26 + qat26[0] + gpt27[0]
+                           + legacy30[0])
+    k2_row["launches"] = k2 + f32[1] + qat26[1] + gpt27[1] + legacy30[1]
+    k3_row["launches"] = k3 + f32[2] + qat26[2] + gpt27[2] + legacy30[2]
     k1p_row["launches"] = small26
     k5f_row["launches"], k6f_row["launches"], k7f_row["launches"] = f32[3:]
     bf16 = [a + b + c + d for a, b, c, d in
@@ -9647,7 +10462,7 @@ def main():
     for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
         for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
             row["launches"] = n
-    print(f"phases 1-29 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-30 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -9661,7 +10476,7 @@ def main():
                                               k6_row, k7_row, k5f_row,
                                               k6f_row, k7f_row,
                                               *noncausal, *rows28,
-                                              *rows29)]}))
+                                              *rows29, *rows30)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -90,6 +90,7 @@ from . import dataset, distribution, reader  # noqa: E402,F401
 from . import distributed  # noqa: E402,F401
 from .distributed import DataParallel  # noqa: E402,F401
 from . import incubate  # noqa: E402,F401
+from . import fluid  # noqa: E402,F401
 from .static import (  # noqa: E402,F401
     disable_static, enable_static, in_dynamic_mode)
 from . import device, onnx, quantization, version  # noqa: E402,F401

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core import device as device_mod
-from ..jit.save_load import TranslatedLayer, load_program
+from ..jit.save_load import load_program, translated
 
 _warned_knobs = set()
 
@@ -108,7 +108,7 @@ class Predictor:
         prefix = config.model_dir()
         if _loaded is None:
             _loaded = load_program(prefix, dev)
-        self._layer = TranslatedLayer(*_loaded, dev)
+        self._layer = translated(_loaded, dev)
         with open(prefix + ".pdmeta", "rb") as f:
             meta = pickle.load(f)
         self._input_names = [f"x{i}" for i in range(meta["num_inputs"])]

@@ -39,12 +39,28 @@ copy or synchronize during another's; each run holds the lock from its
 feeds' copies to its outputs' copies to the host.
 
 A ``torch.nn.Module`` (the port's ``text.models.GPTForCausalLM``) calls
-torch directly and cannot be recorded: ``save`` raises ``TypeError``.
+torch directly, so it records nothing; ``save`` takes it through
+``torch.export`` instead (``export_module``): the forward in eval mode
+at the specs' shapes, each ``None`` or ``-1`` dim a ``torch.export.Dim``
+(the reference's export bakes batch 1 there; the port's program takes
+any size). The attention stays one node,
+``torch.ops.paddle_tpu_torch.flash_attention_forward`` (K1 on the card,
+its plain version on the CPU; ``ops/attention.py`` registers it at
+import). The ``.pdmodel`` is then the ``torch.export.save`` archive
+without the values (each a zero broadcast to its shape), the
+``.pdiparams`` the module's state dict under the reference's structured
+names and layout (``text.convert.state_dict_to_paddle_tpu``: a linear
+weight ``[in, out]``), so the values still cross between the packages
+both ways, and the ``.pdmeta`` says ``"format": "torch.export"``.
+``load`` returns a ``TranslatedModule``: the exported module with the
+``.pdiparams`` values on their device, each input signature one CUDA
+graph on the card (``jit.to_static``), under the same lock.
 """
 import contextlib
 import os
 import pickle
 import threading
+import warnings
 
 import numpy as np
 import torch
@@ -53,7 +69,7 @@ from ..core import device as device_mod
 from ..core import dtype as dtype_mod
 from ..core.tensor import Tensor
 
-__all__ = ["save", "load", "TranslatedLayer"]
+__all__ = ["save", "load", "TranslatedLayer", "TranslatedModule"]
 
 # the pickle protocol marker the port's program files start with
 _PICKLE_MAGIC = b"\x80"
@@ -106,12 +122,72 @@ CAPTURE_LOCK = _SharedExclusiveLock()
 
 def _check_layer(layer, what):
     from ..nn.layer_base import Layer
-    if isinstance(layer, torch.nn.Module) or not isinstance(layer, Layer):
+    if not isinstance(layer, Layer):
         raise TypeError(
             f"{what} takes a Paddle-surface nn.Layer, whose forward records "
-            f"into a static Program; got {type(layer).__name__}"
-            + (" (a torch.nn.Module calls torch directly and cannot be "
-               "recorded)" if isinstance(layer, torch.nn.Module) else ""))
+            f"into a static Program, or a torch.nn.Module, which goes "
+            f"through torch.export; got {type(layer).__name__}")
+
+
+_MODULE_FORMAT = "torch.export"
+
+
+def export_module(module, input_spec, concrete=False):
+    """``torch.export.export`` of ``module`` in eval mode, without grad, on
+    zero inputs of the specs' shapes and dtypes on the module's device.
+    A -1 dim of a spec is a ``torch.export.Dim`` of at least 1 (traced at
+    2, so that it is not specialised), or 1 with ``concrete``."""
+    from torch.export import Dim, export
+    specs = _feed_specs(input_spec, concrete)
+    dev = next(iter(module.parameters()), torch.empty(0)).device
+    examples, dynamic = [], []
+    for i, (shape, dtype) in enumerate(specs):
+        examples.append(torch.zeros([2 if d == -1 else d for d in shape],
+                                    dtype=dtype, device=dev))
+        dims = {j: Dim(f"x{i}_d{j}", min=1)
+                for j, d in enumerate(shape) if d == -1}
+        dynamic.append(dims or None)
+    module.eval()
+    with torch.no_grad():
+        return export(module, tuple(examples),
+                      dynamic_shapes=tuple(dynamic)
+                      if any(dynamic) else None)
+
+
+def _broadcast_zeros(ep, device):
+    """Each state entry of ``ep`` as a zero on ``device`` broadcast to its
+    shape (one element of storage)."""
+    for k, v in list(ep.state_dict.items()):
+        z = torch.zeros((), dtype=v.dtype, device=device).expand(v.shape)
+        ep.state_dict[k] = torch.nn.Parameter(
+            z, requires_grad=v.requires_grad) \
+            if isinstance(v, torch.nn.Parameter) else z
+
+
+def _save_module(module, path, input_spec):
+    from ..framework.io_utils import save as psave
+    from ..text.convert import state_dict_to_paddle_tpu
+    ep = export_module(module, input_spec)
+    # the program without the values: each state entry a zero broadcast
+    # to its shape (one element of storage, on the CPU, so that no copy
+    # to the host fills it out), which load replaces by the .pdiparams
+    # values
+    device = next(iter(ep.state_dict.values()), torch.empty(0)).device
+    _broadcast_zeros(ep, torch.device("cpu"))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path + ".pdmodel", "wb") as f, warnings.catch_warnings():
+        # torch warns that a broadcast zero is no "complete tensor"
+        warnings.filterwarnings("ignore", "No complete tensor")
+        torch.export.save(ep, f)
+    params = state_dict_to_paddle_tpu(module.state_dict())
+    psave(params, path + ".pdiparams")
+    specs = _feed_specs(input_spec, False)
+    meta = {"num_inputs": len(specs), "param_names": list(params),
+            "format": _MODULE_FORMAT, "device": str(device),
+            "specs": [(shape, str(dt).replace("torch.", ""))
+                      for shape, dt in specs]}
+    with open(path + ".pdmeta", "wb") as f:
+        pickle.dump(meta, f, protocol=4)
 
 
 def _feed_specs(input_spec, concrete):
@@ -203,10 +279,16 @@ def record(layer, input_spec, concrete=False, what="jit.save"):
 
 
 def save(layer, path, input_spec=None, **configs):
-    """Write ``path + '.pdmodel'`` (the recorded program, no values),
-    ``'.pdiparams'`` (the state dict) and ``'.pdmeta'``."""
+    """Write ``path + '.pdmodel'`` (the recorded program, no values; for a
+    ``torch.nn.Module`` its ``torch.export`` archive), ``'.pdiparams'``
+    (the state dict) and ``'.pdmeta'``."""
     from ..framework.io_utils import save as psave
     from ..static.program import _serialize_program
+    if isinstance(layer, torch.nn.Module):
+        if input_spec is None:
+            raise ValueError("jit.save requires input_spec (example "
+                             "inputs or an InputSpec list)")
+        return _save_module(layer, path, input_spec)
     prog, feeds, fetch, params, program_names = record(layer, input_spec)
     blob = _serialize_program(prog, without_values=set(program_names.values()))
     blob["feed_targets"] = feeds
@@ -221,10 +303,27 @@ def save(layer, path, input_spec=None, **configs):
         pickle.dump(meta, f, protocol=4)
 
 
+def _meta(path):
+    """``path``'s ``.pdmeta`` dict, None without one."""
+    if not os.path.exists(path + ".pdmeta"):
+        return None
+    with open(path + ".pdmeta", "rb") as f:
+        return pickle.load(f)
+
+
+def _is_module_save(meta):
+    return meta is not None and meta.get("format") == _MODULE_FORMAT
+
+
 def read_program_blob(path):
     """The program blob of ``path + '.pdmodel'``; a file the reference's
     ``jit.save`` wrote (serialized StableHLO) raises ValueError naming
-    that."""
+    that, and so does a ``torch.nn.Module``'s exported program."""
+    if _is_module_save(_meta(path)):
+        raise ValueError(
+            f"{path}.pdmodel is a torch.nn.Module's torch.export program, "
+            "not a static Program: load it with jit.load or "
+            "inference.create_predictor")
     with open(path + ".pdmodel", "rb") as f:
         data = f.read()
     blob = None
@@ -319,13 +418,16 @@ class TranslatedLayer:
             hold = CAPTURE_LOCK.exclusive() if runs < _CAPTURE_RUNS \
                 else CAPTURE_LOCK.shared()
         with hold:
-            feed = {var.name: v.to(self._device)
-                    for var, v in zip(self._feeds, host)}
-            outs = self._exe.run(self._program, feed=feed,
-                                 fetch_list=self._fetch, return_numpy=False)
+            outs = self._call(host)
             if to_numpy:
                 outs = [o.numpy() for o in outs]
         return outs
+
+    def _call(self, host):
+        feed = {var.name: v.to(self._device)
+                for var, v in zip(self._feeds, host)}
+        return self._exe.run(self._program, feed=feed,
+                             fetch_list=self._fetch, return_numpy=False)
 
     forward = __call__
 
@@ -349,13 +451,92 @@ class TranslatedLayer:
                    if hasattr(fn, "pool_bytes"))
 
 
+class TranslatedModule(TranslatedLayer):
+    """A loaded ``torch.nn.Module`` (``jit.save``'s ``torch.export``
+    path): the exported module over the ``.pdiparams`` values on
+    ``device``. On the card each input signature is one CUDA graph
+    (``jit.to_static``: eager, recorded, captured, then replayed), so the
+    K1 node's launches read captured x replays; on the CPU the module runs
+    eagerly."""
+
+    def __init__(self, loaded, device):
+        from ..static.program import Variable
+        self._gm, self._params, specs = loaded
+        # the feeds' shapes and dtypes, checked as a program's are
+        self._feeds = [Variable(f"x{i}", shape, dtype, None)
+                       for i, (shape, dtype) in enumerate(specs)]
+        self._device = device
+        self._runs = {}
+        self._fn = self._forward
+        if device.type == "cuda":
+            from .to_static import TracedFunction
+            self._fn = TracedFunction(self._forward, enable_ast=False)
+
+    def _forward(self, *xs):
+        with torch.no_grad():
+            out = self._gm(*xs)
+        return list(out) if isinstance(out, (list, tuple)) else [out]
+
+    def _call(self, host):
+        return [Tensor._wrap(o) for o in self._fn(
+            *[v.to(self._device) for v in host])]
+
+    def graphs(self):
+        return self._fn.graphs() if hasattr(self._fn, "graphs") else []
+
+    def pool_bytes(self):
+        return self._fn.pool_bytes() if hasattr(self._fn, "pool_bytes") \
+            else 0
+
+
+def _load_module(path, meta, device):
+    """``(module, params, specs)`` of a ``torch.export`` save: the
+    program's module on ``device`` with the ``.pdiparams`` values (the
+    reference's names and layout, turned back by ``text.convert``)."""
+    from ..framework.io_utils import load as pload
+    from ..text.convert import state_dict_from_paddle_tpu
+    with open(path + ".pdmodel", "rb") as f:
+        ep = torch.export.load(f)
+    _broadcast_zeros(ep, device)
+    if torch.device(meta["device"]) != device:
+        # the program's own device arguments (an arange's)
+        from torch.export.passes import move_to_device_pass
+        ep = move_to_device_pass(ep, device)
+    gm = ep.module()
+    sd = {k: v.to(device) for k, v in state_dict_from_paddle_tpu(
+        pload(path + ".pdiparams")).items()}
+    gm.load_state_dict(sd, assign=True)
+    specs = [(shape, dtype_mod.to_torch_dtype(dt))
+             for shape, dt in meta["specs"]]
+    params = dict(gm.state_dict())
+    return gm, params, specs
+
+
+def translated(loaded, device):
+    """The layer that runs what ``load_program`` read: a
+    ``TranslatedModule`` for a module's exported program, else a
+    ``TranslatedLayer``."""
+    if isinstance(loaded, _LoadedModule):
+        return TranslatedModule(loaded, device)
+    return TranslatedLayer(*loaded, device)
+
+
+class _LoadedModule(tuple):
+    """``load_program``'s result for a ``torch.export`` save."""
+
+
 def load_program(path, device=None):
     """``(program, feed_names, fetch_names, params)`` of ``path``'s files
     with the persistables on ``device`` (default: the current device).
     Reads a ``jit.save`` model, or a ``static.save_inference_model``
-    program (which holds its values; ``params`` then by program name)."""
+    program (which holds its values; ``params`` then by program name).
+    A ``torch.nn.Module``'s save gives ``(module, params, specs)``
+    instead; ``translated`` makes either one's layer."""
     from ..static.program import _deserialize_program
     dev = device_mod.resolve_device(device)
+    meta = _meta(path)
+    if _is_module_save(meta):
+        return _LoadedModule(_load_module(path, meta, dev))
     blob = read_program_blob(path)
     values = persist_values(path)
     prog = _deserialize_program(blob, dev, values)
@@ -378,5 +559,4 @@ def load(path, device=None, **configs):
     dev = device_mod.resolve_device(
         device if not isinstance(device, str)
         else device.replace("gpu", "cuda"))
-    prog, feeds, fetch, params = load_program(path, dev)
-    return TranslatedLayer(prog, feeds, fetch, params, dev)
+    return translated(load_program(path, dev), dev)

@@ -101,8 +101,9 @@ def _flatten(obj, leaves):
         return ("L" if isinstance(obj, list) else "U",
                 tuple(_flatten(o, leaves) for o in obj))
     if isinstance(obj, dict):
-        return ("D", tuple(sorted((k, _flatten(v, leaves))
-                                  for k, v in obj.items())))
+        # leaves in the keys' sorted order, the order _rebuild reads them
+        return ("D", tuple((k, _flatten(obj[k], leaves))
+                           for k in sorted(obj)))
     return ("C", obj if _hashable_const(obj) else repr(obj))
 
 

@@ -551,34 +551,251 @@ def _convert(program, feed_names, fetch_names, values, init_names,
     graph = model.graph
     graph.name = graph_name
 
-    def vinfo(name, shape, dtype):
-        vi = pb.ValueInfoProto()
-        vi.name = name
-        tt = vi.type.tensor_type
-        tt.elem_type = _onnx_dtype(dtype)
-        for i, s in enumerate(shape):
-            d = tt.shape.dim.add()
-            if int(s) < 0:
-                d.dim_param = f"{name}_d{i}"
-            else:
-                d.dim_value = int(s)
-        return vi
-
     # resolve the outputs before copying nodes and initializers: a fully
     # folded output becomes an initializer, and ONNX wants every graph
     # output produced by a node (an Identity)
     for n in feed_names:
-        graph.input.add().CopyFrom(vinfo(n, env[n].shape, env[n].dtype))
+        graph.input.add().CopyFrom(_vinfo(pb, n, env[n].shape,
+                                         env[n].dtype))
     for f in fetch_names:
         src = env[f]
         name = src.name()
         if src.value is not None or name in feed_names:
             name = g.node("Identity", [name])
-        graph.output.add().CopyFrom(vinfo(name, src.shape, src.dtype))
+        graph.output.add().CopyFrom(_vinfo(pb, name, src.shape, src.dtype))
     graph.node.extend(g.nodes)
     for t in g.initializers.values():
         graph.initializer.add().CopyFrom(t)
     return model
+
+
+# ---- a torch.nn.Module through torch.export -------------------------------
+
+# aten ops that only view or copy their input: the edge passes through
+_PASS = ("contiguous", "clone", "alias", "detach", "lift_fresh_copy")
+# ops that move a parameter's layout: kept as nodes on its initializer
+# (folding them would write a second copy of the weight)
+_LAYOUT = ("t", "transpose", "permute", "view", "reshape", "_unsafe_view",
+           "expand")
+_ATEN_UNARY = {"relu": "Relu", "sigmoid": "Sigmoid", "tanh": "Tanh",
+               "exp": "Exp", "log": "Log", "sqrt": "Sqrt", "abs": "Abs",
+               "neg": "Neg", "erf": "Erf", "reciprocal": "Reciprocal"}
+_ATEN_BINARY = {"add": "Add", "sub": "Sub", "mul": "Mul", "div": "Div",
+                "maximum": "Max", "minimum": "Min", "pow": "Pow"}
+_FLASH_OP = "paddle_tpu_torch.flash_attention_forward"
+
+
+def _op_name(target):
+    """``'aten.linear'`` of ``aten.linear.default``; the custom op's
+    ``'paddle_tpu_torch.flash_attention_forward'``."""
+    name = getattr(target, "name", None)
+    name = name() if callable(name) else str(target)
+    name = name.replace("::", ".")
+    return name.rsplit(".", 1)[0] if name.count(".") > 1 else name
+
+
+def _emit_aten(g, op, args, ins, out):
+    """ONNX node(s) for one live aten node: ``args`` its arguments with
+    each Node replaced by its ``_In`` (``ins`` those, in order), ``out``
+    its output's FakeTensor (or tuple of them). Returns the output name
+    (or list of names)."""
+    short = op.split(".", 1)[1] if op.startswith("aten.") else op
+
+    def nm(x, like=None):
+        return x.name(like=like or _first_edge(ins))
+
+    def shape_of(o):
+        return _static(list(o.shape), op)
+
+    if short in _PASS or (short == "dropout" and not args[2]):
+        return nm(args[0])
+    if short in _ATEN_UNARY:
+        return g.node(_ATEN_UNARY[short], [nm(args[0])])
+    if short in _ATEN_BINARY:
+        a, b = (x if isinstance(x, _In) else _In(g, value=x)
+                for x in args[:2])
+        if short in ("add", "sub") and len(args) > 2 and args[2] != 1:
+            raise NotImplementedError(f"onnx export: {op} with alpha")
+        return g.node(_ATEN_BINARY[short], [nm(a), nm(b)])
+    if short in ("matmul", "mm", "bmm"):
+        return g.node("MatMul", [nm(args[0]), nm(args[1])])
+    if short == "linear":
+        x, w = args[0], args[1]
+        if w.known and w.init_name is not None:
+            wt = g.add_init(_np_of(w.value.t()), name=w.init_name)
+        else:
+            wt = _swap_last(g, nm(w), 2)
+        y = g.node("MatMul", [nm(x), wt])
+        if len(args) > 2 and args[2] is not None:
+            y = g.node("Add", [y, nm(args[2])])
+        return y
+    if short == "t":
+        return g.node("Transpose", [nm(args[0])], perm=[1, 0])
+    if short == "transpose":
+        perm = list(range(len(args[0].shape)))
+        d0, d1 = (int(d) % len(perm) for d in args[1:3])
+        perm[d0], perm[d1] = perm[d1], perm[d0]
+        return g.node("Transpose", [nm(args[0])], perm=perm)
+    if short == "permute":
+        return g.node("Transpose", [nm(args[0])],
+                      perm=[int(d) % len(args[0].shape) for d in args[1]])
+    if short in ("view", "reshape", "_unsafe_view", "squeeze",
+                 "unsqueeze", "flatten"):
+        return g.node("Reshape", [nm(args[0]),
+                                  _i64(g, shape_of(out), "shape")])
+    if short == "expand":
+        return g.node("Expand", [nm(args[0]),
+                                 _i64(g, shape_of(out), "shape")])
+    if short == "embedding":
+        return g.node("Gather", [nm(args[0]), nm(args[1])], axis=0)
+    if short in ("unbind", "select"):
+        axis = (int(args[1]) if len(args) > 1 else 0) % len(args[0].shape)
+        idx = range(args[0].shape[axis]) if short == "unbind" \
+            else [int(args[2])]
+        outs = [g.node("Gather", [nm(args[0]), g.add_init(
+            np.asarray(i, np.int64), "index")], axis=axis) for i in idx]
+        return outs if short == "unbind" else outs[0]
+    if short in ("softmax", "_softmax"):
+        return g.node("Softmax", [nm(args[0])], axis=int(args[1]))
+    if short == "gelu":
+        approx = len(args) > 1 and args[1] == "tanh"
+        return _gelu(g, nm(args[0]), approx, args[0].dtype)
+    if short == "layer_norm":
+        nd = len(args[0].shape)
+        a = {"begin_norm_axis": nd - len(args[1]),
+             "epsilon": float(args[4]) if len(args) > 4 else 1e-5}
+        ln_ins = [args[0]] + [x if isinstance(x, _In) else _In(g)
+                              for x in args[2:4]]
+        return _layer_norm(g, ln_ins, a, lambda i: nm(ln_ins[i]),
+                           lambda shp, what: _static(shp, what))
+    if op == _FLASH_OP:
+        a = {"scale": float(args[3]), "causal": bool(args[4])}
+        at_ins = list(args[:3]) + [_In(g)]
+        return [_attention(g, at_ins, a, lambda i: nm(at_ins[i]),
+                           lambda shp, what: _static(shp, what)), None]
+    raise NotImplementedError(
+        f"onnx export: aten op {op!r} has no ONNX mapping in this build "
+        "(supported: elementwise, linear/matmul, shape ops, embedding, "
+        "layer_norm, gelu, softmax, the flash attention node)")
+
+
+def _module_model(ep, graph_name):
+    """The ONNX ModelProto of the exported program ``ep``: parameters and
+    buffers become initializers under their structured names (a linear
+    weight in the reference's ``[in, out]`` layout), a node whose inputs
+    are all known is evaluated on the CPU and folded (the position
+    lookup), every other node is mapped by its aten op."""
+    import torch.fx
+    from torch.export.graph_signature import InputKind
+    pb = _pb()
+    g = _Graph()
+    kinds = {s.arg.name: s for s in ep.graph_signature.input_specs}
+    env, feeds = {}, []
+    for node in ep.graph.nodes:
+        if node.op == "placeholder":
+            spec = kinds[node.name]
+            val = node.meta["val"]
+            if spec.kind == InputKind.USER_INPUT:
+                name = f"x{len(feeds)}"
+                feeds.append((name, list(val.shape), val.dtype))
+                env[node] = _In(g, edge=name, shape=list(val.shape),
+                                dtype=val.dtype)
+                continue
+            store = ep.constants if spec.kind in (
+                InputKind.CONSTANT_TENSOR, InputKind.CUSTOM_OBJ) \
+                else ep.state_dict
+            v = store[spec.target].detach().cpu()
+            env[node] = _In(g, value=v, shape=list(v.shape), dtype=v.dtype,
+                            init_name=spec.target if spec.kind in (
+                                InputKind.PARAMETER, InputKind.BUFFER)
+                            else None)
+            continue
+        if node.op == "output":
+            outs = node.args[0]
+            break
+        if node.op != "call_function":
+            raise NotImplementedError(f"onnx export: fx node {node.op}")
+        args = torch.fx.node.map_arg(node.args, lambda n: env[n])
+        ins = []
+        torch.fx.node.map_aggregate(
+            args, lambda x: ins.append(x) if isinstance(x, _In) else x)
+        if node.target is __import__("operator").getitem:
+            env[node] = args[0][args[1]]
+            continue
+        op = _op_name(node.target)
+        short = op.split(".", 1)[-1]
+        known = all(i.known for i in ins)
+        if known and not (short in _LAYOUT
+                          and any(i.init_name for i in ins)):
+            vals = torch.fx.node.map_aggregate(
+                args, lambda x: x.value if isinstance(x, _In) else x)
+            kw = dict(node.kwargs)
+            if "device" in kw:            # folded on the CPU
+                kw["device"] = torch.device("cpu")
+            with torch.no_grad():
+                res = node.target(*vals, **kw)
+            env[node] = _known(g, res)
+            continue
+        kw = dict(node.kwargs)
+        if kw and op != "aten.gelu":
+            kw.pop("memory_format", None)
+            if kw:
+                raise NotImplementedError(
+                    f"onnx export: {op} with keyword arguments {kw}")
+        if kw:
+            args = (args[0], kw.get("approximate", "none"))
+        val = node.meta["val"]
+        names = _emit_aten(g, op, args, ins, val)
+        if isinstance(names, list):
+            env[node] = [None if n is None else _In(
+                g, edge=n, shape=list(v.shape), dtype=v.dtype)
+                for n, v in zip(names, val)]
+        else:
+            env[node] = _In(g, edge=names, shape=list(val.shape),
+                            dtype=val.dtype)
+
+    model = pb.ModelProto()
+    model.ir_version = _IR_VERSION
+    model.producer_name = "paddle_tpu_torch"
+    opset = model.opset_import.add()
+    opset.domain = ""
+    opset.version = _OPSET
+    graph = model.graph
+    graph.name = graph_name
+    for name, shape, dtype in feeds:
+        graph.input.add().CopyFrom(_vinfo(pb, name, shape, dtype))
+    for o in (outs if isinstance(outs, (list, tuple)) else [outs]):
+        src = env[o]
+        name = src.name()
+        if src.value is not None or name in [f[0] for f in feeds]:
+            name = g.node("Identity", [name])
+        graph.output.add().CopyFrom(_vinfo(pb, name, src.shape, src.dtype))
+    graph.node.extend(g.nodes)
+    for t in g.initializers.values():
+        graph.initializer.add().CopyFrom(t)
+    return model
+
+
+def _known(g, res):
+    if isinstance(res, (list, tuple)):
+        return [_known(g, r) for r in res]
+    if isinstance(res, torch.Tensor):
+        return _In(g, value=res, shape=list(res.shape), dtype=res.dtype)
+    return _In(g, value=res, shape=[], dtype=None)
+
+
+def _vinfo(pb, name, shape, dtype):
+    vi = pb.ValueInfoProto()
+    vi.name = name
+    tt = vi.type.tensor_type
+    tt.elem_type = _onnx_dtype(dtype)
+    for i, s in enumerate(shape):
+        d = tt.shape.dim.add()
+        if int(s) < 0:
+            d.dim_param = f"{name}_d{i}"
+        else:
+            d.dim_value = int(s)
+    return vi
 
 
 def export(layer, path, input_spec=None, opset_version=_OPSET, **configs):
@@ -600,6 +817,11 @@ def export(layer, path, input_spec=None, opset_version=_OPSET, **configs):
             "validated range (13-17: ReduceMax/Min axes moved to "
             "inputs in 18); emitting opset 17")
         opset = 17
+    if isinstance(layer, torch.nn.Module):
+        from .jit.save_load import export_module
+        model = _module_model(export_module(layer, input_spec, concrete=True),
+                              graph_name=type(layer).__name__)
+        return _write(model, opset, path)
     prog, feeds, fetch, params, program_names = record(
         layer, input_spec, concrete=True, what="onnx.export")
     values, init_names = {}, {}
@@ -612,6 +834,10 @@ def export(layer, path, input_spec=None, opset_version=_OPSET, **configs):
             values[pname] = t.value.detach().cpu()
     model = _convert(prog, feeds, fetch, values, init_names,
                      graph_name=type(layer).__name__)
+    return _write(model, opset, path)
+
+
+def _write(model, opset, path):
     model.opset_import[0].version = opset
     out_path = path if path.endswith(".onnx") else path + ".onnx"
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)

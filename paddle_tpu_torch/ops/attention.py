@@ -14,6 +14,10 @@ backward is K2 and K3: on CUDA tensors the hand-written kernels
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` for every shape they
 take (and a raise on any other), on CPU tensors their plain versions
 ``flash_attention_plain`` and ``flash_attention_backward_plain``.
+``_FlashAttention``'s forward calls K1 through a ``torch.library``
+operator (``torch.ops.paddle_tpu_torch.flash_attention_forward``, with a
+fake implementation), registered when this module is imported, so that
+``torch.export`` keeps the attention as one node that launches K1.
 """
 import ctypes
 import math
@@ -139,6 +143,26 @@ def flash_attention_forward(q, k, v, scale, causal):
 
 
 flash_attention_forward.launches = 0
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_forward",
+                         mutates_args=())
+def flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, causal: bool
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 as an operator of torch's dispatcher
+    (``torch.ops.paddle_tpu_torch.flash_attention_forward``): the node an
+    exported program (``torch.export``) keeps for the attention. It runs
+    ``flash_attention_forward``: the kernel on CUDA tensors (or a raise on
+    operands it does not take), the plain version on CPU tensors."""
+    return flash_attention_forward(q, k, v, scale, causal)
+
+
+@flash_forward_op.register_fake
+def _flash_forward_fake(q, k, v, scale, causal):
+    b, h, s, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, 1, s), dtype=torch.float32))
 
 
 def flash_attention_backward_plain(q, k, v, lse, do, delta, scale, causal,
@@ -273,7 +297,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
         with op_body():
-            o, lse = flash_attention_forward(q, k, v, scale, causal)
+            o, lse = flash_forward_op(q, k, v, scale, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.causal = scale, causal
         return o

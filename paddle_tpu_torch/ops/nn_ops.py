@@ -1569,11 +1569,23 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         m = float(momentum)
         for running, batch in ((running_mean, batch_mean),
                                (running_var, batch_var)):
-            if not _defer_running_update(running, batch, m):
+            if batch._symbolic:
+                # building a static program: one recorded op reads the
+                # buffer as a persistable at each run, and its record
+                # writes the buffer back at the run's end (``running * m``
+                # alone would run now, on no Variable, and freeze the
+                # buffer's value at build into the program)
+                running.value = _running_stat(running, batch, momentum=m)
+            elif not _defer_running_update(running, batch, m):
                 with torch.no_grad():
                     running.set_value(running._value * m
                                       + batch._value * (1 - m))
     return out
+
+
+@register_op("batch_norm_running_stat", differentiable=False)
+def _running_stat(running, batch, *, momentum):
+    return running * momentum + batch * (1 - momentum)
 
 
 def _defer_running_update(running, batch, m):

@@ -504,8 +504,10 @@ def fc(x, size, num_flatten_dims=1, activation=None, name=None,
     return out
 
 
-# The fluid.layers forwards of the reference's static.nn (its
-# paddle/static/nn/__init__.py __all__): fluid/ is not ported yet.
+# ---- fluid-layer forwards (reference: paddle/static/nn/__init__.py
+# __all__ — the static op-assembly API IS the fluid.layers surface).
+# Resolved lazily (PEP 562): fluid.layers imports static.data at load.
+
 _FLUID_FORWARDS = (
     "batch_norm", "embedding", "bilinear_tensor_product", "conv2d",
     "conv2d_transpose", "conv3d", "conv3d_transpose", "crf_decoding",
@@ -520,19 +522,20 @@ _FLUID_FORWARDS = (
 )
 
 
-def _fluid_missing(name):
-    def missing(*args, **kwargs):
-        raise NotImplementedError(
-            f"paddle.static.nn.{name} forwards to fluid.layers, which is "
-            "not ported yet (ROADMAP queue 1 item 14)")
-    missing.__name__ = name
-    return missing
-
-
 def __getattr__(name):
-    if name in _FLUID_FORWARDS or name in ("deform_conv2d",
-                                           "sparse_embedding"):
-        return _fluid_missing(name)
+    if name in _FLUID_FORWARDS:
+        from ..fluid import layers as _fl
+        return getattr(_fl, name)
+    if name == "deform_conv2d":
+        from ..fluid import layers as _fl
+        return _fl.deformable_conv
+    if name == "sparse_embedding":
+        from ..fluid import layers as _fl
+
+        def sparse_embedding(input, size, **kw):  # noqa: A002
+            kw.setdefault("is_sparse", True)
+            return _fl.embedding(input, size, **kw)
+        return sparse_embedding
     raise AttributeError(f"module 'paddle.static.nn' has no attribute "
                          f"{name!r}")
 

@@ -600,27 +600,27 @@ class GPTForCausalLM(nn.Module):
         per-layer tensors stacked on a leading layer axis (``stacked``)
         with matrices as ``[in, out]`` (``x @ W``, the reference's
         layout), per-layer views of them (``layers``), the embeddings,
-        the final LayerNorm and the (tied or separate) head."""
-        if self.gpt.mp_group is not None:
-            raise NotImplementedError(
-                "decoding a tensor-parallel model: load its state_dict() "
-                "(the whole weights) into a dense GPTForCausalLM")
+        the final LayerNorm and the (tied or separate) head. A model
+        built under ``use_mp`` gathers its split weights whole (every
+        rank of its ``mp`` group must call this), so each rank decodes
+        the dense model, as the reference's tensor-parallel layers hold
+        the whole weight."""
 
         def W(t):
-            return t.detach().clone()
+            return mp_layers.gather_param(t).detach().clone()
 
         per_layer = []
         for blk in self.gpt.blocks:
             per_layer.append({
                 "ln1_w": W(blk.ln1.weight), "ln1_b": W(blk.ln1.bias),
-                "qkv_w": W(blk.attn.qkv.weight.t()),
+                "qkv_w": W(blk.attn.qkv.weight).t(),
                 "qkv_b": W(blk.attn.qkv.bias),
-                "out_w": W(blk.attn.out.weight.t()),
+                "out_w": W(blk.attn.out.weight).t(),
                 "out_b": W(blk.attn.out.bias),
                 "ln2_w": W(blk.ln2.weight), "ln2_b": W(blk.ln2.bias),
-                "fc1_w": W(blk.mlp.fc1.weight.t()),
+                "fc1_w": W(blk.mlp.fc1.weight).t(),
                 "fc1_b": W(blk.mlp.fc1.bias),
-                "fc2_w": W(blk.mlp.fc2.weight.t()),
+                "fc2_w": W(blk.mlp.fc2.weight).t(),
                 "fc2_b": W(blk.mlp.fc2.bias)})
         stacked = {k: torch.stack([p[k] for p in per_layer])
                    for k in per_layer[0]}
@@ -628,7 +628,7 @@ class GPTForCausalLM(nn.Module):
                   for i in range(len(per_layer))]
         wemb = W(self.gpt.word_embeddings.weight)
         head = wemb.t() if self.cfg.tie_embeddings \
-            else W(self.lm_head.weight.t())
+            else W(self.lm_head.weight).t()
         return {"stacked": stacked, "layers": layers, "wemb": wemb,
                 "pemb": W(self.gpt.position_embeddings.weight),
                 "lnf_w": W(self.gpt.ln_f.weight),

@@ -241,5 +241,9 @@ def test_tensor_namespace_forwards():
         np.testing.assert_array_equal(t.numpy(), 2.0)
         with pytest.raises(AttributeError):
             P.tensor.nn
-    with pytest.raises(NotImplementedError):
-        paddle.tensor.array.create_array
+    for name in ("create_array", "array_read", "array_write",
+                 "array_length"):
+        assert getattr(paddle.tensor.array, name) \
+            is getattr(paddle.fluid.layers, name)
+        assert getattr(paddle.tensor, name) \
+            is getattr(paddle.fluid.layers, name)

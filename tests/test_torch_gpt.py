@@ -198,8 +198,32 @@ def test_port_imports_neither_jax_nor_reference():
                    "distributed/fleet/meta_parallel/random.py",
                    "distributed/fleet/meta_parallel/parallel_wrappers.py",
                    "distributed/fleet/meta_parallel/sequence_parallel.py",
-                   "ops/ring_attention.py"):
+                   "ops/ring_attention.py", "fluid/__init__.py",
+                   "fluid/layers.py", "fluid/convert.py",
+                   "fluid/dygraph.py", "fluid/io.py",
+                   "fluid/incubate/__init__.py",
+                   "fluid/incubate/fleet/__init__.py",
+                   "fluid/incubate/fleet/base/__init__.py",
+                   "fluid/incubate/fleet/base/fleet_base.py",
+                   "fluid/incubate/fleet/base/mode.py",
+                   "fluid/incubate/fleet/base/role_maker.py",
+                   "fluid/incubate/fleet/collective/__init__.py",
+                   "fluid/incubate/fleet/parameter_server/__init__.py",
+                   "fluid/incubate/fleet/parameter_server/mode.py",
+                   "fluid/incubate/fleet/parameter_server/pslib/"
+                   "__init__.py",
+                   "fluid/incubate/fleet/parameter_server/"
+                   "distribute_transpiler/__init__.py",
+                   "fluid/incubate/fleet/parameter_server/"
+                   "distribute_transpiler/distributed_strategy.py"):
         assert REPO / "paddle_tpu_torch" / module in files, module
+    # a relative import stays inside the package (the fluid compat
+    # layer climbs six levels)
+    for f in files[:-1]:
+        pkg = f.relative_to(REPO).with_suffix("").parts[:-1]
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level:
+                assert node.level <= len(pkg), (str(f), node.level)
     bad = []
     for f in files:
         for name in _imports(f):

@@ -271,12 +271,17 @@ def test_feed_with_a_wrong_fixed_dim_raises(tmp_path):
 
 
 def test_torch_module_refused(tmp_path):
+    """A torch.nn.Module goes through torch.export
+    (tests/test_torch_jit_save_module.py); refused are a module without
+    an input_spec and an object that is neither a Layer nor a Module."""
     from paddle_tpu_torch.text.models import GPTForCausalLM, TransformerLMConfig
     m = GPTForCausalLM(TransformerLMConfig(vocab_size=64, hidden_size=32,
                                            num_layers=1, num_heads=2,
                                            max_seq_len=8), device="cpu")
-    with pytest.raises(TypeError, match="Paddle-surface nn.Layer"):
-        paddle.jit.save(m, str(tmp_path / "t"), input_spec=[
+    with pytest.raises(ValueError, match="input_spec"):
+        paddle.jit.save(m, str(tmp_path / "t"))
+    with pytest.raises((TypeError, AttributeError)):
+        paddle.jit.save(object(), str(tmp_path / "o"), input_spec=[
             paddle.static.InputSpec([1, 8], "int64")])
 
 

@@ -14,8 +14,9 @@ reference each jaxpr primitive.
 The GPT case builds the port's side in the Paddle surface with the
 structure of ``paddle_tpu/text/models.py`` (``SelfAttention`` :58 to
 ``GPTForCausalLM`` :288, tied head; ``test_torch_deploy_cuda.py``'s
-``surface_gpt``), since the port's ``text.models.GPTForCausalLM`` is a
-``torch.nn.Module``, which ``onnx.export`` refuses.
+``surface_gpt``); the port's ``text.models.GPTForCausalLM``, a
+``torch.nn.Module``, exports through ``torch.export``
+(tests/test_torch_jit_save_module.py).
 
 The reference's jaxpr-only ``test_general_dot_general_symbolic_dims_raise_clearly``
 has the port's own case: a program with a -1 feed dim reaching a shape
@@ -482,10 +483,15 @@ def test_opset_clamps_warn(tmp_path, asked, emitted):
 
 
 def test_torch_module_refused(tmp_path):
+    """A torch.nn.Module goes through torch.export
+    (tests/test_torch_jit_save_module.py); refused are a module without
+    an input_spec and an object that is neither a Layer nor a Module."""
     from paddle_tpu_torch.text.models import GPTForCausalLM, TransformerLMConfig
     m = GPTForCausalLM(TransformerLMConfig(vocab_size=64, hidden_size=32,
                                            num_layers=1, num_heads=2,
                                            max_seq_len=8), device="cpu")
-    with pytest.raises(TypeError, match="Paddle-surface nn.Layer"):
-        paddle.onnx.export(m, str(tmp_path / "t"), input_spec=[
+    with pytest.raises(ValueError, match="input_spec"):
+        paddle.onnx.export(m, str(tmp_path / "t"))
+    with pytest.raises((TypeError, AttributeError)):
+        paddle.onnx.export(object(), str(tmp_path / "o"), input_spec=[
             paddle.static.InputSpec([1, 8], "int64")])

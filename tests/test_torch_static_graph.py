@@ -17,8 +17,8 @@ for an op the port does not register.
 
 Losses, fetches and grads within rtol 1e-5 (atol 1e-6 where they cross
 zero); the fluid.layers forwards (``static.nn.conv2d`` and the others)
-raise ``NotImplementedError`` naming ROADMAP queue 1 item 14 until
-``fluid/`` is ported.
+resolve to ``fluid.layers`` (their values are held to the reference's
+in tests/test_torch_fluid_layers.py).
 """
 import pickle
 
@@ -386,8 +386,8 @@ def test_static_amp_autocast_records():
 
 
 def test_static_nn_fc_flattens_conv_output():
-    """The reference's fc over a conv2d's feature map; the port's
-    static.nn.conv2d forwards to fluid.layers, not ported yet."""
+    """The reference's fc over a conv2d's feature map, in both packages
+    (static.nn.conv2d forwards to fluid.layers)."""
     ref.enable_static()
     try:
         main = ref.static.Program()
@@ -403,14 +403,17 @@ def test_static_nn_fc_flattens_conv_output():
         ref.disable_static()
     paddle.enable_static()
     try:
-        with paddle.static.program_guard(paddle.static.Program()):
+        main = paddle.static.Program()
+        with paddle.static.program_guard(main):
             x = paddle.static.data("x", [None, 3, 8, 8], "float32")
-            with pytest.raises(NotImplementedError, match="item 14"):
-                paddle.static.nn.conv2d(x, 4, 3, padding=1, act="relu")
-            # fc itself flattens a 4-d input into its features
-            out = paddle.static.nn.fc(x, 2)
-            assert out.shape == [-1 if s == -1 else s for s in out.shape]
+            h = paddle.static.nn.conv2d(x, 4, 3, padding=1, act="relu")
+            out = paddle.static.nn.fc(h, 2)
             assert out.shape[-1] == 2
+            (o,) = paddle.static.Executor(paddle.CPUPlace()).run(
+                main,
+                feed={"x": np.ones((5, 3, 8, 8), np.float32)},
+                fetch_list=[out])
+        assert o.shape == (5, 2)
     finally:
         paddle.disable_static()
 
@@ -422,8 +425,12 @@ def test_static_nn_fluid_forwards_resolve(name):
     assert callable(getattr(ref.static.nn, name))
     fn = getattr(paddle.static.nn, name)
     assert callable(fn)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        fn(None)
+    target = {"deform_conv2d": "deformable_conv",
+              "sparse_embedding": None}.get(name, name)
+    if target is not None:
+        assert fn is getattr(paddle.fluid.layers, target)
+    else:
+        assert fn.__name__ == "sparse_embedding"
 
 
 def test_fit_a_line_static_mode_matches():

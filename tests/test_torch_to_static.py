@@ -479,3 +479,20 @@ def test_a_recycled_instance_id_reaches_no_stale_record(monkeypatch):
     torch.testing.assert_close(bound(x), x * 4.0)
     assert bound.last_form == "warmup"
     assert all(sig[2] > 0 for sig in traced.entries)
+
+
+def test_dict_arguments_rebuild_under_their_keys():
+    """A dict argument (``Executor.run``'s feeds) is flattened and rebuilt
+    key for key, whatever order its keys were inserted in: a replay's
+    static buffers reach the function under the names they were copied
+    from (before the repair, feeds {"x", "n"} came back swapped)."""
+    import torch
+    from paddle_tpu_torch.jit.to_static import _flatten, _rebuild
+    feeds = {"x": torch.arange(4.0), "n": torch.tensor([3]),
+             "a": torch.zeros(2)}
+    leaves = []
+    struct = _flatten(feeds, leaves)
+    back = _rebuild(struct, iter(leaves))
+    assert list(back) == sorted(feeds)
+    for k, v in feeds.items():
+        assert back[k] is v

@@ -1105,7 +1105,39 @@ def suite_emb(rank, n, out, inputs):
     return {"start": emb.start, "rows": emb.per_rank}
 
 
-SUITES = {"collective": suite_collective, "tp": suite_tp, "sp": suite_sp,
+def suite_tpgen(rank, n, out, inputs):
+    """Greedy decoding of a GPT built under ``use_mp`` (mp = n) from the
+    reference's weights: ``generate()`` of the prompts in one batch, and
+    the ``ServingEngine``'s stream of each prompt."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.text import convert, models
+    fleet = _fleet(mp_degree=n)
+    g = fleet.get_hybrid_communicate_group().get_model_parallel_group()
+    cfg = models.TransformerLMConfig(use_mp=True, **TPGEN_GPT)
+    m = models.GPTForCausalLM(cfg, device="cpu")
+    ref = {k[len("gen."):]: inputs[k] for k in inputs.files
+           if k.startswith("gen.")}
+    m.load_state_dict(convert.tp_state_dict_from_paddle_tpu(
+        ref, g.rank, g.nranks))
+    m.eval()
+    prompts = inputs["prompts"]
+    out["generate"] = m.generate(torch.from_numpy(prompts),
+                                 max_new_tokens=TPGEN_NEW,
+                                 temperature=0.0).numpy()
+    eng = ServingEngine(m, device="cpu", num_slots=2, block_size=4)
+    reqs = [eng.add_request(p, max_new_tokens=TPGEN_NEW) for p in prompts]
+    eng.run()
+    out["engine"] = np.stack([np.asarray(r.generated) for r in reqs])
+    return {"mp_rank": g.rank, "split": m.gpt.mp_group is not None}
+
+
+# the tensor-parallel decoding case: heads and the vocab divide by mp = 2
+TPGEN_GPT = dict(vocab_size=96, hidden_size=32, num_layers=2, num_heads=4,
+                 max_seq_len=64, dropout=0.0)
+TPGEN_NEW = 12
+
+
+SUITES = {"tpgen": suite_tpgen, "collective": suite_collective, "tp": suite_tp, "sp": suite_sp,
           "pp": suite_pp, "pp4": suite_pp4, "pipefn": suite_pipefn,
           "pipemem": suite_pipemem, "zero": suite_zero,
           "meta": suite_meta, "moe": suite_moe,
