@@ -7,7 +7,8 @@ Run from the repository root:  python3 chip_smoke.py [--parent TREE]
 and 22 alone, ``--rnn`` phases 1 and 23 alone, ``--static`` phases 1, 24
 and 25 alone, ``--deploy`` phases 1 and 26 alone, ``--lazy`` phases 1 and
 27 alone, ``--dist`` phases 1, 28 and 29 alone, ``--fluid`` phases 1
-and 30 alone; none prints the kernels line)
+and 30 alone, ``--incubate`` phases 1 and 31 alone; none prints the
+kernels line)
 
 Every phase runs under the default FLAGS_lazy_eager (True): the Paddle
 surface's eager steps are deferred into graphs (paddle_tpu_torch/core/
@@ -547,6 +548,39 @@ Phases, one line each:
              legacy collective fleet: 3 minimize steps of GPT-124M at 8
              x 1024 = a plain AdamW's losses and weights bit for bit,
              K1 = K2 = K3 = 12 a step.
+ 31. incubate the last modules: 31a GPT-3 1.3B (text.models.gpt3_1p3b,
+             the reference's config 5: 24 layers, hidden 2048, 16 heads
+             of 128; seeded random weights) at 4 x 1024 under
+             amp.auto_cast O1 bf16, pruned 2:4 by incubate.asp
+             (mask_1d, every 2-D parameter as the reference prunes,
+             the card's masks of two weights = numpy's), 10 steps of
+             asp.decorate(incubate.LookAhead(AdamW, alpha 0.5, k 5))
+             with incubate.ModelAverage: every loss finite and the
+             last below the first, check_mask_1d on the card for
+             every masked weight after every step, 4 tensors = mask *
+             (slow + alpha (fast - slow)) bit for bit at steps 5 and
+             10, apply() = the sum / 10 and restore() the same bits,
+             K1 = K2 = K3 = 240 and K5 = K6 = K7 = 10; median step
+             ms, tokens/s, peak; 31b from the average: generate() of
+             32 greedy tokens for 4 prompts, every token the teacher-
+             forced forward's argmax or a near-tie (K1 f32 at head
+             dim 128), the engine's streams against it (K4 = 24 x its
+             decode steps at 16 heads of 128); 31c K1-K3 at
+             [4,16,1024,128] causal bf16 and K5-K7 at [4096, 2048,
+             50304] bf16 (5 % ignored) against their plain versions
+             (bf16 tolerances), K4 and the f32 K1 at 31b's shapes,
+             each timed with its bound and library call (the kernels
+             line's rows); 31d incubate.checkpoint.auto_checkpoint:
+             GPT-124M cut to 2 blocks, f32, 2 AdamW steps an epoch, a
+             child process runs 2 of 3 epochs and exits, a second
+             resumes at epoch 2 under the same PADDLE_JOB_ID and
+             finishes, its losses and weights equal to an
+             uninterrupted child's bit for bit (torch's deterministic
+             algorithms); 31e softmax_mask_fuse and its causal form at
+             [4,16,1024,1024] bf16 against the f32 composition, a
+             cpp_extension host op (g++) on CUDA tensors = numpy,
+             set_cuda_rng_state(get_cuda_rng_state()) replaying
+             paddle.rand.
 Then the card's name and power limit, one JSON line of kernel numbers
 (launches summed over the main paths: phases 4, 14, 15's paged runs,
 16, 17 and 18 (its replica processes' and this process's) for K4, 5,
@@ -562,7 +596,9 @@ rows at [8192, 768, 25152] (none runs mp = 4: the [8192, 768, 12576]
 rows read 0), 28c's for the Ulysses rows, 29a's stages and 29b's ranks
 for theirs, 28f's ranks for the TP rank's K1 and K4 rows, 30d's
 Predictor runs for the exported node's K1 rows, 30e's steps on the f32
-training rows), and as the last line
+training rows, 31a's steps for the head-dim-128 K1-K3 and the H = 2048
+K5-K7 rows, 31b's decode and forward for its K4 and f32 K1 rows), and
+as the last line
 {"ok": true, "device": {...}}.
 
 TF32 is off for matmuls and cuDNN, so every f32 product is full f32.
@@ -1093,6 +1129,50 @@ def bwd_case(torch, attn, shape, causal, dtype, g):
     return q, k, v, do, lse, delta, scale
 
 
+def bwd_check(torch, attn, shape, causal, dtype, g, errs):
+    """One case of K2/K3 against the plain backward (phases 6 and 31c):
+    f32 within BWD_F32_TOL of the largest grad; bf16 against P and dS
+    kept f32 and against P and dS rounded to bf16 as the kernels round
+    them, the latter's error into ``errs[(shape, causal, dtype, name)]``;
+    a second run the same bits. Prints one line."""
+    q, k, v, do, lse, delta, scale = bwd_case(torch, attn, shape, causal,
+                                              dtype, g)
+    args = (q, k, v, lse, do, delta, scale, causal)
+    got = (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
+    # bf16: against P and dS kept f32 and against P and dS rounded to
+    # bf16 as the kernels round them; the plain grads stay f32
+    variants = ([(None, BWD_F32_TOL)] if dtype == "float32" else
+                [(None, BWD_BF16_TOL), (torch.bfloat16, BWD_BF16P_TOL)])
+    line = []
+    for p_dtype, tol in variants:
+        ref = attn.flash_attention_backward_plain(
+            q.float(), k.float(), v.float(), lse, do.float(), delta,
+            scale, causal, p_dtype=p_dtype)
+        torch.cuda.synchronize()
+        for name, a, want in zip(("dq", "dk", "dv"), got, ref):
+            check(a.dtype == q.dtype and a.shape == want.shape,
+                  f"K2/K3 {name} {shape}: dtype/shape")
+            err = (a.float() - want).abs().max().item()
+            top = want.abs().max().item()
+            check(bool(torch.isfinite(a).all()) and err <= tol * top,
+                  f"K2/K3 {name} {shape} causal={causal} {dtype} (P, dS "
+                  f"{p_dtype or 'f32'}): max abs err {err} > {tol} x max "
+                  f"|grad| {top}")
+            # a row's error: against the plain version that rounds as
+            # the kernel does
+            if p_dtype is not None or dtype == "float32":
+                errs[(shape, causal, dtype, name)] = err
+            line.append(f"{name} err {err:.3e} vs P "
+                        f"{'bf16' if p_dtype else 'f32'} (tol {tol} x "
+                        f"max |grad| {top:.3e})")
+    again = (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K2/K3 {shape} causal={causal} {dtype}: two runs differ")
+    line.append("a second run gives the same bits")
+    print(f"  K2/K3 {list(shape)} causal={causal} {dtype}: "
+          + "; ".join(line))
+
+
 def phase_k2k3(torch, attn, train_shape):
     cases = [(train_shape, True, "float32"), (train_shape, True, "bfloat16"),
              ((1, 12, 333, 64), True, "float32"),
@@ -1108,42 +1188,7 @@ def phase_k2k3(torch, attn, train_shape):
     g = torch.Generator(device="cuda").manual_seed(6)
     errs = {}
     for shape, causal, dtype in cases:
-        q, k, v, do, lse, delta, scale = bwd_case(torch, attn, shape, causal,
-                                                  dtype, g)
-        args = (q, k, v, lse, do, delta, scale, causal)
-        got = (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
-        # bf16: against P and dS kept f32 and against P and dS rounded to
-        # bf16 as the kernels round them; the plain grads stay f32
-        variants = ([(None, BWD_F32_TOL)] if dtype == "float32" else
-                    [(None, BWD_BF16_TOL), (torch.bfloat16, BWD_BF16P_TOL)])
-        line = []
-        for p_dtype, tol in variants:
-            ref = attn.flash_attention_backward_plain(
-                q.float(), k.float(), v.float(), lse, do.float(), delta,
-                scale, causal, p_dtype=p_dtype)
-            torch.cuda.synchronize()
-            for name, a, want in zip(("dq", "dk", "dv"), got, ref):
-                check(a.dtype == q.dtype and a.shape == want.shape,
-                      f"K2/K3 {name} {shape}: dtype/shape")
-                err = (a.float() - want).abs().max().item()
-                top = want.abs().max().item()
-                check(bool(torch.isfinite(a).all()) and err <= tol * top,
-                      f"K2/K3 {name} {shape} causal={causal} {dtype} (P, dS "
-                      f"{p_dtype or 'f32'}): max abs err {err} > {tol} x max "
-                      f"|grad| {top}")
-                # a row's error: against the plain version that rounds as
-                # the kernel does
-                if p_dtype is not None or dtype == "float32":
-                    errs[(shape, causal, dtype, name)] = err
-                line.append(f"{name} err {err:.3e} vs P "
-                            f"{'bf16' if p_dtype else 'f32'} (tol {tol} x "
-                            f"max |grad| {top:.3e})")
-        again = (attn.flash_bwd_dq(*args), *attn.flash_bwd_dkv(*args))
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"K2/K3 {shape} causal={causal} {dtype}: two runs differ")
-        line.append("a second run gives the same bits")
-        print(f"  K2/K3 {list(shape)} causal={causal} {dtype}: "
-              + "; ".join(line))
+        bwd_check(torch, attn, shape, causal, dtype, g, errs)
 
     return (flash_rows(torch, attn, train_shape, True, "float32", errs, g,
                        forward=False)
@@ -8146,10 +8191,11 @@ def tp_decode(torch, model):
                          model.cfg.hidden_size // model.cfg.num_heads]}
 
 
-def k4_row_at(torch, pa, S, lengths, label):
-    """K4 at a decode shape of GPT-124M's engine (12 heads of 64, blocks
-    of TPGEN["block"]): against its plain version, timed, its bound."""
-    nh, hd, BS = 12, 64, TPGEN["block"]
+def k4_row_at(torch, pa, S, lengths, label, nh=12, hd=64):
+    """K4 at a decode shape of an engine's (GPT-124M's 12 heads of 64 by
+    default, blocks of TPGEN["block"]): against its plain version,
+    timed, its bound."""
+    BS = TPGEN["block"]
     MB = -(-max(lengths) // BS)
     args = paged_case(torch, S, nh, hd, BS, MB, lengths, "float32", 28)
     err = k4_case(torch, pa, label, args, F32_TOL)
@@ -8164,7 +8210,7 @@ def k4_row_at(torch, pa, S, lengths, label):
           f"{b_ms:.4f} ms ({b_by})")
     return {"name": "paged_decode_attention", "route": "cuda",
             "dtype": "float32",
-            "shape": f"28f TP rank decode S={S} nh={nh} hd={hd} BS={BS} "
+            "shape": f"{label} S={S} nh={nh} hd={hd} BS={BS} "
                      f"lengths={lengths}",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/ops/paged_attention.py:92",
@@ -9196,28 +9242,38 @@ def phase29_moe(torch, outdir, optimizer):
     torch.cuda.empty_cache()
 
 
-def ce_rows29(torch, tce, t, label, g):
-    """The kernels line's K5-K7 rows at [t, 768, 50304] f32 (a pipeline
-    stage's or a ZeRO rank's head), each held against its plain version
-    and timed with its bound and F.cross_entropy(F.linear)."""
+def ce_rows(torch, tce, t, h, v, dtype, label, g):
+    """The kernels line's K5-K7 rows at [t, h, v] in ``dtype`` (29: a
+    pipeline stage's or a ZeRO rank's f32 head; 31c: GPT-3 1.3B's bf16
+    one), each held against its plain version (bf16 grads against d
+    kept f32 and against d rounded to bf16 as the kernels round it, the
+    row's error the latter's) and timed with its bound and
+    F.cross_entropy(F.linear)."""
     import torch.nn.functional as F
-    h, v = 768, 50304
-    x, w, labels, gg = ce_case(torch, t, h, v, "float32", g)
+    x, w, labels, gg = ce_case(torch, t, h, v, dtype, g)
     loss, lse = tce.fused_ce_forward(x, w, labels)
     dx = tce.fused_ce_bwd_dx(x, w, labels, lse, gg)
     dw = tce.fused_ce_bwd_dw(x, w, labels, lse, gg)
-    rloss, rlse = tce.fused_linear_cross_entropy_plain(x, w, labels)
+    xf, wf = x.float(), w.float()
+    rloss, rlse = tce.fused_linear_cross_entropy_plain(xf, wf, labels)
     e5 = max(float((loss - rloss).abs().max()),
              float((lse - rlse).abs().max()))
-    check(e5 <= CE_LOSS_TOL, f"29 K5 [{t}]: err {e5}")
-    rdx, rdw = tce.fused_linear_cross_entropy_backward_plain(
-        x, w, labels, lse, gg)
-    e6 = float((dx - rdx).abs().max())
-    e7 = float((dw - rdw).abs().max())
-    check(e6 <= CE_F32_TOL * float(rdx.abs().max())
-          and e7 <= CE_F32_TOL * float(rdw.abs().max()),
-          f"29 K6/K7 [{t}]: err {e6} / {e7}")
-    del rloss, rlse, rdx, rdw
+    check(e5 <= CE_LOSS_TOL, f"{label} K5 [{t}, {h}, {v}] {dtype}: err {e5}")
+    del rloss, rlse
+    variants = ([(None, CE_F32_TOL)] if dtype == "float32" else
+                [(None, CE_BF16_TOL), (torch.bfloat16, CE_BF16D_TOL)])
+    for d_dtype, tol in variants:
+        rdx, rdw = tce.fused_linear_cross_entropy_backward_plain(
+            xf, wf, labels, lse, gg, d_dtype=d_dtype)
+        e6 = float((dx.float() - rdx).abs().max())
+        e7 = float((dw.float() - rdw).abs().max())
+        check(bool(torch.isfinite(dx).all() and torch.isfinite(dw).all())
+              and e6 <= tol * float(rdx.abs().max())
+              and e7 <= tol * float(rdw.abs().max()),
+              f"{label} K6/K7 [{t}, {h}, {v}] {dtype} (d "
+              f"{d_dtype or 'f32'}): err {e6} / {e7}")
+        del rdx, rdw
+    del xf, wf
     k5 = time_ms(torch, lambda: tce.fused_ce_forward(x, w, labels), iters=5,
                  warmup=1)
     k6 = time_ms(torch, lambda: tce.fused_ce_bwd_dx(x, w, labels, lse, gg),
@@ -9239,11 +9295,12 @@ def ce_rows29(torch, tce, t, label, g):
         closs, leaves, gg, retain_graph=True), iters=3, warmup=1)
     del closs, leaves
     flops = 2.0 * t * v * h
-    ins = (t * h + v * h) * 4 + t * 8
-    b5 = bound(ins + 2 * t * 4, flops, "float32")
-    b6 = bound(ins + 2 * t * 4 + t * h * 4, 2 * flops, "float32")
-    b7 = bound(ins + 2 * t * 4 + v * h * 4, 2 * flops, "float32")
-    tag = f"{label} [{t}, {h}, {v}] float32"
+    esz = 4 if dtype == "float32" else 2
+    ins = (t * h + v * h) * esz + t * 8
+    b5 = bound(ins + 2 * t * 4, flops, dtype)
+    b6 = bound(ins + 2 * t * 4 + t * h * esz, 2 * flops, dtype)
+    b7 = bound(ins + 2 * t * 4 + v * h * esz, 2 * flops, dtype)
+    tag = f"{label} [{t}, {h}, {v}] {dtype}"
     print(f"  {tag}: K5 {k5:.3f} ms, K6 {k6:.3f} ms, K7 {k7:.3f} ms "
           f"(bounds {b5[0]:.3f} / {b6[0]:.3f} / {b7[0]:.3f} ms); plain "
           f"{pf:.3f} / {pb:.3f} ms; F.cross_entropy(F.linear) {cf:.3f} / "
@@ -9253,7 +9310,7 @@ def ce_rows29(torch, tce, t, label, g):
             ("fused_ce_forward", ":93", k5, pf, cf, b5, e5),
             ("fused_ce_bwd_dx", ":183", k6, pb, cb, b6, e6),
             ("fused_ce_bwd_dw", ":198", k7, pb, cb, b7, e7)):
-        rows.append({"name": name, "route": "cuda", "dtype": "float32",
+        rows.append({"name": name, "route": "cuda", "dtype": dtype,
                      "shape": tag,
                      "source": "paddle_tpu_torch/csrc/fused_ce.cu",
                      "replaces": "paddle_tpu/ops/fused_ce.py" + line,
@@ -9392,7 +9449,7 @@ def phase_dist_rest(torch, optimizer, attn, tce, TransformerLMConfig,
         rows += frows
     for t, label, key in ((2048, "29a last stage", "pp_launches"),
                           (4096, "29b rank", "zero_launches")):
-        crows = ce_rows29(torch, tce, t, label, g)
+        crows = ce_rows(torch, tce, t, 768, 50304, "float32", label, g)
         for row, i in zip(crows, (3, 4, 5)):
             row["launches"] = sum(r[key][i] for r in ranks)
         rows += crows
@@ -10042,6 +10099,458 @@ def phase_fluid(torch, attn, cfg):
     return rows, legacy
 
 
+# ---------------------------------------------------------------- phase 31
+
+# 31a: GPT-3 1.3B (the reference's BASELINE config 5, text.models
+# .gpt3_1p3b: 24 layers, hidden 2048, 16 heads of 128) at batch 4 x 1024
+# under amp O1 bf16, pruned 2:4 by ASP, AdamW inside LookAhead inside
+# ASP's decorate, ModelAverage over the parameters; 31b decodes from the
+# average
+INCUBATE = dict(batch=4, seq=1024, steps=10, lr=1e-4, alpha=0.5, k=5,
+                prompts=4, prompt_len=16, new=32)
+# the tensors held to LookAhead's formula at the k-th steps (pruned and
+# not), and the weights whose card masks are held to numpy's
+INCUBATE_WATCH = ("gpt.blocks.0.attn.qkv.weight",
+                  "gpt.blocks.23.mlp.fc2.weight",
+                  "gpt.blocks.11.attn.qkv.bias", "gpt.ln_f.weight")
+INCUBATE_HOST_MASKS = ("gpt.blocks.0.attn.qkv.weight",
+                       "gpt.position_embeddings.weight")
+# 31d: TrainEpochRange over GPT-124M cut to 2 blocks, f32, 2 steps an
+# epoch, 3 epochs
+CKPT = dict(layers=2, batch=2, epochs=3, steps=2, lr=1e-4)
+SOFTMAX_SHAPE = (4, 16, 1024, 1024)
+# bf16 softmax outputs (below 1) against the f32 composition of the
+# bf16 inputs: half an ulp of a value below 1 is at most 2e-3
+SOFTMAX_TOL = 1e-2
+HOST_OP = r"""
+#include <cstdint>
+extern "C" void scaled_sum(const float** ins, const int64_t* sizes,
+                           int n_in, float* out, int64_t out_size) {
+  for (int64_t i = 0; i < out_size; ++i) {
+    float acc = 0;
+    for (int j = 0; j < n_in; ++j) acc += ins[j][i];
+    out[i] = acc * 2.0f;
+  }
+}
+"""
+
+
+def reference_view(name, p):
+    """A parameter of the port's torch GPT in the reference's layout
+    (linear weights transposed), as ASP's masks are laid out."""
+    from paddle_tpu_torch.text.convert import is_transposed
+    return p.t() if is_transposed(name, p.dim()) else p
+
+
+def incubate_train(torch, attn, tce, amp, optimizer):
+    """31a (and 31e's card masks against numpy's). Returns the model
+    holding ModelAverage's average, and the K1, K2, K3, K5, K6, K7
+    launches of the 10 steps."""
+    from paddle_tpu_torch import incubate
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.text.models import gpt3_1p3b
+    steps, k, alpha = INCUBATE["steps"], INCUBATE["k"], INCUBATE["alpha"]
+    t0 = time.perf_counter()
+    model = gpt3_1p3b(dropout=0.0, generator=torch.Generator().manual_seed(
+        1234)).train()
+    L = model.cfg.num_layers
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    host = {n: reference_view(n, params[n]).detach().cpu().numpy()
+            for n in INCUBATE_HOST_MASKS}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    masks = asp.prune_model(model)
+    torch.cuda.synchronize()
+    prune_s = time.perf_counter() - t0
+    check(sorted(masks) == sorted(n for n, p in params.items()
+                                  if p.dim() == 2),
+          f"31a: pruned {len(masks)} weights, not every 2-D parameter")
+    for n, w in host.items():
+        want = asp.get_mask_1d_plain(w, 2, 4) > 0
+        got = reference_view(n, masks[n]).cpu().numpy()
+        check(np.array_equal(got, want),
+              f"31e: {n}'s mask on the card is not numpy's")
+    del host
+    dense = sum(int(m.sum()) for m in masks.values())
+    print(f"  31a: gpt3_1p3b {n_params:,} parameters ({L} layers, hidden "
+          f"{model.cfg.hidden_size}, {model.cfg.num_heads} heads of "
+          f"{model.cfg.hidden_size // model.cfg.num_heads}), made in "
+          f"{init_s:.1f} s; prune_model 2:4 over {len(masks)} weights in "
+          f"{prune_s:.2f} s, {dense:,} kept; 31e: "
+          + ", ".join(INCUBATE_HOST_MASKS) + "'s card masks = numpy's")
+    inner = optimizer.AdamW(INCUBATE["lr"],
+                            parameters=model.named_parameters(),
+                            weight_decay=0.01)
+    la = incubate.LookAhead(inner, alpha=alpha, k=k)
+    opt = asp.decorate(la)
+    ma = incubate.ModelAverage(0.15, parameters=model.parameters())
+    order = list(params)
+    watch = {n: params[n] for n in INCUBATE_WATCH}
+    fast, sums = {}, {n: torch.zeros_like(p) for n, p in watch.items()}
+
+    def watched_step(step=inner.step):
+        # the weights after AdamW, before LookAhead and the masks
+        step()
+        if (la._step + 1) % k == 0:
+            for n, p in watch.items():
+                fast[n] = p.detach().clone()
+    inner.step = watched_step
+    ids = torch.from_numpy(np.random.RandomState(31).randint(
+        0, model.cfg.vocab_size, (INCUBATE["batch"], INCUBATE["seq"])
+    ).astype(np.int64)).cuda()
+    wrappers = (attn.flash_attention_forward, attn.flash_bwd_dq,
+                attn.flash_bwd_dkv, tce.fused_ce_forward, tce.fused_ce_bwd_dx,
+                tce.fused_ce_bwd_dw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers:
+        fn.launches = 0
+    losses, times, lookahead = [], [], []
+    for step in range(1, steps + 1):
+        slow = ({n: la._slow[order.index(n)].clone() for n in watch}
+                if step % k == 0 else None)
+        t0 = time.perf_counter()
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        ma.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        for n, m in masks.items():
+            check(asp.check_mask_1d(reference_view(n, params[n]), 2, 4),
+                  f"31a step {step}: {n} lost its 2:4 pattern")
+        for n, p in watch.items():
+            sums[n] += p
+        if slow is not None:
+            for n, p in watch.items():
+                want = fast[n] - slow[n]
+                want.mul_(alpha)
+                want = slow[n] + want
+                if n in masks:
+                    want.mul_(masks[n])
+                check(torch.equal(p, want), f"31a step {step}: {n} is not "
+                      "LookAhead's mask * (slow + alpha (fast - slow))")
+            lookahead.append(step)
+    counts = tuple(fn.launches for fn in wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    del inner.step
+    check(all(np.isfinite(losses)), f"31a: non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"31a: loss did not fall: {losses}")
+    want = (steps * L,) * 3 + (steps,) * 3
+    check(counts == want, f"31a: K1/K2/K3/K5/K6/K7 launches {counts} != "
+          f"{want}")
+    before = {n: p.detach().clone() for n, p in params.items()}
+    ma.apply()
+    for n, p in watch.items():
+        check(torch.equal(p, sums[n] / steps),
+              f"31a: ModelAverage.apply(): {n} is not the sum / {steps}")
+    ma.restore()
+    check(all(torch.equal(p, before[n]) for n, p in params.items()),
+          "31a: ModelAverage.restore() did not give the weights back")
+    del before
+    ma.apply(need_restore=False)
+    step_ms = float(np.median(times[1:]))
+    tokens = ids.numel()
+    print(f"  31a: losses {[round(x, 6) for x in losses]}; step ms "
+          f"{[round(t, 2) for t in times]}")
+    print(f"  31a: median step (steps 2-{steps}) {step_ms:.2f} ms, "
+          f"{tokens / step_ms * 1e3:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; K1/K2/K3 launches {counts[:3]}, K5/K6/K7 "
+          f"{counts[3:]} ({steps} steps x {L} layers); 2:4 held on the card "
+          f"after every step; LookAhead's formula at steps {lookahead} on "
+          f"{len(watch)} tensors; ModelAverage.apply() = the sum / {steps} "
+          f"and restore() the same bits")
+    del opt, la, inner, ma, masks, sums, fast, loss
+    model.eval()
+    return model, counts
+
+
+def incubate_generate(torch, attn, pa, model):
+    """31b: greedy generate() from the averaged weights, the teacher-
+    forced forward over its tokens (K1: f32 at head dim 128) and the
+    engine's greedy streams (K4 at 16 heads of 128). Returns (K1
+    launches, the forward's shape, K4 launches, the decode lengths)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    L = model.cfg.num_layers
+    b, p, new = INCUBATE["prompts"], INCUBATE["prompt_len"], INCUBATE["new"]
+    prompts = np.random.RandomState(32).randint(
+        0, model.cfg.vocab_size, (b, p)).astype(np.int64)
+    ids = torch.from_numpy(prompts).cuda()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new, temperature=0.0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(out.shape == (b, p + new) and torch.equal(out[:, :p], ids),
+          f"31b: generate gave {tuple(out.shape)}")
+    gen = out[:, p:].cpu().numpy()
+    attn.flash_attention_forward.launches = 0
+    with torch.inference_mode():
+        lg = model(out[:, :-1])[:, p - 1:].float()
+    k1 = attn.flash_attention_forward.launches
+    check(k1 == L, f"31b: K1 launches {k1} != {L}")
+    check(bool(torch.isfinite(lg).all()), "31b: non-finite logits")
+    top2 = lg.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    pred = lg.argmax(-1).cpu().numpy()
+    for r, i in np.argwhere(pred != gen):
+        check(margin[r, i] < TIE_MARGIN, f"31b: row {r} token {i}: "
+              f"{gen[r, i]} vs forward {pred[r, i]} at margin "
+              f"{margin[r, i]:.3e}")
+    eng = ServingEngine(model, num_slots=b, block_size=TPGEN["block"],
+                        async_depth=1)
+    pa.paged_decode_attention.launches = 0
+    reqs = [eng.add_request(q, max_new_tokens=new) for q in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    steps = eng.metrics.decode_steps
+    k4 = pa.paged_decode_attention.launches
+    check(k4 == steps * L, f"31b: K4 launches {k4} != decode steps {steps} "
+          f"x {L}")
+    same = 0
+    for r, req in enumerate(reqs):
+        check(len(req.generated) == new, f"31b: request {r} incomplete")
+        i = first_divergence(req.generated, gen[r].tolist())
+        if i is None:
+            same += 1
+            continue
+        check(margin[r, i] < TIE_MARGIN, f"31b: engine row {r} token {i}: "
+              f"{req.generated[i]} vs generate {gen[r, i]} at margin "
+              f"{margin[r, i]:.3e}")
+    print(f"  31b: generate() {b} x {new} greedy tokens in {gen_s:.2f} s "
+          f"({b * new / gen_s:.1f} tokens/s); every token the teacher-forced "
+          f"forward's argmax or a near-tie (< {TIE_MARGIN}; smallest top-2 "
+          f"margin {margin.min():.3e}); K1 {k1}; the engine's streams "
+          f"{same}/{b} equal to generate's, K4 {k4} = {steps} decode steps "
+          f"x {L}")
+    del eng, reqs
+    return k1, (b, model.cfg.num_heads, p + new - 1,
+                model.cfg.hidden_size // model.cfg.num_heads), k4, \
+        [p + new - 1] * b
+
+
+def incubate_rows(torch, attn, tce, pa, counts, k1_gen, k1_shape, k4,
+                  lengths):
+    """31c: the kernels at the new shapes against their plain versions,
+    timed with bounds and library calls; the kernels line's rows with
+    31a's and 31b's launches."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    shape = (INCUBATE["batch"], 16, INCUBATE["seq"], 128)
+    errs = {}
+    bwd_check(torch, attn, shape, True, "bfloat16", g, errs)
+    rows = flash_rows(torch, attn, shape, True, "bfloat16", errs, g)
+    rows += ce_rows(torch, tce, INCUBATE["batch"] * INCUBATE["seq"], 2048,
+                    50304, "bfloat16", "31c GPT-3 1.3B head", g)
+    for row, n in zip(rows, counts):
+        row["launches"] = n
+    for row in rows[:3]:
+        row["shape"] = "31c GPT-3 1.3B " + row["shape"]
+    krow = k4_row_at(torch, pa, len(lengths), lengths, "31b GPT-3 1.3B "
+                     "decode", nh=16, hd=128)
+    krow["launches"] = k4
+    frow = k1_inference_row(torch, attn, k1_shape, label="31b")
+    frow["shape"] = f"31b teacher-forced forward {list(k1_shape)}"
+    frow["launches"] = k1_gen
+    torch.cuda.empty_cache()
+    return rows + [krow, frow]
+
+
+def ckpt_train(torch, ac, stop_at=None, save_checkpoint=True):
+    """31d's loop: GPT-124M cut to CKPT["layers"] blocks, f32, AdamW,
+    CKPT["steps"] steps an epoch through a TrainEpochRange that holds the
+    model and the optimizer, under torch's deterministic algorithms;
+    stops at the start of epoch ``stop_at``. Returns (model, what
+    ran)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.text.models import (GPTForCausalLM,
+                                              TransformerLMConfig)
+    cfg = TransformerLMConfig(dropout=0.0, num_layers=CKPT["layers"])
+    model = GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        1234)).train()
+    opt = optimizer.AdamW(CKPT["lr"], parameters=model.named_parameters(),
+                          weight_decay=0.01)
+    r = ac.TrainEpochRange(CKPT["epochs"], "gpt124m",
+                           save_checkpoint=save_checkpoint)
+    r.add("model", model).add("opt", opt)
+    out = {"start": r.restored_from, "epochs": [], "losses": []}
+    with static_deterministic(torch, "31d"):
+        for epoch in r.get():
+            if epoch == stop_at:
+                break
+            for step in range(CKPT["steps"]):
+                ids = torch.from_numpy(np.random.RandomState(
+                    100 * epoch + step).randint(
+                        0, cfg.vocab_size, (CKPT["batch"], cfg.max_seq_len)
+                ).astype(np.int64)).cuda()
+                loss = model(ids, labels=ids)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                out["losses"].append(loss.item())
+            out["epochs"].append(epoch)
+    return model, out
+
+
+def ckpt_child(torch, stop_at, outdir):
+    """A 31d child process: the loop until epoch ``stop_at`` (-1: to the
+    end, then the final weights saved under ``outdir``); prints what ran
+    as its last line."""
+    from paddle_tpu_torch.incubate.checkpoint import auto_checkpoint as ac
+    model, out = ckpt_train(torch, ac, stop_at)
+    if stop_at < 0:
+        torch.save(model.state_dict(), os.path.join(outdir, "final.pt"))
+    print(json.dumps(out))
+    return 0
+
+
+def incubate_ckpt(torch):
+    """31d: a child process runs 2 of 3 epochs and exits; a second child
+    under the same job resumes at epoch 2 and finishes; their final loss
+    and weights equal an uninterrupted child's, bit for bit."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_31d_")
+    try:
+        def start(stop_at, job, outdir):
+            os.makedirs(outdir, exist_ok=True)
+            env = dict(os.environ, PADDLE_JOB_ID=job,
+                       PADDLE_CHECKPOINT_DIR=os.path.join(root, "ckpt"),
+                       CUBLAS_WORKSPACE_CONFIG=":4096:8")
+            return subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--ckpt-child", str(stop_at), outdir], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def result(proc, label):
+            try:
+                out, err = proc.communicate(timeout=300)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+            check(proc.returncode == 0,
+                  f"31d: the {label} child exited {proc.returncode}:\n"
+                  f"{err[-3000:]}")
+            lines = out.strip().splitlines()
+            print("  31d " + label + ": " + " | ".join(
+                ln.strip() for ln in lines[:-1] if "31d" in ln))
+            return json.loads(lines[-1])
+
+        t0 = time.perf_counter()
+        whole_dir, resume_dir = (os.path.join(root, d)
+                                 for d in ("whole", "resume"))
+        procs = [start(-1, "31d_whole", whole_dir),
+                 start(2, "31d_resume", resume_dir)]
+        whole, first = (result(p, label)
+                        for p, label in zip(procs, ("uninterrupted",
+                                                    "first")))
+        check(first["start"] == 0 and first["epochs"] == [0, 1],
+              f"31d: the first child ran {first}")
+        second = result(start(-1, "31d_resume", resume_dir), "second")
+        check(second["start"] == 2 and second["epochs"] == [2],
+              f"31d: the second child resumed at {second['start']} and ran "
+              f"{second['epochs']}")
+        check(whole["epochs"] == [0, 1, 2], f"31d: uninterrupted {whole}")
+        check(first["losses"] + second["losses"] == whole["losses"],
+              f"31d: losses {first['losses']} + {second['losses']} != "
+              f"{whole['losses']}")
+        a = torch.load(os.path.join(resume_dir, "final.pt"))
+        b = torch.load(os.path.join(whole_dir, "final.pt"))
+        check(a.keys() == b.keys() and all(torch.equal(a[n], b[n])
+                                           for n in a),
+              "31d: the resumed weights are not the uninterrupted run's")
+        print(f"  31d: resumed at epoch 2 after 2 of 3 epochs; final loss "
+              f"{second['losses'][-1]!r} = the uninterrupted run's, every "
+              f"loss and all {len(a)} weights bit for bit; {CKPT['layers']} "
+              f"blocks, {CKPT['steps']} f32 steps an epoch; "
+              f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def incubate_small(torch):
+    """31e: softmax_mask_fuse and its causal form at SOFTMAX_SHAPE bf16
+    against the f32 composition; a host op on CUDA tensors against
+    numpy; the CUDA generator state replaying paddle.rand."""
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.utils import cpp_extension
+    g = torch.Generator(device="cuda").manual_seed(35)
+    x = (torch.randn(SOFTMAX_SHAPE, generator=g, device="cuda") * 3).to(
+        torch.bfloat16)
+    mask = torch.where(torch.rand(SOFTMAX_SHAPE[0], 1, *SOFTMAX_SHAPE[2:],
+                                  generator=g, device="cuda") < 0.3,
+                       -1e4, 0.0).to(torch.bfloat16)
+    got = paddle.incubate.softmax_mask_fuse(paddle.Tensor(x),
+                                            paddle.Tensor(mask))._value
+    want = torch.softmax(x.float() + mask.float(), -1)
+    e1 = (got.float() - want).abs().max().item()
+    causal = torch.ones(SOFTMAX_SHAPE[-2:], dtype=torch.bool,
+                        device="cuda").tril()
+    got = paddle.incubate.softmax_mask_fuse_upper_triangle(
+        paddle.Tensor(x))._value
+    want = torch.softmax(torch.where(causal, x.float(), -1e9), -1)
+    e2 = (got.float() - want).abs().max().item()
+    check(got.dtype == torch.bfloat16 and e1 <= SOFTMAX_TOL
+          and e2 <= SOFTMAX_TOL, f"31e: softmax_mask_fuse errs {e1} / {e2} "
+          f"(tol {SOFTMAX_TOL})")
+    del x, mask, got, want, causal
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "host_op.cc")
+        with open(src, "w") as f:
+            f.write(HOST_OP)
+        mod = cpp_extension.load("chip_smoke_31e", [src],
+                                 build_directory=d)
+        a = torch.randn(1000, generator=g, device="cuda")
+        b = torch.randn(1000, generator=g, device="cuda")
+        out = mod.scaled_sum(paddle.Tensor(a), paddle.Tensor(b))._value
+        want = (a.cpu().numpy() + b.cpu().numpy()) * 2
+        check(out.device == a.device and np.array_equal(
+            out.cpu().numpy(), want), "31e: the host op on CUDA tensors")
+    paddle.seed(31)
+    state = paddle.get_cuda_rng_state()
+    draws = [paddle.rand([4096])._value.clone() for _ in range(2)]
+    paddle.set_cuda_rng_state(state)
+    again = [paddle.rand([4096])._value.clone() for _ in range(2)]
+    check(all(torch.equal(u, v) for u, v in zip(draws, again))
+          and not torch.equal(draws[0], draws[1]),
+          "31e: set_cuda_rng_state(get_cuda_rng_state()) did not replay "
+          "paddle.rand")
+    print(f"  31e: softmax_mask_fuse / _upper_triangle at "
+          f"{list(SOFTMAX_SHAPE)} bf16 within {e1:.3e} / {e2:.3e} of the f32 "
+          f"composition (tol {SOFTMAX_TOL}); a g++ host op on CUDA tensors "
+          f"= numpy, on their device; get/set_cuda_rng_state replays 2 "
+          f"draws of paddle.rand")
+
+
+def phase_incubate(torch, attn, tce, pa, amp, optimizer):
+    """Phase 31; returns its kernels-line rows."""
+    import gc
+    t0 = time.perf_counter()
+    model, counts = incubate_train(torch, attn, tce, amp, optimizer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1_gen, k1_shape, k4, lengths = incubate_generate(torch, attn, pa, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rows = incubate_rows(torch, attn, tce, pa, counts, k1_gen, k1_shape, k4,
+                         lengths)
+    t2 = time.perf_counter()
+    incubate_ckpt(torch)
+    t3 = time.perf_counter()
+    incubate_small(torch)
+    print(f"  phase 31 in {time.perf_counter() - t0:.1f} s (31a-b "
+          f"{t1 - t0:.1f}, 31c {t2 - t1:.1f}, 31d {t3 - t2:.1f}, 31e "
+          f"{time.perf_counter() - t3:.1f})")
+    return rows
+
+
 def card_line():
     """The card's name and power limit, as nvidia-smi gives them."""
     card = subprocess.run(
@@ -10107,6 +10616,13 @@ def main():
                     "StaticRNN LM, control flow, the torch GPT-124M "
                     "through fluid.io and a Predictor, the legacy "
                     "collective fleet); prints no kernels line")
+    ap.add_argument("--incubate", action="store_true",
+                    help="phases 1 and 31 only (the build, GPT-3 1.3B "
+                    "trained under ASP 2:4, LookAhead and ModelAverage, "
+                    "its decode, the kernels at its shapes, auto-checkpoint "
+                    "resume, the small modules); prints no kernels line")
+    ap.add_argument("--ckpt-child", nargs=2, metavar=("STOP", "DIR"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--rnn", action="store_true",
                     help="phases 1 and 23 only (the build, the recurrent "
                     "surface and the LSTM encoder-decoder through "
@@ -10137,6 +10653,9 @@ def main():
     # full f32 products everywhere: no TF32 in matmuls or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ckpt_child:     # a child process of phase 31d
+        return ckpt_child(torch, int(args.ckpt_child[0]),
+                          args.ckpt_child[1])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}; TF32 off for matmuls and "
           f"cuDNN")
@@ -10244,6 +10763,17 @@ def main():
               f"phase 30's launches: 30d K1 " + ", ".join(
                   f"{r['shape']} {r['launches']}" for r in rows30)
               + f"; 30e K1/K2/K3 {legacy30}")
+        print(card_line())
+        return 0
+    if args.incubate:
+        print("[31] the last modules: GPT-3 1.3B under ASP 2:4, LookAhead "
+              "and ModelAverage, its decode, the kernels at its shapes, "
+              "auto-checkpoint, the small modules")
+        rows31 = phase_incubate(torch, attn, tce, pa, amp, optimizer)
+        print(f"phases 1 and 31 in {time.perf_counter() - t_start:.1f} s; "
+              f"phase 31's launches: " + ", ".join(
+                  f"{r['name']} {r['shape']} {r['launches']}"
+                  for r in rows31))
         print(card_line())
         return 0
     if args.rnn:
@@ -10427,6 +10957,12 @@ def main():
           "torch GPT-124M through fluid.io, a Predictor and onnx.export, the "
           "legacy collective fleet")
     rows30, legacy30 = phase_fluid(torch, attn, train_cfg)
+    lazy_release(torch, "after phase 30")
+    print("[31] the last modules: GPT-3 1.3B (4 x 1024, O1 bf16) pruned 2:4 "
+          "by ASP under LookAhead(AdamW) and ModelAverage, its greedy "
+          "decode, K1-K7 at its shapes, auto-checkpoint resume across "
+          "processes, softmax_mask_fuse, a host op, the CUDA RNG state")
+    rows31 = phase_incubate(torch, attn, tce, pa, amp, optimizer)
 
     # launches summed over the main paths that run each row's kernel: K4
     # on phases 4, 14, 15's paged runs, 16 and 17, the serving K1 row on
@@ -10462,7 +10998,7 @@ def main():
     for i, counts in enumerate(((0, 0, 0), bert_cpu, bert, encoder)):
         for row, n in zip(noncausal[3 * i:3 * i + 3], counts):
             row["launches"] = n
-    print(f"phases 1-30 in {time.perf_counter() - t_start:.1f} s")
+    print(f"phases 1-31 in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     keys = ("name", "route", "dtype", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -10476,7 +11012,8 @@ def main():
                                               k6_row, k7_row, k5f_row,
                                               k6f_row, k7f_row,
                                               *noncausal, *rows28,
-                                              *rows29, *rows30)]}))
+                                              *rows29, *rows30,
+                                              *rows31)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -62,6 +62,15 @@ training step is deferred into one graph, run at ``clear_grad()`` or a
 host read and, on the card, replayed as one CUDA graph from its third
 step; ``_C_ops`` holds the ops' fast entry points and ``profiler`` the
 ``record_scope`` instrument and a ``Profiler`` writing chrome traces.
+``distributed`` holds collectives, data, tensor, sequence and pipeline
+parallelism, ZeRO, MoE and sharded checkpoints; ``fluid`` the 1.x
+compat layer. The last modules: ``incubate`` (``asp`` 2:4 sparsity,
+``LookAhead``, ``ModelAverage``, ``softmax_mask_fuse``,
+``checkpoint.auto_checkpoint``), ``utils.cpp_extension`` (host C++ ops
+built with ``g++``) and ``utils.unique_name``, ``sysconfig``, ``hub``,
+``compat`` and ``text.gpt3_1p3b``: every module and public name of the
+reference has its counterpart here, or a reason in
+``tests/test_torch_api_surface.py``.
 """
 from . import (  # noqa: F401
     amp, autograd, framework, io, nn, optimizer, regularizer, tensor, utils)
@@ -145,8 +154,125 @@ from .ops.reduction import (  # noqa: A004
     all, amax, amin, any, count_nonzero, dist, logsumexp, max, mean,
     median, min, nanmean, nanmedian, nanquantile, nansum, norm, prod,
     quantile, std, sum, var)
+from .ops.math import multiply as elementwise_mul, tanh_  # noqa: E402
+from .core.device import NPUPlace, TPUPlace, XPUPlace  # noqa: E402
+from .core.dtype import DType as dtype  # noqa: E402
+from . import compat, hub, sysconfig  # noqa: E402,F401
 
+import numpy as _np  # noqa: E402
 
 __version__ = version.full_version
+
+# the reference's remaining top-level names (paddle_tpu/__init__.py:
+# 105-265; python/paddle/__init__.py)
+VarBase = Tensor    # Paddle's imperative VarBase
+
+
+def is_grad_enabled_():
+    return is_grad_enabled()
+
+
+def rank(x):
+    """The rank of ``x`` as a 0-d Tensor on the current device."""
+    return to_tensor(_np.asarray(x.ndim if isinstance(x, Tensor)
+                                 else _np.ndim(x)))
+
+
+def enable_dygraph(place=None):
+    return disable_static(place)
+
+
+def disable_dygraph():
+    return enable_static()
+
+
+def in_dygraph_mode():
+    return in_dynamic_mode()
+
+
+def set_grad_enabled(mode):
+    """A context manager that turns autograd on or off."""
+    return enable_grad() if mode else no_grad()
+
+
+_print_options = {"precision": 8, "threshold": 1000, "edgeitems": 3,
+                  "linewidth": 80, "sci_mode": None}
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    """Reference ``python/paddle/tensor/to_string.py`` set_printoptions:
+    kept in ``_print_options`` and set on numpy, which prints a Tensor's
+    values."""
+    kw = {}
+    if precision is not None:
+        _print_options["precision"] = precision
+        kw["precision"] = precision
+    if threshold is not None:
+        _print_options["threshold"] = threshold
+        kw["threshold"] = threshold
+    if edgeitems is not None:
+        _print_options["edgeitems"] = edgeitems
+        kw["edgeitems"] = edgeitems
+    if linewidth is not None:
+        _print_options["linewidth"] = linewidth
+        kw["linewidth"] = linewidth
+    if sci_mode is not None:
+        _print_options["sci_mode"] = sci_mode
+        kw["suppress"] = not sci_mode
+    _np.set_printoptions(**kw)
+
+
+def get_cuda_rng_state():
+    """The states of the port's default generators on every card, card
+    0 first (``paddle.get_cuda_rng_state``); raises without CUDA."""
+    import torch
+    from .core import rng as _rng
+    resolve_device("cuda")
+    return [_rng.get_state(torch.device("cuda", i))
+            for i in range(torch.cuda.device_count())]
+
+
+def set_cuda_rng_state(state):
+    """Set the port's default generators on the cards to ``state`` (from
+    ``get_cuda_rng_state``): the draws after it repeat."""
+    import torch
+    from .core import rng as _rng
+    resolve_device("cuda")
+    for i, s in enumerate(state):
+        _rng.set_state(s, torch.device("cuda", i))
+
+
+def monkey_patch_math_varbase():
+    """No-op: the Tensor's operators are attached at import
+    (``ops/__init__.py``)."""
+    return None
+
+
+def monkey_patch_variable():
+    return None
+
+
+def check_shape(shape):
+    """Static-graph shape validation (reference
+    ``fluid/layers/utils.py`` check_shape)."""
+    for s in shape if not isinstance(shape, (int,)) else [shape]:
+        if isinstance(s, int) and s < -1:
+            raise ValueError(f"invalid dim {s} in shape {shape}")
+
+
+def batch(reader, batch_size, drop_last=False):
+    """Batch a sample reader into a batch reader (``paddle.batch``)."""
+    def batch_reader():
+        buf = []
+        for sample in reader():
+            buf.append(sample)
+            if len(buf) == batch_size:
+                yield buf
+                buf = []
+        if buf and not drop_last:
+            yield buf
+    return batch_reader
+
 
 __all__ = [n for n in dir() if not n.startswith("_")]

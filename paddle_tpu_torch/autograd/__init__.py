@@ -75,6 +75,15 @@ def _function_of(layer):
     return _Function
 
 
+class PyLayerMeta(type):
+    """Reference autograd/__init__.py:39: a metaclass that refuses to
+    instantiate (``PyLayer`` is used through ``apply``); defined, and as
+    there, not set on ``PyLayer``."""
+
+    def __call__(cls, *args, **kwargs):
+        raise RuntimeError("PyLayer is not instantiable; use .apply()")
+
+
 class PyLayer:
     """User subclasses define ``@staticmethod forward(ctx, ...)`` and
     ``backward(ctx, *grads)``; call ``.apply(...)``."""

@@ -60,6 +60,33 @@ class CUDAPlace(Place):
         super().__init__("gpu", int(device_id))
 
 
+class _AcceleratorPlace(CUDAPlace):
+    """The reference's accelerator Places (``TPUPlace``, ``XPUPlace``,
+    ``NPUPlace``, core/device.py:51,133,138) name the card here, as
+    ``set_device("tpu")`` does. Where the reference's fall back to the
+    CPU without an accelerator, these raise, as ``resolve_device``
+    does."""
+
+    def __init__(self, device_id=0):
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__} names the CUDA device and none is "
+                "available; use CPUPlace() for the CPU")
+        super().__init__(device_id)
+
+
+class TPUPlace(_AcceleratorPlace):
+    pass
+
+
+class XPUPlace(_AcceleratorPlace):
+    pass
+
+
+class NPUPlace(_AcceleratorPlace):
+    pass
+
+
 class CUDAPinnedPlace(Place):
     """Page-locked host memory: tensors live on the CPU."""
 

@@ -44,3 +44,22 @@ def seed(s):
     for gen in _generators.values():
         gen.manual_seed(_seed)
     return default_generator("cpu")
+
+
+def get_state(device=None):
+    """The state of the port's default generator for ``device`` (None:
+    the current device; raises without CUDA unless that is the CPU), a
+    CPU ``uint8`` tensor as ``torch.Generator.get_state`` gives it.
+    Pending lazy draws run first."""
+    from . import lazy
+    lazy.flush()
+    return default_generator(device).get_state()
+
+
+def set_state(state, device=None):
+    """Set the port's default generator for ``device`` to ``state`` (from
+    ``get_state``): the draws after it repeat the ones after that
+    ``get_state``."""
+    from . import lazy
+    lazy.flush()
+    default_generator(device).set_state(state)

@@ -20,10 +20,10 @@ import torch
 
 from ..core import trace as trace_mod
 from ..core.device import (  # noqa: F401
-    CPUPlace, CUDAPinnedPlace, CUDAPlace, Place, device_count, get_device,
-    get_place, is_compiled_with_cuda, is_compiled_with_npu,
-    is_compiled_with_rocm, is_compiled_with_tpu, is_compiled_with_xpu,
-    set_device)
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, NPUPlace, Place, TPUPlace,
+    XPUPlace, device_count, get_device, get_place, is_compiled_with_cuda,
+    is_compiled_with_npu, is_compiled_with_rocm, is_compiled_with_tpu,
+    is_compiled_with_xpu, set_device)
 
 
 def get_all_device_type():

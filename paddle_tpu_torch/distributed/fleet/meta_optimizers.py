@@ -18,39 +18,15 @@ import torch
 
 from .. import collective, topology
 from ...core import lazy
+from ...optimizer.optimizer import WrappedOptimizer
 from ...optimizer.optimizers import Momentum
-
-
-class _WrappedOptimizer:
-    """Reference ``optimizer.WrappedOptimizer``: everything goes to the
-    inner optimizer; a subclass overrides ``step``."""
-
-    def __init__(self, inner_opt):
-        self._inner_opt = inner_opt
-
-    def __getattr__(self, item):
-        return getattr(self._inner_opt, item)
-
-    def step(self):
-        self._inner_opt.step()
-
-    def minimize(self, loss, startup_program=None, parameters=None,
-                 no_grad_set=None):
-        loss.backward()
-        self.step()
-        return None, None
-
-    def clear_grad(self, set_to_zero=False):
-        self._inner_opt.clear_grad(set_to_zero)
-
-    clear_gradients = clear_grad
 
 
 def _trainable(p):
     return p.requires_grad
 
 
-class GradientMergeOptimizer(_WrappedOptimizer):
+class GradientMergeOptimizer(WrappedOptimizer):
     """Accumulate grads over ``k_steps`` steps before one real update
     (reference gradient_merge_optimizer.py): a merge buffer per
     parameter, the inner step every ``k``-th call with the buffers'
@@ -111,7 +87,7 @@ def _replicated(p):
                                            False) is not True
 
 
-class LocalSGDOptimizer(_WrappedOptimizer):
+class LocalSGDOptimizer(WrappedOptimizer):
     """Step locally every iteration; average the parameters over the
     ``dp`` group every ``k_steps`` from ``begin_step`` on (reference
     localsgd_optimizer.py)."""
@@ -164,7 +140,7 @@ class AdaptiveLocalSGDOptimizer(LocalSGDOptimizer):
         return None, None
 
 
-class FP16AllReduceOptimizer(_WrappedOptimizer):
+class FP16AllReduceOptimizer(WrappedOptimizer):
     """The grads in a 16-bit format before the inner step (reference
     fp16_allreduce_optimizer.py; bfloat16 by default, the reference's
     wire format). With a ``group`` of more than one rank the grads are

@@ -10,12 +10,21 @@ and dropout draws from without an explicit generator) at their state
 before the forward, when ``preserve_rng_state`` (the reference's
 default, :17-73), and the ``amp.auto_cast`` state of the forward, which
 the backward would otherwise run outside of.
+
+``RecomputeFunction`` is the reference's form of the same (:16, Paddle's
+``fleet/utils/recompute.py:63``): a ``PyLayer`` over the eager core's
+Tensors whose forward runs ``run_function`` without recording and whose
+backward runs it again with grads, the generators and the cast put back,
+and takes the grads of its Tensor inputs. ``recompute`` keeps torch's
+checkpoint, which also takes plain torch tensors.
 """
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..amp.auto_cast import amp_state, resume
+from ..autograd import PyLayer
 from ..core import rng
+from ..core.tensor import Tensor
 
 
 def _devices(args):
@@ -30,6 +39,50 @@ def _devices(args):
 def _requires_grad(a):
     t = getattr(a, "_value", a)
     return isinstance(t, torch.Tensor) and t.requires_grad
+
+
+class RecomputeFunction(PyLayer):
+    """``RecomputeFunction.apply(run_function, preserve_rng_state,
+    *args)``."""
+
+    @staticmethod
+    def forward(ctx, run_function, preserve_rng_state, *args):
+        ctx.run_function = run_function
+        ctx.gens = [rng.default_generator(d) for d in _devices(args)] \
+            if preserve_rng_state else []
+        ctx.states = [g.get_state() for g in ctx.gens]
+        ctx.cast = amp_state()
+        ctx.inputs = args
+        with torch.no_grad():
+            return run_function(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        detached = [Tensor._wrap(a._value.detach().requires_grad_(
+            not a.stop_gradient)) if isinstance(a, Tensor) else a
+            for a in ctx.inputs]
+        left = [g.get_state() for g in ctx.gens]
+        for g, s in zip(ctx.gens, ctx.states):
+            g.set_state(s)
+        try:
+            with torch.enable_grad(), resume(ctx.cast):
+                outputs = ctx.run_function(*detached)
+        finally:
+            for g, s in zip(ctx.gens, left):
+                g.set_state(s)
+        outs = outputs if isinstance(outputs, (list, tuple)) else [outputs]
+        pairs = [(o._value, g._value) for o, g in zip(outs, grads)
+                 if isinstance(o, Tensor) and o._value.requires_grad]
+        leaves = [d._value for d in detached
+                  if isinstance(d, Tensor) and d._value.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], leaves,
+                                       [g for _, g in pairs],
+                                       allow_unused=True)
+                   if pairs and leaves else [None] * len(leaves))
+        # one grad a Tensor input of apply(), None where it takes none
+        results = [(next(got) if d._value.requires_grad else None)
+                   for d in detached if isinstance(d, Tensor)]
+        return tuple(results) if len(results) > 1 else results[0]
 
 
 def recompute(function, *args, **kwargs):

@@ -124,8 +124,8 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
     """Reference: fluid/layers/nn.py fc — creates (or reuses, see
     _reuse_key) a Linear over the flattened trailing dims."""
     from ..nn.layer.common import Linear
-    from ..static.nn import _fc_flatten
-    x, in_features = _fc_flatten(input, num_flatten_dims)
+    from ..ops.nn_ops import fc_flatten
+    x, in_features = fc_flatten(input, num_flatten_dims)
     key = _reuse_key(name, ("fc", in_features, size))
     layer = _layer_cache.get(key)
     if layer is None:

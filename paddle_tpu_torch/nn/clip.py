@@ -38,7 +38,14 @@ def _like(g, new):
     return Tensor._wrap(new) if isinstance(g, Tensor) else new
 
 
-class ClipGradByValue:
+class ClipGradBase:
+    """The clips' base (reference clip.py:41)."""
+
+    def __call__(self, params_grads):
+        raise NotImplementedError
+
+
+class ClipGradByValue(ClipGradBase):
     """Each grad element clamped to ``[min, max]``; ``min`` defaults to
     ``-max``."""
 
@@ -51,7 +58,7 @@ class ClipGradByValue:
                 if _clippable(p, g) else (p, g) for p, g in params_grads]
 
 
-class ClipGradByNorm:
+class ClipGradByNorm(ClipGradBase):
     """Each grad on its own: scaled by ``clip_norm / norm`` where its L2
     norm exceeds ``clip_norm``."""
 
@@ -73,7 +80,7 @@ class ClipGradByNorm:
         return out
 
 
-class ClipGradByGlobalNorm:
+class ClipGradByGlobalNorm(ClipGradBase):
     """All clippable grads together: scaled by
     ``clip_norm / max(global_norm, clip_norm)``, the global norm summed
     in f32. A sparse grad (a sparse torch tensor or a
@@ -116,3 +123,8 @@ class ClipGradByGlobalNorm:
                 out.append((p, _like(g, _val(g) * factor.to(
                     _val(g).dtype))))
         return out
+
+
+GradientClipByValue = ClipGradByValue
+GradientClipByNorm = ClipGradByNorm
+GradientClipByGlobalNorm = ClipGradByGlobalNorm

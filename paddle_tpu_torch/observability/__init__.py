@@ -53,4 +53,5 @@ from .tracing import (  # noqa: F401
 )
 from .watchdog import (  # noqa: F401
     CompileAfterWarmupError, CompileWatchdog, abstract_signature,
+    device_memory_stats,
 )

@@ -27,6 +27,34 @@ class CompileAfterWarmupError(RuntimeError):
     message carries the attribution (key, signature, call-site)."""
 
 
+def device_memory_stats(device=None):
+    """The card's allocator statistics under the reference's keys
+    (watchdog.py:99): ``bytes_in_use``, ``bytes_limit`` (the card's
+    memory), ``peak_bytes_in_use`` (``torch.cuda.memory_stats``'
+    allocated bytes, current and peak) and ``bytes_free`` (limit - in
+    use). ``device``: a card's index or ``torch.device`` (default the
+    current card); None for the CPU or where there is no card, as the
+    reference's CPU backend reports nothing. The reference's
+    ``executable_cost`` and ``watch_jax_lowering`` read XLA executables
+    and lowerings, which the port has none of."""
+    import torch
+    if not torch.cuda.is_available():
+        return None
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device) \
+        if not isinstance(device, int) else torch.device("cuda", device)
+    if dev.type != "cuda":
+        return None
+    stats = torch.cuda.memory_stats(dev)
+    out = {"bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+           "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak",
+                                              0)),
+           "bytes_limit": int(torch.cuda.get_device_properties(
+               dev).total_memory)}
+    out["bytes_free"] = out["bytes_limit"] - out["bytes_in_use"]
+    return out
+
+
 def abstract_signature(args, max_leaves_shown=6):
     """Stable abstract-shape signature of a flat sequence of tensors or
     arrays: the first few as ``dtype[shape]`` plus a digest over all of

@@ -55,6 +55,8 @@ def _softplus(x):
 
 
 relu = _act("relu", torch.relu)
+# the reference's softplus_ is this plain softplus, not an in-place op
+softplus_ = _act("softplus", _softplus)
 relu6 = _act("relu6", lambda x: torch.clamp(x, 0.0, 6.0))
 sigmoid = _act("sigmoid_act", torch.sigmoid)
 tanh = _act("tanh_act", torch.tanh)
@@ -251,6 +253,35 @@ def _linear(x, w, b):
     if b is not None:
         out = out + b
     return out
+
+
+def fc_flatten(x, num_flatten_dims):
+    """fc's input as ``[.., in_features]`` (reference
+    ``nn_ops.fc_flatten``, the shared input normalisation of
+    ``static.nn.fc`` and ``fluid.layers.fc``): the dims from
+    ``num_flatten_dims`` on flatten into the features, with 1 <=
+    ``num_flatten_dims`` <= rank - 1 and concrete non-batch leading dims.
+    Returns ``(flattened_x, in_features)``."""
+    from . import manipulation
+    rank = len(x.shape)
+    if not 1 <= num_flatten_dims <= rank - 1:
+        raise ValueError(
+            f"fc: num_flatten_dims must be in [1, {rank - 1}] for a "
+            f"rank-{rank} input, got {num_flatten_dims}")
+    trailing = [int(s) for s in x.shape[num_flatten_dims:]]
+    if any(d < 0 for d in trailing):
+        raise ValueError(
+            f"fc: trailing (feature) dims must be concrete, got "
+            f"{tuple(x.shape)}")
+    in_dim = int(np.prod(trailing))
+    if rank == num_flatten_dims + 1:
+        return x, in_dim
+    lead = [int(s) for s in x.shape[1:num_flatten_dims]]
+    if any(d < 0 for d in lead):
+        raise ValueError(
+            "fc: leading dims beyond the batch must be concrete when "
+            f"num_flatten_dims > 1, got {tuple(x.shape)}")
+    return manipulation.reshape(x, (-1, *lead, in_dim)), in_dim
 
 
 def linear(x, weight, bias=None, name=None):

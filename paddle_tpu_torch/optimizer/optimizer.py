@@ -369,3 +369,35 @@ class Optimizer:
         """An optimizer without a sparse update densifies (reference
         ``Optimizer._apply_sparse``)."""
         self._apply_one(name, param, rows.to_dense())
+
+
+class WrappedOptimizer:
+    """Base of the optimizer-wrapping transforms (reference
+    ``optimizer.py:246``: the meta-optimizers, ``incubate.LookAhead``,
+    ASP's sparsity guarantee): everything goes to the inner optimizer
+    through ``__getattr__``; a subclass overrides ``step``. A subclass
+    that writes the parameters after the inner step runs the pending
+    lazy graph first and writes their torch leaves at once, so a lazy
+    step's graph is the same at every step whatever the wrapper does."""
+
+    def __init__(self, inner_opt):
+        self._inner_opt = inner_opt
+
+    def __getattr__(self, item):
+        if item == "_inner_opt":    # not set yet (copy, unpickling)
+            raise AttributeError(item)
+        return getattr(self._inner_opt, item)
+
+    def step(self):
+        self._inner_opt.step()
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        loss.backward()
+        self.step()
+        return None, None
+
+    def clear_grad(self, set_to_zero=False):
+        self._inner_opt.clear_grad(set_to_zero)
+
+    clear_gradients = clear_grad

@@ -6,12 +6,20 @@ supervisor) and behind a router over replicas (``serving.router``)."""
 from .engine import (ServingConfig, ServingEngine, default_buckets,
                      default_group_sizes)
 from .kv_pool import SlotKVPool
+from .metrics import ServingMetrics
+from .paged.pool import PagedKVPool
+from .paged.radix import RadixPrefixIndex
 from .resilience import (EngineSupervisor, FaultInjector, FaultPlan,
                          FaultSpec, InjectedFault)
 from .router import (CircuitBreaker, EngineGateway, HTTPTransport,
                      InProcessTransport, RequestJournal, Router,
                      RouterConfig, TransportError, TransportRefused)
-from .scheduler import StepScheduler
+from .sched.chunker import ChunkPlan, plan_chunks
+from .sched.policy import FIFOPolicy, SchedulingPolicy, SLOFeedbackPolicy
+from .sched.sampling import SlotSampler
+from .scheduler import Request, StepScheduler
+from .spec.decoder import SpecDecoder
+from .spec.drafter import NGramDrafter
 
 __all__ = ["ServingConfig", "ServingEngine", "SlotKVPool", "StepScheduler",
            "default_buckets", "default_group_sizes",
@@ -19,4 +27,8 @@ __all__ = ["ServingConfig", "ServingEngine", "SlotKVPool", "StepScheduler",
            "InjectedFault",
            "CircuitBreaker", "EngineGateway", "HTTPTransport",
            "InProcessTransport", "RequestJournal", "Router",
-           "RouterConfig", "TransportError", "TransportRefused"]
+           "RouterConfig", "TransportError", "TransportRefused",
+           "ServingMetrics", "PagedKVPool", "RadixPrefixIndex", "ChunkPlan",
+           "plan_chunks", "FIFOPolicy", "SchedulingPolicy",
+           "SLOFeedbackPolicy", "SlotSampler", "Request", "SpecDecoder",
+           "NGramDrafter"]

@@ -452,31 +452,6 @@ def case(pred_fn_pairs, default=None, name=None):
     return _select(flags, fns, labels, device)
 
 
-def _fc_flatten(x, num_flatten_dims):
-    """fc's input as [.., in_features] (reference ``nn_ops.fc_flatten``):
-    the dims from ``num_flatten_dims`` on flatten into the features."""
-    from ..ops import manipulation
-    rank = len(x.shape)
-    if not 1 <= num_flatten_dims <= rank - 1:
-        raise ValueError(
-            f"fc: num_flatten_dims must be in [1, {rank - 1}] for a "
-            f"rank-{rank} input, got {num_flatten_dims}")
-    trailing = [int(s) for s in x.shape[num_flatten_dims:]]
-    if any(d < 0 for d in trailing):
-        raise ValueError(
-            f"fc: trailing (feature) dims must be concrete, got "
-            f"{tuple(x.shape)}")
-    in_dim = int(np.prod(trailing))
-    if rank == num_flatten_dims + 1:
-        return x, in_dim
-    lead = [int(s) for s in x.shape[1:num_flatten_dims]]
-    if any(d < 0 for d in lead):
-        raise ValueError(
-            "fc: leading dims beyond the batch must be concrete when "
-            f"num_flatten_dims > 1, got {tuple(x.shape)}")
-    return manipulation.reshape(x, (-1, *lead, in_dim)), in_dim
-
-
 def fc(x, size, num_flatten_dims=1, activation=None, name=None,
        weight_attr=None, bias_attr=None):
     """Reference paddle.static.nn.fc: an unnamed call makes fresh
@@ -485,7 +460,7 @@ def fc(x, size, num_flatten_dims=1, activation=None, name=None,
     from ..nn.layer.common import Linear
     from ..ops import nn_ops
     from .program import building_program
-    x, in_dim = _fc_flatten(x, num_flatten_dims)
+    x, in_dim = nn_ops.fc_flatten(x, num_flatten_dims)
     prog = building_program()
     cache = prog._layer_cache if prog is not None else {}
     key = ("fc", name, in_dim, int(size)) if name is not None else None

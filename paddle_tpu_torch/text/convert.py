@@ -19,6 +19,15 @@ def _is_linear_weight(name, ndim):
         and "embeddings" not in name
 
 
+def is_transposed(name, ndim):
+    """True for a parameter of the port's torch GPT or BERT (by its
+    ``named_parameters()`` name and rank) that is stored transposed
+    against the reference's layout: a linear weight, ``[out, in]`` here
+    and ``[in, out]`` there (``incubate.asp`` computes its masks in the
+    reference's layout through this)."""
+    return _is_linear_weight(name, ndim)
+
+
 def state_dict_from_paddle_tpu(np_params):
     """``{name: np.ndarray}`` of a reference model -> a torch state
     dict for the port's module of the same config."""

@@ -896,3 +896,14 @@ def bert_base(vocab_size=30522, max_seq_len=512, device=None,
                               num_layers=12, num_heads=12,
                               max_seq_len=max_seq_len, **kwargs)
     return BertForPretraining(cfg, device, generator, dropout_generator)
+
+
+def gpt3_1p3b(vocab_size=50304, max_seq_len=1024, device=None,
+              generator=None, dropout_generator=None, **kwargs):
+    """GPT-3 1.3B (reference ``gpt3_1p3b``, models.py:865; its BASELINE
+    config 5): 24 layers, hidden 2048, 16 heads of 128, the head tied to
+    the word embedding, about 1.31 B parameters."""
+    cfg = TransformerLMConfig(vocab_size=vocab_size, hidden_size=2048,
+                              num_layers=24, num_heads=16,
+                              max_seq_len=max_seq_len, **kwargs)
+    return GPTForCausalLM(cfg, device, generator, dropout_generator)
